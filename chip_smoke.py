@@ -12,17 +12,26 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    main path's shapes and at ragged ones, and time both (CUDA events):
    philox_uniform bit for bit (and against numpy's Philox stream),
    region_sum within 1e-12 (float64) / 1e-6 (float32) of the sum of
-   magnitudes, int64 exactly,
-   two launches on one input bitwise equal; torch.sum is timed beside it;
-4. drive the main path through the public entry points on the default
-   sequential executor: addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then
-   pangeo-vorticity, ``mean(a[1:]*x[1:] + b[1:]*y[1:])`` at
-   (500, 450, 400) / 100, each checked against a numpy oracle that draws the
-   same per-block Philox streams itself (rtol 1e-12). Kernel launch counts
-   are zeroed just before and read just after each run; vorticity must
-   launch philox_uniform exactly 400 times and region_sum at least 100;
-5. run vorticity's plan once more, op by op, timing each op kind and
-   reading the device's busy time from torch.profiler.
+   magnitudes, int64 exactly, fma_sum within 1e-12 of the sum of the terms'
+   magnitudes (contiguous blocks, block views of a (499, 450, 400) array as
+   the device executor passes them, ragged, float32, sizes 1, 7 and 0);
+   two launches on one input bitwise equal; torch.sum is timed beside
+   region_sum (no single torch call computes fma_sum's function);
+4. drive the main path through the public entry points, on the default
+   sequential executor and on the device executor (``CudaExecutor``):
+   addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
+   ``mean(a[1:]*x[1:] + b[1:]*y[1:])`` at (500, 450, 400) / 100, each
+   checked against a numpy oracle that draws the same per-block Philox
+   streams itself (rtol 1e-12). Kernel launch counts are zeroed just before
+   and read just after each run; vorticity must launch philox_uniform
+   exactly 400 times on both executors, region_sum at least 100 times on the
+   sequential one, and fma_sum exactly 100 times on the device executor,
+   which must also take no fallback, stay under its residency budget and
+   leave chunk files for the output alone;
+5. run vorticity's plan once more on each executor under torch.profiler:
+   the sequential one op by op, timing each op kind, the device executor
+   whole, with its ops' host times from its callbacks; both with the
+   device's busy time and idle share.
 
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
@@ -31,6 +40,7 @@ stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import random
@@ -59,8 +69,16 @@ VORTICITY = dict(shape=(500, 450, 400), chunks=100)
 SEED = 20261017
 
 
+#: the card's name and power limit, as nvidia-smi gives them (set by main)
+CARD = "card not read"
+
+
 class PhaseFailed(Exception):
     pass
+
+
+def smi_tag() -> str:
+    return f"card: {CARD}"
 
 
 def check(cond: bool, what: str) -> None:
@@ -201,6 +219,65 @@ def check_region_sum(torch) -> dict:
     )
 
 
+def check_fma_sum(torch) -> dict:
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # four resident-sized arrays, as the index ops leave them: the device
+    # executor hands fma_sum (100, 100, 100) views with strides (180000, 400, 1)
+    bases = [torch.rand((499, 450, 400), generator=gen, device=dev, dtype=torch.float64)
+             for _ in range(4)]
+
+    def rand(shape, dt=torch.float64):
+        return [torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(dt) for _ in range(4)]
+
+    cases = [
+        ("(100,100,100) contiguous", rand((100, 100, 100))),
+        ("(100,100,100) view of (499,450,400)", [b[100:200, 200:300, 0:100] for b in bases]),
+        ("(99,50,100) ragged view", [b[400:499, 400:450, 300:400] for b in bases]),
+        ("(99,100,50)", rand((99, 100, 50))),
+        ("(99,100,50) float32", rand((99, 100, 50), torch.float32)),
+        ("(100,100,100) float32 view", [t[50:150, 25:125, 100:200] for t in rand((200, 150, 200), torch.float32)]),
+        ("size 1", rand((1,))),
+        ("size 7", rand((7,))),
+        ("size 0", rand((0, 5))),
+    ]
+    # the products and their sum round alike in both; only the order of the
+    # float64 sum differs: |kernel - plain| <= 1e-12 * sum(|a*x| + |b*y|)
+    max_err = 0.0
+    for label, (a, x, b, y) in cases:
+        k1 = fma_sum(a, x, b, y)
+        k2 = fma_sum(a, x, b, y)
+        p = fma_sum_plain(a, x, b, y)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, k2), f"fma_sum {label}: two launches differ")
+        check(k1.shape == p.shape and k1.dtype == p.dtype == torch.float64, f"fma_sum {label}: shape/dtype")
+        scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
+        err = float((k1 - p).abs().max()) if k1.numel() else 0.0
+        check(err <= 1e-12 * scale, f"fma_sum {label}: |kernel - plain| {err} beyond 1e-12 * {scale}")
+        max_err = max(max_err, err)
+    print("fma_sum: within 1e-12 of sum(|a*x| + |b*y|) of the plain version, repeat launches "
+          "bitwise equal, over", len(cases), "cases:", ", ".join(label for label, _ in cases))
+
+    # timing at the main path's shape: distinct block views (256 MB of reads
+    # in all, past the 50 MB L2)
+    views = [tuple(base[i * 100:(i + 1) * 100, j * 100:(j + 1) * 100, 0:100] for base in bases)
+             for i, j in itertools.product(range(4), range(2))]
+    ms = time_ms(torch, fma_sum, views)
+    plain_ms = time_ms(torch, fma_sum_plain, views)
+    n = 100 * 100 * 100
+    b, by = bound_ms(4 * 8 * n + 8, 3 * n)  # 4 inputs read, one float64 written; 2 mul + 1 add
+    print(f"fma_sum (100,100,100) f64 views: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, "
+          f"bound {b:.5f} ms ({by}); {smi_tag()}")
+    return dict(
+        name="fma_sum", route="cuda",
+        source="cubed_tpu_torch/kernels/csrc/fma_sum.cu",
+        replaces="cubed_tpu/kernels/reductions.py:257 (fused_fma_mean; pallas_call :300) at 0cd9f84^",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+    )
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path and its oracle
 # ---------------------------------------------------------------------------
@@ -220,45 +297,77 @@ def oracle_random(shape, chunks, root_seed) -> np.ndarray:
     return out
 
 
-def run_main_path(torch, name: str, build, oracle, counts_required: dict) -> dict:
-    import cubed_tpu_torch
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its CUDA launches."""
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum
     from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
     from cubed_tpu_torch.kernels.region_sum import region_sum
 
-    work = os.path.join(WORK_DIR, name)
+    return {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum": fma_sum}
+
+
+def stores_with_chunks(work_dir: str) -> set:
+    """The Zarr stores under *work_dir* that hold any chunk file."""
+    found = set()
+    for root, _, files in os.walk(work_dir):
+        if root.endswith(".zarr") and any(f != ".zarray" for f in files):
+            found.add(root)
+    return found
+
+
+def run_main_path(torch, name: str, executor_name: str, build, expected: float,
+                  counts_required: dict) -> dict:
+    """Compute one configuration on one executor ("sequential" or "cuda"),
+    check it against the oracle's *expected* value and the kernel launch
+    counts; for the device executor also its fallback counters, its peak
+    memory against its budget, and that only the output reached storage."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    work = os.path.join(WORK_DIR, f"{name}-{executor_name}")
     spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
     random.seed(SEED)
     result = build(spec)
     plan = result.plan._finalize(array_names=(result.name,))
     projected = plan.max_projected_mem()
+    executor = CudaExecutor() if executor_name == "cuda" else None
+    wrappers = kernel_wrappers()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    philox_uniform.launches = 0
-    region_sum.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
-    value = result.compute()
+    value = result.compute(executor=executor)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"philox_uniform": philox_uniform.launches, "region_sum": region_sum.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
+    stored = stores_with_chunks(work)
     shutil.rmtree(work, ignore_errors=True)
 
-    t1 = time.perf_counter()
-    random.seed(SEED)
-    expected = oracle()
-    oracle_s = time.perf_counter() - t1
+    label = f"{name} [{executor_name}]"
     value = float(value)
     rel = abs(value - expected) / abs(expected)
-    print(f"{name}: {elapsed:.3f} s on the card ({plan.num_tasks()} tasks, {plan.num_ops()} ops), "
-          f"value {value!r}, numpy oracle {expected!r} ({oracle_s:.1f} s), rel err {rel:.3e}")
-    print(f"{name}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B")
-    print(f"{name}: launches {json.dumps(launches)}")
-    check(np.isfinite(value), f"{name}: value is not finite")
-    check(rel <= 1e-12, f"{name}: value differs from the numpy oracle beyond rtol 1e-12")
+    print(f"{label}: compute() {elapsed:.3f} s ({plan.num_tasks()} tasks, {plan.num_ops()} ops), "
+          f"value {value!r}, numpy oracle {expected!r}, rel err {rel:.3e}; {smi_tag()}")
+    print(f"{label}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B")
+    print(f"{label}: launches {json.dumps(launches)}")
+    check(np.isfinite(value), f"{label}: value is not finite")
+    check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
     for kname, (lo, hi) in counts_required.items():
         n = launches[kname]
-        check(lo <= n <= hi, f"{name}: {kname} launched {n} times, expected [{lo}, {hi}]")
+        check(lo <= n <= hi, f"{label}: {kname} launched {n} times, expected [{lo}, {hi}]")
+    if executor is not None:
+        budget = executor._budget(spec, torch.device("cuda"))
+        stats = dict(sorted(executor.stats.items()))
+        print(f"{label}: executor stats {json.dumps(stats)}; residency budget {budget} B")
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors"):
+            check(stats.get(counter, 0) == 0, f"{label}: {counter} = {stats.get(counter)}")
+        check(peak <= budget, f"{label}: peak device memory {peak} B over the budget {budget} B")
+        output_store = os.path.normpath(result.zarray_maybe_lazy.store)
+        check({os.path.normpath(p) for p in stored} == {output_store},
+              f"{label}: chunk files in {sorted(stored)}, expected the output's alone")
     return launches
 
 
@@ -298,11 +407,52 @@ def vorticity_oracle() -> float:
 # ---------------------------------------------------------------------------
 
 
+def profiled(torch, fn) -> tuple:
+    """Run *fn* under torch.profiler's CUDA activity; returns (wall seconds,
+    kernel seconds, copy seconds, the five kernels with the most device
+    time, why the device time is missing or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof, why = profile(activities=[ProfilerActivity.CUDA]), "the profiler recorded no device events"
+    t0 = time.perf_counter()
+    try:
+        prof.start()
+    except (AssertionError, RuntimeError) as e:  # no CUDA tracing available here
+        prof, why = None, f"the profiler did not start: {e!r}"
+    try:
+        fn()
+    finally:
+        if prof is not None:
+            prof.stop()
+    wall = time.perf_counter() - t0
+    kernels_s = copies_s = 0.0
+    by_kernel = []
+    for e in prof.key_averages() if prof is not None else ():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e6
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies_s += t
+        else:
+            kernels_s += t
+            by_kernel.append((t, e.count, e.key))
+    top = sorted(by_kernel, reverse=True)[:5]
+    return wall, kernels_s, copies_s, top, None if kernels_s + copies_s > 0 else why
+
+
+def print_device_split(label: str, wall, kernels_s, copies_s, top, why) -> None:
+    if why is not None:
+        print(f"{label}: device busy time not measured ({why})")
+        return
+    busy = kernels_s + copies_s
+    print(f"{label}: device busy {busy:.4f} s (kernels {kernels_s:.4f} s, copies {copies_s:.4f} s) "
+          f"= {100 * busy / wall:.2f}% of wall; idle share {100 * (1 - busy / wall):.2f}%; {smi_tag()}")
+    print(f"{label}: top kernels by device time: " + "; ".join(
+        f"{key[:60]} {t * 1e3:.3f} ms / {n}" for t, n, key in top))
+
+
 def breakdown(torch, name: str, build) -> None:
-    """Run the plan again with its ops one at a time, in the sequential
-    executor's order, each timed on the host clock up to a synchronize, under
-    torch.profiler's CUDA activity for the device's busy time (printed as
-    "not measured" if the profiler records nothing here)."""
+    """Sequential executor: run the plan again with its ops one at a time, in
+    the sequential executor's order, each timed on the host clock up to a
+    synchronize, under torch.profiler for the device's busy time."""
     import cubed_tpu_torch
 
     spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown"), allowed_mem="2GB")
@@ -323,37 +473,60 @@ def breakdown(torch, name: str, build) -> None:
             kind = dag.nodes[node]["op_name"]
             per_kind[kind] = per_kind.get(kind, 0.0) + time.perf_counter() - t
 
-    from torch.profiler import ProfilerActivity, profile
+    split = profiled(torch, run_ops)
+    shutil.rmtree(spec.work_dir, ignore_errors=True)
+    ops = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(per_kind.items(), key=lambda kv: -kv[1]))
+    print(f"{name} breakdown [sequential]: wall {split[0]:.3f} s; by op kind: {ops}")
+    print_device_split(f"{name} breakdown [sequential]", *split)
 
-    prof, why = profile(activities=[ProfilerActivity.CUDA]), "the profiler recorded no device events"
+
+def breakdown_device(torch, name: str, build) -> None:
+    """Device executor: compute once more under torch.profiler for the
+    device's busy time and idle share; then run the plan again with the
+    executor's ops one at a time, each timed on the host clock up to a
+    synchronize (within a compute, a segment's ops share one time)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.pipeline import visit_nodes
+
+    spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown-cuda"), allowed_mem="2GB")
+    random.seed(SEED)
+    result = build(spec)
+
+    def run():
+        result.compute(executor=CudaExecutor())
+        torch.cuda.synchronize()
+
+    split = profiled(torch, run)
+    shutil.rmtree(spec.work_dir, ignore_errors=True)
+    print(f"{name} breakdown [cuda]: wall {split[0]:.3f} s")
+    print_device_split(f"{name} breakdown [cuda]", *split)
+
+    random.seed(SEED)
+    result = build(spec)
+    dag = result.plan._finalize(array_names=(result.name,)).dag
+    ex = CudaExecutor()
+    resident: dict = {}
+    budget = ex._budget(spec, torch.device("cuda"))
+    requested = {result.zarray_maybe_lazy.store}
+    per_kind: dict = {}
     t0 = time.perf_counter()
-    try:
-        prof.start()
-    except (AssertionError, RuntimeError) as e:  # no CUDA tracing available here
-        prof, why = None, f"the profiler did not start: {e!r}"
-    try:
-        run_ops()
-    finally:
-        if prof is not None:
-            prof.stop()
+    for op_name, node in visit_nodes(dag):
+        t = time.perf_counter()
+        in_segment = ex._classify(node["primitive_op"]) == "segment"
+        ex._run([(op_name, node)], resident, budget, requested, None, in_segment=in_segment)
+        torch.cuda.synchronize()
+        kind = node["op_name"]
+        per_kind[kind] = per_kind.get(kind, 0.0) + time.perf_counter() - t
+    t = time.perf_counter()
+    for res in resident.values():
+        if res.target.store in requested:
+            ex._flush(res)
+    per_kind["flush"] = time.perf_counter() - t
     wall = time.perf_counter() - t0
     shutil.rmtree(spec.work_dir, ignore_errors=True)
-    kernels_s = copies_s = 0.0
-    for e in prof.key_averages() if prof is not None else ():
-        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e6
-        if e.key.startswith(("Memcpy", "Memset")):
-            copies_s += t
-        else:
-            kernels_s += t
-    ops = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(per_kind.items(), key=lambda kv: -kv[1]))
-    print(f"{name} breakdown: wall {wall:.3f} s; by op kind: {ops}")
-    if kernels_s + copies_s > 0:
-        busy = kernels_s + copies_s
-        print(f"{name} breakdown: device busy {busy:.3f} s (kernels {kernels_s:.3f} s, "
-              f"copies {copies_s:.3f} s) = {100 * busy / wall:.2f}% of wall; "
-              f"idle share {100 * (1 - busy / wall):.2f}%")
-    else:
-        print(f"{name} breakdown: device busy time not measured ({why})")
+    ops = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(per_kind.items(), key=lambda kv: -kv[1]))
+    print(f"{name} breakdown [cuda, op by op]: wall {wall:.3f} s; by op kind: {ops}")
 
 
 def main() -> int:
@@ -375,7 +548,8 @@ def main() -> int:
         return 1
     os.environ["CUBED_TPU_TORCH_DEVICE"] = "cuda"
 
-    smi = nvidia_smi()
+    global CARD
+    CARD = smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}; torch device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}")
     try:
@@ -383,19 +557,30 @@ def main() -> int:
         _build.build_all()
         print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)})")
 
-        kernels = [check_philox(torch), check_region_sum(torch)]
+        kernels = [check_philox(torch), check_region_sum(torch), check_fma_sum(torch)]
 
-        run_main_path(
-            torch, "addsum", addsum_build, addsum_oracle,
-            {"philox_uniform": (50, 50), "region_sum": (25, 10**9)},
-        )
-        vort = run_main_path(
-            torch, "vorticity", vorticity_build, vorticity_oracle,
-            {"philox_uniform": (400, 400), "region_sum": (100, 10**9)},
-        )
+        for name, build, oracle, required in [
+            ("addsum", addsum_build, addsum_oracle, {
+                "sequential": {"philox_uniform": (50, 50), "region_sum": (25, 10**9), "fma_sum": (0, 0)},
+                "cuda": {"philox_uniform": (50, 50), "region_sum": (25, 10**9), "fma_sum": (0, 0)},
+            }),
+            ("vorticity", vorticity_build, vorticity_oracle, {
+                "sequential": {"philox_uniform": (400, 400), "region_sum": (100, 10**9), "fma_sum": (0, 0)},
+                "cuda": {"philox_uniform": (400, 400), "region_sum": (1, 10**9), "fma_sum": (100, 100)},
+            }),
+        ]:
+            t1 = time.perf_counter()
+            random.seed(SEED)
+            expected = oracle()
+            print(f"{name}: numpy oracle {time.perf_counter() - t1:.1f} s")
+            launches = {ex: run_main_path(torch, name, ex, build, expected, req)
+                        for ex, req in required.items()}
+        # the kernels line reads this slice's main path: vorticity on the
+        # device executor
         for k in kernels:
-            k["launches"] = vort[k["name"]]
+            k["launches"] = launches["cuda"][k["name"]]
         breakdown(torch, "vorticity", vorticity_build)
+        breakdown_device(torch, "vorticity", vorticity_build)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

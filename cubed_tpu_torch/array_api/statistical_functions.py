@@ -51,6 +51,11 @@ def _sum_with_dtype(a, axis=None, keepdims=False, dtype=None):
     return nxp.sum(a, axis=axis, keepdims=keepdims, dtype=dtype)
 
 
+# what the function computes, read from plan metadata by the device
+# executor's fusion rule (runtime/executors/cuda.py)
+_sum_with_dtype.reduce_kind = "sum"
+
+
 def _mean_intermediate_dtype(x_dtype):
     return np.dtype([("n", np.int64), ("total", np.float64)])
 
@@ -84,6 +89,9 @@ def _mean_func(a, axis=None, keepdims=True, **kwargs):
     n = _numel(a, axis=axis, dtype=np.int64)
     total = nxp.sum(a, axis=axis, keepdims=keepdims, dtype=np.float64)
     return {"n": n, "total": total}
+
+
+_mean_func.reduce_kind = "mean"
 
 
 def _mean_combine(a, axis=None, keepdims=True, **kwargs):

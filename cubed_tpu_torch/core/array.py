@@ -98,21 +98,31 @@ def check_array_specs(arrays: Sequence) -> Optional[Spec]:
     return first
 
 
-def compute(*arrays, optimize_graph: bool = True) -> list[np.ndarray]:
-    """Compute several arrays in one plan execution on the sequential
-    executor; return numpy results.
+def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True) -> list[np.ndarray]:
+    """Compute several arrays in one plan execution; return numpy results.
 
-    The chunk device is resolved first, so a missing card fails here, before
-    any task runs (``backend_array_api.get_device``)."""
+    The executor is *executor*, else the arrays' ``Spec.executor``, else the
+    sequential ``PythonDagExecutor``. The chunk device is resolved first, so
+    a missing card fails here, before any task runs
+    (``backend_array_api.get_device``)."""
     from ..backend_array_api import get_device
     from .plan import arrays_to_plan
 
     if not arrays:
         return []
     get_device()
+    spec = check_array_specs(arrays)
+    if executor is None:
+        executor = spec.executor if spec is not None else None
+    if executor is None:
+        from ..runtime.executors.python import PythonDagExecutor
+
+        executor = PythonDagExecutor()
     arrays_to_plan(*arrays).execute(
+        executor=executor,
+        callbacks=callbacks,
         optimize_graph=optimize_graph,
         array_names=tuple(a.name for a in arrays),
-        spec=check_array_specs(arrays),
+        spec=spec,
     )
     return [a._read_stored() for a in arrays]

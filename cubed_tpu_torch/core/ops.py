@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import itertools
 import math
-from functools import partial
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -78,6 +77,7 @@ def from_array(x, chunks="auto", spec=None) -> "CoreArray":
         return numpy_array_to_backend_array(x[get_item(outchunks, block_id)])
 
     _from_array_chunk.__name__ = "from_array"
+    _from_array_chunk.host_data_nbytes = x.nbytes
     return map_blocks(
         _from_array_chunk,
         empty_virtual_array(x.shape, dtype=x.dtype, chunks=outchunks, spec=spec),
@@ -107,6 +107,7 @@ def blockwise(
     align_arrays: bool = True,
     extra_projected_mem: int = 0,
     fusable: bool = True,
+    shape_invariant: bool = False,
     **kwargs,
 ) -> CoreArray:
     arrays = list(args[0::2])
@@ -154,6 +155,7 @@ def blockwise(
         out_name=names if multi else names[0],
         extra_projected_mem=extra_projected_mem,
         fusable=fusable,
+        shape_invariant=shape_invariant,
         **kwargs,
     )
     return _wrap_op_outputs(op, getattr(func, "__name__", "blockwise"), spec, arrays, names)
@@ -247,7 +249,9 @@ def _wrap_op_outputs(op, op_label: str, spec, arrays, names):
 
 
 def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
-    """Apply an elementwise function with broadcasting."""
+    """Apply an elementwise function with broadcasting. The chunk function
+    carries ``elementwise``, the name of *func* (``"add"``, ``"multiply"``,
+    ...), which the device executor's fusion rule reads."""
     if dtype is None:
         raise ValueError("dtype must be specified for elemwise")
     shapes = [getattr(a, "shape", ()) for a in args]
@@ -257,7 +261,15 @@ def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
     for a in args:
         # trailing dims align rightmost (broadcasting); 0-d arrays use ()
         blockwise_args.extend([a, tuple(range(getattr(a, "ndim", 0)))[::-1]])
-    return blockwise(func, tuple(range(out_ndim))[::-1], *blockwise_args, dtype=dtype)
+
+    def elementwise_chunk(*chunks):
+        return func(*chunks)
+
+    elementwise_chunk.__name__ = elementwise_chunk.elementwise = getattr(func, "__name__", "elemwise")
+    return blockwise(
+        elementwise_chunk, tuple(range(out_ndim))[::-1], *blockwise_args, dtype=dtype,
+        shape_invariant=True,
+    )
 
 
 def map_blocks(func: Callable, *args, dtype=None, chunks=None, **kwargs) -> CoreArray:
@@ -286,6 +298,12 @@ def map_blocks(func: Callable, *args, dtype=None, chunks=None, **kwargs) -> Core
             return func(*real, block_id=offset_to_block_id(_scalar_int(offset), numblocks), **kw)
 
         func_with_block_id.__name__ = getattr(func, "__name__", "map_blocks")
+        # the offset -> block_id conversion runs on the host
+        func_with_block_id.host_block_id = True
+        for attr in ("side_inputs", "whole_select", "resident_identity", "whole_concat",
+                     "host_data_nbytes"):
+            if hasattr(func, attr):
+                setattr(func_with_block_id, attr, getattr(func, attr))
         blockwise_args.extend([offsets, tuple(range(in_ndim))])
         return blockwise(
             func_with_block_id, tuple(out_ind), *blockwise_args, dtype=dtype,
@@ -331,7 +349,13 @@ def map_direct(
 ) -> CoreArray:
     """Map a function over blocks of a new array, with side-input access to
     whole source arrays. Not fusable: side-input reads are outside the
-    blockwise memory model."""
+    blockwise memory model.
+
+    The chunk function declares its ``side_inputs``, so the device executor
+    writes resident side inputs to storage before the tasks read them, and
+    passes on a task body's ``whole_select``, ``resident_identity`` or
+    ``whole_concat``, which let that executor compute the op on resident
+    arrays instead."""
     from ..storage.zarr import open_if_lazy_zarr_array
 
     spec = _spec_of(*args, spec=spec)
@@ -343,6 +367,10 @@ def map_direct(
         return func(block, *[open_if_lazy_zarr_array(s) for s in side_arrays], block_id=block_id)
 
     new_func.__name__ = getattr(func, "__name__", "map_direct")
+    new_func.side_inputs = side_arrays
+    for attr in ("whole_select", "resident_identity", "whole_concat"):
+        if hasattr(func, attr):
+            setattr(new_func, attr, getattr(func, attr))
     mapped = map_blocks(
         new_func, out, dtype=dtype, chunks=nc,
         extra_projected_mem=extra_projected_mem, fusable=False,
@@ -425,17 +453,19 @@ class _IndexRead:
     """Task body for index: read this output block's strided selection.
 
     A slice moves data and computes nothing, so its block stays on the host
-    between the two stores instead of crossing to the card and back."""
+    between the two stores instead of crossing to the card and back.
+    ``whole_select``, the global (start, stop, step) of every axis, lets the
+    device executor take the whole index as one view of a resident array."""
 
     __name__ = "index"
 
     def __init__(self, out_chunks, selections):
         self.out_chunks = out_chunks
-        self.selections = selections
+        self.whole_select = selections
 
     def __call__(self, block, zarray, block_id=None):
         sel = []
-        for bid, chunks_ax, (s0, _, step) in zip(block_id, self.out_chunks, self.selections):
+        for bid, chunks_ax, (s0, _, step) in zip(block_id, self.out_chunks, self.whole_select):
             start = sum(chunks_ax[:bid])
             sel.append(slice(s0 + start * step, s0 + (start + chunks_ax[bid]) * step, step))
         return zarray[tuple(sel)]
@@ -488,7 +518,7 @@ def reduction(
     else:
         inds = tuple(range(x.ndim))
         result = blockwise(
-            partial(_initial_reduce, func=func, axis=axis, kw=kw),
+            _InitialReduce(func, axis, kw),
             inds, x, inds,
             dtype=intermediate_dtype,
             adjust_chunks={i: 1 for i in range(x.ndim) if i in axis},
@@ -511,13 +541,29 @@ def reduction(
     return result
 
 
-def _initial_reduce(chunk, *, func, axis, kw):
-    return func(chunk, axis=axis, keepdims=True, **kw)
+class _InitialReduce:
+    """The per-block reduce of a reduction tree, over *axis* with every axis
+    kept. With *fields* it returns one chunk per field of the {field: chunk}
+    pytree, in that order. ``reduce_kind`` is *func*'s tag (``"sum"``,
+    ``"mean"``), which the device executor's fusion rule reads."""
+
+    def __init__(self, func: Callable, axis: tuple, kw: dict, fields: Optional[list] = None):
+        self.func = func
+        self.axis = axis
+        self.kw = kw
+        self.fields = fields
+        self.reduce_kind = getattr(func, "reduce_kind", None)
+
+    def __call__(self, chunk):
+        out = self.func(chunk, axis=self.axis, keepdims=True, **self.kw)
+        return out if self.fields is None else tuple(out[k] for k in self.fields)
 
 
 class _StreamingCombine:
     """Combine a group of blocks along the reduced axes, streaming: one
-    concat buffer however large the group."""
+    concat buffer however large the group. ``combine_region`` combines one
+    contiguous region of blocks in one call, which the device executor
+    takes when the group's blocks are resident."""
 
     __name__ = "partial_reduce"
 
@@ -525,6 +571,7 @@ class _StreamingCombine:
         self.combine_func = combine_func
         self.axis = axis
         self.kw = kw
+        self.reduce_kind = getattr(combine_func, "reduce_kind", None)
 
     def __call__(self, chunks_iter):
         acc = None
@@ -535,6 +582,9 @@ class _StreamingCombine:
                 merged = _concat_pytree(acc, chunk, self.axis[0])
                 acc = self.combine_func(merged, axis=self.axis, keepdims=True, **self.kw)
         return acc
+
+    def combine_region(self, region):
+        return self.combine_func(region, axis=self.axis, keepdims=True, **self.kw)
 
 
 def _concat_pytree(a, b, axis: int):
@@ -598,7 +648,7 @@ def reduction_fields(
     kw = dict(extra_func_kwargs or {})
     parts = _multi_field_map(
         x,
-        partial(_initial_reduce, func=func, axis=axis, kw=kw),
+        _InitialReduce(func, axis, kw, list(fields)),
         fields,
         chunks=tuple(
             (1,) * x.numblocks[i] if i in axis else c for i, c in enumerate(x.chunks)
@@ -626,22 +676,17 @@ def _fields_of(intermediate_dtype) -> Optional[dict]:
 
 
 def _multi_field_map(x: CoreArray, kernel: Callable, fields: dict, chunks, op_name: str) -> tuple:
-    """One multi-output op mapping *kernel* (returning {field: chunk}) 1:1
-    over x's blocks; each field becomes a plain array output."""
+    """One multi-output op mapping *kernel* (returning one chunk per field)
+    1:1 over x's blocks; each field becomes a plain array output."""
     names = list(fields)
     x_name = x.name
 
     def block_function(out_key):
         return ((x_name, *out_key[1:]),)
 
-    def field_kernel(chunk):
-        d = kernel(chunk)
-        return tuple(d[k] for k in names)
-
-    field_kernel.__name__ = getattr(kernel, "__name__", op_name)
     shape = tuple(sum(c) for c in chunks)
     return general_blockwise(
-        field_kernel, block_function, x,
+        kernel, block_function, x,
         shape=[shape] * len(names),
         dtype=[fields[k] for k in names],
         chunks=chunks,
@@ -701,6 +746,10 @@ class _StreamingCombineMulti:
                 merged = _concat_pytree(acc, d, self.axis[0])
                 acc = self.combine_func(merged, axis=self.axis, keepdims=True, **self.kw)
         return tuple(acc[k] for k in self.names)
+
+    def combine_region(self, *regions):
+        out = self.combine_func(dict(zip(self.names, regions)), axis=self.axis, keepdims=True, **self.kw)
+        return tuple(out[k] for k in self.names)
 
 
 def _aggregate_fields(parts: Sequence[CoreArray], aggregate_func: Callable, dtype, names: list) -> CoreArray:

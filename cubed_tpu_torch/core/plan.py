@@ -6,7 +6,7 @@ target); data never flows through the graph, each op reads chunks of its
 inputs from storage and writes chunks of its output. The JAX package keeps
 the graph in networkx; here :class:`Dag` is a small multigraph in plain dicts
 with the few operations the planner, the optimizer and the executor use.
-Observability hooks are not ported.
+The compute-level observability hooks are not ported.
 """
 
 from __future__ import annotations
@@ -167,11 +167,19 @@ class Plan:
             dag = multiple_inputs_optimize_dag(dag, array_names=array_names)
         return FinalizedPlan(create_lazy_zarr_arrays(dag))
 
-    def execute(self, optimize_graph=True, array_names=None, spec=None) -> None:
-        from ..runtime.executors.python import PythonDagExecutor
+    def execute(
+        self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
+    ) -> None:
+        """Finalize the plan and run it on *executor* (default: the
+        sequential ``PythonDagExecutor``)."""
+        if executor is None:
+            from ..runtime.executors.python import PythonDagExecutor
 
+            executor = PythonDagExecutor()
         finalized = self._finalize(optimize_graph, array_names)
-        PythonDagExecutor().execute_dag(finalized.dag, array_names=array_names, spec=spec)
+        executor.execute_dag(
+            finalized.dag, callbacks=callbacks, array_names=array_names, spec=spec,
+        )
 
 
 class FinalizedPlan:

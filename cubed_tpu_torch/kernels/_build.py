@@ -18,7 +18,7 @@ import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("philox_uniform", "region_sum")
+SOURCES = ("philox_uniform", "region_sum", "fma_sum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

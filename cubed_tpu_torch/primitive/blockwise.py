@@ -51,6 +51,11 @@ class BlockwiseSpec:
     num_input_blocks: tuple[int, ...]
     reads_map: Dict[str, CubedArrayProxy]
     write: CubedArrayProxy
+    #: True when ``function`` commutes with chunking (elementwise and
+    #: broadcasting kernels): applied to whole arrays it gives what it gives
+    #: per chunk. The device executor then runs it once on whole resident
+    #: arrays.
+    shape_invariant: bool = False
     writes_rest: tuple = ()
 
     @property
@@ -196,6 +201,7 @@ def blockwise(
     out_name: Optional[str] = None,
     extra_projected_mem: int = 0,
     fusable: bool = True,
+    shape_invariant: bool = False,
     **func_kwargs,
 ) -> PrimitiveOperation:
     """Apply *func* across blocks of inputs matched by index notation."""
@@ -231,6 +237,7 @@ def blockwise(
         out_name=out_name,
         extra_projected_mem=extra_projected_mem,
         fusable=fusable,
+        shape_invariant=shape_invariant,
     )
 
 
@@ -258,6 +265,7 @@ def general_blockwise(
     extra_projected_mem: int = 0,
     num_input_blocks: Optional[tuple[int, ...]] = None,
     fusable: bool = True,
+    shape_invariant: bool = False,
 ) -> PrimitiveOperation:
     """Build a PrimitiveOperation for an explicit block function.
 
@@ -330,6 +338,7 @@ def general_blockwise(
         num_input_blocks=num_input_blocks or (1,) * len(arrays),
         reads_map=reads_map,
         write=writes[0],
+        shape_invariant=shape_invariant,
         writes_rest=tuple(writes[1:]),
     )
     return PrimitiveOperation(
@@ -425,6 +434,18 @@ def fuse_multiple(
         ]
         return spec.function(*evaluated)
 
+    # the fused expression, kept as plan metadata: the op's own function and,
+    # per argument, the fused predecessor's function (None for a plain read)
+    fused_function.root_function = spec.function
+    fused_function.arg_functions = tuple(pred_functions)
+    # executor routing hints survive fusion: a fused kernel is host-bound if
+    # any component is
+    components = [spec.function] + [pf for pf in pred_functions if pf is not None]
+    fused_function.host_block_id = any(getattr(f, "host_block_id", False) for f in components)
+    fused_function.host_data_nbytes = sum(getattr(f, "host_data_nbytes", 0) for f in components)
+    if getattr(spec.function, "needs_block_id", False):
+        fused_function.needs_block_id = True
+
     # reads: the op's unfused reads plus every fused predecessor's reads
     fused_outputs = {id(p.target_array) for p in preds if p is not None}
     reads_map: Dict[str, CubedArrayProxy] = {}
@@ -467,6 +488,8 @@ def fuse_multiple(
         num_input_blocks=tuple(num_input_blocks) or spec.num_input_blocks,
         reads_map=reads_map,
         write=spec.write,
+        shape_invariant=spec.shape_invariant
+        and all(ps is None or ps.shape_invariant for ps in pred_specs),
         writes_rest=spec.writes_rest,
     )
     return PrimitiveOperation(

@@ -1,11 +1,11 @@
 """Resource specification carried by every array. Counterpart of
-``cubed_tpu/spec.py``, trimmed to the work directory and the memory bounds
-(the port has one executor, the sequential one)."""
+``cubed_tpu/spec.py``, trimmed to the work directory, the memory bounds, the
+executor and the device executor's residency budget."""
 
 from __future__ import annotations
 
 import tempfile
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 from .utils import convert_to_bytes, memory_repr
 
@@ -22,6 +22,10 @@ class Spec:
         work_dir: Optional[str] = None,
         allowed_mem: Union[int, str, None] = None,
         reserved_mem: Union[int, str, None] = 0,
+        executor: Optional[Any] = None,
+        device_mem: Union[int, str, None] = None,
+        executor_name: Optional[str] = None,
+        executor_options: Optional[dict] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -29,6 +33,10 @@ class Spec:
             self._allowed_mem = self._reserved_mem
         else:
             self._allowed_mem = convert_to_bytes(allowed_mem)
+        self._executor = executor
+        self._executor_name = executor_name
+        self._executor_options = executor_options
+        self._device_mem = convert_to_bytes(device_mem) if device_mem is not None else None
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -46,11 +54,29 @@ class Spec:
         """Memory (bytes) reserved on a worker before any task runs."""
         return self._reserved_mem
 
+    @property
+    def executor(self) -> Optional[Any]:
+        """The executor ``compute()`` uses when it is given none: the one
+        passed in, else one created from ``executor_name`` (and
+        ``executor_options``) at first use, else None (the sequential one)."""
+        if self._executor is None and self._executor_name is not None:
+            from .runtime.create import create_executor
+
+            self._executor = create_executor(self._executor_name, self._executor_options)
+        return self._executor
+
+    @property
+    def device_mem(self) -> Optional[int]:
+        """Residency budget (bytes) of the device executor, when it is not
+        given one itself."""
+        return self._device_mem
+
     def __repr__(self) -> str:
         return (
             f"Spec(work_dir={self._work_dir!r}, "
             f"allowed_mem={memory_repr(self._allowed_mem)}, "
-            f"reserved_mem={memory_repr(self._reserved_mem)})"
+            f"reserved_mem={memory_repr(self._reserved_mem)}, "
+            f"executor={self._executor!r})"
         )
 
     def __eq__(self, other) -> bool:
@@ -61,6 +87,7 @@ class Spec:
                 self.work_dir == other.work_dir
                 and self.allowed_mem == other.allowed_mem
                 and self.reserved_mem == other.reserved_mem
+                and self.executor == other.executor
             )
         return False
 

@@ -33,6 +33,7 @@ def test_import_loads_no_jax_or_reference_modules():
     proc = _run(
         "import sys, cubed_tpu_torch, cubed_tpu_torch.array_api, cubed_tpu_torch.random\n"
         "import cubed_tpu_torch.kernels._build, cubed_tpu_torch.runtime.executors.python\n"
+        "import cubed_tpu_torch.runtime.executors.cuda, cubed_tpu_torch.runtime.create\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -80,21 +81,27 @@ def test_sources_import_no_jax_or_reference_modules(path):
 
 
 def test_compute_without_cuda_raises_instead_of_running_on_cpu(tmp_path):
+    """On the default sequential executor, on the device executor passed to
+    compute(), and on the device executor driven directly."""
     proc = _run(
         "import torch\n"
         "torch.cuda.is_available = lambda: False\n"
         "import cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+        "from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor\n"
         f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB')\n"
         "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
-        "try:\n"
-        "    xp.sum(a).compute()\n"
-        "except RuntimeError as e:\n"
-        "    print('RAISED', 'is_available() is False' in str(e))\n"
-        "else:\n"
-        "    print('COMPUTED')\n"
+        "runs = [lambda: xp.sum(a).compute(), lambda: xp.sum(a).compute(executor=CudaExecutor()),\n"
+        "        lambda: CudaExecutor().execute_dag(xp.sum(a).plan._finalize().dag)]\n"
+        "for run in runs:\n"
+        "    try:\n"
+        "        run()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', 'is_available() is False' in str(e))\n"
+        "    else:\n"
+        "        print('COMPUTED')\n"
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["RAISED", "True"]
+    assert proc.stdout.split() == ["RAISED", "True"] * 3
     assert not list(tmp_path.rglob("*.zarr")), "no task may run before the device check"
 
 
