@@ -1,29 +1,41 @@
 #!/usr/bin/env python3
 """Smoke run of cubed_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against CHECKOUT]
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
 2. build every hand-written CUDA kernel from the sources in this checkout
-   (one nvcc per source, all at once) and print the build seconds;
+   (one nvcc per source, all at once), print the build seconds and each
+   kernel's registers and spills (ptxas -v);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time both (CUDA events):
-   philox_uniform bit for bit (and against numpy's Philox stream),
-   region_sum within 1e-12 (float64) / 1e-6 (float32) of the sum of
+   philox_uniform bit for bit (and against numpy's Philox stream), its
+   bound the larger of its bytes and its integer issue, counted from its
+   SASS; region_sum within 1e-12 (float64) / 1e-6 (float32) of the sum of
    magnitudes, int64 exactly, fma_sum within 1e-12 of the sum of the terms'
    magnitudes (contiguous blocks, block views of a (499, 450, 400) array as
-   the device executor passes them, ragged, float32, sizes 1, 7 and 0);
-   two launches on one input bitwise equal; torch.sum is timed beside
-   region_sum (no single torch call computes fma_sum's function);
+   the device executor passes them, misaligned and ragged views, reduced
+   axes (0,) and (1, 2), combine-sized inputs, float32, sizes 1, 7 and 0);
+   one launch per call and two launches on one input bitwise equal; every
+   path of both (rows/columns, vector/scalar, one CTA/split) taken and
+   printed per case; one kernel per call and no other kernel, counted by
+   name under torch.profiler; region_sum's axis (0,) of a block view
+   allocating no input-sized buffer; torch.sum is timed beside region_sum
+   (also at a combine-sized input, at (5000, 5000) over axis (1,) and over
+   axis (0,) of block views; no single torch call computes fma_sum's
+   function). With ``--against CHECKOUT``, the fma_sum and region_sum of
+   another checkout of this repo are built from its sources and timed
+   beside these on the same inputs, in turns (theirs, ours, ours, theirs);
 4. drive the main path through the public entry points, on the default
    sequential executor and on the device executor (``CudaExecutor``):
    addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
    ``mean(a[1:]*x[1:] + b[1:]*y[1:])`` at (500, 450, 400) / 100, each
    checked against a numpy oracle that draws the same per-block Philox
    streams itself (rtol 1e-12). Kernel launch counts are zeroed just before
-   and read just after each run; vorticity must launch philox_uniform
+   and read just after each run, with the paths each kernel took;
+   vorticity must launch philox_uniform
    exactly 400 times on both executors, region_sum at least 100 times on the
    sequential one, and fma_sum exactly 100 times on the device executor,
    which must also take no fallback, stay under its residency budget and
@@ -55,10 +67,34 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(REPO, ".chip_smoke_work")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
-#: float32 rate, used as the rate of the adds and integer multiplies counted
-#: below (an upper rate gives a lower, still valid, bound)
+#: float32 rate, used as the rate of the floating-point adds and multiplies
+#: counted below (an upper rate gives a lower, still valid, bound)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+
+#: 32-bit integer issue on the H100 SXM, per pipe: 64 lanes per clock per SM
+#: for integer add, multiply-add, shift and logic (CUDA C++ Programming
+#: Guide, throughput of native arithmetic instructions, compute capability
+#: 9.0), x 132 SMs x the 1980 MHz maximum SM clock (nvidia-smi
+#: clocks.max.sm on an H100 80GB HBM3). IMAD issues on the FMA pipe; IADD3,
+#: LOP3, SHF, ISETP, LEA, SEL, PRMT and MOV on the ALU pipe; the two run in
+#: parallel, so the busier one bounds the time.
+INT_LANES_PER_CLOCK_PER_SM = 64
+H100_SMS = 132
+H100_MAX_SM_CLOCK_HZ = 1.98e9
+INT_ISSUE_PER_S = INT_LANES_PER_CLOCK_PER_SM * H100_SMS * H100_MAX_SM_CLOCK_HZ
+
+#: philox_uniform_kernel's integer issue slots per counter, per pipe, counted
+#: from ``cuobjdump -sass`` of its sm_90a build (nvcc 12.9; the ten rounds are
+#: unrolled and each thread takes one counter, so the kernel's instructions
+#: are one counter's). FMA pipe: 73 IMAD.WIDE.U32[.X] at two slots each (a
+#: 64-bit result) + 21 IMAD.X + 10 IMAD.MOV.U32 + 1 IMAD.SHL.U32 = 178. ALU
+#: pipe: 39 LOP3 + 41 IADD3[.X] + 9 SHF + 8 ISETP + 9 MOV + 2 LEA = 108.
+#: Uniform-datapath instructions (once a warp) are not counted. Each run
+#: counts them again from its own build (:func:`int_pipe_slots`).
+PHILOX_FMA_PIPE_SLOTS = 178
+PHILOX_ALU_PIPE_SLOTS = 108
+_ALU_OPCODES = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT", "MOV")
 
 #: GPU clock cycles the spin kernel holds the stream before a timed run
 #: (about 50 ms at the H100's 1.98 GHz boost clock)
@@ -114,10 +150,48 @@ def time_ms(torch, fn, args_list, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_pipe_slots(opcodes: dict) -> tuple[int, int]:
+    """(FMA-pipe, ALU-pipe) integer issue slots of one kernel's SASS opcode
+    counts: IMAD.WIDE and IMAD.HI take two slots, other IMADs one."""
+    fma = alu = 0
+    for op, n in opcodes.items():
+        if op.startswith("IMAD"):
+            fma += n * (2 if ".WIDE" in op or ".HI" in op else 1)
+        elif op.startswith(_ALU_OPCODES):
+            alu += n
+    return fma, alu
+
+
+def kernel_launches_by_name(torch, fn) -> dict:
+    """Device kernels launched while *fn* runs, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if t > 0 and not e.key.startswith(("Memcpy", "Memset")):
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return counts
+
+
+def print_resource_usage() -> None:
+    """Registers a thread and spill bytes of every built kernel (ptxas -v)."""
+    from cubed_tpu_torch.kernels import _build
+
+    for name in _build.SOURCES:
+        for fn, u in sorted(_build.resource_usage(name).items()):
+            print(f"ptxas {name}: {fn}: {u.get('registers')} registers, "
+                  f"{u.get('spill_stores')} B spill stores, {u.get('spill_loads')} B spill loads")
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +227,65 @@ def check_philox(torch) -> dict:
     ms = time_ms(torch, philox_uniform, outs)
     plain_ms = time_ms(torch, lambda k: philox_uniform_plain(n, k, device=dev), [(philox_key(1),)], reps=5)
     counters = -(-n // 4)
-    b, by = bound_ms(8 * n, 40 * counters)  # 8 B written; 2x(hi, lo) x 10 rounds
-    print(f"philox_uniform {shape} f64: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by})")
+    fma, alu = PHILOX_FMA_PIPE_SLOTS, PHILOX_ALU_PIPE_SLOTS
+    try:
+        from cubed_tpu_torch.kernels import _build
+
+        (opcodes,) = [c for f, c in _build.sass_opcodes("philox_uniform").items() if "philox" in f]
+        fma, alu = int_pipe_slots(opcodes)
+        print(f"philox_uniform SASS: {sum(opcodes.values())} instructions; integer issue slots per "
+              f"counter: FMA pipe {fma}, ALU pipe {alu} (constants: {PHILOX_FMA_PIPE_SLOTS}, "
+              f"{PHILOX_ALU_PIPE_SLOTS})")
+    except (OSError, subprocess.SubprocessError, ValueError) as e:
+        print(f"philox_uniform SASS not counted in this run ({e!r}); the constants stand")
+    # 8 B written per element; the busier integer pipe's slots for every counter
+    b, by = bound_ms(8 * n, max(fma, alu) * counters, INT_ISSUE_PER_S)
+    print(f"philox_uniform {shape} f64: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by}: "
+          f"bytes {8 * n / HBM_BYTES_PER_S * 1e3:.5f} ms, integer issue "
+          f"{max(fma, alu) * counters / INT_ISSUE_PER_S * 1e3:.5f} ms); {smi_tag()}")
     return dict(
         name="philox_uniform", route="cuda",
         source="cubed_tpu_torch/kernels/csrc/philox_uniform.cu",
         replaces="cubed_tpu/random.py:217 (_random_block; _philox_block :137)",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
     )
+
+
+#: region_sum's cases on the views the device executor passes, beside the
+#: random shapes above: (label, input from a (499, 450, 400) base, axes)
+REGION_VIEW_CASES = [
+    ("(100,100,100) view of (499,450,400)", lambda b: b[100:200, 200:300, 0:100], None),
+    ("(100,100,100) view one element off 16 B", lambda b: b[100:200, 200:300, 1:101], None),
+    ("(99,50,100) ragged view", lambda b: b[400:499, 400:450, 300:400], None),
+    ("(100,100,100) contiguous", lambda b: b[:100, :100, :100].contiguous(), None),
+    ("(100,100,100) view, axis (0,)", lambda b: b[100:200, 200:300, 0:100], (0,)),
+    ("(100,100,100) view, axes (1,2)", lambda b: b[100:200, 200:300, 0:100], (1, 2)),
+    ("(5,5,4) combine", lambda b: b[:5, :5, :4].contiguous(), None),
+    ("(5,5,4) combine, axis (0,)", lambda b: b[:5, :5, :4].contiguous(), (0,)),
+    ("(4,1,4) combine view", lambda b: b[:5, :5, :4].contiguous()[1:, 1:2], None),
+    ("size 0", lambda b: b[:0, :5, 0], None),
+    ("size 1", lambda b: b[:1, 0, 0], None),
+    ("(500,1000) axis (1,)", lambda b: b[:50, :100, :100].reshape(500, 1000), (1,)),
+]
+
+
+def paths_delta(wrapper, before: dict) -> str:
+    return "+".join(k for k, v in wrapper.paths.items() if v > before[k])
+
+
+def one_launch_per_call(torch, wrapper, kernel_key: str, calls: list) -> None:
+    """Run *calls* (thunks) under torch.profiler: the device must run exactly
+    one kernel named *kernel_key* per launch the wrapper counts, and no
+    other kernel (no copy of an input, no second pass)."""
+    before = wrapper.launches
+    kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls])
+    launched = wrapper.launches - before
+    ours = sum(n for k, n in kernels.items() if kernel_key in k)
+    others = {k: n for k, n in kernels.items() if kernel_key not in k}
+    print(f"{kernel_key}: {len(calls)} calls, {launched} counted launches, profiler: {ours} "
+          f"{kernel_key} kernels, other kernels {others or 'none'}")
+    check(ours == launched and not others,
+          f"{kernel_key}: {ours} kernels and {others} for {launched} counted launches")
 
 
 def check_region_sum(torch) -> dict:
@@ -173,33 +298,67 @@ def check_region_sum(torch) -> dict:
         ((99, 37, 101), None), ((99, 37, 101), (0,)), ((99, 37, 101), (1, 2)),
         ((100, 50, 100), None), ((2, 1, 1), None), ((5000, 5000), (1,)),
     ]
-    # a sum taken in another order differs by rounding relative to the sum
-    # of magnitudes (which, for the main path's non-negative data, is the
-    # sum itself): |kernel - plain| <= rtol * sum(|x|)
-    tol = {torch.float64: 1e-12, torch.float32: 1e-6}
-    max_err = 0.0
+    base64 = torch.rand((499, 450, 400), generator=gen, device=dev, dtype=torch.float64) * 100 - 50
+    bases = {torch.float64: base64, torch.float32: base64.to(torch.float32),
+             torch.int64: torch.randint(-(10**12), 10**12, (499, 450, 400), generator=gen, device=dev)}
+    inputs = []  # (label, tensor, axes)
     for shape, axes in cases:
         for dt in (torch.float64, torch.float32, torch.int64):
             if dt == torch.int64:
                 x = torch.randint(-(10**12), 10**12, shape, generator=gen, device=dev)
             else:
                 x = (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 100 - 50).to(dt)
-            a = region_sum(x, axes)
-            b = region_sum(x, axes)
-            p = region_sum_plain(x, axes)
-            torch.cuda.synchronize()
-            check(torch.equal(a, b), f"region_sum {shape} {axes} {dt}: two launches differ")
-            check(a.shape == p.shape and a.dtype == p.dtype, f"region_sum {shape} {axes} {dt}: shape/dtype")
-            if dt == torch.int64:
-                check(torch.equal(a, p), f"region_sum {shape} {axes} int64 not exact")
-            else:
-                scale = region_sum_plain(x.double().abs(), axes)
-                ok = bool(((a.double() - p.double()).abs() <= tol[dt] * scale).all())
-                check(ok, f"region_sum {shape} {axes} {dt} beyond rtol {tol[dt]} of sum(|x|)")
-                if dt == torch.float64:
-                    max_err = max(max_err, float((a - p).abs().max()))
-    print("region_sum: float64 within 1e-12 and float32 within 1e-6 of sum(|x|), int64 exact, "
-          "repeat launches bitwise equal, over", len(cases), "shape/axis cases")
+            inputs.append((f"{shape} {axes}", x, axes))
+    for label, make, axes in REGION_VIEW_CASES:
+        for dt, base in bases.items():
+            inputs.append((label, make(base), axes))
+    # a sum taken in another order differs by rounding relative to the sum
+    # of magnitudes: |kernel - plain| <= rtol * sum(|x|)
+    tol = {torch.float64: 1e-12, torch.float32: 1e-6}
+    max_err = 0.0
+    taken = []
+    for label, x, axes in inputs:
+        dt = x.dtype
+        before, paths = region_sum.launches, dict(region_sum.paths)
+        a = region_sum(x, axes)
+        launched = region_sum.launches - before
+        b = region_sum(x, axes)
+        p = region_sum_plain(x, axes)
+        torch.cuda.synchronize()
+        what = f"region_sum {label} {dt}"
+        check(launched == (1 if a.numel() else 0), f"{what}: {launched} launches for one call")
+        check(torch.equal(a, b), f"{what}: two launches differ")
+        check(a.shape == p.shape and a.dtype == p.dtype, f"{what}: shape/dtype")
+        if dt == torch.int64:
+            check(torch.equal(a, p), f"{what}: int64 not exact")
+        else:
+            scale = region_sum_plain(x.double().abs(), axes)
+            ok = bool(((a.double() - p.double()).abs() <= tol[dt] * scale).all())
+            check(ok, f"{what}: beyond rtol {tol[dt]} of sum(|x|)")
+            if dt == torch.float64 and a.numel():
+                max_err = max(max_err, float((a - p).abs().max()))
+        if dt == torch.float64:
+            taken.append(f"{label}: {paths_delta(region_sum, paths) or 'no launch'}")
+    print(f"region_sum: float64 within 1e-12 and float32 within 1e-6 of sum(|x|), int64 exact, "
+          f"one launch per call, repeat launches bitwise equal, over {len(inputs)} cases")
+    print("region_sum paths (float64): " + "; ".join(taken))
+    check(all(region_sum.paths.values()), f"region_sum: a path never taken: {region_sum.paths}")
+
+    f64_inputs = [(x, axes) for _, x, axes in inputs if x.dtype == torch.float64]
+    one_launch_per_call(torch, region_sum, "region_sum", [lambda x=x, a=axes: region_sum(x, a)
+                                                          for x, axes in f64_inputs])
+
+    # axis (0,) of a strided view: read in place, no buffer of the input's size
+    view = base64[100:200, 200:300, 0:100]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    region_sum(view, (0,))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - start
+    print(f"region_sum (100,100,100) view, axis (0,): {extra} B allocated at peak "
+          f"(the input is {view.numel() * 8} B)")
+    check(extra < view.numel() * 8 // 4, f"region_sum axis (0,): {extra} B allocated")
 
     shape = (100, 100, 100)  # the main path's initial_reduce block
     xs = [(torch.rand(shape, generator=gen, device=dev, dtype=torch.float64),) for _ in range(8)]
@@ -209,7 +368,13 @@ def check_region_sum(torch) -> dict:
     n = int(np.prod(shape))
     b, by = bound_ms(8 * n + 8, n)
     print(f"region_sum {shape} f64 all axes: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, "
-          f"torch.sum {library_ms:.5f} ms, bound {b:.5f} ms ({by})")
+          f"torch.sum {library_ms:.5f} ms, bound {b:.5f} ms ({by}); {smi_tag()}")
+    for label, args, axes, nbytes in region_timings(torch, gen, base64):
+        t = time_ms(torch, lambda x: region_sum(x, axes), args)
+        t_lib = time_ms(torch, lambda x: torch.sum(x, dim=axes or tuple(range(x.ndim)), keepdim=True), args)
+        print(f"region_sum {label}: {t:.5f} ms/launch, torch.sum {t_lib:.5f} ms, "
+              f"bound {bound_ms(nbytes, 0)[0]:.5f} ms (bytes); {smi_tag()}")
+    del bases, base64
     return dict(
         name="region_sum", route="cuda",
         source="cubed_tpu_torch/kernels/csrc/region_sum.cu",
@@ -217,6 +382,22 @@ def check_region_sum(torch) -> dict:
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
         library_ms=library_ms,
     )
+
+
+def region_timings(torch, gen, base64) -> list:
+    """(label, argument tuples, axes, bytes read and written) of region_sum's
+    further timed shapes: the main path's block views, a combine-sized input,
+    the (5000, 5000) addsum-sized rows, and axis (0,) of a block view."""
+    views = [(base64[i * 100:(i + 1) * 100, j * 100:(j + 1) * 100, 0:100],)
+             for i, j in itertools.product(range(4), range(2))]
+    combine = [(torch.rand((5, 5, 4), generator=gen, device="cuda", dtype=torch.float64),) for _ in range(8)]
+    rows = [(torch.rand((5000, 5000), generator=gen, device="cuda", dtype=torch.float64),) for _ in range(2)]
+    return [
+        ("(100,100,100) f64 views of (499,450,400), all axes", views, None, 8e6 + 8),
+        ("(5,5,4) f64 combine, all axes", combine, None, 800 + 8),
+        ("(5000,5000) f64, axis (1,)", rows, (1,), 2e8 + 4e4),
+        ("(100,100,100) f64 views, axis (0,)", views, (0,), 8e6 + 8e4),
+    ]
 
 
 def check_fma_sum(torch) -> dict:
@@ -235,10 +416,12 @@ def check_fma_sum(torch) -> dict:
     cases = [
         ("(100,100,100) contiguous", rand((100, 100, 100))),
         ("(100,100,100) view of (499,450,400)", [b[100:200, 200:300, 0:100] for b in bases]),
+        ("(100,100,100) view one element off 16 B", [b[100:200, 200:300, 1:101] for b in bases]),
         ("(99,50,100) ragged view", [b[400:499, 400:450, 300:400] for b in bases]),
         ("(99,100,50)", rand((99, 100, 50))),
         ("(99,100,50) float32", rand((99, 100, 50), torch.float32)),
         ("(100,100,100) float32 view", [t[50:150, 25:125, 100:200] for t in rand((200, 150, 200), torch.float32)]),
+        ("(5,5,4) combine", rand((5, 5, 4))),
         ("size 1", rand((1,))),
         ("size 7", rand((7,))),
         ("size 0", rand((0, 5))),
@@ -246,36 +429,89 @@ def check_fma_sum(torch) -> dict:
     # the products and their sum round alike in both; only the order of the
     # float64 sum differs: |kernel - plain| <= 1e-12 * sum(|a*x| + |b*y|)
     max_err = 0.0
+    taken = []
     for label, (a, x, b, y) in cases:
+        before, paths = fma_sum.launches, dict(fma_sum.paths)
         k1 = fma_sum(a, x, b, y)
+        launched = fma_sum.launches - before
         k2 = fma_sum(a, x, b, y)
         p = fma_sum_plain(a, x, b, y)
         torch.cuda.synchronize()
+        check(launched == 1, f"fma_sum {label}: {launched} launches for one call")
         check(torch.equal(k1, k2), f"fma_sum {label}: two launches differ")
         check(k1.shape == p.shape and k1.dtype == p.dtype == torch.float64, f"fma_sum {label}: shape/dtype")
         scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
         err = float((k1 - p).abs().max()) if k1.numel() else 0.0
         check(err <= 1e-12 * scale, f"fma_sum {label}: |kernel - plain| {err} beyond 1e-12 * {scale}")
         max_err = max(max_err, err)
-    print("fma_sum: within 1e-12 of sum(|a*x| + |b*y|) of the plain version, repeat launches "
-          "bitwise equal, over", len(cases), "cases:", ", ".join(label for label, _ in cases))
+        taken.append(f"{label}: {paths_delta(fma_sum, paths)}")
+    print("fma_sum: within 1e-12 of sum(|a*x| + |b*y|) of the plain version, one launch per call, "
+          "repeat launches bitwise equal, over", len(cases), "cases")
+    print("fma_sum paths: " + "; ".join(taken))
+    check(all(fma_sum.paths.values()), f"fma_sum: a path never taken: {fma_sum.paths}")
+    one_launch_per_call(torch, fma_sum, "fma_sum", [lambda ts=ts: fma_sum(*ts) for _, ts in cases])
 
     # timing at the main path's shape: distinct block views (256 MB of reads
     # in all, past the 50 MB L2)
-    views = [tuple(base[i * 100:(i + 1) * 100, j * 100:(j + 1) * 100, 0:100] for base in bases)
-             for i, j in itertools.product(range(4), range(2))]
+    views = main_path_views(bases)
     ms = time_ms(torch, fma_sum, views)
     plain_ms = time_ms(torch, fma_sum_plain, views)
     n = 100 * 100 * 100
     b, by = bound_ms(4 * 8 * n + 8, 3 * n)  # 4 inputs read, one float64 written; 2 mul + 1 add
     print(f"fma_sum (100,100,100) f64 views: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, "
           f"bound {b:.5f} ms ({by}); {smi_tag()}")
+    del bases
     return dict(
         name="fma_sum", route="cuda",
         source="cubed_tpu_torch/kernels/csrc/fma_sum.cu",
         replaces="cubed_tpu/kernels/reductions.py:257 (fused_fma_mean; pallas_call :300) at 0cd9f84^",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
     )
+
+
+def main_path_views(bases) -> list:
+    """Eight sets of four (100, 100, 100) block views of the four bases."""
+    return [tuple(base[i * 100:(i + 1) * 100, j * 100:(j + 1) * 100, 0:100] for base in bases)
+            for i, j in itertools.product(range(4), range(2))]
+
+
+def compare_against(torch, path: str) -> None:
+    """Time this checkout's fma_sum and region_sum beside another checkout's
+    (at *path*, built from its own sources) on the same inputs, in turns:
+    theirs, ours, ours, theirs."""
+    import importlib
+    import importlib.util
+
+    from cubed_tpu_torch.kernels import fma_sum as ours_fma, region_sum as ours_region
+
+    kdir = os.path.join(os.path.abspath(path), "cubed_tpu_torch", "kernels")
+    spec = importlib.util.spec_from_file_location(
+        "against_kernels", os.path.join(kdir, "__init__.py"), submodule_search_locations=[kdir])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["against_kernels"] = pkg
+    spec.loader.exec_module(pkg)
+    theirs_fma = importlib.import_module("against_kernels.fma_sum")
+    theirs_region = importlib.import_module("against_kernels.region_sum")
+    importlib.import_module("against_kernels._build").build_all()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bases = [torch.rand((499, 450, 400), generator=gen, device="cuda", dtype=torch.float64)
+             for _ in range(4)]
+    blocks = [(torch.rand((100, 100, 100), generator=gen, device="cuda", dtype=torch.float64),)
+              for _ in range(8)]
+    def region(m, axes):
+        return lambda x: m.region_sum(x, axes)
+
+    cases = [
+        ("fma_sum (100,100,100) f64 views", lambda m: m.fma_sum, (ours_fma, theirs_fma), main_path_views(bases)),
+        ("region_sum (100,100,100) f64 contiguous, all axes", lambda m: region(m, None),
+         (ours_region, theirs_region), blocks),
+    ] + [(f"region_sum {label}", lambda m, axes=axes: region(m, axes), (ours_region, theirs_region), args)
+         for label, args, axes, _ in region_timings(torch, gen, bases[0])]
+    for label, get, (ours, theirs), args in cases:
+        times = [time_ms(torch, get(m), args) for m in (theirs, ours, ours, theirs)]
+        print(f"against {path}: {label}: theirs {times[0]:.5f} / {times[3]:.5f} ms, "
+              f"ours {times[1]:.5f} / {times[2]:.5f} ms; {smi_tag()}")
 
 
 # ---------------------------------------------------------------------------
@@ -337,11 +573,14 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    paths = {k: dict(w.paths) for k, w in wrappers.items() if hasattr(w, "paths")}
     t0 = time.perf_counter()
     value = result.compute(executor=executor)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    paths = {k: {p: wrappers[k].paths[p] - n for p, n in before.items() if wrappers[k].paths[p] > n}
+             for k, before in paths.items()}
     peak = torch.cuda.max_memory_allocated()
     stored = stores_with_chunks(work)
     shutil.rmtree(work, ignore_errors=True)
@@ -352,7 +591,7 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     print(f"{label}: compute() {elapsed:.3f} s ({plan.num_tasks()} tasks, {plan.num_ops()} ops), "
           f"value {value!r}, numpy oracle {expected!r}, rel err {rel:.3e}; {smi_tag()}")
     print(f"{label}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B")
-    print(f"{label}: launches {json.dumps(launches)}")
+    print(f"{label}: launches {json.dumps(launches)}; paths {json.dumps(paths)}")
     check(np.isfinite(value), f"{label}: value is not finite")
     check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
     for kname, (lo, hi) in counts_required.items():
@@ -529,7 +768,13 @@ def breakdown_device(torch, name: str, build) -> None:
     print(f"{name} breakdown [cuda, op by op]: wall {wall:.3f} s; by op kind: {ops}")
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    against = None
+    if argv[:1] == ["--against"] and len(argv) == 2:
+        against = argv[1]
+    elif argv:
+        print("usage: chip_smoke.py [--against CHECKOUT]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError as e:
@@ -556,8 +801,11 @@ def main() -> int:
         t0 = time.perf_counter()
         _build.build_all()
         print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)})")
+        print_resource_usage()
 
         kernels = [check_philox(torch), check_region_sum(torch), check_fma_sum(torch)]
+        if against:
+            compare_against(torch, against)
 
         for name, build, oracle, required in [
             ("addsum", addsum_build, addsum_oracle, {
@@ -597,4 +845,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

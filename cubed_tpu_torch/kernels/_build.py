@@ -3,18 +3,29 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries land in ``kernels/_build/``, named by a hash of their
-source, so an edited source rebuilds and an unchanged one is reused.
-``build_all`` starts one nvcc per source at once and waits for all of them.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+rebuilds and an unchanged one is reused. ``build_all`` starts one nvcc per
+source at once and waits for all of them.
+
+Each build keeps ptxas's report (``-Xptxas -v``) beside its library;
+:func:`resource_usage` reads each kernel's registers and spills from it, and
+:func:`sass_opcodes` counts the instructions of a built kernel by opcode
+(``cuobjdump -sass``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -22,7 +33,7 @@ SOURCES = ("philox_uniform", "region_sum", "fma_sum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -50,9 +61,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _log_path(name: str) -> str:
+    return _lib_path(name)[: -len(".so")] + ".ptxas.txt"
 
 
 def _start_build(name: str):
@@ -75,6 +92,9 @@ def _finish_build(name: str, started) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    with open(f"{tmp}.txt", "w") as f:
+        f.write(out)
+    os.replace(f"{tmp}.txt", _log_path(name))
     os.replace(tmp, final)  # atomic: a concurrent builder sees all or nothing
 
 
@@ -108,7 +128,93 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_sm_counts: dict = {}
+_tickets: dict = {}
+#: ticket counters first allocated for a stream: a split launch uses fewer
+#: than ``_geometry.CTAS_PER_SM`` per SM (a larger need grows the buffer)
+_TICKETS = 1024
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of CUDA *device* (cached)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def tickets(device, n: int):
+    """The ticket counters of the current stream on CUDA *device*: an int32
+    tensor of at least *n* entries, all 0 between launches (the CTA that
+    draws a counter's last ticket sets it back to 0). Each stream has its
+    own, so launches on two streams never share a counter."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    with _lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < n:
+            with torch.cuda.device(device):
+                buf = _tickets[key] = torch.zeros(max(n, _TICKETS), dtype=torch.int32, device=device)
+        return buf
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def resource_usage(name: str) -> dict:
+    """Per kernel of library *name* (mangled name): registers a thread and
+    spill bytes, as ptxas reported them when the library was built."""
+    build_all()
+    usage: dict = {}
+    current = None
+    with open(_log_path(name)) as f:
+        for line in f:
+            m = _PTXAS_ENTRY.search(line)
+            if m:
+                current = usage.setdefault(m.group(1), {})
+                continue
+            if current is None:
+                continue
+            m = _PTXAS_SPILL.search(line)
+            if m:
+                current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = _PTXAS_REGS.search(line)
+            if m:
+                current["registers"] = int(m.group(1))
+    return usage
+
+
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes(name: str) -> dict:
+    """Per kernel of library *name* (mangled name): a Counter of its SASS
+    instructions by opcode with modifiers (``IMAD.WIDE.U32``), from
+    ``cuobjdump -sass`` beside the nvcc that built it."""
+    build_all()
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _lib_path(name)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    counts: dict = {}
+    current = None
+    for line in out.splitlines():
+        m = _SASS_FUNCTION.match(line)
+        if m:
+            current = counts.setdefault(m.group(1), collections.Counter())
+            continue
+        m = _SASS_INSTRUCTION.search(line)
+        if m and current is not None:
+            current[m.group(1)] += 1
+    return counts

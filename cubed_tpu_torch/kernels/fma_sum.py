@@ -7,11 +7,15 @@ pass over four streams. The device executor's fusion rule
 (``runtime/executors/cuda.py``) sends each block of that initial reduction
 here; the block's element count gives mean's ``n``.
 
-``csrc/fma_sum.cu`` reads each input through its own strides (block views of
-resident arrays are never copied), accumulates in float64, writes one partial
-per CTA and sums the partials in a second pass, with no atomics: results are
-bitwise reproducible. Products and their sum round as the plain version's do;
-only the order of summation differs.
+``csrc/fma_sum.cu`` reads each input in place through its own strides
+(block views of resident arrays are never copied), accumulates in float64
+and finishes in one launch: persistent CTAs take ranges of the flattened
+input, 16-byte loads where the layout allows them, and the CTA that draws
+the last ticket sums the per-CTA partials in index order. No atomic touches a
+value, so results are bitwise reproducible. Products and their sum round as
+the plain version's do; only the order of summation differs. The geometry
+(merged axes, vector or scalar path, CTAs, partials) is planned in pure
+Python by :func:`._geometry.plan`.
 
 Bound on the H100: the four inputs, read once (3.35 TB/s).
 
@@ -26,14 +30,10 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _geometry
 
 #: dtypes the kernel takes, with the code its C entry point expects
 DTYPES = {torch.float64: 0, torch.float32: 1}
-
-_THREADS = 256
-_SEG = 256  # elements of a row one warp takes per task (kSeg in the source)
-_MAX_PARTIALS = 1024
 
 
 def _check(a, x, b, y) -> None:
@@ -51,42 +51,51 @@ def _check(a, x, b, y) -> None:
         raise ValueError(f"fma_sum takes tensors of rank 4 or less, not {a.ndim}")
 
 
+def plan(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
+         sms: int = _geometry.SMS) -> _geometry.Plan:
+    """The kernel's geometry for these four tensors (see :mod:`._geometry`)."""
+    ts = (a, x, b, y)
+    return _geometry.plan(tuple(a.shape), [tuple(t.stride()) for t in ts],
+                          [t.data_ptr() for t in ts], a.element_size(), None, sms)
+
+
 def fma_sum(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``sum(a*x + b*y)`` as float64, with every axis kept at size 1. A CUDA
-    tensor goes to the kernel; a CPU tensor to the plain version."""
+    tensor goes to the kernel, in one launch; a CPU tensor to the plain
+    version."""
     _check(a, x, b, y)
     if a.device.type == "cpu":
         return fma_sum_plain(a, x, b, y)
     if a.device.type != "cuda":
         raise ValueError(f"fma_sum: unsupported device {a.device}")
+    p = plan(a, x, b, y, _build.sm_count(a.device))
     out = torch.empty((1,) * a.ndim, dtype=torch.float64, device=a.device)
-    if a.numel() == 0:
-        return out.zero_()
-    pad = 4 - a.ndim
-    shape = (1,) * pad + tuple(a.shape)
-    strides = []
-    for t in (a, x, b, y):
-        strides.extend((0,) * pad + tuple(t.stride()))
-    tasks = shape[0] * shape[1] * shape[2] * -(-shape[3] // _SEG)
-    P = max(1, min(_MAX_PARTIALS, -(-tasks // (_THREADS // 32))))
-    partials = torch.empty(P, dtype=torch.float64, device=a.device)
+    partials = torch.empty(max(1, p.partials), dtype=torch.float64, device=a.device)
+    counter = _build.tickets(a.device, p.tickets)
+    params = p.params()
     fn = _kernel()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = fn(
-            ctypes.c_int(DTYPES[a.dtype]),
+            ctypes.c_int(DTYPES[a.dtype]), ctypes.c_int(p.vector),
             *(ctypes.c_void_p(t.data_ptr()) for t in (a, x, b, y)),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(partials.data_ptr()),
-            (ctypes.c_longlong * 4)(*shape), (ctypes.c_longlong * 16)(*strides),
-            ctypes.c_int(P), ctypes.c_int(_THREADS), ctypes.c_void_p(stream),
+            ctypes.c_void_p(counter.data_ptr()), (ctypes.c_longlong * len(params))(*params),
+            ctypes.c_int(p.grid), ctypes.c_int(p.threads), ctypes.c_void_p(stream),
         )
     _build.check(err, "fma_sum")
     fma_sum.launches += 1
+    for key in p.paths:
+        fma_sum.paths[key] += 1
     return out
 
 
 #: launches of the CUDA kernel (the plain version does not count)
 fma_sum.launches = 0
+#: launches by path: "vector" (16-byte loads) or "scalar"; "one_cta" (one
+#: CTA writes the result) or "split" (partials combined by the last CTA);
+#: "rows" (always: every axis is reduced)
+fma_sum.paths = dict.fromkeys(("rows", "vector", "scalar", "one_cta", "split"), 0)
 
 
 @functools.cache
@@ -94,8 +103,8 @@ def _kernel():
     lib = _build.load("fma_sum")
     fn = lib.fma_sum
     fn.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int

@@ -3,11 +3,16 @@
 Replaces the JAX package's Pallas ``region_sum`` and ``block_sum``
 (``cubed_tpu/kernels/reductions.py:192`` and ``:84`` at commit 0cd9f84^),
 which served the tree reduction's sums: ``_mean_func``, ``_mean_combine`` and
-``_sum_with_dtype``. The wrapper moves the reduced axes last and views the
-input as a contiguous (rows, R) matrix; ``csrc/region_sum.cu`` then writes one
-partial per CTA and combines the partials of each row in a second pass. The
-grid depends only on (rows, R) and no atomics are used, so results are
-bitwise reproducible. float32 accumulates in float64; int64 sums exactly.
+``_sum_with_dtype``. ``csrc/region_sum.cu`` reads the input in place
+through its strides (axes merged where contiguous; never a permuted copy)
+and finishes in one launch, in the ``rows`` layout when the innermost axis
+is reduced or the ``columns`` layout when it is kept; 16-byte loads where
+the layout allows them; small inputs take one CTA and no partials, larger
+ones combine their partials in the CTA that draws the last ticket. Every
+order of summation follows from the shape alone and no atomic touches a
+value, so results are bitwise reproducible. float32 accumulates in float64;
+int64 sums exactly, wrapping as torch does. The geometry is planned in pure
+Python by :func:`._geometry.plan`.
 
 Bound on the H100: the input bytes, read once (3.35 TB/s).
 
@@ -23,15 +28,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from . import _build
+from . import _build, _geometry
 
 #: dtypes the kernel takes, with the code its C entry point expects
 DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2}
 _ACC = {torch.float64: torch.float64, torch.float32: torch.float64, torch.int64: torch.int64}
-
-#: elements each CTA of pass 1 sums (sets the number of partials per row)
-_SEGMENT = 2048
-_MAX_PARTIALS = 4096
+_LAYOUTS = {"rows": 0, "columns": 1}
 
 
 def _normalize_axes(ndim: int, axis) -> tuple[int, ...]:
@@ -42,9 +44,16 @@ def _normalize_axes(ndim: int, axis) -> tuple[int, ...]:
     return tuple(sorted({int(a) % ndim for a in axis})) if ndim else ()
 
 
+def plan(x: torch.Tensor, axis=None, sms: int = _geometry.SMS) -> _geometry.Plan:
+    """The kernel's geometry for summing *x* over *axis* (see :mod:`._geometry`)."""
+    return _geometry.plan(tuple(x.shape), [tuple(x.stride())], [x.data_ptr()],
+                          x.element_size(), _normalize_axes(x.ndim, axis), sms)
+
+
 def region_sum(x: torch.Tensor, axis=None, keepdims: bool = True) -> torch.Tensor:
-    """Sum *x* over *axis* (None = all). A CUDA tensor goes to the kernel; a
-    CPU tensor to the plain version."""
+    """Sum *x* over *axis* (None = all). A CUDA tensor goes to the kernel, in
+    one launch (none when the output is empty); a CPU tensor to the plain
+    version."""
     if x.dtype not in DTYPES:
         raise TypeError(f"region_sum takes float64, float32 or int64, not {x.dtype}")
     axes = _normalize_axes(x.ndim, axis)
@@ -52,42 +61,39 @@ def region_sum(x: torch.Tensor, axis=None, keepdims: bool = True) -> torch.Tenso
         return region_sum_plain(x, axes, keepdims)
     if x.device.type != "cuda":
         raise ValueError(f"region_sum: unsupported device {x.device}")
-    kept = [d for d in range(x.ndim) if d not in axes]
     keep_shape = tuple(1 if d in axes else x.shape[d] for d in range(x.ndim))
-    rows = 1
-    for d in kept:
-        rows *= x.shape[d]
-    R = x.numel() // rows if rows else 0
     out = torch.empty(keep_shape, dtype=x.dtype, device=x.device)
-    if rows == 0:
-        return out if keepdims else out.reshape([x.shape[d] for d in kept])
-    if R == 0:
-        out.zero_()
-        return out if keepdims else out.reshape([x.shape[d] for d in kept])
-    # reduced axes last: a (rows, R) row-major matrix (a copy unless they
-    # already are the trailing axes)
-    xm = x.permute(*kept, *axes).contiguous()
-    P = max(1, min(_MAX_PARTIALS, -(-R // _SEGMENT)))
-    if rows * P >= 2**31:
-        raise ValueError(f"region_sum: grid of {rows * P} CTAs is too large")
-    threads = 256 if R >= 2048 else max(32, min(256, -(-R // 32) * 32))
-    partials = torch.empty(rows * P, dtype=_ACC[x.dtype], device=x.device)
+    if not keepdims:
+        out = out.reshape([x.shape[d] for d in range(x.ndim) if d not in axes])
+    p = plan(x, axes, _build.sm_count(x.device))
+    if p.grid == 0:
+        return out
+    partials = torch.empty(max(1, p.partials), dtype=_ACC[x.dtype], device=x.device)
+    counters = _build.tickets(x.device, p.tickets)
+    params = p.params()
     fn = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(
-            ctypes.c_int(DTYPES[x.dtype]), ctypes.c_void_p(xm.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(partials.data_ptr()),
-            ctypes.c_longlong(rows), ctypes.c_longlong(R), ctypes.c_int(P),
-            ctypes.c_int(threads), ctypes.c_void_p(stream),
+            ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(_LAYOUTS[p.layout]), ctypes.c_int(p.vector),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(counters.data_ptr()),
+            (ctypes.c_longlong * len(params))(*params), ctypes.c_int(p.grid),
+            ctypes.c_int(p.threads), ctypes.c_void_p(stream),
         )
     _build.check(err, "region_sum")
     region_sum.launches += 1
-    return out if keepdims else out.reshape([x.shape[d] for d in kept])
+    for key in p.paths:
+        region_sum.paths[key] += 1
+    return out
 
 
 #: launches of the CUDA kernel (the plain version does not count)
 region_sum.launches = 0
+#: launches by path: "rows" or "columns" (layout), "vector" (16-byte loads) or
+#: "scalar", "one_cta" (each output summed by one CTA) or "split" (partials
+#: combined by the last CTA)
+region_sum.paths = dict.fromkeys(("rows", "columns", "vector", "scalar", "one_cta", "split"), 0)
 
 
 @functools.cache
@@ -95,9 +101,9 @@ def _kernel():
     lib = _build.load("region_sum")
     fn = lib.region_sum
     fn.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn

@@ -118,3 +118,128 @@ def test_vorticity_on_device_executor_matches_sequential(cuda, tmp_path):
     assert fma_sum.launches == before + 100
     assert ex.stats["eager_fallbacks"] == 0
     np.testing.assert_allclose(got, run(None), rtol=1e-12)
+
+
+# the reduction kernels on the cases their geometry is planned for (see
+# tests/test_torch_kernel_geometry.py): views of a (499, 450, 400) array as
+# the device executor passes them, contiguous blocks, combine-sized inputs,
+# sizes 0 and 1
+
+
+@pytest.fixture(scope="module")
+def bases():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f64 = torch.rand((499, 450, 400), generator=g, device="cuda", dtype=torch.float64) * 100 - 50
+    return {
+        "float64": f64,
+        "float32": f64.to(torch.float32),
+        "int64": torch.randint(-(10**12), 10**12, (499, 450, 400), generator=g, device="cuda"),
+    }
+
+
+# name: (input from the base of its dtype, reduced axes)
+REGION_CASES = {
+    "main-path-view": (lambda b: b[100:200, 200:300, 0:100], None),
+    "main-path-view-misaligned": (lambda b: b[100:200, 200:300, 1:101], None),
+    "ragged-view": (lambda b: b[400:499, 400:450, 300:400], None),
+    "contiguous-block": (lambda b: b[:100, :100, :100].contiguous(), None),
+    "strided-view-axis0": (lambda b: b[100:200, 200:300, 0:100], (0,)),
+    "strided-view-axes12": (lambda b: b[100:200, 200:300, 0:100], (1, 2)),
+    "combine-sized": (lambda b: b[:5, :5, :4].contiguous(), None),
+    "combine-axis0": (lambda b: b[:5, :5, :4].contiguous(), (0,)),
+    "size0": (lambda b: b[:0, :5, 0], None),
+    "size0-kept": (lambda b: b[:3, :0, 0], (1,)),
+    "size1": (lambda b: b[:1, 0, 0], None),
+    "rows-axis1": (lambda b: b[:50, :100, :100].reshape(500, 1000), (1,)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64"])
+@pytest.mark.parametrize("case", sorted(REGION_CASES))
+def test_region_sum_kernel_cases(bases, case, dtype):
+    import torch
+
+    from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
+
+    make, axes = REGION_CASES[case]
+    x = make(bases[dtype])
+    before = region_sum.launches
+    got = region_sum(x, axes)
+    assert region_sum.launches == before + (1 if got.numel() else 0)
+    assert torch.equal(got, region_sum(x, axes))
+    plain = region_sum_plain(x, axes)
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    if dtype == "int64":
+        assert torch.equal(got, plain)
+    else:
+        scale = region_sum_plain(x.double().abs(), axes)
+        rtol = 1e-12 if dtype == "float64" else 1e-6
+        assert bool(((got.double() - plain.double()).abs() <= rtol * scale).all())
+
+
+def test_region_sum_takes_every_path(bases):
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+
+    before = dict(region_sum.paths)
+    for case in sorted(REGION_CASES):
+        make, axes = REGION_CASES[case]
+        region_sum(make(bases["float64"]), axes)
+    taken = {k: region_sum.paths[k] - before[k] for k in before}
+    assert all(taken.values()), taken
+
+
+def test_region_sum_axis0_of_a_strided_view_allocates_no_input_sized_buffer(bases):
+    import torch
+
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+
+    x = bases["float64"][100:200, 200:300, 0:100]
+    region_sum(x, (0,))  # first use: the stream's ticket counters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    region_sum(x, (0,))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - start < x.numel() * x.element_size() // 4
+
+
+# name: the four inputs, from the base of their dtype
+FMA_CASES = {
+    "main-path-view": lambda b: [b[100 * k:100 * k + 100, 200:300, 0:100] for k in range(4)],
+    "ragged-view": lambda b: [b[100 * k + 99:100 * k + 198, 400:450, 300:400] for k in range(4)],
+    "misaligned-view": lambda b: [b[100 * k:100 * k + 100, 200:300, 1:101] for k in range(4)],
+    "contiguous-block": lambda b: [b[100 * k:100 * k + 100, :100, :100].contiguous() for k in range(4)],
+    "combine-sized": lambda b: [b[k, :5, :4].contiguous() for k in range(4)],
+    "size0": lambda b: [b[:0, :5, 0]] * 4,
+    "size1": lambda b: [b[k:k + 1, 0, 0] for k in range(4)],
+}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", sorted(FMA_CASES))
+def test_fma_sum_kernel_cases(bases, case, dtype):
+    import torch
+
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+
+    a, x, b, y = FMA_CASES[case](bases[dtype])
+    before = fma_sum.launches
+    got = fma_sum(a, x, b, y)
+    assert fma_sum.launches == before + 1
+    assert torch.equal(got, fma_sum(a, x, b, y))
+    scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
+    assert float((got - fma_sum_plain(a, x, b, y)).abs().max()) <= 1e-12 * scale
+
+
+def test_fma_sum_takes_every_path(bases):
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum
+
+    before = dict(fma_sum.paths)
+    for case in sorted(FMA_CASES):
+        fma_sum(*FMA_CASES[case](bases["float64"]))
+    taken = {k: fma_sum.paths[k] - before[k] for k in before}
+    assert all(taken.values()), taken
