@@ -3,31 +3,47 @@
 
     python3 chip_smoke.py [--against CHECKOUT]
 
+(``--profile-device-run`` is phase 5's own call of this script.)
+
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
 2. build every hand-written CUDA kernel from the sources in this checkout
-   (one nvcc per source, all at once), print the build seconds and each
-   kernel's registers and spills (ptxas -v);
+   (one nvcc per source, all at once, with chip_smoke's own
+   ``chip_smoke_csrc/philox_rounds.cu``: Philox's rounds alone, for
+   measurement only), print the build seconds and each kernel's registers
+   and spills (ptxas -v);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time both (CUDA events):
-   philox_uniform bit for bit (and against numpy's Philox stream), its
-   bound the larger of its bytes and its integer issue, counted from its
-   SASS; region_sum within 1e-12 (float64) / 1e-6 (float32) of the sum of
-   magnitudes, int64 exactly, fma_sum within 1e-12 of the sum of the terms'
-   magnitudes (contiguous blocks, block views of a (499, 450, 400) array as
-   the device executor passes them, misaligned and ragged views, reduced
-   axes (0,) and (1, 2), combine-sized inputs, float32, sizes 1, 7 and 0);
-   one launch per call and two launches on one input bitwise equal; every
-   path of both (rows/columns, vector/scalar, one CTA/split) taken and
-   printed per case; one kernel per call and no other kernel, counted by
-   name under torch.profiler; region_sum's axis (0,) of a block view
-   allocating no input-sized buffer; torch.sum is timed beside region_sum
-   (also at a combine-sized input, at (5000, 5000) over axis (1,) and over
-   axis (0,) of block views; no single torch call computes fma_sum's
-   function). With ``--against CHECKOUT``, the fma_sum and region_sum of
-   another checkout of this repo are built from its sources and timed
-   beside these on the same inputs, in turns (theirs, ours, ours, theirs);
+   philox_uniform bit for bit against numpy's Philox stream and the plain
+   version, both its kernels: the per-block one, and the batched one on
+   all 100 blocks of a (500, 450, 400) / 100 array and on ragged, odd-width,
+   1-D, 4-D and size-0 grids (one launch per call, repeat launches bitwise
+   equal, one kernel per call under torch.profiler); the batched launch is
+   timed beside the per-block route on the same output (100 per-block
+   launches and their copies into the assembled array), and the per-block
+   kernel beside the batched kernel on a grid of one block, in turns, by
+   device and host time; Philox's bound is the larger of its bytes and its
+   integer issue at the fewest slots per counter that any build of its
+   rounds shows in its SASS (the per-block kernel, the rounds alone), and
+   the rounds alone (nothing stored) are timed beside their issue floors
+   with IMAD.WIDE at two and at one FMA-pipe slot; region_sum within 1e-12
+   (float64) / 1e-6 (float32) of the sum of magnitudes, int64 exactly,
+   fma_sum within 1e-12 of the sum of the terms' magnitudes (contiguous
+   blocks, block views of a (499, 450, 400) array as the device executor
+   passes them, misaligned and ragged views, reduced axes (0,) and (1, 2),
+   combine-sized inputs, float32, sizes 1, 7 and 0); one launch per call
+   and two launches on one input bitwise equal; every path of both
+   (rows/columns, vector/scalar, one CTA/split) taken and printed per case;
+   one kernel per call and no other kernel, counted by name under
+   torch.profiler; region_sum's axis (0,) of a block view allocating no
+   input-sized buffer; torch.sum is timed beside region_sum (also at a
+   combine-sized input, at (5000, 5000) over axis (1,) and over axis (0,)
+   of block views; no single torch call computes fma_sum's or
+   philox_uniform's function). With ``--against CHECKOUT``, the fma_sum and
+   region_sum of another checkout of this repo are built from its sources
+   and timed beside these on the same inputs, in turns (theirs, ours, ours,
+   theirs);
 4. drive the main path through the public entry points, on the default
    sequential executor and on the device executor (``CudaExecutor``):
    addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
@@ -35,15 +51,26 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    checked against a numpy oracle that draws the same per-block Philox
    streams itself (rtol 1e-12). Kernel launch counts are zeroed just before
    and read just after each run, with the paths each kernel took;
-   vorticity must launch philox_uniform
-   exactly 400 times on both executors, region_sum at least 100 times on the
-   sequential one, and fma_sum exactly 100 times on the device executor,
-   which must also take no fallback, stay under its residency budget and
-   leave chunk files for the output alone;
+   vorticity must launch philox_uniform exactly 400 times (per block) on
+   the sequential executor and exactly 4 times (batched, one per array,
+   ``batched_ops`` 4) on the device executor, region_sum at least 100 times
+   on the sequential one, and fma_sum exactly 100 times on the device
+   executor, which must also take no fallback, stay under its residency
+   budget and leave chunk files for the output alone; addsum's random ops,
+   fused into their consumer, stay per block (50 launches, no batched op);
 5. run vorticity's plan once more on each executor under torch.profiler:
-   the sequential one op by op, timing each op kind, the device executor
-   whole, with its ops' host times from its callbacks; both with the
-   device's busy time and idle share.
+   the device executor whole, then op by op on the host clock, and then
+   the sequential one op by op, timing each op kind; both with the
+   device's busy time and idle share. Every profiling session opens with a
+   sentinel kernel that is not counted: the profiler can drop a session's
+   first kernel record. The device executor's profiled run is made in a
+   process of its own (``--profile-device-run``; in a process that had
+   already profiled and run many kernels the profiler lost one Philox
+   record of four), and its reading is used only when it recorded every
+   launch the wrappers counted (up to three tries); its copy kernels and
+   float64 fill kernels must then be at least 390 fewer each than the 399
+   and 398 that the random ops made when they ran block by block (their
+   block copies and template fills).
 
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
@@ -52,6 +79,7 @@ stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import os
@@ -84,21 +112,23 @@ H100_SMS = 132
 H100_MAX_SM_CLOCK_HZ = 1.98e9
 INT_ISSUE_PER_S = INT_LANES_PER_CLOCK_PER_SM * H100_SMS * H100_MAX_SM_CLOCK_HZ
 
-#: philox_uniform_kernel's integer issue slots per counter, per pipe, counted
-#: from ``cuobjdump -sass`` of its sm_90a build (nvcc 12.9; the ten rounds are
-#: unrolled and each thread takes one counter, so the kernel's instructions
-#: are one counter's). FMA pipe: 73 IMAD.WIDE.U32[.X] at two slots each (a
-#: 64-bit result) + 21 IMAD.X + 10 IMAD.MOV.U32 + 1 IMAD.SHL.U32 = 178. ALU
-#: pipe: 39 LOP3 + 41 IADD3[.X] + 9 SHF + 8 ISETP + 9 MOV + 2 LEA = 108.
-#: Uniform-datapath instructions (once a warp) are not counted. Each run
-#: counts them again from its own build (:func:`int_pipe_slots`).
-PHILOX_FMA_PIPE_SLOTS = 178
-PHILOX_ALU_PIPE_SLOTS = 108
+#: Philox's integer issue slots per counter are counted every run from the
+#: SASS (``cuobjdump -sass``) of each build of its rounds (:func:`philox_sass`):
+#: on sm_90a with nvcc 12.9 the per-block kernel (one counter a thread) took
+#: 178 FMA-pipe slots (73 IMAD.WIDE.U32[.X] at two slots each, a 64-bit
+#: result, + 21 IMAD.X + 10 IMAD.MOV.U32 + 1 IMAD.SHL.U32) and 108 ALU-pipe
+#: slots (LOP3, IADD3[.X], SHF, ISETP, MOV, LEA); the rounds alone
+#: (chip_smoke_csrc/philox_rounds.cu, four counters a thread) 164 and 91 a
+#: counter. Uniform-datapath instructions (once a warp) are not counted.
 _ALU_OPCODES = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT", "MOV")
 
 #: GPU clock cycles the spin kernel holds the stream before a timed run
 #: (about 50 ms at the H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 100_000_000
+
+#: counters a thread of the batched Philox kernel takes per work item
+#: (kCounters in csrc/philox_uniform.cu)
+PHILOX_COUNTERS = 4
 
 ADDSUM = dict(shape=(5000, 5000), chunks=1000)
 VORTICITY = dict(shape=(500, 450, 400), chunks=100)
@@ -150,6 +180,20 @@ def time_ms(torch, fn, args_list, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(torch, fn, args_list, reps: int = 200) -> float:
+    """Mean microseconds of host time per call of ``fn(*args)``, enqueued
+    back to back with no spin kernel ahead (the host's launch rate), after
+    a warm-up."""
+    for args in args_list:
+        fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(reps):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -168,18 +212,33 @@ def int_pipe_slots(opcodes: dict) -> tuple[int, int]:
     return fma, alu
 
 
+#: GPU clock cycles of the sentinel kernel that opens every profiling
+#: session: in a process that has already run many kernels, torch.profiler
+#: drops the first kernel record of a session, and the sentinel's record is
+#: the one to lose (it is never counted)
+SENTINEL_CYCLES = 1000
+SENTINEL_KERNEL = "spin_kernel"
+
+#: profiled runs of the device executor tried before phase 5 gives up on a
+#: reading that records every counted launch
+PROFILE_ATTEMPTS = 3
+#: a piece of the device kernel names of each wrapper
+KERNEL_RECORDS = {"philox_uniform": "philox_", "region_sum": "region_sum_", "fma_sum": "fma_sum_kernel"}
+
+
 def kernel_launches_by_name(torch, fn) -> dict:
     """Device kernels launched while *fn* runs, by name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SENTINEL_CYCLES)
         fn()
         torch.cuda.synchronize()
     counts: dict = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if t > 0 and not e.key.startswith(("Memcpy", "Memset")):
+        if t > 0 and not e.key.startswith(("Memcpy", "Memset")) and SENTINEL_KERNEL not in e.key:
             counts[e.key] = counts.get(e.key, 0) + e.count
     return counts
 
@@ -199,13 +258,100 @@ def print_resource_usage() -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_philox(torch) -> dict:
+#: the Philox kernels by a piece of their mangled names
+PHILOX_KERNELS = {"philox_uniform_kernel": "block", "philox_blocks_kernel": "batched",
+                  "philox_rounds_kernel": "rounds"}
+PHILOX_KERNEL_NAMES = {v: k for k, v in PHILOX_KERNELS.items()}
+
+#: chip_smoke's own CUDA source: Philox's rounds alone, built beside the
+#: package's kernels (not part of the package)
+ROUNDS_SOURCE = os.path.join(REPO, "chip_smoke_csrc", "philox_rounds.cu")
+
+
+def start_rounds_build():
+    """Start nvcc for :data:`ROUNDS_SOURCE`, with the package's flags and its
+    ``philox.cuh``; returns (process, library path)."""
+    from cubed_tpu_torch.kernels import _build
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    lib = os.path.join(WORK_DIR, "libphilox_rounds.so")
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-o", lib, ROUNDS_SOURCE]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def finish_rounds_build(started) -> str:
+    proc, lib = started
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"nvcc failed for {ROUNDS_SOURCE}:\n{out}")
+    regs = [line.strip() for line in out.splitlines() if "registers" in line]
+    print(f"ptxas philox_rounds (chip_smoke_csrc): {'; '.join(regs)}")
+    return lib
+
+
+def philox_sass(rounds_lib: str) -> dict:
+    """SASS opcode counts of each Philox kernel: "block" (per block),
+    "batched" and "rounds" (the rounds alone, from *rounds_lib*)."""
+    from cubed_tpu_torch.kernels import _build
+
+    short = {}
+    found = {**_build.sass_opcodes("philox_uniform"), **_build.library_sass_opcodes(rounds_lib)}
+    for fn, counts in found.items():
+        for piece, name in PHILOX_KERNELS.items():
+            if piece in fn:
+                short[name] = counts
+    check(set(short) == set(PHILOX_KERNEL_NAMES), f"Philox SASS: found {sorted(short)} of {sorted(PHILOX_KERNEL_NAMES)}")
+    return short
+
+
+def issue_floors_ms(opcodes: dict, counters: int, per_thread: int) -> tuple[float, float]:
+    """Least time for *counters* counters of a kernel whose SASS gives
+    *opcodes* for *per_thread* counters a thread, at the full issue rate of
+    its busiest integer pipe: (IMAD.WIDE and IMAD.HI at two FMA-pipe slots,
+    at one slot). The one-slot floor is also held to the dispatch rate of
+    one warp instruction per clock per SM sub-partition (128 lanes per clock
+    per SM)."""
+    fma2, alu = int_pipe_slots(opcodes)
+    fma1 = sum(n for op, n in opcodes.items() if op.startswith("IMAD"))
+    instr = sum(opcodes.values())
+    two = max(fma2, alu) / per_thread * counters / INT_ISSUE_PER_S * 1e3
+    one = max(fma1, alu, instr / 2) / per_thread * counters / INT_ISSUE_PER_S * 1e3
+    return two, one
+
+
+#: the batched Philox kernel's cases beside the main path's array: ragged
+#: edges, a last extent not a multiple of 4, 1-D, size 0, full blocks on
+#: 16-byte stores beside a scalar edge, 4-D
+PHILOX_BLOCK_CASES = [
+    ((500, 450, 400), (100, 100, 100)),
+    ((13, 11), (4, 5)),
+    ((7,), (3,)),
+    ((0, 5), (2, 2)),
+    ((8, 14), (4, 8)),
+    ((50, 45, 40), (10, 10, 20)),
+    ((2, 3, 4, 5), (1, 2, 3, 4)),
+]
+
+
+def numpy_blocks(shape, chunks, seeds) -> np.ndarray:
+    """numpy's own per-block streams, assembled: block k (C order of the
+    block grid) draws from Philox(seed=seeds[k])."""
+    out = np.empty(shape, dtype=np.float64)
+    grids = [range(0, s, c) if s else range(1) for s, c in zip(shape, chunks)]
+    for k, idx in enumerate(np.ndindex(*[len(g) for g in grids])):
+        sel = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
+        out[sel] = np.random.Generator(np.random.Philox(seed=int(seeds[k]))).random(out[sel].shape)
+    return out
+
+
+def check_philox(torch, rounds_lib: str) -> dict:
+    from cubed_tpu_torch.kernels import _build
     from cubed_tpu_torch.kernels.philox_uniform import (
-        philox_key, philox_uniform, philox_uniform_plain,
+        _occupancy, blocks_plan, philox_key, philox_keys, philox_uniform, philox_uniform_blocks,
+        philox_uniform_blocks_plain, philox_uniform_plain,
     )
 
     dev = torch.device("cuda")
-    max_err = 0.0
+    # the per-block kernel (sequential executor, fused random ops)
     for shape in [(100, 100, 100), (99, 100, 100), (1000, 1000), (7,)]:
         for seed in [0, 1, 123456789, 2**30 - 1 + 99]:
             key = philox_key(seed)
@@ -217,32 +363,142 @@ def check_philox(torch) -> dict:
             check(np.array_equal(got.view(np.uint64), ref.view(np.uint64)),
                   f"philox_uniform {shape} seed {seed} differs from numpy")
             check(torch.equal(out, plain), f"philox_uniform {shape} seed {seed} differs from plain")
-            max_err = max(max_err, float((out - plain).abs().max()))
-    print("philox_uniform: bit-exact against numpy and the plain version, "
+    print("philox_uniform (per block): bit-exact against numpy and the plain version, "
           "shapes (100,100,100) (99,100,100) (1000,1000) (7,), 4 seeds each")
 
-    shape = (100, 100, 100)  # one block of the main path
-    n = int(np.prod(shape))
-    outs = [(torch.empty(shape, dtype=torch.float64, device=dev), philox_key(s)) for s in range(8)]
-    ms = time_ms(torch, philox_uniform, outs)
-    plain_ms = time_ms(torch, lambda k: philox_uniform_plain(n, k, device=dev), [(philox_key(1),)], reps=5)
-    counters = -(-n // 4)
-    fma, alu = PHILOX_FMA_PIPE_SLOTS, PHILOX_ALU_PIPE_SLOTS
-    try:
-        from cubed_tpu_torch.kernels import _build
+    # the batched kernel: every block of an op, in place, in one launch
+    max_err = 0.0
+    taken = []
+    for shape, chunks in PHILOX_BLOCK_CASES:
+        nblocks = int(np.prod([-(-s // c) if s else 1 for s, c in zip(shape, chunks)]))
+        seeds = 2**30 - 3 + np.arange(nblocks, dtype=np.int64)  # across 2**30, as root + offset can be
+        keys = philox_keys(seeds)
+        before, paths = philox_uniform.launches, dict(philox_uniform.paths)
+        got = philox_uniform_blocks(torch.empty(shape, dtype=torch.float64, device=dev), chunks, keys)
+        launched = philox_uniform.launches - before
+        again = philox_uniform_blocks(torch.empty(shape, dtype=torch.float64, device=dev), chunks, keys)
+        plain = philox_uniform_blocks_plain(shape, chunks, keys, device=dev)
+        torch.cuda.synchronize()
+        what = f"philox_uniform_blocks {shape} / {chunks}"
+        check(launched == (1 if got.numel() else 0), f"{what}: {launched} launches for one call")
+        check(torch.equal(got, again), f"{what}: two launches on the same keys differ")
+        check(torch.equal(got, plain), f"{what}: differs from the plain version")
+        ref = numpy_blocks(shape, chunks, seeds)
+        check(np.array_equal(got.cpu().numpy().view(np.uint64), ref.view(np.uint64)),
+              f"{what}: differs from numpy's per-block streams")
+        if got.numel():
+            max_err = max(max_err, float((got - plain).abs().max()))
+        taken.append(f"{shape}/{chunks}: {paths_delta(philox_uniform, paths) or 'no launch'}")
+        del got, again, plain
+    print(f"philox_uniform_blocks: bit-exact against numpy's per-block streams (all "
+          f"{5 * 5 * 4} blocks of (500,450,400)/100) and the plain version, one launch per call, "
+          f"repeat launches bitwise equal, over {len(PHILOX_BLOCK_CASES)} cases")
+    print("philox_uniform_blocks paths: " + "; ".join(taken))
+    small = [(torch.empty(s, dtype=torch.float64, device=dev), c,
+              philox_keys(np.arange(int(np.prod([-(-n // k) for n, k in zip(s, c)])))))
+             for s, c in PHILOX_BLOCK_CASES[1:] if int(np.prod(s))]
+    one_launch_per_call(torch, philox_uniform, "philox_blocks_kernel",
+                        [lambda a=a: philox_uniform_blocks(*a) for a in small])
 
-        (opcodes,) = [c for f, c in _build.sass_opcodes("philox_uniform").items() if "philox" in f]
-        fma, alu = int_pipe_slots(opcodes)
-        print(f"philox_uniform SASS: {sum(opcodes.values())} instructions; integer issue slots per "
-              f"counter: FMA pipe {fma}, ALU pipe {alu} (constants: {PHILOX_FMA_PIPE_SLOTS}, "
-              f"{PHILOX_ALU_PIPE_SLOTS})")
-    except (OSError, subprocess.SubprocessError, ValueError) as e:
-        print(f"philox_uniform SASS not counted in this run ({e!r}); the constants stand")
-    # 8 B written per element; the busier integer pipe's slots for every counter
-    b, by = bound_ms(8 * n, max(fma, alu) * counters, INT_ISSUE_PER_S)
-    print(f"philox_uniform {shape} f64: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by}: "
-          f"bytes {8 * n / HBM_BYTES_PER_S * 1e3:.5f} ms, integer issue "
-          f"{max(fma, alu) * counters / INT_ISSUE_PER_S * 1e3:.5f} ms); {smi_tag()}")
+    # integer issue slots per counter, from this run's builds; the bound takes
+    # the fewest that any build of the rounds shows
+    sass = philox_sass(rounds_lib)
+    per_counter = {}
+    for name, per_thread in (("block", 1), ("rounds", PHILOX_COUNTERS)):
+        fma, alu = int_pipe_slots(sass[name])
+        per_counter[name] = max(fma, alu) / per_thread
+        print(f"{PHILOX_KERNEL_NAMES[name]} SASS: {sum(sass[name].values())} instructions for {per_thread} "
+              f"counter(s) a thread; integer issue slots per counter: FMA pipe {fma / per_thread:.2f}, ALU pipe "
+              f"{alu / per_thread:.2f}")
+    fma, alu = int_pipe_slots(sass["batched"])
+    print(f"philox_blocks_kernel SASS (static: both store paths and the per-item set-up, {PHILOX_COUNTERS} "
+          f"counters a thread): {sum(sass['batched'].values())} instructions; FMA pipe {fma / PHILOX_COUNTERS:.2f} "
+          f"a counter, ALU pipe {alu / PHILOX_COUNTERS:.2f}")
+    slots = min(per_counter.values())
+    print(f"philox integer issue per counter for the bound: {slots:.2f} slots (the fewest of "
+          f"{json.dumps(per_counter)})")
+
+    # timing: one block, the per-block kernel beside the batched kernel on a
+    # grid of one block, in turns: whether the per-block kernel could go
+    for shape in [(100, 100, 100), (1000, 1000)]:
+        n = int(np.prod(shape))
+        outs = [(torch.empty(shape, dtype=torch.float64, device=dev), philox_key(s)) for s in range(8)]
+
+        def one_block(out, key):
+            return philox_uniform_blocks(out, out.shape, np.array([key], dtype=np.uint64))
+
+        check(torch.equal(philox_uniform(*outs[0]).clone(), one_block(*outs[0])),
+              f"philox_uniform {shape}: the batched kernel on one block differs from the per-block kernel")
+        fns = [philox_uniform, one_block, one_block, philox_uniform]
+        dev_ms = [time_ms(torch, f, outs) for f in fns]
+        host = [host_us(torch, f, outs) for f in fns]
+        b, by = bound_ms(8 * n, slots * -(-n // 4), INT_ISSUE_PER_S)
+        print(f"philox_uniform {shape} f64, one block: per-block kernel {dev_ms[0]:.5f} / {dev_ms[3]:.5f} ms/launch "
+              f"({host[0]:.2f} / {host[3]:.2f} us of host time a call); batched kernel on a grid of one block "
+              f"{dev_ms[1]:.5f} / {dev_ms[2]:.5f} ms/launch ({host[1]:.2f} / {host[2]:.2f} us); bound {b:.5f} ms "
+              f"({by}); {smi_tag()}")
+        if shape == (100, 100, 100):
+            block_ms = (dev_ms[0] + dev_ms[3]) / 2
+            block_plain_ms = time_ms(torch, lambda k: philox_uniform_plain(n, k, device=dev), [(philox_key(1),)],
+                                     reps=5)
+            print(f"philox_uniform {shape} f64 (per block): {block_ms:.5f} ms/launch, plain {block_plain_ms:.5f} ms, "
+                  f"bound {b:.5f} ms ({by}); {smi_tag()}")
+        del outs
+
+    # timing: one random array of the main path, batched, beside the per-block route
+    # (a per-block launch and a copy into the assembled array, per block)
+    shape, chunks = VORTICITY["shape"], (VORTICITY["chunks"],) * 3
+    n = int(np.prod(shape))
+    seeds = 2**29 + np.arange(100, dtype=np.int64)
+    keys = philox_keys(seeds)
+    arrays = [torch.empty(shape, dtype=torch.float64, device=dev) for _ in range(2)]
+    ms = time_ms(torch, lambda out: philox_uniform_blocks(out, chunks, keys), [(a,) for a in arrays])
+    ctas_per_sm = _occupancy(dev)
+    p = blocks_plan(arrays[0], chunks, _build.sm_count(dev), ctas_per_sm)
+    block_keys = [tuple(int(v) for v in k) for k in keys]
+    sels = [tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
+            for idx in np.ndindex(5, 5, 4)]
+
+    def per_block_route(out):
+        for sel, key in zip(sels, block_keys):
+            out[sel] = philox_uniform(
+                torch.empty(tuple(x.stop - x.start for x in sel), dtype=torch.float64, device=dev), key)
+
+    route_ms = time_ms(torch, per_block_route, [(a,) for a in arrays], reps=5)
+    plain_ms = time_ms(torch, lambda: philox_uniform_blocks_plain(shape, chunks, keys, device=dev), [()], reps=1)
+    block_counters = [-(-int(np.prod([x.stop - x.start for x in sel])) // 4) for sel in sels]
+    counters = sum(block_counters)
+
+    # the rounds alone (chip_smoke_csrc/philox_rounds.cu), on the same work
+    # items, beside their issue floors: whether IMAD.WIDE takes two
+    # FMA-pipe slots (the bound's model) or one
+    rounds = ctypes.CDLL(rounds_lib).philox_rounds_f64
+    rounds.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    rounds.restype = ctypes.c_int
+    keys_dev = torch.from_numpy(keys.view(np.int64)).to(dev)
+    counters_dev = torch.tensor(block_counters, dtype=torch.int32, device=dev)
+
+    check(p.per_block[1] != 0, "philox_rounds takes more than one work item a block")
+
+    def rounds_only(out):
+        err = rounds(out.data_ptr(), keys_dev.data_ptr(), counters_dev.data_ptr(), *p.per_block, p.items, p.grid,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "philox_rounds")
+
+    rounds_ms = time_ms(torch, rounds_only, [(a,) for a in arrays])
+    two, one = issue_floors_ms(sass["rounds"], counters, PHILOX_COUNTERS)
+    print(f"philox_rounds_kernel, rounds only ({counters} counters, nothing stored): {rounds_ms:.5f} ms; "
+          f"its issue floor with IMAD.WIDE at two FMA-pipe slots {two:.5f} ms ({100 * two / rounds_ms:.1f}%), "
+          f"at one slot {one:.5f} ms ({100 * one / rounds_ms:.1f}%); {smi_tag()}")
+    b, by = bound_ms(8 * n, slots * counters, INT_ISSUE_PER_S)
+    print(f"philox_uniform_blocks {shape}/{chunks[0]} f64 ({p.grid} CTAs of {p.items} work items, "
+          f"{ctas_per_sm} CTAs/SM): {ms:.5f} ms/launch ({100 * b / ms:.1f}% of bound); the per-block route "
+          f"(100 per-block launches + copies) {route_ms:.5f} ms; plain {plain_ms:.5f} ms; bound {b:.5f} ms "
+          f"({by}: bytes {8 * n / HBM_BYTES_PER_S * 1e3:.5f} ms, integer issue "
+          f"{slots * counters / INT_ISSUE_PER_S * 1e3:.5f} ms for {counters} counters at "
+          f"{slots:.2f} slots); {smi_tag()}")
+    del arrays
     return dict(
         name="philox_uniform", route="cuda",
         source="cubed_tpu_torch/kernels/csrc/philox_uniform.cu",
@@ -555,8 +811,10 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
                   counts_required: dict) -> dict:
     """Compute one configuration on one executor ("sequential" or "cuda"),
     check it against the oracle's *expected* value and the kernel launch
-    counts; for the device executor also its fallback counters, its peak
-    memory against its budget, and that only the output reached storage."""
+    counts (a key ``kernel:path`` bounds the launches of one path, ``stats:
+    counter`` one of the device executor's counters); for the device
+    executor also its fallback counters, its peak memory against its budget,
+    and that only the output reached storage."""
     import cubed_tpu_torch
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
@@ -594,14 +852,15 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     print(f"{label}: launches {json.dumps(launches)}; paths {json.dumps(paths)}")
     check(np.isfinite(value), f"{label}: value is not finite")
     check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
-    for kname, (lo, hi) in counts_required.items():
-        n = launches[kname]
-        check(lo <= n <= hi, f"{label}: {kname} launched {n} times, expected [{lo}, {hi}]")
+    stats = dict(sorted(executor.stats.items())) if executor is not None else {}
+    for key, (lo, hi) in counts_required.items():
+        kname, _, sub = key.partition(":")
+        n = stats.get(sub, 0) if kname == "stats" else paths[kname].get(sub, 0) if sub else launches[kname]
+        check(lo <= n <= hi, f"{label}: {key} is {n}, expected [{lo}, {hi}]")
     if executor is not None:
         budget = executor._budget(spec, torch.device("cuda"))
-        stats = dict(sorted(executor.stats.items()))
         print(f"{label}: executor stats {json.dumps(stats)}; residency budget {budget} B")
-        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors"):
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
             check(stats.get(counter, 0) == 0, f"{label}: {counter} = {stats.get(counter)}")
         check(peak <= budget, f"{label}: peak device memory {peak} B over the budget {budget} B")
         output_store = os.path.normpath(result.zarray_maybe_lazy.store)
@@ -649,15 +908,17 @@ def vorticity_oracle() -> float:
 def profiled(torch, fn) -> tuple:
     """Run *fn* under torch.profiler's CUDA activity; returns (wall seconds,
     kernel seconds, copy seconds, the five kernels with the most device
-    time, why the device time is missing or None)."""
+    time, why the device time is missing or None, every kernel as
+    (seconds, launches, name))."""
     from torch.profiler import ProfilerActivity, profile
 
     prof, why = profile(activities=[ProfilerActivity.CUDA]), "the profiler recorded no device events"
-    t0 = time.perf_counter()
     try:
         prof.start()
+        torch.cuda._sleep(SENTINEL_CYCLES)
     except (AssertionError, RuntimeError) as e:  # no CUDA tracing available here
         prof, why = None, f"the profiler did not start: {e!r}"
+    t0 = time.perf_counter()  # the profiler's own start-up is not the run's
     try:
         fn()
     finally:
@@ -670,14 +931,22 @@ def profiled(torch, fn) -> tuple:
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e6
         if e.key.startswith(("Memcpy", "Memset")):
             copies_s += t
-        else:
+        elif t > 0 and SENTINEL_KERNEL not in e.key:
             kernels_s += t
             by_kernel.append((t, e.count, e.key))
     top = sorted(by_kernel, reverse=True)[:5]
-    return wall, kernels_s, copies_s, top, None if kernels_s + copies_s > 0 else why
+    return wall, kernels_s, copies_s, top, None if kernels_s + copies_s > 0 else why, by_kernel
 
 
-def print_device_split(label: str, wall, kernels_s, copies_s, top, why) -> None:
+def copy_and_fill_kernels(by_kernel) -> tuple[int, int]:
+    """Device copy kernels (a block copied into an assembled array) and
+    float64 fill kernels (a virtual template block) among *by_kernel*."""
+    copies = sum(n for _, n, key in by_kernel if "copy" in key.lower())
+    fills = sum(n for _, n, key in by_kernel if "FillFunctor<double>" in key)
+    return copies, fills
+
+
+def print_device_split(label: str, wall, kernels_s, copies_s, top, why, by_kernel) -> None:
     if why is not None:
         print(f"{label}: device busy time not measured ({why})")
         return
@@ -719,28 +988,80 @@ def breakdown(torch, name: str, build) -> None:
     print_device_split(f"{name} breakdown [sequential]", *split)
 
 
-def breakdown_device(torch, name: str, build) -> None:
-    """Device executor: compute once more under torch.profiler for the
-    device's busy time and idle share; then run the plan again with the
-    executor's ops one at a time, each timed on the host clock up to a
-    synchronize (within a compute, a segment's ops share one time)."""
+def profile_device_run(torch) -> int:
+    """``--profile-device-run``: vorticity on the device executor, once to
+    warm up, once under torch.profiler to warm the profiler up, and once
+    under it to measure, in a process of its own; prints
+    the profiled run as one JSON line (:func:`profiled`'s reading, and the
+    launches the wrappers counted in it)."""
     import cubed_tpu_torch
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
-    from cubed_tpu_torch.runtime.pipeline import visit_nodes
 
-    spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown-cuda"), allowed_mem="2GB")
+    work = os.path.join(WORK_DIR, f"vorticity-profile-{os.getpid()}")
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
     random.seed(SEED)
-    result = build(spec)
+    result = vorticity_build(spec)
 
     def run():
         result.compute(executor=CudaExecutor())
         torch.cuda.synchronize()
 
-    split = profiled(torch, run)
-    shutil.rmtree(spec.work_dir, ignore_errors=True)
+    try:
+        run()
+        profiled(torch, run)  # the profiler's first session in a process starts it up
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        wall, kernels_s, copies_s, _, why, by_kernel = profiled(torch, run)
+        counted = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps(dict(wall=wall, kernels_s=kernels_s, copies_s=copies_s, why=why, by_kernel=by_kernel,
+                          counted=counted)))
+    return 0
+
+
+def breakdown_device(torch, name: str, build) -> None:
+    """Device executor: compute once more under torch.profiler for the
+    device's busy time and idle share, in a fresh process; then run the
+    plan again with the executor's ops one at a time, each timed on the
+    host clock up to a synchronize (within a compute, a segment's ops share
+    one time)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.pipeline import visit_nodes
+
+    # torch.profiler has lost device records in a process that had already
+    # profiled and run many kernels (one Philox launch of four, every time),
+    # never in a fresh one; a dropped copy or fill would pass the check
+    # below unseen, so a reading counts only when it recorded every launch
+    # the wrappers counted
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-device-run"],
+                              capture_output=True, text=True, timeout=600, cwd=REPO)
+        check(proc.returncode == 0, f"{name} [cuda]: the profiled run failed:\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        recorded = {k: sum(n for _, n, key in r["by_kernel"] if KERNEL_RECORDS[k] in key) for k in r["counted"]}
+        complete = r["why"] is None and recorded == r["counted"]
+        print(f"{name} breakdown [cuda], profiled run {attempt} (fresh process): launches counted "
+              f"{json.dumps(r['counted'])}, recorded {json.dumps(recorded)}: "
+              f"{'complete' if complete else 'incomplete, reading not used'}")
+        if complete:
+            break
+    check(complete, f"{name} [cuda]: no profiled run of {PROFILE_ATTEMPTS} recorded every counted launch")
+    split = (r["wall"], r["kernels_s"], r["copies_s"], sorted(map(tuple, r["by_kernel"]), reverse=True)[:5], None,
+             r["by_kernel"])
     print(f"{name} breakdown [cuda]: wall {split[0]:.3f} s")
     print_device_split(f"{name} breakdown [cuda]", *split)
+    # the random ops run block by block made 399 block copies and 398
+    # template fills
+    copies, fills = copy_and_fill_kernels(split[5])
+    print(f"{name} breakdown [cuda]: {copies} copy kernels, {fills} float64 fill kernels "
+          f"(block by block: 399 and 398)")
+    check(copies <= 399 - 390 and fills <= 398 - 390,
+          f"{name} [cuda]: {copies} copy and {fills} fill kernels, not 390 fewer than block by block")
 
+    spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown-cuda"), allowed_mem="2GB")
     random.seed(SEED)
     result = build(spec)
     dag = result.plan._finalize(array_names=(result.name,)).dag
@@ -772,7 +1093,7 @@ def main(argv: list) -> int:
     against = None
     if argv[:1] == ["--against"] and len(argv) == 2:
         against = argv[1]
-    elif argv:
+    elif argv and argv != ["--profile-device-run"]:
         print("usage: chip_smoke.py [--against CHECKOUT]", file=sys.stderr)
         return 2
     try:
@@ -792,29 +1113,42 @@ def main(argv: list) -> int:
         print(f"chip_smoke: cubed_tpu_torch is not importable from {REPO}: {e}", file=sys.stderr)
         return 1
     os.environ["CUBED_TPU_TORCH_DEVICE"] = "cuda"
+    if argv == ["--profile-device-run"]:
+        return profile_device_run(torch)
 
     global CARD
     CARD = smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}; torch device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    rounds_build = None
     try:
         t0 = time.perf_counter()
+        rounds_build = start_rounds_build()
         _build.build_all()
-        print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)})")
+        rounds_lib = finish_rounds_build(rounds_build)
+        print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)}; {ROUNDS_SOURCE})")
         print_resource_usage()
 
-        kernels = [check_philox(torch), check_region_sum(torch), check_fma_sum(torch)]
+        kernels = [check_philox(torch, rounds_lib), check_region_sum(torch), check_fma_sum(torch)]
         if against:
             compare_against(torch, against)
 
         for name, build, oracle, required in [
+            # addsum's random ops fuse into their consumer and stay per
+            # block; vorticity's go through the batched kernel on the
+            # device executor, one launch per array
             ("addsum", addsum_build, addsum_oracle, {
-                "sequential": {"philox_uniform": (50, 50), "region_sum": (25, 10**9), "fma_sum": (0, 0)},
-                "cuda": {"philox_uniform": (50, 50), "region_sum": (25, 10**9), "fma_sum": (0, 0)},
+                "sequential": {"philox_uniform": (50, 50), "philox_uniform:batched": (0, 0),
+                               "region_sum": (25, 10**9), "fma_sum": (0, 0)},
+                "cuda": {"philox_uniform": (50, 50), "philox_uniform:batched": (0, 0),
+                         "region_sum": (25, 10**9), "fma_sum": (0, 0), "stats:batched_ops": (0, 0)},
             }),
             ("vorticity", vorticity_build, vorticity_oracle, {
-                "sequential": {"philox_uniform": (400, 400), "region_sum": (100, 10**9), "fma_sum": (0, 0)},
-                "cuda": {"philox_uniform": (400, 400), "region_sum": (1, 10**9), "fma_sum": (100, 100)},
+                "sequential": {"philox_uniform": (400, 400), "philox_uniform:batched": (0, 0),
+                               "region_sum": (100, 10**9), "fma_sum": (0, 0)},
+                "cuda": {"philox_uniform": (4, 4), "philox_uniform:batched": (4, 4),
+                         "philox_uniform:block": (0, 0), "region_sum": (1, 10**9), "fma_sum": (100, 100),
+                         "stats:batched_ops": (4, 4)},
             }),
         ]:
             t1 = time.perf_counter()
@@ -827,12 +1161,15 @@ def main(argv: list) -> int:
         # device executor
         for k in kernels:
             k["launches"] = launches["cuda"][k["name"]]
-        breakdown(torch, "vorticity", vorticity_build)
         breakdown_device(torch, "vorticity", vorticity_build)
+        breakdown(torch, "vorticity", vorticity_build)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        if rounds_build is not None and rounds_build[0].poll() is None:
+            rounds_build[0].kill()
+            rounds_build[0].wait()
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

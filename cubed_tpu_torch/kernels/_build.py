@@ -204,8 +204,13 @@ def sass_opcodes(name: str) -> dict:
     instructions by opcode with modifiers (``IMAD.WIDE.U32``), from
     ``cuobjdump -sass`` beside the nvcc that built it."""
     build_all()
+    return library_sass_opcodes(_lib_path(name))
+
+
+def library_sass_opcodes(path: str) -> dict:
+    """:func:`sass_opcodes` of the built library at *path*."""
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", _lib_path(name)], capture_output=True, text=True,
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                          check=True, timeout=120).stdout
     counts: dict = {}
     current = None

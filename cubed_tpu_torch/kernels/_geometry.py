@@ -1,4 +1,4 @@
-"""How the reduction kernels split their work: pure Python, no torch.
+"""How the hand-written kernels split their work: pure Python, no torch.
 
 ``fma_sum`` and ``region_sum`` (``csrc/fma_sum.cu``, ``csrc/region_sum.cu``)
 read their inputs in place through their strides. Before each launch the
@@ -31,6 +31,11 @@ precomputed multiplier (:func:`fast_divmod`, CUTLASS's ``FastDivmod``).
 :func:`walk` replays a plan's assignment of elements to CTAs, threads and
 steps, as the kernels do it, so the CPU tests can check that each element
 is read exactly once.
+
+``philox_uniform_blocks`` (``csrc/philox_uniform.cu``) writes every block
+of a random array in one launch; :func:`blocks_plan` fixes its work items,
+grid, per-axis divisors and store paths, and :func:`blocks_walk` replays
+every store it makes.
 """
 
 from __future__ import annotations
@@ -317,3 +322,203 @@ def walk(torch, p: Plan, n_inputs: int = 1):
     else:
         out_elem = out_unit[:, None].expand(-1, p.vector).reshape(-1)
     return out_elem, offsets
+
+
+# ---------------------------------------------------------------------------
+# philox_uniform_blocks: every block of a random op in one launch
+# ---------------------------------------------------------------------------
+
+#: threads of a CTA and counters a thread takes per work item (kThreads and
+#: kCounters in csrc/philox_uniform.cu)
+PHILOX_THREADS = 256
+PHILOX_COUNTERS = 4
+#: counters one work item takes
+PHILOX_TILE = PHILOX_THREADS * PHILOX_COUNTERS
+#: CTAs per SM assumed when the card's occupancy is not given
+#: (``__launch_bounds__(256, 3)``)
+PHILOX_CTAS_PER_SM = 3
+
+
+@dataclass(frozen=True)
+class BlocksPlan:
+    """How ``philox_uniform_blocks`` covers a regular block grid. Axes are
+    padded in front to ``MAX_DIMS`` (size 1, stride 0); each divisor is kept
+    with its fast-division multiplier as ``(d, multiplier, shift)``.
+
+    Work item ``i`` is tile ``i % per_block`` of block ``i // per_block``
+    (blocks in C order of the grid): its thread ``t`` takes the block's
+    counters ``tile * PHILOX_TILE + k * PHILOX_THREADS + t`` for ``k <
+    PHILOX_COUNTERS`` that are below the block's own count. A block is
+    ``chunks`` along an axis, or ``edges`` when it is the last block there."""
+
+    strides: tuple  # output strides, in elements (0 on a size-1 axis)
+    chunks: tuple  # (d, mul, shr) per axis: a full block's extent
+    edges: tuple  # (d, mul, shr) per axis: the last block's extent
+    numblocks: tuple  # (d, mul, shr) per axis: blocks along it
+    per_block: tuple  # (d, mul, shr): work items per block
+    items: int
+    grid: int  # persistent CTAs; 0 when there is nothing to write
+    vector_full: bool  # blocks not last along the last axis: 16-byte stores
+    vector_edge: bool  # the last block along the last axis: 16-byte stores
+
+    @property
+    def paths(self) -> tuple:
+        """The store paths some block of this launch takes."""
+        several = self.numblocks[-1][0] > 1
+        taken = []
+        if (several and self.vector_full) or self.vector_edge:
+            taken.append("vector")
+        if (several and not self.vector_full) or not self.vector_edge:
+            taken.append("scalar")
+        return tuple(taken)
+
+    def params(self) -> list:
+        """The plan as ``philox_uniform_blocks_f64`` takes it: 4 strides;
+        (d, mul, shr) per axis for the chunks, edges and block counts; then
+        per_block as (d, mul, shr), items, vector_full, vector_edge."""
+        out = list(self.strides)
+        for divs in (self.chunks, self.edges, self.numblocks):
+            for div in divs:
+                out.extend(div)
+        out.extend(self.per_block)
+        out.extend((self.items, int(self.vector_full), int(self.vector_edge)))
+        return out
+
+
+def _div(d: int) -> tuple:
+    return (d, *fast_divmod(d))
+
+
+def blocks_fit(shape) -> bool:
+    """Whether one launch can fill a C-contiguous array of *shape*: rank 4
+    or less, and every element offset in 32 bits."""
+    n = 1
+    for s in shape:
+        n *= s
+    return len(shape) <= MAX_DIMS and n < INDEX_LIMIT
+
+
+def blocks_plan(shape, strides, chunks, ptr: int, sms: int = SMS,
+                ctas_per_sm: int = PHILOX_CTAS_PER_SM) -> BlocksPlan:
+    """The geometry of one ``philox_uniform_blocks`` launch filling the
+    float64 array of *shape* and *strides* (elements) at address *ptr*,
+    blocked by the regular *chunks*. Raises ValueError past four axes or
+    when an offset does not fit 32 bits."""
+    ndim = len(shape)
+    if ndim > MAX_DIMS or len(chunks) != ndim or len(strides) != ndim:
+        raise ValueError(f"philox_uniform_blocks takes rank {MAX_DIMS} or less with a chunk and a "
+                         f"stride per axis: shape {tuple(shape)}, chunks {tuple(chunks)}")
+    pad = MAX_DIMS - ndim
+    shape = (1,) * pad + tuple(shape)
+    chunks = (1,) * pad + tuple(min(c, s) if s else 0 for c, s in zip(chunks, shape[pad:]))
+    strides = tuple(0 if s == 1 else st for s, st in zip(shape, (0,) * pad + tuple(strides)))
+    total = 1
+    for s in shape:
+        total *= s
+    if total == 0:
+        one = _div(1)
+        return BlocksPlan(strides=strides, chunks=(one,) * MAX_DIMS, edges=(one,) * MAX_DIMS,
+                          numblocks=(one,) * MAX_DIMS, per_block=one, items=0, grid=0,
+                          vector_full=False, vector_edge=False)
+    if any(c <= 0 for c in chunks) or any(st < 0 for st in strides):
+        raise ValueError(f"philox_uniform_blocks: chunks {chunks} and strides {strides} must be positive")
+    nb = tuple(_ceil_div(s, c) for s, c in zip(shape, chunks))
+    edges = tuple(s - (n - 1) * c for s, c, n in zip(shape, chunks, nb))
+    reach = sum((s - 1) * st for s, st in zip(shape, strides))
+    largest = 1
+    for c in chunks:
+        largest *= c
+    blocks = 1
+    for n in nb:
+        blocks *= n
+    per_block = _ceil_div(_ceil_div(largest, 4), PHILOX_TILE)
+    items = blocks * per_block
+    if reach >= INDEX_LIMIT or largest >= INDEX_LIMIT or items >= INDEX_LIMIT:
+        raise ValueError(f"philox_uniform_blocks indexes in 32 bits: shape {shape[pad:]} with strides "
+                         f"{strides[pad:]} reaches element offset {reach}, past {INDEX_LIMIT}")
+    # 16-byte stores: a counter's four words in one row, 16-byte aligned
+    aligned = ptr % 16 == 0 and (shape[-1] == 1 or strides[-1] == 1) and all(st % 2 == 0 for st in strides[:-1])
+    return BlocksPlan(
+        strides=strides,
+        chunks=tuple(_div(c) for c in chunks),
+        edges=tuple(_div(e) for e in edges),
+        numblocks=tuple(_div(n) for n in nb),
+        per_block=_div(per_block),
+        items=items,
+        grid=min(items, max(1, ctas_per_sm) * sms),
+        vector_full=aligned and chunks[-1] % 4 == 0,
+        vector_edge=aligned and edges[-1] % 4 == 0 and (nb[-1] - 1) * chunks[-1] % 2 == 0,
+    )
+
+
+def _quot(i, div):
+    """``i // d`` by the multiplier of ``div = (d, mul, shr)``, as the kernel
+    divides; *i* an int64 tensor."""
+    _, mul, shr = div
+    return i if mul == 0 else ((i * mul) >> 32) >> shr
+
+
+def blocks_walk(torch, p: BlocksPlan):
+    """Replay *p* as ``philox_blocks_kernel`` runs it: every store of every
+    work item's threads. Returns (element offset, block, counter, word), one
+    int64 tensor entry per element written."""
+    i64 = torch.int64
+    empty = torch.zeros(0, dtype=i64)
+    if p.items == 0:
+        return empty, empty, empty, empty
+    item = torch.arange(p.items, dtype=i64)
+    b = _quot(item, p.per_block)
+    first = (item - b * p.per_block[0]) * PHILOX_TILE
+    rest, n, base = b, torch.ones_like(b), torch.zeros_like(b)
+    last_inner = None
+    ext = [None] * MAX_DIMS  # per axis: (extent, whether the block is last there)
+    for d in range(MAX_DIMS - 1, -1, -1):
+        q = _quot(rest, p.numblocks[d]) if d else torch.zeros_like(rest)
+        coord = rest - q * p.numblocks[d][0] if d else rest
+        rest = q
+        last = coord == p.numblocks[d][0] - 1
+        if d == MAX_DIMS - 1:
+            last_inner = last
+        extent = torch.where(last, p.edges[d][0], p.chunks[d][0])
+        ext[d] = (extent, last)
+        n = n * extent
+        base = base + coord * p.chunks[d][0] * p.strides[d]
+    counters = (n + 3) >> 2
+    vector = torch.where(last_inner, p.vector_edge, p.vector_full)
+    t = torch.arange(PHILOX_THREADS, dtype=i64)
+    k = torch.arange(PHILOX_COUNTERS, dtype=i64)
+    c = first[:, None, None] + k[None, :, None] * PHILOX_THREADS + t[None, None, :]
+    live = c < counters[:, None, None]
+    row = torch.arange(p.items, dtype=i64)[:, None, None].expand_as(c)[live]
+    c = c[live]
+
+    def local_offset(e, row):
+        off = torch.zeros_like(e)
+        for d in range(MAX_DIMS - 1, 0, -1):
+            extent, last = ext[d][0][row], ext[d][1][row]
+            q = torch.where(last, _quot(e, p.edges[d]), _quot(e, p.chunks[d]))
+            off = off + (e - q * extent) * p.strides[d]
+            e = q
+        return off + e * p.strides[0]
+
+    offsets, blocks_out, counters_out, words = [], [], [], []
+    vec = vector[row]
+    # vector stores: one unravel, the four words at consecutive offsets
+    cv, rv = c[vec], row[vec]
+    start = base[rv] + local_offset(4 * cv, rv)
+    for j in range(4):
+        offsets.append(start + j)
+        blocks_out.append(b[rv])
+        counters_out.append(cv)
+        words.append(torch.full_like(cv, j))
+    # scalar stores: each word at its own unravelled position
+    cs, rs = c[~vec], row[~vec]
+    for j in range(4):
+        e = 4 * cs + j
+        keep = e < n[rs]
+        e, rj, cj = e[keep], rs[keep], cs[keep]
+        offsets.append(base[rj] + local_offset(e, rj))
+        blocks_out.append(b[rj])
+        counters_out.append(cj)
+        words.append(torch.full_like(cj, j))
+    return tuple(torch.cat(x) for x in (offsets, blocks_out, counters_out, words))

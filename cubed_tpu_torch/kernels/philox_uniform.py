@@ -3,30 +3,47 @@
 Replaces the host-side block generation of the JAX package's
 ``random.py:_random_block`` (:217) and ``_philox_block`` (:137), which draw
 ``np.random.Generator(np.random.Philox(seed=root + block_offset)).random(shape)``.
-The CUDA kernel (``csrc/philox_uniform.cu``) reproduces that stream bit for
-bit on the card: element ``4*i + j`` is word ``j`` of
+The CUDA kernels (``csrc/philox_uniform.cu``) reproduce that stream bit for
+bit on the card: element ``4*i + j`` of a block is word ``j`` of
 ``philox4x64_10(counter=(i+1, 0, 0, 0), key)`` (numpy increments the counter
-before its first use), and the double is ``(u >> 11) * 2**-53``. The key is
-derived on the host with numpy's SeedSequence (:func:`philox_key`).
+before its first use), and the double is ``(u >> 11) * 2**-53``. Keys are
+derived on the host from numpy's SeedSequence, all of an op's at once
+(:func:`philox_keys`).
 
-Bound on the H100: the 8 bytes written per element (3.35 TB/s); the 20
-64-bit multiplies per 4 elements are far below the integer rate. One thread
-per counter, no shared memory, a masked ragged tail.
+Two wrappers, one launch count:
+
+- :func:`philox_uniform` fills one block (one counter per thread): the
+  sequential executor's tasks and fused random ops call it block by block;
+- :func:`philox_uniform_blocks` fills every block of a regular grid in place
+  in the assembled array, in one launch of persistent CTAs (the device
+  executor's batched route). Its work split is planned in pure Python
+  (:func:`._geometry.blocks_plan`).
+
+Bound on the H100: integer issue on the FMA pipe. The card has no 64-bit
+multiplier, so a counter's twenty 64x64->128 products take 164-178 FMA-pipe
+issue slots, by build (IMAD.WIDE at two slots; counted from the SASS), which
+at 64 lanes per clock per SM is a little more time than the 8 bytes written
+per element at 3.35 TB/s.
 
 :func:`philox_uniform_plain` is the same counter arithmetic in torch, in
-32-bit limbs held by int64 tensors (torch's uint64 arithmetic is incomplete).
-The wrapper uses it only for tensors on the CPU.
+32-bit limbs held by int64 tensors (torch's uint64 arithmetic is incomplete);
+:func:`philox_uniform_blocks_plain` builds each block with it and writes it
+into place. The wrappers use them only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
+import math
 
 import numpy as np
 import torch
 
-from . import _build
+from ..chunks import blockdims_from_blockshape
+from ..utils import get_item
+from . import _build, _geometry
 
 M0 = 0xD2E7470EE14C6C93
 M1 = 0xCA5A826395121157
@@ -38,10 +55,105 @@ _MASK64 = (1 << 64) - 1
 _THREADS = 256
 
 
+# numpy's SeedSequence constants (numpy/random/bit_generator.pyx)
+_INIT_A = 0x43B0D7E5
+_MULT_A = 0x931E8875
+_INIT_B = 0x8B51F9DD
+_MULT_B = 0x58F38DED
+_MIX_MULT_L = 0xCA01F9DD
+_MIX_MULT_R = 0x4973F715
+_POOL = 4
+
+
+def _hashmix(value, hash_const: int):
+    value = (value ^ hash_const) & _MASK32
+    hash_const = (hash_const * _MULT_A) & _MASK32
+    value = (value * hash_const) & _MASK32
+    return value ^ (value >> 16), hash_const
+
+
+def _mix(x, y):
+    r = (_MIX_MULT_L * x - _MIX_MULT_R * y) & _MASK32
+    return r ^ (r >> 16)
+
+
+def _key_of_entropy(words: list) -> tuple:
+    """SeedSequence's pool mixing of the 32-bit entropy *words* (least
+    significant first), then ``generate_state(2, uint64)``: the two key
+    words. Each word is a Python int (one seed) or a uint64 array (one seed
+    an element, masked to 32 bits at every step). The hash constant advances
+    in a fixed order, the same for every seed, so an array is mixed in one
+    pass."""
+    h = _INIT_A
+    pool = []
+    for i in range(_POOL):
+        v, h = _hashmix(words[i] if i < len(words) else 0 * words[0], h)
+        pool.append(v)
+    for src in range(_POOL):
+        for dst in range(_POOL):
+            if src != dst:
+                v, h = _hashmix(pool[src], h)
+                pool[dst] = _mix(pool[dst], v)
+    for src in range(_POOL, len(words)):
+        for dst in range(_POOL):
+            v, h = _hashmix(words[src], h)
+            pool[dst] = _mix(pool[dst], v)
+    h = _INIT_B
+    out = []
+    for v in pool:
+        v = v ^ h
+        h = (h * _MULT_B) & _MASK32
+        v = (v * h) & _MASK32
+        out.append(v ^ (v >> 16))
+    return out[0] | (out[1] << 32), out[2] | (out[3] << 32)
+
+
+def _words(seed: int) -> list:
+    """The 32-bit entropy words of a non-negative *seed*, least significant
+    first (one word for a seed below 2**32, two below 2**64, ...)."""
+    if seed < 0:
+        raise ValueError("Philox seeds must be non-negative")
+    words = [seed & _MASK32]
+    seed >>= 32
+    while seed:
+        words.append(seed & _MASK32)
+        seed >>= 32
+    return words
+
+
+def philox_keys(seeds) -> np.ndarray:
+    """The 2x64-bit keys of ``np.random.Philox(seed=s)`` for each of *seeds*
+    (non-negative integers), as an ``(n, 2)`` uint64 array: numpy's
+    ``SeedSequence(s).generate_state(2, uint64)``, vectorised. Seeds are
+    grouped by their count of 32-bit entropy words (:func:`_words`) and each
+    group is mixed in one pass."""
+    seeds = np.asarray(seeds).reshape(-1)
+    if seeds.dtype.kind not in "iuO":
+        raise TypeError(f"philox_keys takes integer seeds, not {seeds.dtype}")
+    if seeds.size and (seeds < 0).any():
+        raise ValueError("philox_keys: seeds must be non-negative")
+    if seeds.dtype.kind == "O":  # Python ints, possibly past 64 bits
+        entropy = [_words(int(v)) for v in seeds]
+        counts = np.array([len(w) for w in entropy], dtype=np.int64)
+    else:
+        u = seeds.astype(np.uint64)
+        counts = np.where(u >> np.uint64(32), 2, 1)
+    keys = np.empty((seeds.size, 2), dtype=np.uint64)
+    for nwords in np.unique(counts):
+        rows = np.flatnonzero(counts == nwords)
+        if seeds.dtype.kind == "O":
+            words = list(np.array([entropy[r] for r in rows], dtype=np.uint64).T)
+        else:
+            words = [u[rows] & np.uint64(_MASK32), u[rows] >> np.uint64(32)][:nwords]
+        k0, k1 = _key_of_entropy(words)
+        keys[rows, 0], keys[rows, 1] = k0, k1
+    return keys
+
+
 def philox_key(seed: int) -> tuple[int, int]:
-    """The 2x64-bit key of ``np.random.Philox(seed=seed)`` (SeedSequence)."""
-    key = np.random.Philox(seed=int(seed)).state["state"]["key"]
-    return int(key[0]), int(key[1])
+    """The 2x64-bit key of ``np.random.Philox(seed=seed)`` (SeedSequence),
+    mixed in Python ints: the per-block path's key."""
+    return _key_of_entropy(_words(int(seed)))
 
 
 def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
@@ -69,11 +181,88 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
         )
     _build.check(err, "philox_uniform")
     philox_uniform.launches += 1
+    philox_uniform.paths["block"] += 1
     return out
 
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernels, per-block and batched (the plain versions
+#: do not count)
 philox_uniform.launches = 0
+#: launches by kernel: "block" (:func:`philox_uniform`) or "batched"
+#: (:func:`philox_uniform_blocks`); a batched launch also counts the store
+#: paths its blocks take, "vector" (16-byte stores) and "scalar"
+philox_uniform.paths = dict.fromkeys(("block", "batched", "vector", "scalar"), 0)
+
+
+def blocks_plan(out: torch.Tensor, chunks, sms: int = _geometry.SMS,
+                ctas_per_sm: int = _geometry.PHILOX_CTAS_PER_SM) -> _geometry.BlocksPlan:
+    """The batched kernel's geometry for *out* blocked by *chunks*."""
+    return _geometry.blocks_plan(tuple(out.shape), tuple(out.stride()), tuple(chunks), out.data_ptr(),
+                                 sms, ctas_per_sm)
+
+
+def _check_blocks(out: torch.Tensor, chunks, keys: np.ndarray) -> None:
+    if out.dtype != torch.float64:
+        raise ValueError("philox_uniform_blocks needs a float64 tensor")
+    if len(chunks) != out.ndim:
+        raise ValueError(f"philox_uniform_blocks: chunks {tuple(chunks)} for a rank-{out.ndim} tensor")
+    nblocks = math.prod(len(c) for c in _chunkset(tuple(out.shape), tuple(chunks)))
+    if keys.dtype != np.uint64 or keys.shape != (nblocks, 2):
+        raise ValueError(f"philox_uniform_blocks needs ({nblocks}, 2) uint64 keys, "
+                         f"not {keys.shape} {keys.dtype}")
+
+
+def philox_uniform_blocks(out: torch.Tensor, chunks, keys: np.ndarray) -> torch.Tensor:
+    """Fill float64 *out* block by block: block ``b`` (C order) of the
+    regular grid of *chunks* with the Philox uniform stream of ``keys[b]``.
+
+    A CUDA tensor goes to the batched kernel, in one launch; a CPU tensor to
+    the plain version.
+    """
+    _check_blocks(out, chunks, keys)
+    if out.device.type == "cpu":
+        out.copy_(philox_uniform_blocks_plain(tuple(out.shape), chunks, keys))
+        return out
+    if out.device.type != "cuda":
+        raise ValueError(f"philox_uniform_blocks: unsupported device {out.device}")
+    p = blocks_plan(out, chunks, _build.sm_count(out.device), _occupancy(out.device))
+    if p.grid == 0:
+        return out
+    # the op's keys, uploaded once from pinned memory on the launch stream
+    keys_dev = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)).pin_memory().to(
+        out.device, non_blocking=True)
+    params = p.params()
+    fn = _blocks_kernel()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(out.device):
+        err = fn(
+            ctypes.c_void_p(out.data_ptr()), (ctypes.c_longlong * len(params))(*params),
+            ctypes.c_void_p(keys_dev.data_ptr()), ctypes.c_int(p.grid), ctypes.c_void_p(stream),
+        )
+    _build.check(err, "philox_uniform_blocks")
+    philox_uniform.launches += 1
+    for key in ("batched", *p.paths):
+        philox_uniform.paths[key] += 1
+    return out
+
+
+_occupancies: dict = {}
+
+
+def _occupancy(device) -> int:
+    """CTAs of the batched kernel that fit on one SM of *device* at once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    n = _occupancies.get(index)
+    if n is None:
+        fn = _build.load("philox_uniform").philox_uniform_blocks_occupancy
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(index):
+            n = fn()
+        if n <= 0:
+            raise RuntimeError(f"philox_uniform_blocks: occupancy query failed ({n})")
+        _occupancies[index] = n
+    return n
 
 
 @functools.cache
@@ -83,6 +272,17 @@ def _kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _blocks_kernel():
+    fn = _build.load("philox_uniform").philox_uniform_blocks_f64
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -137,3 +337,21 @@ def philox_uniform_plain(n: int, key: tuple[int, int], device="cpu") -> torch.Te
     words = [(h << 21) | (lo >> 11) for h, lo in c]
     u53 = torch.stack(words, dim=1).reshape(-1)[:n]
     return u53.to(torch.float64) * (1.0 / 9007199254740992.0)
+
+
+def _chunkset(shape: tuple, chunks: tuple) -> tuple:
+    return blockdims_from_blockshape(shape, chunks) if shape else ()
+
+
+def philox_uniform_blocks_plain(out_shape, chunks, keys: np.ndarray, device="cpu") -> torch.Tensor:
+    """The plain version of :func:`philox_uniform_blocks`: each block built
+    with :func:`philox_uniform_plain` and written into place."""
+    out_shape = tuple(out_shape)
+    out = torch.empty(out_shape, dtype=torch.float64, device=device)
+    chunkset = _chunkset(out_shape, tuple(chunks))
+    for b, idx in enumerate(itertools.product(*(range(len(c)) for c in chunkset))):
+        sel = get_item(chunkset, idx) if out_shape else ()
+        bshape = tuple(c[i] for c, i in zip(chunkset, idx))
+        key = (int(keys[b, 0]), int(keys[b, 1]))
+        out[sel] = philox_uniform_plain(math.prod(bshape), key, device=device).reshape(bshape)
+    return out

@@ -10,20 +10,24 @@ seeded alike both packages draw the same seeds. The seed rides the offsets
 
 A block on the card is generated there by the hand-written Philox kernel
 (``kernels/philox_uniform.py``), bit for bit numpy's stream; no block is
-drawn on the host and copied over.
+drawn on the host and copied over. The block function carries the hint
+``batched``, as the reference's carries ``traced_offsets``: the device
+executor then fills the whole array in one launch (:func:`_random_blocks`).
 """
 
 from __future__ import annotations
 
+import math
 import random as pyrandom
 
 import numpy as np
 import torch
 
-from .chunks import normalize_chunks
+from .chunks import blockdims_from_blockshape, normalize_chunks
 from .core.ops import general_blockwise, new_array
 from .core.plan import Plan, gensym
-from .kernels.philox_uniform import philox_key, philox_uniform
+from .kernels._geometry import blocks_fit
+from .kernels.philox_uniform import philox_key, philox_keys, philox_uniform, philox_uniform_blocks
 from .spec import spec_from_config
 from .storage.virtual import VirtualOffsetsArray, virtual_empty
 from .utils import to_chunksize
@@ -68,3 +72,19 @@ def _random_block(chunk, seeded_offset):
     seed = int(np.asarray(seeded_offset).reshape(-1)[0])
     out = torch.empty(tuple(chunk.shape), dtype=torch.float64, device=chunk.device)
     return philox_uniform(out, philox_key(seed))
+
+
+def _random_blocks(shape, chunks, root_seed: int, device) -> torch.Tensor:
+    """The whole array of ``random(shape, chunks=chunks)`` with root seed
+    *root_seed*, every block as :func:`_random_block` draws it: one launch of
+    the batched kernel on a CUDA device, the plain version on the CPU."""
+    shape = tuple(shape)
+    nblocks = math.prod(len(c) for c in blockdims_from_blockshape(shape, tuple(chunks)))
+    keys = philox_keys(root_seed + np.arange(nblocks, dtype=np.int64))
+    out = torch.empty(shape, dtype=torch.float64, device=device)
+    return philox_uniform_blocks(out, chunks, keys)
+
+
+#: shapes one batched launch takes (rank 4 or less, 32-bit offsets)
+_random_blocks.fits = blocks_fit
+_random_block.batched = _random_blocks

@@ -8,6 +8,12 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   once, and only the requested outputs are written, at the end.
 - **Whole-array path.** A shape-invariant op whose block mapping is 1:1 (with
   broadcasting) runs once on the whole resident inputs.
+- **Batched path.** An op whose function names a ``batched`` form (block
+  generation: ``random``) and reads only its virtual template and its seeds
+  is computed whole by that form: the output is allocated once and every
+  block is written in place by one kernel launch (``batched_ops``). Fused
+  functions do not inherit the hint, so a random op fused into its consumer
+  (addsum) stays on the chunked path, one launch per block.
 - **Resident map_direct.** An index (``whole_select``) is a view of its
   resident source, a positive-step slice never copies; ``resident_identity``
   passes the value through and ``whole_concat`` concatenates on the device.
@@ -27,8 +33,10 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
 
 Ops are grouped into segments as the reference groups them for tracing, and a
 segment runs op by op on resident tensors, as the reference's untraced branch
-does. Not ported yet: batched dispatch, segment tracing (to become CUDA-graph
-replay), rechunk, meshes, ``compute_dtype`` and resume. No fast path is
+does. Not ported yet: batched dispatch of any other op (the reference vmaps
+every uniform-grid op; here the fused reduction and the combines still run
+block by block), segment tracing (to become CUDA-graph replay), rechunk,
+meshes, ``compute_dtype`` and resume. No fast path is
 wrapped in an ``except``: where one cannot run, a check says so, the op takes
 the chunked path and ``eager_fallbacks`` counts it.
 """
@@ -133,9 +141,9 @@ class CudaExecutor(DagExecutor):
         self.device_mem = convert_to_bytes(device_mem)
         #: path counters of the last ``execute_dag``, under the reference's
         #: names: ``whole_array_hits``, ``whole_concat_hits``,
-        #: ``chunked_ops``, ``eager_ops`` and the failed checks
-        #: ``whole_array_errors``, ``whole_select_errors`` and
-        #: ``eager_fallbacks`` (0 on the main path)
+        #: ``batched_ops``, ``chunked_ops``, ``eager_ops`` and the failed
+        #: checks ``whole_array_errors``, ``whole_select_errors``,
+        #: ``batched_errors`` and ``eager_fallbacks`` (0 on the main path)
         self.stats: Counter = Counter()
 
     @property
@@ -292,6 +300,10 @@ class CudaExecutor(DagExecutor):
         value = None
         if spec.shape_invariant and not spec.writes_rest and not getattr(f, "needs_block_id", False):
             value = self._exec_whole(op, spec, resident, out_shape)
+        if value is None and getattr(f, "batched", None) is not None and not getattr(f, "needs_block_id", False):
+            value = self._exec_batched(op, spec, budget)
+            if value is not None:
+                self.stats["batched_ops"] += 1
         if value is None:
             value = self._exec_chunked(op, spec, resident)
             self.stats["chunked_ops"] += 1
@@ -421,6 +433,39 @@ class CudaExecutor(DagExecutor):
         return names
 
     # ------------------------------------------------------------------
+
+    def _exec_batched(self, op, spec: BlockwiseSpec, budget: int) -> Optional[torch.Tensor]:
+        """Every block of the op at once, by its function's ``batched`` form,
+        or None. Taken, as the reference batches, for a grid of more than one
+        block, when the op reads exactly a virtual empty template of its
+        output's shape and the offsets array of its block grid (the seeds),
+        both at the output block's coordinates, and the output fits the
+        batched form and the residency budget. A failed check counts
+        ``batched_errors`` and ``eager_fallbacks``; the op then runs chunked."""
+        batched = spec.function.batched
+        target = spec.write.array
+        out_shape = tuple(target.shape)
+        chunks = tuple(spec.write.chunks)
+        chunkset = _chunkset(out_shape, chunks)
+        if not out_shape or math.prod(len(c) for c in chunkset) <= 1:
+            return None
+        reads = spec.reads_map.items()
+        templates = [(name, p.array) for name, p in reads if isinstance(p.array, VirtualEmptyArray)]
+        seeds = [(name, p.array) for name, p in reads if isinstance(p.array, VirtualOffsetsArray)]
+        first = next(iter(op.pipeline.mappable))
+        coords = tuple(first[1:])
+        if not (
+            len(spec.reads_map) == 2 and len(templates) == len(seeds) == 1
+            and tuple(templates[0][1].shape) == out_shape
+            and tuple(seeds[0][1].shape) == tuple(len(c) for c in chunkset)
+            and tuple(spec.block_function(first)) == ((templates[0][0], *coords), (seeds[0][0], *coords))
+            and batched.fits(out_shape)
+            and math.prod(out_shape) * np.dtype(target.dtype).itemsize <= budget
+        ):
+            self.stats["batched_errors"] += 1
+            self.stats["eager_fallbacks"] += 1
+            return None
+        return batched(out_shape, chunks, seeds[0][1].base, get_device())
 
     def _exec_chunked(self, op, spec: BlockwiseSpec, resident):
         """Per-output-block execution on block views of resident inputs."""

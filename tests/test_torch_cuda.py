@@ -36,6 +36,118 @@ def test_philox_kernel_bit_exact(cuda, shape):
     assert philox_uniform.launches == before + 1
 
 
+#: (shape, chunks) of the batched Philox kernel: the main path's array,
+#: ragged edges, a last extent not a multiple of 4, 1-D, size 0, full blocks
+#: on 16-byte stores beside a scalar edge, 4-D
+PHILOX_BLOCK_CASES = [
+    ((500, 450, 400), (100, 100, 100)),
+    ((13, 11), (4, 5)),
+    ((7,), (3,)),
+    ((0, 5), (2, 2)),
+    ((8, 14), (4, 8)),
+    ((50, 45, 40), (10, 10, 20)),
+    ((2, 3, 4, 5), (1, 2, 3, 4)),
+]
+
+
+def _numpy_blocks(shape, chunks, seeds) -> np.ndarray:
+    """numpy's per-block streams, assembled: block k (C order) draws from
+    Philox(seed=seeds[k])."""
+    from cubed_tpu_torch.chunks import blockdims_from_blockshape
+
+    out = np.empty(shape, dtype=np.float64)
+    chunkset = blockdims_from_blockshape(shape, chunks)
+    for k, idx in enumerate(np.ndindex(*[len(c) for c in chunkset])):
+        sel = tuple(slice(sum(c[:i]), sum(c[:i + 1])) for c, i in zip(chunkset, idx))
+        out[sel] = np.random.Generator(np.random.Philox(seed=int(seeds[k]))).random(out[sel].shape)
+    return out
+
+
+@pytest.mark.parametrize("shape, chunks", PHILOX_BLOCK_CASES,
+                         ids=["x".join(map(str, s)) for s, _ in PHILOX_BLOCK_CASES])
+def test_philox_blocks_kernel_bit_exact(cuda, shape, chunks):
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import (
+        philox_keys, philox_uniform, philox_uniform_blocks, philox_uniform_blocks_plain,
+    )
+
+    nblocks = int(np.prod([-(-s // c) if s else 1 for s, c in zip(shape, chunks)]))
+    seeds = 2**30 - 3 + np.arange(nblocks, dtype=np.int64)
+    keys = philox_keys(seeds)
+    before = philox_uniform.launches
+    got = philox_uniform_blocks(torch.empty(shape, dtype=torch.float64, device=cuda), chunks, keys)
+    assert philox_uniform.launches == before + (1 if got.numel() else 0)
+    again = philox_uniform_blocks(torch.empty(shape, dtype=torch.float64, device=cuda), chunks, keys)
+    assert torch.equal(got, again)
+    assert torch.equal(got, philox_uniform_blocks_plain(shape, chunks, keys, device=cuda))
+    ref = _numpy_blocks(shape, chunks, seeds)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), ref.view(np.uint64))
+
+
+@pytest.mark.parametrize("shape", [(100, 100, 100), (13, 11), (7,)])
+def test_philox_blocks_kernel_on_one_block_matches_the_per_block_kernel(cuda, shape):
+    """A grid of one block (as chip_smoke.py times it beside the per-block
+    kernel): the same stream as the per-block kernel's."""
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import philox_keys, philox_uniform, philox_uniform_blocks
+
+    keys = philox_keys([2**32 + 5])
+    got = philox_uniform_blocks(torch.empty(shape, dtype=torch.float64, device=cuda), shape, keys)
+    block = philox_uniform(torch.empty(shape, dtype=torch.float64, device=cuda), tuple(int(k) for k in keys[0]))
+    assert torch.equal(got, block)
+    ref = np.random.Generator(np.random.Philox(seed=2**32 + 5)).random(shape)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), ref.view(np.uint64))
+
+
+@pytest.mark.parametrize("layout", ["column-view", "misaligned"])
+def test_philox_blocks_kernel_writes_strided_outputs_in_place(cuda, layout):
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import philox_keys, philox_uniform, philox_uniform_blocks
+
+    shape, chunks = (64, 48), (16, 16)
+    if layout == "column-view":
+        base = torch.full((64, 80), -1.0, dtype=torch.float64, device=cuda)
+        out = base[:, 16:64]
+    else:
+        base = torch.full((64 * 48 + 1,), -1.0, dtype=torch.float64, device=cuda)
+        out = base[1:].view(shape)
+    seeds = 77 + np.arange(12, dtype=np.int64)
+    before = dict(philox_uniform.paths)
+    philox_uniform_blocks(out, chunks, philox_keys(seeds))
+    taken = {k for k, v in philox_uniform.paths.items() if v > before[k]}
+    assert taken == {"batched", "vector" if layout == "column-view" else "scalar"}
+    ref = _numpy_blocks(shape, chunks, seeds)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint64), ref.view(np.uint64))
+    if layout == "column-view":  # the columns outside the view stay as they were
+        assert bool((base[:, :16] == -1.0).all()) and bool((base[:, 64:] == -1.0).all())
+    else:
+        assert float(base[0]) == -1.0
+
+
+def test_random_on_device_executor_is_one_launch_per_op(cuda, tmp_path):
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    random.seed(5)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    a, b, x, y = [ct.random.random((50, 45, 40), chunks=10, spec=spec) for _ in range(4)]
+    ex = CudaExecutor()
+    before, paths = philox_uniform.launches, dict(philox_uniform.paths)
+    got = float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=ex))
+    assert philox_uniform.launches == before + 4
+    assert philox_uniform.paths["batched"] == paths["batched"] + 4
+    assert philox_uniform.paths["block"] == paths["block"]
+    assert ex.stats["batched_ops"] == 4 and ex.stats["eager_fallbacks"] == 0
+    random.seed(5)
+    a, b, x, y = [ct.random.random((50, 45, 40), chunks=10, spec=spec) for _ in range(4)]
+    np.testing.assert_allclose(got, float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute()), rtol=1e-12)
+
+
 @pytest.mark.parametrize("axis", [None, (0,), (1, 2)])
 @pytest.mark.parametrize("dtype", ["float64", "float32", "int64"])
 def test_region_sum_kernel_matches_plain(cuda, dtype, axis):

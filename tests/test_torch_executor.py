@@ -142,12 +142,28 @@ def test_unfused_elementwise_op_takes_the_whole_array_path(tmp_path):
     assert ex.stats["whole_array_errors"] == ex.stats["whole_select_errors"] == 0
 
 
-def test_vorticity_paths_match_the_reference_executor(tmp_path):
+def test_vorticity_paths_match_the_reference_executor(tmp_path, monkeypatch):
+    ref_batched = []  # the function of each op the reference batches
+    batched = JaxExecutor._exec_batched
+
+    def spy(self, op, spec, resident):
+        value = batched(self, op, spec, resident)
+        if value is not None:
+            ref_batched.append(spec.function.__name__)
+        return value
+
+    monkeypatch.setattr(JaxExecutor, "_exec_batched", spy)
     _, ref_ex, _, ex, _ = _run_all(tmp_path, _vorticity)
-    # the reference batches what the port runs block by block
-    assert ex.stats["chunked_ops"] == ref_ex.stats["batched_ops"] + ref_ex.stats["chunked_ops"]
+    assert ref_ex.stats["batched_ops"] == len(ref_batched)
+    assert sorted(ref_batched) == ["_random_block"] * 4 + ["fused_function"]
+    # the four random ops are batched as the reference batches them; the
+    # reference also batches the fused initial reduction, which the port
+    # runs block by block through fma_sum
+    assert ex.stats["batched_ops"] == ref_batched.count("_random_block") == 4
+    assert ex.stats["chunked_ops"] == ref_ex.stats["chunked_ops"] + 1 == 4
+    assert ex.stats["batched_ops"] + ex.stats["chunked_ops"] == ref_ex.stats["batched_ops"] + ref_ex.stats["chunked_ops"]
     assert ex.stats["eager_ops"] == ref_ex.stats["eager_ops"] == 1
-    for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors"):
+    for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
         assert ex.stats[counter] == 0
 
 
