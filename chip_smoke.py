@@ -28,50 +28,78 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    rounds shows in its SASS (the per-block kernel, the rounds alone), and
    the rounds alone (nothing stored) are timed beside their issue floors
    with IMAD.WIDE at two and at one FMA-pipe slot; region_sum within 1e-12
-   (float64) / 1e-6 (float32) of the sum of magnitudes, int64 exactly,
-   fma_sum within 1e-12 of the sum of the terms' magnitudes (contiguous
-   blocks, block views of a (499, 450, 400) array as the device executor
-   passes them, misaligned and ragged views, reduced axes (0,) and (1, 2),
-   combine-sized inputs, float32, sizes 1, 7 and 0); one launch per call
-   and two launches on one input bitwise equal; every path of both
+   (float64) / 1e-6 (float32) of the sum of magnitudes, int64 exactly
+   (contiguous blocks, block views of a (499, 450, 400) array as the
+   device executor passes them, misaligned and ragged views, reduced axes
+   (0,) and (1, 2), combine-sized inputs, float32, sizes 1, 7 and 0); one
+   launch per call and two launches on one input bitwise equal; every path
    (rows/columns, vector/scalar, one CTA/split) taken and printed per case;
    one kernel per call and no other kernel, counted by name under
    torch.profiler; region_sum's axis (0,) of a block view allocating no
    input-sized buffer; torch.sum is timed beside region_sum (also at a
    combine-sized input, at (5000, 5000) over axis (1,) and over axis (0,)
-   of block views; no single torch call computes fma_sum's or
-   philox_uniform's function). With ``--against CHECKOUT``, the fma_sum and
-   region_sum of another checkout of this repo are built from its sources
-   and timed beside these on the same inputs, in turns (theirs, ours, ours,
-   theirs);
+   of block views; no single torch call computes fma_sum_blocks' or
+   philox_uniform's function); fma_sum_blocks (every block of the fused
+   reduction in one launch) within 1e-12 of each block's sum of magnitudes
+   of its plain version and of per-block fma_sum (fma_sum_blocks on a grid
+   of one block), on the main path's ragged grid of [1:] views of (500,
+   450, 400) / 100 and on ragged, odd, misaligned, float32, 1-D and 4-D
+   grids, repeat launches bitwise equal, one kernel per call, every path
+   taken, timed beside the per-block route (100 one-block launches) and its
+   bound (the four views read once); fma_sum, the chunked path's unit, on
+   the per-block cases above within 1e-12 of the terms' magnitudes, one
+   launch per call (none for size 0), timed by device and host time; the
+   batching rules of region_sum's and Philox's custom ops under
+   torch.func.vmap (grid views of a [1:] slice, addsum's (5, 5, 1000, 1000)
+   fused op) against their plain versions and numpy, one kernel per
+   batched call, timed beside their bounds and torch.sum. With
+   ``--against CHECKOUT``, the fma_sum and region_sum of another checkout
+   of this repo are built from its sources and timed beside these on the
+   same inputs, in turns (theirs, ours, ours, theirs), by device and host
+   time (against a checkout from before this one's fma_sum_blocks took the
+   place of fma_sum's own kernel: that kernel against fma_sum_blocks on one
+   (100, 100, 100) and one (40, 40, 40) block);
 4. drive the main path through the public entry points, on the default
    sequential executor and on the device executor (``CudaExecutor``):
    addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
    ``mean(a[1:]*x[1:] + b[1:]*y[1:])`` at (500, 450, 400) / 100, each
    checked against a numpy oracle that draws the same per-block Philox
    streams itself (rtol 1e-12). Kernel launch counts are zeroed just before
-   and read just after each run, with the paths each kernel took;
-   vorticity must launch philox_uniform exactly 400 times (per block) on
-   the sequential executor and exactly 4 times (batched, one per array,
-   ``batched_ops`` 4) on the device executor, region_sum at least 100 times
-   on the sequential one, and fma_sum exactly 100 times on the device
-   executor, which must also take no fallback, stay under its residency
-   budget and leave chunk files for the output alone; addsum's random ops,
-   fused into their consumer, stay per block (50 launches, no batched op);
+   and read just after each run, with the paths each kernel took.
+   Vorticity must launch philox_uniform exactly 400 times (per block) on
+   the sequential executor; on the device executor it is computed four
+   times with distinct seeds on one executor, each equal to its oracle:
+   the first runs its segment op by op (the first sighting of its
+   structural key: a plan computed once is never captured), the second
+   captures it as a CUDA graph and replays it (``segments_compiled`` 1),
+   the others replay it (``segment_struct_hits`` 1); each launches
+   philox_uniform 4 times (batched) and fma_sum_blocks once (split
+   tiles), with ``batched_ops`` 5, ``chunked_ops`` 3, ``eager_ops`` 1,
+   ``segments_traced`` 1, no fallback, peak reserved memory (graph pools
+   included) under its residency budget and chunk files for the output
+   alone; cold, capturing and warm ``compute()`` are printed. Addsum's
+   fused random op is batched on the device executor (one Philox launch
+   per array, ``batched_ops`` 1), its cold ``compute()`` printed. A cut
+   vorticity, (200, 180, 160) / 40 under a budget of two arrays, spills,
+   fails its segment's memory pre-check (``segment_mem_aborts`` 1) and
+   takes fma_sum block by block (100 launches of fma_sum_blocks, a grid of
+   one block each): the fusion rule's chunked form;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
    device's busy time and idle share. Every profiling session opens with a
    sentinel kernel that is not counted: the profiler can drop a session's
-   first kernel record. The device executor's profiled run is made in a
-   process of its own (``--profile-device-run``; in a process that had
-   already profiled and run many kernels the profiler lost one Philox
-   record of four), and its reading is used only when it recorded every
-   launch the wrappers counted (up to three tries); its copy kernels and
-   float64 fill kernels must then be at least 390 fewer each than the 399
-   and 398 that the random ops made when they ran block by block (their
-   block copies and template fills).
+   first kernel record. The device executor's profiled run is a replay of
+   its captured segment, made in a process of its own
+   (``--profile-device-run``; in a process that had already profiled and
+   run many kernels the profiler lost one Philox record of four), and its
+   reading is used only when it recorded every launch the wrappers counted
+   (up to three tries); its copy kernels and float64 fill kernels must then
+   be at least 390 fewer each than the 399 and 398 that the random ops made
+   when they ran block by block (their block copies and template fills).
 
+The kernels line gives each kernel's launches in the run of its path:
+vorticity's first device compute.
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
 stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
@@ -223,7 +251,7 @@ SENTINEL_KERNEL = "spin_kernel"
 #: reading that records every counted launch
 PROFILE_ATTEMPTS = 3
 #: a piece of the device kernel names of each wrapper
-KERNEL_RECORDS = {"philox_uniform": "philox_", "region_sum": "region_sum_", "fma_sum": "fma_sum_kernel"}
+KERNEL_RECORDS = {"philox_uniform": "philox_", "region_sum": "region_sum_", "fma_sum_blocks": "fma_blocks_kernel"}
 
 
 def kernel_launches_by_name(torch, fn) -> dict:
@@ -504,6 +532,7 @@ def check_philox(torch, rounds_lib: str) -> dict:
         source="cubed_tpu_torch/kernels/csrc/philox_uniform.cu",
         replaces="cubed_tpu/random.py:217 (_random_block; _philox_block :137)",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        slots=slots,
     )
 
 
@@ -532,16 +561,23 @@ def paths_delta(wrapper, before: dict) -> str:
 def one_launch_per_call(torch, wrapper, kernel_key: str, calls: list) -> None:
     """Run *calls* (thunks) under torch.profiler: the device must run exactly
     one kernel named *kernel_key* per launch the wrapper counts, and no
-    other kernel (no copy of an input, no second pass)."""
-    before = wrapper.launches
-    kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls])
-    launched = wrapper.launches - before
-    ours = sum(n for k, n in kernels.items() if kernel_key in k)
-    others = {k: n for k, n in kernels.items() if kernel_key not in k}
-    print(f"{kernel_key}: {len(calls)} calls, {launched} counted launches, profiler: {ours} "
-          f"{kernel_key} kernels, other kernels {others or 'none'}")
-    check(ours == launched and not others,
-          f"{kernel_key}: {ours} kernels and {others} for {launched} counted launches")
+    other kernel (no copy of an input, no second pass). Any other kernel, or
+    more of these than counted, fails at once; a reading with fewer than
+    counted (the profiler dropped a record, see PERF.md) is not used, and
+    the session runs again, up to PROFILE_ATTEMPTS sessions in all."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = wrapper.launches
+        kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls])
+        launched = wrapper.launches - before
+        ours = sum(n for k, n in kernels.items() if kernel_key in k)
+        others = {k: n for k, n in kernels.items() if kernel_key not in k}
+        print(f"{kernel_key}: {len(calls)} calls, {launched} counted launches, profiler: {ours} "
+              f"{kernel_key} kernels, other kernels {others or 'none'} (session {attempt})")
+        check(ours <= launched and not others,
+              f"{kernel_key}: {ours} kernels and {others} for {launched} counted launches")
+        if ours == launched:
+            return
+    check(False, f"{kernel_key}: no session of {PROFILE_ATTEMPTS} recorded every counted launch")
 
 
 def check_region_sum(torch) -> dict:
@@ -656,13 +692,16 @@ def region_timings(torch, gen, base64) -> list:
     ]
 
 
-def check_fma_sum(torch) -> dict:
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+def check_fma_one_block(torch) -> None:
+    """fma_sum, the chunked path's unit: fma_sum_blocks on a grid of one
+    block, on the cases the per-block kernel it replaced was held to."""
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks, fma_sum_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     # four resident-sized arrays, as the index ops leave them: the device
-    # executor hands fma_sum (100, 100, 100) views with strides (180000, 400, 1)
+    # executor's chunked path hands fma_sum (100, 100, 100) views with
+    # strides (180000, 400, 1)
     bases = [torch.rand((499, 450, 400), generator=gen, device=dev, dtype=torch.float64)
              for _ in range(4)]
 
@@ -684,45 +723,193 @@ def check_fma_sum(torch) -> dict:
     ]
     # the products and their sum round alike in both; only the order of the
     # float64 sum differs: |kernel - plain| <= 1e-12 * sum(|a*x| + |b*y|)
-    max_err = 0.0
     taken = []
     for label, (a, x, b, y) in cases:
-        before, paths = fma_sum.launches, dict(fma_sum.paths)
+        before, paths = fma_sum_blocks.launches, dict(fma_sum_blocks.paths)
         k1 = fma_sum(a, x, b, y)
-        launched = fma_sum.launches - before
+        launched = fma_sum_blocks.launches - before
         k2 = fma_sum(a, x, b, y)
         p = fma_sum_plain(a, x, b, y)
         torch.cuda.synchronize()
-        check(launched == 1, f"fma_sum {label}: {launched} launches for one call")
+        check(launched == (1 if a.numel() else 0), f"fma_sum {label}: {launched} launches for one call")
         check(torch.equal(k1, k2), f"fma_sum {label}: two launches differ")
         check(k1.shape == p.shape and k1.dtype == p.dtype == torch.float64, f"fma_sum {label}: shape/dtype")
         scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
         err = float((k1 - p).abs().max()) if k1.numel() else 0.0
         check(err <= 1e-12 * scale, f"fma_sum {label}: |kernel - plain| {err} beyond 1e-12 * {scale}")
-        max_err = max(max_err, err)
-        taken.append(f"{label}: {paths_delta(fma_sum, paths)}")
-    print("fma_sum: within 1e-12 of sum(|a*x| + |b*y|) of the plain version, one launch per call, "
-          "repeat launches bitwise equal, over", len(cases), "cases")
+        taken.append(f"{label}: {paths_delta(fma_sum_blocks, paths)}")
+    print("fma_sum (fma_sum_blocks on a grid of one block): within 1e-12 of sum(|a*x| + |b*y|) of the plain "
+          "version, one launch per call (none for size 0), repeat launches bitwise equal, over", len(cases), "cases")
     print("fma_sum paths: " + "; ".join(taken))
-    check(all(fma_sum.paths.values()), f"fma_sum: a path never taken: {fma_sum.paths}")
-    one_launch_per_call(torch, fma_sum, "fma_sum", [lambda ts=ts: fma_sum(*ts) for _, ts in cases])
+    one_launch_per_call(torch, fma_sum_blocks, "fma_blocks_kernel",
+                        [lambda ts=ts: fma_sum(*ts) for _, ts in cases if ts[0].numel()])
 
-    # timing at the main path's shape: distinct block views (256 MB of reads
-    # in all, past the 50 MB L2)
+    # timing at the chunked path's shape: distinct block views (256 MB of
+    # reads in all, past the 50 MB L2), device and host time
     views = main_path_views(bases)
     ms = time_ms(torch, fma_sum, views)
+    host = host_us(torch, fma_sum, views)
     plain_ms = time_ms(torch, fma_sum_plain, views)
     n = 100 * 100 * 100
     b, by = bound_ms(4 * 8 * n + 8, 3 * n)  # 4 inputs read, one float64 written; 2 mul + 1 add
-    print(f"fma_sum (100,100,100) f64 views: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, "
-          f"bound {b:.5f} ms ({by}); {smi_tag()}")
+    print(f"fma_sum (100,100,100) f64 views, one block: {ms:.5f} ms/launch ({host:.2f} us of host time a call), "
+          f"plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by}); {smi_tag()}")
     del bases
+
+
+#: fma_sum_blocks' cases: (label, base shape, chunks, dtype name, view of
+#: each base); the main path's ragged grid of [1:] views first
+FMA_BLOCK_CASES = [
+    ("main path: [1:] views of (500,450,400) / 100", (500, 450, 400), (100, 100, 100), "float64",
+     lambda t: t[1:]),
+    ("(50,45,40)[1:] / 10", (50, 45, 40), (10, 10, 10), "float64", lambda t: t[1:]),
+    ("(50,45,40)[1:] / 10 float32", (50, 45, 40), (10, 10, 10), "float32", lambda t: t[1:]),
+    ("odd (37,29,13) / (8,7,5)", (37, 29, 13), (8, 7, 5), "float64", lambda t: t),
+    ("misaligned (60,40,33)[1:, :, 1:] / (10,10,8)", (60, 40, 33), (10, 10, 8), "float64",
+     lambda t: t[1:, :, 1:]),
+    ("1-D (1001,)[1:] / 300 float32", (1001,), (300,), "float32", lambda t: t[1:]),
+    ("4-D (6,6,4,6)[1:] / (2,4,3,4)", (6, 6, 4, 6), (2, 4, 3, 4), "float64", lambda t: t[1:]),
+]
+
+
+def per_block_fma(torch, ts, chunks):
+    """The per-block route: one fma_sum launch a block, stacked."""
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum
+
+    grid = [range(0, n, c) for n, c in zip(ts[0].shape, chunks)]
+    out = torch.empty([len(g) for g in grid], dtype=torch.float64, device=ts[0].device)
+    for idx in itertools.product(*[range(len(g)) for g in grid]):
+        sel = tuple(slice(i * c, i * c + c) for i, c in zip(idx, chunks))
+        out[idx] = fma_sum(*[t[sel] for t in ts]).reshape(())
+    return out
+
+
+def check_fma_sum_blocks(torch) -> dict:
+    from cubed_tpu_torch.kernels.fma_sum import blocks_plan, fma_sum_blocks, fma_sum_blocks_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    max_err = 0.0
+    taken = []
+    calls = []
+    main = None
+    for label, shape, chunks, dt, view in FMA_BLOCK_CASES:
+        bases = [torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(getattr(torch, dt))
+                 for _ in range(4)]
+        ts = [view(b) for b in bases]
+        before, paths = fma_sum_blocks.launches, dict(fma_sum_blocks.paths)
+        k1 = fma_sum_blocks(*ts, chunks)
+        launched = fma_sum_blocks.launches - before
+        k2 = fma_sum_blocks(*ts, chunks)
+        plain = fma_sum_blocks_plain(*ts, chunks)
+        per_block = per_block_fma(torch, ts, chunks)
+        a, x, b, y = ts
+        # |kernel - other| <= 1e-12 * each block's sum(|a*x| + |b*y|)
+        scale = fma_sum_blocks_plain(a.abs(), x.abs(), b.abs(), y.abs(), chunks)
+        torch.cuda.synchronize()
+        what = f"fma_sum_blocks {label}"
+        check(launched == 1, f"{what}: {launched} launches for one call")
+        check(torch.equal(k1, k2), f"{what}: two launches differ")
+        check(k1.shape == plain.shape and k1.dtype == torch.float64, f"{what}: shape/dtype")
+        for other, name in ((plain, "plain version"), (per_block, "per-block fma_sum")):
+            err = (k1 - other).abs()
+            check(bool((err <= 1e-12 * scale).all()), f"{what}: beyond 1e-12 of the {name}")
+        max_err = max(max_err, float((k1 - plain).abs().max()))
+        p = blocks_plan(*ts, chunks)
+        taken.append(f"{label}: {paths_delta(fma_sum_blocks, paths)} ({p.items} work items, "
+                     f"{p.per_block[0]} a block)")
+        calls.append((ts, chunks))
+        if main is None:
+            main = (ts, chunks)
+    print(f"fma_sum_blocks: within 1e-12 of each block's sum(|a*x| + |b*y|) of the plain version and of "
+          f"per-block fma_sum, one launch per call, repeat launches bitwise equal, over {len(calls)} cases")
+    print("fma_sum_blocks paths: " + "; ".join(taken))
+    check(all(fma_sum_blocks.paths.values()), f"fma_sum_blocks: a path never taken: {fma_sum_blocks.paths}")
+    one_launch_per_call(torch, fma_sum_blocks, "fma_blocks_kernel",
+                        [lambda c=c: fma_sum_blocks(*c[0], c[1]) for c in calls])
+
+    ts, chunks = main
+    ms = time_ms(torch, fma_sum_blocks, [(*ts, chunks)])
+    route_ms = time_ms(torch, per_block_fma, [(torch, ts, chunks)], reps=5)
+    plain_ms = time_ms(torch, fma_sum_blocks_plain, [(*ts, chunks)], reps=2)
+    n = ts[0].numel()
+    nblocks = 5 * 5 * 4
+    b, by = bound_ms(4 * 8 * n + 8 * nblocks, 3 * n)  # 4 inputs read, a float64 a block written
+    print(f"fma_sum_blocks {tuple(ts[0].shape)} f64 [1:] views / 100 ({nblocks} blocks): {ms:.5f} ms/launch "
+          f"({100 * b / ms:.1f}% of bound); the per-block route (100 fma_sum launches) {route_ms:.5f} ms; "
+          f"plain {plain_ms:.5f} ms; bound {b:.5f} ms ({by}: {4 * 8 * n / 1e6:.2f} MB read); {smi_tag()}")
     return dict(
-        name="fma_sum", route="cuda",
+        name="fma_sum_blocks", route="cuda",
         source="cubed_tpu_torch/kernels/csrc/fma_sum.cu",
         replaces="cubed_tpu/kernels/reductions.py:257 (fused_fma_mean; pallas_call :300) at 0cd9f84^",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
     )
+
+
+def check_batched_rules(torch, slots: float) -> None:
+    """The batching rules of region_sum's and Philox's custom ops under
+    torch.func.vmap, against their plain versions: one kernel per batched
+    call (torch.profiler), and their times at addsum's fused op, (5, 5,
+    1000, 1000), beside their bounds and torch.sum."""
+    from cubed_tpu_torch.kernels.philox_uniform import philox_blocks, philox_uniform
+    from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
+
+    vmap = torch.func.vmap
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    base = torch.rand((500, 450, 400), generator=gen, device=dev, dtype=torch.float64)[1:]
+    st = base.stride()
+    grid = base.as_strided((4, 4, 4, 100, 100, 100), tuple(100 * s for s in st) + st)
+    stacked = [(torch.rand((5, 5, 1000, 1000), generator=gen, device=dev, dtype=torch.float64),)
+               for _ in range(2)]
+    cases = [(grid, axes, 3) for axes in ((0, 1, 2), (0,), (1, 2))] + [(stacked[0][0], (0, 1), 2)]
+    rule_calls = []
+    for x, axes, levels in cases:
+        f = lambda b, axes=axes: region_sum(b, axes)  # noqa: E731
+        for _ in range(levels):
+            f = vmap(f)
+        before = region_sum.launches
+        got = f(x)
+        launched = region_sum.launches - before
+        plain = region_sum_plain(x, tuple(a + levels for a in axes))
+        scale = region_sum_plain(x.abs(), tuple(a + levels for a in axes))
+        torch.cuda.synchronize()
+        what = f"region_sum rule {tuple(x.shape)} in-block axes {axes}"
+        check(launched == 1, f"{what}: {launched} launches")
+        check(bool(((got - plain).abs() <= 1e-12 * scale).all()), f"{what}: beyond 1e-12 of sum(|x|)")
+        rule_calls.append(lambda f=f, x=x: f(x))
+    print(f"region_sum batching rule: {len(cases)} grid views, one launch each, within 1e-12 of sum(|x|)")
+    one_launch_per_call(torch, region_sum, "region_sum", rule_calls)
+
+    like = torch.zeros((), dtype=torch.float64, device=dev).expand(1000, 1000)
+    seeds = (2**30 - 7 + torch.arange(25, dtype=torch.int64)).reshape(5, 5, 1, 1)
+    rule = vmap(vmap(lambda s: philox_blocks(like, s)))
+    before = philox_uniform.launches
+    got = rule(seeds)
+    torch.cuda.synchronize()
+    check(philox_uniform.launches - before == 1, "Philox rule: not one launch")
+    host = got.cpu().numpy()
+    for i, j in itertools.product(range(5), range(5)):
+        want = np.random.Generator(np.random.Philox(seed=int(seeds[i, j, 0, 0]))).random((1000, 1000))
+        check(np.array_equal(host[i, j].view(np.uint64), want.view(np.uint64)),
+              f"Philox rule: block ({i}, {j}) differs from numpy")
+    print("Philox batching rule: (5, 5) blocks of (1000, 1000) in one launch, bit for bit numpy's streams")
+    one_launch_per_call(torch, philox_uniform, "philox_blocks_kernel", [lambda: rule(seeds)])
+
+    reduce_rule = vmap(vmap(lambda b: region_sum(b, (0, 1))))
+    ms = time_ms(torch, reduce_rule, stacked)
+    lib = time_ms(torch, lambda x: torch.sum(x, dim=(2, 3), keepdim=True), stacked)
+    plain = time_ms(torch, lambda x: region_sum_plain(x, (2, 3)), stacked)
+    b, by = bound_ms(8 * 25e6 + 8 * 25, 25e6)
+    print(f"region_sum rule (5,5,1000,1000) f64 over the in-block axes: {ms:.5f} ms/launch "
+          f"({100 * b / ms:.1f}% of bound), torch.sum {lib:.5f} ms, plain {plain:.5f} ms, bound {b:.5f} ms "
+          f"({by}); {smi_tag()}")
+    ms = time_ms(torch, rule, [(seeds,)])
+    counters = 25 * 250_000
+    b, by = bound_ms(8 * 25e6, slots * counters, INT_ISSUE_PER_S)
+    print(f"Philox rule (5,5) blocks of (1000,1000) f64: {ms:.5f} ms/launch ({100 * b / ms:.1f}% of bound), "
+          f"bound {b:.5f} ms ({by}); {smi_tag()}")
+    del base, grid, stacked
 
 
 def main_path_views(bases) -> list:
@@ -734,7 +921,10 @@ def main_path_views(bases) -> list:
 def compare_against(torch, path: str) -> None:
     """Time this checkout's fma_sum and region_sum beside another checkout's
     (at *path*, built from its own sources) on the same inputs, in turns:
-    theirs, ours, ours, theirs."""
+    theirs, ours, ours, theirs, by device and host time. Against a checkout
+    that still has fma_sum's own kernel (before fma_sum_blocks took its
+    place), the fma_sum rows hold that kernel against fma_sum_blocks on a
+    grid of one block."""
     import importlib
     import importlib.util
 
@@ -758,16 +948,23 @@ def compare_against(torch, path: str) -> None:
     def region(m, axes):
         return lambda x: m.region_sum(x, axes)
 
+    small = [tuple(t[i * 40:(i + 1) * 40, j * 40:(j + 1) * 40, 0:40] for t in bases)
+             for i, j in itertools.product(range(8), range(4))]
     cases = [
         ("fma_sum (100,100,100) f64 views", lambda m: m.fma_sum, (ours_fma, theirs_fma), main_path_views(bases)),
+        ("fma_sum (40,40,40) f64 views", lambda m: m.fma_sum, (ours_fma, theirs_fma), small),
         ("region_sum (100,100,100) f64 contiguous, all axes", lambda m: region(m, None),
          (ours_region, theirs_region), blocks),
     ] + [(f"region_sum {label}", lambda m, axes=axes: region(m, axes), (ours_region, theirs_region), args)
          for label, args, axes, _ in region_timings(torch, gen, bases[0])]
     for label, get, (ours, theirs), args in cases:
         times = [time_ms(torch, get(m), args) for m in (theirs, ours, ours, theirs)]
-        print(f"against {path}: {label}: theirs {times[0]:.5f} / {times[3]:.5f} ms, "
-              f"ours {times[1]:.5f} / {times[2]:.5f} ms; {smi_tag()}")
+        host = [host_us(torch, get(m), args) for m in (theirs, ours, ours, theirs)]
+        print(f"against {path}: {label}: theirs {times[0]:.5f} / {times[3]:.5f} ms "
+              f"({host[0]:.2f} / {host[3]:.2f} us of host time a call), ours {times[1]:.5f} / {times[2]:.5f} ms "
+              f"({host[1]:.2f} / {host[2]:.2f} us); ours/theirs device "
+              f"{(times[1] + times[2]) / (times[0] + times[3]):.3f}, host {(host[1] + host[2]) / (host[0] + host[3]):.3f}; "
+              f"{smi_tag()}")
 
 
 # ---------------------------------------------------------------------------
@@ -791,11 +988,11 @@ def oracle_random(shape, chunks, root_seed) -> np.ndarray:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its CUDA launches."""
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
     from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
     from cubed_tpu_torch.kernels.region_sum import region_sum
 
-    return {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum": fma_sum}
+    return {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum_blocks": fma_sum_blocks}
 
 
 def stores_with_chunks(work_dir: str) -> set:
@@ -808,29 +1005,32 @@ def stores_with_chunks(work_dir: str) -> set:
 
 
 def run_main_path(torch, name: str, executor_name: str, build, expected: float,
-                  counts_required: dict) -> dict:
-    """Compute one configuration on one executor ("sequential" or "cuda"),
-    check it against the oracle's *expected* value and the kernel launch
-    counts (a key ``kernel:path`` bounds the launches of one path, ``stats:
-    counter`` one of the device executor's counters); for the device
-    executor also its fallback counters, its peak memory against its budget,
-    and that only the output reached storage."""
+                  counts_required: dict, executor=None, seed: int = SEED, spill: bool = False) -> dict:
+    """Compute one configuration on one executor ("sequential" or "cuda",
+    then *executor* or a new ``CudaExecutor``), check it against the
+    oracle's *expected* value and the kernel launch counts (a key
+    ``kernel:path`` bounds the launches of one path, ``stats: counter`` one
+    of the device executor's counters); for the device executor also its
+    fallback counters and, unless *spill* (a budget that spills arrays to
+    storage, asked for), its peak memory (reserved, graph pools included)
+    against its budget and that only the output reached storage."""
     import cubed_tpu_torch
-    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.executors.cuda import _GRAPHS, CudaExecutor
 
-    work = os.path.join(WORK_DIR, f"{name}-{executor_name}")
+    work = os.path.join(WORK_DIR, f"{name}-{executor_name}-{seed}")
     spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
-    random.seed(SEED)
+    random.seed(seed)
     result = build(spec)
     plan = result.plan._finalize(array_names=(result.name,))
     projected = plan.max_projected_mem()
-    executor = CudaExecutor() if executor_name == "cuda" else None
+    if executor is None and executor_name == "cuda":
+        executor = CudaExecutor()
     wrappers = kernel_wrappers()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
-        w.launches = 0
+        w.launches = 0  # just before the run: its launches alone
     paths = {k: dict(w.paths) for k, w in wrappers.items() if hasattr(w, "paths")}
     t0 = time.perf_counter()
     value = result.compute(executor=executor)
@@ -840,15 +1040,17 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     paths = {k: {p: wrappers[k].paths[p] - n for p, n in before.items() if wrappers[k].paths[p] > n}
              for k, before in paths.items()}
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     stored = stores_with_chunks(work)
     shutil.rmtree(work, ignore_errors=True)
 
-    label = f"{name} [{executor_name}]"
+    label = f"{name} [{executor_name}, seed {seed}]"
     value = float(value)
     rel = abs(value - expected) / abs(expected)
     print(f"{label}: compute() {elapsed:.3f} s ({plan.num_tasks()} tasks, {plan.num_ops()} ops), "
           f"value {value!r}, numpy oracle {expected!r}, rel err {rel:.3e}; {smi_tag()}")
-    print(f"{label}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B")
+    print(f"{label}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B, "
+          f"max_memory_reserved {peak_reserved} B, cached graphs {_GRAPHS.nbytes(torch.device('cuda', 0))} B")
     print(f"{label}: launches {json.dumps(launches)}; paths {json.dumps(paths)}")
     check(np.isfinite(value), f"{label}: value is not finite")
     check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
@@ -862,11 +1064,15 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
         print(f"{label}: executor stats {json.dumps(stats)}; residency budget {budget} B")
         for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
             check(stats.get(counter, 0) == 0, f"{label}: {counter} = {stats.get(counter)}")
-        check(peak <= budget, f"{label}: peak device memory {peak} B over the budget {budget} B")
         output_store = os.path.normpath(result.zarray_maybe_lazy.store)
-        check({os.path.normpath(p) for p in stored} == {output_store},
-              f"{label}: chunk files in {sorted(stored)}, expected the output's alone")
-    return launches
+        if spill:
+            check(len(stored) > 1, f"{label}: nothing spilled to storage under a budget of {budget} B")
+        else:
+            check(peak_reserved <= budget,
+                  f"{label}: peak device memory (reserved) {peak_reserved} B over the budget {budget} B")
+            check({os.path.normpath(p) for p in stored} == {output_store},
+                  f"{label}: chunk files in {sorted(stored)}, expected the output's alone")
+    return dict(launches=launches, paths=paths, stats=stats, seconds=elapsed)
 
 
 def addsum_build(spec):
@@ -885,19 +1091,56 @@ def addsum_oracle() -> float:
     return float(np.sum(a + b))
 
 
-def vorticity_build(spec):
+def vorticity_build(spec, config=VORTICITY):
     import cubed_tpu_torch
     import cubed_tpu_torch.array_api as xp
 
-    shape, chunks = VORTICITY["shape"], VORTICITY["chunks"]
+    shape, chunks = config["shape"], config["chunks"]
     a, b, x, y = [cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec) for _ in range(4)]
     return xp.mean(xp.add(xp.multiply(a[1:], x[1:]), xp.multiply(b[1:], y[1:])))
 
 
-def vorticity_oracle() -> float:
-    shape, chunks = VORTICITY["shape"], VORTICITY["chunks"]
+def vorticity_oracle(config=VORTICITY) -> float:
+    shape, chunks = config["shape"], config["chunks"]
     a, b, x, y = [oracle_random(shape, chunks, random.getrandbits(30)) for _ in range(4)]
     return float(np.mean(a[1:] * x[1:] + b[1:] * y[1:]))
+
+
+#: vorticity cut to (200, 180, 160) / 40 under a budget of two of its
+#: arrays: the random ops spill, the segment fails its memory pre-check,
+#: and the fused reduction reads its blocks from storage and takes fma_sum
+#: block by block (the fusion rule's chunked form: fma_sum_blocks on a grid
+#: of one block, once a block)
+SPILL = dict(shape=(200, 180, 160), chunks=40)
+SPILL_DEVICE_MEM = 2 * 200 * 180 * 160 * 8 + 1_000_000
+
+
+def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int) -> list:
+    """Compute one configuration on one ``CudaExecutor`` once per seed: the
+    first compute runs its segment op by op (a first sighting of its
+    structural key), the second captures it and replays it
+    (``segments_compiled`` 1), the others replay it (``segment_struct_hits``
+    1). Each value is held against its oracle; each compute against
+    *required*, and from the second on the graph's pool against
+    *footprint* bytes."""
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    runs = []
+    for i, seed in enumerate(seeds):
+        random.seed(seed)
+        t = time.perf_counter()
+        expected = oracle()
+        print(f"{name} seed {seed}: numpy oracle {time.perf_counter() - t:.1f} s")
+        req = dict(required, **{"stats:segments_compiled": (1, 1) if i == 1 else (0, 0),
+                                "stats:segment_struct_hits": (1, 1) if i >= 2 else (0, 0),
+                                "stats:segment_hbm_footprint": (footprint, 10**12) if i else (0, 0)})
+        runs.append(run_main_path(torch, name, "cuda", build, expected, req, executor=ex, seed=seed))
+    secs = [r["seconds"] for r in runs]
+    print(f"{name} [cuda]: compute() cold {secs[0]:.4f} s (first sighting: op by op, no capture), "
+          f"{secs[1]:.4f} s (second: capture, then replay), warm {' / '.join(f'{w:.4f}' for w in secs[2:])} s "
+          f"(replays); {smi_tag()}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -990,10 +1233,11 @@ def breakdown(torch, name: str, build) -> None:
 
 def profile_device_run(torch) -> int:
     """``--profile-device-run``: vorticity on the device executor, once to
-    warm up, once under torch.profiler to warm the profiler up, and once
-    under it to measure, in a process of its own; prints
-    the profiled run as one JSON line (:func:`profiled`'s reading, and the
-    launches the wrappers counted in it)."""
+    warm up (the first sighting of its segment), once under torch.profiler
+    to warm the profiler up (its segment is captured), and once under it to
+    measure (a replay), in a process of its own; prints the profiled run as
+    one JSON line (:func:`profiled`'s reading, and the launches the
+    wrappers counted in it)."""
     import cubed_tpu_torch
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
@@ -1002,8 +1246,10 @@ def profile_device_run(torch) -> int:
     random.seed(SEED)
     result = vorticity_build(spec)
 
+    ex = CudaExecutor()
+
     def run():
-        result.compute(executor=CudaExecutor())
+        result.compute(executor=ex)
         torch.cuda.synchronize()
 
     try:
@@ -1014,6 +1260,7 @@ def profile_device_run(torch) -> int:
             w.launches = 0
         wall, kernels_s, copies_s, _, why, by_kernel = profiled(torch, run)
         counted = {k: w.launches for k, w in wrappers.items()}
+        check(ex.stats["segment_struct_hits"] == 1, f"the profiled run did not replay: {dict(ex.stats)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps(dict(wall=wall, kernels_s=kernels_s, copies_s=copies_s, why=why, by_kernel=by_kernel,
@@ -1073,8 +1320,10 @@ def breakdown_device(torch, name: str, build) -> None:
     t0 = time.perf_counter()
     for op_name, node in visit_nodes(dag):
         t = time.perf_counter()
-        in_segment = ex._classify(node["primitive_op"]) == "segment"
-        ex._run([(op_name, node)], resident, budget, requested, None, in_segment=in_segment)
+        if ex._classify(node["primitive_op"]) == "segment":
+            for arr in ex._segment_sources([(op_name, node)]):
+                ex._preload(arr, resident, budget)
+        ex._run_ops([(op_name, node)], resident, budget, requested)
         torch.cuda.synchronize()
         kind = node["op_name"]
         per_kind[kind] = per_kind.get(kind, 0.0) + time.perf_counter() - t
@@ -1129,38 +1378,61 @@ def main(argv: list) -> int:
         print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)}; {ROUNDS_SOURCE})")
         print_resource_usage()
 
-        kernels = [check_philox(torch, rounds_lib), check_region_sum(torch), check_fma_sum(torch)]
+        kernels = [check_philox(torch, rounds_lib), check_region_sum(torch), check_fma_sum_blocks(torch)]
+        check_fma_one_block(torch)
+        check_batched_rules(torch, kernels[0]["slots"])
         if against:
             compare_against(torch, against)
 
-        for name, build, oracle, required in [
-            # addsum's random ops fuse into their consumer and stay per
-            # block; vorticity's go through the batched kernel on the
-            # device executor, one launch per array
-            ("addsum", addsum_build, addsum_oracle, {
-                "sequential": {"philox_uniform": (50, 50), "philox_uniform:batched": (0, 0),
-                               "region_sum": (25, 10**9), "fma_sum": (0, 0)},
-                "cuda": {"philox_uniform": (50, 50), "philox_uniform:batched": (0, 0),
-                         "region_sum": (25, 10**9), "fma_sum": (0, 0), "stats:batched_ops": (0, 0)},
-            }),
-            ("vorticity", vorticity_build, vorticity_oracle, {
-                "sequential": {"philox_uniform": (400, 400), "philox_uniform:batched": (0, 0),
-                               "region_sum": (100, 10**9), "fma_sum": (0, 0)},
-                "cuda": {"philox_uniform": (4, 4), "philox_uniform:batched": (4, 4),
-                         "philox_uniform:block": (0, 0), "region_sum": (1, 10**9), "fma_sum": (100, 100),
-                         "stats:batched_ops": (4, 4)},
-            }),
-        ]:
-            t1 = time.perf_counter()
-            random.seed(SEED)
-            expected = oracle()
-            print(f"{name}: numpy oracle {time.perf_counter() - t1:.1f} s")
-            launches = {ex: run_main_path(torch, name, ex, build, expected, req)
-                        for ex, req in required.items()}
-        # the kernels line reads this slice's main path: vorticity on the
-        # device executor
+        # addsum: the random ops fuse into their consumer; on the device
+        # executor that op takes the batched route (the Philox and region
+        # sum batching rules, one launch each)
+        random.seed(SEED)
+        expected = addsum_oracle()
+        addsum = {
+            "sequential": run_main_path(torch, "addsum", "sequential", addsum_build, expected, {
+                "philox_uniform": (50, 50), "philox_uniform:batched": (0, 0), "region_sum": (25, 10**9),
+                "fma_sum_blocks": (0, 0)}),
+            "cuda": run_main_path(torch, "addsum", "cuda", addsum_build, expected, {
+                "philox_uniform": (2, 2), "philox_uniform:batched": (2, 2), "region_sum": (2, 10**9),
+                "fma_sum_blocks": (0, 0), "stats:batched_ops": (1, 1),
+                "stats:chunked_ops": (3, 3), "stats:eager_ops": (1, 1), "stats:segments_traced": (1, 1)}),
+        }
+        # vorticity: per block on the sequential executor; on the device
+        # executor the batched Philox form, fma_sum_blocks and segment
+        # replay, four computes with distinct seeds
+        random.seed(SEED)
+        t1 = time.perf_counter()
+        expected = vorticity_oracle()
+        print(f"vorticity: numpy oracle {time.perf_counter() - t1:.1f} s")
+        run_main_path(torch, "vorticity", "sequential", vorticity_build, expected, {
+            "philox_uniform": (400, 400), "philox_uniform:batched": (0, 0), "region_sum": (100, 10**9),
+            "fma_sum_blocks": (0, 0)})
+        runs = run_device_repeats(torch, "vorticity", vorticity_build, vorticity_oracle, {
+            "philox_uniform": (4, 4), "philox_uniform:batched": (4, 4), "philox_uniform:block": (0, 0),
+            "region_sum": (1, 10**9), "fma_sum_blocks": (1, 1), "fma_sum_blocks:split": (1, 1),
+            "stats:batched_ops": (5, 5), "stats:chunked_ops": (3, 3), "stats:eager_ops": (1, 1),
+            "stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)},
+            seeds=(SEED, SEED + 1, SEED + 2, SEED + 3),
+            # the graph's pool holds at least the four random arrays
+            footprint=4 * 8 * int(np.prod(VORTICITY["shape"])))
+        # the fusion rule's chunked form: fma_sum block by block
+        random.seed(SEED)
+        expected = vorticity_oracle(SPILL)
+        from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+        spill = run_main_path(
+            torch, "vorticity-spill", "cuda", lambda spec: vorticity_build(spec, SPILL), expected, {
+                "fma_sum_blocks": (100, 100), "stats:segment_mem_aborts": (1, 1),
+                "stats:segments_traced": (0, 0)},
+            executor=CudaExecutor(device_mem=SPILL_DEVICE_MEM), spill=True)
+        # the kernels line: each kernel's launches in the run of its path
+        # (vorticity's first device compute)
         for k in kernels:
-            k["launches"] = launches["cuda"][k["name"]]
+            k["launches"] = runs[0]["launches"][k["name"]]
+        print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "
+              f"sum batching rules on the fused op); compute() cold {addsum['cuda']['seconds']:.4f} s (a first "
+              f"sighting: op by op, no capture); {smi_tag()}")
         breakdown_device(torch, "vorticity", vorticity_build)
         breakdown(torch, "vorticity", vorticity_build)
     except PhaseFailed as e:

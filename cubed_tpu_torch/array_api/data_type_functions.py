@@ -19,6 +19,8 @@ def astype(x, dtype, /, *, copy: bool = True):
     def _astype(a, astype_dtype=None):
         return nxp.astype(a, astype_dtype)
 
+    _astype.batchable = True
+
     return map_blocks(_astype, x, dtype=dtype, astype_dtype=dtype)
 
 

@@ -37,6 +37,7 @@ def _squeeze_axes(x, axis: tuple[int, ...]):
         return nxp.squeeze(chunk, axis=axis)
 
     _sq.__name__ = "squeeze"
+    _sq.batchable = True
     return general_blockwise(
         _sq, block_function, x,
         shape=tuple(x.shape[i] for i in keep),

@@ -52,8 +52,10 @@ def _sum_with_dtype(a, axis=None, keepdims=False, dtype=None):
 
 
 # what the function computes, read from plan metadata by the device
-# executor's fusion rule (runtime/executors/cuda.py)
+# executor's fusion rule (runtime/executors/cuda.py); and that it runs
+# under torch.func.vmap, read by its batched route
 _sum_with_dtype.reduce_kind = "sum"
+_sum_with_dtype.batchable = True
 
 
 def _mean_intermediate_dtype(x_dtype):
@@ -92,6 +94,7 @@ def _mean_func(a, axis=None, keepdims=True, **kwargs):
 
 
 _mean_func.reduce_kind = "mean"
+_mean_func.batchable = True
 
 
 def _mean_combine(a, axis=None, keepdims=True, **kwargs):
@@ -102,3 +105,6 @@ def _mean_combine(a, axis=None, keepdims=True, **kwargs):
 
 def _mean_aggregate(a):
     return nxp.divide(a["total"], a["n"])
+
+
+_mean_aggregate.batchable = True

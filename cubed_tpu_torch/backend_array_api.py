@@ -12,6 +12,10 @@ explicitly: ``torch.asarray(1.0)`` is float32 where the JAX package's x64
 default is float64. ``nxp.sum`` of a float64, float32 or int64 tensor goes to
 the hand-written region-sum kernel (its plain version on the CPU); any other
 dtype goes to ``torch.sum`` and, on the card, counts in ``TORCH_SUM_CALLS``.
+
+Every function here runs under ``torch.func.vmap`` (the device executor's
+batched route): the region sum and ``sqrt`` (numpy on the CPU) are custom
+ops with batching rules, and a scalar ``asarray`` is filled on the device.
 """
 
 from __future__ import annotations
@@ -151,13 +155,20 @@ def _sum(x, axis=None, keepdims=False, dtype=None):
 
 
 def _asarray(obj, dtype=None, device=None):
+    dev = device or get_device()
+    if isinstance(obj, (bool, int, float, complex, np.generic)):
+        # a scalar is filled on the device (one kernel, no host-to-device
+        # copy, so a captured CUDA graph may hold it)
+        value = obj.item() if isinstance(obj, np.generic) else obj
+        dt = to_torch_dtype(dtype if dtype is not None else np.asarray(obj).dtype)
+        return torch.full((), value, dtype=dt, device=dev)
     if isinstance(obj, torch.Tensor):
         t = obj
     else:
         a = np.asarray(obj, dtype=dtype)
         t = torch.from_numpy(np.ascontiguousarray(a))
     dt = to_torch_dtype(dtype) if dtype is not None else t.dtype
-    return t.to(device=device or get_device(), dtype=dt)
+    return t.to(device=dev, dtype=dt)
 
 
 def _divide(a, b):
@@ -168,12 +179,19 @@ def _divide(a, b):
     return torch.true_divide(a, b)
 
 
-def _sqrt(x):
+@torch.library.custom_op("cubed_tpu_torch::sqrt", mutates_args=())
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
     # torch's vectorised CPU sqrt is not correctly rounded (about 0.7% of
     # float64 inputs come out 1 ulp off); numpy's is, as is CUDA's
     if x.device.type == "cpu" and x.dtype in (torch.float32, torch.float64):
         return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::sqrt")
+def _sqrt_vmap(info, in_dims, x):
+    # elementwise: the batched tensor is just a larger input
+    return _sqrt(x), in_dims[0]
 
 
 def _broadcast_to(x, shape):

@@ -266,6 +266,8 @@ def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
         return func(*chunks)
 
     elementwise_chunk.__name__ = elementwise_chunk.elementwise = getattr(func, "__name__", "elemwise")
+    # every nxp elementwise function runs under torch.func.vmap
+    elementwise_chunk.batchable = True
     return blockwise(
         elementwise_chunk, tuple(range(out_ndim))[::-1], *blockwise_args, dtype=dtype,
         shape_invariant=True,
@@ -545,7 +547,9 @@ class _InitialReduce:
     """The per-block reduce of a reduction tree, over *axis* with every axis
     kept. With *fields* it returns one chunk per field of the {field: chunk}
     pytree, in that order. ``reduce_kind`` is *func*'s tag (``"sum"``,
-    ``"mean"``), which the device executor's fusion rule reads."""
+    ``"mean"``), which the device executor's fusion rule reads;
+    ``batchable`` is *func*'s (it runs under ``torch.func.vmap``), which its
+    batched route reads."""
 
     def __init__(self, func: Callable, axis: tuple, kw: dict, fields: Optional[list] = None):
         self.func = func
@@ -553,6 +557,7 @@ class _InitialReduce:
         self.kw = kw
         self.fields = fields
         self.reduce_kind = getattr(func, "reduce_kind", None)
+        self.batchable = getattr(func, "batchable", False)
 
     def __call__(self, chunk):
         out = self.func(chunk, axis=self.axis, keepdims=True, **self.kw)
@@ -760,6 +765,7 @@ def _aggregate_fields(parts: Sequence[CoreArray], aggregate_func: Callable, dtyp
         return aggregate_func(dict(zip(names, chunks)))
 
     agg_kernel.__name__ = getattr(aggregate_func, "__name__", "aggregate")
+    agg_kernel.batchable = getattr(aggregate_func, "batchable", False)
     args = []
     for p in parts:
         args.extend([p, inds])

@@ -67,6 +67,9 @@ class Dag:
     def predecessors(self, name: str) -> list[str]:
         return list(self._pred[name])
 
+    def successors(self, name: str) -> list[str]:
+        return list(self._succ[name])
+
     def out_degree(self, name: str) -> int:
         return sum(self._succ[name].values())
 

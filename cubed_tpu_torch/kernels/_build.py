@@ -130,6 +130,8 @@ def load(name: str) -> ctypes.CDLL:
 
 _sm_counts: dict = {}
 _tickets: dict = {}
+#: the most ticket counters a launch has asked for, per device index
+_wanted: dict = {}
 #: ticket counters first allocated for a stream: a split launch uses fewer
 #: than ``_geometry.CTAS_PER_SM`` per SM (a larger need grows the buffer)
 _TICKETS = 1024
@@ -149,16 +151,58 @@ def tickets(device, n: int):
     """The ticket counters of the current stream on CUDA *device*: an int32
     tensor of at least *n* entries, all 0 between launches (the CTA that
     draws a counter's last ticket sets it back to 0). Each stream has its
-    own, so launches on two streams never share a counter."""
+    own, so launches on two streams never share a counter. The largest *n*
+    asked for on a device is recorded: :func:`reserve_tickets` allocates
+    that many for a stream before a CUDA graph is captured on it."""
     device = torch.device(device)
     stream = torch.cuda.current_stream(device)
     key = (stream.device_index, stream.cuda_stream)
     with _lock:
+        _wanted[stream.device_index] = max(n, _wanted.get(stream.device_index, 0))
         buf = _tickets.get(key)
         if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                # the buffer would live in the graph's pool and be zeroed by
+                # the graph: the capturing executor reserves it beforehand
+                raise RuntimeError(f"ticket counters for {n} outputs first asked for under CUDA graph capture")
             with torch.cuda.device(device):
                 buf = _tickets[key] = torch.zeros(max(n, _TICKETS), dtype=torch.int32, device=device)
         return buf
+
+
+def reserve_tickets(device):
+    """The current stream's ticket counters, at least as many as any launch
+    on *device* has asked for (call outside capture, on the capture stream).
+    A graph captured on the stream keeps the tensor: a later, larger
+    reservation replaces the stream's buffer without freeing this one."""
+    device = torch.device(device)
+    index = torch.cuda.current_stream(device).device_index
+    return tickets(device, _wanted.get(index, 0))
+
+
+#: the kernel wrappers that count their launches: each has ``launches`` and
+#: ``paths`` (its launches by path), plain integers
+COUNTED: list = []
+
+
+def launch_counts() -> dict:
+    """Every counted wrapper's ``launches`` and ``paths``, keyed by
+    (wrapper name, path or None)."""
+    out = {}
+    for w in COUNTED:
+        out[(w.__name__, None)] = w.launches
+        for k, v in w.paths.items():
+            out[(w.__name__, k)] = v
+    return out
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add *delta* (as :func:`launch_counts` keys it) to the wrappers'
+    counts: a replayed CUDA graph counts the launches it holds."""
+    for w in COUNTED:
+        w.launches += delta.get((w.__name__, None), 0)
+        for k in w.paths:
+            w.paths[k] += delta.get((w.__name__, k), 0)
 
 
 def check(err: int, what: str) -> None:

@@ -1,9 +1,9 @@
 """How the hand-written kernels split their work: pure Python, no torch.
 
-``fma_sum`` and ``region_sum`` (``csrc/fma_sum.cu``, ``csrc/region_sum.cu``)
-read their inputs in place through their strides. Before each launch the
-wrapper calls :func:`plan` with the inputs' shape, strides and addresses, and
-the plan fixes everything the kernel does:
+``region_sum`` (``csrc/region_sum.cu``) reads its input in place through
+its strides. Before each launch the wrapper calls :func:`plan` with the
+input's shape, strides and address (the planner takes any number of inputs
+of one shape), and the plan fixes everything the kernel does:
 
 - **Merged axes.** Axes of size 1 are dropped, and neighbouring axes merge
   where every input is contiguous across them and both are reduced or both
@@ -25,9 +25,13 @@ the plan fixes everything the kernel does:
   ``ONE_CTA_STEPS`` full CTA steps takes one CTA.
 - **32-bit indices.** Every offset and count must fit a signed 32-bit int
   with room for a step; :func:`plan` raises otherwise.
+- **Index width.** Kept and reduced positions each span up to four merged
+  axes (``dims`` 4), or up to eight (``dims`` 8: a grid view of blocks,
+  whose grid axes and kept in-block axes do not merge); the kernels are
+  instantiated for both widths.
 
-A position along up to four merged axes is found by dividing with a
-precomputed multiplier (:func:`fast_divmod`, CUTLASS's ``FastDivmod``).
+A position along the merged axes is found by dividing with a precomputed
+multiplier (:func:`fast_divmod`, CUTLASS's ``FastDivmod``).
 :func:`walk` replays a plan's assignment of elements to CTAs, threads and
 steps, as the kernels do it, so the CPU tests can check that each element
 is read exactly once.
@@ -35,7 +39,18 @@ is read exactly once.
 ``philox_uniform_blocks`` (``csrc/philox_uniform.cu``) writes every block
 of a random array in one launch; :func:`blocks_plan` fixes its work items,
 grid, per-axis divisors and store paths, and :func:`blocks_walk` replays
-every store it makes.
+every store it makes. ``fma_sum_blocks`` (``csrc/fma_sum.cu``) sums every
+block of a fused multiply-add reduction in one launch; :func:`fma_blocks_plan`
+fixes its (block, tile) work items and load path, and :func:`fma_blocks_walk`
+replays every load. :func:`index_fits` and :func:`fma_blocks_fit` say from
+metadata alone whether a launch can index its inputs, so that the device
+executor chooses a route before it runs anything.
+
+The reduction kernels also take the grid views that the device executor's
+batched route hands them under ``torch.func.vmap``: a bucket of blocks of a
+resident array is one strided view (grid axes, then in-block axes) that
+does not merge, so the grid axes stay kept axes of their own and the
+in-block axes reduced ones (up to four of each).
 """
 
 from __future__ import annotations
@@ -55,6 +70,8 @@ ONE_CTA_STEPS = 2
 #: this many take one CTA
 COL_MIN_SPLIT = 16
 MAX_DIMS = 4
+#: merged axes of a role the wide instantiation of the reduction kernels takes
+MAX_INDEX_DIMS = 8
 #: bound on every element offset and unit count (int32, less one step)
 INDEX_LIMIT = 2**31 - 2**16
 
@@ -90,6 +107,7 @@ class Plan:
     grid: int  # CTAs; 0 when there is no output
     partials: int  # partial sums written (0 with one split)
     tickets: int  # ticket counters used (0 with one split)
+    dims: int = MAX_DIMS  # index width the kernels are instantiated for (4 or 8)
 
     @property
     def paths(self) -> tuple:
@@ -99,12 +117,12 @@ class Plan:
 
     def params(self) -> list:
         """The kernels' geometry as the C entry points take it: for the kept
-        then the reduced index, 4 sizes, 4 multipliers, 4 shifts and 4
+        then the reduced index, ``dims`` sizes, multipliers, shifts and
         strides per input (right-aligned, padded with size 1, stride 0);
         then out_units, red_units, splits, per_split, outputs."""
         out = []
         for axes in (self.kept, self.reduced):
-            pad = MAX_DIMS - len(axes.sizes)
+            pad = self.dims - len(axes.sizes)
             sizes = (1,) * pad + tuple(axes.sizes)
             out.extend(sizes)
             magic = [fast_divmod(s) for s in sizes]
@@ -181,7 +199,7 @@ def plan(shape, strides, ptrs, itemsize: int, axes=None, sms: int = SMS) -> Plan
 
     *shape* is the inputs' common shape, *strides* one stride tuple per input
     (in elements), *ptrs* their addresses, *axes* the reduced axes (None:
-    all). Raises ValueError when more than four merged axes are kept or
+    all). Raises ValueError when more than eight merged axes are kept or
     reduced, or an offset does not fit 32 bits."""
     ndim = len(shape)
     reduced = set(range(ndim)) if axes is None else {a % ndim for a in axes} if ndim else set()
@@ -196,10 +214,11 @@ def plan(shape, strides, ptrs, itemsize: int, axes=None, sms: int = SMS) -> Plan
     merged, roles = merge_axes(shape, strides, reduced) if total else ([], [])
     kept = [a for a, r in zip(merged, roles) if not r]
     red = [a for a, r in zip(merged, roles) if r]
-    if len(kept) > MAX_DIMS or len(red) > MAX_DIMS:
+    if len(kept) > MAX_INDEX_DIMS or len(red) > MAX_INDEX_DIMS:
         raise ValueError(
-            f"reduction kernels take at most {MAX_DIMS} kept and {MAX_DIMS} reduced axes after "
-            f"merging, not {len(kept)} and {len(red)} (shape {tuple(shape)})")
+            f"reduction kernels take at most {MAX_INDEX_DIMS} kept and {MAX_INDEX_DIMS} reduced axes "
+            f"after merging, not {len(kept)} and {len(red)} (shape {tuple(shape)})")
+    dims = MAX_DIMS if max(len(kept), len(red)) <= MAX_DIMS else MAX_INDEX_DIMS
     for k in range(n_in):
         reach = sum((n - 1) * st[k] for n, st in merged)
         if reach >= INDEX_LIMIT or any(st[k] < 0 for _, st in merged):
@@ -257,7 +276,7 @@ def plan(shape, strides, ptrs, itemsize: int, axes=None, sms: int = SMS) -> Plan
         layout=layout, vector=vector, kept=kept_axes, reduced=red_axes, outputs=outputs,
         out_units=out_units, red_units=red_units, threads=threads, splits=splits,
         per_split=per_split, grid=grid, partials=outputs * splits if splits > 1 else 0,
-        tickets=tickets,
+        tickets=tickets, dims=dims,
     )
 
 
@@ -522,3 +541,201 @@ def blocks_walk(torch, p: BlocksPlan):
         counters_out.append(cj)
         words.append(torch.full_like(cj, j))
     return tuple(torch.cat(x) for x in (offsets, blocks_out, counters_out, words))
+
+
+# ---------------------------------------------------------------------------
+# fma_sum_blocks: every block of a fused multiply-add reduction in one launch
+# ---------------------------------------------------------------------------
+
+#: units (elements, or 16-byte vectors on the vector path) one work item of
+#: ``fma_sum_blocks`` sums: THREADS threads, UNROLL loads each, 4 steps
+FMA_TILE = THREADS * UNROLL * 4
+
+
+@dataclass(frozen=True)
+class FmaBlocksPlan:
+    """How ``fma_sum_blocks`` covers the block grid of four equal-shaped
+    inputs. Axes are padded in front to ``MAX_DIMS`` (size 1, stride 0);
+    along the innermost axis extents and strides count *units* of
+    ``vector`` elements. Each divisor is kept as ``(d, multiplier, shift)``.
+
+    Work item ``i`` (one CTA) is tile ``i % per_block`` of block ``i //
+    per_block`` (blocks in C order of the grid): it sums the block's units
+    ``[tile * tile_units, (tile + 1) * tile_units)`` that exist, its thread
+    ``t`` loading units ``begin + t + k * THREADS * UNROLL + u * THREADS``.
+    A block is ``chunks`` along an axis, or ``edges`` where it is the last
+    block there. With ``per_block > 1`` each item writes a partial and the
+    CTA that draws its block's last ticket sums the block's partials in
+    tile order."""
+
+    vector: int
+    chunks: tuple  # (d, mul, shr) per axis: a full block's extent, in units
+    edges: tuple  # (d, mul, shr) per axis: the last block's extent, in units
+    numblocks: tuple  # (d, mul, shr) per axis: blocks along it
+    strides: tuple  # per input, 4 strides (innermost in units of `vector` elements)
+    per_block: tuple  # (d, mul, shr): work items per block
+    tile_units: int
+    items: int  # work items, one CTA each; 0 when there is nothing to read
+    blocks: int
+
+    @property
+    def paths(self) -> tuple:
+        """The keys this launch counts in ``fma_sum_blocks.paths``."""
+        return ("vector" if self.vector > 1 else "scalar", "one_cta" if self.per_block[0] == 1 else "split")
+
+    def params(self) -> list:
+        """The plan as ``fma_sum_blocks`` (csrc/fma_sum.cu) takes it: (d,
+        mul, shr) per axis for the chunks, edges and block counts; 4 strides
+        per input; per_block as (d, mul, shr); tile_units, items."""
+        out = []
+        for divs in (self.chunks, self.edges, self.numblocks):
+            for div in divs:
+                out.extend(div)
+        for st in self.strides:
+            out.extend(st)
+        out.extend(self.per_block)
+        out.extend((self.tile_units, self.items))
+        return out
+
+
+def index_fits(shape, strides) -> bool:
+    """Whether 32-bit indices reach every element of tensors of *shape* with
+    *strides* (one tuple per tensor, in elements): the element count and
+    each tensor's furthest offset below ``INDEX_LIMIT``, no negative stride."""
+    total = 1
+    for n in shape:
+        total *= n
+    return total < INDEX_LIMIT and all(
+        min(st, default=0) >= 0 and sum((n - 1) * s for n, s in zip(shape, st)) < INDEX_LIMIT
+        for st in strides)
+
+
+def _fma_blocks_error(shape, strides, chunks):
+    """Why one ``fma_sum_blocks`` launch cannot take four inputs of *shape*
+    and *strides* blocked by *chunks*, or None when it can."""
+    if len(shape) > MAX_DIMS or len(chunks) != len(shape) or any(len(s) != len(shape) for s in strides):
+        return (f"fma_sum_blocks takes rank {MAX_DIMS} or less with a chunk and a stride per axis: "
+                f"shape {tuple(shape)}, chunks {tuple(chunks)}")
+    if not index_fits(shape, strides):
+        return f"fma_sum_blocks indexes in 32 bits: shape {tuple(shape)} with strides {list(strides)}"
+    blocks = largest = 1
+    for n, c in zip(shape, chunks):
+        c = max(1, min(c, n))
+        blocks *= _ceil_div(n, c)
+        largest *= c
+    if blocks * _ceil_div(largest, THREADS * UNROLL) >= INDEX_LIMIT:  # the most work items any tiling makes
+        return f"fma_sum_blocks counts in 32 bits: {blocks} blocks of {largest} elements"
+    return None
+
+
+def fma_blocks_fit(shape, strides, chunks) -> bool:
+    """Whether :func:`fma_blocks_plan` takes these inputs (checked from
+    metadata before a route is chosen)."""
+    return _fma_blocks_error(shape, strides, chunks) is None
+
+
+def fma_blocks_plan(shape, strides, chunks, ptrs, itemsize: int, tile_units: int = FMA_TILE,
+                    sms: int = SMS) -> FmaBlocksPlan:
+    """The geometry of one ``fma_sum_blocks`` launch over four inputs of
+    *shape*, with *strides* (one tuple per input, in elements) and addresses
+    *ptrs*, blocked by the regular *chunks* (the last block along an axis
+    may be shorter). A block takes tiles of at most *tile_units*; when the
+    grid has too few blocks to fill ``CTAS_PER_SM * sms`` CTAs, its tiles
+    shrink (to no less than one CTA step) so that it does. Raises
+    ValueError past four axes or when an offset does not fit 32 bits."""
+    error = _fma_blocks_error(shape, strides, chunks)
+    if error is not None:
+        raise ValueError(error)
+    ndim = len(shape)
+    pad = MAX_DIMS - ndim
+    shape = (1,) * pad + tuple(shape)
+    chunks = (1,) * pad + tuple(max(1, min(c, s)) for c, s in zip(chunks, shape[pad:]))
+    strides = [tuple(0 if n == 1 else st for n, st in zip(shape, (0,) * pad + tuple(s))) for s in strides]
+    nb = tuple(_ceil_div(s, c) for s, c in zip(shape, chunks))
+    edges = tuple(s - (n - 1) * c for s, c, n in zip(shape, chunks, nb))
+    total = 1
+    for s in shape:
+        total *= s
+    blocks = 1
+    for n in nb:
+        blocks *= n
+    vector = 16 // itemsize
+    if not (
+        total and vector > 1 and shape[-1] > 1
+        and chunks[-1] % vector == 0 and edges[-1] % vector == 0
+        and all(s[-1] == 1 for s in strides)
+        and all(st % vector == 0 for s in strides for st in s[:-1])
+        and all(p % 16 == 0 for p in ptrs)
+    ):
+        vector = 1
+    if vector > 1:  # count the innermost axis in vectors of `vector` elements
+        chunks = chunks[:-1] + (chunks[-1] // vector,)
+        edges = edges[:-1] + (edges[-1] // vector,)
+        strides = [s[:-1] + (vector,) for s in strides]
+    largest = 1
+    for c in chunks:
+        largest *= c
+    want = CTAS_PER_SM * sms
+    if blocks * _ceil_div(largest, tile_units) < want:
+        step = THREADS * UNROLL
+        tile_units = min(tile_units, max(step, _ceil_div(_ceil_div(largest, _ceil_div(want, blocks)), step) * step))
+    per_block = max(1, _ceil_div(largest, tile_units))
+    items = blocks * per_block if total else 0
+    if items >= INDEX_LIMIT:
+        raise ValueError(f"fma_sum_blocks counts in 32 bits: {items} work items of blocks of {largest} units")
+    return FmaBlocksPlan(
+        vector=vector, chunks=tuple(_div(c) for c in chunks), edges=tuple(_div(e) for e in edges),
+        numblocks=tuple(_div(n) for n in nb), strides=tuple(tuple(s) for s in strides),
+        per_block=_div(per_block), tile_units=tile_units, items=items, blocks=blocks,
+    )
+
+
+def fma_blocks_walk(torch, p: FmaBlocksPlan, n_inputs: int = 4):
+    """Replay *p* as ``fma_blocks_kernel`` runs it: every load of every work
+    item's threads. Returns (block of each element read, work item, element
+    offsets of each input), int64 tensors with one entry per element."""
+    i64 = torch.int64
+    empty = torch.zeros(0, dtype=i64)
+    if p.items == 0:
+        return empty, empty, [empty for _ in range(n_inputs)]
+    item = torch.arange(p.items, dtype=i64)
+    b = _quot(item, p.per_block)
+    tile = item - b * p.per_block[0]
+    rest, units = b, torch.ones_like(b)
+    base = [torch.zeros_like(b) for _ in range(n_inputs)]
+    ext = [None] * MAX_DIMS
+    for d in range(MAX_DIMS - 1, -1, -1):
+        q = _quot(rest, p.numblocks[d]) if d else torch.zeros_like(rest)
+        coord = rest - q * p.numblocks[d][0] if d else rest
+        rest = q
+        last = coord == p.numblocks[d][0] - 1
+        ext[d] = (torch.where(last, p.edges[d][0], p.chunks[d][0]), last)
+        units = units * ext[d][0]
+        for k in range(n_inputs):
+            base[k] = base[k] + coord * p.chunks[d][0] * p.strides[k][d]
+    begin = tile * p.tile_units
+    end = torch.minimum(begin + p.tile_units, units)
+    steps = _ceil_div(p.tile_units, THREADS * UNROLL)
+    t = torch.arange(THREADS, dtype=i64)
+    k = torch.arange(steps, dtype=i64)
+    u = torch.arange(UNROLL, dtype=i64)
+    unit = (begin[:, None, None, None] + t[None, :, None, None]
+            + k[None, None, :, None] * THREADS * UNROLL + u[None, None, None, :] * THREADS)
+    live = unit < end[:, None, None, None]
+    row = item[:, None, None, None].expand_as(unit)[live]
+    j = unit[live]
+    coords = [None] * MAX_DIMS
+    for d in range(MAX_DIMS - 1, 0, -1):
+        extent, last = ext[d][0][row], ext[d][1][row]
+        q = torch.where(last, _quot(j, p.edges[d]), _quot(j, p.chunks[d]))
+        coords[d] = j - q * extent
+        j = q
+    coords[0] = j
+    lane = torch.arange(p.vector, dtype=i64)
+    offsets = []
+    for kk in range(n_inputs):
+        off = base[kk][row] + sum(coords[d] * p.strides[kk][d] for d in range(MAX_DIMS))
+        offsets.append((off[:, None] + lane[None, :]).reshape(-1))
+    blocks = b[row][:, None].expand(-1, p.vector).reshape(-1)
+    items = row[:, None].expand(-1, p.vector).reshape(-1)
+    return blocks, items, offsets

@@ -2,8 +2,9 @@
 // geometry the wrapper plans (kernels/_geometry.py), index decomposition by
 // 32-bit fast division, 16-byte loads, CTA sums and the last-CTA combine.
 //
-// Geometry. An index space is up to four merged axes, innermost last,
-// padded in front with size-1 axes. A position i splits into coordinates by
+// Geometry. An index space is up to four merged axes (eight in the wide
+// instantiation, for grid views of blocks), innermost last, padded in front
+// with size-1 axes. A position i splits into coordinates by
 // dividing with a precomputed multiplier (CUTLASS's FastDivmod:
 // q = umulhi(i, mul) >> shr, exact for 0 <= i < 2^31; mul == 0 stands for
 // size 1); each input's element offset is the dot product of the
@@ -27,24 +28,26 @@
 
 namespace reduce {
 
-constexpr int kDims = 4;
+constexpr int kDims = 4;  // the narrow index (Plan.dims 4)
+constexpr int kWideDims = 8;  // the wide index (Plan.dims 8): grid views of blocks
 constexpr int kUnroll = 4;  // units a thread loads per input per step (UNROLL)
 
+template <int kD>
 struct Index {
-  int size[kDims];
-  unsigned mul[kDims];
-  int shr[kDims];
+  int size[kD];
+  unsigned mul[kD];
+  int shr[kD];
 };
 
 // The layout of the params array the C entry points take (see
 // _geometry.Plan.params): for the kept then the reduced index, sizes,
-// multipliers, shifts, then kInputs x kDims strides; then five counts.
-template <int kInputs>
+// multipliers, shifts, then kInputs x kD strides; then five counts.
+template <int kInputs, int kD = kDims>
 struct Geometry {
-  Index kept;
-  int kstride[kInputs][kDims];
-  Index red;
-  int rstride[kInputs][kDims];
+  Index<kD> kept;
+  int kstride[kInputs][kD];
+  Index<kD> red;
+  int rstride[kInputs][kD];
   int out_units;  // rows: outputs; columns: outputs / V
   int red_units;  // rows: reduced elements / V; columns: reduced elements
   int splits;
@@ -52,17 +55,17 @@ struct Geometry {
   int outputs;    // output elements
 };
 
-template <int kInputs>
-inline Geometry<kInputs> unpack(const long long* p) {
-  Geometry<kInputs> g;
-  Index* idx[2] = {&g.kept, &g.red};
-  int(*st[2])[kDims] = {g.kstride, g.rstride};
+template <int kInputs, int kD = kDims>
+inline Geometry<kInputs, kD> unpack(const long long* p) {
+  Geometry<kInputs, kD> g;
+  Index<kD>* idx[2] = {&g.kept, &g.red};
+  int(*st[2])[kD] = {g.kstride, g.rstride};
   for (int which = 0; which < 2; ++which) {
-    for (int d = 0; d < kDims; ++d) idx[which]->size[d] = (int)*p++;
-    for (int d = 0; d < kDims; ++d) idx[which]->mul[d] = (unsigned)*p++;
-    for (int d = 0; d < kDims; ++d) idx[which]->shr[d] = (int)*p++;
+    for (int d = 0; d < kD; ++d) idx[which]->size[d] = (int)*p++;
+    for (int d = 0; d < kD; ++d) idx[which]->mul[d] = (unsigned)*p++;
+    for (int d = 0; d < kD; ++d) idx[which]->shr[d] = (int)*p++;
     for (int k = 0; k < kInputs; ++k)
-      for (int d = 0; d < kDims; ++d) st[which][k][d] = (int)*p++;
+      for (int d = 0; d < kD; ++d) st[which][k][d] = (int)*p++;
   }
   g.out_units = (int)*p++;
   g.red_units = (int)*p++;
@@ -72,19 +75,29 @@ inline Geometry<kInputs> unpack(const long long* p) {
   return g;
 }
 
+// i / d by the precomputed multiplier (mul == 0 stands for d == 1).
+__device__ __forceinline__ int quot(int i, unsigned mul, int shr) {
+  return mul ? (int)(__umulhi((unsigned)i, mul) >> shr) : i;
+}
+
 // Coordinates of position i of idx, outermost first.
-__device__ __forceinline__ void coords(const Index& idx, int i, int (&c)[kDims]) {
+template <int kD>
+__device__ __forceinline__ void coords(const Index<kD>& idx, int i, int (&c)[kD]) {
 #pragma unroll
-  for (int d = kDims - 1; d > 0; --d) {
-    const int q = idx.mul[d] ? (int)(__umulhi((unsigned)i, idx.mul[d]) >> idx.shr[d]) : i;
+  for (int d = kD - 1; d > 0; --d) {
+    const int q = quot(i, idx.mul[d], idx.shr[d]);
     c[d] = i - q * idx.size[d];
     i = q;
   }
   c[0] = i;
 }
 
-__device__ __forceinline__ int dot(const int (&c)[kDims], const int (&s)[kDims]) {
-  return c[0] * s[0] + c[1] * s[1] + c[2] * s[2] + c[3] * s[3];
+template <int kD>
+__device__ __forceinline__ int dot(const int (&c)[kD], const int (&s)[kD]) {
+  int r = 0;
+#pragma unroll
+  for (int d = 0; d < kD; ++d) r += c[d] * s[d];
+  return r;
 }
 
 // V elements from p: one 16-byte load when V > 1 (p 16-byte aligned), else

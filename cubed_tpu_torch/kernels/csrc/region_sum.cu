@@ -18,6 +18,9 @@
 //              along the innermost axis, so a warp's loads coalesce, and walks
 //              the reduced positions of its split; CTAs split the reduced
 //              extent.
+// Both layouts come in two index widths: four merged axes of a role, or
+// eight for the grid views of blocks that the device executor's batched
+// route hands over (grid axes kept beside kept in-block axes).
 // With one split a CTA writes its outputs itself: small inputs (the tree
 // reduction's combines) take one CTA and no partials. With more, the CTA
 // that draws an output's last ticket sums its partials in split order
@@ -31,9 +34,9 @@
 
 namespace {
 
-using reduce::kDims;
 using reduce::kUnroll;
-using Geometry = reduce::Geometry<1>;
+template <int kD>
+using Geometry = reduce::Geometry<1, kD>;
 
 template <typename T>
 struct Acc {
@@ -44,15 +47,15 @@ struct Acc<long long> {
   using type = unsigned long long;
 };
 
-template <typename T, int V>
+template <typename T, int V, int kD>
 __global__ void __launch_bounds__(256, 2)
     region_sum_rows(const T* __restrict__ x, T* __restrict__ out,
                     typename Acc<T>::type* __restrict__ partials, unsigned* __restrict__ counters,
-                    Geometry g) {
+                    Geometry<kD> g) {
   using A = typename Acc<T>::type;
   const int m = blockIdx.x / g.splits;
   const int s = blockIdx.x - m * g.splits;
-  int c[kDims];
+  int c[kD];
   reduce::coords(g.kept, m, c);
   const T* __restrict__ xm = x + reduce::dot(c, g.kstride[0]);
   const int begin = s * g.per_split;
@@ -67,7 +70,7 @@ __global__ void __launch_bounds__(256, 2)
     for (int u = 0; u < kUnroll; ++u) {
       const int j = i + u * blockDim.x;
       if (j < end) {
-        int r[kDims];
+        int r[kD];
         reduce::coords(g.red, j, r);
         reduce::load<T, V>(xm + reduce::dot(r, g.rstride[0]), v[u]);
       }
@@ -94,17 +97,17 @@ __global__ void __launch_bounds__(256, 2)
   if (threadIdx.x == 0) out[m] = (T)t;
 }
 
-template <typename T, int V>
+template <typename T, int V, int kD>
 __global__ void __launch_bounds__(256, 2)
     region_sum_columns(const T* __restrict__ x, T* __restrict__ out,
                        typename Acc<T>::type* __restrict__ partials,
-                       unsigned* __restrict__ counters, Geometry g) {
+                       unsigned* __restrict__ counters, Geometry<kD> g) {
   using A = typename Acc<T>::type;
   const int tile = blockIdx.x / g.splits;
   const int s = blockIdx.x - tile * g.splits;
   const int o = tile * blockDim.x + threadIdx.x;  // this thread's output unit
   const bool live = o < g.out_units;
-  int c[kDims];
+  int c[kD];
   reduce::coords(g.kept, live ? o : 0, c);
   const T* __restrict__ xo = x + reduce::dot(c, g.kstride[0]);
   const int begin = s * g.per_split;
@@ -120,7 +123,7 @@ __global__ void __launch_bounds__(256, 2)
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (l + u < end) {
-          int r[kDims];
+          int r[kD];
           reduce::coords(g.red, l + u, r);
           reduce::load<T, V>(xo + reduce::dot(r, g.rstride[0]), v[u]);
         }
@@ -161,38 +164,48 @@ __global__ void __launch_bounds__(256, 2)
   }
 }
 
-template <typename T, int V>
-int launch(int layout, const void* x, void* out, void* partials, void* counters,
-           const Geometry& g, int grid, int threads, cudaStream_t stream) {
+template <typename T, int V, int kD>
+int launch_dims(int layout, const void* x, void* out, void* partials, void* counters,
+                const long long* params, int grid, int threads, cudaStream_t stream) {
   using A = typename Acc<T>::type;
+  const Geometry<kD> g = reduce::unpack<1, kD>(params);
   if (layout == 0)
-    region_sum_rows<T, V><<<grid, threads, 0, stream>>>((const T*)x, (T*)out, (A*)partials,
-                                                        (unsigned*)counters, g);
+    region_sum_rows<T, V, kD><<<grid, threads, 0, stream>>>((const T*)x, (T*)out, (A*)partials,
+                                                            (unsigned*)counters, g);
   else
-    region_sum_columns<T, V><<<grid, threads, 0, stream>>>((const T*)x, (T*)out, (A*)partials,
-                                                           (unsigned*)counters, g);
+    region_sum_columns<T, V, kD><<<grid, threads, 0, stream>>>((const T*)x, (T*)out, (A*)partials,
+                                                               (unsigned*)counters, g);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch(int dims, int layout, const void* x, void* out, void* partials, void* counters,
+           const long long* params, int grid, int threads, cudaStream_t stream) {
+  if (dims == reduce::kDims)
+    return launch_dims<T, V, reduce::kDims>(layout, x, out, partials, counters, params, grid, threads, stream);
+  if (dims == reduce::kWideDims)
+    return launch_dims<T, V, reduce::kWideDims>(layout, x, out, partials, counters, params, grid, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float64, 1 = float32, 2 = int64; layout: 0 = rows, 1 = columns;
-// vector: elements per load (1, or 16 bytes' worth). params: the geometry as
-// _geometry.Plan.params lays it out for one input. partials holds
-// outputs * splits values of the accumulator type (float64 for the floats,
-// int64 for int64) and counters one zeroed unsigned per output (rows) or per
-// tile (columns), owned by the launching stream; both are unused with one
-// split.
-extern "C" int region_sum(int dtype, int layout, int vector, const void* x, void* out,
+// dtype: 0 = float64, 1 = float32, 2 = int64; dims: the index width (4 or
+// 8); layout: 0 = rows, 1 = columns; vector: elements per load (1, or 16
+// bytes' worth). params: the geometry as _geometry.Plan.params lays it out
+// for one input. partials holds outputs * splits values of the accumulator
+// type (float64 for the floats, int64 for int64) and counters one zeroed
+// unsigned per output (rows) or per tile (columns), owned by the launching
+// stream; both are unused with one split.
+extern "C" int region_sum(int dtype, int dims, int layout, int vector, const void* x, void* out,
                           void* partials, void* counters, const long long* params, int grid,
                           int threads, void* stream) {
-  const Geometry g = reduce::unpack<1>(params);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && vector == 1) return launch<double, 1>(layout, x, out, partials, counters, g, grid, threads, s);
-  if (dtype == 0 && vector == 2) return launch<double, 2>(layout, x, out, partials, counters, g, grid, threads, s);
-  if (dtype == 1 && vector == 1) return launch<float, 1>(layout, x, out, partials, counters, g, grid, threads, s);
-  if (dtype == 1 && vector == 4) return launch<float, 4>(layout, x, out, partials, counters, g, grid, threads, s);
-  if (dtype == 2 && vector == 1) return launch<long long, 1>(layout, x, out, partials, counters, g, grid, threads, s);
-  if (dtype == 2 && vector == 2) return launch<long long, 2>(layout, x, out, partials, counters, g, grid, threads, s);
+  if (dtype == 0 && vector == 1) return launch<double, 1>(dims, layout, x, out, partials, counters, params, grid, threads, s);
+  if (dtype == 0 && vector == 2) return launch<double, 2>(dims, layout, x, out, partials, counters, params, grid, threads, s);
+  if (dtype == 1 && vector == 1) return launch<float, 1>(dims, layout, x, out, partials, counters, params, grid, threads, s);
+  if (dtype == 1 && vector == 4) return launch<float, 4>(dims, layout, x, out, partials, counters, params, grid, threads, s);
+  if (dtype == 2 && vector == 1) return launch<long long, 1>(dims, layout, x, out, partials, counters, params, grid, threads, s);
+  if (dtype == 2 && vector == 2) return launch<long long, 2>(dims, layout, x, out, partials, counters, params, grid, threads, s);
   return (int)cudaErrorInvalidValue;
 }

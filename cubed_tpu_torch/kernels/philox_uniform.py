@@ -19,6 +19,19 @@ Two wrappers, one launch count:
   executor's batched route). Its work split is planned in pure Python
   (:func:`._geometry.blocks_plan`).
 
+:func:`philox_blocks` is the custom op ``cubed_tpu_torch::philox_blocks``
+that a random block function calls when its seeds come as a tensor (under
+``torch.func.vmap``, in the device executor's batched route): its batching
+rule takes a bucket's seeds at once, derives every key in one
+:func:`philox_keys` pass and fills the bucket's stacked blocks with one
+:func:`philox_uniform_blocks` launch.
+
+While a CUDA graph is captured, keys may not be uploaded from fresh host
+memory (the graph would keep reading a freed address). :class:`HoistedKeys`
+holds a captured segment's keys in a static pinned buffer and a device
+copy; inside :func:`hoisted`, every key the kernels take comes from there,
+and a replay for new seeds refills the pinned buffer first.
+
 Bound on the H100: integer issue on the FMA pipe. The card has no 64-bit
 multiplier, so a counter's twenty 64x64->128 products take 164-178 FMA-pipe
 issue slots, by build (IMAD.WIDE at two slots; counted from the SASS), which
@@ -33,10 +46,13 @@ into place. The wrappers use them only for tensors on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import itertools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -168,6 +184,9 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
         return out
     if out.device.type != "cuda":
         raise ValueError(f"philox_uniform: unsupported device {out.device}")
+    if _HOISTED.get() is not None:
+        raise RuntimeError("philox_uniform passes its key by value, which a captured CUDA graph "
+                           "would replay unchanged for new seeds; take philox_uniform_blocks")
     n = out.numel()
     if n == 0:
         return out
@@ -192,6 +211,7 @@ philox_uniform.launches = 0
 #: (:func:`philox_uniform_blocks`); a batched launch also counts the store
 #: paths its blocks take, "vector" (16-byte stores) and "scalar"
 philox_uniform.paths = dict.fromkeys(("block", "batched", "vector", "scalar"), 0)
+_build.COUNTED.append(philox_uniform)
 
 
 def blocks_plan(out: torch.Tensor, chunks, sms: int = _geometry.SMS,
@@ -201,36 +221,50 @@ def blocks_plan(out: torch.Tensor, chunks, sms: int = _geometry.SMS,
                                  sms, ctas_per_sm)
 
 
-def _check_blocks(out: torch.Tensor, chunks, keys: np.ndarray) -> None:
+def _check_blocks(out: torch.Tensor, chunks, keys) -> None:
     if out.dtype != torch.float64:
         raise ValueError("philox_uniform_blocks needs a float64 tensor")
     if len(chunks) != out.ndim:
         raise ValueError(f"philox_uniform_blocks: chunks {tuple(chunks)} for a rank-{out.ndim} tensor")
     nblocks = math.prod(len(c) for c in _chunkset(tuple(out.shape), tuple(chunks)))
-    if keys.dtype != np.uint64 or keys.shape != (nblocks, 2):
+    if isinstance(keys, torch.Tensor):
+        if (keys.dtype != torch.int64 or tuple(keys.shape) != (nblocks, 2) or keys.device != out.device
+                or not keys.is_contiguous()):
+            raise ValueError(f"philox_uniform_blocks needs ({nblocks}, 2) contiguous int64 keys on "
+                             f"{out.device}, not {tuple(keys.shape)} {keys.dtype} on {keys.device}")
+    elif keys.dtype != np.uint64 or keys.shape != (nblocks, 2):
         raise ValueError(f"philox_uniform_blocks needs ({nblocks}, 2) uint64 keys, "
                          f"not {keys.shape} {keys.dtype}")
 
 
-def philox_uniform_blocks(out: torch.Tensor, chunks, keys: np.ndarray) -> torch.Tensor:
+def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
     """Fill float64 *out* block by block: block ``b`` (C order) of the
     regular grid of *chunks* with the Philox uniform stream of ``keys[b]``.
+    *keys* is a host ``(n, 2)`` uint64 array, or the same bits as an int64
+    tensor on *out*'s device (:meth:`HoistedKeys.lookup`).
 
     A CUDA tensor goes to the batched kernel, in one launch; a CPU tensor to
     the plain version.
     """
     _check_blocks(out, chunks, keys)
     if out.device.type == "cpu":
-        out.copy_(philox_uniform_blocks_plain(tuple(out.shape), chunks, keys))
+        host = keys.numpy().view(np.uint64) if isinstance(keys, torch.Tensor) else keys
+        out.copy_(philox_uniform_blocks_plain(tuple(out.shape), chunks, host))
         return out
     if out.device.type != "cuda":
         raise ValueError(f"philox_uniform_blocks: unsupported device {out.device}")
     p = blocks_plan(out, chunks, _build.sm_count(out.device), _occupancy(out.device))
     if p.grid == 0:
         return out
-    # the op's keys, uploaded once from pinned memory on the launch stream
-    keys_dev = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)).pin_memory().to(
-        out.device, non_blocking=True)
+    if isinstance(keys, torch.Tensor):
+        keys_dev = keys
+    elif _HOISTED.get() is not None:
+        raise RuntimeError("philox_uniform_blocks: host keys under a captured CUDA graph; "
+                           "take them from the hoisted keys (block_keys)")
+    else:
+        # the op's keys, uploaded once from pinned memory on the launch stream
+        keys_dev = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)).pin_memory().to(
+            out.device, non_blocking=True)
     params = p.params()
     fn = _blocks_kernel()
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -244,6 +278,132 @@ def philox_uniform_blocks(out: torch.Tensor, chunks, keys: np.ndarray) -> torch.
     for key in ("batched", *p.paths):
         philox_uniform.paths[key] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# keys hoisted out of a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class HoistedKeys:
+    """The Philox keys of every seed a captured segment draws from: a
+    static pinned host buffer, refilled from a plan's seeds by one
+    :func:`philox_keys` pass (:meth:`fill`), and a device copy that the
+    graph's first node uploads from it (:meth:`upload`). Row ``i`` holds the
+    key of ``seeds[i]``."""
+
+    def __init__(self, seeds, device):
+        self.seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
+        n = max(1, self.seeds.size)
+        # pinned for a card (the graph's copy node reads it); a CPU table
+        # (the tests) needs no pinning
+        self.host = torch.empty((n, 2), dtype=torch.int64, pin_memory=torch.device(device).type == "cuda")
+        self.device = torch.empty((n, 2), dtype=torch.int64, device=device)
+        order = np.argsort(self.seeds, kind="stable")
+        self._sorted, self._rows = self.seeds[order], order
+        self.fill(self.seeds)
+
+    @property
+    def nbytes(self) -> int:
+        return 2 * self.host.numel() * self.host.element_size()
+
+    def fill(self, seeds) -> None:
+        """Write the keys of *seeds* (as many as at construction) into the
+        pinned buffer; the device copy changes at the next :meth:`upload`."""
+        seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
+        if seeds.size != self.seeds.size:
+            raise ValueError(f"HoistedKeys: {seeds.size} seeds for {self.seeds.size} rows")
+        if seeds.size:
+            self.host.numpy()[: seeds.size] = philox_keys(seeds).view(np.int64)
+
+    def upload(self) -> None:
+        """Copy the pinned buffer to the device copy, on the current stream."""
+        self.device.copy_(self.host, non_blocking=True)
+
+    def lookup(self, seeds: np.ndarray) -> torch.Tensor:
+        """The device keys of *seeds* (an array whose rows, in C order, form
+        an affine grid of table rows, as a bucket of a block grid does), as
+        a contiguous ``(n, 2)`` int64 tensor: a view, or one device copy."""
+        seeds = np.asarray(seeds, dtype=np.int64)
+        flat = seeds.reshape(-1)
+        pos = np.searchsorted(self._sorted, flat)
+        if flat.size and (pos.max() >= self._sorted.size or not np.array_equal(self._sorted[pos], flat)):
+            raise KeyError("HoistedKeys: a seed outside the segment's hoisted seeds")
+        rows = self._rows[pos].reshape(seeds.shape)
+        if flat.size == 0:
+            return self.device[:0]
+        grid = rows.shape
+        r0 = int(rows.reshape(-1)[0])
+        steps = [int(rows[tuple(1 if a == d else 0 for a in range(len(grid)))]) - r0 if n > 1 else 0
+                 for d, n in enumerate(grid)]
+        expect = r0 + sum(np.arange(n).reshape([-1 if a == d else 1 for a in range(len(grid))]) * st
+                          for d, (n, st) in enumerate(zip(grid, steps)))
+        if not np.array_equal(rows, np.broadcast_to(expect, grid)) or min(steps, default=0) < 0:
+            raise KeyError("HoistedKeys: seeds that are not an affine grid of the table's rows")
+        view = self.device.as_strided(grid + (2,), tuple(2 * st for st in steps) + (1,),
+                                      self.device.storage_offset() + 2 * r0)
+        return view.reshape(-1, 2).contiguous()
+
+
+_HOISTED: contextvars.ContextVar = contextvars.ContextVar("philox_hoisted_keys", default=None)
+
+
+@contextlib.contextmanager
+def hoisted(table: Optional[HoistedKeys]):
+    """Within this block every key comes from *table* (:func:`block_keys`)."""
+    token = _HOISTED.set(table)
+    try:
+        yield table
+    finally:
+        _HOISTED.reset(token)
+
+
+def block_keys(seeds):
+    """The keys of *seeds*: rows of the hoisted table inside :func:`hoisted`
+    (a device tensor), else :func:`philox_keys` (a host array)."""
+    table = _HOISTED.get()
+    if table is not None:
+        return table.lookup(seeds)
+    return philox_keys(np.asarray(seeds).reshape(-1))
+
+
+def philox_blocks(like: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """Uniform float64 blocks of *like*'s shape on its device, one for each
+    seed: *seeds* is an int64 tensor of shape ``batch + (1,) * like.ndim``
+    on the CPU (an offsets chunk and its batch axes); the result has shape
+    ``batch + like.shape``. Block ``b`` is numpy's
+    ``Philox(seed=seeds[b]).random(like.shape)``. One
+    :func:`philox_uniform_blocks` launch on a CUDA device."""
+    return _philox_blocks_op(like, seeds)
+
+
+@torch.library.custom_op("cubed_tpu_torch::philox_blocks", mutates_args=())
+def _philox_blocks_op(like: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    block = tuple(like.shape)
+    batch = tuple(seeds.shape[: seeds.ndim - like.ndim])
+    if seeds.ndim < like.ndim or any(n != 1 for n in seeds.shape[len(batch):]):
+        raise ValueError(f"philox_blocks: seeds of shape {tuple(seeds.shape)} for blocks of {block}")
+    n, size = math.prod(batch), math.prod(block)
+    keys = block_keys(seeds.detach().cpu().numpy().reshape(batch))
+    # a block's stream fills it in C order, so each block is one row of an
+    # (n, size) grid of (1, size) blocks, whatever the block's rank
+    out = torch.empty((n, size), dtype=torch.float64, device=like.device)
+    philox_uniform_blocks(out, (1, size), keys)
+    return out.reshape(batch + block)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::philox_blocks")
+def _philox_blocks_vmap(info, in_dims, like, seeds):
+    """The batching rule: every block of a bucket has one shape, so a batched
+    *like* is read at index 0; the seeds' batch axis becomes the output's.
+    Nested levels stack up, and the bottom call fills every block of the
+    bucket in one launch."""
+    like_d, seeds_d = in_dims
+    if like_d is not None:
+        like = like.select(like_d, 0)
+    if seeds_d is None:
+        return _philox_blocks_op(like, seeds), None
+    return _philox_blocks_op(like, seeds.movedim(seeds_d, 0)), 0
 
 
 _occupancies: dict = {}

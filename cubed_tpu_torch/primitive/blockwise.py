@@ -221,6 +221,7 @@ def blockwise(
             return func(*chunk_args, **func_kwargs)
 
         function.__name__ = getattr(func, "__name__", "function")
+        function.batchable = getattr(func, "batchable", False)
     else:
         function = func
     return general_blockwise(

@@ -11,8 +11,14 @@ seeded alike both packages draw the same seeds. The seed rides the offsets
 A block on the card is generated there by the hand-written Philox kernel
 (``kernels/philox_uniform.py``), bit for bit numpy's stream; no block is
 drawn on the host and copied over. The block function carries the hint
-``batched``, as the reference's carries ``traced_offsets``: the device
-executor then fills the whole array in one launch (:func:`_random_blocks`).
+``batched``: the device executor then fills the whole array in one launch
+(:func:`_random_blocks`). It is also ``batchable``: where a random op is
+fused into its consumer, the executor's batched route calls it under
+``torch.func.vmap`` with its seeds as a tensor, and it takes the Philox
+custom op, whose batching rule fills a bucket's blocks in one launch. Its
+seeds are ``hoisted_seeds``, as the reference's are ``traced_offsets``: a
+captured CUDA graph reads their keys from a buffer refilled before each
+replay, so plans that differ only in seeds share one graph.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from .chunks import blockdims_from_blockshape, normalize_chunks
 from .core.ops import general_blockwise, new_array
 from .core.plan import Plan, gensym
 from .kernels._geometry import blocks_fit
-from .kernels.philox_uniform import philox_key, philox_keys, philox_uniform, philox_uniform_blocks
+from .kernels.philox_uniform import block_keys, philox_blocks, philox_key, philox_uniform, philox_uniform_blocks
 from .spec import spec_from_config
 from .storage.virtual import VirtualOffsetsArray, virtual_empty
 from .utils import to_chunksize
@@ -68,7 +74,11 @@ def random(size, *, chunks=None, spec=None):
 
 def _random_block(chunk, seeded_offset):
     """One uniform block on the template chunk's device; ``seeded_offset``
-    (root seed + block offset) is a host array."""
+    (root seed + block offset) is a host array, or an int64 tensor on the
+    CPU in the device executor's batched route (then possibly batched under
+    ``torch.func.vmap``)."""
+    if isinstance(seeded_offset, torch.Tensor):
+        return philox_blocks(chunk, seeded_offset)
     seed = int(np.asarray(seeded_offset).reshape(-1)[0])
     out = torch.empty(tuple(chunk.shape), dtype=torch.float64, device=chunk.device)
     return philox_uniform(out, philox_key(seed))
@@ -80,7 +90,7 @@ def _random_blocks(shape, chunks, root_seed: int, device) -> torch.Tensor:
     the batched kernel on a CUDA device, the plain version on the CPU."""
     shape = tuple(shape)
     nblocks = math.prod(len(c) for c in blockdims_from_blockshape(shape, tuple(chunks)))
-    keys = philox_keys(root_seed + np.arange(nblocks, dtype=np.int64))
+    keys = block_keys(root_seed + np.arange(nblocks, dtype=np.int64))
     out = torch.empty(shape, dtype=torch.float64, device=device)
     return philox_uniform_blocks(out, chunks, keys)
 
@@ -88,3 +98,5 @@ def _random_blocks(shape, chunks, root_seed: int, device) -> torch.Tensor:
 #: shapes one batched launch takes (rank 4 or less, 32-bit offsets)
 _random_blocks.fits = blocks_fit
 _random_block.batched = _random_blocks
+_random_block.batchable = True
+_random_block.hoisted_seeds = True

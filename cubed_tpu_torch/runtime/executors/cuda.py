@@ -8,46 +8,87 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   once, and only the requested outputs are written, at the end.
 - **Whole-array path.** A shape-invariant op whose block mapping is 1:1 (with
   broadcasting) runs once on the whole resident inputs.
-- **Batched path.** An op whose function names a ``batched`` form (block
-  generation: ``random``) and reads only its virtual template and its seeds
-  is computed whole by that form: the output is allocated once and every
-  block is written in place by one kernel launch (``batched_ops``). Fused
-  functions do not inherit the hint, so a random op fused into its consumer
-  (addsum) stays on the chunked path, one launch per block.
+- **Batched paths**, tried in this order, each counting ``batched_ops``:
+
+  - an op whose function names a ``batched`` form (block generation:
+    ``random``) and reads only its virtual template and its seeds is
+    computed whole by that form: one kernel launch writes every block in
+    place;
+  - **the fusion rule**: an initial ``sum`` or ``mean`` fused with
+    ``add(multiply(p, q), multiply(r, s))`` over plain reads of resident
+    arrays goes, every block at once, through the hand-written
+    ``fma_sum_blocks`` kernel (the counterpart of what XLA makes of that
+    fused segment under ``jax.jit``). It is decided once per op from plan
+    metadata, never from values;
+  - **the general route** (the reference's ``_exec_batched``): an op of more
+    than one task whose tasks share one key structure is cut into buckets
+    by chunk shape (at most ``max(8, tasks // 4)``), and each bucket runs
+    its function once under ``torch.func.vmap``, one level per grid axis
+    the bucket spans. Inputs are views: a resident input's blocks in a
+    bucket are one ``as_strided`` grid view, a virtual template the
+    stride-0 carrier, seeds a host tensor. The hand kernels' batching rules
+    (``region_sum``, Philox; custom ops) then launch once per bucket, or
+    once per piece where a bucket is cut: each piece's grid views must
+    index in 32 bits and have at most eight axes, and its intermediates
+    (one of the piece's size per function of the op's tree) must fit the
+    budget's room, all checked from metadata before the op runs. Outputs
+    are written into the op's output, one strided copy per piece. The
+    route is taken only when every leaf of the function tree declares
+    itself ``batchable`` and one block fits; a failed check counts
+    ``batched_errors`` and ``eager_fallbacks``, and the op runs chunked.
 - **Resident map_direct.** An index (``whole_select``) is a view of its
   resident source, a positive-step slice never copies; ``resident_identity``
   passes the value through and ``whole_concat`` concatenates on the device.
 - **Chunked path.** Any other op runs per output block on block views of its
   resident inputs; a combine over a dense region of resident blocks runs as
-  one call (``combine_region``). Blocks are copied into one output tensor as
-  they come.
-- **The fusion rule.** An initial ``sum`` or ``mean`` reduction fused with
-  ``add(multiply(p, q), multiply(r, s))`` over plain reads goes, block by
-  block, through the hand-written ``fma_sum`` kernel: the counterpart of what
-  XLA makes of that fused segment under ``jax.jit``, where torch's eager ops
-  would launch three elementwise kernels and write two temporaries per block.
-  It is decided once per op from plan metadata, never from values.
-- **Spill.** When residency would pass ``device_mem``, the least recently
-  used arrays are written to their Zarr targets and dropped; their readers
-  then read storage.
+  one call (``combine_region``); the fusion rule's op whose inputs are not
+  all resident, or past one launch's 32-bit reach, takes ``fma_sum`` block
+  by block (``fma_sum_blocks`` on a grid of one block). Blocks are copied
+  into one output tensor as they come.
+- **Spill.** When residency with the cached graphs' pools would pass
+  ``device_mem``, cached graphs are dropped first (least recently used,
+  never the running segment's), then the least recently used arrays are
+  written to their Zarr targets and dropped; their readers then read
+  storage.
+- **Segments replayed as CUDA graphs** (``fuse_plan``, on a CUDA device).
+  Ops are grouped into segments as the reference groups them for tracing.
+  A segment that passes the memory pre-check (its resident inputs, every
+  output and the cached graphs fit the budget, other segments' graphs
+  dropped first; every storage source is resident; else
+  ``segment_mem_aborts``) is keyed by a structural key of its plan
+  metadata (:meth:`CudaExecutor._structural_key`: seeds and store paths
+  masked; a plan it cannot describe runs op by op, uncaptured). At the
+  key's first sighting the segment runs op by op, on the paths a capture
+  takes, and nothing is captured: a plan computed once pays nothing for
+  graphs. At its second it is captured into a ``torch.cuda.CUDAGraph``
+  (``segments_compiled``), with the capture stream's ticket counters
+  reserved for the most any launch has asked for, and replayed. A later
+  compute of a structurally equal plan
+  (``segment_struct_hits``) copies its resident inputs into the graph's
+  static inputs, refills the graph's pinned Philox keys from its own seeds
+  (one ``philox_keys`` pass) and replays the graph. Only the outputs that
+  :meth:`CudaExecutor._segment_keep` names stay resident, cloned out of the
+  graph's pool. Cached graphs' bytes (``segment_hbm_footprint``: the pool,
+  read from the CUDA allocator, with the static buffers) count against
+  ``device_mem``, least recently used graphs dropped first. A replay adds
+  the launches its graph holds to the kernel wrappers' counts. On the CPU a
+  segment runs op by op.
 
-Ops are grouped into segments as the reference groups them for tracing, and a
-segment runs op by op on resident tensors, as the reference's untraced branch
-does. Not ported yet: batched dispatch of any other op (the reference vmaps
-every uniform-grid op; here the fused reduction and the combines still run
-block by block), segment tracing (to become CUDA-graph replay), rechunk,
-meshes, ``compute_dtype`` and resume. No fast path is
-wrapped in an ``except``: where one cannot run, a check says so, the op takes
-the chunked path and ``eager_fallbacks`` counts it.
+Not ported yet: rechunk, meshes, ``compute_dtype``/``matmul_precision``,
+``task_guard``, resume and the compute journal. No fast path, capture or
+kernel is wrapped in an ``except``: where one cannot run, a check says so and
+the op takes the next path.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import itertools
 import math
 import time
-from collections import Counter
+import types
+from collections import Counter, OrderedDict
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -57,13 +98,25 @@ from ...backend_array_api import (
     backend_array_to_numpy_array,
     get_device,
     numpy_array_to_backend_array,
+    nxp,
     to_torch_dtype,
 )
 from ...chunks import blockdims_from_blockshape
 from ...core.ops import _InitialReduce
-from ...core.plan import create_zarr_array
-from ...kernels.fma_sum import fma_sum
-from ...primitive.blockwise import BlockwiseSpec, PredArgs, PredKeys, _is_key, apply_blockwise, get_chunk
+from ...core.plan import Plan, create_zarr_array
+from ...kernels import _build, _geometry
+from ...kernels.fma_sum import fma_sum, fma_sum_blocks
+from ...kernels.philox_uniform import HoistedKeys, hoisted
+from ...primitive.blockwise import (
+    BlockwiseSpec,
+    CubedArrayProxy,
+    PredArgs,
+    PredKeys,
+    _is_key,
+    apply_blockwise,
+    get_chunk,
+)
+from ...spec import Spec
 from ...storage.store import ZarrV2Array
 from ...storage.virtual import VirtualEmptyArray, VirtualInMemoryArray, VirtualOffsetsArray
 from ...storage.zarr import LazyZarrArray
@@ -83,6 +136,10 @@ _CPU_BUDGET = 8 * 2**30
 
 #: a kernel closing over more host data than this runs outside segments
 _HOST_DATA_LIMIT = 2**18
+
+#: structural keys remembered from a first sighting (no graph is captured
+#: for a plan computed once)
+_SEEN_LIMIT = 1024
 
 #: orders residents by last use (a clock could tie)
 _use_clock = itertools.count()
@@ -116,6 +173,14 @@ def _chunkset(shape: tuple, chunks: tuple) -> tuple:
     return blockdims_from_blockshape(shape, chunks) if shape else ()
 
 
+def _shape_at(chunkset, coords) -> tuple:
+    return tuple(chunkset[d][c] for d, c in enumerate(coords))
+
+
+def _starts_at(chunkset, coords) -> tuple:
+    return tuple(sum(chunkset[d][:c]) for d, c in enumerate(coords))
+
+
 def _carrier(shape, dtype) -> torch.Tensor:
     """A virtual empty block: one zero expanded with stride 0."""
     return torch.zeros((), dtype=to_torch_dtype(dtype), device=get_device()).expand(tuple(shape))
@@ -127,6 +192,328 @@ def _as_tensor(value) -> torch.Tensor:
     return numpy_array_to_backend_array(value) if isinstance(value, np.ndarray) else value
 
 
+def _nbytes_of(arr) -> int:
+    return math.prod(tuple(arr.shape)) * np.dtype(arr.dtype).itemsize
+
+
+# ---------------------------------------------------------------------------
+# key structures of the batched route (the reference's _flatten_keys)
+# ---------------------------------------------------------------------------
+
+
+def _flatten_keys(structure):
+    """(treedef, leaf keys) of a block function's result: a comparable nested
+    template (``"leaf"`` for a key, ``("pred", ...)`` for a fused
+    predecessor's arguments, ``("list", ...)`` for a contraction, under
+    ``("args", ...)``), or (None, None) when it streams (an iterator)."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, PredKeys):
+            children = tuple(walk(c) for c in node)
+            return None if None in children else ("pred", children)
+        if _is_key(node):
+            leaves.append(node)
+            return "leaf"
+        if isinstance(node, (list, tuple)):
+            children = tuple(walk(c) for c in node)
+            return None if None in children else ("list", children)
+        return None  # an iterator: streamed reads do not batch
+
+    out = []
+    for entry in structure:
+        t = walk(entry)
+        if t is None:
+            return None, None
+        out.append(t)
+    return ("args", tuple(out)), leaves
+
+
+def _unflatten_keys(treedef, flat: list) -> tuple:
+    """The argument structure with values in place of keys: fused
+    predecessors' groups as PredArgs, contractions as lists."""
+    it = iter(flat)
+
+    def build(t):
+        if t == "leaf":
+            return next(it)
+        kind, children = t
+        built = [build(c) for c in children]
+        return PredArgs(built) if kind == "pred" else built
+
+    return tuple(build(e) for e in treedef[1])
+
+
+def _leaf_functions(f) -> Iterator:
+    """The leaves of *f*'s function tree: a fused function's
+    ``root_function`` and ``arg_functions``, down to unfused functions."""
+    root = getattr(f, "root_function", None)
+    if root is None:
+        yield f
+        return
+    for g in (root, *f.arg_functions):
+        if g is not None:
+            yield from _leaf_functions(g)
+
+
+def _batchable(f) -> bool:
+    """Whether every leaf of *f*'s function tree declares that it runs
+    under ``torch.func.vmap`` (its ``batchable`` hint)."""
+    return all(getattr(g, "batchable", False) for g in _leaf_functions(f))
+
+
+def _tree_size(f) -> int:
+    """Functions in *f*'s function tree, fused nodes included: each makes at
+    most one intermediate of a bucket's size."""
+    root = getattr(f, "root_function", None)
+    if root is None:
+        return 1
+    return 1 + sum(_tree_size(g) for g in (root, *f.arg_functions) if g is not None)
+
+
+def _tiles(tasks: list, sizes: list, tile: list):
+    """(tasks, sizes) of each piece of a bucket (a dense grid of *sizes*
+    blocks, *tasks* in C order) cut into pieces of at most *tile* blocks,
+    each piece's tasks in C order."""
+    index = np.arange(len(tasks)).reshape(sizes)
+    for start in itertools.product(*(range(0, n, t) for n, t in zip(sizes, tile))):
+        sel = tuple(slice(s, min(s + t, n)) for s, t, n in zip(start, tile, sizes))
+        piece = index[sel]
+        yield [tasks[i] for i in piece.reshape(-1)], list(piece.shape)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """*dev* with its index, as the tensors made on it name it."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _block_counts(chunkset, device) -> torch.Tensor:
+    """Elements of each block of a regular grid (the last block along an
+    axis may be shorter), as an int64 tensor of the grid's shape, made on
+    the device from fills (no host copy: a captured graph may hold it)."""
+    n = torch.ones((1,) * len(chunkset), dtype=torch.int64, device=device)
+    for d, c in enumerate(chunkset):
+        if any(x != c[0] for x in c[:-1]):
+            raise ValueError(f"block counts of an irregular grid {chunkset}")
+        e = torch.full((len(c),), c[0], dtype=torch.int64, device=device)
+        if c[-1] != c[0]:
+            e[-1:].fill_(c[-1])
+        n = n * e.reshape([len(c) if k == d else 1 for k in range(len(chunkset))])
+    return n
+
+
+def _grid_view(value: torch.Tensor, chunkset, first: tuple, axes: list, sizes: list) -> torch.Tensor:
+    """The blocks of *value* (blocked by *chunkset*) from block *first*
+    along its axes *axes* (one per batch axis, outermost first, *sizes*
+    blocks each) as one view: the batch axes, then the block's axes."""
+    block = _shape_at(chunkset, first)
+    starts = _starts_at(chunkset, first)
+    st = value.stride()
+    return value.as_strided(
+        tuple(sizes) + block,
+        tuple(block[d] * st[d] for d in axes) + tuple(st),
+        value.storage_offset() + sum(s * t for s, t in zip(starts, st)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the structural key of a segment (the reference's _structural_key, without
+# cloudpickle): a description of everything that shapes the captured graph
+# ---------------------------------------------------------------------------
+
+
+class _Undescribable(Exception):
+    pass
+
+
+class _Describer:
+    """Describes plan metadata as nested tuples of plain values: function
+    trees by qualified name, code and closure values; arrays by shape, dtype
+    and chunks; store paths by order-of-first-use tokens; the seeds of
+    *masked* offsets arrays as ``"H"``. Raises :class:`_Undescribable` on
+    any value it cannot describe."""
+
+    _PLAIN = (type(None), bool, int, float, complex, str, bytes)
+
+    def __init__(self, masked: set):
+        self.masked = masked
+        self.names: set = set()
+        self.stores: dict = {}
+        self.memo: dict = {}
+        self.alive: list = []  # keeps described objects alive, so ids stay unique
+
+    def store(self, path) -> str:
+        return self.stores.setdefault(str(path), f"@{len(self.stores)}")
+
+    def __call__(self, obj):
+        if isinstance(obj, self._PLAIN):
+            return obj if not isinstance(obj, float) else ("float", repr(obj))
+        if isinstance(obj, (np.generic,)):
+            return ("np", str(obj.dtype), repr(obj.item()))
+        if isinstance(obj, (np.dtype, torch.dtype, torch.device, slice, range)):
+            return (type(obj).__name__, str(obj))
+        i = self.memo.get(id(obj))
+        if i is not None:
+            return ("ref", i)
+        self.memo[id(obj)] = len(self.memo)
+        self.alive.append(obj)
+        return self._describe(obj)
+
+    def _describe(self, obj):
+        if isinstance(obj, (list, tuple)):
+            return (type(obj).__qualname__, tuple(self(v) for v in obj))
+        if isinstance(obj, (set, frozenset)):
+            return (type(obj).__qualname__, tuple(sorted((self(v) for v in obj), key=repr)))
+        if isinstance(obj, dict):
+            return ("dict", tuple((self(k), self(v)) for k, v in obj.items()))
+        if isinstance(obj, np.ndarray):
+            if obj.nbytes > _HOST_DATA_LIMIT or obj.dtype.hasobject:
+                raise _Undescribable(f"a host array of {obj.nbytes} B")
+            return ("ndarray", obj.shape, str(obj.dtype),
+                    hashlib.sha256(np.ascontiguousarray(obj).tobytes()).hexdigest())
+        if isinstance(obj, (LazyZarrArray, ZarrV2Array)):
+            return ("zarr", self.store(obj.store), tuple(obj.shape), str(obj.dtype),
+                    tuple(getattr(obj, "chunks", ()) or ()))
+        if isinstance(obj, VirtualOffsetsArray):
+            return ("offsets", obj.shape, "H" if id(obj) in self.masked else obj.base)
+        if isinstance(obj, VirtualEmptyArray):
+            return ("empty", obj.shape, str(obj.dtype), obj.chunks)
+        if isinstance(obj, VirtualInMemoryArray):
+            return ("in_memory", obj.chunks, self(obj.array))
+        if isinstance(obj, BlockwiseSpec):
+            self.names.update(obj.reads_map)
+            return ("spec", tuple((f, self(v)) for f, v in vars(obj).items()))
+        if isinstance(obj, CubedArrayProxy):
+            return ("proxy", self(obj.array), self(obj.chunks))
+        if isinstance(obj, (Spec, Plan)):
+            return ("meta",)  # resources and provenance: never part of the graph
+        if isinstance(obj, types.FunctionType):
+            closure = tuple(self(c.cell_contents) for c in obj.__closure__ or ())
+            return ("function", obj.__module__, obj.__qualname__, self._code(obj.__code__),
+                    self(obj.__defaults__), self(obj.__kwdefaults__), closure, self(dict(obj.__dict__)))
+        if isinstance(obj, types.MethodType):
+            return ("method", self(obj.__self__), self(obj.__func__))
+        if isinstance(obj, (types.BuiltinFunctionType, types.BuiltinMethodType, types.ModuleType)):
+            return ("builtin", getattr(obj, "__module__", None), getattr(obj, "__qualname__", obj.__name__))
+        if isinstance(obj, functools.partial):
+            return ("partial", self(obj.func), self(obj.args), self(obj.keywords))
+        if obj is nxp:
+            return ("nxp",)
+        qualname = getattr(obj, "_namespace", None), getattr(obj, "_name", None)
+        if type(obj).__name__ == "CustomOpDef" and all(qualname):
+            return ("custom_op", *qualname)
+        if hasattr(obj, "__dict__") and type(obj).__module__.startswith("cubed_tpu_torch."):
+            return ("object", type(obj).__module__, type(obj).__qualname__, self(dict(vars(obj))))
+        raise _Undescribable(f"{type(obj).__module__}.{type(obj).__qualname__}")
+
+    def _code(self, code: types.CodeType):
+        consts = tuple(self._code(c) if isinstance(c, types.CodeType) else self(c) for c in code.co_consts)
+        return (code.co_name, hashlib.sha256(code.co_code).hexdigest(), consts, code.co_names)
+
+
+def _tokenize(desc, names: set, tokens: dict):
+    """*desc* with every string in *names* (the plan's generated names)
+    replaced by a token in order of first appearance."""
+    if isinstance(desc, str):
+        return tokens.setdefault(desc, f"N{len(tokens)}") if desc in names else desc
+    if isinstance(desc, tuple):
+        return tuple(_tokenize(d, names, tokens) for d in desc)
+    return desc
+
+
+# ---------------------------------------------------------------------------
+# captured segments
+# ---------------------------------------------------------------------------
+
+
+class _Graph:
+    """A captured segment: the graph, its static inputs (in the order of its
+    resident input keys), its hoisted Philox keys, the host-side arrays it
+    read as device constants, the ticket counters its kernels use, its
+    outputs (pool tensors, in keep order), the launches it holds, the
+    executor's path counts of its ops, and its bytes on the card."""
+
+    __slots__ = ("graph", "inputs", "keys", "uploads", "tickets", "outputs", "launches", "paths", "nbytes",
+                 "device", "done")
+
+    def __init__(self, graph, inputs, keys, uploads, tickets, outputs, launches, paths, nbytes, device):
+        self.graph = graph
+        self.inputs = inputs
+        self.keys = keys
+        self.uploads = uploads
+        self.tickets = tickets  # the capture stream's ticket counters, kept alive
+        self.outputs = outputs
+        self.launches = launches
+        self.paths = paths
+        self.nbytes = nbytes
+        self.device = device
+        self.done = torch.cuda.Event()
+
+
+class _GraphCache:
+    """Captured segments by structural key, least recently used first. Their
+    bytes count against the residency budget of the device they live on."""
+
+    def __init__(self):
+        self.entries: "OrderedDict[str, _Graph]" = OrderedDict()
+
+    def get(self, key: str) -> Optional[_Graph]:
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def nbytes(self, device) -> int:
+        return sum(e.nbytes for e in self.entries.values() if e.device == device)
+
+    def shrink(self, device, limit: int, keep: Optional[str] = None) -> None:
+        """Drop least recently used graphs of *device* (never *keep*) until
+        their bytes are at most *limit*."""
+        for key in list(self.entries):
+            if self.nbytes(device) <= limit:
+                return
+            if key != keep and self.entries[key].device == device:
+                del self.entries[key]
+
+    def put(self, key: str, entry: _Graph, limit: int) -> bool:
+        """Cache *entry* if it fits *limit*, dropping least recently used
+        graphs of its device to make room beside it."""
+        if entry.nbytes > limit:
+            return False
+        self.shrink(entry.device, limit - entry.nbytes)
+        self.entries[key] = entry
+        return True
+
+
+#: captured segments of this process, shared by every CudaExecutor (as the
+#: reference's _STRUCT_CACHE is)
+_GRAPHS = _GraphCache()
+
+#: structural keys of segments run once, op by op, and not captured: the
+#: second sighting of a key captures its graph (least recent dropped first)
+_SEEN: "OrderedDict[str, bool]" = OrderedDict()
+
+#: one capture stream per device: the kernels' ticket counters are per
+#: stream, and this stream's are reserved before each capture
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+def _pool_bytes(segments, pool_id) -> int:
+    """Bytes of the CUDA allocator's segments that belong to graph pool
+    *pool_id* (``torch.cuda.memory_snapshot()`` entries)."""
+    return sum(s["total_size"] for s in segments if tuple(s.get("segment_pool_id", ())) == tuple(pool_id))
+
+
 class CudaExecutor(DagExecutor):
     """Runs the plan with its arrays resident on the chunk device.
 
@@ -135,16 +522,33 @@ class CudaExecutor(DagExecutor):
     device_mem : int | str | None
         Residency budget in bytes. Default: the spec's ``device_mem``, else
         75% of the card's memory (8 GiB when the chunk device is the CPU).
+        Cached graphs' bytes count against it too.
+    fuse_plan : bool
+        Group ops into segments, replayed as CUDA graphs on a card (the
+        reference's ``fuse_plan``). False runs every op on its own.
     """
 
-    def __init__(self, device_mem=None):
+    def __init__(self, device_mem=None, fuse_plan: bool = True):
         self.device_mem = convert_to_bytes(device_mem)
+        self.fuse_plan = fuse_plan
         #: path counters of the last ``execute_dag``, under the reference's
         #: names: ``whole_array_hits``, ``whole_concat_hits``,
-        #: ``batched_ops``, ``chunked_ops``, ``eager_ops`` and the failed
-        #: checks ``whole_array_errors``, ``whole_select_errors``,
-        #: ``batched_errors`` and ``eager_fallbacks`` (0 on the main path)
+        #: ``batched_ops``, ``chunked_ops``, ``eager_ops``; the segment
+        #: counters ``segments_traced``, ``segments_compiled``,
+        #: ``segment_struct_hits``, ``segment_hbm_footprint`` and
+        #: ``segment_mem_aborts``; and the failed checks
+        #: ``whole_array_errors``, ``whole_select_errors``, ``batched_errors``
+        #: and ``eager_fallbacks`` (0 on the main path)
         self.stats: Counter = Counter()
+        self._uploads: dict = {}
+        #: a segment runs on the card: seeds come as tensors, keys from the
+        #: segment's hoisted table (its op-by-op run and its capture alike)
+        self._segment_mode = False
+        #: a CUDA graph is being captured: no spill, no upload
+        self._capturing = False
+        #: structural key of the segment being captured or replayed: its
+        #: graph is not dropped to make room for the segment's own outputs
+        self._graph_key: Optional[str] = None
 
     @property
     def name(self) -> str:
@@ -162,6 +566,7 @@ class CudaExecutor(DagExecutor):
     def execute_dag(self, dag, callbacks=None, array_names=None, resume=None, spec=None, **kwargs) -> None:
         dev = get_device()
         self.stats = Counter()
+        self._uploads = {}  # id of a VirtualInMemoryArray -> its device tensor
         resident: Dict[str, _Resident] = {}
         budget = self._budget(spec, dev)
         requested = {
@@ -173,17 +578,18 @@ class CudaExecutor(DagExecutor):
         }
         segment: list = []
         for name, node in visit_nodes(dag, resume=resume):
-            if self._classify(node["primitive_op"]) == "segment":
+            if self.fuse_plan and self._classify(node["primitive_op"]) == "segment":
                 segment.append((name, node))
                 continue
-            self._run(segment, resident, budget, requested, callbacks, in_segment=True)
+            self._run(segment, dag, resident, budget, requested, callbacks, in_segment=True)
             segment = []
             self.stats["eager_ops"] += 1
-            self._run([(name, node)], resident, budget, requested, callbacks, in_segment=False)
-        self._run(segment, resident, budget, requested, callbacks, in_segment=True)
+            self._run([(name, node)], dag, resident, budget, requested, callbacks, in_segment=False)
+        self._run(segment, dag, resident, budget, requested, callbacks, in_segment=True)
         for store, res in list(resident.items()):
             if store in requested:
                 self._flush(res)
+        self._uploads = {}
 
     def _classify(self, primitive_op) -> str:
         """'segment' if the op computes from resident inputs alone, so it may
@@ -205,7 +611,7 @@ class CudaExecutor(DagExecutor):
             return "eager"  # a map_direct whose task body reads storage
         return "segment"
 
-    def _run(self, ops, resident, budget, requested, callbacks, in_segment: bool) -> None:
+    def _run(self, ops, dag, resident, budget, requested, callbacks, in_segment: bool) -> None:
         """Run *ops* in order; their wall time is apportioned by task count."""
         if not ops:
             return
@@ -217,19 +623,10 @@ class CudaExecutor(DagExecutor):
         if in_segment:
             for arr in self._segment_sources(ops):
                 self._preload(arr, resident, budget)
-        for _, node in ops:
-            op = node["primitive_op"]
-            if op.pipeline.function is apply_blockwise:
-                self._exec_blockwise(op, resident, budget)
-            elif op.pipeline.function is create_zarr_array:
-                # metadata only for arrays that are written; residency
-                # replaces the rest
-                for lazy in op.pipeline.mappable:
-                    if lazy.store in requested:
-                        lazy.create()
-            else:
-                for m in op.pipeline.mappable:
-                    op.pipeline.function(m, config=op.pipeline.config)
+        if in_segment and get_device().type == "cuda":
+            self._run_segment(ops, dag, resident, budget, requested)
+        else:
+            self._run_ops(ops, resident, budget, requested)
         elapsed = time.time() - t0
         total_tasks = sum(node["primitive_op"].num_tasks for _, node in ops) or 1
         start = t0
@@ -244,23 +641,47 @@ class CudaExecutor(DagExecutor):
             callbacks_on(callbacks, "on_operation_end", OperationEndEvent(name, num_tasks))
             start = end
 
+    def _run_ops(self, ops, resident, budget, requested) -> None:
+        """Run *ops* one after another on the resident arrays."""
+        for _, node in ops:
+            op = node["primitive_op"]
+            if op.pipeline.function is apply_blockwise:
+                self._exec_blockwise(op, resident, budget)
+            elif op.pipeline.function is create_zarr_array:
+                # metadata only for arrays that are written; residency
+                # replaces the rest
+                for lazy in op.pipeline.mappable:
+                    if lazy.store in requested:
+                        lazy.create()
+            else:
+                for m in op.pipeline.mappable:
+                    op.pipeline.function(m, config=op.pipeline.config)
+
     def _segment_sources(self, ops) -> list:
         """The storage arrays the segment reads and does not itself produce."""
-        produced = set()
-        for _, node in ops:
-            produced.update(_key(w.array) for w in node["primitive_op"].pipeline.config.writes)
+        produced = self._produced(ops)
         seen, sources = set(), []
+        for arr in self._segment_reads(ops):
+            key = _key(arr)
+            if key in seen or key in produced or not isinstance(arr, (ZarrV2Array, LazyZarrArray)):
+                continue
+            seen.add(key)
+            sources.append(arr)
+        return sources
+
+    @staticmethod
+    def _segment_reads(ops) -> list:
+        """Every array the segment's ops read, side inputs included, in order."""
+        arrays = []
         for _, node in ops:
             spec = node["primitive_op"].pipeline.config
-            arrays = [p.array for p in spec.reads_map.values()]
+            arrays += [p.array for p in spec.reads_map.values()]
             arrays += list(getattr(spec.function, "side_inputs", None) or [])
-            for arr in arrays:
-                key = _key(arr)
-                if key in seen or key in produced or not isinstance(arr, (ZarrV2Array, LazyZarrArray)):
-                    continue
-                seen.add(key)
-                sources.append(arr)
-        return sources
+        return arrays
+
+    @staticmethod
+    def _produced(ops) -> set:
+        return {_key(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes}
 
     def _preload(self, arr, resident, budget) -> bool:
         """Read a whole storage array onto the device, if it exists, fits and
@@ -279,8 +700,227 @@ class CudaExecutor(DagExecutor):
         return True
 
     # ------------------------------------------------------------------
+    # segments replayed as CUDA graphs
+    # ------------------------------------------------------------------
 
-    def _exec_blockwise(self, op, resident, budget: int) -> None:
+    def _segment_fits(self, ops, resident, budget, dev=None, skey=None) -> bool:
+        """The memory pre-check (the reference's, before tracing): the
+        resident arrays, every output of the segment and the cached graphs of
+        *dev* fit *budget*, cached graphs other than *skey*'s dropped first,
+        least recently used first; and every storage array the segment reads
+        and does not produce is resident (a capture can neither read storage
+        nor spill)."""
+        produced = self._produced(ops)
+        if not all(
+            _key(arr) in resident or _key(arr) in produced
+            for arr in self._segment_reads(ops) if isinstance(arr, (ZarrV2Array, LazyZarrArray))
+        ):
+            return False
+        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes)
+        room = budget - sum(r.nbytes for r in resident.values()) - out_bytes
+        if dev is not None:
+            _GRAPHS.shrink(dev, room, keep=skey)
+            room -= _GRAPHS.nbytes(dev)
+        return room >= 0
+
+    @staticmethod
+    def _segment_keep(ops, dag, requested) -> Dict[str, object]:
+        """store -> target for the segment's outputs that must stay: those
+        read by ops outside the segment, or requested as plan outputs."""
+        names = {name for name, _ in ops}
+        keep: Dict[str, object] = {}
+        for name, _ in ops:
+            for arr_name in dag.successors(name):
+                target = dag.nodes[arr_name].get("target")
+                if target is None or not hasattr(target, "store"):
+                    continue
+                if target.store in requested or not set(dag.successors(arr_name)) <= names:
+                    keep[str(target.store)] = target
+        return keep
+
+    def _segment_inputs(self, ops, resident) -> list:
+        """Keys of the resident arrays the segment reads and does not
+        produce, in order of first read (the same order in structurally
+        equal plans)."""
+        produced = self._produced(ops)
+        keys = [_key(a) for a in self._segment_reads(ops)]
+        return list(dict.fromkeys(k for k in keys if k in resident and k not in produced))
+
+    def _hoisted_arrays(self, ops) -> list:
+        """The seeded offsets arrays (random's seeds) the segment reads, in
+        order of first appearance, whose every reader draws them through the
+        hoisted keys."""
+        honored: dict = {}
+        arrays: dict = {}
+        for _, node in ops:
+            spec = node["primitive_op"].pipeline.config
+            ok = any(getattr(g, "hoisted_seeds", False) for g in _leaf_functions(spec.function))
+            for proxy in spec.reads_map.values():
+                arr = proxy.array
+                if isinstance(arr, VirtualOffsetsArray) and arr.base:
+                    arrays.setdefault(id(arr), arr)
+                    honored[id(arr)] = honored.get(id(arr), True) and ok
+        return [a for i, a in arrays.items() if honored[i]]
+
+    @staticmethod
+    def _seeds(arrays) -> np.ndarray:
+        """Every block seed of *arrays*, array after array, blocks in C order."""
+        if not arrays:
+            return np.zeros(0, dtype=np.int64)
+        return np.concatenate([a.base + np.arange(math.prod(a.shape), dtype=np.int64) for a in arrays])
+
+    def _structural_key(self, ops, dag, in_keys, resident, keep_list, hoisted_arrays, dev) -> Optional[str]:
+        """A fingerprint of everything that shapes the segment's graph: each
+        op's function tree and block function (code, closure values), its
+        reads and writes (store paths as order-of-first-use tokens, hoisted
+        seeds masked), shapes, dtypes, chunks and task counts; the resident
+        inputs, the kept outputs, the hoisted seed counts and the device.
+        None when some value cannot be described: then the segment is
+        captured anew and nothing is cached."""
+        describe = _Describer({id(a) for a in hoisted_arrays})
+        describe.names.update(str(n) for n in dag.nodes)
+        payload = []
+        try:
+            for _, node in ops:
+                op = node["primitive_op"]
+                spec = op.pipeline.config
+                describe.names.update(str(k[0]) for k in itertools.islice(iter(op.pipeline.mappable), 1))
+                payload.append(("op", describe(spec), op.num_tasks))
+        except _Undescribable:
+            return None
+        payload.append(("inputs", tuple((describe.store(k), tuple(resident[k].value.shape),
+                                         str(resident[k].value.dtype)) for k in in_keys)))
+        payload.append(("keep", tuple(describe.store(k) for k in keep_list)))
+        payload.append(("hoisted", tuple(a.shape for a in hoisted_arrays)))
+        payload.append(("device", str(dev), torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""))
+        canonical = _tokenize(tuple(payload), describe.names, {})
+        return hashlib.sha256(repr(canonical).encode()).hexdigest()
+
+    def _run_segment(self, ops, dag, resident, budget, requested) -> None:
+        """Run a segment on the card: replay its cached graph; capture it and
+        replay it at the second sighting of its structural key; run it op by
+        op at the first, and when the pre-check fails."""
+        dev = _indexed(get_device())
+        keep = self._segment_keep(ops, dag, requested)
+        produced = self._produced(ops)
+        keep_list = [k for k in keep if k in produced]
+        in_keys = self._segment_inputs(ops, resident)
+        hoisted_arrays = self._hoisted_arrays(ops)
+        seeds = self._seeds(hoisted_arrays)
+        skey = self._structural_key(ops, dag, in_keys, resident, keep_list, hoisted_arrays, dev)
+        if not self._segment_fits(ops, resident, budget, dev, skey):
+            self.stats["segment_mem_aborts"] += 1
+            self._run_ops(ops, resident, budget, requested)
+            return
+        if skey is None or np.unique(seeds).size != seeds.size:
+            # a graph that no later compute could replay (its plan is not
+            # described, or two blocks share a seed and so a key row) would
+            # be captured for nothing
+            self._run_ops(ops, resident, budget, requested)
+            return
+        self._graph_key = skey
+        try:
+            entry = _GRAPHS.get(skey)
+            if entry is not None:
+                self.stats["segment_struct_hits"] += 1
+                self._replay(entry, in_keys, seeds, keep_list, keep, resident, budget)
+            elif skey in _SEEN:
+                del _SEEN[skey]
+                entry = self._capture(ops, {k: resident[k] for k in in_keys}, seeds, keep_list, requested,
+                                      resident, budget, dev)
+                self.stats["segments_compiled"] += 1
+                _GRAPHS.put(skey, entry, budget - sum(r.nbytes for r in resident.values()))
+                self._replay(entry, in_keys, seeds, keep_list, keep, resident, budget)
+            else:
+                # a first sighting: op by op, on the paths a capture takes
+                # (seeds as tensors, keys from a hoisted table), so the
+                # kernels it would launch are loaded and their ticket needs
+                # recorded
+                _SEEN[skey] = True
+                while len(_SEEN) > _SEEN_LIMIT:
+                    _SEEN.popitem(last=False)
+                keys = HoistedKeys(seeds, dev)
+                keys.upload()
+                self._segment_mode = True
+                try:
+                    with hoisted(keys):
+                        self._run_ops(ops, resident, budget, requested)
+                finally:
+                    self._segment_mode = False
+                for store in produced:
+                    if store not in keep and store in resident:
+                        del resident[store]  # read only inside the segment
+        finally:
+            self._graph_key = None
+        self.stats["segments_traced"] += 1
+        if entry is not None:
+            self.stats["segment_hbm_footprint"] = max(self.stats["segment_hbm_footprint"], entry.nbytes)
+
+    def _capture(self, ops, inputs, seeds, keep_list, requested, resident, budget, dev) -> _Graph:
+        """Capture the segment's ops into a CUDA graph. Everything a capture
+        may not do is done first: the segment's first sighting ran it op by
+        op on the same paths, so every kernel is built and loaded; the host
+        arrays it reads are uploaded; the capture stream's ticket counters
+        are reserved for the most any launch has asked for; the resident
+        inputs are copied to static buffers; older graphs are dropped to
+        make room for the pool; and the Philox keys of *seeds* are hoisted
+        to a pinned buffer, which the graph's first node uploads. Launch
+        counts made while capturing are taken back (nothing ran) and kept,
+        to be added at each replay; so are the paths the ops took."""
+        stream = _capture_stream(dev)
+        for arr in self._segment_reads(ops):
+            if isinstance(arr, VirtualInMemoryArray):
+                self._upload(arr)
+        with torch.cuda.stream(stream):
+            tickets = _build.reserve_tickets(dev)
+        held = sum(r.nbytes for r in resident.values())
+        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes)
+        _GRAPHS.shrink(dev, budget - held - out_bytes)
+        keys = HoistedKeys(seeds, dev)
+        static = {k: res.value.clone() for k, res in inputs.items()}
+        uploads = dict(self._uploads)
+        before = _build.launch_counts()
+        stats = Counter(self.stats)
+        local = {k: _Resident(v, _value_nbytes(v), inputs[k].target) for k, v in static.items()}
+        # the ops choose their paths against the room the op-by-op run had
+        others = held - sum(r.nbytes for r in inputs.values())
+        graph = torch.cuda.CUDAGraph()
+        self._segment_mode = self._capturing = True
+        try:
+            with hoisted(keys), torch.cuda.graph(graph, stream=stream):
+                keys.upload()
+                self._run_ops(ops, local, budget - others, requested)
+                outputs = [local[k].value for k in keep_list]
+        finally:
+            self._segment_mode = self._capturing = False
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        _build.add_launch_counts({k: -v for k, v in launches.items()})
+        paths = self.stats - stats
+        self.stats = stats
+        pool = _pool_bytes(torch.cuda.memory_snapshot(), graph.pool())
+        nbytes = pool + sum(_value_nbytes(v) for v in static.values()) + keys.nbytes
+        return _Graph(graph, list(static.values()), keys, uploads, tickets, outputs, launches, paths, nbytes, dev)
+
+    def _replay(self, entry: _Graph, in_keys, seeds, keep_list, keep, resident, budget) -> None:
+        """Replay a cached graph for this plan: its static inputs refilled
+        from the resident inputs, its pinned keys from this plan's seeds; the
+        kept outputs cloned out of its pool."""
+        entry.done.synchronize()  # the last replay's upload of the pinned keys has run
+        entry.keys.fill(seeds)
+        for k, static in zip(in_keys, entry.inputs):
+            static.copy_(resident[k].value)
+            resident[k].touch()
+        entry.graph.replay()
+        entry.done.record()
+        _build.add_launch_counts(entry.launches)
+        self.stats.update(entry.paths)
+        for store, value in zip(keep_list, entry.outputs):
+            self._admit(resident, store, value.clone(), keep[store], budget)
+
+    # ------------------------------------------------------------------
+
+    def _exec_blockwise(self, op, resident, budget) -> None:
         spec: BlockwiseSpec = op.pipeline.config
         target = spec.write.array
         out_shape = tuple(target.shape)
@@ -298,10 +938,16 @@ class CudaExecutor(DagExecutor):
                     self._flush(res)
 
         value = None
+        no_block_id = not getattr(f, "needs_block_id", False) and not getattr(f, "host_block_id", False)
         if spec.shape_invariant and not spec.writes_rest and not getattr(f, "needs_block_id", False):
             value = self._exec_whole(op, spec, resident, out_shape)
-        if value is None and getattr(f, "batched", None) is not None and not getattr(f, "needs_block_id", False):
-            value = self._exec_batched(op, spec, budget)
+        if value is None and no_block_id:
+            if getattr(f, "batched", None) is not None:
+                value = self._exec_batched(op, spec, budget)
+            elif (route := self._fma_route(op)) is not None:
+                value = self._exec_fma_blocks(route, spec, resident)
+            else:
+                value = self._exec_vmap(op, spec, resident, budget)
             if value is not None:
                 self.stats["batched_ops"] += 1
         if value is None:
@@ -357,6 +1003,16 @@ class CudaExecutor(DagExecutor):
             return None
         return value[tuple(slice(*s) for s in selections)]
 
+    def _upload(self, arr: VirtualInMemoryArray) -> torch.Tensor:
+        """A small literal array on the device, uploaded once per compute (a
+        captured graph reads it as a constant)."""
+        value = self._uploads.get(id(arr))
+        if value is None:
+            if self._capturing:
+                raise RuntimeError("a host array first read under CUDA graph capture")
+            value = self._uploads[id(arr)] = numpy_array_to_backend_array(arr.array)
+        return value
+
     def _whole_value(self, arr, resident) -> Optional[torch.Tensor]:
         """*arr* whole on the device, when it is resident or virtual."""
         res = resident.get(_key(arr))
@@ -366,7 +1022,7 @@ class CudaExecutor(DagExecutor):
         if isinstance(arr, VirtualEmptyArray):
             return _carrier(arr.shape, arr.dtype)
         if isinstance(arr, VirtualInMemoryArray):
-            return numpy_array_to_backend_array(arr.array)
+            return self._upload(arr)
         return None
 
     def _exec_whole(self, op, spec: BlockwiseSpec, resident, out_shape) -> Optional[torch.Tensor]:
@@ -433,6 +1089,8 @@ class CudaExecutor(DagExecutor):
         return names
 
     # ------------------------------------------------------------------
+    # the batched paths
+    # ------------------------------------------------------------------
 
     def _exec_batched(self, op, spec: BlockwiseSpec, budget: int) -> Optional[torch.Tensor]:
         """Every block of the op at once, by its function's ``batched`` form,
@@ -462,17 +1120,315 @@ class CudaExecutor(DagExecutor):
             and batched.fits(out_shape)
             and math.prod(out_shape) * np.dtype(target.dtype).itemsize <= budget
         ):
-            self.stats["batched_errors"] += 1
-            self.stats["eager_fallbacks"] += 1
-            return None
+            return self._failed_check("batched_errors")
         return batched(out_shape, chunks, seeds[0][1].base, get_device())
+
+    def _exec_vmap(self, op, spec: BlockwiseSpec, resident, budget: int):
+        """The general batched route (the reference's ``_exec_batched``): each
+        bucket of tasks with one chunk-shape signature runs the op's function
+        once under ``torch.func.vmap`` on grid views of its inputs, cut into
+        pieces that the kernels and the budget take (:meth:`_bucket_tile`).
+        None when the op does not batch (a 0-d output, one task, streamed or
+        differing key structures, a ragged grid of too many buckets, a
+        bucket whose inputs are all the same block, an input that is neither
+        resident nor virtual); a failed metadata check (a function not
+        declared batchable, a bucket that no piece of fits) also counts
+        ``batched_errors`` and ``eager_fallbacks``."""
+        out_shape = tuple(spec.write.array.shape)
+        keys = list(op.pipeline.mappable)
+        if not out_shape or len(keys) <= 1:
+            return None
+        structures = [spec.block_function(k) for k in keys]
+        treedef, leaves0 = _flatten_keys(structures[0])
+        if treedef is None:
+            return None
+        names = [k[0] for k in leaves0]
+        task_leaves = [leaves0]
+        for s in structures[1:]:
+            td, leaves = _flatten_keys(s)
+            if td != treedef or [k[0] for k in leaves] != names:
+                return None  # the structure or a leaf's source varies across tasks
+            task_leaves.append(leaves)
+        metas = []
+        for name in names:
+            proxy = spec.reads_map.get(name)
+            if proxy is None:
+                return None
+            metas.append((proxy.array, _chunkset(tuple(proxy.array.shape), proxy.chunks)))
+        out_sets = [_chunkset(tuple(w.array.shape), w.chunks) for w in spec.writes]
+        out_coords = np.array([k[1:] for k in keys], dtype=np.int64)
+        buckets: Dict[tuple, list] = {}
+        for t in range(len(keys)):
+            sig = (_shape_at(out_sets[0], out_coords[t]),) + tuple(
+                _shape_at(cs, k[1:]) for k, (_, cs) in zip(task_leaves[t], metas))
+            buckets.setdefault(sig, []).append(t)
+        if len(buckets) > max(8, len(keys) // 4):
+            return None  # too ragged: batching would hardly help
+        plans = [self._bucket_plan(tasks, out_coords, task_leaves) for tasks in buckets.values()]
+        if any(p is None for p in plans):
+            return None
+        wholes = {}
+        for arr, _ in metas:
+            if not isinstance(arr, (VirtualEmptyArray, VirtualOffsetsArray)):
+                value = self._whole_value(arr, resident)
+                if value is None:
+                    return None
+                wholes[id(arr)] = value
+        if not _batchable(spec.function):
+            return self._failed_check("batched_errors")
+        dev = _indexed(get_device())
+        room = (budget - sum(r.nbytes for r in resident.values()) - _GRAPHS.nbytes(dev)
+                - sum(_nbytes_of(w.array) for w in spec.writes))
+        itemsize = max([8] + [np.dtype(a.dtype).itemsize for a, _ in metas]
+                       + [np.dtype(w.array.dtype).itemsize for w in spec.writes])
+        tiles = [self._bucket_tile(plan, tasks, metas, task_leaves, out_sets, out_coords, wholes,
+                                   room // (_tree_size(spec.function) * itemsize))
+                 for plan, tasks in zip(plans, buckets.values())]
+        if any(t is None for t in tiles):
+            return self._failed_check("batched_errors")
+        fn = spec.function
+
+        def task(*flat):
+            return fn(*_unflatten_keys(treedef, list(flat)))
+
+        outs: list = [None] * len(spec.writes)
+        for (levels, bucket_sizes, leaf_levels), bucket, tile in zip(plans, buckets.values(), tiles):
+            for tasks, sizes in _tiles(bucket, bucket_sizes, tile):
+                first = tuple(out_coords[tasks[0]])
+                args, in_dims = [], []
+                for i, ((arr, cs), dims) in enumerate(zip(metas, leaf_levels)):
+                    value, dims_per_level = self._leaf(arr, cs, i, dims, tasks, task_leaves, len(levels),
+                                                       sizes, wholes)
+                    args.append(value)
+                    in_dims.append(dims_per_level)
+                batched = task
+                for lvl in reversed(range(len(levels))):
+                    batched = torch.func.vmap(batched, in_dims=tuple(d[lvl] for d in in_dims), out_dims=0)
+                result = batched(*args)
+                results = result if spec.writes_rest else (result,)
+                for j, (w, cs, r) in enumerate(zip(spec.writes, out_sets, results)):
+                    block = _shape_at(cs, first)
+                    if tuple(r.shape) != tuple(sizes) + block:
+                        return self._failed_check("batched_errors")
+                    if outs[j] is None:
+                        outs[j] = torch.empty(tuple(w.array.shape), dtype=r.dtype, device=r.device)
+                    _grid_view(outs[j], cs, first, levels, sizes).copy_(r)
+        return tuple(outs) if spec.writes_rest else outs[0]
+
+    def _failed_check(self, counter: str) -> None:
+        """Count a fast path's failed check; the op takes the next path."""
+        self.stats[counter] += 1
+        self.stats["eager_fallbacks"] += 1
+        return None
+
+    @staticmethod
+    def _bucket_tile(plan, tasks, metas, task_leaves, out_sets, out_coords, wholes, max_elements):
+        """The largest piece of a bucket that the hand kernels and the budget
+        take, checked from metadata: ``(1, ..., 1, k, n_j+1, ...)`` blocks of
+        the bucket's grid of ``n``. A piece fits when its grid views have at
+        most eight axes (``region_sum``'s widest index), every resident
+        input's grid view and the piece's largest tensor (its blocks of the
+        largest input or output block, as a stacked Philox fill or an
+        intermediate is) index in 32 bits, and that tensor, once for each
+        function of the op's tree, fits the budget's room (*max_elements*
+        elements of the widest dtype). None when one block does not fit."""
+        levels, sizes, leaf_levels = plan
+        first = tasks[0]
+        blocks = [_shape_at(out_sets[j], out_coords[first]) for j in range(len(out_sets))]
+        views = []
+        for i, ((arr, cs), dims) in enumerate(zip(metas, leaf_levels)):
+            block = _shape_at(cs, task_leaves[first][i][1:])
+            blocks.append(block)
+            if id(arr) in wholes and arr.shape:
+                st = wholes[id(arr)].stride()
+                followed = sorted((lvl, d) for d, lvl in enumerate(dims) if lvl is not None)
+                views.append((block, st, followed))
+        largest = max(math.prod(b) for b in blocks)
+        rank = max(len(b) for b in blocks)
+
+        def fits(tile) -> bool:
+            elements = math.prod(tile) * largest
+            if len(levels) + rank > _geometry.MAX_INDEX_DIMS or elements > max_elements:
+                return False
+            if elements >= _geometry.INDEX_LIMIT:
+                return False
+            return all(_geometry.index_fits(
+                tuple(tile[lvl] for lvl, _ in followed) + block,
+                [tuple(block[d] * st[d] for _, d in followed) + tuple(st)]) for block, st, followed in views)
+
+        for j in range(len(sizes)):  # the largest k at the outermost level j that fits
+            lo, hi = 0, sizes[j]
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if fits([1] * j + [mid] + list(sizes[j + 1:])):
+                    lo = mid
+                else:
+                    hi = mid - 1
+            if lo:
+                return [1] * j + [lo] + list(sizes[j + 1:])
+        return None
+
+    @staticmethod
+    def _bucket_plan(tasks, out_coords, task_leaves):
+        """(levels, sizes, per-leaf levels) of a bucket: the output axes it
+        spans (one vmap level each, outermost first) and their block counts,
+        and for each leaf, for each of its axes, the level it follows or None
+        where it is constant. None when the bucket is not a dense grid of
+        blocks, a leaf axis follows no level, or every leaf is the same block
+        in every task (the reference does not batch such an op)."""
+        coords = out_coords[tasks]
+        levels, sizes, ranges = [], [], []
+        for a in range(coords.shape[1]):
+            vals = np.unique(coords[:, a])
+            if vals.size > 1:
+                if vals[-1] - vals[0] + 1 != vals.size:
+                    return None
+                levels.append(a)
+                sizes.append(int(vals.size))
+                ranges.append(range(int(vals[0]), int(vals[-1]) + 1))
+        if math.prod(sizes) != len(tasks) or not np.array_equal(
+                coords[:, levels], np.array(list(itertools.product(*ranges)), dtype=np.int64).reshape(len(tasks), -1)):
+            return None
+        leaf_levels = []
+        varies = False
+        for i in range(len(task_leaves[tasks[0]])):
+            lc = np.array([task_leaves[t][i][1:] for t in tasks], dtype=np.int64).reshape(len(tasks), -1)
+            dims, used = [], set()
+            for d in range(lc.shape[1]):
+                col = lc[:, d]
+                if (col == col[0]).all():
+                    dims.append(None)
+                    continue
+                lvl = next((l for l, a in enumerate(levels) if np.array_equal(col, coords[:, a])), None)
+                if lvl is None or lvl in used:
+                    return None
+                used.add(lvl)
+                dims.append(lvl)
+                varies = True
+            leaf_levels.append(dims)
+        return (levels, sizes, leaf_levels) if varies else None
+
+    def _leaf(self, arr, chunkset, i, dims, tasks, task_leaves, nlevels, sizes, wholes):
+        """Leaf *i*'s value for a bucket and its in_dims per vmap level: the
+        carrier for a virtual template, the seeds as a CPU int64 tensor, a
+        grid view of a whole tensor."""
+        followed = sorted((lvl, d) for d, lvl in enumerate(dims) if lvl is not None)
+        per_level = [0 if any(lvl == l for lvl, _ in followed) else None for l in range(nlevels)]
+        first = tuple(task_leaves[tasks[0]][i][1:])
+        if isinstance(arr, VirtualEmptyArray):
+            return _carrier(_shape_at(chunkset, first), arr.dtype), [None] * nlevels
+        if isinstance(arr, VirtualOffsetsArray):
+            coords = np.array([task_leaves[t][i][1:] for t in tasks], dtype=np.int64).reshape(len(tasks), -1)
+            flat = arr.base + (np.ravel_multi_index(tuple(coords.T), arr.shape) if arr.shape else 0)
+            grid = np.broadcast_to(flat, (len(tasks),)).reshape(sizes)
+            grid = grid[tuple(slice(None) if per_level[l] == 0 else 0 for l in range(nlevels))]
+            seeds = np.array(grid, dtype=np.int64).reshape(grid.shape + (1,) * len(arr.shape))
+            return torch.from_numpy(seeds), per_level
+        value = wholes[id(arr)]
+        if not arr.shape:
+            return value, [None] * nlevels
+        return _grid_view(value, chunkset, first, [d for _, d in followed],
+                          [sizes[lvl] for lvl, _ in followed]), per_level
+
+    # ------------------------------------------------------------------
+    # the fusion rule: a fused multiply-add reduction goes to fma_sum
+    # ------------------------------------------------------------------
+
+    def _fma_route(self, op):
+        """For an initial ``sum``/``mean`` over every axis of
+        ``add(multiply(p, q), multiply(r, s))``, with p, q, r, s plain reads
+        of one float dtype and one chunking, each at the output block's
+        coordinates in every task: (the reduction, the names of p, q, r, s);
+        None for any other op."""
+        spec: BlockwiseSpec = op.pipeline.config
+        root = getattr(spec.function, "root_function", None)
+        if not isinstance(root, _InitialReduce) or root.reduce_kind not in ("sum", "mean"):
+            return None
+        if root.reduce_kind == "mean" and sorted(root.fields or ()) != ["n", "total"]:
+            return None
+        (add_f,) = spec.function.arg_functions
+        if getattr(getattr(add_f, "root_function", None), "elementwise", None) != "add":
+            return None
+        if [getattr(m, "elementwise", None) for m in add_f.arg_functions] != ["multiply", "multiply"]:
+            return None
+        names = None
+        for out_key in op.pipeline.mappable:
+            structure = spec.block_function(out_key)
+            if not (
+                len(structure) == 1
+                and isinstance(structure[0], PredKeys)
+                and len(structure[0]) == 2
+                and all(isinstance(m, PredKeys) and len(m) == 2 for m in structure[0])
+                and all(_is_key(k) and tuple(k[1:]) == tuple(out_key[1:]) for m in structure[0] for k in m)
+            ):
+                return None
+            got = [k[0] for m in structure[0] for k in m]
+            if names is None:
+                names = got
+            elif got != names:
+                return None
+        proxies = [spec.reads_map[n] for n in names]
+        arrays = [p.array for p in proxies]
+        if not (
+            arrays[0].dtype in (np.dtype(np.float64), np.dtype(np.float32))
+            and all(a.dtype == arrays[0].dtype and tuple(a.shape) == tuple(arrays[0].shape) for a in arrays)
+            and all(p.chunks == proxies[0].chunks for p in proxies)
+            and 0 < len(arrays[0].shape) <= 4
+            and sorted(root.axis) == list(range(len(arrays[0].shape)))
+        ):
+            return None
+        return root, names
+
+    def _fma_fields(self, root, total: torch.Tensor, counts, out_dtype):
+        """The reduction's output from its float64 totals: the sum, or mean's
+        fields (*counts*: a callable giving ``n`` in *total*'s shape)."""
+        if root.reduce_kind == "sum":
+            return total.to(out_dtype)
+        fields = {"n": counts(), "total": total}
+        return tuple(fields[k] for k in root.fields)
+
+    def _exec_fma_blocks(self, route, spec: BlockwiseSpec, resident):
+        """Every block of the fused multiply-add reduction in one
+        ``fma_sum_blocks`` launch on the whole resident inputs, or None when
+        one of them is not resident (the op then runs block by block). When
+        the launch cannot index the inputs in 32 bits, a failed check counts
+        ``batched_errors`` and ``eager_fallbacks``."""
+        root, names = route
+        proxies = [spec.reads_map[n] for n in names]
+        wholes = [self._whole_value(p.array, resident) for p in proxies]
+        if any(w is None for w in wholes):
+            return None
+        chunks = tuple(proxies[0].chunks)
+        if not _geometry.fma_blocks_fit(tuple(wholes[0].shape), [tuple(w.stride()) for w in wholes], chunks):
+            return self._failed_check("batched_errors")
+        total = fma_sum_blocks(*wholes, chunks)  # the (nb0, nb1, ...) grid: the output's shape
+        chunkset = _chunkset(tuple(proxies[0].array.shape), chunks)
+        return self._fma_fields(root, total, lambda: _block_counts(chunkset, total.device),
+                                to_torch_dtype(spec.write.array.dtype))
+
+    def _fma_block(self, route, spec: BlockwiseSpec):
+        """The chunked path's form of the fusion rule: one block's result
+        with ``fma_sum`` (``fma_sum_blocks`` on a grid of one block)."""
+        root, _ = route
+        out_dtype = to_torch_dtype(spec.write.array.dtype)
+
+        def fma_block(structure, resident):
+            p, q, r, s = [self._resolve(k, spec, resident) for m in structure[0] for k in m]
+            total = fma_sum(p, q, r, s)
+            return self._fma_fields(root, total, lambda: torch.full(
+                total.shape, p.numel(), dtype=torch.int64, device=total.device), out_dtype)
+
+        return fma_block
+
+    # ------------------------------------------------------------------
 
     def _exec_chunked(self, op, spec: BlockwiseSpec, resident):
         """Per-output-block execution on block views of resident inputs."""
         f = spec.function
         needs_block_id = getattr(f, "needs_block_id", False)
         region_fn = getattr(f, "combine_region", None)
-        fma_block = self._fma_route(op)
+        route = self._fma_route(op)
+        fma_block = self._fma_block(route, spec) if route is not None else None
         writes = spec.writes
         chunksets = [_chunkset(tuple(w.array.shape), w.chunks) for w in writes]
         single_block = math.prod(len(c) for c in chunksets[0]) == 1
@@ -550,75 +1506,35 @@ class CudaExecutor(DagExecutor):
         if isinstance(arr, VirtualEmptyArray):
             return _carrier(tuple(s.stop - s.start for s in sel), arr.dtype)
         if isinstance(arr, VirtualOffsetsArray):
-            return np.asarray(arr[sel])  # host metadata: seeds and block ids
+            # host metadata: seeds and block ids; in a segment on the card a
+            # host tensor, so a random block draws its key from the hoisted
+            # table (a key passed by value would be baked into the graph)
+            block = np.asarray(arr[sel])
+            return torch.from_numpy(block) if self._segment_mode else block
+        if isinstance(arr, VirtualInMemoryArray):
+            return self._upload(arr)[sel]
         opened = proxy.open()
         return get_chunk(opened, _chunkset(tuple(opened.shape), proxy.chunks), coords)
-
-    # ------------------------------------------------------------------
-    # the fusion rule: a fused multiply-add reduction goes to fma_sum
-    # ------------------------------------------------------------------
-
-    def _fma_route(self, op):
-        """For an initial ``sum``/``mean`` over every axis of
-        ``add(multiply(p, q), multiply(r, s))``, with p, q, r, s plain reads
-        of one float dtype and one chunking, a function computing one block's
-        result with ``fma_sum``; None for any other op."""
-        spec: BlockwiseSpec = op.pipeline.config
-        root = getattr(spec.function, "root_function", None)
-        if not isinstance(root, _InitialReduce) or root.reduce_kind not in ("sum", "mean"):
-            return None
-        if root.reduce_kind == "mean" and sorted(root.fields or ()) != ["n", "total"]:
-            return None
-        (add_f,) = spec.function.arg_functions
-        if getattr(getattr(add_f, "root_function", None), "elementwise", None) != "add":
-            return None
-        if [getattr(m, "elementwise", None) for m in add_f.arg_functions] != ["multiply", "multiply"]:
-            return None
-        mappable = iter(op.pipeline.mappable)
-        structure = spec.block_function(next(mappable))
-        if not (
-            len(structure) == 1
-            and isinstance(structure[0], PredKeys)
-            and len(structure[0]) == 2
-            and all(isinstance(m, PredKeys) and len(m) == 2 for m in structure[0])
-            and all(_is_key(k) for m in structure[0] for k in m)
-        ):
-            return None
-        proxies = [spec.reads_map[k[0]] for m in structure[0] for k in m]
-        arrays = [p.array for p in proxies]
-        if not (
-            arrays[0].dtype in (np.dtype(np.float64), np.dtype(np.float32))
-            and all(a.dtype == arrays[0].dtype and tuple(a.shape) == tuple(arrays[0].shape) for a in arrays)
-            and all(p.chunks == proxies[0].chunks for p in proxies)
-            and 0 < len(arrays[0].shape) <= 4
-            and sorted(root.axis) == list(range(len(arrays[0].shape)))
-        ):
-            return None
-        out_dtype = to_torch_dtype(spec.write.array.dtype)
-
-        def fma_block(structure, resident):
-            p, q, r, s = [self._resolve(k, spec, resident) for m in structure[0] for k in m]
-            total = fma_sum(p, q, r, s)
-            if root.reduce_kind == "sum":
-                return total.to(out_dtype)
-            fields = {"n": torch.full(total.shape, p.numel(), dtype=torch.int64, device=total.device),
-                      "total": total}
-            return tuple(fields[k] for k in root.fields)
-
-        return fma_block
 
     # ------------------------------------------------------------------
     # residency bookkeeping
     # ------------------------------------------------------------------
 
-    def _admit(self, resident, store: str, value: torch.Tensor, target, budget: int) -> None:
+    def _admit(self, resident, store: str, value: torch.Tensor, target, budget) -> None:
         """Make *value* the resident array of *store* (in the target's dtype,
-        as a store write would), spilling others to stay in *budget*."""
+        as a store write would), within *budget* with the cached graphs of
+        the device: graphs are dropped first (least recently used, never the
+        running segment's), then others spill."""
         dtype = to_torch_dtype(target.dtype)
         if value.dtype != dtype:
             value = value.to(dtype)
         nbytes = _value_nbytes(value)
-        self._evict(resident, budget - nbytes, exclude=store)
+        if not self._capturing:
+            # cached graphs (for later computes) make room before resident
+            # arrays (of this one) spill
+            others = sum(r.nbytes for k, r in resident.items() if k != store)
+            _GRAPHS.shrink(value.device, budget - nbytes - others, keep=self._graph_key)
+            self._evict(resident, budget - nbytes - _GRAPHS.nbytes(value.device), exclude=store)
         resident[store] = _Resident(value, nbytes, target)
 
     def _evict(self, resident, budget: int, exclude: Optional[str] = None) -> None:

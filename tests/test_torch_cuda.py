@@ -142,7 +142,8 @@ def test_random_on_device_executor_is_one_launch_per_op(cuda, tmp_path):
     assert philox_uniform.launches == before + 4
     assert philox_uniform.paths["batched"] == paths["batched"] + 4
     assert philox_uniform.paths["block"] == paths["block"]
-    assert ex.stats["batched_ops"] == 4 and ex.stats["eager_fallbacks"] == 0
+    # the four random ops and the fused reduction (fma_sum_blocks)
+    assert ex.stats["batched_ops"] == 5 and ex.stats["eager_fallbacks"] == 0
     random.seed(5)
     a, b, x, y = [ct.random.random((50, 45, 40), chunks=10, spec=spec) for _ in range(4)]
     np.testing.assert_allclose(got, float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute()), rtol=1e-12)
@@ -194,7 +195,7 @@ def test_vorticity_on_card_matches_cpu(cuda, tmp_path):
 def test_fma_sum_kernel_matches_plain(cuda, dtype, view):
     import torch
 
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks, fma_sum_plain
 
     g = torch.Generator(device=cuda).manual_seed(9)
     shape = (199, 150, 120) if view else (99, 100, 50)
@@ -202,9 +203,9 @@ def test_fma_sum_kernel_matches_plain(cuda, dtype, view):
           for _ in range(4)]
     if view:  # a ragged block of a resident array, as the device executor passes it
         ts = [t[100:199, 50:150, 70:120] for t in ts]
-    before = fma_sum.launches
+    before = fma_sum_blocks.launches
     got = fma_sum(*ts)
-    assert fma_sum.launches == before + 1
+    assert fma_sum_blocks.launches == before + 1
     assert torch.equal(got, fma_sum(*ts))
     a, x, b, y = ts
     scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
@@ -215,7 +216,7 @@ def test_fma_sum_kernel_matches_plain(cuda, dtype, view):
 def test_vorticity_on_device_executor_matches_sequential(cuda, tmp_path):
     import cubed_tpu_torch as ct
     import cubed_tpu_torch.array_api as xp
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
     def run(executor):
@@ -225,9 +226,10 @@ def test_vorticity_on_device_executor_matches_sequential(cuda, tmp_path):
         return float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=executor))
 
     ex = CudaExecutor()
-    before = fma_sum.launches
+    before = fma_sum_blocks.launches
     got = run(ex)
-    assert fma_sum.launches == before + 100
+    # every block of the fused reduction in one launch, none block by block
+    assert fma_sum_blocks.launches == before + 1
     assert ex.stats["eager_fallbacks"] == 0
     np.testing.assert_allclose(got, run(None), rtol=1e-12)
 
@@ -336,22 +338,230 @@ FMA_CASES = {
 def test_fma_sum_kernel_cases(bases, case, dtype):
     import torch
 
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks, fma_sum_plain
 
     a, x, b, y = FMA_CASES[case](bases[dtype])
-    before = fma_sum.launches
+    before = fma_sum_blocks.launches
     got = fma_sum(a, x, b, y)
-    assert fma_sum.launches == before + 1
+    # one fma_sum_blocks launch on a grid of one block; none for no element
+    assert fma_sum_blocks.launches == before + (1 if a.numel() else 0)
     assert torch.equal(got, fma_sum(a, x, b, y))
     scale = float((a * x).double().abs().sum() + (b * y).double().abs().sum())
     assert float((got - fma_sum_plain(a, x, b, y)).abs().max()) <= 1e-12 * scale
 
 
 def test_fma_sum_takes_every_path(bases):
-    from cubed_tpu_torch.kernels.fma_sum import fma_sum
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks
 
-    before = dict(fma_sum.paths)
+    before = dict(fma_sum_blocks.paths)
     for case in sorted(FMA_CASES):
         fma_sum(*FMA_CASES[case](bases["float64"]))
-    taken = {k: fma_sum.paths[k] - before[k] for k in before}
+    taken = {k: fma_sum_blocks.paths[k] - before[k] for k in before}
     assert all(taken.values()), taken
+
+
+# ---------------------------------------------------------------------------
+# fma_sum_blocks, the batching rules, and segments replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape, chunks, dtype, view", [
+    ((50, 45, 40), (10, 10, 10), "float64", True),
+    ((50, 45, 40), (10, 10, 10), "float32", True),
+    ((37, 29, 13), (8, 7, 5), "float64", False),
+    ((200, 100, 100), (50, 100, 100), "float64", True),
+], ids=["ragged-views", "float32", "odd", "split-tiles"])
+def test_fma_sum_blocks_kernel_matches_plain_and_per_block(cuda, shape, chunks, dtype, view):
+    import torch
+
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks, fma_sum_blocks_plain
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    ts = [torch.rand(shape, generator=g, device=cuda, dtype=torch.float64).to(getattr(torch, dtype))
+          for _ in range(4)]
+    if view:
+        ts = [t[1:] for t in ts]
+    before = fma_sum_blocks.launches
+    got = fma_sum_blocks(*ts, chunks)
+    assert fma_sum_blocks.launches == before + 1
+    assert torch.equal(got, fma_sum_blocks(*ts, chunks))
+    scale = fma_sum_blocks_plain(*[t.abs() for t in ts], chunks)
+    assert bool(((got - fma_sum_blocks_plain(*ts, chunks)).abs() <= 1e-12 * scale).all())
+    sel = tuple(slice(0, c) for c in chunks)
+    assert float((got[(0,) * len(chunks)] - fma_sum(*[t[sel] for t in ts]).reshape(())).abs()) <= 1e-12 * float(
+        scale[(0,) * len(chunks)])
+
+
+def test_batching_rules_launch_once_per_bucket(cuda):
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import philox_blocks, philox_uniform
+    from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
+
+    vmap = torch.func.vmap
+    base = torch.rand((50, 45, 40), device=cuda, dtype=torch.float64)[1:]
+    st = base.stride()
+    grid = base.as_strided((4, 4, 4, 10, 10, 10), tuple(10 * s for s in st) + st)
+    for axes in [(0, 1, 2), (0,)]:
+        before = region_sum.launches
+        got = vmap(vmap(vmap(lambda b, axes=axes: region_sum(b, axes))))(grid)
+        assert region_sum.launches == before + 1
+        torch.testing.assert_close(got, region_sum_plain(grid, tuple(a + 3 for a in axes)), rtol=1e-12, atol=0)
+    like = torch.zeros((), dtype=torch.float64, device=cuda).expand(6, 7)
+    seeds = torch.arange(12, dtype=torch.int64).reshape(3, 4, 1, 1) + 99
+    before = philox_uniform.launches
+    got = vmap(vmap(lambda s: philox_blocks(like, s)))(seeds)
+    assert philox_uniform.launches == before + 1
+    want = np.random.Generator(np.random.Philox(seed=99 + 6)).random((6, 7))
+    np.testing.assert_array_equal(got[1, 2].cpu().numpy().view(np.uint64), want.view(np.uint64))
+
+
+def test_segment_is_captured_once_and_replayed_for_new_seeds(cuda, tmp_path):
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.runtime.executors.cuda import _GRAPHS, CudaExecutor
+
+    def build(seed, work):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / work), allowed_mem="500MB")
+        a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+        return xp.mean(a[1:] * x[1:] + b[1:] * y[1:])
+
+    ex = CudaExecutor()
+    for i, seed in enumerate((21, 22, 23, 24)):
+        before = philox_uniform.launches, fma_sum_blocks.launches
+        got = float(build(seed, f"cuda-{seed}").compute(executor=ex))
+        # a replay counts the launches its graph holds
+        assert (philox_uniform.launches - before[0], fma_sum_blocks.launches - before[1]) == (4, 1)
+        want = float(build(seed, f"seq-{seed}").compute())
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+        assert ex.stats["segments_traced"] == 1
+        # the first sighting runs op by op, the second captures and replays,
+        # later ones replay
+        assert ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+        assert ex.stats["segment_struct_hits"] == (1 if i >= 2 else 0)
+        # 48 blocks: one combine level, then the aggregate
+        assert (ex.stats["batched_ops"], ex.stats["chunked_ops"], ex.stats["eager_ops"]) == (5, 2, 1)
+        # the graph's pool, read from the allocator, holds the four random arrays
+        if i:
+            assert ex.stats["segment_hbm_footprint"] >= 4 * 40 * 35 * 30 * 8
+        else:
+            assert ex.stats["segment_hbm_footprint"] == 0
+    import torch
+
+    assert _GRAPHS.nbytes(torch.device("cuda", torch.cuda.current_device())) > 0
+
+
+def _blockwise_oracle(torch, shape, chunks, root, device, drop_first_row):
+    """The float64 sum of ``random(shape, chunks)`` with root seed *root*
+    (without its first row, if *drop_first_row*): numpy's per-block Philox
+    streams, drawn on the card by the per-block kernel (held to numpy bit
+    for bit above)."""
+    from cubed_tpu_torch.chunks import blockdims_from_blockshape
+    from cubed_tpu_torch.kernels.philox_uniform import philox_key, philox_uniform
+
+    chunkset = blockdims_from_blockshape(shape, chunks)
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    for k, idx in enumerate(np.ndindex(*[len(c) for c in chunkset])):
+        block = philox_uniform(torch.empty([c[i] for c, i in zip(chunkset, idx)], dtype=torch.float64,
+                                           device=device), philox_key(root + k))
+        total += (block[1:] if drop_first_row and idx[0] == 0 else block).sum()
+    return float(total)
+
+
+def test_batched_route_cuts_buckets_past_32_bit_indices(cuda, tmp_path):
+    # a bucket whose grid view reaches past 2**31 elements: the [1:] view of
+    # a resident (65537, 32768) array in (8192, 8192) blocks, and the fused
+    # random+sum of a (65536, 32768) array, whose Philox rule would fill
+    # 2**31 elements in one launch. The route checks each kernel's reach from
+    # metadata and cuts the bucket; a whole-array random fill past 32 bits
+    # fails its check and runs chunked.
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    chunks = (8192, 8192)
+    for shape, slice_first_row in (((65537, 32768), True), ((65536, 32768), False)):
+        random.seed(7)
+        spec = ct.Spec(work_dir=str(tmp_path / str(shape[0])), allowed_mem="8GB")  # 512 MB blocks
+        a = ct.random.random(shape, chunks=chunks, spec=spec)
+        result = xp.sum(a[1:] if slice_first_row else a)
+        ex = CudaExecutor()
+        before = region_sum.launches
+        got = float(result.compute(executor=ex))
+        random.seed(7)
+        root = random.getrandbits(30)
+        want = _blockwise_oracle(torch, shape, chunks, root, cuda, slice_first_row)
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+        assert ex.stats["batched_ops"] >= 1
+        # the unfused random op of the first plan is past one launch's reach
+        assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == (1 if slice_first_row else 0)
+        # one bucket of 8 x 4 blocks in pieces: more than one launch
+        assert region_sum.launches - before >= 2
+        del a, result, ex
+        torch.cuda.empty_cache()
+
+
+def test_capture_reserves_the_ticket_counters_its_kernels_need(cuda, tmp_path):
+    # 2048 blocks of fma_sum_blocks, each split in two tiles: 2048 ticket
+    # counters, more than a stream gets first; the capture (second compute)
+    # reserves them on its stream beforehand, and replays stay right
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
+    from cubed_tpu_torch.random import _random_blocks
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    def build(seed, work):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / work), allowed_mem="500MB")
+        a, b, x, y = [ct.random.random((641, 160, 160), chunks=(10, 20, 48), spec=spec) for _ in range(4)]
+        return xp.sum(a[1:] * x[1:] + b[1:] * y[1:])
+
+    ex = CudaExecutor()
+    for i, seed in enumerate((31, 32, 33)):
+        before = dict(fma_sum_blocks.paths)
+        got = float(build(seed, f"cuda-{seed}").compute(executor=ex))
+        assert fma_sum_blocks.paths["split"] == before["split"] + 1
+        random.seed(seed)
+        roots = [random.getrandbits(30) for _ in range(4)]
+        ts = [_random_blocks((641, 160, 160), (10, 20, 48), r, cuda)[1:] for r in roots]
+        want = float((ts[0] * ts[2] + ts[1] * ts[3]).sum())
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+        assert ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+        assert ex.stats["segment_struct_hits"] == (1 if i == 2 else 0)
+
+
+def test_random_op_of_rank_five_runs_block_by_block_in_a_segment(cuda, tmp_path):
+    # in a segment a random block draws its key from the hoisted table
+    # through the Philox op, which lays any block out as one row of a
+    # (blocks, elements) grid; computed twice, so the second compute
+    # captures the segment and replays it
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    for i, seed in enumerate((41, 42)):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / str(seed)), allowed_mem="500MB")
+        a = ct.random.random((5, 4, 4, 4, 4), chunks=2, spec=spec)
+        got = float(xp.sum(a[1:]).compute(executor=ex))
+        random.seed(seed)
+        root = random.getrandbits(30)
+        want = np.empty((5, 4, 4, 4, 4))
+        for k, idx in enumerate(np.ndindex(3, 2, 2, 2, 2)):
+            sel = tuple(slice(2 * j, 2 * j + 2) for j in idx)
+            want[sel] = np.random.Generator(np.random.Philox(seed=root + k)).random(want[sel].shape)
+        np.testing.assert_allclose(got, want[1:].sum(), rtol=1e-12)
+        # the whole-array fill (four axes at most) and the sum's ten-axis
+        # grid view fail their checks from metadata
+        assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == 2
+        assert ex.stats["segments_compiled"] == i

@@ -136,6 +136,21 @@ def test_reductions_match_jax_executor(tmp_path, name):
     assert ex.stats["eager_fallbacks"] == 0
 
 
+#: the device executor's path counters, each equal to the reference's
+PATH_COUNTERS = ("whole_array_hits", "whole_concat_hits", "batched_ops", "chunked_ops", "eager_ops")
+FAILED_CHECKS = ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors")
+
+
+@pytest.mark.parametrize("name", sorted({**ELEMENTWISE, **REDUCTIONS}))
+def test_path_counters_match_the_reference_executor(tmp_path, name):
+    """Every plan takes the reference's paths, op for op: batched where it
+    batches (ragged grids of few buckets included), chunked where it does
+    not (streamed combines, one-task ops, a bucket of one block)."""
+    *_, ref_ex, _, ex, _ = _run_all(tmp_path, {**ELEMENTWISE, **REDUCTIONS}[name])
+    assert {c: ex.stats[c] for c in PATH_COUNTERS} == {c: ref_ex.stats[c] for c in PATH_COUNTERS}
+    assert {c: ex.stats[c] for c in FAILED_CHECKS} == dict.fromkeys(FAILED_CHECKS, 0)
+
+
 def test_unfused_elementwise_op_takes_the_whole_array_path(tmp_path):
     *_, ex, _ = _run_all(tmp_path, _ragged_index_scaled)
     assert ex.stats["whole_array_hits"] == 1
@@ -156,40 +171,57 @@ def test_vorticity_paths_match_the_reference_executor(tmp_path, monkeypatch):
     _, ref_ex, _, ex, _ = _run_all(tmp_path, _vorticity)
     assert ref_ex.stats["batched_ops"] == len(ref_batched)
     assert sorted(ref_batched) == ["_random_block"] * 4 + ["fused_function"]
-    # the four random ops are batched as the reference batches them; the
-    # reference also batches the fused initial reduction, which the port
-    # runs block by block through fma_sum
-    assert ex.stats["batched_ops"] == ref_batched.count("_random_block") == 4
-    assert ex.stats["chunked_ops"] == ref_ex.stats["chunked_ops"] + 1 == 4
-    assert ex.stats["batched_ops"] + ex.stats["chunked_ops"] == ref_ex.stats["batched_ops"] + ref_ex.stats["chunked_ops"]
+    # the four random ops and the fused initial reduction are batched as the
+    # reference batches them (the reduction through one fma_sum_blocks call);
+    # the two combines and the aggregate run chunked
+    assert ex.stats["batched_ops"] == ref_ex.stats["batched_ops"] == 5
+    assert ex.stats["chunked_ops"] == ref_ex.stats["chunked_ops"] == 3
     assert ex.stats["eager_ops"] == ref_ex.stats["eager_ops"] == 1
     for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
         assert ex.stats[counter] == 0
 
 
+class _Calls(list):
+    """A list that also carries the fma_sum_blocks calls."""
+
+
 @pytest.fixture
 def fma_calls(monkeypatch):
-    """Counts the plain fma_sum calls (the wrapper's CPU route)."""
-    calls = []
+    """Counts the plain fma_sum calls (the wrapper's CPU route), and in
+    ``fma_calls.blocks`` the plain fma_sum_blocks calls, by chunks."""
+    calls = _Calls()
+    calls_blocks = []
     plain = fma_sum_module.fma_sum_plain
+    plain_blocks = fma_sum_module.fma_sum_blocks_plain
 
     def counting(*args):
         calls.append(tuple(args[0].shape))
         return plain(*args)
 
+    def counting_blocks(*args):
+        calls_blocks.append(tuple(args[-1]))
+        return plain_blocks(*args)
+
     monkeypatch.setattr(fma_sum_module, "fma_sum_plain", counting)
+    monkeypatch.setattr(fma_sum_module, "fma_sum_blocks_plain", counting_blocks)
+    calls.blocks = calls_blocks
     return calls
 
 
 @pytest.mark.parametrize("build", [_vorticity, _vorticity_sum, _vorticity_float32],
                          ids=["mean", "sum", "float32"])
 def test_fused_multiply_add_reduction_goes_through_fma_sum_once_per_block(tmp_path, fma_calls, build):
+    """Once per op: the whole fused reduction is one fma_sum_blocks call,
+    whose plain version sums each block with fma_sum's plain version."""
     spec = cubed_tpu_torch.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
     random.seed(3)
-    got = build(cubed_tpu_torch, pxp, spec).compute(executor=CudaExecutor())
+    ex = CudaExecutor()
+    got = build(cubed_tpu_torch, pxp, spec).compute(executor=ex)
     nblocks = 100 if build is _vorticity else 18  # (49, 45, 40) or (29, 25, 20) in chunks of 10
+    assert fma_calls.blocks == [(10, 10, 10)]
     assert len(fma_calls) == nblocks
     assert (5, 5, 10) in fma_calls or (9, 5, 10) in fma_calls  # ragged edge blocks too
+    assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == 0
     random.seed(3)
     seq = build(cubed_tpu_torch, pxp, spec).compute(executor=PythonDagExecutor())
     np.testing.assert_allclose(got, seq, rtol=REDUCTION_RTOL if build is not _vorticity_float32 else 1e-6)
@@ -203,7 +235,7 @@ def test_other_reductions_do_not_take_fma_sum(tmp_path, fma_calls):
     for expr in (pxp.mean(a * x + b), pxp.mean(a * x + b * x, axis=0), pxp.mean(a + x * b)):
         expr.compute(executor=ex)
         assert ex.stats["eager_fallbacks"] == 0
-    assert fma_calls == []
+    assert fma_calls == [] and fma_calls.blocks == []
 
 
 def _stores_with_chunks(root) -> set:

@@ -1,6 +1,6 @@
-"""The fma_sum kernel's plain version against numpy, and its wrapper's
-contract on the CPU (the CUDA kernel itself is held against the plain
-version on the card in tests/test_torch_cuda.py and chip_smoke.py).
+"""fma_sum's plain version against numpy, and its wrapper's contract on
+the CPU (on the card it is one launch of the fma_sum_blocks kernel, held
+against the plain version in tests/test_torch_cuda.py and chip_smoke.py).
 
 The products and their sum round alike in every version; only the order of
 the float64 sum differs, so results agree within 1e-12 of the sum of the
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_plain
+from cubed_tpu_torch.kernels.fma_sum import fma_sum, fma_sum_blocks, fma_sum_plain
 
 
 def _numpy_fma_sum(a, x, b, y) -> float:
@@ -55,9 +55,9 @@ def test_plain_matches_numpy(case):
 @pytest.mark.parametrize("case", ["block", "strided-view", "float32", "size0"])
 def test_wrapper_takes_the_plain_version_for_cpu_tensors_without_counting(case):
     ts = CASES[case]()
-    before = fma_sum.launches
+    before = fma_sum_blocks.launches
     assert torch.equal(fma_sum(*ts), fma_sum_plain(*ts))
-    assert fma_sum.launches == before
+    assert fma_sum_blocks.launches == before
 
 
 def test_plain_rounds_products_like_the_unfused_chain():

@@ -119,17 +119,18 @@ def test_region_sum_plan_reads_each_element_once_and_sums_like_the_jax_package(c
 
 def test_main_path_block_view_plan():
     # four (100, 100, 100) float64 views of (499, 450, 400) arrays, as the
-    # device executor passes them to fma_sum: 10,000 rows of 100 become
-    # 500,000 double2 units over two outer axes; 264 CTAs (two per SM of an
-    # H100) of about 38 rows each, one partial each, combined by the last
-    p = _geometry.plan((100, 100, 100), [MAIN] * 4, [0] * 4, 8)
-    assert p.layout == "rows" and p.vector == 2
-    assert p.reduced.sizes == (100, 100, 50) and p.reduced.strides == ((180000, 400, 2),) * 4
-    assert p.kept.sizes == ()
-    assert (p.red_units, p.threads, p.splits, p.per_split, p.grid) == (500000, 256, 264, 1894, 264)
-    assert p.per_split * p.vector / 100 == pytest.approx(37.88)
-    assert (p.partials, p.tickets) == (264, 1)
-    assert p.paths == ("rows", "vector", "split")
+    # device executor's chunked path passes them to fma_sum (a grid of one
+    # block): 500,000 double2 units; one block alone takes tiles of 2048
+    # units, so 245 CTAs (about two per SM of an H100) each write a partial,
+    # which the block's last CTA sums
+    p = _geometry.fma_blocks_plan((100, 100, 100), [MAIN] * 4, (100, 100, 100), [0] * 4, 8)
+    assert p.vector == 2 and p.blocks == 1
+    assert p.strides == ((0, 180000, 400, 2),) * 4
+    assert (p.tile_units, p.per_block[0], p.items) == (2048, 245, 245)
+    assert p.paths == ("vector", "split")
+    # many blocks keep the full tile
+    p = _geometry.fma_blocks_plan((499, 450, 400), [(180000, 400, 1)] * 4, (100,) * 3, [0] * 4, 8)
+    assert (p.tile_units, p.per_block[0], p.items) == (_geometry.FMA_TILE, 123, 12300)
 
 
 def test_contiguous_block_merges_to_one_axis():
@@ -200,11 +201,31 @@ def test_plan_refuses_offsets_past_32_bits(shape, strides, itemsize):
 
 
 def test_plan_refuses_more_than_four_merged_axes_of_a_role():
+    """Four merged axes of a role take the narrow index; five to eight (a
+    grid view of blocks) the wide one; more are refused."""
     # a view taking 3 of every 4 along each axis: no two axes merge
-    with pytest.raises(ValueError, match="at most 4"):
-        _geometry.plan((3,) * 10, [_c_strides((4,) * 10)], [0], 8, (0, 2, 4, 6, 8))
+    with pytest.raises(ValueError, match="at most 8"):
+        _geometry.plan((3,) * 18, [_c_strides((4,) * 18)], [0], 8, tuple(range(0, 18, 2)))
     p = _geometry.plan((3,) * 8, [_c_strides((4,) * 8)], [0], 8, (0, 2, 4, 6))
-    assert len(p.kept.sizes) == len(p.reduced.sizes) == 4
+    assert len(p.kept.sizes) == len(p.reduced.sizes) == 4 and p.dims == 4
+    p = _geometry.plan((3,) * 10, [_c_strides((4,) * 10)], [0], 8, (0, 2, 4, 6, 8))
+    assert len(p.kept.sizes) == len(p.reduced.sizes) == 5 and p.dims == 8
+    assert len(p.params()) == 2 * (3 * 8 + 8) + 5
+
+
+def test_region_sum_plan_takes_grid_views_past_four_kept_axes():
+    """A grid view (nb0, nb1, nb2, c0, c1, c2) of a [1:] slice reduced over
+    its first in-block axis keeps five unmergeable axes: the wide index.
+    The replay reads every element once, in its own output."""
+    shape, strides = (4, 4, 4, 10, 10, 10), (18000, 400, 10, 1800, 40, 1)
+    p = _geometry.plan(shape, [strides], [1800 * 8], 8, (3,))
+    assert p.dims == 8 and len(p.kept.sizes) == 5 and p.layout == "columns"
+    out, (offsets,) = _geometry.walk(torch, p)
+    view = torch.arange(50 * 45 * 40, dtype=torch.int64).as_strided(shape, strides, 1800)
+    want = view.movedim(3, -1).reshape(-1, 10)  # output element -> its 10 inputs
+    assert torch.equal(torch.sort(offsets + 1800).values, torch.sort(want.reshape(-1)).values)
+    for o in (0, 17, 1023, 6399):
+        assert torch.equal(torch.sort(offsets[out == o] + 1800).values, torch.sort(want[o]).values)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 7, 100, 255, 256, 257, 4095, 10**6, 2**30 - 1, 2**30, 2**31 - 1])
@@ -219,15 +240,15 @@ def test_fast_division_matches_floor_division(d):
 
 
 def test_params_lay_out_the_geometry_for_the_c_entry_points():
-    p = _geometry.plan((100, 100, 100), [MAIN] * 4, [0] * 4, 8)
+    p = _geometry.plan((100, 100, 100), [MAIN], [0], 8)
     params = p.params()
-    assert len(params) == 2 * (12 + 4 * 4) + 5
-    kept, red = params[:28], params[28:56]
-    assert kept[:4] == [1, 1, 1, 1] and kept[12:] == [0] * 16
+    assert len(params) == 2 * (12 + 4) + 5
+    kept, red = params[:16], params[16:32]
+    assert kept[:4] == [1, 1, 1, 1] and kept[12:] == [0] * 4
     assert red[:4] == [1, 100, 100, 50]
     assert red[4:8] == [0] + [_geometry.fast_divmod(n)[0] for n in (100, 100, 50)]
     assert red[12:16] == [0, 180000, 400, 2]
-    assert params[56:] == [1, 500000, 264, 1894, 1]
+    assert params[32:] == [1, 500000, 264, 1894, 1]
 
 
 def test_wrappers_plan_from_their_tensors_metadata():
@@ -236,8 +257,8 @@ def test_wrappers_plan_from_their_tensors_metadata():
     assert region_mod.plan(v, (0,)) == _geometry.plan(
         (9, 5, 8), [(72, 8, 1)], [v.data_ptr()], 8, (0,))
     ts = [v, v, base[2:11, 3:8, 0:8], v]
-    assert fma_mod.plan(*ts) == _geometry.plan(
-        (9, 5, 8), [(72, 8, 1)] * 4, [t.data_ptr() for t in ts], 8)
+    assert fma_mod.blocks_plan(*ts, (9, 5, 8)) == _geometry.fma_blocks_plan(
+        (9, 5, 8), [(72, 8, 1)] * 4, (9, 5, 8), [t.data_ptr() for t in ts], 8)
 
 
 # name: (shape, the inputs' strides, their pointer offsets in bytes, dtype)
@@ -256,17 +277,19 @@ FMA_CASES = {
 
 @pytest.mark.parametrize("case", sorted(FMA_CASES))
 def test_fma_sum_plan_reads_each_element_once_and_sums_like_the_jax_package(case):
+    # fma_sum is fma_sum_blocks on a grid of one block
     shape, strides, ptrs, dtype = FMA_CASES[case]
     strides = [s or _c_strides(shape) for s in strides]
-    p = _geometry.plan(shape, strides, [4096 + q for q in ptrs], ITEMSIZE[dtype])
-    assert p.layout == "rows" and p.outputs == 1 and p.grid >= 1
     rng = np.random.default_rng(len(case))
     a, x, b, y = [(rng.random(shape) * 2 - 1).astype(dtype) for _ in range(4)]
-    out_elem, offsets = _geometry.walk(torch, p, 4)
-    if a.size == 0:
-        assert out_elem.numel() == 0
+    if a.size == 0:  # nothing to read: no launch, a zero
+        aligned = tuple(q % 16 == 0 for q in ptrs)
+        assert fma_mod._launch_plan(shape, tuple(strides), shape, aligned, ITEMSIZE[dtype], 132)[1] is None
         return
-    assert torch.equal(out_elem, torch.zeros_like(out_elem))
+    p = _geometry.fma_blocks_plan(shape, strides, shape, [4096 + q for q in ptrs], ITEMSIZE[dtype])
+    assert p.blocks == 1 and p.items >= 1
+    blocks, _, offsets = _geometry.fma_blocks_walk(torch, p)
+    assert torch.equal(blocks, torch.zeros_like(blocks))
     vals = []
     for t, st, off in zip((a, x, b, y), strides, offsets):
         vals.append(torch.from_numpy(t.reshape(-1))[_read_once(off, shape, st)])
