@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--against CHECKOUT]
 
-(``--profile-device-run`` is phase 5's own call of this script.)
+(``--profile-device-run`` is phase 5's own call of this script,
+``--check-layouts FILE`` phase 4's, and ``--time-kernels CHECKOUT`` and
+``--time-computes CHECKOUT`` the ``--against`` timings' calls.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -55,10 +57,16 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    batched call, timed beside their bounds and torch.sum. With
    ``--against CHECKOUT``, the fma_sum and region_sum of another checkout
    of this repo are built from its sources and timed beside these on the
-   same inputs, in turns (theirs, ours, ours, theirs), by device and host
-   time (against a checkout from before this one's fma_sum_blocks took the
-   place of fma_sum's own kernel: that kernel against fma_sum_blocks on one
-   (100, 100, 100) and one (40, 40, 40) block);
+   same inputs (drawn from one seed), in turns (theirs, ours, ours,
+   theirs), by device and host time; the other checkout is timed in a
+   process of its own (this script with ``--time-kernels CHECKOUT``, which
+   prints its timings as JSON), since both checkouts register the same
+   custom ops (against a checkout from before this one's fma_sum_blocks
+   took the place of fma_sum's own kernel: that kernel against
+   fma_sum_blocks on one (100, 100, 100) and one (40, 40, 40) block); then
+   vorticity's four device computes (cold, capturing, two warm) on each
+   checkout, each in a fresh process (``--time-computes CHECKOUT``), in
+   turns, three rounds, with each compute's median;
 4. drive the main path through the public entry points, on the default
    sequential executor and on the device executor (``CudaExecutor``):
    addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
@@ -83,7 +91,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    vorticity, (200, 180, 160) / 40 under a budget of two arrays, spills,
    fails its segment's memory pre-check (``segment_mem_aborts`` 1) and
    takes fma_sum block by block (100 launches of fma_sum_blocks, a grid of
-   one block each): the fusion rule's chunked form;
+   one block each): the fusion rule's chunked form. Then the rest of the
+   BASELINE set, each on both executors against a numpy oracle drawing the
+   same per-block Philox streams, rtol 1e-12, with launches, paths,
+   counters, projected and peak memory printed: config 2, elemwise,
+   ``sum(sqrt(abs(sin(a)*b + cos(b))))`` at (6000, 6000) / 1000; config 3,
+   ``max(mean(a, axis=0))`` at (8000, 8000) / 1000; config 4,
+   ``sum(matmul(a, b))`` at (4000, 4000) / 1000 (the oracle is numpy's
+   ``a @ b``); and config 5's array made time-contiguous,
+   ``mean(rechunk(a, (500, 45, 40)), axis=0)`` at (500, 450, 400) / 100,
+   compared element by element, under allowed_mem 2GB, 500MB and 200MB,
+   whose plans must have 1, 3 and 2 copy ops of 5; 108, 128, 100; and 500,
+   100 tasks. The sequential executor copies through Zarr; on the device
+   executor, three computes with distinct seeds, every copy op an alias
+   (``rechunk_alias``), chunk files for the output alone, the segment
+   captured on the second compute and replayed on the third. Each of these
+   runs' launch counts is pinned (device region_sum 6, 49, 19 and 1;
+   sequential 71, 176, 143 and 100), and every region_sum and batched
+   Philox launch of its device computes is recorded by layout (shape,
+   strides, offset, alignment; axes, block chunks, keys) and run again on
+   the card at that layout against its plain version, in a fresh process
+   (``--check-layouts``): region_sum within 1e-12 of the sum of
+   magnitudes, Philox bit for bit, one launch per call and one kernel per
+   call under torch.profiler;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -107,6 +137,7 @@ stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import itertools
 import json
@@ -160,6 +191,15 @@ PHILOX_COUNTERS = 4
 
 ADDSUM = dict(shape=(5000, 5000), chunks=1000)
 VORTICITY = dict(shape=(500, 450, 400), chunks=100)
+#: BASELINE configs 2-4 (bench.py's elemwise, reduce and matmul workloads)
+ELEMWISE = dict(shape=(6000, 6000), chunks=1000)
+REDUCE = dict(shape=(8000, 8000), chunks=1000)
+MATMUL = dict(shape=(4000, 4000), chunks=1000)
+#: config 5's array made time-contiguous: rechunk to (500, 45, 40), then a
+#: time mean; under each allowed_mem the planner makes another chain of copy
+#: ops: allowed_mem -> (copy ops, their tasks)
+RECHUNK_TARGET = (500, 45, 40)
+RECHUNK_PLANS = {"2GB": (1, [5]), "500MB": (3, [108, 128, 100]), "200MB": (2, [500, 100])}
 SEED = 20261017
 
 
@@ -918,53 +958,108 @@ def main_path_views(bases) -> list:
             for i, j in itertools.product(range(4), range(2))]
 
 
-def compare_against(torch, path: str) -> None:
-    """Time this checkout's fma_sum and region_sum beside another checkout's
-    (at *path*, built from its own sources) on the same inputs, in turns:
-    theirs, ours, ours, theirs, by device and host time. Against a checkout
-    that still has fma_sum's own kernel (before fma_sum_blocks took its
-    place), the fma_sum rows hold that kernel against fma_sum_blocks on a
-    grid of one block."""
-    import importlib
-    import importlib.util
-
-    from cubed_tpu_torch.kernels import fma_sum as ours_fma, region_sum as ours_region
-
-    kdir = os.path.join(os.path.abspath(path), "cubed_tpu_torch", "kernels")
-    spec = importlib.util.spec_from_file_location(
-        "against_kernels", os.path.join(kdir, "__init__.py"), submodule_search_locations=[kdir])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["against_kernels"] = pkg
-    spec.loader.exec_module(pkg)
-    theirs_fma = importlib.import_module("against_kernels.fma_sum")
-    theirs_region = importlib.import_module("against_kernels.region_sum")
-    importlib.import_module("against_kernels._build").build_all()
-
+def against_cases(torch, m_fma, m_region) -> list:
+    """(label, function, argument sets) of the ``--against`` timings, for one
+    checkout's fma_sum and region_sum modules, on inputs drawn from a fixed
+    seed (so every process draws the same ones)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bases = [torch.rand((499, 450, 400), generator=gen, device="cuda", dtype=torch.float64)
              for _ in range(4)]
     blocks = [(torch.rand((100, 100, 100), generator=gen, device="cuda", dtype=torch.float64),)
               for _ in range(8)]
-    def region(m, axes):
-        return lambda x: m.region_sum(x, axes)
+
+    def region(axes):
+        return lambda x: m_region.region_sum(x, axes)
 
     small = [tuple(t[i * 40:(i + 1) * 40, j * 40:(j + 1) * 40, 0:40] for t in bases)
              for i, j in itertools.product(range(8), range(4))]
-    cases = [
-        ("fma_sum (100,100,100) f64 views", lambda m: m.fma_sum, (ours_fma, theirs_fma), main_path_views(bases)),
-        ("fma_sum (40,40,40) f64 views", lambda m: m.fma_sum, (ours_fma, theirs_fma), small),
-        ("region_sum (100,100,100) f64 contiguous, all axes", lambda m: region(m, None),
-         (ours_region, theirs_region), blocks),
-    ] + [(f"region_sum {label}", lambda m, axes=axes: region(m, axes), (ours_region, theirs_region), args)
-         for label, args, axes, _ in region_timings(torch, gen, bases[0])]
-    for label, get, (ours, theirs), args in cases:
-        times = [time_ms(torch, get(m), args) for m in (theirs, ours, ours, theirs)]
-        host = [host_us(torch, get(m), args) for m in (theirs, ours, ours, theirs)]
-        print(f"against {path}: {label}: theirs {times[0]:.5f} / {times[3]:.5f} ms "
-              f"({host[0]:.2f} / {host[3]:.2f} us of host time a call), ours {times[1]:.5f} / {times[2]:.5f} ms "
-              f"({host[1]:.2f} / {host[2]:.2f} us); ours/theirs device "
-              f"{(times[1] + times[2]) / (times[0] + times[3]):.3f}, host {(host[1] + host[2]) / (host[0] + host[3]):.3f}; "
-              f"{smi_tag()}")
+    return [
+        ("fma_sum (100,100,100) f64 views", m_fma.fma_sum, main_path_views(bases)),
+        ("fma_sum (40,40,40) f64 views", m_fma.fma_sum, small),
+        ("region_sum (100,100,100) f64 contiguous, all axes", region(None), blocks),
+    ] + [(f"region_sum {label}", region(axes), args) for label, args, axes, _ in region_timings(torch, gen, bases[0])]
+
+
+def time_against_cases(torch) -> list:
+    """[label, device ms, host us] of every ``--against`` case, for the
+    cubed_tpu_torch this process imported."""
+    from cubed_tpu_torch.kernels import _build, fma_sum, region_sum
+
+    _build.build_all()
+    return [[label, time_ms(torch, fn, args), host_us(torch, fn, args)]
+            for label, fn, args in against_cases(torch, fma_sum, region_sum)]
+
+
+#: rounds of vorticity's device computes in ``--against`` (each round:
+#: theirs, ours, ours, theirs, every one in a fresh process)
+COMPUTE_ROUNDS = 3
+
+
+def time_vorticity_computes(torch) -> list:
+    """Seconds of vorticity's four device ``compute()``s on one new
+    ``CudaExecutor`` (cold, capturing, two warm), as phase 4 runs them, for
+    the cubed_tpu_torch this process imported."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    seconds = []
+    for i, seed in enumerate((SEED, SEED + 1, SEED + 2, SEED + 3)):
+        work = os.path.join(WORK_DIR, f"computes-{os.getpid()}-{i}")
+        random.seed(seed)
+        x = vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"))
+        x.plan._finalize(array_names=(x.name,))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value = float(x.compute(executor=ex))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        shutil.rmtree(work, ignore_errors=True)
+        check(np.isfinite(value), f"vorticity compute {i}: value {value}")
+        check(ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+              and ex.stats["segment_struct_hits"] == (1 if i >= 2 else 0),
+              f"vorticity compute {i}: stats {dict(ex.stats)}")
+    return seconds
+
+
+def time_in_process(flag: str, path: str) -> list:
+    """This script's ``flag PATH`` run in a process of its own: the JSON on
+    its last line (the kernel modules of two checkouts register the same
+    custom ops, which one process cannot hold twice)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, os.path.abspath(path)],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    check(proc.returncode == 0, f"{flag} {path}: the run failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def compare_against(torch, path: str) -> None:
+    """Time this checkout's fma_sum and region_sum beside another checkout's
+    (at *path*, built from its own sources, timed in a process of its own)
+    on the same inputs, in turns: theirs, ours, ours, theirs, by device and
+    host time. Against a checkout that still has fma_sum's own kernel
+    (before fma_sum_blocks took its place), the fma_sum rows hold that
+    kernel against fma_sum_blocks on a grid of one block. Then vorticity's
+    four device computes (cold, capturing, warm, warm), each checkout in a
+    fresh process, in turns, COMPUTE_ROUNDS rounds."""
+    first = time_in_process("--time-kernels", path)
+    ours = [time_against_cases(torch), time_against_cases(torch)]
+    last = time_in_process("--time-kernels", path)
+    for (label, t0, h0), (_, t1, h1), (_, t2, h2), (_, t3, h3) in zip(first, *ours, last):
+        print(f"against {path}: {label}: theirs {t0:.5f} / {t3:.5f} ms "
+              f"({h0:.2f} / {h3:.2f} us of host time a call), ours {t1:.5f} / {t2:.5f} ms "
+              f"({h1:.2f} / {h2:.2f} us); ours/theirs device "
+              f"{(t1 + t2) / (t0 + t3):.3f}, host {(h1 + h2) / (h0 + h3):.3f}; {smi_tag()}")
+    runs: dict = {"theirs": [], "ours": []}
+    for _ in range(COMPUTE_ROUNDS):
+        for side in ("theirs", "ours", "ours", "theirs"):
+            runs[side].append(time_in_process("--time-computes", path if side == "theirs" else REPO))
+    for side, secs in runs.items():
+        print(f"against {path}: vorticity device computes, {side}, s (cold, capturing, warm, warm; a fresh "
+              f"process each): " + "; ".join(" / ".join(f"{t:.4f}" for t in r) for r in secs) + f"; {smi_tag()}")
+    for i, what in enumerate(("cold", "capturing", "warm", "warm")):
+        theirs, ours = (float(np.median([r[i] for r in runs[side]])) for side in ("theirs", "ours"))
+        print(f"against {path}: vorticity {what} compute, median of {len(runs['ours'])}: theirs {theirs:.4f} s, "
+              f"ours {ours:.4f} s, ours/theirs {ours / theirs:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1004,11 +1099,13 @@ def stores_with_chunks(work_dir: str) -> set:
     return found
 
 
-def run_main_path(torch, name: str, executor_name: str, build, expected: float,
-                  counts_required: dict, executor=None, seed: int = SEED, spill: bool = False) -> dict:
+def run_main_path(torch, name: str, executor_name: str, build, expected,
+                  counts_required: dict, executor=None, seed: int = SEED, spill: bool = False,
+                  allowed_mem: str = "2GB") -> dict:
     """Compute one configuration on one executor ("sequential" or "cuda",
-    then *executor* or a new ``CudaExecutor``), check it against the
-    oracle's *expected* value and the kernel launch counts (a key
+    then *executor* or a new ``CudaExecutor``) under *allowed_mem*, check it
+    against the oracle's *expected* value (a float, or an array compared
+    element by element) within rtol 1e-12, and the kernel launch counts (a key
     ``kernel:path`` bounds the launches of one path, ``stats: counter`` one
     of the device executor's counters); for the device executor also its
     fallback counters and, unless *spill* (a budget that spills arrays to
@@ -1018,7 +1115,7 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     from cubed_tpu_torch.runtime.executors.cuda import _GRAPHS, CudaExecutor
 
     work = os.path.join(WORK_DIR, f"{name}-{executor_name}-{seed}")
-    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=allowed_mem)
     random.seed(seed)
     result = build(spec)
     plan = result.plan._finalize(array_names=(result.name,))
@@ -1045,14 +1142,17 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
     shutil.rmtree(work, ignore_errors=True)
 
     label = f"{name} [{executor_name}, seed {seed}]"
-    value = float(value)
-    rel = abs(value - expected) / abs(expected)
+    value = np.asarray(value, dtype=np.float64)
+    check(value.shape == np.shape(expected), f"{label}: shape {value.shape}, expected {np.shape(expected)}")
+    rel = float(np.max(np.abs(value - expected) / np.abs(expected))) if value.size else 0.0
+    shown = f"value {float(value)!r}, numpy oracle {float(expected)!r}" if not value.shape else \
+        f"values of shape {value.shape}, mean {float(value.mean())!r}, numpy oracle's {float(np.mean(expected))!r}"
     print(f"{label}: compute() {elapsed:.3f} s ({plan.num_tasks()} tasks, {plan.num_ops()} ops), "
-          f"value {value!r}, numpy oracle {expected!r}, rel err {rel:.3e}; {smi_tag()}")
+          f"{shown}, max rel err {rel:.3e}; {smi_tag()}")
     print(f"{label}: max_projected_mem {projected} B, torch.cuda.max_memory_allocated {peak} B, "
           f"max_memory_reserved {peak_reserved} B, cached graphs {_GRAPHS.nbytes(torch.device('cuda', 0))} B")
     print(f"{label}: launches {json.dumps(launches)}; paths {json.dumps(paths)}")
-    check(np.isfinite(value), f"{label}: value is not finite")
+    check(bool(np.all(np.isfinite(value))), f"{label}: value is not finite")
     check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
     stats = dict(sorted(executor.stats.items())) if executor is not None else {}
     for key, (lo, hi) in counts_required.items():
@@ -1072,7 +1172,8 @@ def run_main_path(torch, name: str, executor_name: str, build, expected: float,
                   f"{label}: peak device memory (reserved) {peak_reserved} B over the budget {budget} B")
             check({os.path.normpath(p) for p in stored} == {output_store},
                   f"{label}: chunk files in {sorted(stored)}, expected the output's alone")
-    return dict(launches=launches, paths=paths, stats=stats, seconds=elapsed)
+    return dict(launches=launches, paths=paths, stats=stats, seconds=elapsed, rel=rel, plan=plan,
+                projected=projected, peak=peak, peak_reserved=peak_reserved)
 
 
 def addsum_build(spec):
@@ -1106,6 +1207,307 @@ def vorticity_oracle(config=VORTICITY) -> float:
     return float(np.mean(a[1:] * x[1:] + b[1:] * y[1:]))
 
 
+def elemwise_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    a, b = [cubed_tpu_torch.random.random(ELEMWISE["shape"], chunks=ELEMWISE["chunks"], spec=spec)
+            for _ in range(2)]
+    return xp.sum(xp.sqrt(xp.abs(xp.sin(a) * b + xp.cos(b))))
+
+
+def elemwise_oracle() -> float:
+    a, b = [oracle_random(ELEMWISE["shape"], ELEMWISE["chunks"], random.getrandbits(30)) for _ in range(2)]
+    return float(np.sum(np.sqrt(np.abs(np.sin(a) * b + np.cos(b)))))
+
+
+def reduce_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    a = cubed_tpu_torch.random.random(REDUCE["shape"], chunks=REDUCE["chunks"], spec=spec)
+    return xp.max(xp.mean(a, axis=0))
+
+
+def reduce_oracle() -> float:
+    return float(np.max(np.mean(oracle_random(REDUCE["shape"], REDUCE["chunks"], random.getrandbits(30)), axis=0)))
+
+
+def matmul_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    a, b = [cubed_tpu_torch.random.random(MATMUL["shape"], chunks=MATMUL["chunks"], spec=spec) for _ in range(2)]
+    return xp.sum(xp.matmul(a, b))
+
+
+def matmul_oracle() -> float:
+    a, b = [oracle_random(MATMUL["shape"], MATMUL["chunks"], random.getrandbits(30)) for _ in range(2)]
+    return float(np.sum(a @ b))
+
+
+def rechunk_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    a = cubed_tpu_torch.random.random(VORTICITY["shape"], chunks=VORTICITY["chunks"], spec=spec)
+    return xp.mean(a.rechunk(RECHUNK_TARGET), axis=0)
+
+
+_RECHUNK_ORACLES: dict = {}
+
+
+def rechunk_oracle() -> np.ndarray:
+    """The time mean of config 5's array, per root seed (three budgets
+    compute the same seeds)."""
+    root = random.getrandbits(30)
+    if root not in _RECHUNK_ORACLES:
+        _RECHUNK_ORACLES[root] = np.mean(oracle_random(VORTICITY["shape"], VORTICITY["chunks"], root), axis=0)
+    return _RECHUNK_ORACLES[root]
+
+
+def rechunk_copies(plan) -> list:
+    """The tasks of each copy op of a finalized plan, in order."""
+    return [d["primitive_op"].num_tasks for n in plan.dag.topological_sort()
+            if (d := plan.dag.nodes[n]).get("op_name") == "rechunk"]
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(torch):
+    """While active, record the layout of every region_sum and batched
+    Philox launch on the card outside a capture (shape, strides, offset,
+    storage size and 16-byte alignment; region_sum's axes, Philox's block
+    chunks and keys), with how often each was launched. Yields
+    ``{"region_sum": {call: n}, "philox_uniform_blocks": {call: keys}}``."""
+    import cubed_tpu_torch.random as crandom
+    from cubed_tpu_torch.kernels import philox_uniform as mphilox
+    from cubed_tpu_torch.kernels import region_sum as mregion
+
+    calls: dict = {"region_sum": {}, "philox_uniform_blocks": {}}
+    region_inner, philox_inner = mregion._region_sum, mphilox.philox_uniform_blocks
+
+    def layout(x):
+        return (tuple(x.shape), tuple(x.stride()), x.storage_offset(),
+                x.untyped_storage().nbytes() // x.element_size(), x.data_ptr() % 16, x.dtype)
+
+    def recording():
+        return not torch.cuda.is_current_stream_capturing()
+
+    def region(x, axes, keepdims):
+        if x.device.type == "cuda" and recording():
+            call = (layout(x), tuple(axes), keepdims)
+            calls["region_sum"][call] = calls["region_sum"].get(call, 0) + 1
+        return region_inner(x, axes, keepdims)
+
+    def philox(out, chunks, keys):
+        if out.device.type == "cuda" and recording():
+            host = keys.cpu().numpy().view(np.uint64) if isinstance(keys, torch.Tensor) else keys
+            calls["philox_uniform_blocks"].setdefault((layout(out), tuple(chunks)), np.array(host, dtype=np.uint64))
+        return philox_inner(out, chunks, keys)
+
+    mregion._region_sum = region
+    mphilox.philox_uniform_blocks = crandom.philox_uniform_blocks = philox
+    try:
+        yield calls
+    finally:
+        mregion._region_sum = region_inner
+        mphilox.philox_uniform_blocks = crandom.philox_uniform_blocks = philox_inner
+
+
+def strided_like(torch, gen, bases: dict, lay, fill: bool = True):
+    """A tensor on the card with the layout *lay* (:func:`recorded_kernel_calls`):
+    the same shape, strides, offset and 16-byte alignment, in a storage of
+    the same size (shared by calls of one storage size), random values."""
+    shape, stride, offset, size, align, dtype = lay
+    base = bases.get((size, dtype))
+    if base is None:
+        pad = 16 // torch.empty((), dtype=dtype).element_size()
+        if not fill:
+            base = torch.empty(size + pad, dtype=dtype, device="cuda")
+        elif dtype.is_floating_point:
+            base = torch.randn(size + pad, generator=gen, dtype=dtype, device="cuda")
+        else:
+            base = torch.randint(-2**40, 2**40, (size + pad,), generator=gen, dtype=dtype, device="cuda")
+        bases[(size, dtype)] = base
+    item = base.element_size()
+    shift = next(k for k in range(16 // item) if (base.data_ptr() + k * item) % 16 == align)
+    return base.as_strided(shape, stride, offset + shift)
+
+
+def layouts_to_json(calls: dict) -> dict:
+    """:func:`recorded_kernel_calls`'s record in JSON's types."""
+    def lay(t):
+        return [list(t[0]), list(t[1]), t[2], t[3], t[4], str(t[5]).removeprefix("torch.")]
+
+    return {"region_sum": [[lay(t), list(axes), keepdims, n] for (t, axes, keepdims), n in calls["region_sum"].items()],
+            "philox_uniform_blocks": [[lay(t), list(chunks), keys.tolist()]
+                                      for (t, chunks), keys in calls["philox_uniform_blocks"].items()]}
+
+
+def layouts_from_json(torch, record: dict) -> dict:
+    def lay(v):
+        return (tuple(v[0]), tuple(v[1]), v[2], v[3], v[4], getattr(torch, v[5]))
+
+    return {"region_sum": {(lay(t), tuple(axes), keepdims): n for t, axes, keepdims, n in record["region_sum"]},
+            "philox_uniform_blocks": {(lay(t), tuple(chunks)): np.array(keys, dtype=np.uint64)
+                                      for t, chunks, keys in record["philox_uniform_blocks"]}}
+
+
+def check_recorded_layouts(torch, runs: dict) -> None:
+    """:func:`check_path_kernels` for each run's record (name -> record), in
+    a process of its own (``--check-layouts FILE``): late in a busy process
+    torch.profiler loses device records (PERF.md)."""
+    path = os.path.join(WORK_DIR, "path_layouts.json")
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({name: layouts_to_json(calls) for name, calls in runs.items()}, f)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--check-layouts", path],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"--check-layouts: the run failed:\n{proc.stderr[-4000:]}")
+
+
+def check_layouts_file(torch, path: str) -> None:
+    with open(path) as f:
+        runs = json.load(f)
+    for name, record in runs.items():
+        check_path_kernels(torch, name, layouts_from_json(torch, record))
+
+
+def check_path_kernels(torch, name: str, calls: dict) -> None:
+    """Hold each kernel of a run against its plain version at the layouts the
+    run gave it (:func:`recorded_kernel_calls`): region_sum within 1e-12 of
+    the sum of magnitudes (int64 exactly), the batched Philox kernel bit for
+    bit, one launch per call and, under torch.profiler, one kernel per call
+    and no other (once per geometry: the layouts less their offsets)."""
+    from cubed_tpu_torch.kernels.philox_uniform import (philox_uniform, philox_uniform_blocks,
+                                                        philox_uniform_blocks_plain)
+    from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bases: dict = {}
+    thunks: dict = {}
+    for (lay, axes, keepdims), n in calls["region_sum"].items():
+        x = strided_like(torch, gen, bases, lay)
+        before = region_sum.launches
+        got = region_sum(x, axes, keepdims)
+        launched = region_sum.launches - before
+        plain = region_sum_plain(x, axes, keepdims)
+        what = f"{name}: region_sum at the path's {lay[0]} strides {lay[1]} axes {axes} ({n} on the path)"
+        check(launched == 1, f"{what}: {launched} launches")
+        if x.dtype.is_floating_point:
+            scale = region_sum_plain(x.abs(), axes, keepdims)
+            check(bool(((got - plain).abs() <= 1e-12 * scale).all()), f"{what}: beyond 1e-12 of sum(|x|)")
+        else:
+            check(torch.equal(got, plain), f"{what}: differs from the plain version")
+        geometry = (lay[0], lay[1], lay[4], axes, keepdims)
+        thunks.setdefault(geometry, lambda x=x, axes=axes, keepdims=keepdims: region_sum(x, axes, keepdims))
+    print(f"{name}: region_sum at the run's {len(calls['region_sum'])} layouts "
+          f"({sum(calls['region_sum'].values())} launches recorded): one launch each, within 1e-12 of sum(|x|) "
+          f"of the plain version")
+    check(bool(thunks), f"{name}: no region_sum launch recorded")
+    one_launch_per_call(torch, region_sum, "region_sum", list(thunks.values()))
+    bases.clear()
+    thunks = []
+    for (lay, chunks), keys in calls["philox_uniform_blocks"].items():
+        out = strided_like(torch, gen, bases, lay, fill=False)
+        before = philox_uniform.launches
+        philox_uniform_blocks(out, chunks, keys)
+        launched = philox_uniform.launches - before
+        plain = philox_uniform_blocks_plain(lay[0], chunks, keys, device="cuda")
+        what = f"{name}: philox_uniform_blocks at the path's {lay[0]} in blocks of {chunks}"
+        check(launched == 1, f"{what}: {launched} launches")
+        check(torch.equal(out.contiguous().view(torch.int64), plain.view(torch.int64)),
+              f"{what}: differs from the plain version")
+        thunks.append(lambda out=out, chunks=chunks, keys=keys: philox_uniform_blocks(out, chunks, keys))
+    print(f"{name}: philox_uniform_blocks at the run's {len(thunks)} layouts: one launch each, bit for bit "
+          f"the plain version")
+    check(bool(thunks), f"{name}: no batched Philox launch recorded")
+    one_launch_per_call(torch, philox_uniform, "philox_blocks_kernel", thunks)
+    bases.clear()
+
+
+def run_baseline_configs(torch) -> dict:
+    """BASELINE configs 2-4 on both executors against numpy oracles (the
+    same per-block Philox streams), then config 5's rechunk under three
+    budgets: each plan's copy ops against the planner's (1 direct, 3
+    multistage, 2 through the minimum intermediate), the sequential
+    executor copying through Zarr. On the device executor every run is three
+    computes on one CudaExecutor with distinct seeds (cold, capturing, warm),
+    the segment captured on the second and replayed on the third; every
+    rechunk copy op an alias and no intermediate store written. Each
+    device run's region_sum and batched Philox launches are recorded, then
+    held against their plain versions at the layouts the run gave them
+    (:func:`check_recorded_layouts`). Returns each run's result by name."""
+    out, layouts = {}, {}
+    for name, build, oracle, seq_required, dev_required, footprint in (
+        ("elemwise", elemwise_build, elemwise_oracle,
+         {"philox_uniform": (72, 72), "philox_uniform:batched": (0, 0), "region_sum": (71, 71)},
+         {"philox_uniform": (2, 2), "philox_uniform:batched": (2, 2), "region_sum": (6, 6),
+          "stats:batched_ops": (2, 2), "stats:chunked_ops": (3, 3), "stats:eager_ops": (1, 1)},
+         # the pool holds b (a fuses into its consumer)
+         8 * int(np.prod(ELEMWISE["shape"]))),
+        ("reduce", reduce_build, reduce_oracle,
+         {"philox_uniform": (64, 64), "philox_uniform:batched": (0, 0), "region_sum": (176, 176)},
+         {"philox_uniform": (1, 1), "philox_uniform:batched": (1, 1), "region_sum": (49, 49),
+          "stats:batched_ops": (2, 2), "stats:chunked_ops": (5, 5), "stats:eager_ops": (1, 1)},
+         # the random op fuses into the mean's first step: no array in the pool
+         1),
+        ("matmul", matmul_build, matmul_oracle,
+         {"philox_uniform": (32, 32), "philox_uniform:batched": (0, 0), "region_sum": (143, 143)},
+         {"philox_uniform": (2, 2), "philox_uniform:batched": (2, 2), "region_sum": (19, 19),
+          "stats:batched_ops": (4, 4), "stats:chunked_ops": (3, 3), "stats:eager_ops": (1, 1)},
+         # the pool holds at least a and b
+         2 * 8 * int(np.prod(MATMUL["shape"]))),
+    ):
+        random.seed(SEED)
+        t = time.perf_counter()
+        expected = oracle()
+        print(f"{name}: numpy oracle {time.perf_counter() - t:.1f} s")
+        shared = {"fma_sum_blocks": (0, 0)}
+        seq = run_main_path(torch, name, "sequential", build, expected, dict(shared, **seq_required))
+        with recorded_kernel_calls(torch) as layouts[name]:
+            runs = run_device_repeats(torch, name, build, oracle, dict(
+                shared, **dev_required, **{"stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)}),
+                seeds=(SEED, SEED + 1, SEED + 2), footprint=footprint)
+        print(f"{name}: compute() sequential {seq['seconds']:.3f} s; cuda cold {runs[0]['seconds']:.4f} s, "
+              f"capturing {runs[1]['seconds']:.4f} s, warm {runs[2]['seconds']:.4f} s; "
+              f"max_projected_mem {runs[0]['projected']} B, max_memory_allocated {runs[0]['peak']} B, "
+              f"max_memory_reserved {runs[0]['peak_reserved']} B (first compute), "
+              f"{runs[2]['peak_reserved']} B (a replay); launches {json.dumps(runs[0]['launches'])}; {smi_tag()}")
+        out[name] = {"sequential": seq, "cuda": runs}
+
+    import cubed_tpu_torch
+
+    for mem, (n_copies, tasks) in RECHUNK_PLANS.items():
+        random.seed(SEED)
+        x = rechunk_build(cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, "plan"), allowed_mem=mem))
+        got = rechunk_copies(x.plan._finalize(array_names=(x.name,)))
+        print(f"rechunk {mem}: copy ops {len(got)}, their tasks {got} (planned: {n_copies}, {tasks})")
+        check(got == tasks, f"rechunk {mem}: copy ops' tasks {got}, expected {tasks}")
+        name = f"rechunk-{mem}"
+        random.seed(SEED)
+        expected = rechunk_oracle()
+        seq = run_main_path(torch, name, "sequential", rechunk_build, expected, {
+            "philox_uniform": (100, 100), "philox_uniform:batched": (0, 0), "region_sum": (100, 100)},
+            allowed_mem=mem)
+        with recorded_kernel_calls(torch) as layouts[name]:
+            runs = run_device_repeats(torch, name, rechunk_build, rechunk_oracle, {
+                "philox_uniform": (1, 1), "philox_uniform:batched": (1, 1), "region_sum": (1, 1),
+                "fma_sum_blocks": (0, 0), "stats:rechunk_alias": (n_copies, n_copies),
+                "stats:rechunk_virtual": (0, 0), "stats:rechunk_loads": (0, 0), "stats:rechunk_copies": (0, 0),
+                "stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)},
+                seeds=(SEED, SEED + 1, SEED + 2), footprint=8 * int(np.prod(VORTICITY["shape"])), allowed_mem=mem)
+        print(f"{name}: compute() sequential {seq['seconds']:.3f} s; cuda cold {runs[0]['seconds']:.4f} s, "
+              f"capturing {runs[1]['seconds']:.4f} s, warm {runs[2]['seconds']:.4f} s; "
+              f"max_projected_mem {runs[0]['projected']} B, max_memory_allocated {runs[0]['peak']} B, "
+              f"max_memory_reserved {runs[0]['peak_reserved']} B (first compute), "
+              f"{runs[2]['peak_reserved']} B (a replay); stats {json.dumps(runs[0]['stats'])}; {smi_tag()}")
+        out[name] = {"sequential": seq, "cuda": runs}
+    check_recorded_layouts(torch, layouts)
+    return out
+
+
 #: vorticity cut to (200, 180, 160) / 40 under a budget of two of its
 #: arrays: the random ops spill, the segment fails its memory pre-check,
 #: and the fused reduction reads its blocks from storage and takes fma_sum
@@ -1115,7 +1517,8 @@ SPILL = dict(shape=(200, 180, 160), chunks=40)
 SPILL_DEVICE_MEM = 2 * 200 * 180 * 160 * 8 + 1_000_000
 
 
-def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int) -> list:
+def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int,
+                       **kw) -> list:
     """Compute one configuration on one ``CudaExecutor`` once per seed: the
     first compute runs its segment op by op (a first sighting of its
     structural key), the second captures it and replays it
@@ -1135,7 +1538,7 @@ def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, f
         req = dict(required, **{"stats:segments_compiled": (1, 1) if i == 1 else (0, 0),
                                 "stats:segment_struct_hits": (1, 1) if i >= 2 else (0, 0),
                                 "stats:segment_hbm_footprint": (footprint, 10**12) if i else (0, 0)})
-        runs.append(run_main_path(torch, name, "cuda", build, expected, req, executor=ex, seed=seed))
+        runs.append(run_main_path(torch, name, "cuda", build, expected, req, executor=ex, seed=seed, **kw))
     secs = [r["seconds"] for r in runs]
     print(f"{name} [cuda]: compute() cold {secs[0]:.4f} s (first sighting: op by op, no capture), "
           f"{secs[1]:.4f} s (second: capture, then replay), warm {' / '.join(f'{w:.4f}' for w in secs[2:])} s "
@@ -1274,10 +1677,6 @@ def breakdown_device(torch, name: str, build) -> None:
     plan again with the executor's ops one at a time, each timed on the
     host clock up to a synchronize (within a compute, a segment's ops share
     one time)."""
-    import cubed_tpu_torch
-    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
-    from cubed_tpu_torch.runtime.pipeline import visit_nodes
-
     # torch.profiler has lost device records in a process that had already
     # profiled and run many kernels (one Philox launch of four, every time),
     # never in a fresh one; a dropped copy or fill would pass the check
@@ -1307,17 +1706,27 @@ def breakdown_device(torch, name: str, build) -> None:
           f"(block by block: 399 and 398)")
     check(copies <= 399 - 390 and fills <= 398 - 390,
           f"{name} [cuda]: {copies} copy and {fills} fill kernels, not 390 fewer than block by block")
+    breakdown_device_ops(torch, name, build)
 
-    spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown-cuda"), allowed_mem="2GB")
+
+def breakdown_device_ops(torch, name: str, build, allowed_mem: str = "2GB") -> None:
+    """Run the plan on a new CudaExecutor with its ops one at a time, each
+    timed on the host clock up to a synchronize, then the output's flush
+    to storage and its read back, as ``compute()`` makes them."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.pipeline import visit_nodes
+
+    spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"{name}-breakdown-cuda"), allowed_mem=allowed_mem)
     random.seed(SEED)
     result = build(spec)
+    t0 = time.perf_counter()
     dag = result.plan._finalize(array_names=(result.name,)).dag
+    per_kind: dict = {"plan finalisation": time.perf_counter() - t0}
     ex = CudaExecutor()
     resident: dict = {}
     budget = ex._budget(spec, torch.device("cuda"))
     requested = {result.zarray_maybe_lazy.store}
-    per_kind: dict = {}
-    t0 = time.perf_counter()
     for op_name, node in visit_nodes(dag):
         t = time.perf_counter()
         if ex._classify(node["primitive_op"]) == "segment":
@@ -1332,6 +1741,9 @@ def breakdown_device(torch, name: str, build) -> None:
         if res.target.store in requested:
             ex._flush(res)
     per_kind["flush"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result._read_stored()
+    per_kind["read back"] = time.perf_counter() - t
     wall = time.perf_counter() - t0
     shutil.rmtree(spec.work_dir, ignore_errors=True)
     ops = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(per_kind.items(), key=lambda kv: -kv[1]))
@@ -1339,9 +1751,13 @@ def breakdown_device(torch, name: str, build) -> None:
 
 
 def main(argv: list) -> int:
-    against = None
+    against = timed = layouts = None
     if argv[:1] == ["--against"] and len(argv) == 2:
         against = argv[1]
+    elif argv[:1] == ["--check-layouts"] and len(argv) == 2:
+        layouts = argv[1]
+    elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
+        timed = os.path.abspath(argv[1])
     elif argv and argv != ["--profile-device-run"]:
         print("usage: chip_smoke.py [--against CHECKOUT]", file=sys.stderr)
         return 2
@@ -1354,16 +1770,37 @@ def main(argv: list) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    root = timed or REPO
+    sys.path.insert(0, root)
     try:
         import cubed_tpu_torch  # noqa: F401
         from cubed_tpu_torch.kernels import _build
     except ImportError as e:
-        print(f"chip_smoke: cubed_tpu_torch is not importable from {REPO}: {e}", file=sys.stderr)
+        print(f"chip_smoke: cubed_tpu_torch is not importable from {root}: {e}", file=sys.stderr)
         return 1
     os.environ["CUBED_TPU_TORCH_DEVICE"] = "cuda"
     if argv == ["--profile-device-run"]:
         return profile_device_run(torch)
+    if layouts:
+        try:
+            _build.build_all()
+            check_layouts_file(torch, layouts)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if timed:
+        # one checkout's kernels or computes, alone in this process
+        if not os.path.abspath(cubed_tpu_torch.__file__).startswith(root + os.sep):
+            print(f"chip_smoke: imported {cubed_tpu_torch.__file__}, not the checkout at {root}", file=sys.stderr)
+            return 1
+        try:
+            times = time_against_cases(torch) if argv[0] == "--time-kernels" else time_vorticity_computes(torch)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps(times))
+        return 0
 
     global CARD
     CARD = smi = nvidia_smi()
@@ -1426,14 +1863,20 @@ def main(argv: list) -> int:
                 "fma_sum_blocks": (100, 100), "stats:segment_mem_aborts": (1, 1),
                 "stats:segments_traced": (0, 0)},
             executor=CudaExecutor(device_mem=SPILL_DEVICE_MEM), spill=True)
+        baseline = run_baseline_configs(torch)
         # the kernels line: each kernel's launches in the run of its path
         # (vorticity's first device compute)
         for k in kernels:
             k["launches"] = runs[0]["launches"][k["name"]]
+        print("launches by run [cuda, first compute]: " + "; ".join(
+            f"{name} {json.dumps(r['cuda'][0]['launches'])}" for name, r in baseline.items()))
         print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "
               f"sum batching rules on the fused op); compute() cold {addsum['cuda']['seconds']:.4f} s (a first "
               f"sighting: op by op, no capture); {smi_tag()}")
         breakdown_device(torch, "vorticity", vorticity_build)
+        # where a rechunk's device compute goes: its output is (450, 400) in
+        # 100 chunks, written to storage and read back
+        breakdown_device_ops(torch, "rechunk-2GB", rechunk_build)
         breakdown(torch, "vorticity", vorticity_build)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

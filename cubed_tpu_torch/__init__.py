@@ -7,15 +7,21 @@ hand-written kernels for the main path), ``cpu`` when asked for with
 ``CUBED_TPU_TORCH_DEVICE=cpu`` or ``backend_array_api.set_device("cpu")``.
 The package imports torch, numpy and the standard library only.
 
-This slice runs ``random.random``, basic slicing, elementwise arithmetic,
-``sum`` and ``mean`` on the sequential executor; ROADMAP.md lists the rest.
+The port runs ``random.random``, ``from_array``/``from_zarr``, basic
+slicing, 21 elementwise functions, ``astype``, ``sum``, ``mean``, ``max``
+and ``min``, ``rechunk`` and ``merge_chunks``, ``matmul``/``tensordot``/
+``vecdot``/``outer`` (``@``, ``.T``, ``.mT``), ``expand_dims``/
+``permute_dims``/``squeeze``, ``map_blocks`` and ``apply_gufunc``, on the
+sequential executor (the default) and on the device executor
+(``runtime.executors.cuda.CudaExecutor``); ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"
 
 from .spec import Spec  # noqa: F401
 from .core.array import compute  # noqa: F401
-from .core.ops import from_array, from_zarr, map_blocks  # noqa: F401
+from .core.ops import from_array, from_zarr, map_blocks, merge_chunks, rechunk  # noqa: F401
+from .core.gufunc import apply_gufunc  # noqa: F401
 from . import array_api  # noqa: F401
 from .array_api import Array  # noqa: F401
 from . import random  # noqa: F401
@@ -24,10 +30,13 @@ __all__ = [
     "__version__",
     "Array",
     "Spec",
+    "apply_gufunc",
     "array_api",
     "compute",
     "from_array",
     "from_zarr",
     "map_blocks",
+    "merge_chunks",
     "random",
+    "rechunk",
 ]

@@ -45,5 +45,6 @@ from .elementwise_functions import (  # noqa: F401
     subtract,
     tanh,
 )
-from .manipulation_functions import squeeze  # noqa: F401
-from .statistical_functions import mean, sum  # noqa: F401
+from .linear_algebra_functions import matmul, matrix_transpose, outer, tensordot, vecdot  # noqa: F401
+from .manipulation_functions import expand_dims, permute_dims, squeeze  # noqa: F401
+from .statistical_functions import max, mean, min, sum  # noqa: F401

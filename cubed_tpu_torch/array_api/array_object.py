@@ -2,8 +2,9 @@
 
 Counterpart of ``cubed_tpu/array_api/array_object.py``. Each operator lowers
 to ``elemwise(nxp.<op>)`` with the spec's dtype checks and scalar promotion;
-operators whose torch counterpart is not one call (bitwise, floor division,
-remainder, matmul) are not ported yet.
+``@`` is ``matmul`` and ``.T``/``.mT`` are ``matrix_transpose``; operators
+whose torch counterpart is not one call (bitwise, floor division,
+remainder) are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,6 +68,34 @@ class Array(CoreArray):
 
     def __repr__(self) -> str:
         return f"cubed_tpu_torch.Array<{self.name}, shape={self.shape}, dtype={self.dtype}, chunks={self.chunks}>"
+
+    @property
+    def mT(self):
+        from .linear_algebra_functions import matrix_transpose
+
+        return matrix_transpose(self)
+
+    @property
+    def T(self):
+        if self.ndim != 2:
+            raise ValueError("x.T requires x to have 2 dimensions")
+        from .linear_algebra_functions import matrix_transpose
+
+        return matrix_transpose(self)
+
+    def __matmul__(self, other):
+        from .linear_algebra_functions import matmul
+
+        if not isinstance(other, CoreArray):
+            return NotImplemented
+        return matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from .linear_algebra_functions import matmul
+
+        if not isinstance(other, CoreArray):
+            return NotImplemented
+        return matmul(other, self)
 
     # -- scalar promotion --------------------------------------------------
 

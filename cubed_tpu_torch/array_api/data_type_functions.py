@@ -15,6 +15,10 @@ def astype(x, dtype, /, *, copy: bool = True):
     dtype = np.dtype(dtype)
     if not copy and dtype == x.dtype:
         return x
+    if x.dtype == np.uint64 and dtype.kind in "fc":
+        # uint64 rides in int64 (backend_array_api): values past 2**63 would
+        # convert as negative numbers
+        raise TypeError("astype from uint64 to a floating dtype is not supported by cubed_tpu_torch")
 
     def _astype(a, astype_dtype=None):
         return nxp.astype(a, astype_dtype)

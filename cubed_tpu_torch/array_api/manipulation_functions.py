@@ -1,13 +1,57 @@
 """Array-API manipulation functions. Counterpart of
-``cubed_tpu/array_api/manipulation_functions.py``, trimmed to ``squeeze``
-(which reductions use to drop their reduced axes)."""
+``cubed_tpu/array_api/manipulation_functions.py``, trimmed to
+``expand_dims`` and ``permute_dims`` (the contractions of
+``linear_algebra_functions`` are built on them) and ``squeeze`` (which
+reductions use to drop their reduced axes)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..backend_array_api import nxp
-from ..core.ops import general_blockwise
+from ..core.ops import blockwise, general_blockwise
+
+
+def expand_dims(x, /, *, axis=0):
+    if isinstance(axis, (int, np.integer)):
+        axis = (int(axis),)
+    out_ndim = x.ndim + len(axis)
+    axis = tuple(ax % out_ndim for ax in axis)
+
+    def _expand(chunk):
+        return nxp.expand_dims(chunk, axis=axis)
+
+    _expand.batchable = True
+    return blockwise(
+        _expand,
+        tuple(range(out_ndim)),
+        x,
+        tuple(i for i in range(out_ndim) if i not in axis),
+        dtype=x.dtype,
+        new_axes={ax: 1 for ax in axis},
+        align_arrays=False,
+    )
+
+
+def permute_dims(x, /, axes=None):
+    if axes is None:
+        axes = tuple(range(x.ndim))[::-1]
+    if len(axes) != x.ndim:
+        raise ValueError("axes don't match array")
+    axes = tuple(axes)
+
+    def _transpose(chunk):
+        return nxp.permute_dims(chunk, axes)
+
+    _transpose.batchable = True
+    return blockwise(
+        _transpose,
+        axes,
+        x,
+        tuple(range(x.ndim)),
+        dtype=x.dtype,
+        extra_projected_mem=x.chunkmem,  # a C-order copy of the transposed chunk
+    )
 
 
 def squeeze(x, /, axis=None):

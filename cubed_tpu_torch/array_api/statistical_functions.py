@@ -1,10 +1,13 @@
-"""Array-API statistical functions of the slice: ``sum`` and ``mean``.
+"""Array-API statistical functions of the slice: ``max``, ``min``, ``sum``
+and ``mean``.
 
 Counterpart of ``cubed_tpu/array_api/statistical_functions.py``. ``mean``
 carries ``{n, total}`` pytree intermediates, each field a plain array
 written by multi-output ops. Every sum here (``_sum_with_dtype``,
 ``_mean_func``, ``_mean_combine``) calls ``nxp.sum``, which sends float64,
-float32 and int64 tensors to the region-sum kernel.
+float32 and int64 tensors to the region-sum kernel. ``max`` and ``min`` are
+tree reductions with ``torch.amax``/``torch.amin`` (the JAX package computes
+them with ``jnp.max``/``jnp.min``, outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -16,11 +19,43 @@ from ..core.ops import reduction
 from .dtypes import (
     _numeric_dtypes,
     _real_floating_dtypes,
+    _real_numeric_dtypes,
     _signed_integer_dtypes,
     _unsigned_integer_dtypes,
     int64,
     uint64,
 )
+
+
+def max(x, /, *, axis=None, keepdims=False, split_every=None):  # noqa: A001
+    if x.dtype not in _real_numeric_dtypes:
+        raise TypeError("Only real numeric dtypes are allowed in max")
+    _refuse_uint64_order(x, "max")
+    return reduction(x, _max_func, axis=axis, dtype=x.dtype, keepdims=keepdims, split_every=split_every)
+
+
+def min(x, /, *, axis=None, keepdims=False, split_every=None):  # noqa: A001
+    if x.dtype not in _real_numeric_dtypes:
+        raise TypeError("Only real numeric dtypes are allowed in min")
+    _refuse_uint64_order(x, "min")
+    return reduction(x, _min_func, axis=axis, dtype=x.dtype, keepdims=keepdims, split_every=split_every)
+
+
+def _refuse_uint64_order(x, name):
+    # uint64 rides in int64 (backend_array_api), whose order differs past 2**63
+    if x.dtype == uint64:
+        raise TypeError(f"{name} of uint64 is not supported by cubed_tpu_torch")
+
+
+def _max_func(a, axis=None, keepdims=False):
+    return nxp.max(a, axis=axis, keepdims=keepdims)
+
+
+def _min_func(a, axis=None, keepdims=False):
+    return nxp.min(a, axis=axis, keepdims=keepdims)
+
+
+_max_func.batchable = _min_func.batchable = True
 
 
 def sum(x, /, *, axis=None, dtype=None, keepdims=False, split_every=None):  # noqa: A001

@@ -39,6 +39,10 @@ _NP_TO_TORCH = {
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.uint8): torch.uint8,
+    # the carriers of the wider unsigned integers
+    np.dtype(np.uint16): torch.int32,
+    np.dtype(np.uint32): torch.int64,
+    np.dtype(np.uint64): torch.int64,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
     np.dtype(np.complex64): torch.complex64,
@@ -78,6 +82,31 @@ def to_torch_dtype(dtype) -> torch.dtype:
         raise TypeError(f"dtype {dt} is not supported by cubed_tpu_torch") from None
 
 
+#: the numpy carrier of each unsigned dtype wider than 8 bits, and the mask
+#: that keeps a carried value in its range (None: the carrier's own width)
+_UNSIGNED_CARRIERS = {
+    np.dtype(np.uint16): (np.dtype(np.int32), 0xFFFF),
+    np.dtype(np.uint32): (np.dtype(np.int64), 0xFFFFFFFF),
+    np.dtype(np.uint64): (np.dtype(np.int64), None),
+}
+
+
+def _to_carrier(a: np.ndarray) -> np.ndarray:
+    carrier = _UNSIGNED_CARRIERS.get(a.dtype)
+    if carrier is None:
+        return a
+    return a.view(carrier[0]) if carrier[1] is None else a.astype(carrier[0])
+
+
+def wrap_unsigned(x: torch.Tensor, dtype) -> torch.Tensor:
+    """*x* (a carrier of unsigned *dtype*) wrapped into *dtype*'s range, as
+    numpy's arithmetic wraps."""
+    carrier = _UNSIGNED_CARRIERS.get(np.dtype(dtype))
+    if carrier is None or carrier[1] is None:
+        return x
+    return torch.bitwise_and(x.to(_NP_TO_TORCH[np.dtype(dtype)]), carrier[1])
+
+
 def backend_array_to_numpy_array(arr) -> np.ndarray:
     """Device tensor -> host numpy (waits for the device)."""
     if isinstance(arr, torch.Tensor):
@@ -98,6 +127,7 @@ def numpy_array_to_backend_array(arr):
     a = np.asarray(arr)
     if a.dtype.fields is not None:
         return {k: numpy_array_to_backend_array(np.ascontiguousarray(a[k])) for k in a.dtype.names}
+    a = _to_carrier(a)
     dev = get_device()
     if a.ndim and a.size > 1 and all(s == 0 for s in a.strides):
         one = torch.from_numpy(a.reshape(-1)[:1].copy()).reshape(())
@@ -188,6 +218,12 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+@_sqrt.register_fake
+def _sqrt_fake(x):
+    # the output's metadata alone, for a plan-time trace on meta tensors
+    return torch.empty_like(x)
+
+
 @torch.library.register_vmap("cubed_tpu_torch::sqrt")
 def _sqrt_vmap(info, in_dims, x):
     # elementwise: the batched tensor is just a larger input
@@ -209,7 +245,34 @@ def _squeeze(x, axis=None):
 
 
 def _astype(x, dtype):
+    if np.dtype(dtype) in _UNSIGNED_CARRIERS and not x.is_floating_point():
+        # integers wrap into the narrower range, as numpy's astype does
+        return wrap_unsigned(x.to(torch.int64), dtype)
     return x.to(to_torch_dtype(dtype))
+
+
+def _max(x, axis=None, keepdims=False):
+    dims = _dims(x.ndim, axis)
+    # torch.amax over no dims would reduce them all
+    return torch.amax(x, dim=dims, keepdim=keepdims) if dims else x.clone()
+
+
+def _min(x, axis=None, keepdims=False):
+    dims = _dims(x.ndim, axis)
+    return torch.amin(x, dim=dims, keepdim=keepdims) if dims else x.clone()
+
+
+def _expand_dims(x, axis=0):
+    out_ndim = x.ndim + (1 if isinstance(axis, (int, np.integer)) else len(axis))
+    for ax in sorted(_dims(out_ndim, axis)):
+        x = x.unsqueeze(ax)
+    return x
+
+
+def _tensordot(a, b, axes=2):
+    if isinstance(axes, (int, np.integer)):
+        return torch.tensordot(a, b, dims=int(axes))
+    return torch.tensordot(a, b, dims=([int(d) for d in axes[0]], [int(d) for d in axes[1]]))
 
 
 nxp = types.SimpleNamespace(
@@ -246,4 +309,13 @@ nxp = types.SimpleNamespace(
     concat=_concat,
     squeeze=_squeeze,
     astype=_astype,
+    max=_max,
+    min=_min,
+    expand_dims=_expand_dims,
+    permute_dims=torch.permute,
+    # linear algebra: torch's own (cuBLAS on the card)
+    matmul=torch.matmul,
+    tensordot=_tensordot,
+    einsum=torch.einsum,
+    conj=torch.conj_physical,
 )

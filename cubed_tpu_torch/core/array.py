@@ -74,6 +74,12 @@ class CoreArray:
         arr = self.zarray
         return np.asarray(arr[...] if self.shape else arr[()])
 
+    def rechunk(self, chunks, **kwargs):
+        """This array with another chunking (see ``core.ops.rechunk``)."""
+        from .ops import rechunk
+
+        return rechunk(self, chunks, **kwargs)
+
     def __getitem__(self, key):
         from .ops import index
 

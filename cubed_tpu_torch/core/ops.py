@@ -1,11 +1,11 @@
-"""Whole-array operations, built on the blockwise primitive.
+"""Whole-array operations, built on the blockwise and rechunk primitives.
 
-Counterpart of ``cubed_tpu/core/ops.py``, trimmed to the slice the port
-runs: ``from_array``, ``from_zarr``, ``blockwise``/``general_blockwise``,
-``elemwise``, ``map_blocks``/``map_direct``, ``index`` (basic indexing)
-and the tree ``reduction`` with its pytree-field variant (mean's
-``{n, total}``). Rechunk is not ported: an op that would need one
-raises ``NotImplementedError``.
+Counterpart of ``cubed_tpu/core/ops.py``, trimmed to the part the port
+runs: ``from_array``, ``from_zarr``, ``blockwise``/``general_blockwise``
+(inputs chunked differently are unified by ``unify_chunks``, which
+rechunks them), ``elemwise``, ``map_blocks``/``map_direct``, ``index``
+(basic indexing), ``rechunk``, ``merge_chunks`` and the tree
+``reduction`` with its pytree-field variant (mean's ``{n, total}``).
 """
 
 from __future__ import annotations
@@ -15,15 +15,17 @@ import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
-from ..backend_array_api import numpy_array_to_backend_array, nxp
+from ..backend_array_api import numpy_array_to_backend_array, nxp, to_torch_dtype, wrap_unsigned
 from ..chunks import normalize_chunks
 from ..primitive.blockwise import (
     blockwise as primitive_blockwise,
     general_blockwise as primitive_general_blockwise,
 )
+from ..primitive.rechunk import rechunk as primitive_rechunk
 from ..spec import Spec, spec_from_config
-from ..storage.store import open_zarr_array
+from ..storage.store import ZarrV2Array, open_zarr_array
 from ..storage.virtual import (
     MAX_IN_MEMORY_BYTES,
     virtual_empty,
@@ -59,13 +61,21 @@ def _scalar_int(x) -> int:
 
 
 def from_array(x, chunks="auto", spec=None) -> "CoreArray":
-    """Create an array from an in-memory numpy array: a small one rides the
-    plan as a virtual array; a larger one is sliced per output chunk by a
-    map_blocks whose closure carries it. (Stores open with ``from_zarr``.)
-    """
+    """Create an array from an in-memory numpy array or an open Zarr array.
+    A Zarr array is wrapped in place (no data read) and rechunked when
+    *chunks* differ from its own; a small numpy array rides the plan as a
+    virtual array; a larger one is sliced per output chunk by a map_blocks
+    whose closure carries it."""
     if isinstance(x, CoreArray):
-        raise ValueError("Array is already a cubed_tpu_torch array")
+        raise ValueError("Array is already a cubed_tpu_torch array - use rechunk instead of from_array")
     spec = spec_from_config(spec)
+    if isinstance(x, ZarrV2Array):
+        name = gensym("from-array")
+        arr = new_array(name, x, spec, Plan._new(name, "from_array", x))
+        outchunks = normalize_chunks(chunks, x.shape, dtype=x.dtype)
+        if to_chunksize(outchunks) != tuple(x.chunks):
+            arr = rechunk(arr, outchunks)
+        return arr
     x = np.asarray(x)
     outchunks = normalize_chunks(chunks, x.shape, dtype=x.dtype)
     if x.nbytes <= MAX_IN_MEMORY_BYTES:
@@ -104,6 +114,7 @@ def blockwise(
     *args,  # pairs of (array, indices)
     dtype=None,
     adjust_chunks: Optional[dict] = None,
+    new_axes: Optional[dict] = None,
     align_arrays: bool = True,
     extra_projected_mem: int = 0,
     fusable: bool = True,
@@ -114,7 +125,7 @@ def blockwise(
     inds = [tuple(i) if i is not None else None for i in args[1::2]]
     spec = _spec_of(*arrays)
     if align_arrays:
-        _check_aligned(arrays, inds)
+        _, arrays = unify_chunks(*itertools.chain(*zip(arrays, inds)))
 
     # chunking of each index symbol: the most blocks wins, ties go to the
     # larger extent (a size-1 dim broadcasts and must not set the chunking)
@@ -126,13 +137,15 @@ def blockwise(
             prev = chunkss.get(sym)
             if prev is None or len(c) > len(prev) or (len(c) == len(prev) and sum(c) > sum(prev)):
                 chunkss[sym] = c
+    for sym, size in (new_axes or {}).items():
+        chunkss[sym] = tuple(size) if isinstance(size, (tuple, list)) else (size,)
 
     chunks_out = []
     for sym in out_ind:
         c = chunkss[sym]
         if adjust_chunks and sym in adjust_chunks:
             adj = adjust_chunks[sym]
-            c = (adj,) * len(c) if isinstance(adj, int) else tuple(adj)
+            c = (int(adj),) * len(c) if isinstance(adj, (int, np.integer)) else tuple(adj)
         chunks_out.append(tuple(c))
     chunks_out = tuple(chunks_out)
     shape = tuple(sum(c) for c in chunks_out)
@@ -159,23 +172,6 @@ def blockwise(
         **kwargs,
     )
     return _wrap_op_outputs(op, getattr(func, "__name__", "blockwise"), spec, arrays, names)
-
-
-def _check_aligned(arrays, inds) -> None:
-    """Inputs sharing an index symbol must share its chunking (or broadcast
-    from a single size-1 block): aligning them needs rechunk, not ported."""
-    seen: dict = {}
-    for a, ind in zip(arrays, inds):
-        if ind is None:
-            continue
-        for sym, c in zip(ind, a.chunks):
-            if sum(c) == 1 and len(c) == 1:
-                continue
-            if seen.setdefault(sym, c) != c:
-                raise NotImplementedError(
-                    f"inputs are chunked differently along {sym!r} "
-                    f"({seen[sym]} vs {c}); rechunk is not ported"
-                )
 
 
 def general_blockwise(
@@ -262,8 +258,19 @@ def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
         # trailing dims align rightmost (broadcasting); 0-d arrays use ()
         blockwise_args.extend([a, tuple(range(getattr(a, "ndim", 0)))[::-1]])
 
-    def elementwise_chunk(*chunks):
-        return func(*chunks)
+    dtype = np.dtype(dtype)
+    if any(np.dtype(getattr(a, "dtype", float)) == np.uint64 for a in args) and func not in _UINT64_CARRIED:
+        raise TypeError(f"{getattr(func, '__name__', func)} of uint64 is not supported by cubed_tpu_torch "
+                        "(uint64 rides in int64, whose order and conversions differ past 2**63)")
+
+    if dtype in (np.dtype(np.uint16), np.dtype(np.uint32)):
+
+        def elementwise_chunk(*chunks):
+            return wrap_unsigned(func(*chunks), dtype)
+    else:
+
+        def elementwise_chunk(*chunks):
+            return func(*chunks)
 
     elementwise_chunk.__name__ = elementwise_chunk.elementwise = getattr(func, "__name__", "elemwise")
     # every nxp elementwise function runs under torch.func.vmap
@@ -272,6 +279,10 @@ def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
         elementwise_chunk, tuple(range(out_ndim))[::-1], *blockwise_args, dtype=dtype,
         shape_invariant=True,
     )
+
+
+#: elementwise functions whose int64 result has the bits of the uint64 one
+_UINT64_CARRIED = (nxp.add, nxp.subtract, nxp.multiply, nxp.negative, nxp.positive, nxp.equal, nxp.not_equal)
 
 
 def map_blocks(func: Callable, *args, dtype=None, chunks=None, **kwargs) -> CoreArray:
@@ -311,9 +322,37 @@ def map_blocks(func: Callable, *args, dtype=None, chunks=None, **kwargs) -> Core
             func_with_block_id, tuple(out_ind), *blockwise_args, dtype=dtype,
             adjust_chunks=adjust_chunks, align_arrays=False, **kwargs,
         )
+    blocks = [(a.chunksize, a.dtype) for a in arrays]
     return blockwise(
-        func, tuple(out_ind), *blockwise_args, dtype=dtype, adjust_chunks=adjust_chunks, **kwargs,
+        _declare_batchable(func, blocks, kwargs), tuple(out_ind), *blockwise_args, dtype=dtype,
+        adjust_chunks=adjust_chunks, **kwargs,
     )
+
+
+def _declare_batchable(func: Callable, blocks, kwargs: dict) -> Callable:
+    """*func* with its ``batchable`` hint (it runs under ``torch.func.vmap``;
+    the device executor's batched route reads it), decided once at plan time
+    from metadata: *func* traced under ``torch.func.vmap`` on meta tensors,
+    two stacked blocks of each input's chunk shape and dtype (*blocks*), with
+    *kwargs*. A function that declares the hint itself keeps it."""
+    if hasattr(func, "batchable"):
+        return func
+    try:
+        args = [torch.empty((2, *shape), dtype=to_torch_dtype(dt), device="meta") for shape, dt in blocks]
+        torch.func.vmap(lambda *chunks: func(*chunks, **kwargs))(*args)
+        batchable = True
+    except Exception:
+        # whatever stops the trace (host code, data-dependent shapes, an op
+        # without a meta kernel) means the op does not batch: the device
+        # executor then counts a failed batched check and runs it chunked
+        batchable = False
+
+    def declared(*chunks, **kw):
+        return func(*chunks, **kw)
+
+    declared.__name__ = getattr(func, "__name__", "map_blocks")
+    declared.batchable = batchable
+    return declared
 
 
 def _offsets_array_for(x: CoreArray):
@@ -471,6 +510,124 @@ class _IndexRead:
             start = sum(chunks_ax[:bid])
             sel.append(slice(s0 + start * step, s0 + (start + chunks_ax[bid]) * step, step))
         return zarray[tuple(sel)]
+
+
+# ---------------------------------------------------------------------------
+# Rechunking
+# ---------------------------------------------------------------------------
+
+
+def rechunk(x: CoreArray, chunks, target_store=None) -> CoreArray:
+    """Change the chunking of *x* without changing its shape: one bounded
+    copy op, or a chain of them through hidden intermediate arrays."""
+    if isinstance(chunks, dict):
+        chunks = tuple(chunks.get(i, x.chunksize[i]) for i in range(x.ndim))
+    if isinstance(chunks, (int, np.integer)):
+        chunks = (int(chunks),) * x.ndim
+    norm = normalize_chunks(chunks, x.shape, dtype=x.dtype)
+    target_chunksize = to_chunksize(norm) if x.shape else ()
+    if target_chunksize == x.chunksize:
+        return x
+
+    spec = x.spec
+    name = gensym("array")
+    if target_store is None:
+        target_store = new_temp_path(name, spec)
+    ops = primitive_rechunk(
+        x.zarray_maybe_lazy,
+        source_chunks=x.chunksize,
+        target_chunks=target_chunksize,
+        allowed_mem=spec.allowed_mem,
+        reserved_mem=spec.reserved_mem,
+        target_store=target_store,
+        temp_store=new_temp_path(f"{name}-int", spec),
+    )
+    prev = x
+    for i, op in enumerate(ops):
+        last = i == len(ops) - 1
+        nm = name if last else gensym("array")
+        plan = Plan._new(nm, "rechunk", op.target_array, op, not last, prev)
+        prev = new_array(nm, op.target_array, spec, plan)
+    return prev
+
+
+def merge_chunks(x: CoreArray, chunks) -> CoreArray:
+    """Coalesce chunks: each target chunk must be a whole number of the
+    current ones (or span its axis)."""
+    target_chunksize = tuple(chunks)
+    if len(target_chunksize) != x.ndim:
+        raise ValueError(f"chunks {chunks} must have {x.ndim} dimensions")
+    if any(t % c != 0 and t != s for t, c, s in zip(target_chunksize, x.chunksize, x.shape)):
+        raise ValueError(
+            f"merge_chunks: target chunks {chunks} must be a multiple of the "
+            f"current chunks {x.chunksize}"
+        )
+    target_chunks = normalize_chunks(target_chunksize, x.shape, dtype=x.dtype)
+    return map_direct(
+        _MergedChunkRead(target_chunks),
+        x,
+        shape=x.shape,
+        dtype=x.dtype,
+        chunks=target_chunks,
+        extra_projected_mem=chunk_memory(x.dtype, to_chunksize(target_chunks)) + x.chunkmem,
+    )
+
+
+class _MergedChunkRead:
+    """Task body for merge_chunks: read this output block's region.
+    ``resident_identity`` tells the device executor the values pass through
+    unchanged (chunking is metadata of a resident array)."""
+
+    __name__ = "merge_chunks"
+    resident_identity = True
+
+    def __init__(self, target_chunks):
+        self.target_chunks = target_chunks
+
+    def __call__(self, block, zarray, block_id=None):
+        return numpy_array_to_backend_array(zarray[get_item(self.target_chunks, block_id)])
+
+
+def unify_chunks(*args):
+    """Align the chunking of arrays that share index symbols, rechunking
+    where it differs. *args* are (array, indices) pairs; returns (the
+    chunking of each symbol, the arrays). Along a symbol, differing
+    chunkings of one extent unify to the smallest chunk size (regular, so
+    every input can rechunk to it, and each task's memory stays bounded); a
+    single size-1 block broadcasts."""
+    arrays = list(args[0::2])
+    inds = list(args[1::2])
+
+    chunkss: dict = {}
+    for a, ind in zip(arrays, inds):
+        if ind is None:
+            continue
+        for sym, c, extent in zip(ind, a.chunks, a.shape):
+            if sum(c) == 1 and len(c) == 1:
+                chunkss.setdefault(sym, c)  # broadcast candidate
+            elif sym not in chunkss or sum(chunkss[sym]) == 1:
+                chunkss[sym] = c
+            else:
+                prev = chunkss[sym]
+                if sum(prev) != sum(c):
+                    raise ValueError(
+                        f"Chunks do not align for symbol {sym!r}: "
+                        f"{prev} vs {c} (extents {sum(prev)} != {sum(c)})"
+                    )
+                if c != prev:
+                    chunkss[sym] = normalize_chunks((min(prev[0], c[0]),), (extent,), dtype=a.dtype)[0]
+
+    unified = []
+    for a, ind in zip(arrays, inds):
+        if ind is None:
+            unified.append(a)
+            continue
+        target = tuple(
+            chunkss[sym] if sum(chunkss[sym]) == a.shape[dim] else a.chunks[dim]
+            for dim, sym in enumerate(ind)
+        )
+        unified.append(rechunk(a, target) if target != a.chunks else a)
+    return chunkss, unified
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,8 @@ def _region_sum_op(x: torch.Tensor, axes: list[int], keepdims: bool) -> torch.Te
 def _region_sum(x: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return region_sum_plain(x, axes, keepdims)
+    if x.device.type == "meta":
+        return _region_sum_fake(x, axes, keepdims)
     if x.device.type != "cuda":
         raise ValueError(f"region_sum: unsupported device {x.device}")
     keep_shape = tuple(1 if d in axes else x.shape[d] for d in range(x.ndim))
@@ -108,6 +110,13 @@ def _region_sum(x: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     for key in p.paths:
         region_sum.paths[key] += 1
     return out
+
+
+@_region_sum_op.register_fake
+def _region_sum_fake(x, axes, keepdims):
+    # the output's metadata alone, for a plan-time trace on meta tensors
+    shape = [1 if d in axes else n for d, n in enumerate(x.shape)]
+    return x.new_empty(shape if keepdims else [n for d, n in enumerate(x.shape) if d not in axes])
 
 
 @torch.library.register_vmap("cubed_tpu_torch::region_sum")

@@ -51,6 +51,15 @@ class CubedArrayProxy:
         return f"CubedArrayProxy({self.array!r}, chunks={self.chunks})"
 
 
+@dataclass
+class CubedCopySpec:
+    """A copy op's payload (a rechunk stage): the region a task reads from
+    ``read`` is written to the same region of ``write``."""
+
+    read: CubedArrayProxy
+    write: CubedArrayProxy
+
+
 class MemoryModeller:
     """Models peak memory of an alloc/free sequence (bounds fused ops)."""
 

@@ -39,6 +39,16 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
 - **Resident map_direct.** An index (``whole_select``) is a view of its
   resident source, a positive-step slice never copies; ``resident_identity``
   passes the value through and ``whole_concat`` concatenates on the device.
+- **Rechunk is free** (the reference's ``_exec_rechunk``). A resident array
+  is one whole tensor, so a rechunk's copy op admits the same tensor under
+  its target's store and chunking (``rechunk_alias``); readers then slice it
+  by the target's chunks. A virtual source is made on the device
+  (``rechunk_virtual``). A storage source is loaded whole when it fits in
+  half the budget, else copied region by region on the host (the spill
+  path). A copy op joins a segment; the segment's storage sources are
+  loaded before it runs (``segment_preloads``), and a segment whose source
+  does not fit fails its pre-check and runs op by op, so no capture reads
+  storage.
 - **Chunked path.** Any other op runs per output block on block views of its
   resident inputs; a combine over a dense region of resident blocks runs as
   one call (``combine_region``); the fusion rule's op whose inputs are not
@@ -74,7 +84,7 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   the launches its graph holds to the kernel wrappers' counts. On the CPU a
   segment runs op by op.
 
-Not ported yet: rechunk, meshes, ``compute_dtype``/``matmul_precision``,
+Not ported yet: meshes, ``compute_dtype``/``matmul_precision``,
 ``task_guard``, resume and the compute journal. No fast path, capture or
 kernel is wrapped in an ``except``: where one cannot run, a check says so and
 the op takes the next path.
@@ -116,6 +126,7 @@ from ...primitive.blockwise import (
     apply_blockwise,
     get_chunk,
 )
+from ...primitive.rechunk import copy_read_to_write
 from ...spec import Spec
 from ...storage.store import ZarrV2Array
 from ...storage.virtual import VirtualEmptyArray, VirtualInMemoryArray, VirtualOffsetsArray
@@ -194,6 +205,21 @@ def _as_tensor(value) -> torch.Tensor:
 
 def _nbytes_of(arr) -> int:
     return math.prod(tuple(arr.shape)) * np.dtype(arr.dtype).itemsize
+
+
+def _op_reads(op) -> list:
+    """The arrays an op reads: a copy op its source; a blockwise op its
+    reads and side inputs."""
+    config = op.pipeline.config
+    if op.pipeline.function is copy_read_to_write:
+        return [config.read.array]
+    return [p.array for p in config.reads_map.values()] + list(getattr(config.function, "side_inputs", None) or [])
+
+
+def _op_writes(op) -> tuple:
+    """The write proxies of an op."""
+    config = op.pipeline.config
+    return (config.write,) if op.pipeline.function is copy_read_to_write else config.writes
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +418,14 @@ class _Describer:
         if isinstance(obj, types.FunctionType):
             closure = tuple(self(c.cell_contents) for c in obj.__closure__ or ())
             return ("function", obj.__module__, obj.__qualname__, self._code(obj.__code__),
-                    self(obj.__defaults__), self(obj.__kwdefaults__), closure, self(dict(obj.__dict__)))
+                    self(obj.__defaults__), self(obj.__kwdefaults__), closure, self(dict(obj.__dict__)),
+                    self._globals(obj))
+        if isinstance(obj, type):
+            return ("class", obj.__module__, obj.__qualname__, self._class_attrs(obj))
+        if isinstance(obj, (staticmethod, classmethod)):
+            return (type(obj).__name__, self(obj.__func__))
+        if isinstance(obj, property):
+            return ("property", self(obj.fget), self(obj.fset), self(obj.fdel))
         if isinstance(obj, types.MethodType):
             return ("method", self(obj.__self__), self(obj.__func__))
         if isinstance(obj, (types.BuiltinFunctionType, types.BuiltinMethodType, types.ModuleType)):
@@ -407,6 +440,37 @@ class _Describer:
         if hasattr(obj, "__dict__") and type(obj).__module__.startswith("cubed_tpu_torch."):
             return ("object", type(obj).__module__, type(obj).__qualname__, self(dict(vars(obj))))
         raise _Undescribable(f"{type(obj).__module__}.{type(obj).__qualname__}")
+
+    #: packages whose classes are described by name alone: their attributes
+    #: are not a user's settings
+    _LIBRARIES = ("builtins", "numpy", "torch", "cubed_tpu_torch")
+
+    def _class_attrs(self, cls: type) -> tuple:
+        """The attributes (dunders aside) of *cls* and of its bases, for a
+        class outside the libraries: ``Cfg.K``, read when the chunk runs, is
+        baked into a captured graph like a global (the reference's
+        cloudpickle serialises a ``__main__`` class by value)."""
+        return tuple(
+            (c.__qualname__, self({k: v for k, v in vars(c).items() if not k.startswith("__")}))
+            for c in cls.__mro__ if (c.__module__ or "").partition(".")[0] not in self._LIBRARIES)
+
+    def _globals(self, fn: types.FunctionType) -> tuple:
+        """The values of the module globals *fn*'s code (nested code
+        included) names, for a function outside this package: a user's
+        constant, read when the chunk runs, is baked into a captured graph,
+        so a new value must give a new key (the reference's cloudpickle
+        serialises a ``__main__`` function's globals by value). This
+        package's own functions read no mutable globals."""
+        if (fn.__module__ or "").startswith("cubed_tpu_torch."):
+            return ()
+        names: list = []
+        stack = [fn.__code__]
+        while stack:
+            code = stack.pop()
+            names += code.co_names
+            stack += [c for c in code.co_consts if isinstance(c, types.CodeType)]
+        g = fn.__globals__
+        return tuple((n, self(g[n])) for n in sorted(set(names)) if n in g)
 
     def _code(self, code: types.CodeType):
         consts = tuple(self._code(c) if isinstance(c, types.CodeType) else self(c) for c in code.co_consts)
@@ -533,10 +597,14 @@ class CudaExecutor(DagExecutor):
         self.fuse_plan = fuse_plan
         #: path counters of the last ``execute_dag``, under the reference's
         #: names: ``whole_array_hits``, ``whole_concat_hits``,
-        #: ``batched_ops``, ``chunked_ops``, ``eager_ops``; the segment
-        #: counters ``segments_traced``, ``segments_compiled``,
-        #: ``segment_struct_hits``, ``segment_hbm_footprint`` and
-        #: ``segment_mem_aborts``; and the failed checks
+        #: ``batched_ops``, ``chunked_ops``, ``eager_ops``; the rechunk
+        #: counters ``rechunk_alias`` and ``rechunk_virtual`` (the
+        #: reference's), ``rechunk_loads`` and ``rechunk_copies`` (a storage
+        #: source loaded whole, or copied on the host); the segment counters
+        #: ``segments_traced``, ``segments_compiled``,
+        #: ``segment_struct_hits``, ``segment_hbm_footprint``,
+        #: ``segment_mem_aborts`` and ``segment_preloads`` (storage sources
+        #: loaded before a segment runs); and the failed checks
         #: ``whole_array_errors``, ``whole_select_errors``, ``batched_errors``
         #: and ``eager_fallbacks`` (0 on the main path)
         self.stats: Counter = Counter()
@@ -595,6 +663,8 @@ class CudaExecutor(DagExecutor):
         """'segment' if the op computes from resident inputs alone, so it may
         join a segment; 'eager' otherwise. From plan metadata only."""
         pipeline = primitive_op.pipeline
+        if pipeline.function is copy_read_to_write:
+            return "segment"  # rechunk: an alias of a resident (or preloaded) source
         if pipeline.function is not apply_blockwise:
             return "eager"  # create-arrays: host metadata
         f = pipeline.config.function
@@ -622,7 +692,8 @@ class CudaExecutor(DagExecutor):
             fire_task_start(callbacks, name, num_tasks=num_tasks)
         if in_segment:
             for arr in self._segment_sources(ops):
-                self._preload(arr, resident, budget)
+                if _key(arr) not in resident and self._preload(arr, resident, budget):
+                    self.stats["segment_preloads"] += 1
         if in_segment and get_device().type == "cuda":
             self._run_segment(ops, dag, resident, budget, requested)
         else:
@@ -647,6 +718,8 @@ class CudaExecutor(DagExecutor):
             op = node["primitive_op"]
             if op.pipeline.function is apply_blockwise:
                 self._exec_blockwise(op, resident, budget)
+            elif op.pipeline.function is copy_read_to_write:
+                self._exec_rechunk(op, resident, budget)
             elif op.pipeline.function is create_zarr_array:
                 # metadata only for arrays that are written; residency
                 # replaces the rest
@@ -672,16 +745,11 @@ class CudaExecutor(DagExecutor):
     @staticmethod
     def _segment_reads(ops) -> list:
         """Every array the segment's ops read, side inputs included, in order."""
-        arrays = []
-        for _, node in ops:
-            spec = node["primitive_op"].pipeline.config
-            arrays += [p.array for p in spec.reads_map.values()]
-            arrays += list(getattr(spec.function, "side_inputs", None) or [])
-        return arrays
+        return [arr for _, node in ops for arr in _op_reads(node["primitive_op"])]
 
     @staticmethod
     def _produced(ops) -> set:
-        return {_key(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes}
+        return {_key(w.array) for _, node in ops for w in _op_writes(node["primitive_op"])}
 
     def _preload(self, arr, resident, budget) -> bool:
         """Read a whole storage array onto the device, if it exists, fits and
@@ -716,7 +784,7 @@ class CudaExecutor(DagExecutor):
             for arr in self._segment_reads(ops) if isinstance(arr, (ZarrV2Array, LazyZarrArray))
         ):
             return False
-        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes)
+        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"]))
         room = budget - sum(r.nbytes for r in resident.values()) - out_bytes
         if dev is not None:
             _GRAPHS.shrink(dev, room, keep=skey)
@@ -753,6 +821,8 @@ class CudaExecutor(DagExecutor):
         honored: dict = {}
         arrays: dict = {}
         for _, node in ops:
+            if node["primitive_op"].pipeline.function is not apply_blockwise:
+                continue
             spec = node["primitive_op"].pipeline.config
             ok = any(getattr(g, "hoisted_seeds", False) for g in _leaf_functions(spec.function))
             for proxy in spec.reads_map.values():
@@ -784,6 +854,9 @@ class CudaExecutor(DagExecutor):
             for _, node in ops:
                 op = node["primitive_op"]
                 spec = op.pipeline.config
+                if op.pipeline.function is copy_read_to_write:
+                    payload.append(("copy", describe(spec), describe(op.pipeline.mappable)))
+                    continue
                 describe.names.update(str(k[0]) for k in itertools.islice(iter(op.pipeline.mappable), 1))
                 payload.append(("op", describe(spec), op.num_tasks))
         except _Undescribable:
@@ -874,7 +947,7 @@ class CudaExecutor(DagExecutor):
         with torch.cuda.stream(stream):
             tickets = _build.reserve_tickets(dev)
         held = sum(r.nbytes for r in resident.values())
-        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in node["primitive_op"].pipeline.config.writes)
+        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"]))
         _GRAPHS.shrink(dev, budget - held - out_bytes)
         keys = HoistedKeys(seeds, dev)
         static = {k: res.value.clone() for k, res in inputs.items()}
@@ -919,6 +992,48 @@ class CudaExecutor(DagExecutor):
             self._admit(resident, store, value.clone(), keep[store], budget)
 
     # ------------------------------------------------------------------
+
+    def _exec_rechunk(self, op, resident, budget) -> None:
+        """A rechunk's copy op (the reference's ``_exec_rechunk``): a resident
+        source is admitted again under the target's store (``rechunk_alias``;
+        its chunking is the readers' metadata); a virtual one is made on the
+        device (``rechunk_virtual``); a storage source is loaded whole when
+        it fits in half the budget (``rechunk_loads``: an op outside a
+        segment, as under ``fuse_plan=False``; a segment preloads its
+        sources), else copied region by region on the host. A capture never
+        gets this far with a storage source: the segment's pre-check
+        requires every storage source resident."""
+        config = op.pipeline.config
+        src, dst = config.read.array, config.write.array
+        res = resident.get(_key(src))
+        if res is not None:
+            res.touch()
+            self.stats["rechunk_alias"] += 1
+            self._admit(resident, _key(dst), res.value, dst, budget)
+            return
+        if isinstance(src, VirtualInMemoryArray):
+            self.stats["rechunk_virtual"] += 1
+            self._admit(resident, _key(dst), self._upload(src), dst, budget)
+            return
+        if isinstance(src, VirtualEmptyArray):
+            self.stats["rechunk_virtual"] += 1
+            value = torch.zeros(tuple(src.shape), dtype=to_torch_dtype(src.dtype), device=get_device())
+            self._admit(resident, _key(dst), value, dst, budget)
+            return
+        if self._capturing:
+            raise RuntimeError("a rechunk read storage under CUDA graph capture")
+        opened = src.open() if isinstance(src, LazyZarrArray) else src
+        if opened.dtype.fields is None and _nbytes_of(opened) < budget // 2:
+            self.stats["rechunk_loads"] += 1
+            data = opened[...] if opened.shape else opened[()]
+            self._admit(resident, _key(dst), numpy_array_to_backend_array(data), dst, budget)
+            return
+        # the bounded host copy (the spill path), into a created target
+        self.stats["rechunk_copies"] += 1
+        if isinstance(dst, LazyZarrArray):
+            dst.create()
+        for m in op.pipeline.mappable:
+            op.pipeline.function(m, config=config)
 
     def _exec_blockwise(self, op, resident, budget) -> None:
         spec: BlockwiseSpec = op.pipeline.config

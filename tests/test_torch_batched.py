@@ -133,12 +133,29 @@ def test_a_function_not_declared_batchable_counts_a_failed_check(tmp_path):
     a = cubed_tpu_torch.from_array(_an((8, 8)), chunks=(4, 4), spec=spec)
 
     def plus_one(x):
-        return x + 1
+        # numpy on the block's values: it does not run under torch.func.vmap,
+        # so map_blocks' plan-time trace declares it not batchable
+        return torch.from_numpy(x.numpy() + 1)
 
     got = cubed_tpu_torch.map_blocks(plus_one, a, dtype=a.dtype).compute(executor=(ex := CudaExecutor()))
     np.testing.assert_array_equal(got, _an((8, 8)) + 1)
     assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == 1
     assert ex.stats["batched_ops"] == 0 and ex.stats["chunked_ops"] == 1
+
+
+def test_a_torch_function_given_to_map_blocks_batches_like_the_reference(tmp_path):
+    """``map_blocks(lambda x: x + 1)`` runs under torch.func.vmap, so the
+    plan-time trace declares it batchable: one batched call, as JaxExecutor."""
+
+    def build(pkg, xp, spec):
+        return pkg.map_blocks(lambda x: x + 1, pkg.from_array(_an((8, 8)), chunks=(4, 4), spec=spec),
+                              dtype=np.float64)
+
+    ref, ref_ex, got, ex, seq = _three_ways(tmp_path, build)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(seq, ref)
+    assert ex.stats["batched_ops"] == ref_ex.stats["batched_ops"] == 1
+    assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == 0
 
 
 def test_bucket_grids_follow_the_output_axes():

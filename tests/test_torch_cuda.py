@@ -565,3 +565,105 @@ def test_random_op_of_rank_five_runs_block_by_block_in_a_segment(cuda, tmp_path)
         # grid view fail their checks from metadata
         assert ex.stats["batched_errors"] == ex.stats["eager_fallbacks"] == 2
         assert ex.stats["segments_compiled"] == i
+
+
+#: a module global read by a chunk function (``_scale_by_k``)
+K = 2.0
+
+
+def _scale_by_k(x):
+    return x * K
+
+
+def test_a_new_global_value_is_not_replayed_from_an_old_graph(cuda, tmp_path):
+    """The second compute captures ``sum(map_blocks(_scale_by_k, a))``'s
+    segment with K = 2; the third, with K = 3, must not replay it."""
+    global K
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    an = np.random.default_rng(0).random((64, 48))
+    ex = CudaExecutor()
+    try:
+        for i, k in enumerate((2.0, 2.0, 3.0, 3.0)):
+            K = k
+            spec = ct.Spec(work_dir=str(tmp_path / str(i)), allowed_mem="100MB")
+            x = xp.sum(ct.map_blocks(_scale_by_k, ct.from_array(an, chunks=(16, 16), spec=spec),
+                                     dtype=np.float64))
+            np.testing.assert_allclose(float(x.compute(executor=ex)), float(np.sum(an * k)), rtol=1e-12)
+            # K = 3 is a new structural key: a first sighting, then its capture
+            assert ex.stats["segments_compiled"] == (1 if i in (1, 3) else 0)
+            assert ex.stats["segment_struct_hits"] == 0
+    finally:
+        K = 2.0
+
+
+class Cfg:
+    """A user's settings class, read by a chunk function as ``Cfg.factor``."""
+
+    factor = 2.0
+
+
+def _scale_by_cfg(x):
+    return x * Cfg.factor
+
+
+def test_a_new_class_attribute_is_not_replayed_from_an_old_graph(cuda, tmp_path):
+    """The second compute captures ``sum(map_blocks(_scale_by_cfg, a))``'s
+    segment with ``Cfg.factor`` 2; the third, with 3, must not replay it."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    an = np.random.default_rng(0).random((64, 48))
+    ex = CudaExecutor()
+    try:
+        for i, k in enumerate((2.0, 2.0, 3.0, 3.0)):
+            Cfg.factor = k
+            spec = ct.Spec(work_dir=str(tmp_path / str(i)), allowed_mem="100MB")
+            x = xp.sum(ct.map_blocks(_scale_by_cfg, ct.from_array(an, chunks=(16, 16), spec=spec),
+                                     dtype=np.float64))
+            np.testing.assert_allclose(float(x.compute(executor=ex)), float(np.sum(an * k)), rtol=1e-12)
+            assert ex.stats["segments_compiled"] == (1 if i in (1, 3) else 0)
+            assert ex.stats["segment_struct_hits"] == 0
+    finally:
+        Cfg.factor = 2.0
+
+
+def test_segment_holding_a_rechunk_is_captured_and_replayed(cuda, tmp_path):
+    """``mean(rechunk(a), axis=0)``: the copy op aliases the resident random
+    array inside the segment; captured on the second compute, replayed with
+    new seeds on the third and fourth, each equal to the sequential executor."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    def build(seed, work):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / work), allowed_mem="500MB")
+        return xp.mean(ct.random.random((60, 45, 40), chunks=15, spec=spec).rechunk((60, 9, 8)), axis=0)
+
+    ex = CudaExecutor()
+    for i, seed in enumerate((31, 32, 33, 34)):
+        got = build(seed, f"cuda-{seed}").compute(executor=ex)
+        np.testing.assert_allclose(got, build(seed, f"seq-{seed}").compute(), rtol=1e-12)
+        assert ex.stats["rechunk_alias"] == 1 and ex.stats["segments_traced"] == 1
+        assert ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+        assert ex.stats["segment_struct_hits"] == (1 if i >= 2 else 0)
+
+
+def test_sum_of_matmul_equals_numpy(cuda, tmp_path):
+    """BASELINE config 4 at a small size: ``sum(matmul(a, b))``."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    an, bn = np.random.default_rng(1).random((400, 300)), np.random.default_rng(2).random((300, 200))
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    x = xp.sum(ct.from_array(an, chunks=100, spec=spec) @ ct.from_array(bn, chunks=100, spec=spec))
+    want = float(np.sum(an @ bn))
+    ex = CudaExecutor()
+    np.testing.assert_allclose(float(x.compute(executor=ex)), want, rtol=1e-12)
+    np.testing.assert_allclose(float(x.compute()), want, rtol=1e-12)
+    assert ex.stats["batched_ops"] >= 1 and ex.stats["eager_fallbacks"] == 0

@@ -16,6 +16,7 @@ import random  # noqa: E402
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 import cubed_tpu  # noqa: E402
 import cubed_tpu.array_api as rxp  # noqa: E402
@@ -94,11 +95,56 @@ def _vorticity_float32(pkg, xp, spec):
     return xp.mean(xp.add(xp.multiply(a[1:], x[1:]), xp.multiply(b[1:], y[1:])))
 
 
-ELEMENTWISE = {"chain": _chain, "ragged_index_scaled": _ragged_index_scaled}
+def _scale_block(x):
+    return x * 2.0
+
+
+def _fma_block(x, y):
+    return x * y + 1.0
+
+
+def _map_blocks_sum(pkg, xp, spec):
+    a = pkg.from_array(_an((20, 20)), chunks=(5, 5), spec=spec)
+    return xp.sum(pkg.map_blocks(_scale_block, a, dtype=np.float64))
+
+
+def _map_blocks_two_inputs(pkg, xp, spec):
+    a = pkg.from_array(_an((20, 20)), chunks=(5, 5), spec=spec)
+    b = pkg.from_array(_an((20, 20), 1), chunks=(5, 5), spec=spec)
+    return pkg.map_blocks(_fma_block, a, b, dtype=np.float64)
+
+
+def _rechunk_mean(pkg, xp, spec):
+    a = pkg.random.random((30, 24, 20), chunks=6, spec=spec)
+    return xp.mean(a.rechunk((30, 8, 5)), axis=0)
+
+
+def _rechunk_misaligned_add(pkg, xp, spec):
+    a = pkg.from_array(_an((20, 20)), chunks=(5, 5), spec=spec)
+    b = pkg.from_array(_an((20, 20), 1), chunks=(4, 10), spec=spec)
+    return xp.add(a, b)
+
+
+def _matmul_sum(pkg, xp, spec):
+    a = pkg.random.random((40, 40), chunks=10, spec=spec)
+    b = pkg.random.random((40, 40), chunks=10, spec=spec)
+    return xp.sum(xp.matmul(a, b))
+
+
+def _max_of_mean(pkg, xp, spec):
+    return xp.max(xp.mean(pkg.random.random((40, 40), chunks=10, spec=spec), axis=0))
+
+
+ELEMENTWISE = {
+    "chain": _chain, "ragged_index_scaled": _ragged_index_scaled,
+    "map_blocks_two_inputs": _map_blocks_two_inputs, "rechunk_misaligned_add": _rechunk_misaligned_add,
+}
 REDUCTIONS = {
     "sum_all": _sum_all, "mean_all": _mean_all, "mean_axis0": _mean_axis0,
     "sum_axis0": _sum_axis0, "ragged_index": _ragged_index, "addsum": _addsum,
     "vorticity": _vorticity, "vorticity_sum": _vorticity_sum,
+    "map_blocks_sum": _map_blocks_sum, "rechunk_mean": _rechunk_mean, "matmul_sum": _matmul_sum,
+    "max_of_mean": _max_of_mean,
 }
 
 
@@ -137,7 +183,8 @@ def test_reductions_match_jax_executor(tmp_path, name):
 
 
 #: the device executor's path counters, each equal to the reference's
-PATH_COUNTERS = ("whole_array_hits", "whole_concat_hits", "batched_ops", "chunked_ops", "eager_ops")
+PATH_COUNTERS = ("whole_array_hits", "whole_concat_hits", "batched_ops", "chunked_ops", "eager_ops",
+                 "rechunk_alias", "rechunk_virtual")
 FAILED_CHECKS = ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors")
 
 
@@ -442,3 +489,96 @@ def test_storage_sources_are_preloaded_once(tmp_path, monkeypatch):
     got = (pxp.sum(arr * 2.0, axis=0) + pxp.sum(arr, axis=0)).compute(executor=ex)
     np.testing.assert_allclose(got, (x * 2.0).sum(axis=0) + x.sum(axis=0), rtol=REDUCTION_RTOL)
     assert preloads[1:] == [(store, False)]
+
+
+#: a module global read by a chunk function (``_scale_by_k``)
+K = 2.0
+
+
+def _scale_by_k(x):
+    return x * K
+
+
+class Cfg:
+    """A user's settings class, read by a chunk function as ``Cfg.factor``
+    (its static method and property are described too)."""
+
+    factor = 2.0
+
+    @staticmethod
+    def twice(v):
+        return 2 * v
+
+    @property
+    def half(self):
+        return self.factor / 2
+
+
+def _segment_key(tmp_path, k, func=_scale_by_k):
+    """The structural key of ``sum(map_blocks(func, a))``'s segment, planned
+    with the global ``K`` and ``Cfg.factor`` set to *k*."""
+    global K
+    K = Cfg.factor = k
+    spec = cubed_tpu_torch.Spec(work_dir=str(tmp_path), allowed_mem="100MB")
+    x = pxp.sum(cubed_tpu_torch.map_blocks(
+        func, cubed_tpu_torch.from_array(_an((20, 20)), chunks=(5, 5), spec=spec), dtype=np.float64))
+    dag = x.plan._finalize(array_names=(x.name,)).dag
+    ex = CudaExecutor()
+    ops = [(name, d) for name, d in dag.nodes.items()
+           if d.get("type") == "op" and d.get("primitive_op") is not None
+           and ex._classify(d["primitive_op"]) == "segment"]
+    return ex._structural_key(ops, dag, [], {}, [], [], torch.device("cpu"))
+
+
+def test_structural_key_follows_the_globals_a_chunk_function_reads(tmp_path):
+    """A captured graph bakes in the value of a global the chunk function
+    reads, so a new value must give a new key (else a replay would return
+    the old constant's result)."""
+    try:
+        two, three, two_again = (_segment_key(tmp_path / str(i), k) for i, k in enumerate((2.0, 3.0, 2.0)))
+    finally:
+        globals()["K"] = Cfg.factor = 2.0
+    assert two is not None
+    assert two != three
+    assert two == two_again
+
+
+def test_structural_key_follows_the_attributes_of_a_class_a_chunk_function_reads(tmp_path):
+    """``Cfg.factor``, read through a module global class, is baked into a
+    captured graph like a global: a new value must give a new key."""
+
+    def scale(x):
+        return x * Cfg.factor
+
+    try:
+        two, three, two_again = (_segment_key(tmp_path / str(i), k, scale) for i, k in enumerate((2.0, 3.0, 2.0)))
+    finally:
+        globals()["K"] = Cfg.factor = 2.0
+    assert two is not None
+    assert two != three
+    assert two == two_again
+
+
+UNSIGNED_CASES = {
+    "sum_uint8": lambda pkg, xp, a: xp.sum(xp.astype(a, xp.uint8)),
+    "astype_uint16": lambda pkg, xp, a: xp.astype(a, xp.uint16),
+    "astype_uint32": lambda pkg, xp, a: xp.astype(a, xp.uint32),
+    "astype_uint64": lambda pkg, xp, a: xp.astype(a, xp.uint64),
+    "sum_of_uint32": lambda pkg, xp, a: xp.sum(xp.astype(a, xp.uint32) * xp.astype(a, xp.uint32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNSIGNED_CASES))
+def test_unsigned_results_match_the_jax_package(tmp_path, name):
+    """uint16/32/64 ride in signed carriers: values (negative ones wrapped,
+    products past 2**32 wrapped) equal the reference's on both executors."""
+    an = (np.random.default_rng(4).random((9, 11)) * 2**20).astype(np.int64) - 2**19
+
+    def build(pkg, xp, spec):
+        return UNSIGNED_CASES[name](pkg, xp, pkg.from_array(an, chunks=(4, 5), spec=spec))
+
+    ref, _, got, ex, seq = _run_all(tmp_path, build)
+    assert got.dtype == ref.dtype and seq.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(seq, ref)
+    assert ex.stats["eager_fallbacks"] == 0
