@@ -66,7 +66,22 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    fma_sum_blocks on one (100, 100, 100) and one (40, 40, 40) block); then
    vorticity's four device computes (cold, capturing, two warm) on each
    checkout, each in a fresh process (``--time-computes CHECKOUT``), in
-   turns, three rounds, with each compute's median;
+   turns, three rounds, with each compute's median. Then the float32 side
+   (``compute_dtype="float32"``): both Philox kernels' float32 entry points
+   bit for bit against numpy's float64 streams rounded to float32 and
+   against their plain versions (per block at vorticity_f32's (100, 100,
+   100) blocks, odd sizes and outputs 4 and 12 bytes off 16; batched at
+   vorticity_f32's (500, 450, 400) / 100 array, the ragged, 1-D, 4-D and
+   size-0 grids, column-view, misaligned and 200-byte-row outputs and the
+   batching rule's (25, 1000000) fill), one launch and one kernel per call,
+   their SASS, and each timed beside its plain version, its bound and the
+   float64 launch in the same call; fma_sum_blocks and region_sum on
+   float32 inputs (their routes under the mode) against their plain
+   versions, timed beside their halved byte bounds; every
+   ``matmul_precision`` mode ("float32", "tensorfloat32", "bfloat16",
+   "bfloat16_3x") on a (1000, 1000) / 250 matmul plan against its exact
+   model (rtol 1e-5), with the GEMM kernels torch.profiler records for it,
+   and one (1000, 1000) product per mode timed beside its GEMM bound;
 4. drive the main path through the public entry points, on the default
    sequential executor and on the device executor (``CudaExecutor``):
    addsum, ``sum(a + b)`` at (5000, 5000) / 1000, then pangeo-vorticity,
@@ -113,7 +128,20 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    the card at that layout against its plain version, in a fresh process
    (``--check-layouts``): region_sum within 1e-12 of the sum of
    magnitudes, Philox bit for bit, one launch per call and one kernel per
-   call under torch.profiler;
+   call under torch.profiler. Before those, bench.py's three other
+   workloads at its sizes: vorticity_f32 (config 5's plan on
+   ``CudaExecutor(compute_dtype="float32")``, cold, capturing and warm,
+   each against numpy's emulation of the mode at rtol 1e-6 and the float64
+   oracle within the reference's float32 bound; the float32 Philox kernel 4
+   times, fma_sum_blocks and region_sum on float32; then cut to (200, 180,
+   160) / 40 under a budget below one float32 array, where the random ops
+   run block by block through the per-block float32 entry point, 400
+   launches), matmul_bf16 (config 4's plan with ``matmul_precision=
+   "bfloat16"`` as well, three computes, against numpy's product of the
+   bf16-rounded operands at rtol 1e-5 and within 2e-2 of the exact value)
+   and addsum_scaled (``sum(a + b)`` at (16000, 16000) / 2000 float64 on
+   both executors, rtol 1e-12), their layouts recorded and checked with
+   the rest; every result in its declared float64;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -129,7 +157,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    when they ran block by block (their block copies and template fills).
 
 The kernels line gives each kernel's launches in the run of its path:
-vorticity's first device compute.
+vorticity's first device compute; for the float32 entry points and routes
+vorticity_f32's first compute, and its spilled run for the per-block float32
+Philox entry point.
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
 stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
@@ -358,7 +388,9 @@ def finish_rounds_build(started) -> str:
 
 def philox_sass(rounds_lib: str) -> dict:
     """SASS opcode counts of each Philox kernel: "block" (per block),
-    "batched" and "rounds" (the rounds alone, from *rounds_lib*)."""
+    "batched" and "rounds" (the rounds alone, from *rounds_lib*); the
+    float32 instances of the two templates as "block_f32" and "batched_f32"
+    (mangled ``...IfE...``; the float64 ones ``...IdE...``)."""
     from cubed_tpu_torch.kernels import _build
 
     short = {}
@@ -366,8 +398,9 @@ def philox_sass(rounds_lib: str) -> dict:
     for fn, counts in found.items():
         for piece, name in PHILOX_KERNELS.items():
             if piece in fn:
-                short[name] = counts
-    check(set(short) == set(PHILOX_KERNEL_NAMES), f"Philox SASS: found {sorted(short)} of {sorted(PHILOX_KERNEL_NAMES)}")
+                short[name + ("_f32" if "IfE" in fn else "")] = counts
+    want = set(PHILOX_KERNEL_NAMES) | {"block_f32", "batched_f32"}
+    check(set(short) == want, f"Philox SASS: found {sorted(short)} of {sorted(want)}")
     return short
 
 
@@ -572,7 +605,7 @@ def check_philox(torch, rounds_lib: str) -> dict:
         source="cubed_tpu_torch/kernels/csrc/philox_uniform.cu",
         replaces="cubed_tpu/random.py:217 (_random_block; _philox_block :137)",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-        slots=slots,
+        slots=slots, sass=sass,
     )
 
 
@@ -952,6 +985,216 @@ def check_batched_rules(torch, slots: float) -> None:
     del base, grid, stacked
 
 
+# ---------------------------------------------------------------------------
+# phase 3, float32: the Philox kernels' float32 entry points and the float32
+# routes of fma_sum_blocks and region_sum (compute_dtype="float32")
+# ---------------------------------------------------------------------------
+
+#: the float32 per-block entry point's cases: (shape, offset of the output
+#: from a 16-byte aligned base, in elements): vorticity_f32's blocks of
+#: (100, 100, 100), ragged and odd sizes, and an output 4 bytes off (scalar
+#: stores)
+PHILOX_F32_BLOCK_CASES = [((100, 100, 100), 0), ((99, 100, 100), 0), ((1000, 1000), 0), ((7,), 0),
+                          ((1001,), 1), ((99, 100, 101), 3)]
+
+
+def f32_bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+
+
+def check_philox_f32(torch, slots: float, sass: dict) -> list:
+    """The float32 entry points of both Philox kernels, bit for bit numpy's
+    float64 streams rounded to float32 and their plain versions: per block
+    at vorticity_f32's (100, 100, 100) blocks, odd sizes and a misaligned
+    output; batched at vorticity_f32's (500, 450, 400) / 100 array (the
+    batched route's layout) and the float64 cases' ragged, 1-D, 4-D and
+    size-0 grids, with strided and misaligned outputs; one launch per call
+    and one kernel per call; each timed behind the spin kernel beside its
+    plain version and its bound (4 bytes an element or the integer floor)."""
+    from cubed_tpu_torch.kernels.philox_uniform import (
+        philox_key, philox_keys, philox_uniform, philox_uniform_blocks, philox_uniform_blocks_plain,
+        philox_uniform_plain,
+    )
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    max_err = {"block": 0.0, "batched": 0.0}
+    for shape, offset in PHILOX_F32_BLOCK_CASES:
+        n = int(np.prod(shape))
+        for seed in (0, 123456789, 2**30 + 96):
+            base = torch.full((n + offset,), -1.0, dtype=f32, device=dev)
+            out = base[offset:].view(shape)
+            before = dict(philox_uniform.paths)
+            philox_uniform(out, philox_key(seed))
+            plain = philox_uniform_plain(n, philox_key(seed), device=dev, dtype=f32).reshape(shape)
+            torch.cuda.synchronize()
+            what = f"philox_uniform f32 {shape} offset {offset} seed {seed}"
+            check(philox_uniform.paths["block_f32"] == before["block_f32"] + 1, f"{what}: not one f32 launch")
+            ref = np.random.Generator(np.random.Philox(seed=seed)).random(shape).astype(np.float32)
+            check(np.array_equal(f32_bits(out.cpu().numpy()), ref.view(np.uint32)),
+                  f"{what}: differs from numpy's float64 stream rounded to float32")
+            check(torch.equal(out.view(torch.int32), plain.view(torch.int32)), f"{what}: differs from plain")
+            check(offset == 0 or float(base[offset - 1]) == -1.0, f"{what}: wrote before its output")
+    print(f"philox_uniform (per block, float32): bit for bit numpy's float64 stream rounded to float32 and the "
+          f"plain version, {len(PHILOX_F32_BLOCK_CASES)} shapes (outputs 4 and 12 bytes off 16 included), 3 seeds "
+          f"each")
+    one_launch_per_call(torch, philox_uniform, "philox_uniform_kernel",
+                        [lambda s=s: philox_uniform(torch.empty(s, dtype=f32, device=dev), philox_key(5))
+                         for s, _ in PHILOX_F32_BLOCK_CASES])
+
+    layouts = [(shape, chunks, None) for shape, chunks in PHILOX_BLOCK_CASES] + [
+        ((64, 48), (16, 16), ("column-view", 80, 16)),
+        ((64, 48), (16, 16), ("misaligned", 48, 1)),
+        ((64, 48), (16, 16), ("rows of 50", 50, 2)),
+        ((25, 1000000), (1, 1000000), None),  # the Philox batching rule's (n, size) fill
+    ]
+    taken = []
+    thunks = []
+    for shape, chunks, strided in layouts:
+        nblocks = int(np.prod([-(-n // c) if n else 1 for n, c in zip(shape, chunks)]))
+        seeds = 2**30 - 3 + np.arange(nblocks, dtype=np.int64)
+        keys = philox_keys(seeds)
+        if strided is None:
+            out = torch.empty(shape, dtype=f32, device=dev)
+        else:
+            _, width, first = strided
+            base = torch.full((shape[0] * width + first,), -1.0, dtype=f32, device=dev)
+            out = base[first: first + shape[0] * width].view(shape[0], width)[:, :shape[1]]
+        before = dict(philox_uniform.paths)
+        philox_uniform_blocks(out, chunks, keys)
+        plain = philox_uniform_blocks_plain(shape, chunks, keys, device=dev, dtype=f32)
+        torch.cuda.synchronize()
+        what = f"philox_uniform_blocks f32 {shape} / {chunks}" + (f" {strided[0]}" if strided else "")
+        check(philox_uniform.paths["batched_f32"] - before["batched_f32"] == (1 if out.numel() else 0),
+              f"{what}: not one float32 launch")
+        check(torch.equal(out.contiguous().view(torch.int32), plain.view(torch.int32)), f"{what}: differs from plain")
+        if out.numel() and out.numel() <= 10**8:
+            ref = numpy_blocks(shape, chunks, seeds).astype(np.float32)
+            check(np.array_equal(f32_bits(out.cpu().numpy()), ref.view(np.uint32)),
+                  f"{what}: differs from numpy's per-block streams rounded to float32")
+        taken.append(f"{shape}/{chunks}{' ' + strided[0] if strided else ''}: "
+                     f"{paths_delta(philox_uniform, before) or 'no launch'}")
+        if out.numel():
+            thunks.append(lambda out=out, chunks=chunks, keys=keys: philox_uniform_blocks(out, chunks, keys))
+        del plain
+    print(f"philox_uniform_blocks (float32): bit for bit numpy's per-block streams rounded to float32 and the "
+          f"plain version, one float32 launch per call, over {len(layouts)} layouts")
+    print("philox_uniform_blocks float32 paths: " + "; ".join(taken))
+    one_launch_per_call(torch, philox_uniform, "philox_blocks_kernel", thunks[:8])
+    del thunks
+
+    for name in ("block_f32", "batched_f32"):
+        per_thread = 1 if name == "block_f32" else PHILOX_COUNTERS
+        fma, alu = int_pipe_slots(sass[name])
+        print(f"{name} SASS: {sum(sass[name].values())} instructions for {per_thread} counter(s) a thread; "
+              f"FMA pipe {fma / per_thread:.2f} a counter, ALU pipe {alu / per_thread:.2f}; F2F "
+              f"{sum(v for k, v in sass[name].items() if k.startswith('F2F'))}")
+
+    # timing: one (100, 100, 100) block (the per-block entry point), and the
+    # main path's array (the batched one), behind the spin kernel
+    shape = (100, 100, 100)
+    n = int(np.prod(shape))
+    outs = [(torch.empty(shape, dtype=f32, device=dev), philox_key(s)) for s in range(8)]
+    block_ms = time_ms(torch, philox_uniform, outs)
+    block_plain_ms = time_ms(torch, lambda k: philox_uniform_plain(n, k, device=dev, dtype=f32),
+                             [(philox_key(1),)], reps=5)
+    block_b, block_by = bound_ms(4 * n, slots * -(-n // 4), INT_ISSUE_PER_S)
+    print(f"philox_uniform {shape} f32 (per block): {block_ms:.5f} ms/launch ({100 * block_b / block_ms:.1f}% of "
+          f"bound), plain {block_plain_ms:.5f} ms, bound {block_b:.5f} ms ({block_by}: bytes "
+          f"{4 * n / HBM_BYTES_PER_S * 1e3:.5f} ms); {smi_tag()}")
+    shape, chunks = VORTICITY["shape"], (VORTICITY["chunks"],) * 3
+    n = int(np.prod(shape))
+    keys = philox_keys(2**29 + np.arange(100, dtype=np.int64))
+    arrays = [(torch.empty(shape, dtype=f32, device=dev),) for _ in range(2)]
+    ms = time_ms(torch, lambda out: philox_uniform_blocks(out, chunks, keys), arrays)
+    f64_arrays = [(torch.empty(shape, dtype=torch.float64, device=dev),) for _ in range(2)]
+    ms64 = time_ms(torch, lambda out: philox_uniform_blocks(out, chunks, keys), f64_arrays)
+    del f64_arrays
+    plain_ms = time_ms(torch, lambda: philox_uniform_blocks_plain(shape, chunks, keys, device=dev, dtype=f32),
+                       [()], reps=1)
+    counters = sum(-(-int(np.prod(block)) // 4) for block in itertools.product(
+        *[[min(c, d - i) for i in range(0, d, c)] for d, c in zip(shape, chunks)]))
+    b, by = bound_ms(4 * n, slots * counters, INT_ISSUE_PER_S)
+    print(f"philox_uniform_blocks {shape}/{chunks[0]} f32: {ms:.5f} ms/launch ({100 * b / ms:.1f}% of bound; "
+          f"float64 on the same work {ms64:.5f} ms, in this call), plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by}: "
+          f"bytes {4 * n / HBM_BYTES_PER_S * 1e3:.5f} ms, integer issue "
+          f"{slots * counters / INT_ISSUE_PER_S * 1e3:.5f} ms at {slots:.2f} slots a counter); {smi_tag()}")
+    source = "cubed_tpu_torch/kernels/csrc/philox_uniform.cu"
+    replaces = "cubed_tpu/random.py:217 (_random_block; _philox_block :137)"
+    return [
+        dict(name="philox_uniform_f32", route="cuda", source=source, replaces=replaces,
+             max_abs_err=0.0, ms=block_ms, plain_ms=block_plain_ms, bound_ms=block_b, bound_by=block_by,
+             library_ms=None),
+        dict(name="philox_uniform_blocks_f32", route="cuda", source=source, replaces=replaces,
+             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None),
+    ]
+
+
+def check_f32_routes(torch) -> list:
+    """fma_sum_blocks and region_sum on float32 inputs, as compute_dtype=
+    "float32" gives them: fma_sum_blocks on the [1:] views of four
+    (500, 450, 400) float32 arrays / 100 (vorticity_f32's fused reduction),
+    region_sum over all axes of (100, 100, 100) float32 blocks; each within
+    1e-12 (fma_sum_blocks, a float64 result) or 1e-6 (region_sum, rounded to
+    float32) of the sum of magnitudes of its plain version (both accumulate
+    in float64), timed beside its plain version, its bound (4 bytes an
+    element read) and, for region_sum, torch.sum."""
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks, fma_sum_blocks_plain
+    from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    f32 = torch.float32
+    bases = [torch.rand(VORTICITY["shape"], generator=gen, device=dev, dtype=f32) for _ in range(4)]
+    ts = [t[1:] for t in bases]
+    chunks = (VORTICITY["chunks"],) * 3
+    before = dict(fma_sum_blocks.paths)
+    got = fma_sum_blocks(*ts, chunks)
+    plain = fma_sum_blocks_plain(*ts, chunks)
+    scale = fma_sum_blocks_plain(*(t.abs() for t in ts), chunks)
+    torch.cuda.synchronize()
+    check(fma_sum_blocks.paths["float32"] == before["float32"] + 1, "fma_sum_blocks f32: not one float32 launch")
+    check(bool(((got - plain).abs() <= 1e-12 * scale).all()), "fma_sum_blocks f32: beyond 1e-12 of sum(|a*x|+|b*y|)")
+    fma_err = float((got - plain).abs().max())
+    print(f"fma_sum_blocks f32 [1:] views / 100: within 1e-12 of each block's sum of magnitudes of the plain "
+          f"version (max abs err {fma_err:.3e}), paths {paths_delta(fma_sum_blocks, before)}")
+    fma_ms = time_ms(torch, fma_sum_blocks, [(*ts, chunks)])
+    fma_plain_ms = time_ms(torch, fma_sum_blocks_plain, [(*ts, chunks)], reps=2)
+    n = ts[0].numel()
+    fma_b, fma_by = bound_ms(4 * 4 * n + 8 * 100, 3 * n)
+    print(f"fma_sum_blocks {tuple(ts[0].shape)} f32 [1:] views / 100: {fma_ms:.5f} ms/launch "
+          f"({100 * fma_b / fma_ms:.1f}% of bound), plain {fma_plain_ms:.5f} ms, bound {fma_b:.5f} ms ({fma_by}: "
+          f"{4 * 4 * n / 1e6:.2f} MB read); {smi_tag()}")
+    del bases, ts
+
+    xs = [(torch.rand((100, 100, 100), generator=gen, device=dev, dtype=f32),) for _ in range(8)]
+    region_err = 0.0
+    for (x,) in xs:
+        # both sum in float64 and round the total to float32: within a
+        # float32 rounding of the sum of magnitudes
+        got, plain = region_sum(x, None), region_sum_plain(x, None)
+        scale = region_sum_plain(x.abs().double(), None)
+        check(bool(((got.double() - plain.double()).abs() <= 1e-6 * scale).all()),
+              "region_sum f32: beyond 1e-6 of sum(|x|) of the plain version")
+        region_err = max(region_err, float((got.double() - plain.double()).abs().max()))
+    ms = time_ms(torch, lambda x: region_sum(x, None), xs)
+    plain_ms = time_ms(torch, lambda x: region_sum_plain(x, None), xs)
+    library_ms = time_ms(torch, lambda x: torch.sum(x), xs)
+    n = 10**6
+    b, by = bound_ms(4 * n + 4, n)
+    print(f"region_sum (100,100,100) f32 all axes: {ms:.5f} ms/launch ({100 * b / ms:.1f}% of bound), plain "
+          f"{plain_ms:.5f} ms, torch.sum {library_ms:.5f} ms, bound {b:.5f} ms ({by}); {smi_tag()}")
+    return [
+        dict(name="fma_sum_blocks_f32", route="cuda", source="cubed_tpu_torch/kernels/csrc/fma_sum.cu",
+             replaces="cubed_tpu/kernels/reductions.py:257 (fused_fma_mean; pallas_call :300) at 0cd9f84^",
+             max_abs_err=fma_err, ms=fma_ms, plain_ms=fma_plain_ms, bound_ms=fma_b, bound_by=fma_by,
+             library_ms=None),
+        dict(name="region_sum_f32", route="cuda", source="cubed_tpu_torch/kernels/csrc/region_sum.cu",
+             replaces="cubed_tpu/kernels/reductions.py:192 (region_sum; block_sum :84) at 0cd9f84^",
+             max_abs_err=region_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms),
+    ]
+
+
 def main_path_views(bases) -> list:
     """Eight sets of four (100, 100, 100) block views of the four bases."""
     return [tuple(base[i * 100:(i + 1) * 100, j * 100:(j + 1) * 100, 0:100] for base in bases)
@@ -1101,14 +1344,18 @@ def stores_with_chunks(work_dir: str) -> set:
 
 def run_main_path(torch, name: str, executor_name: str, build, expected,
                   counts_required: dict, executor=None, seed: int = SEED, spill: bool = False,
-                  allowed_mem: str = "2GB") -> dict:
+                  allowed_mem: str = "2GB", rtol: float = 1e-12, fallbacks: int = 0) -> dict:
     """Compute one configuration on one executor ("sequential" or "cuda",
     then *executor* or a new ``CudaExecutor``) under *allowed_mem*, check it
     against the oracle's *expected* value (a float, or an array compared
-    element by element) within rtol 1e-12, and the kernel launch counts (a key
+    element by element) within *rtol* (an *expected* of the form
+    ``{"expected": value, "also": [(label, value, rtol), ...]}`` adds more
+    oracles, each with its own tolerance), and the kernel launch counts (a key
     ``kernel:path`` bounds the launches of one path, ``stats: counter`` one
     of the device executor's counters); for the device executor also its
-    fallback counters and, unless *spill* (a budget that spills arrays to
+    fallback counters (*fallbacks* of ``batched_errors`` and
+    ``eager_fallbacks`` where a budget below one array is asked for, else
+    none) and, unless *spill* (a budget that spills arrays to
     storage, asked for), its peak memory (reserved, graph pools included)
     against its budget and that only the output reached storage."""
     import cubed_tpu_torch
@@ -1142,6 +1389,10 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
     shutil.rmtree(work, ignore_errors=True)
 
     label = f"{name} [{executor_name}, seed {seed}]"
+    also = []
+    if isinstance(expected, dict):
+        expected, also = expected["expected"], expected["also"]
+    check(np.asarray(value).dtype == np.float64, f"{label}: result dtype {np.asarray(value).dtype}, declared float64")
     value = np.asarray(value, dtype=np.float64)
     check(value.shape == np.shape(expected), f"{label}: shape {value.shape}, expected {np.shape(expected)}")
     rel = float(np.max(np.abs(value - expected) / np.abs(expected))) if value.size else 0.0
@@ -1153,7 +1404,11 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
           f"max_memory_reserved {peak_reserved} B, cached graphs {_GRAPHS.nbytes(torch.device('cuda', 0))} B")
     print(f"{label}: launches {json.dumps(launches)}; paths {json.dumps(paths)}")
     check(bool(np.all(np.isfinite(value))), f"{label}: value is not finite")
-    check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
+    check(rel <= rtol, f"{label}: value differs from the numpy oracle beyond rtol {rtol}")
+    for what, other, other_rtol in also:
+        other_rel = float(np.max(np.abs(value - other) / np.abs(other)))
+        print(f"{label}: {what} {float(np.mean(other))!r}, rel err {other_rel:.3e} (limit {other_rtol:.3e})")
+        check(other_rel <= other_rtol, f"{label}: value differs from the {what} beyond rtol {other_rtol}")
     stats = dict(sorted(executor.stats.items())) if executor is not None else {}
     for key, (lo, hi) in counts_required.items():
         kname, _, sub = key.partition(":")
@@ -1163,7 +1418,8 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
         budget = executor._budget(spec, torch.device("cuda"))
         print(f"{label}: executor stats {json.dumps(stats)}; residency budget {budget} B")
         for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
-            check(stats.get(counter, 0) == 0, f"{label}: {counter} = {stats.get(counter)}")
+            want = fallbacks if counter in ("eager_fallbacks", "batched_errors") else 0
+            check(stats.get(counter, 0) == want, f"{label}: {counter} = {stats.get(counter)}, expected {want}")
         output_store = os.path.normpath(result.zarray_maybe_lazy.store)
         if spill:
             check(len(stored) > 1, f"{label}: nothing spilled to storage under a budget of {budget} B")
@@ -1414,11 +1670,11 @@ def check_path_kernels(torch, name: str, calls: dict) -> None:
         before = philox_uniform.launches
         philox_uniform_blocks(out, chunks, keys)
         launched = philox_uniform.launches - before
-        plain = philox_uniform_blocks_plain(lay[0], chunks, keys, device="cuda")
-        what = f"{name}: philox_uniform_blocks at the path's {lay[0]} in blocks of {chunks}"
+        plain = philox_uniform_blocks_plain(lay[0], chunks, keys, device="cuda", dtype=lay[5])
+        what = f"{name}: philox_uniform_blocks at the path's {lay[0]} {lay[5]} in blocks of {chunks}"
         check(launched == 1, f"{what}: {launched} launches")
-        check(torch.equal(out.contiguous().view(torch.int64), plain.view(torch.int64)),
-              f"{what}: differs from the plain version")
+        bits = torch.int32 if lay[5] == torch.float32 else torch.int64
+        check(torch.equal(out.contiguous().view(bits), plain.view(bits)), f"{what}: differs from the plain version")
         thunks.append(lambda out=out, chunks=chunks, keys=keys: philox_uniform_blocks(out, chunks, keys))
     print(f"{name}: philox_uniform_blocks at the run's {len(thunks)} layouts: one launch each, bit for bit "
           f"the plain version")
@@ -1427,7 +1683,7 @@ def check_path_kernels(torch, name: str, calls: dict) -> None:
     bases.clear()
 
 
-def run_baseline_configs(torch) -> dict:
+def run_baseline_configs(torch, layouts: dict) -> dict:
     """BASELINE configs 2-4 on both executors against numpy oracles (the
     same per-block Philox streams), then config 5's rechunk under three
     budgets: each plan's copy ops against the planner's (1 direct, 3
@@ -1438,8 +1694,9 @@ def run_baseline_configs(torch) -> dict:
     rechunk copy op an alias and no intermediate store written. Each
     device run's region_sum and batched Philox launches are recorded, then
     held against their plain versions at the layouts the run gave them
-    (:func:`check_recorded_layouts`). Returns each run's result by name."""
-    out, layouts = {}, {}
+    (:func:`check_recorded_layouts`), with those already in *layouts*.
+    Returns each run's result by name."""
+    out = {}
     for name, build, oracle, seq_required, dev_required, footprint in (
         ("elemwise", elemwise_build, elemwise_oracle,
          {"philox_uniform": (72, 72), "philox_uniform:batched": (0, 0), "region_sum": (71, 71)},
@@ -1518,17 +1775,17 @@ SPILL_DEVICE_MEM = 2 * 200 * 180 * 160 * 8 + 1_000_000
 
 
 def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int,
-                       **kw) -> list:
-    """Compute one configuration on one ``CudaExecutor`` once per seed: the
-    first compute runs its segment op by op (a first sighting of its
-    structural key), the second captures it and replays it
+                       executor_options=None, **kw) -> list:
+    """Compute one configuration on one ``CudaExecutor(**executor_options)``
+    once per seed: the first compute runs its segment op by op (a first
+    sighting of its structural key), the second captures it and replays it
     (``segments_compiled`` 1), the others replay it (``segment_struct_hits``
     1). Each value is held against its oracle; each compute against
     *required*, and from the second on the graph's pool against
     *footprint* bytes."""
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
-    ex = CudaExecutor()
+    ex = CudaExecutor(**(executor_options or {}))
     runs = []
     for i, seed in enumerate(seeds):
         random.seed(seed)
@@ -1544,6 +1801,239 @@ def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, f
           f"{secs[1]:.4f} s (second: capture, then replay), warm {' / '.join(f'{w:.4f}' for w in secs[2:])} s "
           f"(replays); {smi_tag()}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 4, bench.py's other workloads: vorticity_f32, matmul_bf16,
+# addsum_scaled (bench.py:64-76, :117-128)
+# ---------------------------------------------------------------------------
+
+#: bench.py's addsum_scaled: sum(a + b) over 16000^2 float64 in 2000^2 chunks
+ADDSUM_SCALED = dict(shape=(16000, 16000), chunks=2000)
+#: a budget below one (200, 180, 160) float32 array (23,040,000 B): the random
+#: ops fail the batched route's budget check and run block by block, through
+#: the per-block float32 Philox entry point
+F32_SPILL_DEVICE_MEM = 20_000_000
+#: the smaller matmul plan each precision mode runs on: (1000, 1000) / 250
+MODES_MATMUL = dict(shape=(1000, 1000), chunks=250)
+#: the per-block product's modes run on the card beside matmul_bf16's
+#: "bfloat16", with the tensor-core peak of each (NVIDIA H100 SXM data sheet,
+#: dense) for its GEMM bound; "float32" runs outside the tensor cores
+PRECISION_PEAKS = {"float32": 67e12, "tensorfloat32": 495e12, "bfloat16": 989e12, "bfloat16_3x": 989e12}
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def f32_bound(k: int, nblocks: int, ops: int) -> float:
+    """The reference's documented float32 error bound (JaxExecutor's
+    docstring), relative, for a sum of k positive terms in nblocks chunks
+    each made by *ops* elementwise ops: (ops + log2(k) + chunks) * eps."""
+    return (ops + np.log2(k) + nblocks) * F32_EPS
+
+
+def bf16_round(x32: np.ndarray) -> np.ndarray:
+    """float32 *x32* rounded to bf16 (to nearest even), held in float32."""
+    bits = np.ascontiguousarray(x32, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def tf32_round(x32: np.ndarray) -> np.ndarray:
+    """float32 *x32* rounded to TF32's 10-bit mantissa (to nearest even)."""
+    bits = np.ascontiguousarray(x32, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x0FFF + ((bits >> 13) & 1)) & 0xFFFFE000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def mode_model(a64: np.ndarray, b64: np.ndarray, mode: str) -> np.ndarray:
+    """The exact model of a precision mode on float64 sources narrowed to
+    float32: the operands rounded as the mode says, the products summed in
+    float64."""
+    a, b = a64.astype(np.float32), b64.astype(np.float32)
+    if mode == "tensorfloat32":
+        return tf32_round(a).astype(np.float64) @ tf32_round(b).astype(np.float64)
+    if mode == "bfloat16":
+        return bf16_round(a).astype(np.float64) @ bf16_round(b).astype(np.float64)
+    if mode == "bfloat16_3x":
+        ah, bh = bf16_round(a), bf16_round(b)
+        al, bl = bf16_round(a - ah).astype(np.float64), bf16_round(b - bh).astype(np.float64)
+        ah, bh = ah.astype(np.float64), bh.astype(np.float64)
+        return ah @ bh + ah @ bl + al @ bh
+    return a.astype(np.float64) @ b.astype(np.float64)
+
+
+def vorticity_f32_oracle(config=VORTICITY) -> dict:
+    """vorticity under compute_dtype="float32": numpy's emulation of it (each
+    block's float64 stream rounded to float32, the products and their sum in
+    float32, the mean taken in float64) at rtol 1e-6; and the float64 oracle
+    within the reference's float32 bound."""
+    shape, chunks = config["shape"], config["chunks"]
+    a, b, x, y = [oracle_random(shape, chunks, random.getrandbits(30)) for _ in range(4)]
+    exact = float(np.mean(a[1:] * x[1:] + b[1:] * y[1:]))
+    a, b, x, y = [t.astype(np.float32) for t in (a, b, x, y)]
+    emulated = float(np.mean(a[1:] * x[1:] + b[1:] * y[1:], dtype=np.float64))
+    k = int(np.prod(a[1:].shape))
+    nblocks = int(np.prod([-(-n // chunks) for n in shape]))
+    return {"expected": emulated,
+            "also": [("float64 oracle (the reference's float32 bound)", exact, f32_bound(k, nblocks, 3))]}
+
+
+def matmul_bf16_oracle() -> dict:
+    """matmul_bf16: numpy's product of the bf16-rounded float32 operands (in
+    float64) at rtol 1e-5; the exact float64 value at rtol 2e-2, the
+    reference test's bound (tests/test_plan_fusion.py:516-533)."""
+    a, b = [oracle_random(MATMUL["shape"], MATMUL["chunks"], random.getrandbits(30)) for _ in range(2)]
+    exact = float(np.sum(a @ b))
+    return {"expected": float(np.sum(mode_model(a, b, "bfloat16"))),
+            "also": [("exact float64 value", exact, 2e-2)]}
+
+
+def addsum_scaled_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    shape, chunks = ADDSUM_SCALED["shape"], ADDSUM_SCALED["chunks"]
+    a = cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec)
+    b = cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec)
+    return xp.sum(xp.add(a, b))
+
+
+def addsum_scaled_oracle() -> float:
+    shape, chunks = ADDSUM_SCALED["shape"], ADDSUM_SCALED["chunks"]
+    total = 0.0
+    for _ in range(2):
+        total += float(np.sum(oracle_random(shape, chunks, random.getrandbits(30))))
+    return total
+
+
+def modes_matmul_build(spec):
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    a, b = [cubed_tpu_torch.random.random(MODES_MATMUL["shape"], chunks=MODES_MATMUL["chunks"], spec=spec)
+            for _ in range(2)]
+    return xp.matmul(a, b)
+
+
+GEMM_NAME_PIECES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def check_matmul_modes(torch) -> None:
+    """Each float32 precision mode on a (1000, 1000) / 250 matmul plan on the
+    card (``CudaExecutor(compute_dtype="float32", matmul_precision=mode)``),
+    element by element against its exact model at rtol 1e-5, with the GEMM
+    kernels torch.profiler records for it; then one (1000, 1000) product per
+    mode timed beside its GEMM bound at the mode's peak."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch import contraction
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    random.seed(SEED + 7)
+    a, b = [oracle_random(MODES_MATMUL["shape"], MODES_MATMUL["chunks"], random.getrandbits(30)) for _ in range(2)]
+    switches = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    for mode in PRECISION_PEAKS:
+        random.seed(SEED + 7)
+        spec = cubed_tpu_torch.Spec(work_dir=os.path.join(WORK_DIR, f"modes-{mode}"), allowed_mem="2GB")
+        x = modes_matmul_build(spec)
+        ex = CudaExecutor(compute_dtype="float32", matmul_precision=mode)
+        out = {}
+        kernels = kernel_launches_by_name(torch, lambda: out.setdefault("v", x.compute(executor=ex)))
+        got = out["v"]
+        check(got.dtype == np.float64, f"matmul {mode}: result dtype {got.dtype}")
+        model = mode_model(a, b, mode)
+        rel = float(np.max(np.abs(got - model) / np.abs(model)))
+        exact_rel = float(np.max(np.abs(got - a @ b) / np.abs(a @ b)))
+        gemms = {k: n for k, n in kernels.items() if any(piece in k for piece in GEMM_NAME_PIECES)}
+        print(f"matmul_precision={mode!r} (1000,1000)/250 [cuda, compute_dtype float32]: max rel err {rel:.3e} "
+              f"against the mode's model, {exact_rel:.3e} against float64; stats {json.dumps(dict(ex.stats))}")
+        print(f"matmul_precision={mode!r}: GEMM kernels recorded: {json.dumps(gemms)}")
+        check(rel <= 1e-5, f"matmul {mode}: beyond rtol 1e-5 of the mode's model")
+        check(bool(gemms), f"matmul {mode}: no GEMM kernel recorded")
+        check(ex.stats["eager_fallbacks"] == 0, f"matmul {mode}: a fallback")
+        shutil.rmtree(spec.work_dir, ignore_errors=True)
+    check((torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == switches,
+          "a process-global matmul switch changed")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    pairs = [(torch.rand((1000, 1000), generator=gen, device=dev), torch.rand((1000, 1000), generator=gen, device=dev))
+             for _ in range(4)]
+    for mode, peak in PRECISION_PEAKS.items():
+        def product(x, y, mode=mode):
+            with contraction.precision(mode):
+                return contraction.matmul(x, y)
+
+        ms = time_ms(torch, product, pairs)
+        plain_ms = time_ms(torch, lambda x, y, mode=mode: contraction.matmul_plain(x, y, mode)
+                           if mode in contraction.REDUCED else torch.matmul(x, y), pairs)
+        passes = 3 if mode == "bfloat16_3x" else 1
+        b, by = bound_ms(3 * 4e6 * 4, passes * 2e9, peak)
+        print(f"per-block product (1000,1000) f32 at {mode!r}: {ms:.5f} ms ({100 * b / ms:.1f}% of its bound), "
+              f"plain version {plain_ms:.5f} ms, bound {b:.5f} ms ({by}: {passes} x 2 GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s); {smi_tag()}")
+
+
+def run_bench_cells(torch, layouts: dict) -> dict:
+    """bench.py's three workloads the BASELINE configs leave out, at its
+    sizes: vorticity_f32 (config 5's plan on ``CudaExecutor(compute_dtype=
+    "float32")``: cold, capturing, warm, each against the float32-emulating
+    oracle at rtol 1e-6 and the float64 oracle within the reference's float32
+    bound; then cut to (200, 180, 160) / 40 under a budget below one float32
+    array, where the random ops run block by block through the per-block
+    float32 Philox entry point); matmul_bf16 (config 4's plan with
+    ``matmul_precision="bfloat16"`` too, against numpy's product of the
+    bf16-rounded operands at rtol 1e-5 and the exact value at 2e-2); and
+    addsum_scaled (``sum(a + b)`` at (16000, 16000) / 2000 float64, both
+    executors, rtol 1e-12). Device runs record their region_sum and batched
+    Philox layouts into *layouts*."""
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    out = {}
+    f32 = {"compute_dtype": "float32"}
+    with recorded_kernel_calls(torch) as layouts["vorticity_f32"]:
+        out["vorticity_f32"] = run_device_repeats(torch, "vorticity_f32", vorticity_build, vorticity_f32_oracle, {
+            "philox_uniform": (4, 4), "philox_uniform:batched_f32": (4, 4), "philox_uniform:block": (0, 0),
+            "region_sum": (1, 10**9), "region_sum:float32": (1, 10**9), "fma_sum_blocks": (1, 1),
+            "fma_sum_blocks:float32": (1, 1), "stats:batched_ops": (5, 5), "stats:chunked_ops": (3, 3),
+            "stats:eager_ops": (1, 1), "stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)},
+            seeds=(SEED, SEED + 1, SEED + 2), footprint=4 * 4 * int(np.prod(VORTICITY["shape"])),
+            executor_options=f32, rtol=1e-6)
+    random.seed(SEED)
+    out["vorticity_f32-spill"] = run_main_path(
+        torch, "vorticity_f32-spill", "cuda", lambda spec: vorticity_build(spec, SPILL),
+        vorticity_f32_oracle(SPILL), {
+            "philox_uniform:block_f32": (400, 400), "philox_uniform:batched": (0, 0),
+            "fma_sum_blocks": (100, 100), "fma_sum_blocks:float32": (100, 100),
+            "stats:segment_mem_aborts": (1, 1), "stats:segments_traced": (0, 0)},
+        executor=CudaExecutor(device_mem=F32_SPILL_DEVICE_MEM, **f32), spill=True, rtol=1e-6, fallbacks=4)
+    with recorded_kernel_calls(torch) as layouts["matmul_bf16"]:
+        out["matmul_bf16"] = run_device_repeats(torch, "matmul_bf16", matmul_build, matmul_bf16_oracle, {
+            "philox_uniform": (2, 2), "philox_uniform:batched_f32": (2, 2), "region_sum": (1, 10**9),
+            "region_sum:float32": (1, 10**9), "fma_sum_blocks": (0, 0), "stats:batched_ops": (4, 4),
+            "stats:chunked_ops": (3, 3), "stats:eager_ops": (1, 1), "stats:segments_traced": (1, 1),
+            "stats:segment_mem_aborts": (0, 0)},
+            seeds=(SEED, SEED + 1, SEED + 2), footprint=2 * 4 * int(np.prod(MATMUL["shape"])),
+            executor_options=dict(f32, matmul_precision="bfloat16"), rtol=1e-5)
+    random.seed(SEED)
+    t = time.perf_counter()
+    expected = addsum_scaled_oracle()
+    print(f"addsum_scaled: numpy oracle {time.perf_counter() - t:.1f} s")
+    seq = run_main_path(torch, "addsum_scaled", "sequential", addsum_scaled_build, expected, {
+        "philox_uniform": (128, 128), "philox_uniform:batched": (0, 0), "region_sum": (64, 10**9),
+        "fma_sum_blocks": (0, 0)})
+    with recorded_kernel_calls(torch) as layouts["addsum_scaled"]:
+        dev = run_main_path(torch, "addsum_scaled", "cuda", addsum_scaled_build, expected, {
+            "philox_uniform": (2, 2), "philox_uniform:batched": (2, 2), "region_sum": (2, 10**9),
+            "fma_sum_blocks": (0, 0), "stats:batched_ops": (1, 1), "stats:eager_ops": (1, 1),
+            "stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)})
+    out["addsum_scaled"] = {"sequential": seq, "cuda": dev}
+    for name in ("vorticity_f32", "matmul_bf16"):
+        secs = [r["seconds"] for r in out[name]]
+        print(f"{name} [cuda]: compute() cold {secs[0]:.4f} s, capturing {secs[1]:.4f} s, warm {secs[2]:.4f} s; "
+              f"launches {json.dumps(out[name][0]['launches'])}, paths {json.dumps(out[name][0]['paths'])}; "
+              f"max_memory_reserved {out[name][0]['peak_reserved']} B; {smi_tag()}")
+    print(f"addsum_scaled: compute() sequential {seq['seconds']:.3f} s, cuda {dev['seconds']:.4f} s (cold); "
+          f"device launches {json.dumps(dev['launches'])}; max_memory_reserved {dev['peak_reserved']} B; "
+          f"{smi_tag()}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1818,6 +2308,8 @@ def main(argv: list) -> int:
         kernels = [check_philox(torch, rounds_lib), check_region_sum(torch), check_fma_sum_blocks(torch)]
         check_fma_one_block(torch)
         check_batched_rules(torch, kernels[0]["slots"])
+        kernels_f32 = check_philox_f32(torch, kernels[0]["slots"], kernels[0]["sass"]) + check_f32_routes(torch)
+        check_matmul_modes(torch)
         if against:
             compare_against(torch, against)
 
@@ -1863,11 +2355,26 @@ def main(argv: list) -> int:
                 "fma_sum_blocks": (100, 100), "stats:segment_mem_aborts": (1, 1),
                 "stats:segments_traced": (0, 0)},
             executor=CudaExecutor(device_mem=SPILL_DEVICE_MEM), spill=True)
-        baseline = run_baseline_configs(torch)
+        layouts: dict = {}
+        bench = run_bench_cells(torch, layouts)
+        baseline = run_baseline_configs(torch, layouts)
         # the kernels line: each kernel's launches in the run of its path
-        # (vorticity's first device compute)
+        # (vorticity's first device compute; for the float32 entry points
+        # and routes vorticity_f32's, and its spilled run's for the per-block
+        # float32 Philox entry point)
         for k in kernels:
             k["launches"] = runs[0]["launches"][k["name"]]
+        f32_paths = bench["vorticity_f32"][0]["paths"]
+        f32_launches = {
+            "philox_uniform_f32": bench["vorticity_f32-spill"]["paths"]["philox_uniform"].get("block_f32", 0),
+            "philox_uniform_blocks_f32": f32_paths["philox_uniform"].get("batched_f32", 0),
+            "fma_sum_blocks_f32": f32_paths["fma_sum_blocks"].get("float32", 0),
+            "region_sum_f32": f32_paths["region_sum"].get("float32", 0),
+        }
+        for k in kernels_f32:
+            k["launches"] = f32_launches[k["name"]]
+            check(k["launches"] > 0, f"{k['name']}: no launch on its path")
+        kernels += kernels_f32
         print("launches by run [cuda, first compute]: " + "; ".join(
             f"{name} {json.dumps(r['cuda'][0]['launches'])}" for name, r in baseline.items()))
         print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "

@@ -5,9 +5,11 @@ Counterpart of ``cubed_tpu/array_api/linear_algebra_functions.py``, with the
 same plans. ``matmul`` and ``tensordot`` are blockwise contractions that keep
 each contracted axis as a size-1 axis of one block per contracted block,
 then sum it away with the port's ``sum`` machinery (``nxp.sum``, so the
-region-sum kernel on the card). The per-block product is ``torch.matmul``
-/ ``torch.tensordot`` (cuBLAS on the card), as the JAX package's is
-``jnp.matmul``, outside any Pallas kernel.
+region-sum kernel on the card). The per-block product is ``nxp.matmul`` /
+``nxp.tensordot`` (cuBLAS on the card, through torch), as the JAX package's
+is ``jnp.matmul``, outside any Pallas kernel; a float32 product runs at the
+device executor's ``matmul_precision`` (``cubed_tpu_torch/contraction.py``),
+on the batched route too.
 """
 
 from __future__ import annotations

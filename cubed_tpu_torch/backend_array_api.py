@@ -16,10 +16,23 @@ dtype goes to ``torch.sum`` and, on the card, counts in ``TORCH_SUM_CALLS``.
 Every function here runs under ``torch.func.vmap`` (the device executor's
 batched route): the region sum and ``sqrt`` (numpy on the CPU) are custom
 ops with batching rules, and a scalar ``asarray`` is filled on the device.
+
+**The narrowing scope** (:func:`narrowing`, entered by the device executor
+under ``compute_dtype="float32"`` for the whole DAG): inside it, float64
+chunks are float32 and complex128 chunks complex64, wherever a dtype is
+named (:func:`to_torch_dtype`) or a host array crosses to the device
+(:func:`numpy_array_to_backend_array`). It is the counterpart of the JAX
+package's ``jax.enable_x64(False)`` and, like it, local to the thread (a
+``contextvars.ContextVar``). Integer and bool dtypes stay as they are:
+the reference's x64-off also narrows int64 to int32, and so loses integer
+data the port keeps exact. The per-block product's precision has a scope
+of its own (``contraction.precision``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 import types
 import warnings
@@ -27,6 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import contraction
 
 DEVICE_ENV_VAR = "CUBED_TPU_TORCH_DEVICE"
 
@@ -74,10 +89,55 @@ def get_device() -> torch.device:
     return dev
 
 
+_NARROW: contextvars.ContextVar = contextvars.ContextVar("cubed_tpu_torch_narrowing", default=False)
+
+#: what the narrowing scope makes of each wide floating dtype
+_NARROWED = {
+    np.dtype(np.float64): np.dtype(np.float32),
+    np.dtype(np.complex128): np.dtype(np.complex64),
+}
+
+
+@contextlib.contextmanager
+def narrowing(enabled: bool = True):
+    """Within this block (this thread or task only), float64 chunks are
+    float32 and complex128 chunks complex64 (see the module docstring); the
+    previous scope is restored on every exit."""
+    token = _NARROW.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _NARROW.reset(token)
+
+
+def narrowed() -> bool:
+    """Whether the narrowing scope is in force."""
+    return _NARROW.get()
+
+
+def compute_numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype a chunk of *dtype* has under the current scope (a
+    structured dtype field by field)."""
+    dt = np.dtype(dtype)
+    if not _NARROW.get():
+        return dt
+    if dt.fields is not None:
+        return np.dtype([(name, compute_numpy_dtype(dt.fields[name][0])) for name in dt.names])
+    return _NARROWED.get(dt, dt)
+
+
+_TORCH_NARROWED = {_NP_TO_TORCH[wide]: _NP_TO_TORCH[narrow] for wide, narrow in _NARROWED.items()}
+
+
+def _narrow(dt: torch.dtype) -> torch.dtype:
+    """*dt* as a chunk holds it under the current scope."""
+    return _TORCH_NARROWED.get(dt, dt) if _NARROW.get() else dt
+
+
 def to_torch_dtype(dtype) -> torch.dtype:
     dt = np.dtype(dtype)
     try:
-        return _NP_TO_TORCH[dt]
+        return _narrow(_NP_TO_TORCH[dt])
     except KeyError:
         raise TypeError(f"dtype {dt} is not supported by cubed_tpu_torch") from None
 
@@ -128,11 +188,13 @@ def numpy_array_to_backend_array(arr):
     if a.dtype.fields is not None:
         return {k: numpy_array_to_backend_array(np.ascontiguousarray(a[k])) for k in a.dtype.names}
     a = _to_carrier(a)
+    narrow = _NARROWED.get(a.dtype) if _NARROW.get() else None
     dev = get_device()
     if a.ndim and a.size > 1 and all(s == 0 for s in a.strides):
-        one = torch.from_numpy(a.reshape(-1)[:1].copy()).reshape(())
+        one = torch.from_numpy(a.reshape(-1)[:1].astype(narrow or a.dtype)).reshape(())
         return one.to(dev).expand(a.shape)
-    a = np.ascontiguousarray(a)
+    # under the narrowing scope rounded on the host, so half the bytes cross
+    a = np.ascontiguousarray(a, dtype=narrow)
     if dev.type == "cpu":
         return torch.from_numpy(a if a.flags.writeable else a.copy())
     with warnings.catch_warnings():
@@ -197,15 +259,15 @@ def _asarray(obj, dtype=None, device=None):
     else:
         a = np.asarray(obj, dtype=dtype)
         t = torch.from_numpy(np.ascontiguousarray(a))
-    dt = to_torch_dtype(dtype) if dtype is not None else t.dtype
+    dt = to_torch_dtype(dtype) if dtype is not None else _narrow(t.dtype)
     return t.to(device=dev, dtype=dt)
 
 
 def _divide(a, b):
     # true division of two integer tensors is float64, as in numpy (torch
-    # would give its float32 default)
+    # would give its float32 default); float32 under the narrowing scope
     if not (a.is_floating_point() or a.is_complex() or b.is_floating_point() or b.is_complex()):
-        a = a.to(torch.float64)
+        a = a.to(to_torch_dtype(np.float64))
     return torch.true_divide(a, b)
 
 
@@ -269,12 +331,6 @@ def _expand_dims(x, axis=0):
     return x
 
 
-def _tensordot(a, b, axes=2):
-    if isinstance(axes, (int, np.integer)):
-        return torch.tensordot(a, b, dims=int(axes))
-    return torch.tensordot(a, b, dims=([int(d) for d in axes[0]], [int(d) for d in axes[1]]))
-
-
 nxp = types.SimpleNamespace(
     # elementwise, one torch call each
     abs=torch.abs,
@@ -313,9 +369,9 @@ nxp = types.SimpleNamespace(
     min=_min,
     expand_dims=_expand_dims,
     permute_dims=torch.permute,
-    # linear algebra: torch's own (cuBLAS on the card)
-    matmul=torch.matmul,
-    tensordot=_tensordot,
+    # linear algebra: cuBLAS on the card, at the precision scope's mode
+    matmul=contraction.matmul,
+    tensordot=contraction.tensordot,
     einsum=torch.einsum,
     conj=torch.conj_physical,
 )

@@ -418,11 +418,11 @@ def blocks_fit(shape) -> bool:
 
 
 def blocks_plan(shape, strides, chunks, ptr: int, sms: int = SMS,
-                ctas_per_sm: int = PHILOX_CTAS_PER_SM) -> BlocksPlan:
+                ctas_per_sm: int = PHILOX_CTAS_PER_SM, itemsize: int = 8) -> BlocksPlan:
     """The geometry of one ``philox_uniform_blocks`` launch filling the
-    float64 array of *shape* and *strides* (elements) at address *ptr*,
-    blocked by the regular *chunks*. Raises ValueError past four axes or
-    when an offset does not fit 32 bits."""
+    float64 (*itemsize* 8) or float32 (4) array of *shape* and *strides*
+    (elements) at address *ptr*, blocked by the regular *chunks*. Raises
+    ValueError past four axes or when an offset does not fit 32 bits."""
     ndim = len(shape)
     if ndim > MAX_DIMS or len(chunks) != ndim or len(strides) != ndim:
         raise ValueError(f"philox_uniform_blocks takes rank {MAX_DIMS} or less with a chunk and a "
@@ -456,7 +456,10 @@ def blocks_plan(shape, strides, chunks, ptr: int, sms: int = SMS,
         raise ValueError(f"philox_uniform_blocks indexes in 32 bits: shape {shape[pad:]} with strides "
                          f"{strides[pad:]} reaches element offset {reach}, past {INDEX_LIMIT}")
     # 16-byte stores: a counter's four words in one row, 16-byte aligned
-    aligned = ptr % 16 == 0 and (shape[-1] == 1 or strides[-1] == 1) and all(st % 2 == 0 for st in strides[:-1])
+    # (two double2 stores, or one float4): every row and block origin a
+    # multiple of `per16` elements from a 16-byte aligned address
+    per16 = 16 // itemsize
+    aligned = ptr % 16 == 0 and (shape[-1] == 1 or strides[-1] == 1) and all(st % per16 == 0 for st in strides[:-1])
     return BlocksPlan(
         strides=strides,
         chunks=tuple(_div(c) for c in chunks),
@@ -466,7 +469,7 @@ def blocks_plan(shape, strides, chunks, ptr: int, sms: int = SMS,
         items=items,
         grid=min(items, max(1, ctas_per_sm) * sms),
         vector_full=aligned and chunks[-1] % 4 == 0,
-        vector_edge=aligned and edges[-1] % 4 == 0 and (nb[-1] - 1) * chunks[-1] % 2 == 0,
+        vector_edge=aligned and edges[-1] % 4 == 0 and (nb[-1] - 1) * chunks[-1] % per16 == 0,
     )
 
 

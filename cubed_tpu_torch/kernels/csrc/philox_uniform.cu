@@ -1,4 +1,5 @@
-// K1: philox_uniform -- numpy's Philox4x64-10 uniform float64 stream, on the card.
+// K1: philox_uniform -- numpy's Philox4x64-10 uniform float64 stream, on the card,
+// as float64 or rounded to float32.
 //
 // Replaces the host-side block generation of the JAX package's
 // random.py:_random_block (:217) / _philox_block (:137), which draw
@@ -10,12 +11,18 @@
 // IMAD.WIDE instructions (two issue slots each), 164-178 FMA-pipe slots a
 // counter against 91-108 on the ALU pipe, by build (SASS, sm_90a). At 64
 // lanes per clock per SM that is a little above the 8 bytes written per
-// element at 3.35 TB/s.
+// element at 3.35 TB/s (4 bytes in float32: the integer floor bounds it still).
 //
-// Two entry points:
-//   - philox_uniform_f64: one block, one counter per thread (the sequential
+// Both kernels are templates on the output type. A float32 element is the
+// float64 element rounded to the nearest float32 (__double2float_rn): the
+// JAX package's float32 block under compute_dtype="float32", which casts its
+// float64 draw. Where the float64 path stores a counter's four words as two
+// 16-byte stores, the float32 path stores them as one (float4).
+//
+// Two kernels, each with an entry point per output type (_f64, _f32):
+//   - philox_uniform_f64/_f32: one block, one counter per thread (the sequential
 //     executor's tasks and fused random ops call it block by block);
-//   - philox_uniform_blocks_f64: every block of a random op in one launch,
+//   - philox_uniform_blocks_f64/_f32: every block of a random op in one launch,
 //     written in place into the assembled output. A persistent grid (as many
 //     CTAs as fit, from the occupancy that the register count allows) strides
 //     over work items (block, tile of kThreads * kCounters counters); each
@@ -25,7 +32,7 @@
 //     (32-bit fast division; a ragged edge block's extent is
 //     min(chunk, dim - origin)) and placed through the output's strides;
 //     where a block's rows allow it (last extent a multiple of 4, 16-byte
-//     aligned) a counter's four words go out as two 16-byte stores. Geometry
+//     aligned) a counter's four words go out as 16-byte stores. Geometry
 //     and the vector-or-scalar choice: kernels/_geometry.py:blocks_plan.
 //     Three CTAs of 256 fit an SM (at most 80 registers a thread, no spills
 //     at four counters); the rounds keep the FMA pipe busy, and the stores
@@ -47,7 +54,33 @@ constexpr int kDims = 4;
 constexpr int kThreads = 256;  // _geometry.PHILOX_THREADS
 constexpr int kCounters = 4;   // counters a thread takes per work item (_geometry.PHILOX_COUNTERS)
 
-__global__ void philox_uniform_kernel(double* __restrict__ out, long long n,
+// A uniform of word u in the output type: the double, or it rounded to the
+// nearest float.
+template <typename T>
+__device__ __forceinline__ T value(unsigned long long u);
+
+template <>
+__device__ __forceinline__ double value<double>(unsigned long long u) {
+  return unit(u);
+}
+
+template <>
+__device__ __forceinline__ float value<float>(unsigned long long u) {
+  return __double2float_rn(unit(u));
+}
+
+// A counter's four values at o, 16-byte aligned: two double2 or one float4.
+__device__ __forceinline__ void store4(double* o, double v0, double v1, double v2, double v3) {
+  reinterpret_cast<double2*>(o)[0] = make_double2(v0, v1);
+  reinterpret_cast<double2*>(o)[1] = make_double2(v2, v3);
+}
+
+__device__ __forceinline__ void store4(float* o, float v0, float v1, float v2, float v3) {
+  *reinterpret_cast<float4*>(o) = make_float4(v0, v1, v2, v3);
+}
+
+template <typename T>
+__global__ void philox_uniform_kernel(T* __restrict__ out, long long n,
                                       unsigned long long key0,
                                       unsigned long long key1) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -55,13 +88,11 @@ __global__ void philox_uniform_kernel(double* __restrict__ out, long long n,
   if (base >= n) return;
   unsigned long long w[4];
   philox4x64_10((unsigned long long)i + 1ULL, key0, key1, w);
-  const double v0 = unit(w[0]), v1 = unit(w[1]), v2 = unit(w[2]), v3 = unit(w[3]);
+  const T v0 = value<T>(w[0]), v1 = value<T>(w[1]), v2 = value<T>(w[2]), v3 = value<T>(w[3]);
   if (base + 3 < n) {
     if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-      // two 16-byte stores per thread
-      double2* o = reinterpret_cast<double2*>(out + base);
-      o[0] = make_double2(v0, v1);
-      o[1] = make_double2(v2, v3);
+      // 16-byte stores: base is a multiple of 4 elements
+      store4(out + base, v0, v1, v2, v3);
     } else {
       out[base] = v0;
       out[base + 1] = v1;
@@ -136,8 +167,9 @@ __device__ __forceinline__ int local_offset(const Div (&ext)[kDims], const int (
   return off + e * stride[0];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-    philox_blocks_kernel(double* __restrict__ out, const ulonglong2* __restrict__ keys, const Blocks g) {
+    philox_blocks_kernel(T* __restrict__ out, const ulonglong2* __restrict__ keys, const Blocks g) {
   constexpr int kTile = kThreads * kCounters;
   for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
     const int b = quot(g.per_block, item);
@@ -172,49 +204,73 @@ __global__ void __launch_bounds__(kThreads, 3)
       if (c >= counters) break;
       if (vector) {
         // the four words lie in one row, 16-byte aligned
-        double2* o = reinterpret_cast<double2*>(out + base + local_offset(ext, g.stride, 4 * c));
-        o[0] = make_double2(unit(w[k][0]), unit(w[k][1]));
-        o[1] = make_double2(unit(w[k][2]), unit(w[k][3]));
+        store4(out + base + local_offset(ext, g.stride, 4 * c), value<T>(w[k][0]), value<T>(w[k][1]),
+               value<T>(w[k][2]), value<T>(w[k][3]));
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int e = 4 * c + j;
-          if (e < n) out[base + local_offset(ext, g.stride, e)] = unit(w[k][j]);
+          if (e < n) out[base + local_offset(ext, g.stride, e)] = value<T>(w[k][j]);
         }
       }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int philox_uniform_f64(void* out, long long n,
-                                  unsigned long long key0,
-                                  unsigned long long key1, int threads,
-                                  void* stream) {
+template <typename T>
+int launch_block(void* out, long long n, unsigned long long key0, unsigned long long key1, int threads,
+                 void* stream) {
   const long long counters = (n + 3) / 4;
   const long long blocks = (counters + threads - 1) / threads;
-  philox_uniform_kernel<<<(unsigned int)blocks, threads, 0,
-                          (cudaStream_t)stream>>>((double*)out, n, key0, key1);
+  philox_uniform_kernel<T><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>((T*)out, n, key0, key1);
   return (int)cudaGetLastError();
 }
 
-// CTAs of philox_blocks_kernel that fit on one SM at once (its registers
-// decide), or -1 on an error.
-extern "C" int philox_uniform_blocks_occupancy() {
+template <typename T>
+int occupancy() {
   int ctas = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, philox_blocks_kernel, kThreads, 0) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, philox_blocks_kernel<T>, kThreads, 0) != cudaSuccess) {
     return -1;
   }
   return ctas;
 }
 
-// out: the assembled float64 output; params: _geometry.BlocksPlan.params;
-// keys: the op's block keys on the card, two uint64 a block in C order of the
-// block grid (16-byte aligned); grid: persistent CTAs of kThreads threads.
+template <typename T>
+int launch_blocks(void* out, const long long* params, const void* keys, int grid, void* stream) {
+  const Blocks g = unpack(params);
+  philox_blocks_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>((T*)out, (const ulonglong2*)keys, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: a contiguous block of n elements; one counter per thread.
+extern "C" int philox_uniform_f64(void* out, long long n, unsigned long long key0, unsigned long long key1,
+                                  int threads, void* stream) {
+  return launch_block<double>(out, n, key0, key1, threads, stream);
+}
+
+extern "C" int philox_uniform_f32(void* out, long long n, unsigned long long key0, unsigned long long key1,
+                                  int threads, void* stream) {
+  return launch_block<float>(out, n, key0, key1, threads, stream);
+}
+
+// CTAs of philox_blocks_kernel that fit on one SM at once (its registers
+// decide), or -1 on an error.
+extern "C" int philox_uniform_blocks_occupancy_f64() { return occupancy<double>(); }
+
+extern "C" int philox_uniform_blocks_occupancy_f32() { return occupancy<float>(); }
+
+// out: the assembled output; params: _geometry.BlocksPlan.params (for the
+// output's element size); keys: the op's block keys on the card, two uint64
+// a block in C order of the block grid (16-byte aligned); grid: persistent
+// CTAs of kThreads threads.
 extern "C" int philox_uniform_blocks_f64(void* out, const long long* params, const void* keys, int grid,
                                          void* stream) {
-  const Blocks g = unpack(params);
-  philox_blocks_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((double*)out, (const ulonglong2*)keys, g);
-  return (int)cudaGetLastError();
+  return launch_blocks<double>(out, params, keys, grid, stream);
+}
+
+extern "C" int philox_uniform_blocks_f32(void* out, const long long* params, const void* keys, int grid,
+                                         void* stream) {
+  return launch_blocks<float>(out, params, keys, grid, stream);
 }

@@ -126,7 +126,7 @@ def fma_sum_blocks(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.T
         )
     _build.check(err, "fma_sum_blocks")
     fma_sum_blocks.launches += 1
-    for key in p.paths:
+    for key in p.paths + (("float32",) if a.dtype == torch.float32 else ()):
         fma_sum_blocks.paths[key] += 1
     return out
 
@@ -147,8 +147,10 @@ def _launch_plan(shape, strides, chunks, aligned, itemsize: int, sms: int):
 #: launches of the CUDA kernel (the plain version does not count)
 fma_sum_blocks.launches = 0
 #: launches by path: "vector" (16-byte loads) or "scalar"; "one_cta" (one
-#: work item a block) or "split" (a block's partials combined by its last CTA)
-fma_sum_blocks.paths = dict.fromkeys(("vector", "scalar", "one_cta", "split"), 0)
+#: work item a block) or "split" (a block's partials combined by its last CTA);
+#: "float32": of float32 inputs (the route under the device executor's
+#: compute_dtype="float32")
+fma_sum_blocks.paths = dict.fromkeys(("vector", "scalar", "one_cta", "split", "float32"), 0)
 
 
 _build.COUNTED.append(fma_sum_blocks)

@@ -1,4 +1,4 @@
-"""K1: uniform float64 blocks from numpy's Philox4x64-10 stream.
+"""K1: uniform float64 (or float32) blocks from numpy's Philox4x64-10 stream.
 
 Replaces the host-side block generation of the JAX package's
 ``random.py:_random_block`` (:217) and ``_philox_block`` (:137), which draw
@@ -9,6 +9,14 @@ bit on the card: element ``4*i + j`` of a block is word ``j`` of
 before its first use), and the double is ``(u >> 11) * 2**-53``. Keys are
 derived on the host from numpy's SeedSequence, all of an op's at once
 (:func:`philox_keys`).
+
+Each wrapper takes a float64 or a float32 output. A float32 element is the
+same double rounded to the nearest float32 (``__double2float_rn``): the
+reference's float32 block under ``compute_dtype="float32"``, which casts
+its float64 draw. Both kernels are templates on the output type, with an
+entry point per type (``philox_uniform_f64`` / ``_f32``,
+``philox_uniform_blocks_f64`` / ``_f32``); a float32 counter's four words go
+out as one 16-byte store where the address allows it.
 
 Two wrappers, one launch count:
 
@@ -36,12 +44,14 @@ Bound on the H100: integer issue on the FMA pipe. The card has no 64-bit
 multiplier, so a counter's twenty 64x64->128 products take 164-178 FMA-pipe
 issue slots, by build (IMAD.WIDE at two slots; counted from the SASS), which
 at 64 lanes per clock per SM is a little more time than the 8 bytes written
-per element at 3.35 TB/s.
+per element at 3.35 TB/s (4 bytes in float32: the integer floor still
+bounds it).
 
 :func:`philox_uniform_plain` is the same counter arithmetic in torch, in
-32-bit limbs held by int64 tensors (torch's uint64 arithmetic is incomplete);
-:func:`philox_uniform_blocks_plain` builds each block with it and writes it
-into place. The wrappers use them only for tensors on the CPU.
+32-bit limbs held by int64 tensors (torch's uint64 arithmetic is incomplete),
+rounded to float32 where asked; :func:`philox_uniform_blocks_plain` builds
+each block with it and writes it into place. The wrappers use them only for
+tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -69,6 +79,9 @@ ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
 _THREADS = 256
+
+#: output dtypes the kernels take, with their entry points' suffixes
+DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 
 # numpy's SeedSequence constants (numpy/random/bit_generator.pyx)
@@ -173,14 +186,15 @@ def philox_key(seed: int) -> tuple[int, int]:
 
 
 def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
-    """Fill contiguous float64 *out* with the Philox uniform stream of *key*.
+    """Fill contiguous float64 or float32 *out* with the Philox uniform stream
+    of *key*.
 
     A CUDA tensor goes to the kernel; a CPU tensor to the plain version.
     """
-    if out.dtype != torch.float64 or not out.is_contiguous():
-        raise ValueError("philox_uniform needs a contiguous float64 tensor")
+    if out.dtype not in DTYPES or not out.is_contiguous():
+        raise ValueError(f"philox_uniform needs a contiguous float64 or float32 tensor, not {out.dtype}")
     if out.device.type == "cpu":
-        out.copy_(philox_uniform_plain(out.numel(), key).reshape(out.shape))
+        out.copy_(philox_uniform_plain(out.numel(), key, dtype=out.dtype).reshape(out.shape))
         return out
     if out.device.type != "cuda":
         raise ValueError(f"philox_uniform: unsupported device {out.device}")
@@ -190,7 +204,7 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
     n = out.numel()
     if n == 0:
         return out
-    fn = _kernel()
+    fn = _kernel(DTYPES[out.dtype])
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with torch.cuda.device(out.device):
         err = fn(
@@ -201,6 +215,8 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
     _build.check(err, "philox_uniform")
     philox_uniform.launches += 1
     philox_uniform.paths["block"] += 1
+    if out.dtype == torch.float32:
+        philox_uniform.paths["block_f32"] += 1
     return out
 
 
@@ -208,9 +224,10 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
 #: do not count)
 philox_uniform.launches = 0
 #: launches by kernel: "block" (:func:`philox_uniform`) or "batched"
-#: (:func:`philox_uniform_blocks`); a batched launch also counts the store
-#: paths its blocks take, "vector" (16-byte stores) and "scalar"
-philox_uniform.paths = dict.fromkeys(("block", "batched", "vector", "scalar"), 0)
+#: (:func:`philox_uniform_blocks`), of which float32 outputs in "block_f32"
+#: and "batched_f32"; a batched launch also counts the store paths its
+#: blocks take, "vector" (16-byte stores) and "scalar"
+philox_uniform.paths = dict.fromkeys(("block", "batched", "block_f32", "batched_f32", "vector", "scalar"), 0)
 _build.COUNTED.append(philox_uniform)
 
 
@@ -218,12 +235,12 @@ def blocks_plan(out: torch.Tensor, chunks, sms: int = _geometry.SMS,
                 ctas_per_sm: int = _geometry.PHILOX_CTAS_PER_SM) -> _geometry.BlocksPlan:
     """The batched kernel's geometry for *out* blocked by *chunks*."""
     return _geometry.blocks_plan(tuple(out.shape), tuple(out.stride()), tuple(chunks), out.data_ptr(),
-                                 sms, ctas_per_sm)
+                                 sms, ctas_per_sm, out.element_size())
 
 
 def _check_blocks(out: torch.Tensor, chunks, keys) -> None:
-    if out.dtype != torch.float64:
-        raise ValueError("philox_uniform_blocks needs a float64 tensor")
+    if out.dtype not in DTYPES:
+        raise ValueError(f"philox_uniform_blocks needs a float64 or float32 tensor, not {out.dtype}")
     if len(chunks) != out.ndim:
         raise ValueError(f"philox_uniform_blocks: chunks {tuple(chunks)} for a rank-{out.ndim} tensor")
     nblocks = math.prod(len(c) for c in _chunkset(tuple(out.shape), tuple(chunks)))
@@ -238,7 +255,7 @@ def _check_blocks(out: torch.Tensor, chunks, keys) -> None:
 
 
 def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
-    """Fill float64 *out* block by block: block ``b`` (C order) of the
+    """Fill float64 or float32 *out* block by block: block ``b`` (C order) of the
     regular grid of *chunks* with the Philox uniform stream of ``keys[b]``.
     *keys* is a host ``(n, 2)`` uint64 array, or the same bits as an int64
     tensor on *out*'s device (:meth:`HoistedKeys.lookup`).
@@ -249,11 +266,12 @@ def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
     _check_blocks(out, chunks, keys)
     if out.device.type == "cpu":
         host = keys.numpy().view(np.uint64) if isinstance(keys, torch.Tensor) else keys
-        out.copy_(philox_uniform_blocks_plain(tuple(out.shape), chunks, host))
+        out.copy_(philox_uniform_blocks_plain(tuple(out.shape), chunks, host, dtype=out.dtype))
         return out
     if out.device.type != "cuda":
         raise ValueError(f"philox_uniform_blocks: unsupported device {out.device}")
-    p = blocks_plan(out, chunks, _build.sm_count(out.device), _occupancy(out.device))
+    suffix = DTYPES[out.dtype]
+    p = blocks_plan(out, chunks, _build.sm_count(out.device), _occupancy(out.device, suffix))
     if p.grid == 0:
         return out
     if isinstance(keys, torch.Tensor):
@@ -266,7 +284,7 @@ def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
         keys_dev = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)).pin_memory().to(
             out.device, non_blocking=True)
     params = p.params()
-    fn = _blocks_kernel()
+    fn = _blocks_kernel(suffix)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with torch.cuda.device(out.device):
         err = fn(
@@ -275,7 +293,7 @@ def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
         )
     _build.check(err, "philox_uniform_blocks")
     philox_uniform.launches += 1
-    for key in ("batched", *p.paths):
+    for key in ("batched", *(("batched_f32",) if suffix == "f32" else ()), *p.paths):
         philox_uniform.paths[key] += 1
     return out
 
@@ -368,28 +386,44 @@ def block_keys(seeds):
 
 
 def philox_blocks(like: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-    """Uniform float64 blocks of *like*'s shape on its device, one for each
-    seed: *seeds* is an int64 tensor of shape ``batch + (1,) * like.ndim``
-    on the CPU (an offsets chunk and its batch axes); the result has shape
-    ``batch + like.shape``. Block ``b`` is numpy's
-    ``Philox(seed=seeds[b]).random(like.shape)``. One
-    :func:`philox_uniform_blocks` launch on a CUDA device."""
+    """Uniform blocks of *like*'s shape and dtype (float64 or float32) on its
+    device, one for each seed: *seeds* is an int64 tensor of shape
+    ``batch + (1,) * like.ndim`` on the CPU (an offsets chunk and its batch
+    axes); the result has shape ``batch + like.shape``. Block ``b`` is
+    numpy's ``Philox(seed=seeds[b]).random(like.shape)``, rounded to float32
+    for a float32 *like*. One :func:`philox_uniform_blocks` launch on a CUDA
+    device."""
     return _philox_blocks_op(like, seeds)
 
 
 @torch.library.custom_op("cubed_tpu_torch::philox_blocks", mutates_args=())
 def _philox_blocks_op(like: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-    block = tuple(like.shape)
-    batch = tuple(seeds.shape[: seeds.ndim - like.ndim])
-    if seeds.ndim < like.ndim or any(n != 1 for n in seeds.shape[len(batch):]):
-        raise ValueError(f"philox_blocks: seeds of shape {tuple(seeds.shape)} for blocks of {block}")
+    block, batch = _blocks_shape(like, seeds)
     n, size = math.prod(batch), math.prod(block)
     keys = block_keys(seeds.detach().cpu().numpy().reshape(batch))
     # a block's stream fills it in C order, so each block is one row of an
     # (n, size) grid of (1, size) blocks, whatever the block's rank
-    out = torch.empty((n, size), dtype=torch.float64, device=like.device)
+    out = torch.empty((n, size), dtype=like.dtype, device=like.device)
     philox_uniform_blocks(out, (1, size), keys)
     return out.reshape(batch + block)
+
+
+def _blocks_shape(like: torch.Tensor, seeds: torch.Tensor) -> tuple:
+    """(block shape, batch shape) of a :func:`philox_blocks` call."""
+    block = tuple(like.shape)
+    batch = tuple(seeds.shape[: seeds.ndim - like.ndim])
+    if seeds.ndim < like.ndim or any(n != 1 for n in seeds.shape[len(batch):]):
+        raise ValueError(f"philox_blocks: seeds of shape {tuple(seeds.shape)} for blocks of {block}")
+    if like.dtype not in DTYPES:
+        raise ValueError(f"philox_blocks makes float64 or float32 blocks, not {like.dtype}")
+    return block, batch
+
+
+@_philox_blocks_op.register_fake
+def _philox_blocks_fake(like, seeds):
+    # the output's metadata alone, for a trace on meta tensors
+    block, batch = _blocks_shape(like, seeds)
+    return like.new_empty(batch + block)
 
 
 @torch.library.register_vmap("cubed_tpu_torch::philox_blocks")
@@ -409,26 +443,27 @@ def _philox_blocks_vmap(info, in_dims, like, seeds):
 _occupancies: dict = {}
 
 
-def _occupancy(device) -> int:
-    """CTAs of the batched kernel that fit on one SM of *device* at once."""
+def _occupancy(device, suffix: str = "f64") -> int:
+    """CTAs of the batched kernel for outputs of *suffix* ("f64", "f32")
+    that fit on one SM of *device* at once."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    n = _occupancies.get(index)
+    n = _occupancies.get((index, suffix))
     if n is None:
-        fn = _build.load("philox_uniform").philox_uniform_blocks_occupancy
+        fn = getattr(_build.load("philox_uniform"), f"philox_uniform_blocks_occupancy_{suffix}")
         fn.restype = ctypes.c_int
         with torch.cuda.device(index):
             n = fn()
         if n <= 0:
             raise RuntimeError(f"philox_uniform_blocks: occupancy query failed ({n})")
-        _occupancies[index] = n
+        _occupancies[(index, suffix)] = n
     return n
 
 
 @functools.cache
-def _kernel():
+def _kernel(suffix: str):
     lib = _build.load("philox_uniform")
-    fn = lib.philox_uniform_f64
+    fn = getattr(lib, f"philox_uniform_{suffix}")
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_int, ctypes.c_void_p,
@@ -438,8 +473,8 @@ def _kernel():
 
 
 @functools.cache
-def _blocks_kernel():
-    fn = _build.load("philox_uniform").philox_uniform_blocks_f64
+def _blocks_kernel(suffix: str):
+    fn = getattr(_build.load("philox_uniform"), f"philox_uniform_blocks_{suffix}")
     fn.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p,
@@ -471,8 +506,9 @@ def _mulhilo(m: int, hi: torch.Tensor, lo: torch.Tensor):
     return r3, r2, r1, r0
 
 
-def philox_uniform_plain(n: int, key: tuple[int, int], device="cpu") -> torch.Tensor:
-    """The plain version: *n* float64 uniforms of the Philox stream of *key*."""
+def philox_uniform_plain(n: int, key: tuple[int, int], device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """The plain version: *n* uniforms of the Philox stream of *key*, as
+    float64, or those doubles rounded to the nearest float32."""
     ncounters = (n + 3) // 4
     ctr = torch.arange(1, ncounters + 1, dtype=torch.int64, device=device)
     zero = torch.zeros_like(ctr)
@@ -496,22 +532,23 @@ def philox_uniform_plain(n: int, key: tuple[int, int], device="cpu") -> torch.Te
     # (u >> 11) has 53 bits: exact in int64 and in float64
     words = [(h << 21) | (lo >> 11) for h, lo in c]
     u53 = torch.stack(words, dim=1).reshape(-1)[:n]
-    return u53.to(torch.float64) * (1.0 / 9007199254740992.0)
+    return (u53.to(torch.float64) * (1.0 / 9007199254740992.0)).to(dtype)
 
 
 def _chunkset(shape: tuple, chunks: tuple) -> tuple:
     return blockdims_from_blockshape(shape, chunks) if shape else ()
 
 
-def philox_uniform_blocks_plain(out_shape, chunks, keys: np.ndarray, device="cpu") -> torch.Tensor:
+def philox_uniform_blocks_plain(out_shape, chunks, keys: np.ndarray, device="cpu",
+                                dtype=torch.float64) -> torch.Tensor:
     """The plain version of :func:`philox_uniform_blocks`: each block built
     with :func:`philox_uniform_plain` and written into place."""
     out_shape = tuple(out_shape)
-    out = torch.empty(out_shape, dtype=torch.float64, device=device)
+    out = torch.empty(out_shape, dtype=dtype, device=device)
     chunkset = _chunkset(out_shape, tuple(chunks))
     for b, idx in enumerate(itertools.product(*(range(len(c)) for c in chunkset))):
         sel = get_item(chunkset, idx) if out_shape else ()
         bshape = tuple(c[i] for c, i in zip(chunkset, idx))
         key = (int(keys[b, 0]), int(keys[b, 1]))
-        out[sel] = philox_uniform_plain(math.prod(bshape), key, device=device).reshape(bshape)
+        out[sel] = philox_uniform_plain(math.prod(bshape), key, device=device, dtype=dtype).reshape(bshape)
     return out

@@ -107,7 +107,7 @@ def _region_sum(x: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
         )
     _build.check(err, "region_sum")
     region_sum.launches += 1
-    for key in p.paths:
+    for key in p.paths + (("float32",) if x.dtype == torch.float32 else ()):
         region_sum.paths[key] += 1
     return out
 
@@ -135,8 +135,9 @@ def _region_sum_vmap(info, in_dims, x, axes, keepdims):
 region_sum.launches = 0
 #: launches by path: "rows" or "columns" (layout), "vector" (16-byte loads) or
 #: "scalar", "one_cta" (each output summed by one CTA) or "split" (partials
-#: combined by the last CTA)
-region_sum.paths = dict.fromkeys(("rows", "columns", "vector", "scalar", "one_cta", "split"), 0)
+#: combined by the last CTA); "float32": of float32 inputs (the route under
+#: the device executor's compute_dtype="float32")
+region_sum.paths = dict.fromkeys(("rows", "columns", "vector", "scalar", "one_cta", "split", "float32"), 0)
 
 
 _build.COUNTED.append(region_sum)

@@ -19,6 +19,13 @@ custom op, whose batching rule fills a bucket's blocks in one launch. Its
 seeds are ``hoisted_seeds``, as the reference's are ``traced_offsets``: a
 captured CUDA graph reads their keys from a buffer refilled before each
 replay, so plans that differ only in seeds share one graph.
+
+Under the device executor's ``compute_dtype="float32"`` (the narrowing
+scope of ``backend_array_api``) a block is float32: the float64 stream
+rounded to the nearest float32, element by element, by the kernels' float32
+entry points. That is the reference's float32 block bit for bit: its
+Philox route draws float64 and casts (``cubed_tpu/random.py:111-122``,
+``:163``), and never uses numpy's own float32 draw, another stream.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import random as pyrandom
 import numpy as np
 import torch
 
+from .backend_array_api import to_torch_dtype
 from .chunks import blockdims_from_blockshape, normalize_chunks
 from .core.ops import general_blockwise, new_array
 from .core.plan import Plan, gensym
@@ -73,14 +81,15 @@ def random(size, *, chunks=None, spec=None):
 
 
 def _random_block(chunk, seeded_offset):
-    """One uniform block on the template chunk's device; ``seeded_offset``
-    (root seed + block offset) is a host array, or an int64 tensor on the
-    CPU in the device executor's batched route (then possibly batched under
+    """One uniform block (float64, or float32 under the narrowing scope) on
+    the template chunk's device; ``seeded_offset`` (root seed +
+    block offset) is a host array, or an int64 tensor on the CPU in the
+    device executor's batched route (then possibly batched under
     ``torch.func.vmap``)."""
     if isinstance(seeded_offset, torch.Tensor):
         return philox_blocks(chunk, seeded_offset)
     seed = int(np.asarray(seeded_offset).reshape(-1)[0])
-    out = torch.empty(tuple(chunk.shape), dtype=torch.float64, device=chunk.device)
+    out = torch.empty(tuple(chunk.shape), dtype=to_torch_dtype(np.float64), device=chunk.device)
     return philox_uniform(out, philox_key(seed))
 
 
@@ -91,7 +100,7 @@ def _random_blocks(shape, chunks, root_seed: int, device) -> torch.Tensor:
     shape = tuple(shape)
     nblocks = math.prod(len(c) for c in blockdims_from_blockshape(shape, tuple(chunks)))
     keys = block_keys(root_seed + np.arange(nblocks, dtype=np.int64))
-    out = torch.empty(shape, dtype=torch.float64, device=device)
+    out = torch.empty(shape, dtype=to_torch_dtype(np.float64), device=device)
     return philox_uniform_blocks(out, chunks, keys)
 
 

@@ -83,9 +83,38 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   ``device_mem``, least recently used graphs dropped first. A replay adds
   the launches its graph holds to the kernel wrappers' counts. On the CPU a
   segment runs op by op.
+- **Residency counts storage, not names.** An alias (a rechunk's target), a
+  view (an index) and their source hold one storage; it counts once against
+  ``device_mem`` and spills only with the last name that holds it.
+- **compute_dtype="float32"** (the reference's f32 ingestion, jax.py:122-158
+  and :326-345): the whole DAG runs inside ``backend_array_api.narrowing``,
+  thread-locally, restored on every exit. Every float64 chunk is float32
+  (complex128 complex64), random blocks included (the Philox kernels'
+  float32 entry points: the float64 stream rounded to the nearest float32,
+  the reference's block bit for bit); residency holds and counts them at
+  their narrowed size, and the store boundary (``_flush``, and so the value
+  ``compute()`` returns) widens them back to the declared dtype. The plan
+  (tasks, ops, projected memory) is the float64 plan. The reductions take
+  their float32 routes (``fma_sum_blocks``, ``region_sum``), which
+  accumulate in float64 where the reference's accumulate in float32: at
+  least as exact, within the reference's documented bound. Integers are
+  the one deliberate divergence: the reference's x64-off also narrows int64
+  to int32, so ``sum`` of ``arange(10) * 2**40`` under
+  ``JaxExecutor(compute_dtype="float32")`` returns 0; here integer and bool
+  chunks keep their dtypes and the sum is exact (49478023249920). The
+  reference's process-global warnings filter is not ported: torch warns of
+  no truncation.
+- **matmul_precision** (jax.py:159-176, :346-350): the per-block product of
+  float32 operands runs at the mode (``contraction.precision``, a
+  context-local scope for the whole DAG; no process-global torch switch is
+  read or changed): bf16 or 3-pass bf16 on the tensor cores with float32
+  sums, TF32-rounded operands in float32, or full float32. A float64
+  product stays DGEMM. See ``cubed_tpu_torch/contraction.py``.
+- **The structural key** folds in both options, so float32 and float64
+  computes of one plan shape, or two precisions, never replay each other's
+  graphs.
 
-Not ported yet: meshes, ``compute_dtype``/``matmul_precision``,
-``task_guard``, resume and the compute journal. No fast path, capture or
+Not ported yet: meshes, ``task_guard``, resume and the compute journal. No fast path, capture or
 kernel is wrapped in an ``except``: where one cannot run, a check says so and
 the op takes the next path.
 """
@@ -104,9 +133,12 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ... import contraction
 from ...backend_array_api import (
     backend_array_to_numpy_array,
+    compute_numpy_dtype,
     get_device,
+    narrowing,
     numpy_array_to_backend_array,
     nxp,
     to_torch_dtype,
@@ -157,18 +189,28 @@ _use_clock = itertools.count()
 
 
 class _Resident:
-    """A resident array and its bookkeeping."""
+    """A resident array and its bookkeeping: the storage its value lives in
+    (the key it counts by: an alias or a view shares its source's) and that
+    storage's bytes."""
 
-    __slots__ = ("value", "nbytes", "last_used", "target")
+    __slots__ = ("value", "storage", "nbytes", "last_used", "target")
 
-    def __init__(self, value: torch.Tensor, nbytes: int, target):
+    def __init__(self, value: torch.Tensor, target):
         self.value = value
-        self.nbytes = nbytes
+        storage = value.untyped_storage()
+        self.storage = storage.data_ptr()
+        self.nbytes = storage.nbytes()
         self.target = target
         self.touch()
 
     def touch(self) -> None:
         self.last_used = next(_use_clock)
+
+
+def _held(residents) -> int:
+    """Bytes that *residents* hold on the device: each storage once, however
+    many names hold it."""
+    return sum({r.storage: r.nbytes for r in residents}.values())
 
 
 def _value_nbytes(value: torch.Tensor) -> int:
@@ -204,7 +246,9 @@ def _as_tensor(value) -> torch.Tensor:
 
 
 def _nbytes_of(arr) -> int:
-    return math.prod(tuple(arr.shape)) * np.dtype(arr.dtype).itemsize
+    """Bytes of *arr* on the device: at its narrowed size under the
+    narrowing scope."""
+    return math.prod(tuple(arr.shape)) * compute_numpy_dtype(arr.dtype).itemsize
 
 
 def _op_reads(op) -> list:
@@ -590,11 +634,32 @@ class CudaExecutor(DagExecutor):
     fuse_plan : bool
         Group ops into segments, replayed as CUDA graphs on a card (the
         reference's ``fuse_plan``). False runs every op on its own.
+    compute_dtype : str | None
+        ``"float32"`` runs a float64 plan in float32 on the device (the
+        reference's "f32 ingestion"): float64 chunks, random blocks included,
+        are float32 inside the DAG and widen back to the declared dtype at
+        the store boundary; integers stay exact (see the module docstring).
+        The reference's documented error bound holds: each elementwise op
+        adds relative error <= float32 eps (1.19e-7); a k-element tree sum,
+        <= (log2(k) + chunks) * eps * sum|a| absolute. ``None`` and
+        ``"float64"`` compute in the declared dtypes.
+    matmul_precision : str | None
+        The precision of float32 per-block products: ``"bfloat16"``,
+        ``"bfloat16_3x"``, ``"tensorfloat32"``, or full float32 (``None``,
+        ``"float32"``, ``"highest"``, ``"default"``); defined in
+        ``cubed_tpu_torch/contraction.py``. Float64 products stay DGEMM, so
+        combine it with ``compute_dtype="float32"`` for a float64 source.
     """
 
-    def __init__(self, device_mem=None, fuse_plan: bool = True):
+    def __init__(self, device_mem=None, fuse_plan: bool = True, compute_dtype: Optional[str] = None,
+                 matmul_precision: Optional[str] = None):
+        if compute_dtype not in (None, "float32", "float64"):
+            raise ValueError(f"compute_dtype must be None, 'float32' or 'float64'; got {compute_dtype!r}")
+        contraction.check_mode(matmul_precision)
         self.device_mem = convert_to_bytes(device_mem)
         self.fuse_plan = fuse_plan
+        self.compute_dtype = compute_dtype
+        self.matmul_precision = matmul_precision
         #: path counters of the last ``execute_dag``, under the reference's
         #: names: ``whole_array_hits``, ``whole_concat_hits``,
         #: ``batched_ops``, ``chunked_ops``, ``eager_ops``; the rechunk
@@ -632,6 +697,12 @@ class CudaExecutor(DagExecutor):
         return _CPU_BUDGET
 
     def execute_dag(self, dag, callbacks=None, array_names=None, resume=None, spec=None, **kwargs) -> None:
+        # both scopes are this thread's (or task's) alone, and are restored
+        # on every exit, a failing compute's included
+        with narrowing(self.compute_dtype == "float32"), contraction.precision(self.matmul_precision):
+            self._execute_dag(dag, callbacks, array_names, resume, spec)
+
+    def _execute_dag(self, dag, callbacks, array_names, resume, spec) -> None:
         dev = get_device()
         self.stats = Counter()
         self._uploads = {}  # id of a VirtualInMemoryArray -> its device tensor
@@ -761,7 +832,7 @@ class CudaExecutor(DagExecutor):
             concrete = arr.open() if isinstance(arr, LazyZarrArray) else arr
         except FileNotFoundError:
             return False
-        if concrete.dtype.fields is not None or math.prod(concrete.shape) * concrete.dtype.itemsize > budget:
+        if concrete.dtype.fields is not None or _nbytes_of(concrete) > budget:
             return False
         data = concrete[...] if concrete.shape else concrete[()]
         self._admit(resident, key, numpy_array_to_backend_array(data), arr, budget)
@@ -773,23 +844,34 @@ class CudaExecutor(DagExecutor):
 
     def _segment_fits(self, ops, resident, budget, dev=None, skey=None) -> bool:
         """The memory pre-check (the reference's, before tracing): the
-        resident arrays, every output of the segment and the cached graphs of
-        *dev* fit *budget*, cached graphs other than *skey*'s dropped first,
-        least recently used first; and every storage array the segment reads
-        and does not produce is resident (a capture can neither read storage
-        nor spill)."""
+        resident arrays, every output of the segment that takes memory of its
+        own (not a rechunk's alias of a resident or produced source) and the
+        cached graphs of *dev* fit *budget*, cached graphs other than *skey*'s
+        dropped first, least recently used first; and every storage array the
+        segment reads and does not produce is resident (a capture can neither
+        read storage nor spill)."""
         produced = self._produced(ops)
         if not all(
             _key(arr) in resident or _key(arr) in produced
             for arr in self._segment_reads(ops) if isinstance(arr, (ZarrV2Array, LazyZarrArray))
         ):
             return False
-        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"]))
-        room = budget - sum(r.nbytes for r in resident.values()) - out_bytes
+        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"])
+                        if not self._aliases(node["primitive_op"], resident, produced))
+        room = budget - _held(resident.values()) - out_bytes
         if dev is not None:
             _GRAPHS.shrink(dev, room, keep=skey)
             room -= _GRAPHS.nbytes(dev)
         return room >= 0
+
+    @staticmethod
+    def _aliases(op, resident, produced) -> bool:
+        """Whether *op* is a rechunk copy that admits its source's tensor again
+        (the source resident, or produced earlier in the segment)."""
+        if op.pipeline.function is not copy_read_to_write:
+            return False
+        src = _key(op.pipeline.config.read.array)
+        return src in resident or src in produced
 
     @staticmethod
     def _segment_keep(ops, dag, requested) -> Dict[str, object]:
@@ -866,6 +948,10 @@ class CudaExecutor(DagExecutor):
         payload.append(("keep", tuple(describe.store(k) for k in keep_list)))
         payload.append(("hoisted", tuple(a.shape for a in hoisted_arrays)))
         payload.append(("device", str(dev), torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""))
+        # the options that change what the graph computes: the chunks' dtypes
+        # and the contraction's precision
+        payload.append(("compute", "float32" if self.compute_dtype == "float32" else "float64",
+                        self.matmul_precision))
         canonical = _tokenize(tuple(payload), describe.names, {})
         return hashlib.sha256(repr(canonical).encode()).hexdigest()
 
@@ -902,7 +988,7 @@ class CudaExecutor(DagExecutor):
                 entry = self._capture(ops, {k: resident[k] for k in in_keys}, seeds, keep_list, requested,
                                       resident, budget, dev)
                 self.stats["segments_compiled"] += 1
-                _GRAPHS.put(skey, entry, budget - sum(r.nbytes for r in resident.values()))
+                _GRAPHS.put(skey, entry, budget - _held(resident.values()))
                 self._replay(entry, in_keys, seeds, keep_list, keep, resident, budget)
             else:
                 # a first sighting: op by op, on the paths a capture takes
@@ -946,7 +1032,7 @@ class CudaExecutor(DagExecutor):
                 self._upload(arr)
         with torch.cuda.stream(stream):
             tickets = _build.reserve_tickets(dev)
-        held = sum(r.nbytes for r in resident.values())
+        held = _held(resident.values())
         out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"]))
         _GRAPHS.shrink(dev, budget - held - out_bytes)
         keys = HoistedKeys(seeds, dev)
@@ -954,9 +1040,9 @@ class CudaExecutor(DagExecutor):
         uploads = dict(self._uploads)
         before = _build.launch_counts()
         stats = Counter(self.stats)
-        local = {k: _Resident(v, _value_nbytes(v), inputs[k].target) for k, v in static.items()}
+        local = {k: _Resident(v, inputs[k].target) for k, v in static.items()}
         # the ops choose their paths against the room the op-by-op run had
-        others = held - sum(r.nbytes for r in inputs.values())
+        others = _held(r for k, r in resident.items() if k not in inputs)
         graph = torch.cuda.CUDAGraph()
         self._segment_mode = self._capturing = True
         try:
@@ -1233,7 +1319,7 @@ class CudaExecutor(DagExecutor):
             and tuple(seeds[0][1].shape) == tuple(len(c) for c in chunkset)
             and tuple(spec.block_function(first)) == ((templates[0][0], *coords), (seeds[0][0], *coords))
             and batched.fits(out_shape)
-            and math.prod(out_shape) * np.dtype(target.dtype).itemsize <= budget
+            and _nbytes_of(target) <= budget
         ):
             return self._failed_check("batched_errors")
         return batched(out_shape, chunks, seeds[0][1].base, get_device())
@@ -1292,7 +1378,7 @@ class CudaExecutor(DagExecutor):
         if not _batchable(spec.function):
             return self._failed_check("batched_errors")
         dev = _indexed(get_device())
-        room = (budget - sum(r.nbytes for r in resident.values()) - _GRAPHS.nbytes(dev)
+        room = (budget - _held(resident.values()) - _GRAPHS.nbytes(dev)
                 - sum(_nbytes_of(w.array) for w in spec.writes))
         itemsize = max([8] + [np.dtype(a.dtype).itemsize for a, _ in metas]
                        + [np.dtype(w.array.dtype).itemsize for w in spec.writes])
@@ -1637,39 +1723,49 @@ class CudaExecutor(DagExecutor):
 
     def _admit(self, resident, store: str, value: torch.Tensor, target, budget) -> None:
         """Make *value* the resident array of *store* (in the target's dtype,
-        as a store write would), within *budget* with the cached graphs of
-        the device: graphs are dropped first (least recently used, never the
-        running segment's), then others spill."""
+        as a store write would, narrowed under the narrowing scope), within
+        *budget* with the cached graphs of the device: graphs are dropped
+        first (least recently used, never the running segment's), then
+        others spill. A value whose storage is already resident (an alias, a
+        view) adds no bytes."""
         dtype = to_torch_dtype(target.dtype)
         if value.dtype != dtype:
             value = value.to(dtype)
-        nbytes = _value_nbytes(value)
+        res = _Resident(value, target)
         if not self._capturing:
             # cached graphs (for later computes) make room before resident
             # arrays (of this one) spill
-            others = sum(r.nbytes for k, r in resident.items() if k != store)
-            _GRAPHS.shrink(value.device, budget - nbytes - others, keep=self._graph_key)
-            self._evict(resident, budget - nbytes - _GRAPHS.nbytes(value.device), exclude=store)
-        resident[store] = _Resident(value, nbytes, target)
+            held = _held([r for k, r in resident.items() if k != store] + [res])
+            _GRAPHS.shrink(value.device, budget - held, keep=self._graph_key)
+            self._evict(resident, budget - _GRAPHS.nbytes(value.device), res, exclude=store)
+        resident[store] = res
 
-    def _evict(self, resident, budget: int, exclude: Optional[str] = None) -> None:
-        """Write least recently used arrays to storage and drop them until
-        the rest fit in *budget*."""
-        total = sum(r.nbytes for r in resident.values())
-        if total <= budget:
+    def _evict(self, resident, budget: int, incoming: _Resident, exclude: str) -> None:
+        """Spill least recently used storages until what stays resident, with
+        *incoming* (to be admitted under *exclude*), fits in *budget*. A
+        storage spills whole: every name that holds it is written to its
+        target and dropped together, since dropping one name alone would
+        free nothing; the storage *incoming* holds never spills."""
+
+        def held() -> int:
+            return _held([r for k, r in resident.items() if k != exclude] + [incoming])
+
+        if held() <= budget:
             return
-        for store, res in sorted(resident.items(), key=lambda kv: kv[1].last_used):
-            if store == exclude:
-                continue
-            self._flush(res)
-            del resident[store]
-            total -= res.nbytes
-            if total <= budget:
+        names: Dict[int, list] = {}
+        for store, res in resident.items():
+            if store != exclude and res.storage != incoming.storage:
+                names.setdefault(res.storage, []).append(store)
+        for stores in sorted(names.values(), key=lambda ks: max(resident[k].last_used for k in ks)):
+            for store in stores:
+                self._flush(resident.pop(store))
+            if held() <= budget:
                 return
 
     @staticmethod
     def _flush(res: _Resident) -> None:
-        """Write a resident array to its Zarr target, chunk by chunk."""
+        """Write a resident array to its Zarr target, chunk by chunk, in the
+        target's declared dtype (a narrowed value widens here)."""
         target = res.target
         if isinstance(target, LazyZarrArray):
             concrete = target.create()
@@ -1679,9 +1775,9 @@ class CudaExecutor(DagExecutor):
             return
         shape = tuple(concrete.shape)
         if not shape:
-            concrete[()] = backend_array_to_numpy_array(res.value)
+            concrete[()] = backend_array_to_numpy_array(res.value).astype(concrete.dtype)
             return
         chunkset = _chunkset(shape, tuple(concrete.chunks))
         for idx in itertools.product(*(range(len(c)) for c in chunkset)):
             sel = get_item(chunkset, idx)
-            concrete[sel] = backend_array_to_numpy_array(res.value[sel])
+            concrete[sel] = backend_array_to_numpy_array(res.value[sel]).astype(concrete.dtype)

@@ -568,7 +568,7 @@ def test_precheck_aborts_a_segment_that_would_not_fit(tmp_path):
                     for _, d in ops for w in d["primitive_op"].pipeline.config.writes)
     assert ex._segment_fits(ops, {}, out_bytes)
     assert not ex._segment_fits(ops, {}, out_bytes - 1)
-    resident = {"other": cuda_module._Resident(torch.zeros(10), 80, None)}
+    resident = {"other": cuda_module._Resident(torch.zeros(10, dtype=torch.float64), None)}  # 80 B
     assert not ex._segment_fits(ops, resident, out_bytes + 79)
 
 

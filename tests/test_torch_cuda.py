@@ -302,6 +302,9 @@ def test_region_sum_takes_every_path(bases):
     for case in sorted(REGION_CASES):
         make, axes = REGION_CASES[case]
         region_sum(make(bases["float64"]), axes)
+    # the float32 route (compute_dtype="float32") counts in paths too
+    make, axes = REGION_CASES["main-path-view"]
+    region_sum(make(bases["float32"]), axes)
     taken = {k: region_sum.paths[k] - before[k] for k in before}
     assert all(taken.values()), taken
 
@@ -356,6 +359,8 @@ def test_fma_sum_takes_every_path(bases):
     before = dict(fma_sum_blocks.paths)
     for case in sorted(FMA_CASES):
         fma_sum(*FMA_CASES[case](bases["float64"]))
+    # the float32 route (compute_dtype="float32") counts in paths too
+    fma_sum(*FMA_CASES["main-path-view"](bases["float32"]))
     taken = {k: fma_sum_blocks.paths[k] - before[k] for k in before}
     assert all(taken.values()), taken
 
@@ -667,3 +672,180 @@ def test_sum_of_matmul_equals_numpy(cuda, tmp_path):
     np.testing.assert_allclose(float(x.compute(executor=ex)), want, rtol=1e-12)
     np.testing.assert_allclose(float(x.compute()), want, rtol=1e-12)
     assert ex.stats["batched_ops"] >= 1 and ex.stats["eager_fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# compute_dtype="float32": the float32 Philox entry points, the f32 main path,
+# and matmul_precision on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape, offset", [((100, 100, 100), 0), ((99, 100, 101), 0), ((7,), 0), ((1001,), 1)],
+                         ids=["100^3", "99x100x101", "7", "1001-misaligned"])
+def test_philox_f32_kernel_is_the_rounded_float64_stream(cuda, shape, offset):
+    """The per-block float32 entry point: numpy's float64 stream rounded to
+    float32, bit for bit, on a 16-byte aligned output (float4 stores) and on
+    one 4 bytes off (scalar stores)."""
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import philox_key, philox_uniform, philox_uniform_plain
+
+    n = int(np.prod(shape))
+    base = torch.full((n + offset,), -1.0, dtype=torch.float32, device=cuda)
+    out = base[offset:].view(shape)
+    before = dict(philox_uniform.paths)
+    philox_uniform(out, philox_key(2**30 + 1))
+    assert philox_uniform.paths["block_f32"] == before["block_f32"] + 1
+    ref = np.random.Generator(np.random.Philox(seed=2**30 + 1)).random(shape).astype(np.float32)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+    assert torch.equal(out.reshape(-1), philox_uniform_plain(n, philox_key(2**30 + 1), device=cuda,
+                                                              dtype=torch.float32))
+    if offset:
+        assert float(base[0]) == -1.0
+
+
+@pytest.mark.parametrize("shape, chunks", PHILOX_BLOCK_CASES,
+                         ids=["x".join(map(str, s)) for s, _ in PHILOX_BLOCK_CASES])
+def test_philox_blocks_f32_kernel_is_the_rounded_float64_stream(cuda, shape, chunks):
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import (
+        philox_keys, philox_uniform, philox_uniform_blocks, philox_uniform_blocks_plain,
+    )
+
+    nblocks = int(np.prod([-(-s // c) if s else 1 for s, c in zip(shape, chunks)]))
+    seeds = 2**30 - 3 + np.arange(nblocks, dtype=np.int64)
+    keys = philox_keys(seeds)
+    before = dict(philox_uniform.paths)
+    got = philox_uniform_blocks(torch.empty(shape, dtype=torch.float32, device=cuda), chunks, keys)
+    assert philox_uniform.paths["batched_f32"] == before["batched_f32"] + (1 if got.numel() else 0)
+    assert torch.equal(got, philox_uniform_blocks_plain(shape, chunks, keys, device=cuda, dtype=torch.float32))
+    ref = _numpy_blocks(shape, chunks, seeds).astype(np.float32)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("layout", ["column-view", "misaligned", "rows-of-50"])
+def test_philox_blocks_f32_kernel_writes_strided_outputs_in_place(cuda, layout):
+    """float4 stores where every row and block origin is 16-byte aligned,
+    scalar stores where not (a float32 row of 50 elements is 200 bytes)."""
+    import torch
+
+    from cubed_tpu_torch.kernels.philox_uniform import philox_keys, philox_uniform, philox_uniform_blocks
+
+    shape, chunks = (64, 48), (16, 16)
+    width = {"column-view": 80, "misaligned": 48, "rows-of-50": 50}[layout]
+    base = torch.full((64 * width + 1,), -1.0, dtype=torch.float32, device=cuda)
+    if layout == "column-view":
+        out = base[: 64 * width].view(64, width)[:, 16:64]
+    elif layout == "misaligned":
+        out = base[1:].view(shape)
+    else:
+        out = base[: 64 * width].view(64, width)[:, 2:50]
+    seeds = 77 + np.arange(12, dtype=np.int64)
+    before = dict(philox_uniform.paths)
+    philox_uniform_blocks(out, chunks, philox_keys(seeds))
+    taken = {k for k, v in philox_uniform.paths.items() if v > before[k]}
+    assert taken == {"batched", "batched_f32", "vector" if layout == "column-view" else "scalar"}
+    ref = _numpy_blocks(shape, chunks, seeds).astype(np.float32)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+def test_vorticity_f32_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """compute_dtype="float32" on the card: the float32 Philox kernel once per
+    random array, fma_sum_blocks on float32 inputs, the declared float64
+    back; the value within 1e-6 of the same compute on the CPU (the plain
+    versions) and within the reference's float32 bound of float64."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch import backend_array_api
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    def run(device, compute_dtype="float32"):
+        backend_array_api.set_device(device)
+        try:
+            random.seed(3)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{device}-{compute_dtype}"), allowed_mem="500MB")
+            a, b, x, y = [ct.random.random((50, 45, 40), chunks=10, spec=spec) for _ in range(4)]
+            return xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=CudaExecutor(compute_dtype=compute_dtype))
+        finally:
+            backend_array_api.set_device(None)
+
+    before, fma = dict(philox_uniform.paths), dict(fma_sum_blocks.paths)
+    got = run("cuda")
+    assert philox_uniform.paths["batched_f32"] == before["batched_f32"] + 4
+    assert sum(fma_sum_blocks.paths.values()) > sum(fma.values())
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, run("cpu"), rtol=1e-6)
+    np.testing.assert_allclose(got, run("cuda", None), rtol=1e-4, atol=16 * 4 * 90000 * float(np.finfo(np.float32).eps))
+
+
+def _round_bits(x32, drop):
+    bits = x32.astype(np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + ((1 << (drop - 1)) - 1) + ((bits >> drop) & 1)) & ~np.uint64((1 << drop) - 1)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _mode_model(a, b, mode):
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    if mode == "tensorfloat32":
+        return _round_bits(a32, 13).astype(np.float64) @ _round_bits(b32, 13)
+    if mode == "bfloat16":
+        return _round_bits(a32, 16).astype(np.float64) @ _round_bits(b32, 16)
+    if mode == "bfloat16_3x":
+        ah, bh = _round_bits(a32, 16).astype(np.float64), _round_bits(b32, 16).astype(np.float64)
+        al, bl = _round_bits(a32 - ah.astype(np.float32), 16), _round_bits(b32 - bh.astype(np.float32), 16)
+        return ah @ bh + ah @ bl + al @ bh
+    return a32.astype(np.float64) @ b32
+
+
+@pytest.mark.parametrize("mode", [None, "float32", "tensorfloat32", "bfloat16", "bfloat16_3x"])
+def test_matmul_precision_modes_on_the_card(cuda, tmp_path, mode):
+    """Each mode's per-block product on the card (batched under vmap: the
+    custom op's rule, bmm with a float32 output) against its exact model at
+    rtol 1e-6, and against the plain version; torch's global switches
+    untouched."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch import contraction
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    rng = np.random.default_rng(8)
+    an, bn = rng.random((256, 192)), rng.random((192, 128))
+    switches = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    a = ct.from_array(an, chunks=(64, 64), spec=spec)
+    b = ct.from_array(bn, chunks=(64, 64), spec=spec)
+    ex = CudaExecutor(compute_dtype="float32", matmul_precision=mode)
+    got = xp.matmul(a, b).compute(executor=ex)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == switches
+    np.testing.assert_allclose(got, _mode_model(an, bn, mode), rtol=1e-6)
+    if mode in contraction.REDUCED:
+        x = torch.from_numpy(an.astype(np.float32)).to(cuda)
+        y = torch.from_numpy(bn.astype(np.float32)).to(cuda)
+        with contraction.precision(mode):
+            kernel = contraction.matmul(x, y)
+        torch.testing.assert_close(kernel, contraction.matmul_plain(x, y, mode), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["float32", "highest", "default"])
+def test_a_full_float32_mode_refuses_a_process_that_turned_tf32_on(cuda, mode):
+    """A mode that cannot run as specified raises: it never silently becomes
+    TF32 because the process turned torch's global switch on."""
+    import torch
+
+    from cubed_tpu_torch import contraction
+
+    x = torch.ones((8, 8), device=cuda)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with contraction.precision(mode), pytest.raises(RuntimeError, match="TF32"):
+            contraction.matmul(x, x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    with contraction.precision(mode):
+        assert torch.equal(contraction.matmul(x, x), torch.full((8, 8), 8.0, device=cuda))

@@ -46,7 +46,7 @@ def test_philox_wrapper_on_cpu_fills_block_and_does_not_count(shape):
 
 def test_philox_wrapper_rejects_wrong_dtype():
     with pytest.raises(ValueError):
-        philox_uniform(torch.empty(4, dtype=torch.float32), philox_key(0))
+        philox_uniform(torch.empty(4, dtype=torch.float16), philox_key(0))
 
 
 def test_philox_key_is_numpy_seedsequence_key():

@@ -164,7 +164,7 @@ def test_blocks_wrapper_checks_its_arguments():
     with pytest.raises(ValueError, match="keys"):
         philox_uniform_blocks(out, (3, 2), philox_keys(np.arange(3)))
     with pytest.raises(ValueError, match="float64"):
-        philox_uniform_blocks(out.float(), (3, 2), philox_keys(np.arange(4)))
+        philox_uniform_blocks(out.half(), (3, 2), philox_keys(np.arange(4)))
     with pytest.raises(ValueError, match="chunks"):
         philox_uniform_blocks(out, (3,), philox_keys(np.arange(2)))
 
@@ -254,6 +254,36 @@ def test_main_path_plan_takes_16_byte_stores_everywhere():
     assert p.per_block[0] == -(-250_000 // _geometry.PHILOX_TILE) and p.items == 100 * p.per_block[0]
     assert p.grid == 396
     assert [d for d, _, _ in p.edges] == [1, 100, 50, 100]
+
+
+@pytest.mark.parametrize("shape, chunks, strides, ptr", LAYOUTS, ids=LAYOUT_IDS)
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+def test_block_plan_vector_stores_are_16_byte_aligned(shape, chunks, strides, ptr, itemsize):
+    """Every counter a 16-byte store writes starts on a 16-byte boundary, for
+    float64 (two double2) and float32 (one float4) outputs alike; the replay
+    still writes every element once."""
+    p = _plan(shape, chunks, strides, ptr, itemsize=itemsize)
+    assert _replay_matches(p, shape, strides or _c_strides(shape), chunks)
+    off, blk, _, wd = _geometry.blocks_walk(torch, p)
+    nb_last = p.numblocks[-1][0]
+    vector = torch.where(blk % nb_last == nb_last - 1, p.vector_edge, p.vector_full)
+    starts = off[vector & (wd == 0)]
+    assert ((ptr + starts * itemsize) % 16 == 0).all()
+
+
+def test_block_plan_store_paths_of_float32_outputs():
+    """A float32 row of 16 bytes is 4 elements: row strides and block origins
+    along the last axis must be multiples of 4, not of 2."""
+    assert _plan((40, 32), (20, 16), None, 0, itemsize=4).paths == ("vector",)
+    # rows 18 elements apart: 144 B (float64, aligned), 72 B (float32, not)
+    assert _plan((6, 8), (3, 4), (18, 1), 0, itemsize=8).paths == ("vector",)
+    assert _plan((6, 8), (3, 4), (18, 1), 0, itemsize=4).paths == ("scalar",)
+    # the edge block starts 6 elements in: 48 B (aligned), 24 B (not)
+    f64, f32 = (_plan((4, 10), (4, 6), None, 0, itemsize=n) for n in (8, 4))
+    assert (f64.vector_full, f64.vector_edge) == (False, True)
+    assert (f32.vector_full, f32.vector_edge) == (False, False)
+    main = _plan((500, 450, 400), (100, 100, 100), None, 0, sms=132, ctas_per_sm=3, itemsize=4)
+    assert (main.vector_full, main.vector_edge) == (True, True)
 
 
 def _mutations(p):
