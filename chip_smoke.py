@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--against CHECKOUT]
 
 (``--profile-device-run`` is phase 5's own call of this script,
-``--check-layouts FILE`` phase 4's, and ``--time-kernels CHECKOUT`` and
+``--check-layouts FILE`` phase 4's, ``--observe-device-run`` the
+observability phase's, and ``--time-kernels CHECKOUT`` and
 ``--time-computes CHECKOUT`` the ``--against`` timings' calls.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
@@ -142,6 +143,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and addsum_scaled (``sum(a + b)`` at (16000, 16000) / 2000 float64 on
    both executors, rtol 1e-12), their layouts recorded and checked with
    the rest; every result in its declared float64;
+   Then the observability phase: vorticity again with every observer
+   attached. On the device executor in a process of its own
+   (``--observe-device-run``, so the plan shape is new there), four
+   computes (cold, capturing, two warm, phase 4's seeds) with a
+   ``TraceCollector``, a ``TracingCallback``, a ``DeviceMemoryCallback``
+   and a ``TorchProfilerCallback`` (each session opened by an uncounted
+   sentinel kernel): every value equal to its oracle (rtol 1e-12), the
+   executor's counters and launches equal to phase 4's unobserved computes
+   (the graph pool's bytes aside), ``ComputeEndEvent.executor_stats``
+   holding them with ``tasks_completed`` 921, ``bytes_written`` 8 (the
+   output's flush) and a ``per_op`` row per op, the merged trace loadable
+   with one operation span per op, the profiler's trace of every compute
+   (the capturing one too) recording each hand kernel as many times as its
+   wrapper counted, and the allocator's peak within the budget; then warm
+   computes in turns, COST_ROUNDS rounds, four ways (the executor alone, as
+   ``compute()`` ran before the lifecycle; ``compute()`` unobserved; with a
+   TraceCollector; with all four observers), with their medians. On the
+   sequential executor, vorticity with a TraceCollector: one task span per
+   task (921), storage and kernel sub-spans accounting for every chunk read
+   and written and every blockwise task, bytes and chunks written equal to
+   what the plan's outputs take as stored, the collector's own callback
+   time, and the wall clock beside phase 4's unobserved run;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -1774,6 +1797,21 @@ SPILL = dict(shape=(200, 180, 160), chunks=40)
 SPILL_DEVICE_MEM = 2 * 200 * 180 * 160 * 8 + 1_000_000
 
 
+#: (configuration, seed) -> its numpy oracle's value, each drawn once a run
+ORACLES: dict = {}
+
+
+def cached_oracle(name: str, oracle, seed: int):
+    """*oracle*'s value for *seed* (its random arrays' root seeds drawn after
+    ``random.seed(seed)``, as the build draws them), computed once a run."""
+    if (name, seed) not in ORACLES:
+        random.seed(seed)
+        t = time.perf_counter()
+        ORACLES[name, seed] = oracle()
+        print(f"{name} seed {seed}: numpy oracle {time.perf_counter() - t:.1f} s")
+    return ORACLES[name, seed]
+
+
 def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int,
                        executor_options=None, **kw) -> list:
     """Compute one configuration on one ``CudaExecutor(**executor_options)``
@@ -1788,10 +1826,7 @@ def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, f
     ex = CudaExecutor(**(executor_options or {}))
     runs = []
     for i, seed in enumerate(seeds):
-        random.seed(seed)
-        t = time.perf_counter()
-        expected = oracle()
-        print(f"{name} seed {seed}: numpy oracle {time.perf_counter() - t:.1f} s")
+        expected = cached_oracle(name, oracle, seed)
         req = dict(required, **{"stats:segments_compiled": (1, 1) if i == 1 else (0, 0),
                                 "stats:segment_struct_hits": (1, 1) if i >= 2 else (0, 0),
                                 "stats:segment_hbm_footprint": (footprint, 10**12) if i else (0, 0)})
@@ -2036,6 +2071,300 @@ def run_bench_cells(torch, layouts: dict) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# the observability phase: the compute lifecycle, traces and the device
+# profiler on the main path
+# ---------------------------------------------------------------------------
+
+#: vorticity's observed device computes: cold, capturing, two warm (phase 4's
+#: seeds, so its oracles and its unobserved counters are theirs)
+OBSERVED_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)
+#: warm computes a way (the executor alone, unobserved, a TraceCollector,
+#: all four observers), taken in turns, for the lifecycle's and the
+#: observers' cost
+COST_ROUNDS = 5
+#: Plan.execute runs on an executor that only fires the device executor's
+#: events, and the same events fired without the lifecycle, a way
+LIFECYCLE_REPS = 200
+#: phase 4's executor counters that an observed compute must repeat (the
+#: graph pool's bytes depend on the process's allocator history)
+NOT_COMPARED = ("segment_hbm_footprint",)
+
+
+def observers(torch, out_dir: str, i: int) -> dict:
+    """The four observers of one compute, writing under *out_dir*."""
+    from cubed_tpu_torch.observability import (
+        DeviceMemoryCallback, TorchProfilerCallback, TraceCollector, TracingCallback,
+    )
+
+    return dict(profiler=TorchProfilerCallback(log_dir=os.path.join(out_dir, "profile")),
+                collector=TraceCollector(trace_dir=os.path.join(out_dir, "merged")),
+                tracing=TracingCallback(trace_path=os.path.join(out_dir, f"tracing-{i}.json")),
+                memory=DeviceMemoryCallback())
+
+
+def observe_device_run(torch) -> int:
+    """``--observe-device-run``: vorticity on a new ``CudaExecutor`` in a
+    process of its own (so its plan shape is cold there), four computes
+    (cold, capturing, two warm) with a ``TraceCollector``, a
+    ``TracingCallback``, a ``DeviceMemoryCallback`` and a
+    ``TorchProfilerCallback`` attached, and an uncounted sentinel kernel
+    first in each profiler session (the profiler can drop a session's first
+    kernel record); then warm computes in turns four ways: the plan finalized
+    and run on the executor directly, as ``compute()`` did before it ran the
+    lifecycle (the lifecycle's cost to every user is the difference to the
+    next way), ``compute()`` unobserved, with a TraceCollector, and with all
+    four observers. Prints what the parent checks as one JSON line."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.observability import TraceCollector
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.types import Callback
+
+    class Sentinel(Callback):
+        def on_compute_start(self, event):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+
+    out_dir = os.path.join(WORK_DIR, f"observed-{os.getpid()}")
+    wrappers = kernel_wrappers()
+    ex = CudaExecutor()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    computes = []
+    for i, seed in enumerate(OBSERVED_SEEDS):
+        spec = cubed_tpu_torch.Spec(work_dir=os.path.join(out_dir, f"work-{i}"), allowed_mem="2GB")
+        random.seed(seed)
+        x = vorticity_build(spec)
+        plan = x.plan._finalize(array_names=(x.name,))
+        obs = observers(torch, out_dir, i)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        value = float(x.compute(executor=ex, callbacks=[obs["profiler"], Sentinel(), obs["collector"],
+                                                        obs["tracing"], obs["memory"]]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        kernels = [e["name"] for e in json.load(open(obs["profiler"].trace_path))["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        merged = json.load(open(obs["collector"].trace_path))["traceEvents"]
+        tracing = json.load(open(obs["tracing"].trace_path))["traceEvents"]
+        es = obs["collector"].executor_stats
+        computes.append(dict(
+            seed=seed, value=value, seconds=seconds, stats=dict(ex.stats),
+            launches={k: w.launches for k, w in wrappers.items()},
+            recorded={k: sum(record in n for n in kernels) for k, record in KERNEL_RECORDS.items()},
+            sentinels=sum(SENTINEL_KERNEL in n for n in kernels),
+            end_stats={k: v for k, v in es.items() if k != "per_op" and not isinstance(v, dict)},
+            per_op=sorted(es.get("per_op", {})), tasks=plan.num_tasks(), ops=plan.num_ops(),
+            operation_spans=sum(e.get("cat") == "operation" for e in merged),
+            merged_lanes=sorted({e["args"]["name"] for e in merged if e.get("ph") == "M"}),
+            tracing_tasks=sum(e["args"]["num_tasks"] for e in tracing if e.get("cat") == "task"),
+            memory_peaks=[m["peak_bytes_in_use"] for m in obs["memory"].samples], budget=ex._budget(spec, dev),
+            trace_bytes=os.path.getsize(obs["profiler"].trace_path)))
+        shutil.rmtree(spec.work_dir, ignore_errors=True)
+    def bare(x) -> float:
+        dag = x.plan._finalize(array_names=(x.name,)).dag
+        ex.execute_dag(dag, array_names=(x.name,), spec=x.spec)
+        return float(x._read_stored())
+
+    ways = {"no lifecycle": None, "unobserved": lambda r: None,
+            "TraceCollector": lambda r: [TraceCollector(trace_dir=os.path.join(out_dir, "merged"))],
+            "all four observers": lambda r: list(observers(torch, out_dir, 100 + r).values())}
+    cost: dict = {way: [] for way in ways}
+    for r in range(COST_ROUNDS):
+        for j, (way, make) in enumerate(ways.items()):
+            spec = cubed_tpu_torch.Spec(work_dir=os.path.join(out_dir, f"cost-{r}-{j}"), allowed_mem="2GB")
+            random.seed(SEED + 100 + len(ways) * r + j)
+            x = vorticity_build(spec)
+            callbacks = make(r) if make is not None else None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = bare(x) if make is None else float(x.compute(executor=ex, callbacks=callbacks))
+            torch.cuda.synchronize()
+            cost[way].append(time.perf_counter() - t)
+            check(np.isfinite(value) and ex.stats["segment_struct_hits"] == 1,
+                  f"cost, {way}: value {value}, stats {dict(ex.stats)}")
+            shutil.rmtree(spec.work_dir, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps(dict(computes=computes, cost=cost, lifecycle=lifecycle_seconds(x))))
+    return 0
+
+
+def lifecycle_seconds(x) -> dict:
+    """The lifecycle's own host time on *x*'s plan, apart from the card's
+    and the executor's: ``Plan.execute`` on an executor that fires the
+    device executor's events for each op (one task event of its task
+    count) and runs nothing, against finalizing the plan and firing the same
+    events with no callback, in turns, LIFECYCLE_REPS times each; seconds
+    of each run."""
+    from cubed_tpu_torch.runtime.pipeline import visit_nodes
+    from cubed_tpu_torch.runtime.types import (
+        DagExecutor, OperationEndEvent, OperationStartEvent, TaskEndEvent, callbacks_on,
+    )
+    from cubed_tpu_torch.runtime.utils import fire_task_start
+
+    class EventsOnly(DagExecutor):
+        def execute_dag(self, dag, callbacks=None, **kwargs):
+            for name, node in visit_nodes(dag):
+                n = node["primitive_op"].num_tasks
+                callbacks_on(callbacks, "on_operation_start", OperationStartEvent(name, n))
+                fire_task_start(callbacks, name, num_tasks=n)
+                t = time.time()
+                callbacks_on(callbacks, "on_task_end", TaskEndEvent(
+                    array_name=name, num_tasks=n, task_create_tstamp=t, function_start_tstamp=t,
+                    function_end_tstamp=t, task_result_tstamp=t, executor="events-only"))
+                callbacks_on(callbacks, "on_operation_end", OperationEndEvent(name, n))
+
+    names = (x.name,)
+    runs: dict = {"bare": [], "lifecycle": []}
+    for _ in range(LIFECYCLE_REPS):
+        t = time.perf_counter()
+        EventsOnly().execute_dag(x.plan._finalize(array_names=names).dag, array_names=names)
+        runs["bare"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        x.plan.execute(executor=EventsOnly(), array_names=names)
+        runs["lifecycle"].append(time.perf_counter() - t)
+    return runs
+
+
+def check_observed_device_run(torch, unobserved: list) -> dict:
+    """Run :func:`observe_device_run` in a fresh process and hold each of its
+    computes against phase 4's unobserved run of the same seed (*unobserved*:
+    its counters and launches), the numpy oracle (rtol 1e-12) and the
+    plan."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--observe-device-run"],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(proc.returncode == 0, f"observability [cuda]: the observed run failed:\n{proc.stderr[-4000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    for i, (c, plain) in enumerate(zip(r["computes"], unobserved)):
+        label = f"observability [cuda, {('cold', 'capturing', 'warm', 'warm')[i]}, seed {c['seed']}]"
+        expected = ORACLES["vorticity", c["seed"]]
+        rel = abs(c["value"] - expected) / abs(expected)
+        stats = {k: v for k, v in c["stats"].items() if k not in NOT_COMPARED}
+        want = {k: v for k, v in plain["stats"].items() if k not in NOT_COMPARED}
+        es = c["end_stats"]
+        peaks = c["memory_peaks"]
+        peak = max(peaks) if peaks and None not in peaks else None
+        print(f"{label}: compute() {c['seconds']:.4f} s, value {c['value']!r}, numpy oracle {expected!r}, "
+              f"rel err {rel:.3e}; executor stats {json.dumps(c['stats'])}; launches {json.dumps(c['launches'])}, "
+              f"profiler records {json.dumps(c['recorded'])} (+{c['sentinels']} sentinel); {smi_tag()}")
+        print(f"{label}: executor_stats tasks_completed {es.get('tasks_completed')} (plan {c['tasks']}), "
+              f"bytes_written {es.get('bytes_written')}, chunks_written {es.get('chunks_written')}, per_op "
+              f"{len(c['per_op'])} ops (plan {c['ops']}); merged trace: {c['operation_spans']} operation spans, "
+              f"lanes {c['merged_lanes']}; TracingCallback tasks {c['tracing_tasks']}; device memory peak "
+              f"{peak} B over {len(peaks)} samples, budget {c['budget']} B; profiler trace "
+              f"{c['trace_bytes']} B")
+        check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
+        check(stats == want, f"{label}: executor stats {stats}, unobserved {want}")
+        check(c["launches"] == plain["launches"], f"{label}: launches {c['launches']}, unobserved {plain['launches']}")
+        check(c["recorded"] == c["launches"], f"{label}: the profiler recorded {c['recorded']}, "
+              f"the wrappers counted {c['launches']}")
+        check(all(es.get(k) == v for k, v in want.items()),
+              f"{label}: ComputeEndEvent.executor_stats lacks the executor's counters: {es}")
+        check(es.get("tasks_completed") == c["tasks"] == c["tracing_tasks"] == 921,
+              f"{label}: tasks_completed {es.get('tasks_completed')}, plan {c['tasks']}, traced {c['tracing_tasks']}")
+        check(es.get("bytes_written") == 8 and es.get("chunks_written") == 1,
+              f"{label}: bytes_written {es.get('bytes_written')}, chunks_written {es.get('chunks_written')}: "
+              f"the output's flush is one 8-byte chunk")
+        check(len(c["per_op"]) == c["ops"] == c["operation_spans"],
+              f"{label}: per_op {len(c['per_op'])}, plan ops {c['ops']}, operation spans {c['operation_spans']}")
+        check(len(peaks) == c["ops"] and peak is not None and peak <= c["budget"],
+              f"{label}: device memory peaks {peaks} B, budget {c['budget']} B")
+    print(f"observability [cuda]: warm compute() over {COST_ROUNDS} rounds in turns, median s: " + "; ".join(
+        f"{way} {float(np.median(t)):.4f} ({' / '.join(f'{x:.4f}' for x in t)})" for way, t in r["cost"].items())
+        + f"; {smi_tag()}")
+    bare, life = (np.asarray(r["lifecycle"][k]) * 1e3 for k in ("bare", "lifecycle"))
+    print(f"observability [host]: the lifecycle on vorticity's plan ({LIFECYCLE_REPS} runs in turns, an executor "
+          f"firing the device executor's events and running nothing): Plan.execute median {np.median(life):.4f} ms "
+          f"(quartiles {np.percentile(life, 25):.4f} / {np.percentile(life, 75):.4f}), finalize and the events "
+          f"alone {np.median(bare):.4f} ms ({np.percentile(bare, 25):.4f} / {np.percentile(bare, 75):.4f}): the "
+          f"lifecycle's own cost {np.median(life) - np.median(bare):.4f} ms a compute; {smi_tag()}")
+    return r
+
+
+def plan_chunk_writes(plan) -> tuple[int, int, int]:
+    """(chunks, bytes, tasks) the sequential executor's blockwise tasks
+    write, worked out from the plan: one chunk per output per task, each
+    stored padded to its store's full chunk shape."""
+    from cubed_tpu_torch.core.plan import iter_op_nodes
+    from cubed_tpu_torch.primitive.blockwise import apply_blockwise
+
+    chunks = nbytes = tasks = 0
+    for _, d in iter_op_nodes(plan.dag):
+        op = d["primitive_op"]
+        if op.pipeline.function is not apply_blockwise:
+            continue
+        tasks += op.num_tasks
+        for w in op.pipeline.config.writes:
+            chunks += op.num_tasks
+            nbytes += op.num_tasks * int(np.prod(w.array.chunks)) * np.dtype(w.array.dtype).itemsize
+    return chunks, nbytes, tasks
+
+
+def run_sequential_observed(torch, unobserved_seconds: float) -> float:
+    """Vorticity on the sequential executor with a TraceCollector: one task
+    span per task, storage sub-spans, and the bytes and chunks written
+    worked out from the plan; its wall clock beside phase 4's unobserved
+    run's."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.observability import TraceCollector
+
+    class TimedCollector(TraceCollector):
+        """A TraceCollector that sums the host time of its own callbacks."""
+
+        seconds = 0.0
+
+        def on_task_end(self, event):
+            t = time.perf_counter()
+            super().on_task_end(event)
+            self.seconds += time.perf_counter() - t
+
+        def on_compute_end(self, event):
+            t = time.perf_counter()
+            super().on_compute_end(event)  # the merged trace's export
+            self.seconds += time.perf_counter() - t
+
+    work = os.path.join(WORK_DIR, "vorticity-sequential-observed")
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
+    random.seed(SEED)
+    x = vorticity_build(spec)
+    plan = x.plan._finalize(array_names=(x.name,))
+    col = TimedCollector(trace_dir=os.path.join(work, "trace"))
+    t = time.perf_counter()
+    value = float(x.compute(callbacks=[col]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    t = time.perf_counter()
+    merged = json.load(open(col.trace_path))["traceEvents"]
+    load_s = time.perf_counter() - t
+    shutil.rmtree(work, ignore_errors=True)
+    label = "observability [sequential]"
+    es = col.executor_stats
+    spans = {name: sum(e["name"] == name for e in merged if e.get("cat") != "task")
+             for name in ("storage_read", "storage_write", "kernel_apply")}
+    task_spans = sum(e.get("cat") == "task" for e in merged)
+    chunks, nbytes, kernel_tasks = plan_chunk_writes(plan)
+    expected = ORACLES["vorticity", SEED]
+    rel = abs(value - expected) / abs(expected)
+    print(f"{label}: compute() {seconds:.3f} s with a TraceCollector, unobserved (phase 4) "
+          f"{unobserved_seconds:.3f} s ({100 * (seconds / unobserved_seconds - 1):+.2f}%), the collector's "
+          f"callbacks {col.seconds:.3f} s ({100 * col.seconds / seconds:.2f}% of the run); value {value!r}, "
+          f"rel err {rel:.3e}; {task_spans} task spans (plan {plan.num_tasks()}), sub-spans {json.dumps(spans)}, "
+          f"spans_dropped {es.get('spans_dropped', 0)}; bytes_written {es['bytes_written']} (plan {nbytes}), "
+          f"chunks_written {es['chunks_written']} (plan {chunks}), bytes_read {es['bytes_read']}, chunks_read "
+          f"{es['chunks_read']}; merged trace {len(merged)} events, loaded in {load_s:.2f} s; {smi_tag()}")
+    check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
+    check(task_spans == plan.num_tasks() == es["tasks_completed"] == 921,
+          f"{label}: {task_spans} task spans, {es['tasks_completed']} tasks completed, plan {plan.num_tasks()}")
+    check((es["bytes_written"], es["chunks_written"]) == (nbytes, chunks),
+          f"{label}: wrote {es['bytes_written']} B in {es['chunks_written']} chunks, plan {nbytes} B in {chunks}")
+    check(spans["storage_read"] > 0 and spans["storage_write"] > 0, f"{label}: no storage sub-spans: {spans}")
+    check(sum(spans.values()) + es.get("spans_dropped", 0) == es["chunks_read"] + es["chunks_written"] + kernel_tasks,
+          f"{label}: sub-spans {spans} and {es.get('spans_dropped', 0)} dropped, not one per chunk read, chunk "
+          f"written and blockwise task")
+    return seconds
+
+
 # ---------------------------------------------------------------------------
 # phase 5: where the time goes
 # ---------------------------------------------------------------------------
@@ -2248,7 +2577,7 @@ def main(argv: list) -> int:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
-    elif argv and argv != ["--profile-device-run"]:
+    elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"]):
         print("usage: chip_smoke.py [--against CHECKOUT]", file=sys.stderr)
         return 2
     try:
@@ -2271,6 +2600,12 @@ def main(argv: list) -> int:
     os.environ["CUBED_TPU_TORCH_DEVICE"] = "cuda"
     if argv == ["--profile-device-run"]:
         return profile_device_run(torch)
+    if argv == ["--observe-device-run"]:
+        try:
+            return observe_device_run(torch)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
     if layouts:
         try:
             _build.build_all()
@@ -2293,6 +2628,7 @@ def main(argv: list) -> int:
         return 0
 
     global CARD
+    started = time.perf_counter()
     CARD = smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}; torch device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}")
@@ -2330,11 +2666,8 @@ def main(argv: list) -> int:
         # vorticity: per block on the sequential executor; on the device
         # executor the batched Philox form, fma_sum_blocks and segment
         # replay, four computes with distinct seeds
-        random.seed(SEED)
-        t1 = time.perf_counter()
-        expected = vorticity_oracle()
-        print(f"vorticity: numpy oracle {time.perf_counter() - t1:.1f} s")
-        run_main_path(torch, "vorticity", "sequential", vorticity_build, expected, {
+        expected = cached_oracle("vorticity", vorticity_oracle, SEED)
+        sequential = run_main_path(torch, "vorticity", "sequential", vorticity_build, expected, {
             "philox_uniform": (400, 400), "philox_uniform:batched": (0, 0), "region_sum": (100, 10**9),
             "fma_sum_blocks": (0, 0)})
         runs = run_device_repeats(torch, "vorticity", vorticity_build, vorticity_oracle, {
@@ -2380,6 +2713,9 @@ def main(argv: list) -> int:
         print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "
               f"sum batching rules on the fused op); compute() cold {addsum['cuda']['seconds']:.4f} s (a first "
               f"sighting: op by op, no capture); {smi_tag()}")
+        # the observability phase: vorticity observed on both executors
+        check_observed_device_run(torch, runs)
+        run_sequential_observed(torch, sequential["seconds"])
         breakdown_device(torch, "vorticity", vorticity_build)
         # where a rechunk's device compute goes: its output is (450, 400) in
         # 100 chunks, written to storage and read back
@@ -2396,6 +2732,7 @@ def main(argv: list) -> int:
 
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the card's name to this line")
     print(smi)
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {

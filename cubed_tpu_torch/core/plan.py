@@ -6,19 +6,28 @@ target); data never flows through the graph, each op reads chunks of its
 inputs from storage and writes chunks of its output. The JAX package keeps
 the graph in networkx; here :class:`Dag` is a small multigraph in plain dicts
 with the few operations the planner, the optimizer and the executor use.
-The compute-level observability hooks are not ported.
+:meth:`Plan.execute` runs a compute's lifecycle: its id, the compute events,
+the metrics registry's delta and the per-op summary (``executor_stats``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import tempfile
 import uuid
 from typing import Iterator, Optional
 
+from ..observability import accounting, logs
+from ..observability.callback import _ComputeAggregator
+from ..observability.collect import TraceCollector
+from ..observability.metrics import get_registry
 from ..primitive.types import CubedPipeline, PrimitiveOperation
+from ..runtime.types import ComputeEndEvent, ComputeStartEvent, callbacks_on
 from ..storage.zarr import LazyZarrArray
 from ..utils import gensym, join_path  # noqa: F401  (gensym re-exported for plan builders)
+
+logger = logging.getLogger(__name__)
 
 #: unique run id for this client process; work_dir data lives under it
 CONTEXT_ID = os.environ.get("CUBED_TPU_TORCH_CONTEXT_ID") or f"cubed-{uuid.uuid4().hex[:10]}"
@@ -174,15 +183,55 @@ class Plan:
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
     ) -> None:
         """Finalize the plan and run it on *executor* (default: the
-        sequential ``PythonDagExecutor``)."""
+        sequential ``PythonDagExecutor``), as one compute: a compute id, a
+        ``_ComputeAggregator`` beside *callbacks*, ``on_compute_start``,
+        the executor under the compute's log scope (and span recording,
+        armed while a ``TraceCollector`` is attached), and, even when the
+        compute fails, ``on_compute_end`` with ``executor_stats`` (the
+        executor's own ``stats``, the registry's delta over the compute and
+        the per-op summary) and the error. The reference's journal,
+        telemetry, flight recorder, run history, faults, integrity, memory
+        guard and dispatch profiler are not ported (ROADMAP Queue 1)."""
         if executor is None:
             from ..runtime.executors.python import PythonDagExecutor
 
             executor = PythonDagExecutor()
-        finalized = self._finalize(optimize_graph, array_names)
-        executor.execute_dag(
-            finalized.dag, callbacks=callbacks, array_names=array_names, spec=spec,
-        )
+        dag = self._finalize(optimize_graph, array_names).dag
+        compute_id = f"c-{uuid.uuid4().hex[:10]}"
+        aggregator = _ComputeAggregator()
+        all_callbacks = list(callbacks) if callbacks else []
+        all_callbacks.append(aggregator)
+        metrics_before = get_registry().snapshot()
+        callbacks_on(all_callbacks, "on_compute_start", ComputeStartEvent(dag, compute_id=compute_id))
+        compute_error: Optional[BaseException] = None
+        try:
+            # span recording is armed only while a collector merges the
+            # spans; None leaves an operator's CUBED_TPU_TORCH_TASK_SPANS as
+            # it is
+            armed = True if any(isinstance(cb, TraceCollector) for cb in all_callbacks) else None
+            with logs.compute_scope(compute_id, export_env=True), \
+                    accounting.spans_scoped(armed, export_env=True):
+                executor.execute_dag(dag, callbacks=all_callbacks, array_names=array_names, spec=spec)
+        except BaseException as e:
+            compute_error = e
+            raise
+        finally:
+            # the end event fires even when the compute fails; assembling
+            # its stats never masks the executor's own exception. Where an
+            # executor counter shares a name with a registry metric, the
+            # per-compute registry value wins
+            stats: dict = {}
+            try:
+                executor_own = getattr(executor, "stats", None)
+                if executor_own:
+                    stats.update(dict(executor_own))
+                stats.update(get_registry().snapshot_delta(metrics_before))
+                stats.update(aggregator.summary())
+            except Exception:
+                logger.exception("failed to assemble executor_stats; reporting partial stats (%d keys)",
+                                 len(stats))
+            callbacks_on(all_callbacks, "on_compute_end", ComputeEndEvent(
+                dag, executor_stats=stats or None, compute_id=compute_id, error=compute_error))
 
 
 class FinalizedPlan:

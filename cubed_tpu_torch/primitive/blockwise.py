@@ -27,6 +27,7 @@ from ..backend_array_api import (
 )
 from ..chunks import blockdims_from_blockshape
 from ..chunks import numblocks as chunks_to_numblocks
+from ..observability.accounting import scope_span
 from ..storage.virtual import VirtualOffsetsArray
 from ..storage.zarr import lazy_empty
 from ..utils import chunk_memory, gensym, get_item, memory_repr, to_chunksize
@@ -97,9 +98,12 @@ def _is_key(obj) -> bool:
 
 def apply_blockwise(out_key: tuple, *, config: BlockwiseSpec) -> None:
     """Task body: read input chunks, apply the (fused) function, write."""
-    out_coords = tuple(out_key[1:])
+    out_name, out_coords = out_key[0], tuple(out_key[1:])
     args = [_read_keys(entry, config) for entry in config.block_function(out_key)]
-    result = config.function(*args)
+    # the function gets its own span (the storage spans are around it), so
+    # a merged trace separates compute time from IO time per task
+    with scope_span("kernel_apply", cat="kernel", op=out_name):
+        result = config.function(*args)
     if config.writes_rest:
         writes = config.writes
         if not isinstance(result, (tuple, list)) or len(result) != len(writes):

@@ -113,6 +113,14 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
 - **The structural key** folds in both options, so float32 and float64
   computes of one plan shape, or two precisions, never replay each other's
   graphs.
+- **Observability** (the reference's): every op fires its operation and
+  task events, each op one ``TaskEndEvent`` of its task count, stamped with
+  host time after its launches are queued (a segment's wall time
+  apportioned by task count); device time is the profiler callback's
+  (``observability/profiler.py``). Every callback fires outside a capture.
+  A segment memory abort records a ``cuda_segment_mem_abort`` decision.
+  Preloads and the output's flush run outside any task scope, so their
+  storage bytes go to the metrics registry (``observability/accounting.py``).
 
 Not ported yet: meshes, ``task_guard``, resume and the compute journal. No fast path, capture or
 kernel is wrapped in an ``except``: where one cannot run, a check says so and
@@ -149,6 +157,7 @@ from ...core.plan import Plan, create_zarr_array
 from ...kernels import _build, _geometry
 from ...kernels.fma_sum import fma_sum, fma_sum_blocks
 from ...kernels.philox_uniform import HoistedKeys, hoisted
+from ...observability.collect import record_decision
 from ...primitive.blockwise import (
     BlockwiseSpec,
     CubedArrayProxy,
@@ -969,6 +978,7 @@ class CudaExecutor(DagExecutor):
         skey = self._structural_key(ops, dag, in_keys, resident, keep_list, hoisted_arrays, dev)
         if not self._segment_fits(ops, resident, budget, dev, skey):
             self.stats["segment_mem_aborts"] += 1
+            record_decision("cuda_segment_mem_abort", segment=",".join(name for name, _ in ops))
             self._run_ops(ops, resident, budget, requested)
             return
         if skey is None or np.unique(seeds).size != seeds.size:

@@ -7,6 +7,10 @@ named by ``.``-separated chunk indices. Each chunk write is atomic and
 durable: temp file, fsync, rename, fsync of the directory. That is what makes
 a re-run or duplicate task safe, and it is kept whole here. Checksum
 sidecars, breakers, compressors and remote (fsspec) stores are not ported.
+Every chunk read and write is counted as stored (uncompressed, as the JAX
+package stores by default) and spanned (``storage_read`` /
+``storage_write``) by ``observability/accounting.py``, against the task
+scope that does it, else the process registry.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from urllib.parse import urlsplit
 import numpy as np
 
 from ..chunks import blockdims_from_blockshape
+from ..observability.accounting import record_bytes_read, record_bytes_written, scope_span
 
 #: a crashed writer's orphaned ``.tmp`` is only swept once it is this old
 ORPHAN_TMP_MAX_AGE_S = 60.0
@@ -169,13 +174,19 @@ class ZarrV2Array:
         key = self._chunk_key(idx)
         if not self._io.exists(key):
             return None
-        data = self._io.read_bytes(key)
+        with scope_span("storage_read", cat="storage", key=key) as sp:
+            data = self._io.read_bytes(key)
+            sp.attrs["bytes"] = len(data)
+        record_bytes_read(self.store, len(data))
         arr = np.frombuffer(data, dtype=self.dtype)
         return arr.reshape(self.chunks if self.shape else ())
 
     def _write_chunk(self, idx: tuple[int, ...], arr: np.ndarray) -> None:
         arr = np.ascontiguousarray(arr, dtype=self.dtype)
-        self._io.write_bytes_atomic(self._chunk_key(idx), memoryview(arr).cast("B"))
+        key = self._chunk_key(idx)
+        with scope_span("storage_write", cat="storage", key=key, bytes=arr.nbytes):
+            self._io.write_bytes_atomic(key, memoryview(arr).cast("B"))
+        record_bytes_written(self.store, arr.nbytes)
 
     def _empty_chunk(self) -> np.ndarray:
         fill = self.fill_value if self.fill_value is not None else 0

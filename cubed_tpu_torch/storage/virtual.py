@@ -1,5 +1,6 @@
 """Virtual arrays: inputs that are never materialized in storage but plug into
-the chunk-read path. Counterpart of ``cubed_tpu/storage/virtual.py``."""
+the chunk-read path. Counterpart of ``cubed_tpu/storage/virtual.py``. A read
+counts its logical bytes as ``virtual_bytes_read`` (no IO)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Any, Sequence
 import numpy as np
 
 from ..chunks import blockdims_from_blockshape
+from ..observability.accounting import record_virtual_read
 from ..utils import broadcast_trick
 
 #: Arrays at or under this size may be kept in memory and shipped with the plan
@@ -50,7 +52,9 @@ class VirtualEmptyArray(_VirtualBase):
     def __getitem__(self, key) -> np.ndarray:
         sel = _normalize_key(key, self.shape)
         shape = tuple(max(0, s.stop - s.start) for s in sel)
-        return broadcast_trick(np.empty)(shape, dtype=self.dtype)
+        out = broadcast_trick(np.empty)(shape, dtype=self.dtype)
+        record_virtual_read(int(np.prod(shape or (1,))) * self.dtype.itemsize)
+        return out
 
 
 class VirtualOffsetsArray(_VirtualBase):
@@ -74,6 +78,7 @@ class VirtualOffsetsArray(_VirtualBase):
             raise IndexError("VirtualOffsetsArray must be read one block at a time")
         idx = tuple(s.start for s in sel)
         offset = int(np.ravel_multi_index(idx, self.shape)) if self.shape else 0
+        record_virtual_read(self.dtype.itemsize)
         return np.full((1,) * len(self.shape), self.base + offset, dtype=self.dtype)
 
 
@@ -93,7 +98,9 @@ class VirtualInMemoryArray(_VirtualBase):
         self.chunks = tuple(int(c) for c in chunks) if self.shape else ()
 
     def __getitem__(self, key) -> np.ndarray:
-        return self.array[key]
+        out = self.array[key]
+        record_virtual_read(getattr(out, "nbytes", 0))
+        return out
 
 
 def virtual_empty(shape, *, dtype, chunks) -> VirtualEmptyArray:

@@ -1,18 +1,21 @@
 """General utilities: plan-node names, byte strings, chunk memory and chunk math.
 
 Counterpart of ``cubed_tpu/utils.py``, trimmed to what the port's plan and
-storage layers call. The memory reckoning is the JAX package's, unchanged, so
-both packages bound the same plan by the same projected memory.
+storage layers call, and the peak host memory a task reports. The memory
+reckoning is the JAX package's, unchanged, so both packages bound the same
+plan by the same projected memory.
 """
 
 from __future__ import annotations
 
 import itertools
+import platform
 import re
 import threading
 from math import prod
 from pathlib import Path
 from posixpath import join as _urljoin
+from resource import RUSAGE_SELF, getrusage
 from typing import Sequence
 from urllib.parse import urlsplit, urlunsplit
 
@@ -146,3 +149,26 @@ def broadcast_trick(func):
 
     wrapper.__name__ = getattr(func, "__name__", "broadcast_trick")
     return wrapper
+
+
+def peak_measured_mem() -> int:
+    """Peak RSS of this process in bytes (counterpart of
+    ``cubed_tpu/utils.py:peak_measured_mem``).
+
+    On Linux this reads VmHWM from ``/proc/self/status``, not
+    ``getrusage(RUSAGE_SELF).ru_maxrss``: ru_maxrss survives ``execve``, so
+    a process spawned from a large parent would report the parent's peak
+    as its own floor; VmHWM belongs to this program's own address space."""
+    if platform.system() == "Linux":
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmHWM:"):
+                        return int(line.split()[1]) * 1024
+        except OSError:
+            pass
+    ru_maxrss = getrusage(RUSAGE_SELF).ru_maxrss
+    # ru_maxrss is KiB on Linux, bytes on macOS
+    if platform.system() == "Darwin":
+        return ru_maxrss
+    return ru_maxrss * 1024

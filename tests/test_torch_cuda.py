@@ -849,3 +849,62 @@ def test_a_full_float32_mode_refuses_a_process_that_turned_tf32_on(cuda, mode):
         torch.backends.cuda.matmul.allow_tf32 = before
     with contraction.precision(mode):
         assert torch.equal(contraction.matmul(x, x), torch.full((8, 8), 8.0, device=cuda))
+
+
+#: a substring of each hand kernel's name in a torch.profiler trace
+KERNEL_RECORDS = {"philox_uniform": "philox_", "region_sum": "region_sum_", "fma_sum_blocks": "fma_blocks_kernel"}
+
+
+def test_observers_leave_the_device_route_and_values_as_they_are(cuda, tmp_path, monkeypatch):
+    """A small vorticity, cold, capturing and warm, with a TraceCollector,
+    the torch.profiler callback and the device memory callback attached:
+    values bit for bit, path counters, captures and launches as an
+    unobserved series' (each series with a graph cache of its own), and each
+    compute's profiler trace names the three hand kernels."""
+    import json
+    import os
+    from collections import OrderedDict
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.fma_sum import fma_sum_blocks
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+    from cubed_tpu_torch.observability import DeviceMemoryCallback, TorchProfilerCallback, TraceCollector
+    from cubed_tpu_torch.runtime.executors import cuda as cuda_module
+
+    wrappers = {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum_blocks": fma_sum_blocks}
+
+    def series(observed: bool) -> list:
+        monkeypatch.setattr(cuda_module, "_GRAPHS", cuda_module._GraphCache())
+        monkeypatch.setattr(cuda_module, "_SEEN", OrderedDict())
+        ex = cuda_module.CudaExecutor()
+        runs = []
+        for seed in (31, 32, 33):
+            random.seed(seed)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{observed}-{seed}"), allowed_mem="500MB")
+            a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+            v = xp.mean(a[1:] * x[1:] + b[1:] * y[1:])
+            cbs = [TraceCollector(trace_dir=str(tmp_path / "trace")),
+                   TorchProfilerCallback(log_dir=str(tmp_path / "profile")), DeviceMemoryCallback()] \
+                if observed else None
+            before = {k: w.launches for k, w in wrappers.items()}
+            value = np.asarray(v.compute(executor=ex, callbacks=cbs))
+            tasks = v.plan._finalize(array_names=(v.name,)).num_tasks()
+            runs.append((value, dict(ex.stats), {k: w.launches - before[k] for k, w in wrappers.items()}, cbs, tasks))
+        return runs
+
+    plain, seen = series(False), series(True)
+    assert [r[1].get("segments_compiled", 0) for r in seen] == [0, 1, 0]
+    for (value, stats, launches, _, _), (seen_value, seen_stats, seen_launches, (col, prof, mem), tasks) in zip(
+            plain, seen):
+        np.testing.assert_array_equal(seen_value, value)
+        assert seen_stats == stats
+        assert seen_launches == launches
+        assert col.executor_stats["tasks_completed"] == tasks
+        events = json.load(open(prof.trace_path))["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        for key, record in KERNEL_RECORDS.items():
+            assert any(record in n for n in names), key
+        assert mem.samples and all(s["bytes_in_use"] is not None for s in mem.samples)
+        assert os.path.exists(col.trace_path)

@@ -34,6 +34,7 @@ def test_import_loads_no_jax_or_reference_modules():
         "import sys, cubed_tpu_torch, cubed_tpu_torch.array_api, cubed_tpu_torch.random\n"
         "import cubed_tpu_torch.kernels._build, cubed_tpu_torch.runtime.executors.python\n"
         "import cubed_tpu_torch.runtime.executors.cuda, cubed_tpu_torch.runtime.create\n"
+        "import cubed_tpu_torch.observability, cubed_tpu_torch.extensions, cubed_tpu_torch.extensions.profiler\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -41,17 +42,39 @@ def test_import_loads_no_jax_or_reference_modules():
     assert loaded == []
 
 
-def test_compute_on_cpu_loads_no_jax_or_reference_modules(tmp_path):
+def _compute_on_cpu(tmp_path, observed: bool) -> None:
+    """A compute in a fresh interpreter loads no forbidden module; *observed*
+    attaches a TraceCollector (and the tracing and profiler callbacks),
+    whose traces it writes."""
+    callbacks = (
+        "from cubed_tpu_torch.observability import (TraceCollector, TracingCallback,\n"
+        "    TorchProfilerCallback, DeviceMemoryCallback)\n"
+        f"cbs = [TraceCollector(trace_dir={str(tmp_path / 'trace')!r}),\n"
+        f"       TracingCallback(trace_path={str(tmp_path / 'trace.json')!r}),\n"
+        f"       TorchProfilerCallback(log_dir={str(tmp_path / 'profile')!r}), DeviceMemoryCallback()]\n"
+    ) if observed else "cbs = None\n"
     proc = _run(
         "import sys, cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+        + callbacks +
         f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB')\n"
         "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
-        "print(float(xp.mean(a[1:] * a[1:]).compute()))\n"
+        "print(float(xp.mean(a[1:] * a[1:]).compute(callbacks=cbs)))\n"
         "print('\\n'.join(sorted(sys.modules)))",
         {"CUBED_TPU_TORCH_DEVICE": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr
     assert [m for m in proc.stdout.split() if _forbidden(m)] == []
+    if observed:
+        assert "cubed_tpu_torch.observability.collect" in proc.stdout.split()
+        assert len(os.listdir(tmp_path / "trace")) == 1 and len(os.listdir(tmp_path / "profile")) == 1
+
+
+def test_compute_on_cpu_loads_no_jax_or_reference_modules(tmp_path):
+    _compute_on_cpu(tmp_path, observed=False)
+
+
+def test_observed_compute_on_cpu_loads_no_jax_or_reference_modules(tmp_path):
+    _compute_on_cpu(tmp_path, observed=True)
 
 
 def _imported_modules(path: str) -> set:
@@ -68,14 +91,20 @@ def _imported_modules(path: str) -> set:
     return names
 
 
-@pytest.mark.parametrize(
-    "path",
-    ["chip_smoke.py"] + sorted(
-        os.path.relpath(os.path.join(d, f), REPO)
-        for d, _, files in os.walk(os.path.join(REPO, "cubed_tpu_torch"))
-        for f in files if f.endswith(".py")
-    ),
+SOURCES = ["chip_smoke.py"] + sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(os.path.join(REPO, "cubed_tpu_torch"))
+    for f in files if f.endswith(".py")
 )
+
+
+def test_source_walk_covers_every_subpackage():
+    for sub in ("observability", "extensions", "runtime", "kernels", "storage"):
+        assert any(p.startswith(os.path.join("cubed_tpu_torch", sub, "")) for p in SOURCES), sub
+    assert os.path.join("cubed_tpu_torch", "observability", "collect.py") in SOURCES
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_sources_import_no_jax_or_reference_modules(path):
     assert [m for m in _imported_modules(os.path.join(REPO, path)) if _forbidden(m)] == []
 
