@@ -6,7 +6,9 @@
 (``--profile-device-run`` is phase 5's own call of this script,
 ``--check-layouts FILE`` phase 4's, ``--observe-device-run`` the
 observability phase's, and ``--time-kernels CHECKOUT`` and
-``--time-computes CHECKOUT`` the ``--against`` timings' calls.)
+``--time-computes CHECKOUT`` the ``--against`` timings' calls;
+``--array-api-phase [full]`` runs the Array API phase alone, ``full`` at
+BASELINE.md's 10000 x 10000 / 5000 scale.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -165,6 +167,20 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and written and every blockwise task, bytes and chunks written equal to
    what the plan's outputs take as stored, the collector's own callback
    time, and the wall clock beside phase 4's unobserved run;
+   Then the Array API phase: 22 ops (tests/test_mem_utilization.py's
+   ``OPS`` that the port has, flip, roll, var, std, cumulative_sum,
+   argmax, where, count_nonzero and an integer-array index) on two
+   ``random.random`` inputs of 5000 x 5000 float64 in 2500 x 2500 chunks,
+   allowed_mem 2GB. Each on the sequential executor under allowed_mem
+   equal to its plan's projected memory (reserved_mem 0), every task's
+   device peak (the allocator's, reset at the task's start) at most that
+   bound; then on ``CudaExecutor`` cold and warm, each value against a
+   numpy oracle drawn from the same Philox blocks (exact where the op
+   moves values or rounds once, sums rtol 1e-12, the scan within n eps
+   max|x|), no failed check, and a profiled warm compute whose copies of
+   64 KiB or more between host and card, beyond the output's own chunk
+   writes, are none for the resident reads of flip, concat, roll and the
+   integer-array index; each op's times, ratio, paths and launches printed;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -2366,6 +2382,253 @@ def run_sequential_observed(torch, unobserved_seconds: float) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the Array API phase: the standard's surface at the reference's published
+# memory scale, the per-task memory bound on the card, resident reads
+# ---------------------------------------------------------------------------
+
+#: BASELINE.md's memory-bound scale is 10000 x 10000 float64 in 5000 x 5000
+#: (200 MB) chunks under allowed_mem 2GB; cut to 5000 x 5000 in 2500 x 2500
+#: (50 MB) chunks: there the memory test's flatten needs a rechunk of 2.4 GB,
+#: refused at plan time by both packages, and the phase's 22 ops x 4
+#: computes would take more than its 90 s. ``--array-api-phase full`` runs
+#: the phase alone at the published scale, where the flatten must be
+#: refused at plan time
+ARRAY_API = dict(shape=(5000, 5000), chunks=2500, allowed_mem="2GB")
+ARRAY_API_FULL = dict(shape=(10000, 10000), chunks=5000, allowed_mem="2GB", refused=("reshape",))
+
+
+def _array_api_ops(shape) -> dict:
+    """name -> (build(xp, a, b), numpy oracle(a, b), comparison, a resident
+    read whose copies between host and card must be none). A comparison is
+    "exact", ("rtol", r), ("scan", axis) (atol n * eps * max|value| along an
+    axis of length n) or ("rows", k, rtol) (rows 0..k-1 and the last k of a
+    product, each against numpy's)."""
+    cols = np.arange(shape[1] - 1, -1, -7)  # an integer-array selection: every seventh column, last first
+    return {
+        "add": (lambda xp, a, b: xp.add(a, b), lambda a, b: a + b, "exact", False),
+        "multiply": (lambda xp, a, b: xp.multiply(a, b), lambda a, b: a * b, "exact", False),
+        "negative": (lambda xp, a, b: xp.negative(a), lambda a, b: -a, "exact", False),
+        "astype": (lambda xp, a, b: xp.astype(a, np.float32), lambda a, b: a.astype(np.float32), "exact", False),
+        "sum": (lambda xp, a, b: xp.sum(a, axis=0), lambda a, b: a.sum(axis=0), ("rtol", 1e-12), False),
+        "mean": (lambda xp, a, b: xp.mean(a, axis=0), lambda a, b: a.mean(axis=0), ("rtol", 1e-12), False),
+        "max": (lambda xp, a, b: xp.max(a, axis=1), lambda a, b: a.max(axis=1), "exact", False),
+        "matmul": (lambda xp, a, b: xp.matmul(a, b), None, ("rows", 4, 1e-12), False),
+        "transpose": (lambda xp, a, b: xp.permute_dims(a, (1, 0)), lambda a, b: a.T, "exact", False),
+        "index_slice": (lambda xp, a, b: a[1:, :], lambda a, b: a[1:, :], "exact", False),
+        "concat": (lambda xp, a, b: xp.concat([a, b], axis=0), lambda a, b: np.concatenate([a, b]), "exact", True),
+        "stack": (lambda xp, a, b: xp.stack([a, b], axis=0), lambda a, b: np.stack([a, b]), "exact", False),
+        "reshape": (lambda xp, a, b: xp.reshape(a, (a.shape[0] * a.shape[1],)), lambda a, b: a.reshape(-1),
+                    "exact", False),
+        "flip": (lambda xp, a, b: xp.flip(a, axis=0), lambda a, b: np.flip(a, 0), "exact", True),
+        "roll": (lambda xp, a, b: xp.roll(a, 1234, axis=1), lambda a, b: np.roll(a, 1234, 1), "exact", True),
+        "var": (lambda xp, a, b: xp.var(a, axis=0), lambda a, b: a.var(axis=0), ("rtol", 1e-12), False),
+        "cumulative_sum": (lambda xp, a, b: xp.cumulative_sum(a, axis=1), lambda a, b: np.cumsum(a, 1),
+                           ("scan", 1), False),
+        "argmax": (lambda xp, a, b: xp.argmax(a, axis=0), lambda a, b: a.argmax(axis=0), "exact", False),
+        "where": (lambda xp, a, b: xp.where(xp.greater(a, 0.5), a, b), lambda a, b: np.where(a > 0.5, a, b),
+                  "exact", False),
+        "index_array": (lambda xp, a, b: a[:, cols], lambda a, b: a[:, cols], "exact", True),
+        "std": (lambda xp, a, b: xp.std(a, axis=1, correction=1), lambda a, b: a.std(axis=1, ddof=1),
+                ("rtol", 1e-12), False),
+        "count_nonzero": (lambda xp, a, b: xp.count_nonzero(xp.greater(a, 0.5), axis=0),
+                          lambda a, b: np.count_nonzero(a > 0.5, axis=0), "exact", False),
+    }
+
+
+def array_api_inputs(spec, config=ARRAY_API):
+    """The phase's two inputs, from ``cubed_tpu_torch.random.random`` (the
+    Philox kernels on the card) with root seeds drawn after
+    ``random.seed(SEED)``."""
+    import cubed_tpu_torch
+
+    random.seed(SEED)
+    return [cubed_tpu_torch.random.random(config["shape"], chunks=config["chunks"], spec=spec) for _ in range(2)]
+
+
+def array_api_oracle_inputs(config=ARRAY_API):
+    """numpy's draws of the same Philox blocks as :func:`array_api_inputs`
+    (``random.random`` draws its root seed with ``random.getrandbits(30)``)."""
+    random.seed(SEED)
+    return [oracle_random(config["shape"], config["chunks"], random.getrandbits(30)) for _ in range(2)]
+
+
+class TaskPeaks:
+    """A callback holding each task's device peak: the allocator's peak
+    from the task's start (its statistics reset there) less what was
+    allocated when it started; the largest is kept."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.start = 0
+        self.worst = 0
+        self.worst_op = None
+        self.tasks = 0
+
+    def on_task_start(self, event):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.start = self.torch.cuda.memory_allocated()
+
+    def on_task_end(self, event):
+        self.torch.cuda.synchronize()
+        peak = self.torch.cuda.max_memory_allocated() - self.start
+        if peak > self.worst:
+            self.worst, self.worst_op = peak, event.array_name
+        self.tasks += 1
+
+
+def compare_to_oracle(label: str, value, expected, how) -> float:
+    """Hold *value* against its numpy oracle; returns the largest
+    difference relative to the oracle (0 for an exact comparison)."""
+    value = np.asarray(value)
+    if how == "exact":
+        check(value.dtype == expected.dtype and value.shape == expected.shape,
+              f"{label}: {value.dtype}{value.shape}, numpy's oracle {expected.dtype}{expected.shape}")
+        check(np.array_equal(value, expected), f"{label}: not equal to the numpy oracle")
+        return 0.0
+    kind = how[0]
+    check(value.dtype == expected.dtype and value.shape == expected.shape,
+          f"{label}: {value.dtype}{value.shape}, numpy's oracle {expected.dtype}{expected.shape}")
+    if kind == "scan":
+        n = value.shape[how[1]]
+        atol = n * np.finfo(value.dtype).eps * float(np.max(np.abs(expected)))
+        err = float(np.max(np.abs(value - expected)))
+        check(err <= atol, f"{label}: scan differs from the numpy oracle by {err} > atol {atol}")
+        return err / float(np.max(np.abs(expected)))
+    rel = float(np.max(np.abs(value - expected) / np.abs(expected)))
+    check(rel <= how[-1], f"{label}: differs from the numpy oracle by rtol {rel} > {how[-1]}")
+    return rel
+
+
+def host_device_copies(torch, fn) -> dict:
+    """H2D and D2H copies of at least 64 KiB made while *fn* runs, from
+    torch.profiler's trace (each copy's bytes): data crossing between host
+    and card, not Philox keys or scalars."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SENTINEL_CYCLES)
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(WORK_DIR, f"copies-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    os.remove(path)
+    events = events.get("traceEvents", events) if isinstance(events, dict) else events
+    out = {"HtoD": 0, "DtoH": 0, "HtoD_small": 0, "DtoH_small": 0, "unsized": 0}
+    for e in events:
+        name = str(e.get("name", ""))
+        kind = "HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else None
+        if e.get("ph") != "X" or kind is None or "Memcpy" not in name:
+            continue
+        nbytes = (e.get("args") or {}).get("bytes")
+        if nbytes is None:
+            out["unsized"] += 1
+        elif int(nbytes) >= 64 * 1024:
+            out[kind] += 1
+        else:
+            out[kind + "_small"] += 1
+    return out
+
+
+def run_array_api_phase(torch, config=ARRAY_API) -> dict:
+    """The Array API phase (see the module docstring). Returns each op's
+    numbers, printed as they come."""
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ops = _array_api_ops(config["shape"])
+    t0 = time.perf_counter()
+    an, bn = array_api_oracle_inputs(config)
+    print(f"array API phase: {config['shape']} float64 in {config['chunks']}-chunks, allowed_mem "
+          f"{config['allowed_mem']}; numpy oracle inputs {time.perf_counter() - t0:.1f} s; {smi_tag()}")
+    wrappers = kernel_wrappers()
+    results = {}
+    for name, (build, oracle, how, resident_read) in ops.items():
+        if name in config.get("refused", ()):
+            # the plan-time memory bound at work, in both packages
+            spec = cubed_tpu_torch.Spec(work_dir=WORK_DIR, allowed_mem=config["allowed_mem"], reserved_mem=0)
+            try:
+                build(xp, *array_api_inputs(spec, config))
+            except ValueError as e:
+                print(f"{name}: refused at plan time under allowed_mem {config['allowed_mem']}: {e}")
+                continue
+            raise PhaseFailed(f"{name}: built under allowed_mem {config['allowed_mem']}; expected a refusal")
+        if isinstance(how, tuple) and how[0] == "rows":
+            k = how[1]
+            rows = np.r_[0:k, an.shape[0] - k:an.shape[0]]
+            expected = an[rows] @ bn
+        else:
+            expected = oracle(an, bn)
+        # the sequential executor under allowed_mem = the plan's projected
+        # memory, reserved_mem 0 (tests/test_mem_utilization.py's run_tight)
+        work = os.path.join(WORK_DIR, f"array-api-{name}")
+        probe = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"], reserved_mem=0)
+        projected = build(xp, *array_api_inputs(probe, config)).plan.max_projected_mem()
+        tight = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=projected, reserved_mem=0)
+        arr = build(xp, *array_api_inputs(tight, config))
+        peaks = TaskPeaks(torch)
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        value = arr.compute(callbacks=[peaks])
+        seq_s = time.perf_counter() - t
+        seq_launches = {k: w.launches for k, w in wrappers.items()}
+        if isinstance(how, tuple) and how[0] == "rows":
+            value = np.asarray(value)[rows]
+        err = compare_to_oracle(f"{name} [sequential]", value, expected, how)
+        ratio = peaks.worst / projected
+        print(f"{name} [sequential]: compute() {seq_s:.3f} s, {peaks.tasks} tasks; largest task device peak "
+              f"{peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; launches "
+              f"{json.dumps(seq_launches)}; "
+              f"max rel err {err:.3e}; {smi_tag()}")
+        check(ratio <= 1.0, f"{name}: a task's device peak {peaks.worst} B is over its projected {projected} B")
+        shutil.rmtree(work, ignore_errors=True)
+
+        # the device executor: cold, then warm (a second compute captures
+        # the segments and replays them), then a profiled warm compute
+        spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
+        arr = build(xp, *array_api_inputs(spec, config))
+        ex = CudaExecutor()
+        times, launches, stats = [], [], []
+        for _ in range(2):
+            for w in wrappers.values():
+                w.launches = 0
+            t = time.perf_counter()
+            value = arr.compute(executor=ex)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append({k: w.launches for k, w in wrappers.items()})
+            stats.append(dict(sorted(ex.stats.items())))
+            if isinstance(how, tuple) and how[0] == "rows":
+                value = np.asarray(value)[rows]
+            compare_to_oracle(f"{name} [cuda]", value, expected, how)
+            for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+                check(ex.stats.get(counter, 0) == 0, f"{name} [cuda]: {counter} = {ex.stats.get(counter)}")
+        copies = host_device_copies(torch, lambda: arr.compute(executor=ex))
+        out_chunks = int(np.prod(arr.numblocks)) if arr.shape else 1
+        out_chunk_bytes = arr.chunkmem
+        # the output's own write crosses to the host, chunk by chunk
+        crossing = copies["HtoD"] + max(0, copies["DtoH"] - (out_chunks if out_chunk_bytes >= 64 * 1024 else 0))
+        print(f"{name} [cuda]: compute() cold {times[0]:.3f} s, warm {times[1]:.3f} s; stats cold "
+              f"{json.dumps(stats[0])}; warm {json.dumps(stats[1])}; launches cold {json.dumps(launches[0])}, "
+              f"warm {json.dumps(launches[1])}; host<->card copies of a profiled warm compute "
+              f"{json.dumps(copies)} (the output's write: {out_chunks} chunks), beyond it {crossing}; {smi_tag()}")
+        check(copies["unsized"] == 0, f"{name} [cuda]: the profiler recorded copies without their bytes")
+        if resident_read:
+            check(crossing == 0, f"{name} [cuda]: a resident read crossed between host and card ({copies})")
+        shutil.rmtree(work, ignore_errors=True)
+        results[name] = dict(seq_s=seq_s, ratio=ratio, peak=peaks.worst, projected=projected, cold_s=times[0],
+                             warm_s=times[1], stats=stats[1], launches=launches[0], seq_launches=seq_launches,
+                             copies=crossing)
+    print(f"array API phase: {time.perf_counter() - t0:.1f} s; {smi_tag()}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -2570,6 +2833,7 @@ def breakdown_device_ops(torch, name: str, build, allowed_mem: str = "2GB") -> N
 
 
 def main(argv: list) -> int:
+    global CARD
     against = timed = layouts = None
     if argv[:1] == ["--against"] and len(argv) == 2:
         against = argv[1]
@@ -2577,8 +2841,9 @@ def main(argv: list) -> int:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
-    elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"]):
-        print("usage: chip_smoke.py [--against CHECKOUT]", file=sys.stderr)
+    elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
+                               ["--array-api-phase", "full"]):
+        print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full]]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2606,6 +2871,18 @@ def main(argv: list) -> int:
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
+    if argv[:1] == ["--array-api-phase"]:
+        # the Array API phase alone
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            run_array_api_phase(torch, ARRAY_API_FULL if argv[1:] == ["full"] else ARRAY_API)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
     if layouts:
         try:
             _build.build_all()
@@ -2627,7 +2904,6 @@ def main(argv: list) -> int:
         print(json.dumps(times))
         return 0
 
-    global CARD
     started = time.perf_counter()
     CARD = smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2713,6 +2989,8 @@ def main(argv: list) -> int:
         print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "
               f"sum batching rules on the fused op); compute() cold {addsum['cuda']['seconds']:.4f} s (a first "
               f"sighting: op by op, no capture); {smi_tag()}")
+        array_api = run_array_api_phase(torch)
+        print("array API phase summary: " + json.dumps(array_api))
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
         run_sequential_observed(torch, sequential["seconds"])

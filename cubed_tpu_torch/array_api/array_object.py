@@ -2,9 +2,9 @@
 
 Counterpart of ``cubed_tpu/array_api/array_object.py``. Each operator lowers
 to ``elemwise(nxp.<op>)`` with the spec's dtype checks and scalar promotion;
-``@`` is ``matmul`` and ``.T``/``.mT`` are ``matrix_transpose``; operators
-whose torch counterpart is not one call (bitwise, floor division,
-remainder) are not ported yet.
+``@`` is ``matmul`` and ``.T``/``.mT`` are ``matrix_transpose``. The
+operators share their element functions with ``elementwise_functions``
+(floor division, remainder and ``>>`` of uint64 as there).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..backend_array_api import nxp
+from ..backend_array_api import logical_right_shift64, nxp
 from ..core.array import CoreArray
 from ..core.ops import elemwise
 from .dtypes import (
@@ -22,6 +22,7 @@ from .dtypes import (
     _complex_floating_dtypes,
     _dtype_categories,
     _floating_dtypes,
+    _integer_dtypes,
     _integer_or_boolean_dtypes,
     _numeric_dtypes,
     complex64,
@@ -29,6 +30,7 @@ from .dtypes import (
     float32,
     float64,
     promote_types,
+    uint64,
 )
 
 
@@ -55,6 +57,16 @@ class Array(CoreArray):
         self._check_0d("int")
         return int(self.compute())
 
+    def __index__(self) -> int:
+        if self.dtype not in _integer_dtypes:
+            raise TypeError("Only integer arrays can be used as an index")
+        self._check_0d("index")
+        return int(self.compute())
+
+    def __complex__(self) -> complex:
+        self._check_0d("complex")
+        return complex(self.compute())
+
     def _check_0d(self, name):
         if self.ndim != 0:
             raise TypeError(f"{name}() of non-0d array")
@@ -65,6 +77,17 @@ class Array(CoreArray):
         import cubed_tpu_torch.array_api
 
         return cubed_tpu_torch.array_api
+
+    def to_device(self, device, /, *, stream=None):
+        if stream is not None:
+            raise ValueError("stream is not supported")
+        return self
+
+    @property
+    def device(self):
+        from .device import device
+
+        return device
 
     def __repr__(self) -> str:
         return f"cubed_tpu_torch.Array<{self.name}, shape={self.shape}, dtype={self.dtype}, chunks={self.chunks}>"
@@ -144,6 +167,12 @@ class Array(CoreArray):
                 dtype = np.dtype(np.float64)
         else:
             dtype = promote_types(a.dtype, b.dtype)
+        if nxp_func is nxp.bitwise_right_shift and dtype == uint64:
+            nxp_func = logical_right_shift64  # int64's >> is arithmetic
+        elif nxp_func is nxp.floor_divide:
+            from .elementwise_functions import floor_divide_for
+
+            nxp_func = floor_divide_for(dtype)
         return elemwise(nxp_func, a, b, dtype=dtype)
 
     def __add__(self, other):
@@ -170,6 +199,18 @@ class Array(CoreArray):
     def __rtruediv__(self, other):
         return self._binop(other, nxp.divide, "floating-point", "__rtruediv__", reflected=True)
 
+    def __floordiv__(self, other):
+        return self._binop(other, nxp.floor_divide, "real numeric", "__floordiv__")
+
+    def __rfloordiv__(self, other):
+        return self._binop(other, nxp.floor_divide, "real numeric", "__rfloordiv__", reflected=True)
+
+    def __mod__(self, other):
+        return self._binop(other, nxp.remainder, "real numeric", "__mod__")
+
+    def __rmod__(self, other):
+        return self._binop(other, nxp.remainder, "real numeric", "__rmod__", reflected=True)
+
     def __pow__(self, other):
         return self._binop(other, nxp.pow, "numeric", "__pow__")
 
@@ -191,6 +232,45 @@ class Array(CoreArray):
             raise TypeError("Only numeric dtypes are allowed in __abs__")
         dtype = {complex64: float32, complex128: float64}.get(self.dtype, self.dtype)
         return elemwise(nxp.abs, self, dtype=dtype)
+
+    # -- bitwise -----------------------------------------------------------
+
+    def __and__(self, other):
+        return self._binop(other, nxp.bitwise_and, "integer or boolean", "__and__")
+
+    def __rand__(self, other):
+        return self._binop(other, nxp.bitwise_and, "integer or boolean", "__rand__", reflected=True)
+
+    def __or__(self, other):
+        return self._binop(other, nxp.bitwise_or, "integer or boolean", "__or__")
+
+    def __ror__(self, other):
+        return self._binop(other, nxp.bitwise_or, "integer or boolean", "__ror__", reflected=True)
+
+    def __xor__(self, other):
+        return self._binop(other, nxp.bitwise_xor, "integer or boolean", "__xor__")
+
+    def __rxor__(self, other):
+        return self._binop(other, nxp.bitwise_xor, "integer or boolean", "__rxor__", reflected=True)
+
+    def __lshift__(self, other):
+        return self._binop(other, nxp.bitwise_left_shift, "integer", "__lshift__")
+
+    def __rlshift__(self, other):
+        return self._binop(other, nxp.bitwise_left_shift, "integer", "__rlshift__", reflected=True)
+
+    def __rshift__(self, other):
+        return self._binop(other, nxp.bitwise_right_shift, "integer", "__rshift__")
+
+    def __rrshift__(self, other):
+        return self._binop(other, nxp.bitwise_right_shift, "integer", "__rrshift__", reflected=True)
+
+    def __invert__(self):
+        if self.dtype not in _integer_or_boolean_dtypes:
+            raise TypeError("Only integer or boolean dtypes are allowed in __invert__")
+        return elemwise(nxp.bitwise_invert, self, dtype=self.dtype)
+
+    # -- comparison --------------------------------------------------------
 
     def __eq__(self, other):  # type: ignore[override]
         return self._binop(other, nxp.equal, "all", "__eq__")

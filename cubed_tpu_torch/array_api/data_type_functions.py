@@ -1,14 +1,26 @@
 """Array-API data type functions. Counterpart of
-``cubed_tpu/array_api/data_type_functions.py``, trimmed to ``astype``,
-``can_cast`` and ``result_type``."""
+``cubed_tpu/array_api/data_type_functions.py``. ``finfo`` and ``iinfo``
+report the declared dtype (numpy's), never the signed carrier that holds
+uint16, uint32 and uint64 chunks on the device."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
 from ..backend_array_api import nxp
 from ..core.ops import map_blocks
-from .dtypes import promote_types
+from .dtypes import (
+    _boolean_dtypes,
+    _complex_floating_dtypes,
+    _integer_dtypes,
+    _numeric_dtypes,
+    _real_floating_dtypes,
+    _signed_integer_dtypes,
+    _unsigned_integer_dtypes,
+    promote_types,
+)
 
 
 def astype(x, dtype, /, *, copy: bool = True):
@@ -35,6 +47,57 @@ def can_cast(from_, to, /) -> bool:
         return promote_types(from_, to) == to
     except TypeError:
         return False
+
+
+@dataclass
+class finfo_object:
+    bits: int
+    eps: float
+    max: float
+    min: float
+    smallest_normal: float
+    dtype: np.dtype
+
+
+@dataclass
+class iinfo_object:
+    bits: int
+    max: int
+    min: int
+    dtype: np.dtype
+
+
+def finfo(type, /) -> finfo_object:  # noqa: A002
+    fi = np.finfo(np.dtype(getattr(type, "dtype", type)))
+    return finfo_object(fi.bits, float(fi.eps), float(fi.max), float(fi.min), float(fi.smallest_normal), fi.dtype)
+
+
+def iinfo(type, /) -> iinfo_object:  # noqa: A002
+    dt = np.dtype(getattr(type, "dtype", type))
+    ii = np.iinfo(dt)
+    return iinfo_object(ii.bits, int(ii.max), int(ii.min), dt)
+
+
+_KINDS = {
+    "bool": _boolean_dtypes,
+    "signed integer": _signed_integer_dtypes,
+    "unsigned integer": _unsigned_integer_dtypes,
+    "integral": _integer_dtypes,
+    "real floating": _real_floating_dtypes,
+    "complex floating": _complex_floating_dtypes,
+    "numeric": _numeric_dtypes,
+}
+
+
+def isdtype(dtype, kind) -> bool:
+    if isinstance(kind, tuple):
+        return any(isdtype(dtype, k) for k in kind)
+    dtype = np.dtype(dtype)
+    if isinstance(kind, str):
+        if kind not in _KINDS:
+            raise ValueError(f"Unrecognized data type kind: {kind!r}")
+        return dtype in _KINDS[kind]
+    return dtype == np.dtype(kind)
 
 
 def result_type(*arrays_and_dtypes):

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
+import math
 import os
 import types
 import warnings
@@ -180,8 +182,11 @@ def numpy_array_to_backend_array(arr):
     Structured numpy arrays become dicts of tensors, one per field (mean's
     ``{n, total}``), as in the JAX package. A stride-0 broadcast (a virtual
     empty or full chunk) crosses as one element and is expanded on the
-    device, so no block-sized copy is made of it.
+    device, so no block-sized copy is made of it. A tensor (a view of an
+    array resident on the device, read by a task body) passes through.
     """
+    if isinstance(arr, torch.Tensor):
+        return arr
     if isinstance(arr, dict):
         return {k: numpy_array_to_backend_array(v) for k, v in arr.items()}
     a = np.asarray(arr)
@@ -276,7 +281,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     # torch's vectorised CPU sqrt is not correctly rounded (about 0.7% of
     # float64 inputs come out 1 ulp off); numpy's is, as is CUDA's
     if x.device.type == "cpu" and x.dtype in (torch.float32, torch.float64):
-        return torch.from_numpy(np.sqrt(x.numpy()))
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))  # a 0-d result is a numpy scalar
     return torch.sqrt(x)
 
 
@@ -331,6 +336,135 @@ def _expand_dims(x, axis=0):
     return x
 
 
+def _all_bits(like: torch.Tensor) -> torch.Tensor:
+    """Every bit set, in *like*'s integer dtype (-1, or an unsigned maximum)."""
+    return torch.bitwise_not(torch.zeros_like(like))
+
+
+def _floor_divide(a, b, unsigned=False):
+    # the JAX package's values where numpy's and torch's differ (torch
+    # raises on an integer divisor of zero on the CPU, and leaves garbage on
+    # the card): a float divisor of zero gives nan, not +-inf; an integer
+    # one gives XLA's quotient, every bit set, floored once more (to -2)
+    # where the dividend is nonzero and signed
+    if a.is_floating_point() or b.is_floating_point():
+        out = torch.floor_divide(a, b)
+        return torch.where(b == 0, torch.full_like(out, float("nan")), out)
+    zero = b == 0
+    out = torch.floor_divide(a, torch.where(zero, torch.ones_like(b), b))
+    by_zero = _all_bits(out)
+    if not unsigned:
+        by_zero = torch.where(a != 0, by_zero - 1, by_zero)
+    return torch.where(zero, by_zero, out)
+
+
+def floor_divide_unsigned(a, b):
+    """``floor_divide`` of unsigned values (carried in signed types): a
+    divisor of zero gives every bit set, as in the JAX package."""
+    return _floor_divide(a, b, unsigned=True)
+
+
+def _pow(a, b):
+    # integers: the JAX package's binary exponentiation over the exponent's
+    # low six bits, so an exponent out of the standard's domain (negative)
+    # gives its values too; torch.pow gives 0
+    if a.is_floating_point() or a.is_complex() or b.is_floating_point() or b.is_complex():
+        return torch.pow(a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
+    acc = torch.where((a == 0) & (b != 0), torch.zeros_like(a), torch.ones_like(a))
+    for bit in range(6):
+        acc = torch.where(torch.bitwise_and(torch.bitwise_right_shift(b, bit), 1) != 0, acc * a, acc)
+        a = a * a
+    return acc
+
+
+def _round(x):
+    # half to even, as numpy's; a complex value by parts (torch's round
+    # takes no complex input)
+    if x.is_complex():
+        return torch.complex(torch.round(x.real), torch.round(x.imag))
+    return torch.round(x)
+
+
+def _remainder(a, b):
+    # torch's remainder takes the divisor's sign, as numpy's and the JAX
+    # package's do (torch.fmod does not); an integer divisor of zero gives 0,
+    # as in the JAX package
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    out = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(out), out)
+
+
+def _sign(x):
+    # torch.sign(nan) is 0; numpy's and the JAX package's is nan
+    if x.is_complex():
+        return torch.sgn(x)
+    if x.is_floating_point():
+        return torch.where(torch.isnan(x), x, torch.sign(x))
+    return torch.sign(x)
+
+
+def logical_right_shift64(a, b):
+    """``>>`` of uint64 values carried in int64: a logical shift (int64's is
+    arithmetic). The mask keeps the low ``64 - b`` bits; built as
+    ``~((-1 << (63 - b)) << 1)`` so that no shift is by 64."""
+    a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+    mask = torch.bitwise_not(torch.bitwise_left_shift(torch.bitwise_left_shift(_all_bits(a), 63 - b), 1))
+    return torch.bitwise_and(torch.bitwise_right_shift(a, b), mask)
+
+
+def _prod(x, axis=None, keepdims=False, dtype=None):
+    # torch.prod reduces one dim a call
+    dims = _dims(x.ndim, axis)
+    out = x.to(_sum_dtype(x, dtype))
+    if not dims:
+        return out.clone()
+    for d in sorted(dims, reverse=True):
+        out = torch.prod(out, dim=d, keepdim=True)
+    return out if keepdims else out.squeeze(dims)
+
+
+def _mean(x, axis=None, keepdims=False, dtype=None):
+    # a sum through _sum (the region-sum kernel on the card), then a divide
+    dims = _dims(x.ndim, axis)
+    n = math.prod(x.shape[d] for d in dims)
+    return torch.true_divide(_sum(x, axis=dims, keepdims=keepdims, dtype=dtype), n)
+
+
+def _truth(fn, x, axis=None, keepdims=False):
+    dims = _dims(x.ndim, axis)
+    x = x if x.dtype == torch.bool else x != 0
+    return fn(x, dim=dims, keepdim=keepdims) if dims else x.clone()
+
+
+def _arg(fn, x, axis=None, keepdims=False):
+    # the first extremum on ties, and the first NaN where there is one, as in
+    # numpy and the JAX package
+    return fn(x, dim=int(axis), keepdim=keepdims)
+
+
+def _take_along_axis(x, indices, axis):
+    return torch.take_along_dim(x, indices.to(torch.int64), dim=axis)
+
+
+def _flip(x, axis=None):
+    return torch.flip(x, _dims(x.ndim, axis))
+
+
+def _cumulative(fn):
+    def scan(x, axis, dtype=None):
+        return fn(x, dim=axis, dtype=to_torch_dtype(dtype) if dtype is not None else None)
+
+    return scan
+
+
+def _where(cond, a, b):
+    return torch.where(cond if cond.dtype == torch.bool else cond != 0, a, b)
+
+
 nxp = types.SimpleNamespace(
     # elementwise, one torch call each
     abs=torch.abs,
@@ -351,13 +485,67 @@ nxp = types.SimpleNamespace(
     ceil=torch.ceil,
     maximum=torch.maximum,
     minimum=torch.minimum,
-    pow=torch.pow,
+    pow=_pow,
     equal=torch.eq,
     not_equal=torch.ne,
     less=torch.lt,
     less_equal=torch.le,
     greater=torch.gt,
     greater_equal=torch.ge,
+    acos=torch.acos,
+    acosh=torch.acosh,
+    asin=torch.asin,
+    asinh=torch.asinh,
+    atan=torch.atan,
+    atan2=torch.atan2,
+    atanh=torch.atanh,
+    bitwise_and=torch.bitwise_and,
+    bitwise_invert=torch.bitwise_not,
+    bitwise_left_shift=torch.bitwise_left_shift,
+    bitwise_or=torch.bitwise_or,
+    bitwise_right_shift=torch.bitwise_right_shift,
+    bitwise_xor=torch.bitwise_xor,
+    copysign=torch.copysign,
+    cosh=torch.cosh,
+    expm1=torch.expm1,
+    floor_divide=_floor_divide,
+    hypot=torch.hypot,
+    imag=torch.imag,
+    isfinite=torch.isfinite,
+    isinf=torch.isinf,
+    isnan=torch.isnan,
+    log1p=torch.log1p,
+    log2=torch.log2,
+    log10=torch.log10,
+    logaddexp=torch.logaddexp,
+    logical_and=torch.logical_and,
+    logical_not=torch.logical_not,
+    logical_or=torch.logical_or,
+    logical_xor=torch.logical_xor,
+    nextafter=torch.nextafter,
+    real=torch.real,
+    reciprocal=torch.reciprocal,
+    remainder=_remainder,
+    round=_round,
+    sign=_sign,
+    signbit=torch.signbit,
+    sinh=torch.sinh,
+    tan=torch.tan,
+    trunc=torch.trunc,
+    where=_where,
+    # reductions, scans and searches
+    prod=_prod,
+    mean=_mean,
+    all=functools.partial(_truth, torch.all),
+    any=functools.partial(_truth, torch.any),
+    argmax=functools.partial(_arg, torch.argmax),
+    argmin=functools.partial(_arg, torch.argmin),
+    cumsum=_cumulative(torch.cumsum),
+    cumprod=_cumulative(torch.cumprod),
+    take_along_axis=_take_along_axis,
+    flip=_flip,
+    reshape=torch.reshape,
+    concatenate=_concat,
     # reductions, creation and manipulation
     sum=_sum,
     asarray=_asarray,

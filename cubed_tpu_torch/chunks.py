@@ -1,8 +1,10 @@
 """Chunk normalization. Counterpart of ``cubed_tpu/chunks.py``, trimmed to
-``normalize_chunks`` (with ``"auto"`` sizing) and the block-shape helpers."""
+``normalize_chunks`` (with ``"auto"`` sizing), the block-shape helpers and
+``reshape_rechunk``."""
 
 from __future__ import annotations
 
+from math import prod
 from typing import Any, Sequence
 
 import numpy as np
@@ -118,3 +120,65 @@ def _auto_chunks(norm, shape, dtype, limit):
 
 def numblocks(chunks: tuple[tuple[int, ...], ...]) -> tuple[int, ...]:
     return tuple(len(c) for c in chunks)
+
+
+def reshape_rechunk(inshape: tuple, outshape: tuple, inchunks: tuple) -> tuple:
+    """A reshape factored into (the chunks to rechunk the input to, the
+    output's chunks), so that input and output blocks map one to one.
+
+    Runs of input dims are matched to runs of output dims of equal element
+    count; within a run the slowest-varying dim keeps its chunking (one
+    block if its blocks do not land on whole output rows) and the faster
+    dims are whole."""
+    if prod(inshape) != prod(outshape):
+        raise ValueError(f"cannot reshape {inshape} -> {outshape}")
+    groups = []
+    i = j = 0
+    while i < len(inshape) or j < len(outshape):
+        gi, gj = [i], [j]
+        pi = inshape[i] if i < len(inshape) else 1
+        pj = outshape[j] if j < len(outshape) else 1
+        i += 1
+        j += 1
+        while pi != pj:
+            if pi < pj:
+                if i >= len(inshape):
+                    raise ValueError("cannot align reshape groups")
+                pi *= inshape[i]
+                gi.append(i)
+                i += 1
+            else:
+                if j >= len(outshape):
+                    raise ValueError("cannot align reshape groups")
+                pj *= outshape[j]
+                gj.append(j)
+                j += 1
+        while i < len(inshape) and inshape[i] == 1:  # absorb trailing 1s
+            gi.append(i)
+            i += 1
+        while j < len(outshape) and outshape[j] == 1:
+            gj.append(j)
+            j += 1
+        groups.append((gi, gj))
+
+    rechunk_to: list = [None] * len(inshape)
+    outchunks: list = [None] * len(outshape)
+    for gi, gj in groups:
+        lead_in, rest_in = gi[0], gi[1:]
+        lead_out, rest_out = gj[0], gj[1:]
+        if len(gi) == 1 and len(gj) == 1:
+            rechunk_to[lead_in] = inchunks[lead_in]
+            outchunks[lead_out] = inchunks[lead_in]
+            continue
+        for k in rest_in:
+            rechunk_to[k] = (inshape[k],) if inshape[k] > 0 else (0,)
+        factor = prod(inshape[k] for k in rest_in)
+        rest_out_elems = prod(outshape[k] for k in rest_out)
+        lead_chunks = inchunks[lead_in]
+        if not all((b * factor) % rest_out_elems == 0 for b in lead_chunks):
+            lead_chunks = (inshape[lead_in],) if inshape[lead_in] > 0 else (0,)
+        rechunk_to[lead_in] = lead_chunks
+        outchunks[lead_out] = tuple((b * factor) // rest_out_elems for b in lead_chunks)
+        for k in rest_out:
+            outchunks[k] = (outshape[k],) if outshape[k] > 0 else (0,)
+    return tuple(rechunk_to), tuple(outchunks)

@@ -3,13 +3,21 @@
 Counterpart of ``cubed_tpu/core/ops.py``, trimmed to the part the port
 runs: ``from_array``, ``from_zarr``, ``blockwise``/``general_blockwise``
 (inputs chunked differently are unified by ``unify_chunks``, which
-rechunks them), ``elemwise``, ``map_blocks``/``map_direct``, ``index``
-(basic indexing), ``rechunk``, ``merge_chunks`` and the tree
-``reduction`` with its pytree-field variant (mean's ``{n, total}``).
+rechunks them), ``elemwise``, ``map_blocks`` (with ``drop_axis``,
+``new_axis``, and a block's offset as data for a function that
+``supports_offset``)/``map_direct``, ``index`` (ints, slices
+of any step, ``None`` and one integer array), ``rechunk``,
+``merge_chunks``, the tree ``reduction`` (an aggregate over a plain or a
+pytree-field intermediate: mean's ``{n, total}``) and ``arg_reduction``.
+``map_overlap``, ``store``/``to_zarr`` and ``measure_reserved_mem`` are not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import itertools
 import math
 from typing import Callable, Optional, Sequence
@@ -17,7 +25,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..backend_array_api import numpy_array_to_backend_array, nxp, to_torch_dtype, wrap_unsigned
+from ..backend_array_api import (
+    logical_right_shift64,
+    numpy_array_to_backend_array,
+    nxp,
+    to_torch_dtype,
+    wrap_unsigned,
+)
 from ..chunks import normalize_chunks
 from ..primitive.blockwise import (
     blockwise as primitive_blockwise,
@@ -282,50 +296,88 @@ def elemwise(func: Callable, *args: CoreArray, dtype=None) -> CoreArray:
 
 
 #: elementwise functions whose int64 result has the bits of the uint64 one
-_UINT64_CARRIED = (nxp.add, nxp.subtract, nxp.multiply, nxp.negative, nxp.positive, nxp.equal, nxp.not_equal)
+_UINT64_CARRIED = (
+    nxp.add, nxp.subtract, nxp.multiply, nxp.negative, nxp.positive, nxp.square, nxp.equal, nxp.not_equal,
+    nxp.bitwise_and, nxp.bitwise_or, nxp.bitwise_xor, nxp.bitwise_invert, nxp.bitwise_left_shift,
+    logical_right_shift64, nxp.isfinite, nxp.isinf, nxp.isnan, nxp.where, nxp.conj,
+)
 
 
-def map_blocks(func: Callable, *args, dtype=None, chunks=None, **kwargs) -> CoreArray:
-    """Apply a function to corresponding blocks; *chunks* (normalized, one
-    tuple per dim) sets the output chunking. A *func* with a ``block_id``
-    parameter gets each block's index, read from a hidden offsets array.
-    Other keyword arguments go to *func*."""
+def map_blocks(func: Callable, *args, dtype=None, chunks=None, drop_axis=None, new_axis=None,
+               **kwargs) -> CoreArray:
+    """Apply a function to corresponding blocks; *chunks* (one entry per
+    output dim: a size or a tuple of sizes) sets the output chunking,
+    *drop_axis* removes input axes and *new_axis* inserts output axes. A
+    *func* with a ``block_id`` parameter gets each block's index, read from
+    a hidden offsets array; one that declares ``supports_offset`` gets the
+    block's linear ``offset`` and the grid's ``numblocks`` instead, as data
+    (a tensor under ``torch.func.vmap``), so it batches. Other keyword
+    arguments go to *func*."""
     arrays = [a for a in args if isinstance(a, CoreArray)]
     if len(arrays) != len(args):
         raise ValueError("non-array positional args not supported; use kwargs")
+    drop_axis = [drop_axis] if isinstance(drop_axis, (int, np.integer)) else list(drop_axis or [])
+    new_axis = [new_axis] if isinstance(new_axis, (int, np.integer)) else list(new_axis or [])
     x = arrays[0]
     in_ndim = x.ndim
-    out_ind = list(range(in_ndim))
-    adjust_chunks = None if chunks is None else {i: tuple(c) for i, c in enumerate(chunks)}
+    out_ind = [i for i in range(in_ndim) if i not in drop_axis]
+    sym = in_ndim
+    for ax in sorted(new_axis):  # a new symbol at each new axis
+        out_ind.insert(ax, sym)
+        sym += 1
+
+    adjust_chunks = None
+    new_axes = {}
+    if chunks is not None:
+        adjust_chunks = {}
+        for pos, s in enumerate(out_ind):
+            c = chunks[pos]
+            size = int(c) if isinstance(c, (int, np.integer)) else tuple(c)
+            if pos in new_axis:
+                new_axes[s] = size
+            else:
+                adjust_chunks[s] = size
+    else:
+        new_axes = {out_ind[ax]: 1 for ax in new_axis}
 
     blockwise_args = []
     for a in arrays:
         blockwise_args.extend([a, tuple(range(a.ndim))])
 
-    if "block_id" in _func_argnames(func):
+    if "block_id" in _func_argnames(func) or getattr(func, "supports_offset", False):
         offsets = _offsets_array_for(x)
         numblocks = x.numblocks
+        if getattr(func, "supports_offset", False):
 
-        def func_with_block_id(*chunk_args, **kw):
-            *real, offset = chunk_args
-            return func(*real, block_id=offset_to_block_id(_scalar_int(offset), numblocks), **kw)
+            def func_with_block_id(*chunk_args, **kw):
+                *real, offset = chunk_args
+                return func(*real, offset=offset, numblocks=numblocks, **kw)
 
+            # the block's offset reaches the function as data: it batches
+            func_with_block_id.traced_offsets = True
+            func_with_block_id.batchable = getattr(func, "batchable", False)
+        else:
+
+            def func_with_block_id(*chunk_args, **kw):
+                *real, offset = chunk_args
+                return func(*real, block_id=offset_to_block_id(_scalar_int(offset), numblocks), **kw)
+
+            # the offset -> block_id conversion runs on the host
+            func_with_block_id.host_block_id = True
         func_with_block_id.__name__ = getattr(func, "__name__", "map_blocks")
-        # the offset -> block_id conversion runs on the host
-        func_with_block_id.host_block_id = True
-        for attr in ("side_inputs", "whole_select", "resident_identity", "whole_concat",
+        for attr in ("side_inputs", "whole_select", "resident_identity", "whole_concat", "device_reads",
                      "host_data_nbytes"):
             if hasattr(func, attr):
                 setattr(func_with_block_id, attr, getattr(func, attr))
         blockwise_args.extend([offsets, tuple(range(in_ndim))])
         return blockwise(
             func_with_block_id, tuple(out_ind), *blockwise_args, dtype=dtype,
-            adjust_chunks=adjust_chunks, align_arrays=False, **kwargs,
+            adjust_chunks=adjust_chunks, new_axes=new_axes or None, align_arrays=False, **kwargs,
         )
     blocks = [(a.chunksize, a.dtype) for a in arrays]
     return blockwise(
         _declare_batchable(func, blocks, kwargs), tuple(out_ind), *blockwise_args, dtype=dtype,
-        adjust_chunks=adjust_chunks, **kwargs,
+        adjust_chunks=adjust_chunks, new_axes=new_axes or None, **kwargs,
     )
 
 
@@ -379,6 +431,23 @@ def empty_virtual_array(shape, dtype=np.float64, chunks="auto", spec=None, hidde
     return new_array(name, target, spec, Plan._new(name, "empty", target, None, hidden))
 
 
+#: store -> a device view of a resident side input, while the device
+#: executor runs a map_direct op's task bodies on arrays it holds on the card
+_SIDE_VIEWS: contextvars.ContextVar = contextvars.ContextVar("cubed_tpu_torch_side_views", default=None)
+
+
+@contextlib.contextmanager
+def side_input_views(views: dict):
+    """Within this block, a map_direct task body reads the side inputs whose
+    store is in *views* from those objects (each with ``[...]`` and
+    ``.oindex[...]``, as a Zarr array has) instead of from storage."""
+    token = _SIDE_VIEWS.set(views)
+    try:
+        yield
+    finally:
+        _SIDE_VIEWS.reset(token)
+
+
 def map_direct(
     func: Callable,
     *args: CoreArray,
@@ -396,7 +465,11 @@ def map_direct(
     writes resident side inputs to storage before the tasks read them, and
     passes on a task body's ``whole_select``, ``resident_identity`` or
     ``whole_concat``, which let that executor compute the op on resident
-    arrays instead."""
+    arrays instead. A task body that declares ``device_reads`` takes
+    tensors from its reads (it passes them through
+    ``numpy_array_to_backend_array``): that executor then hands it its
+    resident side inputs as views on the card (:func:`side_input_views`)
+    and writes nothing to storage."""
     from ..storage.zarr import open_if_lazy_zarr_array
 
     spec = _spec_of(*args, spec=spec)
@@ -405,11 +478,16 @@ def map_direct(
     side_arrays = [a.zarray_maybe_lazy for a in args]
 
     def new_func(block, block_id=None):
-        return func(block, *[open_if_lazy_zarr_array(s) for s in side_arrays], block_id=block_id)
+        views = _SIDE_VIEWS.get()
+        opened = [
+            views[k] if views and (k := str(getattr(s, "store", id(s)))) in views else open_if_lazy_zarr_array(s)
+            for s in side_arrays
+        ]
+        return func(block, *opened, block_id=block_id)
 
     new_func.__name__ = getattr(func, "__name__", "map_direct")
     new_func.side_inputs = side_arrays
-    for attr in ("whole_select", "resident_identity", "whole_concat"):
+    for attr in ("whole_select", "resident_identity", "whole_concat", "device_reads"):
         if hasattr(func, attr):
             setattr(new_func, attr, getattr(func, attr))
     mapped = map_blocks(
@@ -431,43 +509,65 @@ def map_direct(
 
 
 def index(x: CoreArray, key) -> CoreArray:
-    """Basic indexing: ints, slices with positive steps, and Ellipsis.
-    ``None`` (new axes), negative steps and array indices are not ported."""
+    """Orthogonal (outer) indexing: ints, slices (any step), Ellipsis,
+    ``None`` (a new axis) and one integer-array index (a lazy one is
+    computed first). A boolean array index is refused, as the JAX package
+    refuses it."""
     if not isinstance(key, tuple):
         key = (key,)
-    if not all(k is Ellipsis or isinstance(k, (slice, int, np.integer)) for k in key):
-        raise NotImplementedError("only ints, slices and Ellipsis index a cubed_tpu_torch array")
-    n_consuming = sum(1 for k in key if k is not Ellipsis)
+    n_consuming = sum(1 for k in key if k is not None and k is not Ellipsis)
     if n_consuming > x.ndim:
         raise IndexError(f"too many indices for array with {x.ndim} dimensions")
+    # `Ellipsis in key` would compare array entries elementwise
     n_ellipsis = sum(1 for k in key if k is Ellipsis)
     if n_ellipsis > 1:
         raise IndexError("an index can only have a single ellipsis ('...')")
     if n_ellipsis:
         i = next(i for i, k in enumerate(key) if k is Ellipsis)
         key = key[:i] + (slice(None),) * (x.ndim - n_consuming) + key[i + 1 :]
-    key = key + (slice(None),) * (x.ndim - len(key))
+    key = key + (slice(None),) * (x.ndim - sum(1 for k in key if k is not None))
 
-    # every axis as a resolved (start, stop, step); an int keeps a length-1
-    # axis here and is squeezed away afterwards
+    # where each None goes in the output: slices and arrays keep an axis,
+    # ints drop theirs, each None inserts one (after the squeeze)
+    newaxis_positions = []
+    out_pos = 0
+    for k in key:
+        if k is None:
+            newaxis_positions.append(out_pos)
+            out_pos += 1
+        elif not isinstance(k, (int, np.integer)):
+            out_pos += 1
+    key = tuple(
+        np.asarray(k.compute()) if isinstance(k, CoreArray)
+        else np.asarray(k) if isinstance(k, (list, np.ndarray)) else k
+        for k in key if k is not None
+    )
+    if sum(1 for k in key if isinstance(k, np.ndarray)) > 1:
+        raise NotImplementedError("Only one integer array index is allowed")
+
+    # every axis as a resolved (start, stop, step) or an integer array; an
+    # int keeps a length-1 axis here and is squeezed away afterwards
     int_axes = []
     selections = []
     for ax, k in enumerate(key):
         size = x.shape[ax]
         if isinstance(k, slice):
-            start, stop, step = k.indices(size)
-            if step < 0:
-                raise NotImplementedError("negative slice steps are not ported")
-        else:
+            selections.append(k.indices(size))
+        elif isinstance(k, (int, np.integer)):
             start = int(k) + (size if k < 0 else 0)
             if not (0 <= start < size):
                 raise IndexError(f"index {k} out of bounds for axis {ax} (size {size})")
-            stop, step = start + 1, 1
+            selections.append((start, start + 1, 1))  # a view on the card
             int_axes.append(ax)
-        selections.append((start, stop, step))
-    out_shape = tuple(max(0, -(-(stop - start) // step)) for start, stop, step in selections)
+        elif isinstance(k, np.ndarray):
+            if k.dtype == bool:
+                raise NotImplementedError("boolean array indexing is not supported")
+            selections.append(np.where(k < 0, k + size, k).astype(np.int64))
+        else:
+            raise IndexError(f"unsupported index {k!r}")
+    out_shape = tuple(len(range(*s)) if isinstance(s, tuple) else len(s) for s in selections)
 
-    if all(s == (0, n, 1) for s, n in zip(selections, x.shape)):
+    if out_shape == x.shape and all(isinstance(s, tuple) and s == (0, n, 1) for s, n in zip(selections, x.shape)):
         result = x
     else:
         # output keeps the input chunksize (regular chunks)
@@ -487,18 +587,24 @@ def index(x: CoreArray, key) -> CoreArray:
         from ..array_api.manipulation_functions import _squeeze_axes
 
         result = _squeeze_axes(result, tuple(int_axes))
+    for pos in newaxis_positions:
+        from ..array_api.manipulation_functions import expand_dims
+
+        result = expand_dims(result, axis=pos)
     return result
 
 
 class _IndexRead:
-    """Task body for index: read this output block's strided selection.
+    """Task body for index: read this output block's selection.
 
-    A slice moves data and computes nothing, so its block stays on the host
-    between the two stores instead of crossing to the card and back.
-    ``whole_select``, the global (start, stop, step) of every axis, lets the
-    device executor take the whole index as one view of a resident array."""
+    A selection moves data and computes nothing, so a block read from
+    storage stays on the host between the two stores instead of crossing to
+    the card and back. ``whole_select``, the global (start, stop, step) or
+    integer array of every axis, lets the device executor take the whole
+    index from a resident array on the card."""
 
     __name__ = "index"
+    device_reads = True
 
     def __init__(self, out_chunks, selections):
         self.out_chunks = out_chunks
@@ -506,10 +612,20 @@ class _IndexRead:
 
     def __call__(self, block, zarray, block_id=None):
         sel = []
-        for bid, chunks_ax, (s0, _, step) in zip(block_id, self.out_chunks, self.whole_select):
+        for bid, chunks_ax, s in zip(block_id, self.out_chunks, self.whole_select):
             start = sum(chunks_ax[:bid])
-            sel.append(slice(s0 + start * step, s0 + (start + chunks_ax[bid]) * step, step))
-        return zarray[tuple(sel)]
+            stop = start + chunks_ax[bid]
+            if isinstance(s, tuple):
+                s0, _, step = s
+                hi = s0 + stop * step
+                # a stop of -1 means "walked past index 0"; as a slice bound
+                # it would wrap to the end
+                sel.append(slice(s0 + start * step, None if hi < 0 else hi, step))
+            else:
+                sel.append(s[start:stop])
+        if all(isinstance(s, slice) and s.step > 0 for s in sel):
+            return zarray[tuple(sel)]
+        return zarray.oindex[tuple(sel)]
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +696,7 @@ class _MergedChunkRead:
 
     __name__ = "merge_chunks"
     resident_identity = True
+    device_reads = True
 
     def __init__(self, target_chunks):
         self.target_chunks = target_chunks
@@ -662,8 +779,6 @@ def reduction(
     kw = dict(extra_func_kwargs or {})
     split = split_every or 4
     fields = _fields_of(intermediate_dtype)
-    if fields is None and aggregate_func is not None:
-        raise NotImplementedError("an aggregate needs a structured intermediate_dtype here")
     if fields is not None:
         if aggregate_func is None:
             raise ValueError("structured intermediate_dtype requires aggregate_func")
@@ -689,6 +804,9 @@ def reduction(
                 split_every={ax: split for ax in axis},
                 dtype=intermediate_dtype,
             )
+        if aggregate_func is not None:
+            result = map_blocks(functools.partial(_apply_aggregate, aggregate_func=aggregate_func), result,
+                                dtype=dtype)
     if not keepdims:
         from ..array_api.manipulation_functions import _squeeze_axes
 
@@ -698,6 +816,10 @@ def reduction(
 
         result = astype(result, dtype)
     return result
+
+
+def _apply_aggregate(chunk, *, aggregate_func):
+    return aggregate_func(chunk)
 
 
 class _InitialReduce:
@@ -927,3 +1049,66 @@ def _aggregate_fields(parts: Sequence[CoreArray], aggregate_func: Callable, dtyp
     for p in parts:
         args.extend([p, inds])
     return blockwise(agg_kernel, inds, *args, dtype=dtype)
+
+
+def arg_reduction(x: CoreArray, func: Callable, cmp_func: Callable, axis=None, dtype=np.int64) -> CoreArray:
+    """argmin/argmax along *axis* by an {i, v} tree reduction with absolute
+    indices: two plain arrays (int64 indices and values) from multi-output
+    ops. Each block's first index along *axis* is worked out from the
+    block's linear offset, read as data, so the initial op batches."""
+    if axis is None:
+        raise ValueError("arg_reduction requires an axis (flatten first)")
+    axis = int(axis) % x.ndim
+    numblocks = x.numblocks
+    stride = math.prod(numblocks[axis + 1:])
+    step = x.chunksize[axis]  # regular chunks: block b starts at b * step
+    offsets = _offsets_array_for(x)
+    x_name, o_name = x.name, offsets.name
+    out_chunks = tuple((1,) * numblocks[i] if i == axis else x.chunks[i] for i in range(x.ndim))
+    shape = tuple(sum(c) for c in out_chunks)
+
+    def block_function(out_key):
+        coords = out_key[1:]
+        return ((x_name, *coords), (o_name, *coords))
+
+    def arg_initial(chunk, offset):
+        if isinstance(offset, torch.Tensor):
+            off = offset.reshape(-1)[0]
+        else:
+            off = _scalar_int(np.asarray(offset))
+        start = (off // stride) % numblocks[axis] * step
+        # the axis made innermost first: on the card torch reduces an outer
+        # dim through a buffer of (value, index) pairs about four blocks in
+        # size, past the task's projected memory; the copy is one block
+        inner = chunk.movedim(axis, -1).contiguous()
+        i = func(inner, axis=-1, keepdims=True).movedim(-1, axis)
+        return i.to(torch.int64) + start, cmp_func(inner, axis=-1, keepdims=True).movedim(-1, axis)
+
+    arg_initial.traced_offsets = True
+    arg_initial.batchable = True
+
+    fields = {"i": np.dtype(np.int64), "v": np.dtype(x.dtype)}
+    parts = general_blockwise(
+        arg_initial, block_function, x, offsets,
+        shape=[shape, shape], dtype=[fields["i"], fields["v"]], chunks=out_chunks, op_name="arg_initial",
+    )
+
+    def arg_combine(d, axis=None, keepdims=True):
+        ax = axis[0] if isinstance(axis, tuple) else axis
+        local = func(d["v"], axis=ax, keepdims=True)
+        return {"i": nxp.take_along_axis(d["i"], local, axis=ax), "v": cmp_func(d["v"], axis=ax, keepdims=True)}
+
+    arg_combine.__name__ = "arg_combine"
+    while parts[0].numblocks[axis] > 1:
+        parts = partial_reduce_multi(
+            parts, _StreamingCombineMulti(arg_combine, (axis,), {}, list(fields)),
+            split_every={axis: 4}, fields=fields,
+        )
+    result = parts[0]
+    if result.dtype != np.dtype(dtype):
+        from ..array_api.data_type_functions import astype
+
+        result = astype(result, dtype)
+    from ..array_api.manipulation_functions import _squeeze_axes
+
+    return _squeeze_axes(result, (axis,))

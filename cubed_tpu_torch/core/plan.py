@@ -179,6 +179,13 @@ class Plan:
             dag = multiple_inputs_optimize_dag(dag, array_names=array_names)
         return FinalizedPlan(create_lazy_zarr_arrays(dag))
 
+    def num_tasks(self, optimize_graph: bool = True) -> int:
+        return self._finalize(optimize_graph).num_tasks()
+
+    def max_projected_mem(self, optimize_graph: bool = True) -> int:
+        """The largest memory any task of the plan is projected to need."""
+        return self._finalize(optimize_graph).max_projected_mem()
+
     def execute(
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
     ) -> None:

@@ -103,7 +103,10 @@ def apply_blockwise(out_key: tuple, *, config: BlockwiseSpec) -> None:
     # the function gets its own span (the storage spans are around it), so
     # a merged trace separates compute time from IO time per task
     with scope_span("kernel_apply", cat="kernel", op=out_name):
-        result = config.function(*args)
+        if getattr(config.function, "needs_block_id", False):
+            result = config.function(*args, block_id=out_coords)
+        else:
+            result = config.function(*args)
     if config.writes_rest:
         writes = config.writes
         if not isinstance(result, (tuple, list)) or len(result) != len(writes):
@@ -432,12 +435,12 @@ def fuse_multiple(
             for entry, pspec in zip(structure, pred_specs)
         )
 
-    def fused_function(*args):
+    def fused_function(*args, **kw):
         evaluated = [
             arg if pf is None else _evaluate(arg, pf)
             for arg, pf in zip(args, pred_functions)
         ]
-        return spec.function(*evaluated)
+        return spec.function(*evaluated, **kw)
 
     # the fused expression, kept as plan metadata: the op's own function and,
     # per argument, the fused predecessor's function (None for a plain read)
@@ -448,6 +451,10 @@ def fuse_multiple(
     components = [spec.function] + [pf for pf in pred_functions if pf is not None]
     fused_function.host_block_id = any(getattr(f, "host_block_id", False) for f in components)
     fused_function.host_data_nbytes = sum(getattr(f, "host_data_nbytes", 0) for f in components)
+    # every offsets-reading kernel carries host_block_id or traced_offsets
+    fused_function.traced_offsets = (
+        any(getattr(f, "traced_offsets", False) for f in components) and not fused_function.host_block_id
+    )
     if getattr(spec.function, "needs_block_id", False):
         fused_function.needs_block_id = True
 

@@ -36,9 +36,19 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
     route is taken only when every leaf of the function tree declares
     itself ``batchable`` and one block fits; a failed check counts
     ``batched_errors`` and ``eager_fallbacks``, and the op runs chunked.
-- **Resident map_direct.** An index (``whole_select``) is a view of its
-  resident source, a positive-step slice never copies; ``resident_identity``
-  passes the value through and ``whole_concat`` concatenates on the device.
+- **Resident map_direct.** An index (``whole_select``) is taken from its
+  resident source on the device: a positive-step slice is a view, a
+  negative step the positive slice then ``torch.flip`` (torch has no
+  negative strides), an integer array ``index_select`` (its positions
+  uploaded once a plan, never under a capture); ``resident_identity``
+  passes the value through and ``whole_concat`` concatenates on the device
+  (virtual sources made there). Any other map_direct (``flip``) is an
+  eager op whose task bodies, where they declare ``device_reads``, read
+  their resident side inputs as views on the card: no side input is
+  written to storage or crosses to the host.
+- **Virtual constants** (``zeros``, ``ones``, ``full``) are filled on the
+  device: one element expanded with stride 0 where a block is read, a
+  filled tensor where one is made resident.
 - **Rechunk is free** (the reference's ``_exec_rechunk``). A resident array
   is one whole tensor, so a rechunk's copy op admits the same tensor under
   its target's store and chunking (``rechunk_alias``); readers then slice it
@@ -143,6 +153,7 @@ import torch
 
 from ... import contraction
 from ...backend_array_api import (
+    _to_carrier,
     backend_array_to_numpy_array,
     compute_numpy_dtype,
     get_device,
@@ -152,7 +163,7 @@ from ...backend_array_api import (
     to_torch_dtype,
 )
 from ...chunks import blockdims_from_blockshape
-from ...core.ops import _InitialReduce
+from ...core.ops import _InitialReduce, side_input_views
 from ...core.plan import Plan, create_zarr_array
 from ...kernels import _build, _geometry
 from ...kernels.fma_sum import fma_sum, fma_sum_blocks
@@ -170,7 +181,7 @@ from ...primitive.blockwise import (
 from ...primitive.rechunk import copy_read_to_write
 from ...spec import Spec
 from ...storage.store import ZarrV2Array
-from ...storage.virtual import VirtualEmptyArray, VirtualInMemoryArray, VirtualOffsetsArray
+from ...storage.virtual import VirtualEmptyArray, VirtualFullArray, VirtualInMemoryArray, VirtualOffsetsArray
 from ...storage.zarr import LazyZarrArray
 from ...utils import convert_to_bytes, get_item
 from ..pipeline import visit_nodes
@@ -243,15 +254,105 @@ def _starts_at(chunkset, coords) -> tuple:
     return tuple(sum(chunkset[d][:c]) for d, c in enumerate(coords))
 
 
-def _carrier(shape, dtype) -> torch.Tensor:
-    """A virtual empty block: one zero expanded with stride 0."""
-    return torch.zeros((), dtype=to_torch_dtype(dtype), device=get_device()).expand(tuple(shape))
+def _carrier(shape, dtype, fill=0) -> torch.Tensor:
+    """A virtual empty block (zeros) or a full one (*fill*): one element
+    filled on the device, expanded with stride 0."""
+    value = _to_carrier(np.asarray(fill, dtype=dtype)).item()  # an unsigned value in its carrier's range
+    return torch.full((), value, dtype=to_torch_dtype(dtype), device=get_device()).expand(tuple(shape))
+
+
+def _virtual_block(arr, shape) -> Optional[torch.Tensor]:
+    """A block of a virtual empty or full array, made on the device."""
+    if isinstance(arr, VirtualEmptyArray):
+        return _carrier(shape, arr.dtype)
+    if isinstance(arr, VirtualFullArray):
+        return _carrier(shape, arr.dtype, arr.fill_value)
+    return None
 
 
 def _as_tensor(value) -> torch.Tensor:
     """A task body's result on the chunk device (an index task body reads
     storage and returns numpy)."""
     return numpy_array_to_backend_array(value) if isinstance(value, np.ndarray) else value
+
+
+#: integer-array selections on the device, by the id of their host array
+#: (kept alive beside its tensor): each is uploaded once, outside any
+#: capture, and read by later computes and captures of the same plan
+_INDEX_UPLOADS: "OrderedDict[int, tuple]" = OrderedDict()
+_INDEX_UPLOADS_LIMIT = 256
+
+
+def _index_tensor(positions: np.ndarray, cached: bool, capturing: bool) -> torch.Tensor:
+    """*positions* (an integer array) as an int64 tensor on the chunk
+    device."""
+    entry = _INDEX_UPLOADS.get(id(positions)) if cached else None
+    if entry is not None and entry[1].device == _indexed(get_device()):
+        return entry[1]
+    if capturing:
+        raise RuntimeError("an index array first read under CUDA graph capture")
+    value = torch.as_tensor(np.asarray(positions, dtype=np.int64), device=get_device())
+    if cached:
+        _INDEX_UPLOADS[id(positions)] = (positions, value)
+        while len(_INDEX_UPLOADS) > _INDEX_UPLOADS_LIMIT:
+            _INDEX_UPLOADS.popitem(last=False)
+    return value
+
+
+def _select(value: torch.Tensor, selections, index) -> torch.Tensor:
+    """*value* under per-axis selections, on its device: a (start, stop,
+    step) triple or a slice (a negative step as the positive slice over the
+    same elements, then ``torch.flip``: torch has no negative strides; a
+    positive step is a view), or an integer array (``index_select``,
+    *index* giving its positions as a device tensor)."""
+    for ax, s in enumerate(selections):
+        if isinstance(s, slice):
+            s = s.indices(value.shape[ax])
+        if isinstance(s, tuple):
+            start, stop, step = s
+            n = len(range(start, stop, step))
+            lo = start if step > 0 else start + (n - 1) * step
+            sl = slice(lo, lo + (n - 1) * abs(step) + 1, abs(step)) if n else slice(0, 0)
+            value = value[(slice(None),) * ax + (sl,)]
+            if step < 0 and n > 1:
+                value = torch.flip(value, (ax,))
+        else:
+            value = torch.index_select(value, ax, index(s))
+    return value
+
+
+class _ResidentView:
+    """A resident array as a map_direct task body reads it (``[...]`` and
+    ``.oindex[...]``, as it reads a Zarr array), selected on the card: its
+    blocks never cross to the host."""
+
+    def __init__(self, value: torch.Tensor, target, capturing: bool):
+        self.value = value
+        self.shape = tuple(target.shape)
+        self.dtype = target.dtype
+        self.capturing = capturing
+
+    def _index(self, positions) -> torch.Tensor:
+        return _index_tensor(positions, cached=False, capturing=self.capturing)
+
+    def __getitem__(self, key):
+        key = key if isinstance(key, tuple) else (key,)
+        if all(k is Ellipsis or isinstance(k, (int, np.integer))
+               or (isinstance(k, slice) and (k.step or 1) > 0) for k in key):
+            return self.value[key]
+        return self.oindex[key]
+
+    @property
+    def oindex(self):
+        return _ResidentOIndex(self)
+
+
+class _ResidentOIndex:
+    def __init__(self, view: _ResidentView):
+        self.view = view
+
+    def __getitem__(self, key):
+        return _select(self.view.value, key if isinstance(key, tuple) else (key,), self.view._index)
 
 
 def _nbytes_of(arr) -> int:
@@ -459,6 +560,8 @@ class _Describer:
             return ("offsets", obj.shape, "H" if id(obj) in self.masked else obj.base)
         if isinstance(obj, VirtualEmptyArray):
             return ("empty", obj.shape, str(obj.dtype), obj.chunks)
+        if isinstance(obj, VirtualFullArray):
+            return ("full", obj.shape, str(obj.dtype), obj.chunks, self(obj.fill_value))
         if isinstance(obj, VirtualInMemoryArray):
             return ("in_memory", obj.chunks, self(obj.array))
         if isinstance(obj, BlockwiseSpec):
@@ -1040,6 +1143,12 @@ class CudaExecutor(DagExecutor):
         for arr in self._segment_reads(ops):
             if isinstance(arr, VirtualInMemoryArray):
                 self._upload(arr)
+        for _, node in ops:
+            # the integer-array selections of whole-array indexes
+            f = getattr(node["primitive_op"].pipeline.config, "function", None)
+            for sel in getattr(f, "whole_select", None) or ():
+                if isinstance(sel, np.ndarray):
+                    _index_tensor(sel, cached=True, capturing=False)
         with torch.cuda.stream(stream):
             tickets = _build.reserve_tickets(dev)
         held = _held(resident.values())
@@ -1111,9 +1220,9 @@ class CudaExecutor(DagExecutor):
             self.stats["rechunk_virtual"] += 1
             self._admit(resident, _key(dst), self._upload(src), dst, budget)
             return
-        if isinstance(src, VirtualEmptyArray):
+        if isinstance(src, (VirtualEmptyArray, VirtualFullArray)):
             self.stats["rechunk_virtual"] += 1
-            value = torch.zeros(tuple(src.shape), dtype=to_torch_dtype(src.dtype), device=get_device())
+            value = _virtual_block(src, tuple(src.shape)).contiguous()
             self._admit(resident, _key(dst), value, dst, budget)
             return
         if self._capturing:
@@ -1142,10 +1251,17 @@ class CudaExecutor(DagExecutor):
             if value is not None:
                 self._admit(resident, _key(target), value, target, budget)
                 return
-            # the task body reads its side inputs from storage
+            # the task body reads its resident side inputs: on the card if
+            # it takes tensors, else from storage
+            views = {}
             for arr in side_inputs:
                 res = resident.get(_key(arr))
-                if res is not None:
+                if res is None:
+                    continue
+                if getattr(f, "device_reads", False):
+                    res.touch()
+                    views[_key(arr)] = _ResidentView(res.value, arr, self._capturing)
+                else:
                     self._flush(res)
 
         value = None
@@ -1162,7 +1278,8 @@ class CudaExecutor(DagExecutor):
             if value is not None:
                 self.stats["batched_ops"] += 1
         if value is None:
-            value = self._exec_chunked(op, spec, resident)
+            with side_input_views(views if side_inputs else {}):
+                value = self._exec_chunked(op, spec, resident)
             self.stats["chunked_ops"] += 1
 
         values = value if spec.writes_rest else (value,)
@@ -1204,15 +1321,13 @@ class CudaExecutor(DagExecutor):
         res.touch()
         return value
 
-    @staticmethod
-    def _apply_whole_select(value: torch.Tensor, selections) -> Optional[torch.Tensor]:
-        """Per-axis (start, stop, step) selections with positive steps as one
-        view of *value*; None for any other selection."""
-        if len(selections) != value.ndim or not all(
-            isinstance(s, tuple) and len(s) == 3 and s[2] > 0 for s in selections
-        ):
+    def _apply_whole_select(self, value: torch.Tensor, selections) -> Optional[torch.Tensor]:
+        """Per-axis selections (a (start, stop, step) triple or an integer
+        array) applied to *value* on the card (:func:`_select`: positive
+        steps as one view); None for a selection of another rank."""
+        if len(selections) != value.ndim:
             return None
-        return value[tuple(slice(*s) for s in selections)]
+        return _select(value, selections, lambda positions: _index_tensor(positions, True, self._capturing))
 
     def _upload(self, arr: VirtualInMemoryArray) -> torch.Tensor:
         """A small literal array on the device, uploaded once per compute (a
@@ -1230,11 +1345,9 @@ class CudaExecutor(DagExecutor):
         if res is not None:
             res.touch()
             return res.value
-        if isinstance(arr, VirtualEmptyArray):
-            return _carrier(arr.shape, arr.dtype)
         if isinstance(arr, VirtualInMemoryArray):
             return self._upload(arr)
-        return None
+        return _virtual_block(arr, tuple(arr.shape))
 
     def _exec_whole(self, op, spec: BlockwiseSpec, resident, out_shape) -> Optional[torch.Tensor]:
         """The op's function applied once to its whole inputs, or None."""
@@ -1375,12 +1488,13 @@ class CudaExecutor(DagExecutor):
             buckets.setdefault(sig, []).append(t)
         if len(buckets) > max(8, len(keys) // 4):
             return None  # too ragged: batching would hardly help
-        plans = [self._bucket_plan(tasks, out_coords, task_leaves) for tasks in buckets.values()]
+        constant = {i for i, (arr, _) in enumerate(metas) if isinstance(arr, (VirtualEmptyArray, VirtualFullArray))}
+        plans = [self._bucket_plan(tasks, out_coords, task_leaves, constant) for tasks in buckets.values()]
         if any(p is None for p in plans):
             return None
         wholes = {}
         for arr, _ in metas:
-            if not isinstance(arr, (VirtualEmptyArray, VirtualOffsetsArray)):
+            if not isinstance(arr, (VirtualEmptyArray, VirtualFullArray, VirtualOffsetsArray)):
                 value = self._whole_value(arr, resident)
                 if value is None:
                     return None
@@ -1398,6 +1512,7 @@ class CudaExecutor(DagExecutor):
         if any(t is None for t in tiles):
             return self._failed_check("batched_errors")
         fn = spec.function
+        device_offsets = getattr(fn, "traced_offsets", False)
 
         def task(*flat):
             return fn(*_unflatten_keys(treedef, list(flat)))
@@ -1409,7 +1524,7 @@ class CudaExecutor(DagExecutor):
                 args, in_dims = [], []
                 for i, ((arr, cs), dims) in enumerate(zip(metas, leaf_levels)):
                     value, dims_per_level = self._leaf(arr, cs, i, dims, tasks, task_leaves, len(levels),
-                                                       sizes, wholes)
+                                                       sizes, wholes, device_offsets)
                     args.append(value)
                     in_dims.append(dims_per_level)
                 batched = task
@@ -1480,13 +1595,14 @@ class CudaExecutor(DagExecutor):
         return None
 
     @staticmethod
-    def _bucket_plan(tasks, out_coords, task_leaves):
+    def _bucket_plan(tasks, out_coords, task_leaves, constant=frozenset()):
         """(levels, sizes, per-leaf levels) of a bucket: the output axes it
         spans (one vmap level each, outermost first) and their block counts,
         and for each leaf, for each of its axes, the level it follows or None
         where it is constant. None when the bucket is not a dense grid of
         blocks, a leaf axis follows no level, or every leaf is the same block
-        in every task (the reference does not batch such an op)."""
+        in every task or a virtual constant (leaves *constant*: their blocks
+        are made, not read), as the reference does not batch such an op."""
         coords = out_coords[tasks]
         levels, sizes, ranges = [], [], []
         for a in range(coords.shape[1]):
@@ -1515,19 +1631,36 @@ class CudaExecutor(DagExecutor):
                     return None
                 used.add(lvl)
                 dims.append(lvl)
-                varies = True
+                varies = varies or i not in constant
             leaf_levels.append(dims)
         return (levels, sizes, leaf_levels) if varies else None
 
-    def _leaf(self, arr, chunkset, i, dims, tasks, task_leaves, nlevels, sizes, wholes):
+    def _leaf(self, arr, chunkset, i, dims, tasks, task_leaves, nlevels, sizes, wholes, device_offsets=False):
         """Leaf *i*'s value for a bucket and its in_dims per vmap level: the
-        carrier for a virtual template, the seeds as a CPU int64 tensor, a
-        grid view of a whole tensor."""
+        carrier for a virtual template or constant, the seeds as a CPU int64
+        tensor (on the device with *device_offsets*), a grid view of a whole
+        tensor."""
         followed = sorted((lvl, d) for d, lvl in enumerate(dims) if lvl is not None)
         per_level = [0 if any(lvl == l for lvl, _ in followed) else None for l in range(nlevels)]
         first = tuple(task_leaves[tasks[0]][i][1:])
-        if isinstance(arr, VirtualEmptyArray):
-            return _carrier(_shape_at(chunkset, first), arr.dtype), [None] * nlevels
+        block = _virtual_block(arr, _shape_at(chunkset, first))
+        if block is not None:
+            return block, [None] * nlevels
+        if isinstance(arr, VirtualOffsetsArray) and device_offsets and not arr.base:
+            # block offsets read as data by the op's own function (arange's,
+            # an arg reduction's): made on the device from the bucket's
+            # grid, so a capture holds no host-to-device copy (a random
+            # op's seeds, a seeded offsets array, stay on the host: Philox
+            # keys them there)
+            strides = [math.prod(arr.shape[d + 1:]) for d in range(len(arr.shape))]
+            offsets = torch.full((), arr.base + (int(np.ravel_multi_index(first, arr.shape)) if arr.shape else 0),
+                                 dtype=torch.int64, device=get_device())
+            kept = [lvl for lvl in range(nlevels) if per_level[lvl] == 0]
+            for pos, lvl in enumerate(kept):
+                d = next(d for f_lvl, d in followed if f_lvl == lvl)
+                step = torch.arange(sizes[lvl], dtype=torch.int64, device=offsets.device) * strides[d]
+                offsets = offsets + step.reshape([-1 if q == pos else 1 for q in range(len(kept))])
+            return offsets.reshape(tuple(sizes[lvl] for lvl in kept) + (1,) * len(arr.shape)), per_level
         if isinstance(arr, VirtualOffsetsArray):
             coords = np.array([task_leaves[t][i][1:] for t in tasks], dtype=np.int64).reshape(len(tasks), -1)
             flat = arr.base + (np.ravel_multi_index(tuple(coords.T), arr.shape) if arr.shape else 0)
@@ -1714,14 +1847,15 @@ class CudaExecutor(DagExecutor):
         if res is not None:
             res.touch()
             return res.value[sel]
-        if isinstance(arr, VirtualEmptyArray):
-            return _carrier(tuple(s.stop - s.start for s in sel), arr.dtype)
+        block = _virtual_block(arr, tuple(s.stop - s.start for s in sel))
+        if block is not None:
+            return block
         if isinstance(arr, VirtualOffsetsArray):
-            # host metadata: seeds and block ids; in a segment on the card a
-            # host tensor, so a random block draws its key from the hoisted
-            # table (a key passed by value would be baked into the graph)
+            # host metadata: seeds and block ids; a seed in a segment on the
+            # card a host tensor, so a random block draws its key from the
+            # hoisted table (a key passed by value would be baked into the graph)
             block = np.asarray(arr[sel])
-            return torch.from_numpy(block) if self._segment_mode else block
+            return torch.from_numpy(block) if self._segment_mode and arr.base else block
         if isinstance(arr, VirtualInMemoryArray):
             return self._upload(arr)[sel]
         opened = proxy.open()

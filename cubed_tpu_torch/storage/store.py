@@ -303,8 +303,42 @@ class ZarrV2Array:
             ranges.append(range(first, last + 1))
         return itertools.product(*ranges)
 
+    @property
+    def oindex(self) -> "_OIndex":
+        """Orthogonal indexing: per axis a slice (any step) or an integer array."""
+        return _OIndex(self)
+
     def __repr__(self) -> str:
         return f"ZarrV2Array<{self.store}, shape={self.shape}, dtype={self.dtype}, chunks={self.chunks}>"
+
+
+class _OIndex:
+    """Reads the selected positions chunk by chunk: along each axis the
+    positions are grouped by the chunk that holds them."""
+
+    def __init__(self, array: ZarrV2Array):
+        self.array = array
+
+    def __getitem__(self, key) -> np.ndarray:
+        from .virtual import oindex_lists
+
+        a = self.array
+        index_lists = oindex_lists(key, a.shape)
+        out = np.empty(tuple(len(ix) for ix in index_lists), dtype=a.dtype)
+        if not out.size:
+            return out
+        axis_groups = []
+        for ax, ix in enumerate(index_lists):
+            cidx = ix // a.chunks[ax]
+            axis_groups.append({
+                int(c): (ix[cidx == c] - c * a.chunks[ax], np.flatnonzero(cidx == c)) for c in np.unique(cidx)
+            })
+        for combo in itertools.product(*(g.items() for g in axis_groups)):
+            chunk = a._read_chunk(tuple(c for c, _ in combo))
+            if chunk is None:
+                chunk = a._empty_chunk()
+            out[np.ix_(*[pos for _, (_, pos) in combo])] = chunk[np.ix_(*[within for _, (within, _) in combo])]
+        return out
 
 
 def open_zarr_array(

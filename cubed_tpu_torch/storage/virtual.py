@@ -57,6 +57,58 @@ class VirtualEmptyArray(_VirtualBase):
         return out
 
 
+class VirtualFullArray(_VirtualBase):
+    """Constant-valued array (``full``, ``zeros``, ``ones``); reads return a
+    stride-0 broadcast of one element. The device executor fills it on the
+    card instead of reading it."""
+
+    def __init__(self, shape: Sequence[int], dtype: Any, chunks: Sequence[int], fill_value):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self.chunks = tuple(int(c) for c in chunks) if self.shape else ()
+        self.fill_value = fill_value
+
+    def __getitem__(self, key) -> np.ndarray:
+        sel = _normalize_key(key, self.shape)
+        shape = tuple(max(0, s.stop - s.start) for s in sel)
+        out = broadcast_trick(np.full)(shape, self.fill_value, dtype=self.dtype)
+        record_virtual_read(int(np.prod(shape or (1,))) * self.dtype.itemsize)
+        return out
+
+    @property
+    def oindex(self):
+        return _ConstantOIndex(self)
+
+
+class _ConstantOIndex:
+    """Orthogonal indexing of a constant array: only the shape is selected."""
+
+    def __init__(self, array):
+        self.array = array
+
+    def __getitem__(self, key) -> np.ndarray:
+        a = self.array
+        shape = tuple(len(ix) for ix in oindex_lists(key, a.shape))
+        record_virtual_read(int(np.prod(shape or (1,))) * a.dtype.itemsize)
+        return broadcast_trick(np.full)(shape, a.fill_value, dtype=a.dtype)
+
+
+def oindex_lists(key, shape) -> list:
+    """Per-axis integer positions of an orthogonal selection (slices, with
+    any step, or integer arrays; negative positions count from the end)."""
+    if not isinstance(key, tuple):
+        key = (key,)
+    key = key + (slice(None),) * (len(shape) - len(key))
+    out = []
+    for k, s in zip(key, shape):
+        if isinstance(k, slice):
+            out.append(np.arange(*k.indices(s)))
+        else:
+            arr = np.atleast_1d(np.asarray(k)).astype(np.int64)
+            out.append(np.where(arr < 0, arr + s, arr))
+    return out
+
+
 class VirtualOffsetsArray(_VirtualBase):
     """Maps each (1,...,1)-shaped chunk to ``base +`` its linear block offset.
 
@@ -102,9 +154,27 @@ class VirtualInMemoryArray(_VirtualBase):
         record_virtual_read(getattr(out, "nbytes", 0))
         return out
 
+    @property
+    def oindex(self):
+        return _InMemoryOIndex(self)
+
+
+class _InMemoryOIndex:
+    def __init__(self, array: VirtualInMemoryArray):
+        self.array = array
+
+    def __getitem__(self, key) -> np.ndarray:
+        out = self.array.array[np.ix_(*oindex_lists(key, self.array.shape))]
+        record_virtual_read(out.nbytes)
+        return out
+
 
 def virtual_empty(shape, *, dtype, chunks) -> VirtualEmptyArray:
     return VirtualEmptyArray(shape, dtype, chunks)
+
+
+def virtual_full(shape, fill_value, *, dtype, chunks) -> VirtualFullArray:
+    return VirtualFullArray(shape, dtype, chunks, fill_value)
 
 
 def virtual_offsets(shape) -> VirtualOffsetsArray:

@@ -130,6 +130,11 @@ def offset_to_block_id(offset: int, numblocks: Sequence[int]) -> tuple[int, ...]
     return tuple(int(i) for i in np.unravel_index(offset, tuple(numblocks)))
 
 
+def block_id_to_offset(block_id: Sequence[int], numblocks: Sequence[int]) -> int:
+    """nd block index -> linear offset (C order)."""
+    return int(np.ravel_multi_index(tuple(block_id), tuple(numblocks)))
+
+
 def join_path(dir_url: str, child_path: str) -> str:
     """Join a path to a directory that may be a filesystem path or a URL."""
     parts = urlsplit(str(dir_url))

@@ -908,3 +908,49 @@ def test_observers_leave_the_device_route_and_values_as_they_are(cuda, tmp_path,
             assert any(record in n for n in names), key
         assert mem.samples and all(s["bytes_in_use"] is not None for s in mem.samples)
         assert os.path.exists(col.trace_path)
+
+
+def _an_array(ct, spec):
+    return ct.random.random((300, 200), chunks=(100, 50), spec=spec)
+
+
+#: Array API plans whose device routes a CUDA graph capture must hold: a
+#: virtual constant filled on the card, block offsets made on the card
+#: (arange, linspace, eye, an arg reduction fused with its random input),
+#: whole-array selects (a negative step, an integer array), a device
+#: concat, views of resident side inputs (flip), the scans
+ARRAY_API_PLANS = {
+    "zeros_add": lambda ct, xp, s: xp.add(_an_array(ct, s), xp.zeros((300, 200), chunks=(100, 50), spec=s)),
+    "arange_linspace": lambda ct, xp, s: xp.add(xp.arange(0, 3000, 1.5, chunks=400, spec=s),
+                                                xp.linspace(0, 1, 2000, chunks=400, spec=s)),
+    "eye": lambda ct, xp, s: xp.multiply(xp.eye(300, 200, k=3, chunks=(100, 50), spec=s), _an_array(ct, s)),
+    "argmax": lambda ct, xp, s: xp.argmax(_an_array(ct, s), axis=0),
+    "selects": lambda ct, xp, s: _an_array(ct, s)[::-3, [199, 0, 7, 7]] * 2.0,
+    "flip_concat_roll": lambda ct, xp, s: xp.roll(
+        xp.concat([xp.flip(a := _an_array(ct, s), axis=1), a], axis=0), 17, axis=0),
+    "var_cumulative_sum": lambda ct, xp, s: xp.cumulative_sum(
+        xp.add(xp.var(a := _an_array(ct, s), axis=1, keepdims=True), a), axis=1),
+    "where_ones": lambda ct, xp, s: xp.where(xp.greater(a := _an_array(ct, s), 0.5), a, xp.ones_like(a)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ARRAY_API_PLANS))
+def test_array_api_plans_capture_and_replay_on_the_card(cuda, tmp_path, name):
+    """Three computes on one device executor (op by op, capture and replay,
+    replay), each with its own seeds, equal to the sequential executor's."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    for seed in (41, 42, 43):
+        values = []
+        for executor in (ex, None):
+            random.seed(seed)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{seed}-{executor is None}"), allowed_mem="500MB")
+            values.append(ARRAY_API_PLANS[name](ct, xp, spec).compute(executor=executor))
+        got, want = values
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+            assert ex.stats[counter] == 0, counter

@@ -135,16 +135,63 @@ def _max_of_mean(pkg, xp, spec):
     return xp.max(xp.mean(pkg.random.random((40, 40), chunks=10, spec=spec), axis=0))
 
 
+def _zeros_add(pkg, xp, spec):
+    a = pkg.random.random((30, 20), chunks=(6, 5), spec=spec)
+    return xp.add(a, xp.zeros((30, 20), chunks=(6, 5), spec=spec))
+
+
+def _flip(pkg, xp, spec):
+    return xp.flip(pkg.random.random((30, 20), chunks=(6, 5), spec=spec), axis=0)
+
+
+def _negative_step_index(pkg, xp, spec):
+    return xp.multiply(pkg.random.random((30, 20), chunks=(6, 5), spec=spec)[::-3, 1::-1], 2.0)
+
+
+def _integer_array_index(pkg, xp, spec):
+    return pkg.random.random((30, 20), chunks=(6, 5), spec=spec)[:, [19, 0, 4, 4, 11]]
+
+
+def _concat(pkg, xp, spec):
+    a = pkg.random.random((30, 20), chunks=(6, 5), spec=spec)
+    return xp.concat([a, pkg.from_array(_an((12, 20)), chunks=(6, 5), spec=spec)], axis=0)
+
+
+def _stack(pkg, xp, spec):
+    a, b = [pkg.random.random((30, 20), chunks=(6, 5), spec=spec) for _ in range(2)]
+    return xp.stack([a, b], axis=1)
+
+
+def _reshape(pkg, xp, spec):
+    return xp.reshape(pkg.random.random((30, 20), chunks=(6, 20), spec=spec), (10, 60))
+
+
+def _where(pkg, xp, spec):
+    a, b = [pkg.random.random((30, 20), chunks=(6, 5), spec=spec) for _ in range(2)]
+    return xp.where(xp.greater(a, 0.5), a, b)
+
+
+def _var(pkg, xp, spec):
+    return xp.var(pkg.random.random((30, 20), chunks=(6, 5), spec=spec), axis=0, correction=1)
+
+
+def _cumulative_sum(pkg, xp, spec):
+    return xp.cumulative_sum(pkg.random.random((30, 20), chunks=(6, 5), spec=spec), axis=0)
+
+
 ELEMENTWISE = {
     "chain": _chain, "ragged_index_scaled": _ragged_index_scaled,
     "map_blocks_two_inputs": _map_blocks_two_inputs, "rechunk_misaligned_add": _rechunk_misaligned_add,
+    "zeros_add": _zeros_add, "flip": _flip, "negative_step_index": _negative_step_index,
+    "integer_array_index": _integer_array_index, "concat": _concat, "stack": _stack, "reshape": _reshape,
+    "where": _where,
 }
 REDUCTIONS = {
     "sum_all": _sum_all, "mean_all": _mean_all, "mean_axis0": _mean_axis0,
     "sum_axis0": _sum_axis0, "ragged_index": _ragged_index, "addsum": _addsum,
     "vorticity": _vorticity, "vorticity_sum": _vorticity_sum,
     "map_blocks_sum": _map_blocks_sum, "rechunk_mean": _rechunk_mean, "matmul_sum": _matmul_sum,
-    "max_of_mean": _max_of_mean,
+    "max_of_mean": _max_of_mean, "var": _var, "cumulative_sum": _cumulative_sum,
 }
 
 
@@ -441,11 +488,12 @@ def test_resident_map_direct_fast_paths(tmp_path, body, counter):
 
 
 class _RowsReversed:
-    """Declares a selection the resident path does not take (an integer
-    array), so the op must fall back to its task body and count it."""
+    """Declares a selection the resident path does not take (one of another
+    rank than the array's), so the op must fall back to its task body and
+    count it."""
 
     def __init__(self, n, chunks):
-        self.whole_select = (list(range(n - 1, -1, -1)), (0, 4, 1))
+        self.whole_select = (list(range(n - 1, -1, -1)),)
         self.chunks = chunks
 
     def __call__(self, block, x, block_id=None):

@@ -58,7 +58,8 @@ def _compute_on_cpu(tmp_path, observed: bool) -> None:
         + callbacks +
         f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB')\n"
         "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
-        "print(float(xp.mean(a[1:] * a[1:]).compute(callbacks=cbs)))\n"
+        "z = xp.zeros((8, 8), chunks=4, spec=spec)  # a VirtualFullArray, read on the CPU\n"
+        "print(float(xp.mean(a[1:] * (a[1:] + z[1:])).compute(callbacks=cbs)))\n"
         "print('\\n'.join(sorted(sys.modules)))",
         {"CUBED_TPU_TORCH_DEVICE": "cpu"},
     )
@@ -99,9 +100,12 @@ SOURCES = ["chip_smoke.py"] + sorted(
 
 
 def test_source_walk_covers_every_subpackage():
-    for sub in ("observability", "extensions", "runtime", "kernels", "storage"):
+    for sub in ("observability", "extensions", "runtime", "kernels", "storage", "array_api"):
         assert any(p.startswith(os.path.join("cubed_tpu_torch", sub, "")) for p in SOURCES), sub
     assert os.path.join("cubed_tpu_torch", "observability", "collect.py") in SOURCES
+    for module in ("constants", "device", "indexing_functions", "searching_functions", "set_functions",
+                   "utility_functions"):
+        assert os.path.join("cubed_tpu_torch", "array_api", f"{module}.py") in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES)

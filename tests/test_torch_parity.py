@@ -104,7 +104,8 @@ def test_slices_match_jax_package_bitwise(tmp_path, key):
 def test_unported_index_kinds_raise(tmp_path):
     spec = cubed_tpu_torch.Spec(work_dir=str(tmp_path), allowed_mem="100MB")
     a = cubed_tpu_torch.random.random((10, 10), chunks=5, spec=spec)
-    for key in [(slice(None, None, -1),), (None,), ([1, 2],)]:
+    # a boolean array, and a second integer array, as the JAX package refuses them
+    for key in [(np.arange(10) < 5,), ([1, 2], [1, 2])]:
         with pytest.raises(NotImplementedError):
             a[key]
 
