@@ -8,7 +8,9 @@
 observability phase's, and ``--time-kernels CHECKOUT`` and
 ``--time-computes CHECKOUT`` the ``--against`` timings' calls;
 ``--array-api-phase [full]`` runs the Array API phase alone, ``full`` at
-BASELINE.md's 10000 x 10000 / 5000 scale.)
+BASELINE.md's 10000 x 10000 / 5000 scale; ``--order-stats-phase [full]``
+the order-statistics phase alone, with its merge kernels' checks, ``full``
+at 4096 steps of the time axis.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -181,6 +183,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    64 KiB or more between host and card, beyond the output's own chunk
    writes, are none for the resident reads of flip, concat, roll and the
    integer-array index; each op's times, ratio, paths and launches printed;
+   Then the order-statistics phase. First its merge kernels
+   (csrc/merge_sort.cu: sort_block, argsort_block, merge_split) against
+   their plain versions, exactly, at the phase's blocks and at NaN, -0.0,
+   ties, integer extremes, ragged and one-element cases, ceil(log2 n)
+   launches a sort and one a merge-split, each timed beside its plain
+   version, ``torch.sort`` of the same data and its byte bound. Then 16 ops
+   (sort, argsort, median, quantile 0.9, topk/argtopk 16, nanmedian,
+   nanmean, nansum, nanmax, nanmin along time on a copy with values under
+   0.01 made NaN; searchsorted of 2**20 queries in a sorted 2**24 array;
+   histogram of 64 bins, implicit range, unweighted and weighted; cov and
+   corrcoef of (64, 2**20)) on a per-gridpoint climatology, (2048, 256,
+   256) float64 in (512, 256, 256) chunks under 2GB: on the sequential
+   executor, cut to (1024, 128, 128) in (64, 64, 64) chunks, under
+   allowed_mem equal to each plan's projected memory, every task's device
+   peak at most that bound (sort and argsort also with the network forced,
+   in (128, 64, 64) chunks, and along a 16384-step axis in one chunk,
+   where they are read again with the plain ``torch.sort`` bodies, not
+   gated: the reason the merge kernels exist); on ``CudaExecutor`` cold
+   and warm against
+   numpy oracles drawn from the same Philox blocks (sorts, searches,
+   counts, top-k and extrema exact; sums and interpolations rtol 1e-12;
+   the weighted histogram rtol 1e-11; cov and corrcoef atol 1e-12), no
+   failed check, and a profiled warm compute with no copy between host and
+   card beyond the output's writes and each sort's bitonic round timed
+   against its byte bound; every kernel of the path launched;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -198,7 +225,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 The kernels line gives each kernel's launches in the run of its path:
 vorticity's first device compute; for the float32 entry points and routes
 vorticity_f32's first compute, and its spilled run for the per-block float32
-Philox entry point.
+Philox entry point; for the merge kernels the order-statistics phase's first
+device computes.
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
 stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
@@ -210,6 +238,7 @@ import contextlib
 import ctypes
 import itertools
 import json
+import math
 import os
 import random
 import shutil
@@ -963,7 +992,9 @@ def check_batched_rules(torch, slots: float) -> None:
     torch.func.vmap, against their plain versions: one kernel per batched
     call (torch.profiler), and their times at addsum's fused op, (5, 5,
     1000, 1000), beside their bounds and torch.sum."""
-    from cubed_tpu_torch.kernels.philox_uniform import philox_blocks, philox_uniform
+    from cubed_tpu_torch.kernels.philox_uniform import (
+        philox_blocks, philox_keys, philox_uniform, philox_uniform_blocks_plain,
+    )
     from cubed_tpu_torch.kernels.region_sum import region_sum, region_sum_plain
 
     vmap = torch.func.vmap
@@ -1017,10 +1048,14 @@ def check_batched_rules(torch, slots: float) -> None:
           f"({100 * b / ms:.1f}% of bound), torch.sum {lib:.5f} ms, plain {plain:.5f} ms, bound {b:.5f} ms "
           f"({by}); {smi_tag()}")
     ms = time_ms(torch, rule, [(seeds,)])
+    # the plain version of the same 25 blocks (each keyed as the rule keys it)
+    keys = philox_keys(seeds.reshape(-1).numpy())
+    plain = time_ms(torch, lambda: philox_uniform_blocks_plain((5000, 5000), (1000, 1000), keys, device=dev),
+                    [()], reps=2)
     counters = 25 * 250_000
     b, by = bound_ms(8 * 25e6, slots * counters, INT_ISSUE_PER_S)
     print(f"Philox rule (5,5) blocks of (1000,1000) f64: {ms:.5f} ms/launch ({100 * b / ms:.1f}% of bound), "
-          f"bound {b:.5f} ms ({by}); {smi_tag()}")
+          f"plain {plain:.5f} ms, bound {b:.5f} ms ({by}); {smi_tag()}")
     del base, grid, stacked
 
 
@@ -1351,12 +1386,13 @@ def compare_against(torch, path: str) -> None:
 
 def oracle_random(shape, chunks, root_seed) -> np.ndarray:
     """numpy's own per-block streams: block at linear offset k draws from
-    Philox(seed=root_seed + k)."""
+    Philox(seed=root_seed + k). *chunks* an int or one per axis."""
     out = np.empty(shape, dtype=np.float64)
-    grids = [range(0, s, chunks) for s in shape]
+    chunks = (chunks,) * len(shape) if isinstance(chunks, int) else tuple(chunks)
+    grids = [range(0, s, c) for s, c in zip(shape, chunks)]
     nblocks = [len(g) for g in grids]
     for idx in np.ndindex(*nblocks):
-        sel = tuple(slice(i * chunks, min((i + 1) * chunks, s)) for i, s in zip(idx, shape))
+        sel = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
         bshape = tuple(s.stop - s.start for s in sel)
         k = int(np.ravel_multi_index(idx, nblocks))
         out[sel] = np.random.Generator(np.random.Philox(seed=root_seed + k)).random(bshape)
@@ -2518,8 +2554,15 @@ def host_device_copies(torch, fn) -> dict:
     os.remove(path)
     events = events.get("traceEvents", events) if isinstance(events, dict) else events
     out = {"HtoD": 0, "DtoH": 0, "HtoD_small": 0, "DtoH_small": 0, "unsized": 0}
+    merges: dict = {}
     for e in events:
         name = str(e.get("name", ""))
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and "merge_" in name:
+            # the merge kernels' device time (microseconds) and records
+            short = "merge_split_kernel" if "merge_split_kernel" in name else "merge_pass_kernel"
+            t = merges.setdefault(short, [0.0, 0])
+            t[0] += float(e.get("dur", 0.0))
+            t[1] += 1
         kind = "HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else None
         if e.get("ph") != "X" or kind is None or "Memcpy" not in name:
             continue
@@ -2530,6 +2573,8 @@ def host_device_copies(torch, fn) -> dict:
             out[kind] += 1
         else:
             out[kind + "_small"] += 1
+    if merges:
+        out["merge_kernels_us"] = merges
     return out
 
 
@@ -2626,6 +2671,589 @@ def run_array_api_phase(torch, config=ARRAY_API) -> dict:
                              copies=crossing)
     print(f"array API phase: {time.perf_counter() - t0:.1f} s; {smi_tag()}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# the order-statistics phase: sorts, quantiles, top-k, searches, histograms,
+# cov/corrcoef and the nan reductions
+# ---------------------------------------------------------------------------
+
+#: pangeo's per-gridpoint climatology over the time axis: 4096 daily steps
+#: (about 11 years) of a 256 x 256 tile, float64 (2.1 GB), in (512, 256,
+#: 256) chunks (268 MB) under allowed_mem 2GB: the single-chunk slab along
+#: time (2.1 GB, projected 4x) is over the budget, so ``auto`` routes sort
+#: and argsort through the network (sort's chunks fit its merge as they are:
+#: 8 chunks, 7 rounds; argsort's shrink to 171: 32 padded chunks, 16
+#: rounds). (256, 128, 128) chunks under 500MB are refused at plan time by
+#: both packages: sort's coarsening rechunk projects 604 MB, the histogram's
+#: flatten 604 MB, top-k's merge 549 MB. searchsorted: a sorted 1-d array of
+#: 2**24 against 2**20 queries; cov/corrcoef: (64, 2**20)
+ORDER_STATS_FULL = dict(shape=(4096, 256, 256), chunks=(512, 256, 256), allowed_mem="2GB",
+                        search=((2**24,), (2**21,), (2**20,), (2**17,)), cov=((64, 2**20), (64, 2**17)))
+#: the phase in the whole run: the time axis cut to 2048 steps (1.07 GB;
+#: sort 4 chunks, 4 rounds; argsort 12 chunks padded to 16, 11 rounds), the
+#: chunk widths as they are, so the phase stays near 120 s of the run (225 s
+#: at full depth alone, chip_smoke.py --order-stats-phase full)
+ORDER_STATS = dict(ORDER_STATS_FULL, shape=(2048, 256, 256))
+#: the sequential check's cut: each network round there is a full fsync'd
+#: pass through storage (2.1 GB at full size); the depth of time and the
+#: tile cut by 4 and 2, chunks (64, 64, 64)
+ORDER_STATS_SEQ = dict(shape=(1024, 128, 128), chunks=(64, 64, 64), allowed_mem="500MB",
+                       search=((2**20,), (2**17,), (2**16,), (2**13,)), cov=((64, 2**16), (64, 2**13)))
+#: the network forced on the sequential executor: the cut array in (128,
+#: 64, 64) chunks (8 along time: 7 rounds, where 16 chunks give 11 and
+#: argsort's 791 tasks take 15 s)
+ORDER_STATS_SEQ_NETWORK = dict(ORDER_STATS_SEQ, chunks=(128, 64, 64))
+#: a time axis longer than 4096 steps (45 years of daily steps) in one chunk
+#: (auto keeps it there: 33.5 MB blocks under 500MB), where torch.sort
+#: leaves its in-place sort of short lanes for CUB's segmented sort: sort
+#: and argsort gated with the merge kernels, then read with the plain
+#: torch.sort bodies (the reason the kernels exist)
+ORDER_STATS_SEQ_LONG = dict(ORDER_STATS_SEQ, shape=(16384, 32, 32), chunks=(16384, 16, 16))
+ORDER_K = 16
+ORDER_NAN_BELOW = 0.01
+#: threads for the numpy oracles (numpy's sorts release the GIL)
+ORACLE_THREADS = 8
+
+
+def lanes_parallel(fn, a: np.ndarray) -> np.ndarray:
+    """``fn(a)`` of a function along axis 0 (its result keeps the trailing
+    axes), computed on slices of the last axis in threads."""
+    n = a.shape[-1]
+    step = -(-n // ORACLE_THREADS)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        parts = list(pool.map(lambda j: fn(a[..., j:j + step]), range(0, n, step)))
+    return np.concatenate(parts, axis=-1)
+
+
+#: each input's root seed: ``random.getrandbits(30)`` after
+#: ``random.seed(SEED + ORDER_SEEDS[name])``, so each is drawn alike
+#: whichever others an op builds
+ORDER_SEEDS = {"x": 10, "x1": 11, "q": 12, "m": 13}
+
+
+class order_stats_inputs:
+    """The phase's random arrays (``cubed_tpu_torch.random.random``, the
+    Philox kernels on the card), each made at an op's first use of it: x,
+    its NaN-masked form xn, searchsorted's values x1 and queries q, cov's
+    observations m (so an op's plan holds its own inputs alone)."""
+
+    def __init__(self, spec, config):
+        self.spec, self.config, self.made = spec, config, {}
+
+    def __getitem__(self, name):
+        import cubed_tpu_torch
+        import cubed_tpu_torch.array_api as xp
+
+        if name not in self.made:
+            cfg = self.config
+            if name == "xn":
+                x = self["x"]
+                nan = xp.asarray(float("nan"), dtype=xp.float64, spec=self.spec)
+                self.made[name] = xp.where(xp.less(x, ORDER_NAN_BELOW), nan, x)
+            else:
+                shape, chunks = {"x": (cfg["shape"], cfg["chunks"]), "x1": (cfg["search"][0], cfg["search"][1]),
+                                 "q": (cfg["search"][2], cfg["search"][3]), "m": cfg["cov"]}[name]
+                random.seed(SEED + ORDER_SEEDS[name])
+                self.made[name] = cubed_tpu_torch.random.random(shape, chunks=chunks, spec=self.spec)
+        return self.made[name]
+
+
+class OrderOracle:
+    """numpy's draws of the same Philox blocks as :class:`order_stats_inputs`,
+    and each op's expected value, computed at first use (the lane-wise
+    sorts in threads)."""
+
+    def __init__(self, config):
+        def draw(name, shape, chunks):
+            random.seed(SEED + ORDER_SEEDS[name])
+            return oracle_random(shape, chunks, random.getrandbits(30))
+
+        self.x = draw("x", config["shape"], config["chunks"])
+        self.x1 = draw("x1", config["search"][0], config["search"][1])
+        self.q = draw("q", config["search"][2], config["search"][3])
+        self.m = draw("m", *config["cov"])
+        self._cache = {}
+
+    def get(self, key, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    @property
+    def xn(self):
+        return self.get("xn", lambda: np.where(self.x < ORDER_NAN_BELOW, np.nan, self.x))
+
+    @property
+    def sorted(self):
+        return self.get("sorted", lambda: lanes_parallel(lambda a: np.sort(a, axis=0), self.x))
+
+    @property
+    def argsorted(self):
+        return self.get("argsorted", lambda: lanes_parallel(lambda a: np.argsort(a, axis=0, kind="stable"),
+                                                            self.x))
+
+    def quantile(self, q):
+        s = self.sorted
+        pos = q * (s.shape[0] - 1)
+        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+        frac = pos - lo
+        return s[lo] * (1.0 - frac) + s[hi] * frac
+
+
+def _order_stats_ops(oracle: OrderOracle) -> dict:
+    """name -> (build(xp, ct, inputs), expected(), comparison). A comparison
+    is "exact", ("rtol", r), ("atol", a) or ("histogram", rtol)."""
+    k = ORDER_K
+    return {
+        "sort": (lambda xp, ct, i: xp.sort(i["x"], axis=0), lambda: oracle.sorted, "exact"),
+        "argsort": (lambda xp, ct, i: xp.argsort(i["x"], axis=0), lambda: oracle.argsorted, "exact"),
+        "median": (lambda xp, ct, i: xp.median(i["x"], axis=0), lambda: np.median(oracle.sorted, axis=0),
+                   ("rtol", 1e-12)),
+        "quantile": (lambda xp, ct, i: xp.quantile(i["x"], 0.9, axis=0), lambda: oracle.quantile(0.9),
+                     ("rtol", 1e-12)),
+        "topk": (lambda xp, ct, i: xp.topk(i["x"], k, axis=0), lambda: oracle.sorted[::-1][:k], "exact"),
+        "argtopk": (lambda xp, ct, i: xp.argtopk(i["x"], k, axis=0), lambda: oracle.argsorted[::-1][:k], "exact"),
+        "nanmedian": (lambda xp, ct, i: xp.nanmedian(i["xn"], axis=0),
+                      lambda: lanes_parallel(lambda a: np.nanmedian(a, axis=0), oracle.xn), ("rtol", 1e-12)),
+        "nanmean": (lambda xp, ct, i: ct.nanmean(i["xn"], axis=0), lambda: np.nanmean(oracle.xn, axis=0),
+                    ("rtol", 1e-12)),
+        "nansum": (lambda xp, ct, i: ct.nansum(i["xn"], axis=0), lambda: np.nansum(oracle.xn, axis=0),
+                   ("rtol", 1e-12)),
+        "nanmax": (lambda xp, ct, i: ct.nanmax(i["xn"], axis=0), lambda: np.nanmax(oracle.xn, axis=0), "exact"),
+        "nanmin": (lambda xp, ct, i: ct.nanmin(i["xn"], axis=0), lambda: np.nanmin(oracle.xn, axis=0), "exact"),
+        "searchsorted": (lambda xp, ct, i: xp.searchsorted(xp.sort(i["x1"]), i["q"]),
+                         lambda: np.searchsorted(np.sort(oracle.x1), oracle.q), "exact"),
+        "histogram": (lambda xp, ct, i: xp.histogram(i["x"], bins=64), None, ("histogram", None)),
+        "histogram_weighted": (lambda xp, ct, i: xp.histogram(i["x"], bins=64, weights=i["x"]), None,
+                               ("histogram", HISTOGRAM_WEIGHTED_RTOL)),
+        "cov": (lambda xp, ct, i: xp.cov(i["m"]), lambda: np.cov(oracle.m), ("atol", 1e-12)),
+        "corrcoef": (lambda xp, ct, i: xp.corrcoef(i["m"]), lambda: np.corrcoef(oracle.m), ("atol", 1e-12)),
+    }
+
+
+#: the weighted histogram's counts add a bin's weights in the atomics'
+#: order on the card (index_add_), about 4M of them a bin at full size: a
+#: random walk of roundings, about sqrt(n) eps = 2e-13 of the bin; the
+#: oracle sums each piece of 2**20 with bincount and the pieces with fsum
+HISTOGRAM_WEIGHTED_RTOL = 1e-11
+
+
+def histogram_oracle(x: np.ndarray, edges: np.ndarray, weighted: bool) -> np.ndarray:
+    """numpy's histogram of *x* over the port's *edges* (held against
+    numpy's own linspace edges separately): bin i is [e_i, e_i+1), the last
+    closed; weighted by x itself, each bin summed piecewise (bincount over
+    pieces of 2**20, the pieces' sums added exactly)."""
+    flat = x.reshape(-1)
+    n = len(edges) - 1
+    if not weighted:
+        return np.histogram(flat, bins=edges)[0]
+    parts = []
+    piece = 1 << 20
+    for s in range(0, flat.size, piece):
+        seg = flat[s:s + piece]
+        idx = np.searchsorted(edges, seg, side="right")
+        idx[seg == edges[-1]] = n
+        parts.append(np.bincount(idx, weights=seg, minlength=n + 2)[1:n + 1])
+    import math
+
+    return np.array([math.fsum(p[i] for p in parts) for i in range(n)])
+
+
+def compare_order(label, value, expected, how) -> float:
+    """*value* against *expected* (numpy's): exact, rtol, or atol (cov,
+    whose entries cancel). Returns the largest difference (relative for
+    rtol, absolute for atol, 0 when exact)."""
+    value = np.asarray(value)
+    check(value.dtype == expected.dtype and value.shape == expected.shape,
+          f"{label}: {value.dtype}{value.shape}, numpy's oracle {expected.dtype}{expected.shape}")
+    if how == "exact":
+        check(np.array_equal(value, expected, equal_nan=value.dtype.kind == "f"),
+              f"{label}: not equal to the numpy oracle")
+        return 0.0
+    kind, tol = how
+    if kind == "atol":
+        err = float(np.max(np.abs(value - expected)))
+        check(err <= tol, f"{label}: differs from the numpy oracle by {err} > atol {tol}")
+        return err
+    both_nan = np.isnan(value) & np.isnan(expected)
+    check(bool(np.array_equal(np.isnan(value), np.isnan(expected))), f"{label}: NaNs differ from the oracle's")
+    rel = float(np.max(np.where(both_nan, 0.0, np.abs(value - expected) / np.abs(expected))))
+    check(rel <= tol, f"{label}: differs from the numpy oracle by rtol {rel} > {tol}")
+    return rel
+
+
+def check_order_value(label, out, expected_fn, how, oracle) -> float:
+    """Hold one op's value against its oracle; a histogram's edges against
+    numpy's linspace of the data's extent (rtol 1e-12) and its counts
+    against numpy's over the same edges."""
+    if isinstance(how, tuple) and how[0] == "histogram":
+        counts, edges = (np.asarray(v) for v in out)
+        lo, hi = float(oracle.x.min()), float(oracle.x.max())
+        compare_order(f"{label} edges", edges, np.linspace(lo, hi, 65), ("rtol", 1e-12))
+        expected = histogram_oracle(oracle.x, edges, weighted=how[1] is not None)
+        return compare_order(f"{label} counts", counts, expected, "exact" if how[1] is None else ("rtol", how[1]))
+    return compare_order(label, out, expected_fn(), how)
+
+
+#: ragged, NaN-holding and integer cases of the merge kernels beside the
+#: main path's shapes: (label, shape, axis, dtype)
+MERGE_CASES = [
+    ("nan, -0.0, ties", (37, 5, 3), 0, "float64"),
+    ("inner axis", (6, 4, 65), 2, "float64"),
+    ("float32", (33, 70), 0, "float32"),
+    ("int64 extremes", (41, 9), 0, "int64"),
+    ("uint8", (5, 130), 1, "uint8"),
+    ("one element", (1, 4), 0, "float64"),
+]
+
+
+def _merge_data(torch, gen, shape, dtype):
+    """Values with ties, NaNs and -0.0 (floats) or the dtype's extremes."""
+    dev = torch.device("cuda")
+    if dtype.startswith("float"):
+        v = torch.randint(0, 7, shape, generator=gen, device=dev).to(getattr(torch, dtype)) * 0.5
+        v[torch.rand(shape, generator=gen, device=dev) < 0.1] = float("nan")
+        v[torch.rand(shape, generator=gen, device=dev) < 0.05] = -0.0
+        return v
+    info = torch.iinfo(getattr(torch, dtype))
+    pool = torch.tensor([info.min, info.max, 0, 1, 2, 3], dtype=getattr(torch, dtype), device=dev)
+    return pool[torch.randint(0, len(pool), shape, generator=gen, device=dev)]
+
+
+def _same(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (a.eq(b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a.eq(b)).all())
+
+
+def check_merge_sort(torch, config=ORDER_STATS) -> list:
+    """The merge kernels (csrc/merge_sort.cu) against their plain versions:
+    at the order-statistics phase's shapes (a block of sort's network at its
+    coarsened chunk, a block of argsort's, top-k's per-block order) and at
+    ragged, NaN-holding, integer and one-element cases, exactly (the plain
+    version run on the CPU: torch's stable CPU sort places NaN and -0.0 as
+    numpy does); one launch per merge-split call, ceil(log2 n) per sort;
+    timed beside their plain versions on the card, ``torch.sort`` of the
+    same data, and their byte bounds."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.array_api._block_sort import _coarsen_for_network
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    spec = cubed_tpu_torch.Spec(work_dir=WORK_DIR, allowed_mem=config["allowed_mem"])
+    x = cubed_tpu_torch.random.random(config["shape"], chunks=config["chunks"], spec=spec)
+    c_sort = _coarsen_for_network(x, 0, with_idx=False).chunksize[0]
+    c_arg = _coarsen_for_network(x, 0, with_idx=True).chunksize[0]
+    lane = config["chunks"][1:]
+    sort_shape, arg_shape, topk_shape = (c_sort,) + lane, (c_arg,) + lane, config["chunks"]
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    def passes(n):
+        return max(0, (n - 1).bit_length())
+
+    # correctness, exact, against the plain versions on the CPU
+    cases = [(f"main path {sort_shape}", sort_shape, 0, "float64"), (f"main path {arg_shape}", arg_shape, 0,
+                                                                      "float64"),
+             (f"main path {topk_shape}", topk_shape, 0, "float64")] + MERGE_CASES
+    for label, shape, axis, dtype in cases:
+        v = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
+        w = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
+        n = shape[axis]
+        idx = torch.randperm(v.numel(), generator=gen, device=dev).reshape(shape)
+        flags = torch.rand(shape[:axis] + (1,) * (len(shape) - axis), generator=gen, device=dev) < 0.5
+        before = {k: getattr(ms, k).launches for k in ("sort_block", "argsort_block", "merge_split")}
+        got_s = ms.sort_block(v, axis)
+        got_p = ms.sort_block(v, axis, idx)
+        got_a = ms.argsort_block(v, axis)
+        sv, sw = ms.sort_block_plain(v.cpu(), axis), ms.sort_block_plain(w.cpu(), axis)
+        iv = torch.arange(v.numel()).reshape(shape)
+        pv, piv = ms.sort_block_plain(v.cpu(), axis, iv)
+        pw, piw = ms.sort_block_plain(w.cpu(), axis, iv + v.numel())
+        got_m = ms.merge_split(sv.to(dev), sw.to(dev), flags, axis)
+        got_mp = ms.merge_split(pv.to(dev), pw.to(dev), flags, axis, piv.to(dev), piw.to(dev))
+        torch.cuda.synchronize()
+        what = f"merge kernels, {label} {dtype} axis {axis}"
+        check(_same(got_s, sv), f"{what}: sort_block differs from its plain version")
+        ref_p = ms.sort_block_plain(v.cpu(), axis, idx.cpu())
+        check(_same(got_p[0], ref_p[0]) and _same(got_p[1], ref_p[1]), f"{what}: sort_block with indices differs")
+        check(_same(got_a, ms.argsort_block_plain(v.cpu(), axis)), f"{what}: argsort_block differs")
+        check(_same(got_m, ms.merge_split_plain(sv, sw, flags.cpu(), axis)), f"{what}: merge_split differs")
+        ref_mp = ms.merge_split_plain(pv, pw, flags.cpu(), axis, piv, piw)
+        check(_same(got_mp[0], ref_mp[0]) and _same(got_mp[1], ref_mp[1]), f"{what}: merge_split pairs differ")
+        launched = {k: getattr(ms, k).launches - before[k] for k in before}
+        check(launched == {"sort_block": 2 * passes(n), "argsort_block": passes(n), "merge_split": 2},
+              f"{what}: launches {launched}, expected {2 * passes(n)} / {passes(n)} / 2")
+    print(f"merge kernels: sort_block, argsort_block and merge_split equal their plain versions (exact) over "
+          f"{len(cases)} cases (the phase's blocks {sort_shape}, {arg_shape}, {topk_shape}; NaN, -0.0, ties, "
+          f"integer extremes, ragged, one element); ceil(log2 n) launches a sort, one a merge-split")
+
+    out = []
+    # sort_block: the network's local round of sort
+    v = [rand(sort_shape) for _ in range(2)]
+    ms_ = time_ms(torch, ms.sort_block, [(t, 0) for t in v], reps=5)
+    plain = time_ms(torch, ms.sort_block_plain, [(t, 0) for t in v], reps=5)
+    lib = time_ms(torch, lambda t: torch.sort(t, dim=0, stable=True), [(t,) for t in v], reps=5)
+    b, by = bound_ms(2 * 8 * v[0].numel(), v[0].numel() * passes(sort_shape[0]))
+    print(f"sort_block {sort_shape} f64 axis 0 ({passes(sort_shape[0])} passes): {ms_:.5f} ms "
+          f"({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.sort {lib:.5f} ms; bound {b:.5f} ms ({by}: "
+          f"the block read and written once); {smi_tag()}")
+    out.append(dict(name="sort_block", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
+                    replaces="cubed_tpu/array_api/_block_sort.py:210 (jnp.sort of the local round; not Pallas)",
+                    max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    # argsort_block: top-k's per-block order
+    v = [rand(topk_shape) for _ in range(2)]
+    ms_ = time_ms(torch, ms.argsort_block, [(t, 0) for t in v], reps=5)
+    plain = time_ms(torch, ms.argsort_block_plain, [(t, 0) for t in v], reps=5)
+    lib = time_ms(torch, lambda t: torch.argsort(t, dim=0, stable=True), [(t,) for t in v], reps=5)
+    b, by = bound_ms((8 + 8) * v[0].numel(), v[0].numel() * passes(topk_shape[0]))
+    print(f"argsort_block {topk_shape} f64 axis 0 ({passes(topk_shape[0])} passes): {ms_:.5f} ms "
+          f"({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.argsort {lib:.5f} ms; bound {b:.5f} ms "
+          f"({by}: the block read once, int64 indices written once); {smi_tag()}")
+    out.append(dict(name="argsort_block", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
+                    replaces="cubed_tpu/array_api/sorting_functions.py:249 (jnp.argsort in "
+                             "_stable_argsort_kernel; not Pallas)",
+                    max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    # merge_split: a round of sort's network, one pair of blocks
+    pairs = []
+    for _ in range(2):
+        a, c = ms.sort_block(rand(sort_shape), 0), ms.sort_block(rand(sort_shape), 0)
+        pairs.append((a, c, torch.ones((), dtype=torch.bool, device=dev), 0))
+    ms_ = time_ms(torch, ms.merge_split, pairs, reps=10)
+    plain = time_ms(torch, ms.merge_split_plain, pairs, reps=5)
+    cats = [(torch.cat([p[0], p[1]], dim=0),) for p in pairs]
+    lib = time_ms(torch, lambda t: torch.sort(t, dim=0, stable=True), cats, reps=5)
+    n = pairs[0][0].numel()
+    b, by = bound_ms(3 * 8 * n, n * (passes(sort_shape[0]) + 1))
+    print(f"merge_split {sort_shape} f64 pair: {ms_:.5f} ms ({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; "
+          f"torch.sort of the concatenated pair {lib:.5f} ms; bound {b:.5f} ms ({by}: two blocks read, one written); "
+          f"{smi_tag()}")
+    out.append(dict(name="merge_split", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
+                    replaces="cubed_tpu/array_api/_block_sort.py:220 (jnp.sort of the concatenated pair in "
+                             "_round_ops; not Pallas)",
+                    max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return out
+
+
+def _net_chunk(config, with_idx: bool) -> int:
+    """The time-axis chunk of the sort network's blocks for *config* (after
+    ``auto``'s coarsening or shrinking)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.array_api._block_sort import _coarsen_for_network
+
+    spec = cubed_tpu_torch.Spec(work_dir=WORK_DIR, allowed_mem=config["allowed_mem"])
+    x = cubed_tpu_torch.random.random(config["shape"], chunks=config["chunks"], spec=spec)
+    return _coarsen_for_network(x, 0, with_idx=with_idx).chunksize[0]
+
+
+def order_kernel_wrappers() -> dict:
+    """The order-statistics path's kernels: Philox and region_sum beside
+    the merge kernels."""
+    from cubed_tpu_torch.kernels.merge_sort import argsort_block, merge_split, sort_block
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+
+    return {"philox_uniform": philox_uniform, "region_sum": region_sum, "sort_block": sort_block,
+            "argsort_block": argsort_block, "merge_split": merge_split}
+
+
+@contextlib.contextmanager
+def plain_sort_bodies():
+    """``nxp.sort`` and ``nxp.argsort`` as their plain versions
+    (``torch.sort``/``torch.argsort``, stable) in place of the merge
+    kernels, on the card too: to read their task peaks."""
+    from cubed_tpu_torch.backend_array_api import nxp
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    saved = nxp.sort, nxp.argsort
+    nxp.sort = lambda x, axis=-1, stable=True: ms.sort_block_plain(x, axis)
+    nxp.argsort = lambda x, axis=-1, stable=True: ms.argsort_block_plain(x, axis)
+    try:
+        yield
+    finally:
+        nxp.sort, nxp.argsort = saved
+
+
+def _compute_both(arr):
+    """compute() of an op's result: one array, or histogram's (counts,
+    edges) pair computed together."""
+    import cubed_tpu_torch
+
+    if isinstance(arr, tuple):
+        return arr, lambda **kw: cubed_tpu_torch.compute(*arr, **kw)
+    return arr, lambda **kw: arr.compute(**kw)
+
+
+def _network_rounds(arr) -> dict:
+    """The bitonic ops of a plan, by name (an op fused from rounds counts
+    once)."""
+    from cubed_tpu_torch.core.plan import iter_op_nodes
+
+    arrs = arr if isinstance(arr, tuple) else (arr,)
+    names: dict = {}
+    for a in arrs:
+        for _, d in iter_op_nodes(a.plan.dag):
+            if "bitonic" in d["op_name"]:
+                names[d["op_name"]] = names.get(d["op_name"], 0) + 1
+    return names
+
+
+def run_order_stats_phase(torch, config=ORDER_STATS, seq_config=ORDER_STATS_SEQ) -> dict:
+    """The order-statistics phase (see the module docstring). Returns each
+    op's numbers and the kernels' launches over the phase's first device
+    computes."""
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.array_api.sorting_functions import NETWORK_ENV_VAR
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    t0 = time.perf_counter()
+    wrappers = order_kernel_wrappers()
+    print(f"order-statistics phase: x {config['shape']} float64 in {config['chunks']} chunks, allowed_mem "
+          f"{config['allowed_mem']}; searchsorted {config['search'][0]} / {config['search'][1]} against "
+          f"{config['search'][2]} / {config['search'][3]}; cov {config['cov'][0]} / {config['cov'][1]}; "
+          f"sequential check cut to {seq_config['shape']} in {seq_config['chunks']} chunks; {smi_tag()}")
+    oracle = OrderOracle(config)
+    seq_oracle = OrderOracle(seq_config)
+    net_config = dict(seq_config, chunks=ORDER_STATS_SEQ_NETWORK["chunks"])
+    net_oracle = OrderOracle(net_config)
+    long_oracle = OrderOracle(ORDER_STATS_SEQ_LONG)
+    print(f"order-statistics phase: numpy oracle inputs {time.perf_counter() - t0:.1f} s")
+    ops = _order_stats_ops(oracle)
+    seq_ops = _order_stats_ops(seq_oracle)
+    net_ops = _order_stats_ops(net_oracle)
+    long_ops = _order_stats_ops(long_oracle)
+    seq_configs = {None: (seq_config, seq_oracle, seq_ops), "force": (net_config, net_oracle, net_ops),
+                   "long": (ORDER_STATS_SEQ_LONG, long_oracle, long_ops)}
+    # the sequential check's extra cases: the network forced at the cut
+    # (where auto keeps the slab in one chunk), so its rounds' peaks count
+    seq_cases = ([(name, None) for name in seq_ops] + [("sort", "force"), ("argsort", "force")]
+                 + [("sort", "long"), ("argsort", "long")])
+    # cuBLAS takes its workspace (32 MiB on Hopper) from the caching
+    # allocator at a process's first GEMM and keeps it: a warm-up product
+    # makes that once-a-process allocation before any task's peak is read
+    torch.matmul(torch.ones((8, 8), dtype=torch.float64, device="cuda"),
+                 torch.ones((8, 8), dtype=torch.float64, device="cuda"))
+    torch.cuda.synchronize()
+
+    def sequential(name, mode):
+        """*name* of case *mode* on the sequential executor under allowed_mem
+        equal to its plan's projected memory: (array, value, seconds, task
+        peaks, projected)."""
+        cfg, _, case_ops = seq_configs[mode]
+        old_mode = os.environ.get(NETWORK_ENV_VAR)
+        if mode == "force":
+            os.environ[NETWORK_ENV_VAR] = mode
+        try:
+            work = os.path.join(WORK_DIR, f"order-seq-{name}")
+            probe = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=cfg["allowed_mem"], reserved_mem=0)
+            arr = case_ops[name][0](xp, cubed_tpu_torch, order_stats_inputs(probe, cfg))
+            arrs = arr if isinstance(arr, tuple) else (arr,)
+            projected = max(a.plan.max_projected_mem() for a in arrs)
+            tight = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=projected, reserved_mem=0)
+            arr, run = _compute_both(case_ops[name][0](xp, cubed_tpu_torch, order_stats_inputs(tight, cfg)))
+            peaks = TaskPeaks(torch)
+            t = time.perf_counter()
+            value = run(callbacks=[peaks])
+            seq_s = time.perf_counter() - t
+        finally:
+            if mode == "force":
+                if old_mode is None:
+                    os.environ.pop(NETWORK_ENV_VAR)
+                else:
+                    os.environ[NETWORK_ENV_VAR] = old_mode
+        shutil.rmtree(work, ignore_errors=True)
+        return arr, value, seq_s, peaks, projected
+
+    results = {}
+    phase_launches = dict.fromkeys(wrappers, 0)
+    for name, mode in seq_cases:
+        cfg, case_oracle, case_ops = seq_configs[mode]
+        _, expected_fn, how = case_ops[name]
+        label = name + {None: " [sequential, cut]",
+                        "force": f" [network forced, {cfg['chunks']} chunks] [sequential, cut]",
+                        "long": f" [{cfg['shape']} in {cfg['chunks']} chunks] [sequential]"}[mode]
+        arr, value, seq_s, peaks, projected = sequential(name, mode)
+        err = check_order_value(label, value, expected_fn, how, case_oracle)
+        ratio = peaks.worst / projected
+        print(f"{label}: compute() {seq_s:.3f} s, {peaks.tasks} tasks, network ops {json.dumps(_network_rounds(arr))};"
+              f" largest task device peak {peaks.worst} B ({peaks.worst_op}) / projected {projected} B = "
+              f"{ratio:.4f}; max err {err:.3e}; {smi_tag()}")
+        check(ratio <= 1.0, f"{label}: a task's device peak {peaks.worst} B is over its projected {projected} B")
+        entry = dict(seq_s=seq_s, ratio=ratio, peak=peaks.worst, projected=projected)
+        if mode == "long":
+            with plain_sort_bodies():
+                _, value, _, plain, _ = sequential(name, mode)
+            check_order_value(f"{label} [plain torch.sort bodies]", value, expected_fn, how, case_oracle)
+            entry["plain_ratio"] = plain.worst / projected
+            print(f"{label} with the plain torch.sort bodies (not the port's): largest task device peak {plain.worst} B"
+                  f" / projected {projected} B = {entry['plain_ratio']:.4f}; {smi_tag()}")
+        results[name + {None: "", "force": "_network", "long": "_long"}[mode] + "_seq"] = entry
+
+    for name, (build, expected_fn, how) in ops.items():
+        work = os.path.join(WORK_DIR, f"order-{name}")
+        spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
+        arr, run = _compute_both(build(xp, cubed_tpu_torch, order_stats_inputs(spec, config)))
+        ex = CudaExecutor()
+        times, launches, stats = [], [], []
+        for i in range(2):
+            for w in wrappers.values():
+                w.launches = 0  # just before the compute: its launches alone
+            t = time.perf_counter()
+            value = run(executor=ex)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append({k: w.launches for k, w in wrappers.items()})
+            stats.append(dict(sorted(ex.stats.items())))
+            err = check_order_value(f"{name} [cuda, compute {i + 1}]", value, expected_fn, how, oracle)
+            for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+                check(ex.stats.get(counter, 0) == 0, f"{name} [cuda]: {counter} = {ex.stats.get(counter)}")
+        for k, n in launches[0].items():
+            phase_launches[k] += n
+        copies = host_device_copies(torch, lambda: run(executor=ex))
+        outs = arr if isinstance(arr, tuple) else (arr,)
+        out_chunks = sum(int(np.prod(a.numblocks)) if a.shape else 1 for a in outs if a.chunkmem >= 64 * 1024)
+        crossing = copies["HtoD"] + max(0, copies["DtoH"] - out_chunks)
+        print(f"{name} [cuda]: compute() cold {times[0]:.3f} s, warm {times[1]:.3f} s; network ops "
+              f"{json.dumps(_network_rounds(arr))}; stats cold {json.dumps(stats[0])}; warm {json.dumps(stats[1])}; "
+              f"launches cold {json.dumps(launches[0])}, warm {json.dumps(launches[1])}; host<->card copies of a "
+              f"profiled warm compute {json.dumps(copies)} (the output's write: {out_chunks} chunks), beyond it "
+              f"{crossing}; max err {err:.3e}; {smi_tag()}")
+        check(copies["unsized"] == 0, f"{name} [cuda]: the profiler recorded copies without their bytes")
+        check(crossing == 0, f"{name} [cuda]: data crossed between host and card beyond the output's writes "
+                             f"({copies})")
+        split = copies.get("merge_kernels_us", {}).get("merge_split_kernel")
+        if split and name in ("sort", "argsort"):
+            # a round: one merge-split launch over every block of the
+            # (padded) array; its bound, two blocks read and one written a
+            # task: three of the array's bytes (values, and argsort's int64
+            # indices), over 3.35 TB/s
+            rounds = launches[0]["merge_split"]
+            padded = math.prod(config["shape"][1:]) * (1 << max(0, (-(-config["shape"][0] // _net_chunk(
+                config, name == "argsort")) - 1).bit_length())) * _net_chunk(config, name == "argsort")
+            round_bytes = 3 * padded * (8 + (8 if name == "argsort" else 0))
+            round_ms = split[0] / 1e3 / split[1]
+            bound = round_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"{name} [cuda]: a bitonic round (one merge_split launch, profiled warm compute): {round_ms:.3f} ms "
+                  f"over {split[1]} records; bound {bound:.3f} ms ({round_bytes / 1e9:.2f} GB moved), "
+                  f"{100 * bound / round_ms:.1f}% of it; {smi_tag()}")
+            results_round = dict(round_ms=round_ms, round_bound_ms=bound)
+        else:
+            results_round = {}
+        shutil.rmtree(work, ignore_errors=True)
+        results[name] = dict(cold_s=times[0], warm_s=times[1], stats=stats[1], launches=launches[0],
+                             copies=crossing, rounds=_network_rounds(arr), err=err, **results_round)
+    for k, n in phase_launches.items():
+        check(n > 0, f"order-statistics phase: {k} was never launched by the phase's device computes")
+    print(f"order-statistics phase: launches over the first device computes {json.dumps(phase_launches)}; "
+          f"{time.perf_counter() - t0:.1f} s; {smi_tag()}")
+    return dict(ops=results, launches=phase_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2842,8 +3470,10 @@ def main(argv: list) -> int:
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
-                               ["--array-api-phase", "full"]):
-        print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full]]", file=sys.stderr)
+                               ["--array-api-phase", "full"], ["--order-stats-phase"],
+                               ["--order-stats-phase", "full"]):
+        print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full]]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -2877,6 +3507,21 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             run_array_api_phase(torch, ARRAY_API_FULL if argv[1:] == ["full"] else ARRAY_API)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv[:1] == ["--order-stats-phase"]:
+        # the order-statistics phase alone, its merge kernels checked first;
+        # ``full``: at the full depth of the time axis
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            config = ORDER_STATS_FULL if argv[1:] == ["full"] else ORDER_STATS
+            check_merge_sort(torch, config)
+            run_order_stats_phase(torch, config)
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -2991,6 +3636,15 @@ def main(argv: list) -> int:
               f"sighting: op by op, no capture); {smi_tag()}")
         array_api = run_array_api_phase(torch)
         print("array API phase summary: " + json.dumps(array_api))
+        # the order-statistics phase, its merge kernels checked first (after
+        # the phases above, which run as they ran before it); the kernels'
+        # launches are those of the phase's first device computes
+        kernels_order = check_merge_sort(torch)
+        order = run_order_stats_phase(torch)
+        print("order-statistics phase summary: " + json.dumps(order))
+        for k in kernels_order:
+            k["launches"] = order["launches"][k["name"]]
+        kernels += kernels_order
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
         run_sequential_observed(torch, sequential["seconds"])

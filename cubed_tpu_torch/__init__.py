@@ -11,7 +11,10 @@ The port runs the Array API standard's surface (creation, elementwise
 functions and operators, indexing with ints, slices of any step, ``None``
 and one integer array, manipulation, searching, ``prod``/``var``/``std``
 and the cumulative scans beside ``sum``/``mean``/``max``/``min``, linear
-algebra), ``random.random``, ``from_array``/``from_zarr``, ``rechunk`` and
+algebra), sorting (``sort``/``argsort``/``searchsorted``/``topk`` on a bitonic
+merge-split network of chunks) and the order statistics (``quantile``,
+``median`` and their NaN forms, ``histogram``, ``cov``/``corrcoef``, the nan
+reductions), ``random.random``, ``from_array``/``from_zarr``, ``rechunk`` and
 ``merge_chunks``, ``map_blocks``/``map_direct`` and ``apply_gufunc``, on
 the sequential executor (the default) and on the device executor
 (``runtime.executors.cuda.CudaExecutor``); ROADMAP.md lists the rest.
@@ -23,6 +26,7 @@ from .spec import Spec  # noqa: F401
 from .core.array import compute  # noqa: F401
 from .core.ops import from_array, from_zarr, map_blocks, map_direct, merge_chunks, rechunk  # noqa: F401
 from .core.gufunc import apply_gufunc  # noqa: F401
+from .nan_functions import nanmax, nanmean, nanmin, nansum  # noqa: F401
 from . import array_api  # noqa: F401
 from .array_api import Array  # noqa: F401
 from . import random  # noqa: F401
@@ -39,6 +43,10 @@ __all__ = [
     "map_blocks",
     "map_direct",
     "merge_chunks",
+    "nanmax",
+    "nanmean",
+    "nanmin",
+    "nansum",
     "random",
     "rechunk",
 ]

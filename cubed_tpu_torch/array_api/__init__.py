@@ -1,7 +1,8 @@
-"""The Array API namespace of the port: the standard's surface. Counterpart
-of ``cubed_tpu/array_api/__init__.py``, in its order; the extensions that
-are not ported yet (sorting, ``linalg``, ``fft``, ``einsum``, the quantile
-family, ``pad``, ``topk``) are listed in ROADMAP.md."""
+"""The Array API namespace of the port: the standard's surface, sorting and
+the order statistics. Counterpart of ``cubed_tpu/array_api/__init__.py``, in
+its order; ``linalg`` holds ``diagonal`` and ``trace`` so far. The
+extensions not ported yet (the rest of ``linalg``, ``fft``, ``einsum``,
+``pad``) are listed in ROADMAP.md."""
 
 __array_api_version__ = "2022.12"
 
@@ -152,6 +153,7 @@ from .manipulation_functions import (  # noqa: F401
 )
 
 from .searching_functions import argmax, argmin, count_nonzero, where  # noqa: F401
+from .sorting_functions import argsort, searchsorted, sort  # noqa: F401
 
 from .statistical_functions import (  # noqa: F401
     cumulative_prod,
@@ -167,6 +169,8 @@ from .statistical_functions import (  # noqa: F401
 
 from .utility_functions import all, any, diff  # noqa: F401
 
+from . import linalg  # noqa: F401  (extension namespace: diagonal, trace)
+
 from .searching_functions import nonzero  # noqa: F401  (refused)
 from .set_functions import (  # noqa: F401  (refused)
     unique_all,
@@ -175,3 +179,7 @@ from .set_functions import (  # noqa: F401  (refused)
     unique_values,
 )
 from .creation_functions import from_dlpack  # noqa: F401
+from .statistical_functions import median, quantile  # noqa: F401  (beyond the standard)
+from .statistical_functions import corrcoef, cov, histogram  # noqa: F401  (beyond the standard)
+from .statistical_functions import nanmedian, nanquantile  # noqa: F401  (beyond the standard)
+from .sorting_functions import argtopk, topk  # noqa: F401  (beyond the standard)

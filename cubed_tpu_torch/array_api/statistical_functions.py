@@ -1,5 +1,9 @@
 """Array-API statistical functions: ``max``, ``min``, ``sum``, ``prod``,
-``mean``, ``var``, ``std``, ``cumulative_sum`` and ``cumulative_prod``.
+``mean``, ``var``, ``std``, ``cumulative_sum`` and ``cumulative_prod``; and
+the order statistics beyond the standard: ``quantile``, ``median``,
+``nanquantile``, ``nanmedian`` (a sort, then static or gathered slices),
+``histogram`` (per-block counts summed through the tree), ``cov`` and
+``corrcoef``.
 
 Counterpart of ``cubed_tpu/array_api/statistical_functions.py``. ``mean``
 carries ``{n, total}`` and ``var``/``std`` ``{n, mu, M2}`` pytree
@@ -329,3 +333,324 @@ def _combine_mul(a, o):
 
 
 _combine_add.batchable = _combine_mul.batchable = True
+
+
+# ---------------------------------------------------------------------------
+# order statistics: quantile, median, their NaN forms, histogram, cov,
+# corrcoef (the JAX package's statistical_functions.py:420-809)
+# ---------------------------------------------------------------------------
+
+
+def _check_quantile_args(x, q, fname):
+    if not isinstance(q, (int, float)) or isinstance(q, bool):
+        raise TypeError(f"{fname}: q must be a python float in [0, 1]")
+    q = float(q)
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"{fname}: q must be in [0, 1]")
+    if x.dtype not in _real_floating_dtypes:
+        raise TypeError(f"Only real floating-point dtypes are allowed in {fname}")
+    return q
+
+
+def _check_quantile_axis(x, axis, fname):
+    if not -x.ndim <= axis < x.ndim:
+        raise IndexError(f"{fname}: axis {axis} is out of bounds for array of dimension {x.ndim}")
+    axis = axis % x.ndim
+    if x.shape[axis] == 0:
+        raise ValueError(f"{fname} of an empty axis")
+    return axis
+
+
+def quantile(x, q, /, *, axis=None, keepdims=False, method="linear"):
+    """The exact quantile along an axis: the axis runs through the sort
+    (the network where it is larger than ``allowed_mem``), and the quantile
+    is two STATIC slices of the sorted axis interpolated elementwise. ``q``
+    a python float in [0, 1]; ``method`` "linear" (numpy's default),
+    "lower", "higher" or "nearest". Any NaN along the axis makes the lane's
+    quantile NaN, as numpy's."""
+    from .creation_functions import asarray
+    from .elementwise_functions import add, isnan, multiply
+    from .manipulation_functions import expand_dims, flatten, squeeze
+    from .searching_functions import where
+    from .sorting_functions import sort
+
+    q = _check_quantile_args(x, q, "quantile")
+    if method not in ("linear", "lower", "higher", "nearest"):
+        raise ValueError(f"quantile: unsupported method {method!r}")
+
+    if axis is None:
+        out = quantile(flatten(x), q, axis=0, method=method)
+        if keepdims:
+            for _ in range(x.ndim):
+                out = expand_dims(out, axis=0)
+        return out
+
+    axis = _check_quantile_axis(x, axis, "quantile")
+    n = x.shape[axis]
+
+    pos = q * (n - 1)
+    lo = int(np.floor(pos))
+    hi = int(np.ceil(pos))
+    frac = pos - lo
+    if method == "lower":
+        hi, frac = lo, 0.0
+    elif method == "higher":
+        lo, frac = hi, 0.0
+    elif method == "nearest":
+        lo = hi = int(round(pos))
+        frac = 0.0
+
+    s = sort(x, axis=axis)
+    sel_lo = tuple(slice(lo, lo + 1) if d == axis else slice(None) for d in range(x.ndim))
+    out = s[sel_lo]
+    if hi != lo:
+        sel_hi = tuple(slice(hi, hi + 1) if d == axis else slice(None) for d in range(x.ndim))
+        w = asarray(frac, dtype=x.dtype, spec=x.spec)
+        one_minus = asarray(1.0 - frac, dtype=x.dtype, spec=x.spec)
+        out = add(multiply(out, one_minus), multiply(s[sel_hi], w))
+
+    # the sort parks NaNs at the END of the axis, so the last element alone
+    # tells whether any NaN exists: one static slice, not a second pass
+    sel_last = tuple(slice(n - 1, n) if d == axis else slice(None) for d in range(x.ndim))
+    has_nan = isnan(s[sel_last])
+    out = where(has_nan, asarray(float("nan"), dtype=x.dtype, spec=x.spec), out)
+    return out if keepdims else squeeze(out, axis=axis)
+
+
+def median(x, /, *, axis=None, keepdims=False):
+    """The exact median: :func:`quantile` at 0.5."""
+    return quantile(x, 0.5, axis=axis, keepdims=keepdims)
+
+
+def histogram(x, /, *, bins=10, range=None, weights=None, density=False):
+    """Chunked histogram (numpy's semantics): ``(counts, edges)``. ``bins``
+    an int (with an optional ``range``) or a sequence of edges; without a
+    ``range`` the data's min and max are computed lazily in the plan (one
+    {lo, hi} field tree). Per-block partial counts (``nxp.histogram``) sum
+    through the reduction tree, so ``x`` may exceed ``allowed_mem``. As in
+    the JAX package, NaN data with an implicit range gives NaN edges (a
+    lazy plan cannot raise on values); with explicit edges a NaN falls
+    outside every bin, as numpy's."""
+    from ..core.ops import _aggregate_fields, general_blockwise, reduction_fields
+    from .creation_functions import arange, asarray
+    from .data_type_functions import astype
+    from .elementwise_functions import add, divide, greater, multiply, subtract
+    from .manipulation_functions import flatten
+    from .searching_functions import where
+    from .utility_functions import diff
+
+    if x.dtype not in _real_floating_dtypes:
+        raise TypeError("Only real floating-point dtypes are allowed in histogram")
+    flat = flatten(x)
+    wflat = None
+    if weights is not None:
+        if weights.shape != x.shape:
+            raise ValueError("histogram: weights must match x's shape")
+        wflat = flatten(weights)
+        if wflat.chunks != flat.chunks:
+            wflat = wflat.rechunk(flat.chunksize)
+
+    spec = x.spec
+    f64 = np.dtype(np.float64)
+    if np.ndim(bins) == 0:
+        nbins = int(bins)
+        if nbins <= 0:
+            raise ValueError("histogram: bins must be positive")
+        if range is not None:
+            lo_v, hi_v = float(range[0]), float(range[1])
+            if not lo_v <= hi_v:
+                raise ValueError("histogram: range must be increasing")
+            if lo_v == hi_v:
+                lo_v, hi_v = lo_v - 0.5, hi_v + 0.5
+            # exact endpoints (numpy's linspace): the max sample lands IN the
+            # closed last bin
+            edges = asarray(np.linspace(lo_v, hi_v, nbins + 1), spec=spec)
+        else:
+            parts = reduction_fields(flat, _extent_func, _extent_combine, axis=(0,),
+                                     fields={"lo": f64, "hi": f64})
+            names = ["lo", "hi"]
+            lo = _aggregate_fields(parts, _take_lo, f64, names)
+            hi = _aggregate_fields(parts, _take_hi, f64, names)
+            degenerate = greater(hi, lo)
+            half = asarray(0.5, dtype=f64, spec=spec)
+            lo = where(degenerate, lo, subtract(lo, half))
+            hi = where(degenerate, hi, add(hi, half))
+            # lo*(1-t) + hi*t with t = i/nbins: the first and last edges are
+            # lo and hi EXACTLY (lo + i*step can round the last edge below
+            # the data's max, dropping it from the closed last bin)
+            t = divide(arange(nbins + 1, dtype=f64, spec=spec), asarray(float(nbins), dtype=f64, spec=spec))
+            one = asarray(1.0, dtype=f64, spec=spec)
+            edges = add(multiply(lo, subtract(one, t)), multiply(hi, t))
+    else:
+        edges_np = np.asarray(bins, dtype=np.float64)
+        if edges_np.ndim != 1 or edges_np.size < 2:
+            raise ValueError("histogram: bins edges must be 1-d with >= 2")
+        if np.any(np.diff(edges_np) < 0):
+            raise ValueError("histogram: bins edges must be monotonic")
+        nbins = edges_np.size - 1
+        edges = asarray(edges_np, spec=spec)
+
+    if len(edges.chunks[0]) > 1:
+        edges = edges.rechunk((nbins + 1,))
+
+    nb = flat.numblocks[0]
+    out_dtype = f64 if wflat is not None or density else np.dtype(np.int64)
+    flat_name, edges_name = flat.name, edges.name
+    w_name = wflat.name if wflat is not None else None
+
+    def bf(out_key):
+        i = out_key[1]
+        keys = [(flat_name, i), (edges_name, 0)]
+        if w_name is not None:
+            keys.append((w_name, i))
+        return tuple(keys)
+
+    def _hist_block(xb, eb, *maybe_w):
+        wb = maybe_w[0] if maybe_w else None
+        counts, _ = nxp.histogram(xb, bins=eb, weights=wb)
+        return nxp.reshape(nxp.astype(counts, out_dtype), (1, -1))
+
+    _hist_block.batchable = True
+    args = [flat, edges] + ([wflat] if wflat is not None else [])
+    partial = general_blockwise(
+        _hist_block, bf, *args,
+        shape=(nb, nbins), dtype=out_dtype, chunks=((1,) * nb, (nbins,)), op_name="histogram_partial",
+    )
+    counts = sum(partial, axis=0, dtype=out_dtype)
+
+    if density:
+        widths = diff(edges)
+        total = sum(astype(counts, f64))
+        counts = divide(astype(counts, f64), multiply(total, widths))
+    return counts, edges
+
+
+def _extent_func(a, axis=None, keepdims=True, **kwargs):
+    return {
+        "lo": nxp.astype(nxp.min(a, axis=axis, keepdims=keepdims), np.float64),
+        "hi": nxp.astype(nxp.max(a, axis=axis, keepdims=keepdims), np.float64),
+    }
+
+
+def _extent_combine(a, axis=None, keepdims=True, **kwargs):
+    return {
+        "lo": nxp.min(a["lo"], axis=axis, keepdims=keepdims),
+        "hi": nxp.max(a["hi"], axis=axis, keepdims=keepdims),
+    }
+
+
+def _take_lo(d):
+    return d["lo"]
+
+
+def _take_hi(d):
+    return d["hi"]
+
+
+_extent_func.batchable = _take_lo.batchable = _take_hi.batchable = True
+
+
+def cov(m, /, *, rowvar=True, ddof=1):
+    """The covariance matrix of chunked observations (numpy's semantics):
+    centering, then one blockwise contraction, so the observation axis may
+    exceed ``allowed_mem``."""
+    from .creation_functions import asarray
+    from .elementwise_functions import divide
+    from .linear_algebra_functions import matmul, matrix_transpose
+
+    if m.ndim != 2:
+        raise ValueError("cov requires a 2-d array")
+    if m.dtype not in _real_floating_dtypes:
+        raise TypeError("Only real floating-point dtypes are allowed in cov")
+    x = m if rowvar else matrix_transpose(m)
+    n_obs = x.shape[1]
+    if n_obs - ddof <= 0:
+        raise ValueError("cov: not enough observations for ddof")
+    centered = _subtract_mean(x, axis=1)
+    return divide(
+        matmul(centered, matrix_transpose(centered)),
+        asarray(float(n_obs - ddof), dtype=x.dtype, spec=x.spec),
+    )
+
+
+def _subtract_mean(x, axis):
+    from .elementwise_functions import subtract
+
+    return subtract(x, mean(x, axis=axis, keepdims=True))
+
+
+def corrcoef(m, /, *, rowvar=True):
+    """The correlation matrix from :func:`cov` (numpy's semantics)."""
+    from .elementwise_functions import clip, divide, sqrt
+    from .linalg import diagonal
+
+    c = cov(m, rowvar=rowvar, ddof=1)
+    d = sqrt(diagonal(c))
+    # rounding can push perfectly correlated entries past 1; numpy clips
+    return clip(divide(c, _outer_like(d)), min=-1.0, max=1.0)
+
+
+def _outer_like(d):
+    from .elementwise_functions import multiply
+    from .manipulation_functions import expand_dims
+
+    return multiply(expand_dims(d, axis=1), expand_dims(d, axis=0))
+
+
+def nanquantile(x, q, /, *, axis=None, keepdims=False):
+    """The exact quantile ignoring NaNs (numpy.nanquantile's semantics,
+    linear interpolation). The sorted axis parks NaNs at its END, so each
+    lane's count of valid elements gives COMPUTED gather positions, taken
+    with ``take_along_axis`` (chunked, memory-bounded); all shapes stay
+    static. An all-NaN lane gives NaN."""
+    from .creation_functions import asarray
+    from .data_type_functions import astype
+    from .elementwise_functions import add, floor, isnan, logical_not, multiply, subtract
+    from .indexing_functions import take_along_axis
+    from .manipulation_functions import concat, expand_dims, flatten, squeeze
+    from .searching_functions import where
+    from .sorting_functions import sort
+
+    q = _check_quantile_args(x, q, "nanquantile")
+    if axis is None:
+        out = nanquantile(flatten(x), q, axis=0)
+        if keepdims:
+            for _ in range(x.ndim):
+                out = expand_dims(out, axis=0)
+        return out
+
+    axis = _check_quantile_axis(x, axis, "nanquantile")
+    i64, f64 = np.dtype(np.int64), np.dtype(np.float64)
+
+    s = sort(x, axis=axis)
+    # valid (non-NaN) count per lane, kept as a size-1 axis
+    n_valid = sum(astype(logical_not(isnan(x)), i64), axis=axis, keepdims=True)
+    nf = astype(n_valid, f64)
+    qk = asarray(q, dtype=f64, spec=x.spec)
+    one = asarray(1.0, dtype=f64, spec=x.spec)
+    pos = multiply(qk, subtract(nf, one))  # q * (n_valid - 1)
+    zero = asarray(0.0, dtype=f64, spec=x.spec)
+    # n_valid == 0 gives pos = -q: clamped (the all-NaN overwrite below
+    # decides the lane's value either way)
+    pos = where(pos < zero, zero, pos)
+    lo_f = floor(pos)
+    frac = astype(subtract(pos, lo_f), x.dtype)
+    lo_i = astype(lo_f, i64)
+    one_i = asarray(1, dtype=i64, spec=x.spec)
+    hi_i = where(add(lo_i, one_i) < n_valid, add(lo_i, one_i), lo_i)
+    # ONE streamed gather for both bounds (take_along_axis reads every
+    # chunk of the sorted axis per output block)
+    both = take_along_axis(s, concat([lo_i, hi_i], axis=axis), axis=axis)
+    sel_lo = tuple(slice(0, 1) if d == axis else slice(None) for d in range(x.ndim))
+    sel_hi = tuple(slice(1, 2) if d == axis else slice(None) for d in range(x.ndim))
+    v_lo, v_hi = both[sel_lo], both[sel_hi]
+    out = add(multiply(v_lo, subtract(asarray(1.0, dtype=x.dtype, spec=x.spec), frac)), multiply(v_hi, frac))
+    # all-NaN lanes: no valid data, NaN
+    out = where(n_valid < asarray(1, dtype=i64, spec=x.spec), asarray(float("nan"), dtype=x.dtype, spec=x.spec),
+                out)
+    return out if keepdims else squeeze(out, axis=axis)
+
+
+def nanmedian(x, /, *, axis=None, keepdims=False):
+    """The exact median ignoring NaNs (see :func:`nanquantile`)."""
+    return nanquantile(x, 0.5, axis=axis, keepdims=keepdims)

@@ -465,6 +465,161 @@ def _where(cond, a, b):
     return torch.where(cond if cond.dtype == torch.bool else cond != 0, a, b)
 
 
+# ---------------------------------------------------------------------------
+# order statistics: sorts, searches, histograms, NaN-aware reductions
+# ---------------------------------------------------------------------------
+
+
+def _sort(x, axis=-1, stable=True):
+    # stable ascending, NaN last, -0.0 equal to 0.0 (numpy's and XLA's
+    # order): the merge-sort kernel on the card (no int64 indices, no
+    # transposed copy, no scratch), torch.sort on the CPU
+    from .kernels.merge_sort import sort_block
+
+    return sort_block(x, axis)
+
+
+def _sort_pairs(x, idx, axis=-1):
+    # the pairs (value, index) sorted by value (NaN last), then index:
+    # (values, indices), the kernel carrying the indices on the card
+    from .kernels.merge_sort import sort_block
+
+    return sort_block(x, axis, idx)
+
+
+def _argsort(x, axis=-1, stable=True):
+    # the stable argsort (int64) in the same order: the kernel's indirect
+    # merge sort on the card (the input and two index buffers)
+    from .kernels.merge_sort import argsort_block
+
+    return argsort_block(x, axis)
+
+
+def _searchsorted(x1, x2, side="left"):
+    """numpy's ``searchsorted`` of *x2* into the sorted 1-d *x1* (NaNs at
+    its end): both in their common dtype (torch takes one dtype where numpy
+    promotes), a NaN after every number and equal to another NaN (torch's
+    binary search compares NaN false both ways), -0.0 equal to 0.0; int64
+    positions. Memory beside *x1*: its NaN mask and one copy with NaN as
+    +inf; never a key array of it."""
+    dt = torch.promote_types(x1.dtype, x2.dtype)
+    a, v = x1.to(dt), x2.to(dt).contiguous()
+    if not a.is_floating_point():
+        return torch.searchsorted(a.contiguous(), v, side=side)
+    nan = torch.isnan(a)
+    valid = a.shape[-1] - _sum(nan, dtype=np.int64)  # the numbers, before the NaNs
+    # a NaN of x1 as +inf (torch's search would step over it either side)
+    a = a.masked_fill(nan, math.inf)
+    del nan
+    out = torch.minimum(torch.searchsorted(a.contiguous(), v, side=side), valid)
+    # a NaN lands after the numbers (left) or after every element (right)
+    return torch.where(torch.isnan(v), valid if side == "left" else torch.full_like(valid, a.shape[-1]), out)
+
+
+#: elements a histogram step takes at once: its temporaries (bin indices,
+#: the mask of the closed last edge, the ones it adds) stay this size
+_HISTOGRAM_PIECE = 1 << 18
+
+
+@torch.library.custom_op("cubed_tpu_torch::histogram_counts", mutates_args=())
+def _histogram_counts(x: torch.Tensor, edges: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, n) counts of each row of the (B, N) *x* in the n bins of *edges*
+    (numpy's: [e_i, e_i+1), the last closed; a NaN or a value outside none),
+    summing *weights* (B, N) instead of ones where given: int64 counts, or
+    the weights' dtype. Bin indices from ``torch.bucketize``; each row adds
+    into its own n + 2 slots (below, the bins, above) with ``index_add_``,
+    a piece of the row at a time (no ``bincount``: it synchronizes with the
+    host). Integer counts are exact; weighted sums add in the atomics'
+    order on the card."""
+    rows, size = x.shape
+    n = edges.shape[-1] - 1
+    dtype = weights.dtype if weights is not None else torch.int64
+    counts = torch.zeros(rows * (n + 2), dtype=dtype, device=x.device)
+    last = edges[-1]
+    base = (torch.arange(rows, dtype=torch.int64, device=x.device) * (n + 2)).unsqueeze(1)
+    ones = None
+    for start in range(0, size, _HISTOGRAM_PIECE):
+        seg = x[:, start:start + _HISTOGRAM_PIECE]
+        idx = torch.bucketize(seg, edges, right=True)
+        idx.masked_fill_(seg == last, n)
+        idx += base
+        if weights is not None:
+            src = weights[:, start:start + _HISTOGRAM_PIECE]
+        else:
+            if ones is None:
+                ones = torch.ones(min(size, _HISTOGRAM_PIECE) * rows, dtype=dtype, device=x.device)
+            src = ones[:idx.numel()]
+        counts.index_add_(0, idx.reshape(-1), src.reshape(-1))
+    return counts.reshape(rows, n + 2)[:, 1:n + 1].contiguous()
+
+
+@_histogram_counts.register_fake
+def _histogram_counts_fake(x, edges, weights):
+    dtype = weights.dtype if weights is not None else torch.int64
+    return x.new_empty((x.shape[0], edges.shape[-1] - 1), dtype=dtype)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::histogram_counts")
+def _histogram_counts_vmap(info, in_dims, x, edges, weights):
+    """The batching rule: every batched row's counts in one call (each row
+    adds into its own slots); batched edges run example by example."""
+    dx, de, dw = in_dims
+    if de is not None:
+        edges = edges.movedim(de, 0)
+        xs = x.movedim(dx, 0) if dx is not None else x.unsqueeze(0).expand((edges.shape[0],) + tuple(x.shape))
+        ws = (weights.movedim(dw, 0) if dw is not None else weights.unsqueeze(0).expand(xs.shape)) \
+            if weights is not None else None
+        return torch.stack([_histogram_counts(xs[b], edges[b], ws[b] if ws is not None else None)
+                            for b in range(edges.shape[0])]), 0
+    if dx is None and dw is None:
+        return _histogram_counts(x, edges, weights), None
+    size = info.batch_size
+    x = x.movedim(dx, 0) if dx is not None else x.unsqueeze(0).expand((size,) + tuple(x.shape))
+    if weights is not None:
+        weights = weights.movedim(dw, 0) if dw is not None else weights.unsqueeze(0).expand(x.shape)
+        weights = weights.reshape(-1, weights.shape[-1])
+    rows = x.shape[:-1]
+    out = _histogram_counts(x.reshape(-1, x.shape[-1]), edges, weights)
+    return out.reshape(rows + out.shape[-1:]), 0
+
+
+def _histogram(x, bins, weights=None):
+    """numpy's ``histogram`` of *x* over the edges *bins* (a 1-d tensor):
+    ``(counts, edges)``, counts int64 or the weights' dtype."""
+    flat = x.reshape(1, -1)
+    w = weights.reshape(1, -1) if weights is not None else None
+    return _histogram_counts(flat, bins, w)[0], bins
+
+
+def _nan_filled(x, fill):
+    return torch.where(torch.isnan(x), torch.full((), fill, dtype=x.dtype, device=x.device), x) \
+        if x.is_floating_point() else x
+
+
+def _nansum(x, axis=None, keepdims=False, dtype=None):
+    # NaNs as zeros, then the sum (the region-sum kernel on the card)
+    return _sum(_nan_filled(x, 0), axis=axis, keepdims=keepdims, dtype=dtype)
+
+
+def _nanmax(x, axis=None, keepdims=False):
+    # NaNs as -inf: an all-NaN region gives -inf (the nan reductions count
+    # the valid elements beside it and give NaN there)
+    return _max(_nan_filled(x, -math.inf), axis=axis, keepdims=keepdims)
+
+
+def _nanmin(x, axis=None, keepdims=False):
+    return _min(_nan_filled(x, math.inf), axis=axis, keepdims=keepdims)
+
+
+def _full(shape, fill_value, dtype=None):
+    dt = to_torch_dtype(dtype if dtype is not None else np.asarray(fill_value).dtype)
+    return torch.full(tuple(shape), fill_value, dtype=dt, device=get_device())
+
+
+def _arange(n, dtype=np.int64):
+    return torch.arange(n, dtype=to_torch_dtype(dtype), device=get_device())
+
+
 nxp = types.SimpleNamespace(
     # elementwise, one torch call each
     abs=torch.abs,
@@ -543,6 +698,16 @@ nxp = types.SimpleNamespace(
     cumsum=_cumulative(torch.cumsum),
     cumprod=_cumulative(torch.cumprod),
     take_along_axis=_take_along_axis,
+    sort=_sort,
+    argsort=_argsort,
+    sort_pairs=_sort_pairs,
+    searchsorted=_searchsorted,
+    histogram=_histogram,
+    nansum=_nansum,
+    nanmax=_nanmax,
+    nanmin=_nanmin,
+    full=_full,
+    arange=_arange,
     flip=_flip,
     reshape=torch.reshape,
     concatenate=_concat,

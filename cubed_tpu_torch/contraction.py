@@ -13,7 +13,11 @@ DAG), never from torch's process-global switches
 nor changes.
 
 A mode applies to a product of two float32 operands; any other product
-(float64: DGEMM; integers, complex) is torch's own. On float32:
+(float64: DGEMM; complex) is torch's own, but for integers on the card:
+torch's CUDA GEMMs take no integer dtype (``"addmm_cuda" not implemented for
+'Long'``), and a float GEMM is exact only below 2**53, so an integer product
+on the card is :func:`integer_matmul`, exact (wrapping as numpy's does).
+On float32:
 
 - ``None``: float32 operands, float32 sums and output, under torch's own
   settings (TF32 off unless the process turned it on);
@@ -185,8 +189,44 @@ def _check_full(x: torch.Tensor, mode: str) -> None:
                            "TF32 on (torch.backends.cuda.matmul.allow_tf32 / set_float32_matmul_precision)")
 
 
+#: elements of the broadcast products a step of :func:`integer_matmul`
+#: holds at least (else at most the output's)
+_INTEGER_PANEL = 1 << 16
+
+
+def _integer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """A product of two integer tensors on the card."""
+    return a.device.type == "cuda" and not (a.is_floating_point() or a.is_complex()
+                                            or b.is_floating_point() or b.is_complex())
+
+
+def integer_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of integer tensors, exact in their common dtype (wrapping
+    as numpy's does): the contracted axis in panels, each panel's broadcast
+    products summed over it in that dtype, the panels' sums added. A
+    panel's products hold at most the output's elements (at least
+    ``_INTEGER_PANEL``). No in-place update, so it runs under
+    ``torch.func.vmap``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    x = (a.unsqueeze(0) if a.ndim == 1 else a).to(dt)
+    y = (b.unsqueeze(-1) if b.ndim == 1 else b).to(dt)
+    m, k, n = x.shape[-2], x.shape[-1], y.shape[-1]
+    out_elems = math.prod(torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])) * m * n
+    panel = max(1, min(k, max(out_elems, _INTEGER_PANEL) // max(1, out_elems)))
+    out = None
+    for k0 in range(0, max(k, 1), panel):
+        p = min(panel, k - k0)
+        step = (x.narrow(-1, k0, p).unsqueeze(-1) * y.narrow(-2, k0, p).unsqueeze(-3)).sum(-2, dtype=dt)
+        out = step if out is None else out + step
+    if b.ndim == 1:
+        out = out.squeeze(-1)
+    return out.squeeze(-2) if a.ndim == 1 else out
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` at the mode in force (see the module docstring)."""
+    if _integer(a, b):
+        return integer_matmul(a, b)
     mode = _PRECISION.get()
     if mode is None or a.dtype != torch.float32 or b.dtype != torch.float32:
         return torch.matmul(a, b)
@@ -202,13 +242,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def tensordot(a: torch.Tensor, b: torch.Tensor, axes=2) -> torch.Tensor:
-    """``tensordot`` at the mode in force: under a reduced mode the contracted
-    axes are gathered into one product of two matrices (:func:`matmul`)."""
+    """``tensordot`` at the mode in force: under a reduced mode, or of
+    integers on the card, the contracted axes are gathered into one product
+    of two matrices (:func:`matmul`)."""
     if isinstance(axes, int):
         ax_a, ax_b = list(range(a.ndim - axes, a.ndim)), list(range(axes))
     else:
         ax_a, ax_b = [int(d) % a.ndim for d in axes[0]], [int(d) % b.ndim for d in axes[1]]
-    if _PRECISION.get() not in REDUCED or a.dtype != torch.float32 or b.dtype != torch.float32:
+    reduced = _PRECISION.get() in REDUCED and a.dtype == torch.float32 and b.dtype == torch.float32
+    if not (reduced or _integer(a, b)):
         return torch.tensordot(a, b, dims=(ax_a, ax_b))
     free_a = [d for d in range(a.ndim) if d not in ax_a]
     free_b = [d for d in range(b.ndim) if d not in ax_b]

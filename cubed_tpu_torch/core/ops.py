@@ -414,6 +414,15 @@ def _offsets_array_for(x: CoreArray):
     return new_array(name, offsets, x.spec, Plan._new(name, "block_ids", offsets))
 
 
+def block_index_from_offset(off, axis: int, numblocks: tuple):
+    """The *axis* block index of a block from its linear offset (a chunk of
+    a VirtualOffsetsArray, read as data): the row-major decode, a device
+    expression, so offset-seeded kernels run under ``torch.func.vmap``
+    (the sort network's merge routing and its positions)."""
+    stride = math.prod(numblocks[axis + 1:])
+    return (off.reshape(-1)[0] // stride) % numblocks[axis]
+
+
 def _func_argnames(func) -> tuple:
     import inspect
 

@@ -1,0 +1,468 @@
+"""K4: the sort network's block kernels (``csrc/merge_sort.cu``).
+
+- :func:`sort_block`: a stable ascending sort of every lane of a block along
+  an axis, values alone or with int64 indices carried beside them (the pair
+  (value, index) is then the key). The network's local round and the
+  single-chunk ``sort``.
+- :func:`argsort_block`: the stable ascending argsort along an axis (int64).
+  The single-chunk ``argsort`` and top-k's per-block order.
+- :func:`merge_split`: the network's compare-exchange: two sorted blocks
+  merged, the low or the high half kept, per lane group, by ``take_low``.
+
+The order is numpy's and XLA's: ascending, NaN after every number (all
+NaNs equal), -0.0 equal to 0.0, equal values in their first order. The
+JAX package computes these with ``jnp.sort``/``jnp.lexsort`` outside any
+Pallas kernel (``cubed_tpu/array_api/_block_sort.py:177-309``,
+``sorting_functions.py:94-160``). On the card ``torch.sort`` takes int64
+indices beside its values, and a lane longer than 4096 elements leaves its
+in-place sort of short lanes for CUB's segmented sort, with a transposed
+copy of a non-innermost axis and CUB's scratch: a task then goes past the
+memory its plan projects (the reference's 7 value blocks a merge, 5 a local
+sort; ``chip_smoke.py``'s sequential check reads both bodies along a
+16384-step axis). These kernels take none: a sort is a
+bottom-up merge sort between two buffers (``ceil(log2 n)`` launches, each
+output element found on its runs' merge path by binary search), an argsort
+the same over int64 positions compared by the values they name, a
+merge-split one launch. Task memory on the card: sort, the input and two
+buffers (with indices, two of each); argsort, the input and two index
+buffers; merge-split, the inputs and the output.
+
+Every function takes any strided tensor (a non-contiguous one is copied
+first) and has a ``torch.func.vmap`` batching rule (custom ops): the batch
+axes become lanes of one launch per pass.
+
+Bound on the H100: every element read and written once per pass
+(3.35 TB/s).
+
+The plain versions (``*_plain``) are ``torch.sort``/``torch.argsort`` with
+``stable=True`` (the pair order by :func:`lexsort_plain`); the wrappers use
+them only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+#: dtypes the kernels take, with the code their C entry points expect
+DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3, torch.int16: 4,
+          torch.int8: 5, torch.uint8: 6}
+
+_THREADS = 256
+_MAX_GRID = 1 << 20
+
+
+def _check(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{what} takes {sorted(str(d) for d in DTYPES)}, not {x.dtype}")
+
+
+def _lanes(shape, axis: int) -> tuple[int, int, int]:
+    return math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:])
+
+
+def _grid(total: int) -> int:
+    return max(1, min(-(-total // _THREADS), _MAX_GRID))
+
+
+def _batched(*ts) -> bool:
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# sort_block
+# ---------------------------------------------------------------------------
+
+
+def sort_block(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor] = None):
+    """*x* sorted along *axis* (stable, NaN last); with *idx* (int64, x's
+    shape) the pairs (value, index) sorted and ``(values, indices)``
+    returned. A CUDA tensor goes to the kernel, a CPU tensor to the plain
+    version."""
+    _check(x, "sort_block")
+    axis = int(axis) % x.ndim
+    if idx is None:
+        if _batched(x):
+            return _sort_op(x, axis)
+        return _sort(x, axis)
+    if _batched(x, idx):
+        return _sort_pairs_op(x, idx, axis)
+    return _sort_pairs(x, idx, axis)
+
+
+def _passes(n: int) -> list:
+    widths, w = [], 1
+    while w < n:
+        widths.append(w)
+        w *= 2
+    return widths
+
+
+def _run_passes(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor], mode: int):
+    """The merge passes of one sort: mode 0 values, 1 values with *idx*, 2
+    indirect (an argsort of *x*; returns the indices)."""
+    outer, n, inner = _lanes(tuple(x.shape), axis)
+    x = x.contiguous()
+    idx = idx.contiguous() if idx is not None else None
+    widths = _passes(n)
+    if not widths or x.numel() == 0:
+        if mode == 2:
+            shape = [1] * x.ndim
+            shape[axis] = n
+            return torch.arange(n, dtype=torch.int64, device=x.device).reshape(shape).expand(x.shape).contiguous()
+        return x.clone() if idx is None else (x.clone(), idx.clone())
+    fn = _kernel().merge_pass
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    grid = _grid(x.numel())
+    src, srci = (x, idx) if mode != 2 else (x, None)
+    bufs = [None, None]
+    ibufs = [None, None]
+    for p, w in enumerate(widths):
+        k = p % 2
+        if mode != 2 and bufs[k] is None:
+            bufs[k] = torch.empty_like(x)
+        if mode != 0 and ibufs[k] is None:
+            ibufs[k] = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+        dst, dsti = bufs[k], ibufs[k]
+        with torch.cuda.device(x.device):
+            err = fn(ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(mode),
+                     ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(srci.data_ptr() if srci is not None else 0),
+                     ctypes.c_void_p(dst.data_ptr() if dst is not None else 0),
+                     ctypes.c_void_p(dsti.data_ptr() if dsti is not None else 0),
+                     ctypes.c_longlong(outer), ctypes.c_longlong(n), ctypes.c_longlong(inner),
+                     ctypes.c_longlong(w), ctypes.c_int(grid), ctypes.c_void_p(stream))
+        _build.check(err, "merge_pass")
+        if mode == 2:
+            srci = dsti
+            argsort_block.launches += 1
+        else:
+            src, srci = dst, dsti
+            sort_block.launches += 1
+            sort_block.paths["pairs" if mode == 1 else "values"] += 1
+    if mode == 2:
+        return srci
+    return src if mode == 0 else (src, srci)
+
+
+def _device_call(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); raises on any other device."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type in ("cpu", "meta"):
+        return False
+    raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _sort(x, axis):
+    if not _device_call(x, "sort_block"):
+        return x.new_empty(x.shape) if x.device.type == "meta" else sort_block_plain(x, axis)
+    return _run_passes(x, axis, None, 0)
+
+
+def _sort_pairs(x, idx, axis):
+    if not _device_call(x, "sort_block"):
+        if x.device.type == "meta":
+            return x.new_empty(x.shape), idx.new_empty(idx.shape)
+        return sort_block_plain(x, axis, idx)
+    return _run_passes(x, axis, idx.to(torch.int64), 1)
+
+
+@torch.library.custom_op("cubed_tpu_torch::sort_block", mutates_args=())
+def _sort_op(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return _sort(x, axis)
+
+
+@_sort_op.register_fake
+def _sort_fake(x, axis):
+    return x.new_empty(x.shape)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::sort_block")
+def _sort_vmap(info, in_dims, x, axis):
+    (d, _) = in_dims
+    if d is None:
+        return _sort_op(x, axis), None
+    return _sort_op(x.movedim(d, 0), axis + 1), 0
+
+
+@torch.library.custom_op("cubed_tpu_torch::sort_block_pairs", mutates_args=())
+def _sort_pairs_op(x: torch.Tensor, idx: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _sort_pairs(x, idx, axis)
+
+
+@_sort_pairs_op.register_fake
+def _sort_pairs_fake(x, idx, axis):
+    return x.new_empty(x.shape), idx.new_empty(idx.shape)
+
+
+def _front(ts, dims, size: int):
+    """Each batched tensor's batch axis to the front, an unbatched one
+    expanded along a new front axis of *size*."""
+    return [t.movedim(d, 0) if d is not None else t.unsqueeze(0).expand((size,) + tuple(t.shape))
+            for t, d in zip(ts, dims)]
+
+
+@torch.library.register_vmap("cubed_tpu_torch::sort_block_pairs")
+def _sort_pairs_vmap(info, in_dims, x, idx, axis):
+    dx, di, _ = in_dims
+    if dx is None and di is None:
+        return _sort_pairs_op(x, idx, axis), (None, None)
+    x, idx = _front([x, idx], [dx, di], info.batch_size)
+    return _sort_pairs_op(x, idx, axis + 1), (0, 0)
+
+
+def sort_block_plain(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor] = None):
+    """The plain version of :func:`sort_block`: ``torch.sort`` (stable), the
+    pairs by :func:`lexsort_plain`."""
+    if idx is None:
+        return torch.sort(x, dim=axis, stable=True).values
+    order = lexsort_plain([idx, x], axis)
+    return torch.take_along_dim(x, order, dim=axis), torch.take_along_dim(idx.to(torch.int64), order, dim=axis)
+
+
+def lexsort_plain(keys, axis: int) -> torch.Tensor:
+    """numpy's ``lexsort`` along *axis* (the last key primary): stable sorts
+    from the least significant key up. Memory: a permutation (int64), one
+    gathered key and one stable sort's output and scratch at a time."""
+    perm = None
+    for key in keys:
+        k = key if perm is None else torch.take_along_dim(key, perm, dim=axis)
+        step = torch.sort(k, dim=axis, stable=True).indices
+        perm = step if perm is None else torch.take_along_dim(perm, step, dim=axis)
+    return perm
+
+
+#: launches of the merge-pass kernel for sort_block, by path: "values" or
+#: "pairs" (indices carried)
+sort_block.launches = 0
+sort_block.paths = {"values": 0, "pairs": 0}
+_build.COUNTED.append(sort_block)
+
+
+# ---------------------------------------------------------------------------
+# argsort_block
+# ---------------------------------------------------------------------------
+
+
+def argsort_block(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The stable ascending argsort of *x* along *axis* (int64, NaN last). A
+    CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
+    _check(x, "argsort_block")
+    axis = int(axis) % x.ndim
+    if _batched(x):
+        return _argsort_op(x, axis)
+    return _argsort(x, axis)
+
+
+def _argsort(x, axis):
+    if not _device_call(x, "argsort_block"):
+        if x.device.type == "meta":
+            return x.new_empty(x.shape, dtype=torch.int64)
+        return argsort_block_plain(x, axis)
+    return _run_passes(x, axis, None, 2)
+
+
+@torch.library.custom_op("cubed_tpu_torch::argsort_block", mutates_args=())
+def _argsort_op(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return _argsort(x, axis)
+
+
+@_argsort_op.register_fake
+def _argsort_fake(x, axis):
+    return x.new_empty(x.shape, dtype=torch.int64)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::argsort_block")
+def _argsort_vmap(info, in_dims, x, axis):
+    (d, _) = in_dims
+    if d is None:
+        return _argsort_op(x, axis), None
+    return _argsort_op(x.movedim(d, 0), axis + 1), 0
+
+
+def argsort_block_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The plain version of :func:`argsort_block`: ``torch.argsort``, stable."""
+    return torch.argsort(x, dim=axis, stable=True)
+
+
+#: launches of the merge-pass kernel for argsort_block
+argsort_block.launches = 0
+argsort_block.paths = {}
+_build.COUNTED.append(argsort_block)
+
+
+# ---------------------------------------------------------------------------
+# merge_split
+# ---------------------------------------------------------------------------
+
+
+def merge_split(x: torch.Tensor, y: torch.Tensor, take_low, axis: int, xi: Optional[torch.Tensor] = None,
+                yi: Optional[torch.Tensor] = None):
+    """The low (where *take_low*) or high half of the merge of *x*'s and
+    *y*'s lanes along *axis*, both sorted ascending and of one shape: the
+    values, or ``(values, indices)`` with the int64 indices *xi* and *yi*
+    carried (the pair (value, index) then the key). *take_low* is a bool
+    tensor broadcast against *x* (right-aligned); each lane group (the
+    elements sharing their coordinates before *axis*) reads it where its
+    coordinates from *axis* on are 0. A CUDA tensor goes to the kernel, a
+    CPU tensor to the plain version."""
+    _check(x, "merge_split")
+    if x.shape != y.shape or x.dtype != y.dtype:
+        raise ValueError(f"merge_split takes two blocks of one shape and dtype, not {x.shape} {x.dtype} and "
+                         f"{y.shape} {y.dtype}")
+    axis = int(axis) % x.ndim
+    take_low = torch.as_tensor(take_low, device=x.device)
+    if xi is None:
+        if _batched(x, y, take_low):
+            return _split_op(x, y, take_low, axis)
+        return _split(x, y, take_low, axis)
+    if _batched(x, y, xi, yi, take_low):
+        return _split_pairs_op(x, y, xi, yi, take_low, axis)
+    return _split_pairs(x, y, xi, yi, take_low, axis)
+
+
+def _flags(take_low: torch.Tensor, shape, axis: int) -> torch.Tensor:
+    """One uint8 flag per lane group: *take_low* right-aligned to *shape*,
+    read at coordinate 0 from *axis* on."""
+    t = take_low.reshape((1,) * (len(shape) - take_low.ndim) + tuple(take_low.shape))
+    t = t[(slice(None),) * axis + (slice(0, 1),) * (len(shape) - axis)]
+    return t.expand(tuple(shape[:axis]) + (1,) * (len(shape) - axis)).reshape(-1).to(torch.uint8)
+
+
+def _launch_split(x, y, xi, yi, take_low, axis):
+    outer, n, inner = _lanes(tuple(x.shape), axis)
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty_like(x)
+    outi = None
+    if xi is not None:
+        xi, yi = xi.to(torch.int64).contiguous(), yi.to(torch.int64).contiguous()
+        outi = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    if x.numel() == 0:
+        return out if xi is None else (out, outi)
+    flags = _flags(take_low, tuple(x.shape), axis)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _kernel().merge_split(
+            ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(xi is not None),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(xi.data_ptr() if xi is not None else 0),
+            ctypes.c_void_p(yi.data_ptr() if yi is not None else 0), ctypes.c_void_p(flags.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(outi.data_ptr() if outi is not None else 0),
+            ctypes.c_longlong(outer), ctypes.c_longlong(n), ctypes.c_longlong(inner),
+            ctypes.c_int(_grid(x.numel())), ctypes.c_void_p(stream))
+    _build.check(err, "merge_split")
+    merge_split.launches += 1
+    merge_split.paths["values" if xi is None else "pairs"] += 1
+    return out if xi is None else (out, outi)
+
+
+def _split(x, y, take_low, axis):
+    if not _device_call(x, "merge_split"):
+        return x.new_empty(x.shape) if x.device.type == "meta" else merge_split_plain(x, y, take_low, axis)
+    return _launch_split(x, y, None, None, take_low, axis)
+
+
+def _split_pairs(x, y, xi, yi, take_low, axis):
+    if not _device_call(x, "merge_split"):
+        if x.device.type == "meta":
+            return x.new_empty(x.shape), x.new_empty(x.shape, dtype=torch.int64)
+        return merge_split_plain(x, y, take_low, axis, xi, yi)
+    return _launch_split(x, y, xi, yi, take_low, axis)
+
+
+def _lead(t: torch.Tensor, d, rank: int) -> torch.Tensor:
+    """A batched flag's batch axis to the front, above the per-example
+    rank's right alignment (so a 0-d flag per example becomes (B, 1, ...))."""
+    t = t.movedim(d, 0)
+    return t.reshape(t.shape[:1] + (1,) * (rank - (t.ndim - 1)) + t.shape[1:])
+
+
+@torch.library.custom_op("cubed_tpu_torch::merge_split", mutates_args=())
+def _split_op(x: torch.Tensor, y: torch.Tensor, take_low: torch.Tensor, axis: int) -> torch.Tensor:
+    return _split(x, y, take_low, axis)
+
+
+@_split_op.register_fake
+def _split_fake(x, y, take_low, axis):
+    return x.new_empty(x.shape)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::merge_split")
+def _split_vmap(info, in_dims, x, y, take_low, axis):
+    dx, dy, dt, _ = in_dims
+    if dx is None and dy is None and dt is None:
+        return _split_op(x, y, take_low, axis), None
+    rank = x.ndim - (dx is not None)
+    x, y = _front([x, y], [dx, dy], info.batch_size)
+    take_low = _lead(take_low, dt, rank) if dt is not None else take_low
+    return _split_op(x, y, take_low, axis + 1), 0
+
+
+@torch.library.custom_op("cubed_tpu_torch::merge_split_pairs", mutates_args=())
+def _split_pairs_op(x: torch.Tensor, y: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor, take_low: torch.Tensor,
+                    axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _split_pairs(x, y, xi, yi, take_low, axis)
+
+
+@_split_pairs_op.register_fake
+def _split_pairs_fake(x, y, xi, yi, take_low, axis):
+    return x.new_empty(x.shape), x.new_empty(x.shape, dtype=torch.int64)
+
+
+@torch.library.register_vmap("cubed_tpu_torch::merge_split_pairs")
+def _split_pairs_vmap(info, in_dims, x, y, xi, yi, take_low, axis):
+    dx, dy, dxi, dyi, dt, _ = in_dims
+    if all(d is None for d in (dx, dy, dxi, dyi, dt)):
+        return _split_pairs_op(x, y, xi, yi, take_low, axis), (None, None)
+    rank = x.ndim - (dx is not None)
+    x, y, xi, yi = _front([x, y, xi, yi], [dx, dy, dxi, dyi], info.batch_size)
+    take_low = _lead(take_low, dt, rank) if dt is not None else take_low
+    return _split_pairs_op(x, y, xi, yi, take_low, axis + 1), (0, 0)
+
+
+def merge_split_plain(x, y, take_low, axis: int, xi=None, yi=None):
+    """The plain version of :func:`merge_split`: the two blocks concatenated
+    and sorted (:func:`sort_block_plain`), then each lane group's half."""
+    n = x.shape[axis]
+    cat = torch.cat([x, y], dim=axis)
+    if xi is None:
+        merged = sort_block_plain(cat, axis)
+    else:
+        merged, mi = sort_block_plain(cat, axis, torch.cat([xi.to(torch.int64), yi.to(torch.int64)], dim=axis))
+    low = torch.as_tensor(take_low, device=x.device).to(torch.bool)
+    low = low.reshape((1,) * (x.ndim - low.ndim) + tuple(low.shape))
+    low = low[(slice(None),) * axis + (slice(0, 1),) * (x.ndim - axis)]
+    out = torch.where(low, merged.narrow(axis, 0, n), merged.narrow(axis, n, n))
+    if xi is None:
+        return out
+    return out, torch.where(low, mi.narrow(axis, 0, n), mi.narrow(axis, n, n))
+
+
+#: launches of the merge-split kernel, by path: "values" or "pairs"
+merge_split.launches = 0
+merge_split.paths = {"values": 0, "pairs": 0}
+_build.COUNTED.append(merge_split)
+
+
+@functools.cache
+def _kernel():
+    lib = _build.load("merge_sort")
+    lib.merge_pass.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.merge_pass.restype = ctypes.c_int
+    lib.merge_split.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.merge_split.restype = ctypes.c_int
+    return lib

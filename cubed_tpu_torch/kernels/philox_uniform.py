@@ -67,6 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import device_constants
 from ..chunks import blockdims_from_blockshape
 from ..utils import get_item
 from . import _build, _geometry
@@ -339,9 +340,12 @@ class HoistedKeys:
         self.device.copy_(self.host, non_blocking=True)
 
     def lookup(self, seeds: np.ndarray) -> torch.Tensor:
-        """The device keys of *seeds* (an array whose rows, in C order, form
-        an affine grid of table rows, as a bucket of a block grid does), as
-        a contiguous ``(n, 2)`` int64 tensor: a view, or one device copy."""
+        """The device keys of *seeds* as a contiguous ``(n, 2)`` int64
+        tensor: where their rows, in C order, form an affine grid of table
+        rows (a bucket of a block grid), a view or one device copy; else (a
+        permuted grid: the sort network's partner blocks) a gather by the
+        rows, their positions a device constant (uploaded once, outside any
+        capture)."""
         seeds = np.asarray(seeds, dtype=np.int64)
         flat = seeds.reshape(-1)
         pos = np.searchsorted(self._sorted, flat)
@@ -357,7 +361,7 @@ class HoistedKeys:
         expect = r0 + sum(np.arange(n).reshape([-1 if a == d else 1 for a in range(len(grid))]) * st
                           for d, (n, st) in enumerate(zip(grid, steps)))
         if not np.array_equal(rows, np.broadcast_to(expect, grid)) or min(steps, default=0) < 0:
-            raise KeyError("HoistedKeys: seeds that are not an affine grid of the table's rows")
+            return self.device.index_select(0, device_constants.constant(rows.reshape(-1), self.device.device))
         view = self.device.as_strided(grid + (2,), tuple(2 * st for st in steps) + (1,),
                                       self.device.storage_offset() + 2 * r0)
         return view.reshape(-1, 2).contiguous()

@@ -73,9 +73,10 @@ def get_chunk(arr, chunkset, block_idx: tuple[int, ...]):
 
 
 def _read_keys(structure, config: BlockwiseSpec):
-    """Resolve a (nested / lazy) structure of chunk keys into chunks."""
+    """Resolve a (nested / lazy) structure of chunk keys into chunks; a fused
+    predecessor's keys are read when it runs (:class:`_DeferredPredArgs`)."""
     if isinstance(structure, PredKeys):
-        return PredArgs([_read_keys(item, config) for item in structure])
+        return _DeferredPredArgs(structure, config)
     if isinstance(structure, (list, tuple)) and not _is_key(structure):
         return [_read_keys(item, config) for item in structure]
     if isinstance(structure, Iterator):
@@ -383,6 +384,22 @@ class PredArgs(list):
     """The resolved-chunk counterpart of :class:`PredKeys`."""
 
 
+class _DeferredPredArgs(PredArgs):
+    """A fused predecessor's chunk keys in a task body, read only when the
+    predecessor runs (:func:`_evaluate`), so a fused task holds one
+    predecessor's inputs at a time: the sort network's fused rounds call a
+    predecessor once for a block and once for its partner, which the plan's
+    memory model counts once."""
+
+    def __init__(self, structure, config: BlockwiseSpec):
+        super().__init__()
+        self.structure = structure
+        self.config = config
+
+    def read(self) -> PredArgs:
+        return PredArgs([_read_keys(item, self.config) for item in self.structure])
+
+
 def is_fuse_candidate(op: PrimitiveOperation) -> bool:
     """An op is fusable iff its task body is ``apply_blockwise``."""
     return op.pipeline.function is apply_blockwise
@@ -408,6 +425,8 @@ def _substitute(entry, pred_spec: BlockwiseSpec):
 
 def _evaluate(arg, pred_function: Callable):
     """Apply the predecessor function wherever reads were substituted."""
+    if isinstance(arg, _DeferredPredArgs):
+        return pred_function(*arg.read())
     if isinstance(arg, PredArgs):
         return pred_function(*arg)
     if isinstance(arg, list):

@@ -151,7 +151,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ... import contraction
+from ... import contraction, device_constants
 from ...backend_array_api import (
     _to_carrier,
     backend_array_to_numpy_array,
@@ -276,27 +276,39 @@ def _as_tensor(value) -> torch.Tensor:
     return numpy_array_to_backend_array(value) if isinstance(value, np.ndarray) else value
 
 
-#: integer-array selections on the device, by the id of their host array
-#: (kept alive beside its tensor): each is uploaded once, outside any
-#: capture, and read by later computes and captures of the same plan
-_INDEX_UPLOADS: "OrderedDict[int, tuple]" = OrderedDict()
-_INDEX_UPLOADS_LIMIT = 256
-
-
 def _index_tensor(positions: np.ndarray, cached: bool, capturing: bool) -> torch.Tensor:
     """*positions* (an integer array) as an int64 tensor on the chunk
-    device."""
-    entry = _INDEX_UPLOADS.get(id(positions)) if cached else None
-    if entry is not None and entry[1].device == _indexed(get_device()):
-        return entry[1]
+    device: *cached*, a device constant by the host array's identity (a
+    whole-array index, read by later computes and captures of the same
+    plan); else uploaded now, never under capture."""
+    if cached:
+        return device_constants.constant(positions, _indexed(get_device()), by_id=True)
     if capturing:
         raise RuntimeError("an index array first read under CUDA graph capture")
-    value = torch.as_tensor(np.asarray(positions, dtype=np.int64), device=get_device())
-    if cached:
-        _INDEX_UPLOADS[id(positions)] = (positions, value)
-        while len(_INDEX_UPLOADS) > _INDEX_UPLOADS_LIMIT:
-            _INDEX_UPLOADS.popitem(last=False)
-    return value
+    return torch.as_tensor(np.asarray(positions, dtype=np.int64), device=get_device())
+
+
+class _Permuted:
+    """A leaf axis whose block coordinate is a permutation of a batch
+    level's (the sort network's partner blocks, ``b ^ stride``): *level*, and
+    *mapping* from the level's coordinate to the leaf's."""
+
+    def __init__(self, level: int, mapping: dict):
+        self.level = level
+        self.mapping = mapping
+
+
+def _level_of(entry) -> Optional[int]:
+    """The batch level a leaf axis follows (directly or permuted), or None."""
+    return entry.level if isinstance(entry, _Permuted) else entry
+
+
+def _permutation_tensor(positions: np.ndarray) -> torch.Tensor:
+    """A block permutation of a permuted leaf (or a permuted grid of block
+    offsets) as an int64 device constant, keyed by its contents: uploaded
+    outside any capture (a plan shape's first compute runs op by op) and
+    read by later captures."""
+    return device_constants.constant(positions, _indexed(get_device()))
 
 
 def _select(value: torch.Tensor, selections, index) -> torch.Tensor:
@@ -651,18 +663,21 @@ def _tokenize(desc, names: set, tokens: dict):
 class _Graph:
     """A captured segment: the graph, its static inputs (in the order of its
     resident input keys), its hoisted Philox keys, the host-side arrays it
-    read as device constants, the ticket counters its kernels use, its
-    outputs (pool tensors, in keep order), the launches it holds, the
-    executor's path counts of its ops, and its bytes on the card."""
+    read as device constants (this compute's literals, and the cached
+    constants it read: the graph reads them by address, so it keeps them
+    alive), the ticket counters its kernels use, its outputs (pool tensors,
+    in keep order), the launches it holds, the executor's path counts of its
+    ops, and its bytes on the card."""
 
-    __slots__ = ("graph", "inputs", "keys", "uploads", "tickets", "outputs", "launches", "paths", "nbytes",
-                 "device", "done")
+    __slots__ = ("graph", "inputs", "keys", "uploads", "constants", "tickets", "outputs", "launches", "paths",
+                 "nbytes", "device", "done")
 
-    def __init__(self, graph, inputs, keys, uploads, tickets, outputs, launches, paths, nbytes, device):
+    def __init__(self, graph, inputs, keys, uploads, constants, tickets, outputs, launches, paths, nbytes, device):
         self.graph = graph
         self.inputs = inputs
         self.keys = keys
         self.uploads = uploads
+        self.constants = constants
         self.tickets = tickets  # the capture stream's ticket counters, kept alive
         self.outputs = outputs
         self.launches = launches
@@ -791,6 +806,8 @@ class CudaExecutor(DagExecutor):
         self._segment_mode = False
         #: a CUDA graph is being captured: no spill, no upload
         self._capturing = False
+        #: op name -> stores dropped once it has run, in the running segment
+        self._segment_deaths: Dict[str, list] = {}
         #: structural key of the segment being captured or replayed: its
         #: graph is not dropped to make room for the segment's own outputs
         self._graph_key: Optional[str] = None
@@ -877,10 +894,14 @@ class CudaExecutor(DagExecutor):
             for arr in self._segment_sources(ops):
                 if _key(arr) not in resident and self._preload(arr, resident, budget):
                     self.stats["segment_preloads"] += 1
-        if in_segment and get_device().type == "cuda":
-            self._run_segment(ops, dag, resident, budget, requested)
-        else:
-            self._run_ops(ops, resident, budget, requested)
+            self._segment_deaths = self._deaths(ops, self._segment_keep(ops, dag, requested))
+        try:
+            if in_segment and get_device().type == "cuda":
+                self._run_segment(ops, dag, resident, budget, requested)
+            else:
+                self._run_ops(ops, resident, budget, requested)
+        finally:
+            self._segment_deaths = {}
         elapsed = time.time() - t0
         total_tasks = sum(node["primitive_op"].num_tasks for _, node in ops) or 1
         start = t0
@@ -896,8 +917,10 @@ class CudaExecutor(DagExecutor):
             start = end
 
     def _run_ops(self, ops, resident, budget, requested) -> None:
-        """Run *ops* one after another on the resident arrays."""
-        for _, node in ops:
+        """Run *ops* one after another on the resident arrays; in a segment,
+        an array it produced is dropped once its last reader there has run,
+        unless the segment keeps it (:meth:`_deaths`)."""
+        for name, node in ops:
             op = node["primitive_op"]
             if op.pipeline.function is apply_blockwise:
                 self._exec_blockwise(op, resident, budget)
@@ -912,6 +935,50 @@ class CudaExecutor(DagExecutor):
             else:
                 for m in op.pipeline.mappable:
                     op.pipeline.function(m, config=op.pipeline.config)
+            for store in self._segment_deaths.get(name, ()):
+                resident.pop(store, None)
+
+    def _deaths(self, ops, keep) -> Dict[str, list]:
+        """op name -> the stores produced in the segment whose last reader in
+        it is that op (or that no op reads), and that the segment does not
+        keep (:meth:`_segment_keep`): dropped once the op has run, as XLA
+        frees a program's dead buffers. A long chain (the sort network's
+        rounds) then holds a few of its arrays at a time, and a capture's
+        pool reuses their memory."""
+        produced = self._produced(ops)
+        last: Dict[str, str] = {}
+        for name, node in ops:
+            op = node["primitive_op"]
+            for arr in _op_reads(op):
+                if _key(arr) in produced:
+                    last[_key(arr)] = name
+            for w in _op_writes(op):
+                last.setdefault(_key(w.array), name)
+        deaths: Dict[str, list] = {}
+        for store, name in last.items():
+            if store not in keep:
+                deaths.setdefault(name, []).append(store)
+        return deaths
+
+    def _live_peak(self, ops, resident) -> int:
+        """The most bytes the segment's outputs hold at once, with the dead
+        dropped (:meth:`_deaths`); an alias holds none, and the source of an
+        alias is counted live to the end."""
+        produced = self._produced(ops)
+        sizes: Dict[str, int] = {}
+        aliased: set = set()
+        live = peak = 0
+        for name, node in ops:
+            op = node["primitive_op"]
+            alias = self._aliases(op, resident, produced)
+            if alias:
+                aliased.add(_key(op.pipeline.config.read.array))
+            for w in _op_writes(op):
+                sizes[_key(w.array)] = 0 if alias else _nbytes_of(w.array)
+                live += sizes[_key(w.array)]
+            peak = max(peak, live)
+            live -= sum(sizes.get(k, 0) for k in self._segment_deaths.get(name, ()) if k not in aliased)
+        return peak
 
     def _segment_sources(self, ops) -> list:
         """The storage arrays the segment reads and does not itself produce."""
@@ -968,9 +1035,7 @@ class CudaExecutor(DagExecutor):
             for arr in self._segment_reads(ops) if isinstance(arr, (ZarrV2Array, LazyZarrArray))
         ):
             return False
-        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"])
-                        if not self._aliases(node["primitive_op"], resident, produced))
-        room = budget - _held(resident.values()) - out_bytes
+        room = budget - _held(resident.values()) - self._live_peak(ops, resident)
         if dev is not None:
             _GRAPHS.shrink(dev, room, keep=skey)
             room -= _GRAPHS.nbytes(dev)
@@ -1152,8 +1217,10 @@ class CudaExecutor(DagExecutor):
         with torch.cuda.stream(stream):
             tickets = _build.reserve_tickets(dev)
         held = _held(resident.values())
-        out_bytes = sum(_nbytes_of(w.array) for _, node in ops for w in _op_writes(node["primitive_op"]))
-        _GRAPHS.shrink(dev, budget - held - out_bytes)
+        # half the room beside the segment's outputs stays free of cached
+        # graphs: its batched ops' intermediates (no graph is dropped while
+        # capturing)
+        _GRAPHS.shrink(dev, (budget - held - self._live_peak(ops, resident)) // 2)
         keys = HoistedKeys(seeds, dev)
         static = {k: res.value.clone() for k, res in inputs.items()}
         uploads = dict(self._uploads)
@@ -1165,7 +1232,7 @@ class CudaExecutor(DagExecutor):
         graph = torch.cuda.CUDAGraph()
         self._segment_mode = self._capturing = True
         try:
-            with hoisted(keys), torch.cuda.graph(graph, stream=stream):
+            with hoisted(keys), device_constants.recording() as constants, torch.cuda.graph(graph, stream=stream):
                 keys.upload()
                 self._run_ops(ops, local, budget - others, requested)
                 outputs = [local[k].value for k in keep_list]
@@ -1178,7 +1245,8 @@ class CudaExecutor(DagExecutor):
         self.stats = stats
         pool = _pool_bytes(torch.cuda.memory_snapshot(), graph.pool())
         nbytes = pool + sum(_value_nbytes(v) for v in static.values()) + keys.nbytes
-        return _Graph(graph, list(static.values()), keys, uploads, tickets, outputs, launches, paths, nbytes, dev)
+        return _Graph(graph, list(static.values()), keys, uploads, constants, tickets, outputs, launches, paths,
+                      nbytes, dev)
 
     def _replay(self, entry: _Graph, in_keys, seeds, keep_list, keep, resident, budget) -> None:
         """Replay a cached graph for this plan: its static inputs refilled
@@ -1502,13 +1570,26 @@ class CudaExecutor(DagExecutor):
         if not _batchable(spec.function):
             return self._failed_check("batched_errors")
         dev = _indexed(get_device())
-        room = (budget - _held(resident.values()) - _GRAPHS.nbytes(dev)
-                - sum(_nbytes_of(w.array) for w in spec.writes))
         itemsize = max([8] + [np.dtype(a.dtype).itemsize for a, _ in metas]
                        + [np.dtype(w.array.dtype).itemsize for w in spec.writes])
-        tiles = [self._bucket_tile(plan, tasks, metas, task_leaves, out_sets, out_coords, wholes,
-                                   room // (_tree_size(spec.function) * itemsize))
-                 for plan, tasks in zip(plans, buckets.values())]
+        # each piece's intermediates: one per function of the op's tree, one
+        # gathered copy per permuted leaf
+        copies = max(sum(any(isinstance(e, _Permuted) for e in dims) for dims in plan[2]) for plan in plans)
+
+        def cut():
+            room = (budget - _held(resident.values()) - _GRAPHS.nbytes(dev)
+                    - sum(_nbytes_of(w.array) for w in spec.writes))
+            return [self._bucket_tile(plan, tasks, metas, task_leaves, out_sets, out_coords, wholes,
+                                      room // ((_tree_size(spec.function) + copies) * itemsize))
+                    for plan, tasks in zip(plans, buckets.values())]
+
+        tiles = cut()
+        whole = all(t is not None and list(t) == list(p[1]) for t, p in zip(tiles, plans))
+        if not whole and not self._capturing and _GRAPHS.nbytes(dev):
+            # cached graphs are a cache: dropped (least recently used, never
+            # the running segment's) before an op is cut into pieces or fails
+            _GRAPHS.shrink(dev, 0, keep=self._graph_key)
+            tiles = cut()
         if any(t is None for t in tiles):
             return self._failed_check("batched_errors")
         fn = spec.function
@@ -1565,7 +1646,9 @@ class CudaExecutor(DagExecutor):
         for i, ((arr, cs), dims) in enumerate(zip(metas, leaf_levels)):
             block = _shape_at(cs, task_leaves[first][i][1:])
             blocks.append(block)
-            if id(arr) in wholes and arr.shape:
+            # a permuted leaf is gathered by torch.index_select (64-bit
+            # indices) into a copy of the piece's size
+            if id(arr) in wholes and arr.shape and not any(isinstance(e, _Permuted) for e in dims):
                 st = wholes[id(arr)].stride()
                 followed = sorted((lvl, d) for d, lvl in enumerate(dims) if lvl is not None)
                 views.append((block, st, followed))
@@ -1627,26 +1710,50 @@ class CudaExecutor(DagExecutor):
                     dims.append(None)
                     continue
                 lvl = next((l for l, a in enumerate(levels) if np.array_equal(col, coords[:, a])), None)
+                entry = lvl
+                if lvl is None:
+                    entry = CudaExecutor._permuted_level(col, coords, levels, used)
+                    lvl = entry.level if entry is not None else None
                 if lvl is None or lvl in used:
                     return None
                 used.add(lvl)
-                dims.append(lvl)
+                dims.append(entry)
                 varies = varies or i not in constant
             leaf_levels.append(dims)
         return (levels, sizes, leaf_levels) if varies else None
+
+    @staticmethod
+    def _permuted_level(col, coords, levels, used) -> Optional[_Permuted]:
+        """The level whose coordinate *col* (a leaf axis's block coordinate,
+        task by task) is a one-to-one function of, or None."""
+        for lvl, a in enumerate(levels):
+            if lvl in used:
+                continue
+            mapping = {}
+            for v, p in zip(coords[:, a].tolist(), col.tolist()):
+                if mapping.setdefault(v, p) != p:
+                    break
+            else:
+                if len(set(mapping.values())) == len(mapping):
+                    return _Permuted(lvl, mapping)
+        return None
 
     def _leaf(self, arr, chunkset, i, dims, tasks, task_leaves, nlevels, sizes, wholes, device_offsets=False):
         """Leaf *i*'s value for a bucket and its in_dims per vmap level: the
         carrier for a virtual template or constant, the seeds as a CPU int64
         tensor (on the device with *device_offsets*), a grid view of a whole
         tensor."""
-        followed = sorted((lvl, d) for d, lvl in enumerate(dims) if lvl is not None)
+        followed = sorted((_level_of(e), d) for d, e in enumerate(dims) if e is not None)
         per_level = [0 if any(lvl == l for lvl, _ in followed) else None for l in range(nlevels)]
         first = tuple(task_leaves[tasks[0]][i][1:])
+        permuted = {d: e for d, e in enumerate(dims) if isinstance(e, _Permuted)}
         block = _virtual_block(arr, _shape_at(chunkset, first))
         if block is not None:
             return block, [None] * nlevels
-        if isinstance(arr, VirtualOffsetsArray) and device_offsets and not arr.base:
+        if permuted and not isinstance(arr, VirtualOffsetsArray):
+            return self._permuted_leaf(arr, chunkset, first, followed, permuted, tasks, task_leaves, i, sizes,
+                                       wholes), per_level
+        if isinstance(arr, VirtualOffsetsArray) and device_offsets and not arr.base and not permuted:
             # block offsets read as data by the op's own function (arange's,
             # an arg reduction's): made on the device from the bucket's
             # grid, so a capture holds no host-to-device copy (a random
@@ -1667,12 +1774,43 @@ class CudaExecutor(DagExecutor):
             grid = np.broadcast_to(flat, (len(tasks),)).reshape(sizes)
             grid = grid[tuple(slice(None) if per_level[l] == 0 else 0 for l in range(nlevels))]
             seeds = np.array(grid, dtype=np.int64).reshape(grid.shape + (1,) * len(arr.shape))
+            if device_offsets and not arr.base:
+                # a permuted grid of block offsets read as data (a fused
+                # partner's): uploaded once, by its contents
+                return _permutation_tensor(seeds), per_level
             return torch.from_numpy(seeds), per_level
         value = wholes[id(arr)]
         if not arr.shape:
             return value, [None] * nlevels
         return _grid_view(value, chunkset, first, [d for _, d in followed],
                           [sizes[lvl] for lvl, _ in followed]), per_level
+
+    def _permuted_leaf(self, arr, chunkset, first, followed, permuted, tasks, task_leaves, i, sizes, wholes):
+        """A resident leaf some of whose axes follow a level permuted: the
+        grid view over each permuted axis's span of blocks for the piece,
+        then ``torch.index_select`` of the piece's blocks in level order (a
+        copy of the piece's size; the positions uploaded once)."""
+        value = wholes[id(arr)]
+        coords = np.array([task_leaves[t][i][1:] for t in tasks], dtype=np.int64).reshape(len(tasks), -1)
+        start = list(first)
+        spans, picks = [], {}
+        for pos, (lvl, d) in enumerate(followed):
+            if d in permuted:
+                col = coords[:, d]
+                lo = int(col.min())
+                start[d] = lo
+                spans.append(int(col.max()) - lo + 1)
+                # the leaf's block at each of the level's positions in the
+                # piece (the level's coordinates ascending, as vmap stacks)
+                inverse = {p: v for v, p in permuted[d].mapping.items()}
+                level_values = sorted({inverse[p] for p in col.tolist()})
+                picks[pos] = np.array([permuted[d].mapping[v] - lo for v in level_values], dtype=np.int64)
+            else:
+                spans.append(sizes[lvl])
+        view = _grid_view(value, chunkset, tuple(start), [d for _, d in followed], spans)
+        for pos, positions in picks.items():
+            view = torch.index_select(view, pos, _permutation_tensor(positions))
+        return view
 
     # ------------------------------------------------------------------
     # the fusion rule: a fused multiply-add reduction goes to fma_sum

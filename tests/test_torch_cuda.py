@@ -954,3 +954,225 @@ def test_array_api_plans_capture_and_replay_on_the_card(cuda, tmp_path, name):
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
         for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
             assert ex.stats[counter] == 0, counter
+
+
+# -- the order-statistics slice ----------------------------------------------
+
+
+def test_integer_matmul_is_exact_on_the_card(cuda, tmp_path):
+    """torch's CUDA GEMMs take no integer dtype: an integer product on the
+    card goes to the exact route (contraction.integer_matmul), on the
+    sequential and the device executor, equal to numpy's."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    rng = np.random.default_rng(0)
+    for dtype in (np.int32, np.int64):
+        an = rng.integers(0, 1001, (120, 300)).astype(dtype)
+        bn = rng.integers(0, 1001, (300, 90)).astype(dtype)
+        spec = ct.Spec(work_dir=str(tmp_path / np.dtype(dtype).name), allowed_mem="500MB")
+        a = ct.from_array(an, chunks=(50, 100), spec=spec)
+        b = ct.from_array(bn, chunks=(100, 40), spec=spec)
+        for executor in (None, CudaExecutor()):
+            got = xp.matmul(a, b).compute(executor=executor)
+            assert got.dtype == np.dtype(dtype)
+            np.testing.assert_array_equal(got, an @ bn)
+        # values past 2**53 in their products: a float GEMM would round them
+        big = np.array([[2**31 - 1, 3], [5, 2**31 - 7]], dtype=np.int64)
+        bb = ct.from_array(big, chunks=(1, 2), spec=spec)
+        np.testing.assert_array_equal(xp.matmul(bb, bb).compute(executor=CudaExecutor()), big @ big)
+
+
+def _order_data(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    if np.dtype(dtype).kind == "f":
+        a = (rng.integers(0, 7, shape) * 0.5).astype(dtype)
+        a[rng.random(shape) < 0.1] = np.nan
+        a[rng.random(shape) < 0.05] = -0.0
+        return a
+    info = np.iinfo(dtype)
+    return np.array([info.min, info.max, 0, 1, 2, 3], dtype=dtype)[rng.integers(0, 6, shape)]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32", "int16", "int8", "uint8"])
+@pytest.mark.parametrize("shape, axis", [((37,), 0), ((5, 33, 7), 1), ((64, 3, 4), 0), ((3, 4, 65), 2)])
+def test_order_backend_functions_match_their_plain_versions(cuda, dtype, shape, axis):
+    """nxp.sort, argsort, sort_pairs and the merge-split on the card equal
+    their plain versions on the CPU exactly: NaN last, -0.0 equal to 0.0,
+    ties in their first order, the dtype's extremes."""
+    import torch
+
+    from cubed_tpu_torch.backend_array_api import nxp
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    a = torch.from_numpy(_order_data(shape, np.dtype(dtype)))
+    b = torch.from_numpy(_order_data(shape, np.dtype(dtype), seed=1))
+    idx = torch.from_numpy(np.random.default_rng(2).permutation(a.numel()).reshape(shape))
+    np.testing.assert_array_equal(nxp.sort(a.to(cuda), axis=axis).cpu(), torch.sort(a, dim=axis, stable=True).values)
+    np.testing.assert_array_equal(nxp.argsort(a.to(cuda), axis=axis).cpu(),
+                                  np.argsort(a.numpy(), axis=axis, kind="stable"))
+    got = nxp.sort_pairs(a.to(cuda), idx.to(cuda), axis)
+    want = ms.sort_block_plain(a, axis, idx)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu(), w)
+    sa, sb = ms.sort_block_plain(a, axis), ms.sort_block_plain(b, axis)
+    flags = torch.from_numpy(np.random.default_rng(3).random(shape[:axis] + (1,) * (len(shape) - axis)) < 0.5)
+    np.testing.assert_array_equal(ms.merge_split(sa.to(cuda), sb.to(cuda), flags.to(cuda), axis).cpu(),
+                                  ms.merge_split_plain(sa, sb, flags, axis))
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_searchsorted_on_the_card_places_nan_and_promotes(cuda, side):
+    import torch
+
+    from cubed_tpu_torch.backend_array_api import nxp
+
+    a = np.array([-1.0, -0.0, 1.0, 2.0, 2.0, np.nan])
+    v = np.array([np.nan, 0.0, -0.0, 2.0, 5.0, -2.0, np.inf, -np.inf])
+    got = nxp.searchsorted(torch.from_numpy(a).to(cuda), torch.from_numpy(v).to(cuda), side=side)
+    np.testing.assert_array_equal(got.cpu(), np.searchsorted(a, v, side=side))
+    ai = np.arange(0, 40, 3, dtype=np.int32)
+    got = nxp.searchsorted(torch.from_numpy(ai).to(cuda), torch.from_numpy(v).to(cuda), side=side)
+    np.testing.assert_array_equal(got.cpu(), np.searchsorted(ai, v, side=side))
+    vf = v.astype(np.float32)
+    got = nxp.searchsorted(torch.from_numpy(a.astype(np.float32)).to(cuda), torch.from_numpy(vf).to(cuda), side=side)
+    np.testing.assert_array_equal(got.cpu(), np.searchsorted(a.astype(np.float32), vf, side=side))
+
+
+def test_histogram_on_the_card_matches_numpy(cuda):
+    """The last edge closed, NaN and values outside in no bin; counts exact;
+    weighted counts within 1e-12 of numpy's per bin (the atomics add in any
+    order); more than one piece of the block (2**18 elements)."""
+    import torch
+
+    from cubed_tpu_torch.backend_array_api import nxp
+
+    x = np.random.default_rng(4).standard_normal(600_000)
+    x[::97] = np.nan
+    x[:5] = [2.0, -2.0, 2.5, -3.0, 0.0]
+    edges = np.linspace(-2, 2, 17)
+    counts, _ = nxp.histogram(torch.from_numpy(x).to(cuda), torch.from_numpy(edges).to(cuda))
+    np.testing.assert_array_equal(counts.cpu(), np.histogram(x, bins=edges)[0])
+    w = np.abs(np.nan_to_num(x)) + 1.0
+    counts, _ = nxp.histogram(torch.from_numpy(x).to(cuda), torch.from_numpy(edges).to(cuda),
+                              torch.from_numpy(w).to(cuda))
+    np.testing.assert_allclose(counts.cpu(), np.histogram(x, bins=edges, weights=w)[0], rtol=1e-12)
+
+
+def test_nan_reductions_on_the_card(cuda):
+    import torch
+
+    from cubed_tpu_torch.backend_array_api import nxp
+
+    x = _order_data((40, 30), np.float64)
+    t = torch.from_numpy(x).to(cuda)
+    np.testing.assert_allclose(nxp.nansum(t, axis=0).cpu(), np.nansum(x, axis=0), rtol=1e-12)
+    np.testing.assert_array_equal(nxp.nanmax(t, axis=1).cpu(), np.nan_to_num(np.nanmax(x, axis=1), nan=-np.inf))
+    np.testing.assert_array_equal(nxp.nanmin(t, axis=1).cpu(), np.nan_to_num(np.nanmin(x, axis=1), nan=np.inf))
+
+
+def test_bitonic_round_captured_and_replayed_with_a_new_offset(cuda):
+    """One argsort round (its pair kernel: block offsets read as data)
+    captured into a CUDA graph, then replayed after its offset tensor is
+    refilled with another block's: the replay keeps the other half of the
+    merge, as the plain version does."""
+    import torch
+
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    numblocks, axis, size, stride = (4, 2), 0, 4, 1
+    from cubed_tpu_torch.core.ops import block_index_from_offset
+
+    def pair(v, vp, i, ip, off):
+        bi = block_index_from_offset(off, axis, numblocks)
+        take_low = ((bi & size) == 0) == ((bi & stride) == 0)
+        return ms.merge_split(v, vp, take_low, axis, i, ip)
+
+    rng = np.random.default_rng(5)
+    shape = (64, 9)
+    v, vp = [ms.sort_block_plain(torch.from_numpy(rng.random(shape)), 0) for _ in range(2)]
+    i = torch.arange(v.numel()).reshape(shape)
+    ip = i + v.numel()
+    args = [t.to(cuda) for t in (v, vp, i, ip)]
+    off = torch.zeros((1, 1), dtype=torch.int64, device=cuda)  # block (0, 0): keeps the low half
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pair(*args, off)  # loads the kernels outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_v, out_i = pair(*args, off)
+    graph.replay()
+    torch.cuda.synchronize()
+    for offset, low in ((0, True), (2, False)):  # block (1, 0): the upper of its pair keeps the high half
+        off.fill_(offset)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ms.merge_split_plain(v, vp, torch.tensor(low), axis, i, ip)
+        np.testing.assert_array_equal(out_v.cpu(), want[0])
+        np.testing.assert_array_equal(out_i.cpu(), want[1])
+
+
+def test_network_sort_captured_and_replayed_on_the_card(cuda, tmp_path, monkeypatch):
+    """argsort and sort through the forced network on one device executor,
+    three computes with their own seeds (op by op, capture and replay,
+    replay), each equal to numpy's: the rounds batched, no failed check."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    monkeypatch.setenv("CUBED_TPU_TORCH_SORT_NETWORK", "force")
+    for op in ("sort", "argsort"):
+        ex = CudaExecutor()
+        for k, seed in enumerate((51, 52, 53)):
+            random.seed(seed)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{op}-{seed}"), allowed_mem="500MB")
+            a = ct.random.random((200, 30), chunks=(25, 15), spec=spec)
+            got = getattr(xp, op)(a, axis=0).compute(executor=ex)
+            an = a.compute()
+            want = np.sort(an, axis=0) if op == "sort" else np.argsort(an, axis=0, kind="stable")
+            np.testing.assert_array_equal(got, want)
+            assert (ex.stats["segments_compiled"] > 0) == (k == 1), dict(ex.stats)
+            assert (ex.stats["segment_struct_hits"] > 0) == (k == 2), dict(ex.stats)
+            for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+                assert ex.stats[counter] == 0, counter
+
+
+def test_a_captured_graph_keeps_the_device_constants_it_reads(cuda, tmp_path, monkeypatch):
+    """A forced network argsort captured (its partner blocks gathered by
+    block permutations, device constants), then more than the constant
+    cache's LIMIT others read and the freed memory taken by tensors of
+    zeros, then replayed: the graph kept its permutations, so the replay
+    still equals numpy's."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch import device_constants
+    from cubed_tpu_torch.runtime.executors import cuda as cx
+
+    monkeypatch.setenv("CUBED_TPU_TORCH_SORT_NETWORK", "force")
+    # no graph of an earlier test is replayed here: this one captures its own
+    monkeypatch.setattr(cx, "_GRAPHS", cx._GraphCache())
+    monkeypatch.setattr(cx, "_SEEN", type(cx._SEEN)())
+    ex = cx.CudaExecutor()
+    junk = []
+    for k, seed in enumerate((61, 62, 63)):
+        if k == 2:
+            pinned = [t for g in cx._GRAPHS.entries.values() for t in g.constants]
+            assert pinned, "the captured rounds read no device constant"
+            for n in range(device_constants.LIMIT + 1):
+                device_constants.constant(np.arange(n, n + 7), cuda)
+            cached = {id(entry[1]) for entry in device_constants._CACHE.values()}
+            assert not any(id(t) in cached for t in pinned)
+            del pinned
+            junk = [torch.zeros(64, dtype=torch.int64, device=cuda) for _ in range(4096)]
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / f"argsort-{seed}"), allowed_mem="500MB")
+        a = ct.random.random((200, 30), chunks=(25, 15), spec=spec)
+        got = xp.argsort(a, axis=0).compute(executor=ex)
+        np.testing.assert_array_equal(got, np.argsort(a.compute(), axis=0, kind="stable"))
+        assert (ex.stats["segment_struct_hits"] > 0) == (k == 2), dict(ex.stats)
+    del junk

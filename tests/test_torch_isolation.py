@@ -35,6 +35,8 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.kernels._build, cubed_tpu_torch.runtime.executors.python\n"
         "import cubed_tpu_torch.runtime.executors.cuda, cubed_tpu_torch.runtime.create\n"
         "import cubed_tpu_torch.observability, cubed_tpu_torch.extensions, cubed_tpu_torch.extensions.profiler\n"
+        "import cubed_tpu_torch.array_api.sorting_functions, cubed_tpu_torch.array_api._block_sort\n"
+        "import cubed_tpu_torch.array_api.linalg, cubed_tpu_torch.nan_functions, cubed_tpu_torch.kernels.merge_sort\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -104,8 +106,10 @@ def test_source_walk_covers_every_subpackage():
         assert any(p.startswith(os.path.join("cubed_tpu_torch", sub, "")) for p in SOURCES), sub
     assert os.path.join("cubed_tpu_torch", "observability", "collect.py") in SOURCES
     for module in ("constants", "device", "indexing_functions", "searching_functions", "set_functions",
-                   "utility_functions"):
+                   "utility_functions", "sorting_functions", "_block_sort", "linalg"):
         assert os.path.join("cubed_tpu_torch", "array_api", f"{module}.py") in SOURCES, module
+    for path in (("nan_functions.py",), ("kernels", "merge_sort.py")):
+        assert os.path.join("cubed_tpu_torch", *path) in SOURCES, path
 
 
 @pytest.mark.parametrize("path", SOURCES)

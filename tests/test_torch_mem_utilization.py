@@ -7,10 +7,13 @@ computed). Values are compared with numpy exactly (the inputs are ones, so
 every sum is exact).
 
 The ops are those of tests/test_mem_utilization.py's ``OPS`` that the port
-has (``sort_axis``, ``qr_q``, ``svdvals`` and ``fft_abs`` wait for their
-modules), and flip, roll, var, cumulative_sum, argmax and where. The card's
-counterpart, each task's device peak against the projected bound at 10000 x
-10000 float64, is chip_smoke.py's Array API phase.
+has (``qr_q``, ``svdvals`` and ``fft_abs`` wait for their modules), and
+flip, roll, var, cumulative_sum, argmax and where; then ``ORDER_OPS``: the
+sorts (``sort_axis`` among them; the network forced in both packages where
+the name says so), quantiles, top-k, searchsorted, histogram, cov,
+corrcoef and the nan reductions, on seeded random data (floats rtol
+1e-12; cov and corrcoef, whose sums cancel, atol 1e-12). The card's counterpart, each task's device peak against the
+projected bound, is chip_smoke.py's Array API and order-statistics phases.
 """
 
 import os
@@ -132,3 +135,80 @@ def test_elemwise_projected_formula(tmp_path):
     c = pxp.add(a, b)
     chunk_bytes = 50 * 50 * 8
     assert c.plan.max_projected_mem(optimize_graph=False) >= 6 * chunk_bytes
+
+
+# the order statistics: each computed under allowed_mem equal to its
+# projected memory (equal to the reference's), on seeded random data (the
+# network forced where the name says so, in both packages)
+def _forced(build):
+    def run(xp, a, b):
+        before = {k: os.environ.get(k) for k in ("CUBED_TPU_SORT_NETWORK", "CUBED_TPU_TORCH_SORT_NETWORK")}
+        os.environ.update(dict.fromkeys(before, "force"))
+        try:
+            return build(xp, a, b)
+        finally:
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+
+    return run
+
+
+def _pkg(xp):
+    return cubed_tpu if xp is rxp else cubed_tpu_torch
+
+
+ORDER_OPS = {
+    "sort_axis": (lambda xp, a, b: xp.sort(a, axis=1), lambda a, b: np.sort(a, axis=1)),
+    "sort_network": (_forced(lambda xp, a, b: xp.sort(a, axis=0)), lambda a, b: np.sort(a, axis=0)),
+    "argsort_network": (_forced(lambda xp, a, b: xp.argsort(a, axis=1)),
+                        lambda a, b: np.argsort(a, axis=1, kind="stable")),
+    "argsort": (lambda xp, a, b: xp.argsort(a, axis=0), lambda a, b: np.argsort(a, axis=0, kind="stable")),
+    "median": (lambda xp, a, b: xp.median(a, axis=0), lambda a, b: np.median(a, axis=0)),
+    "quantile_network": (_forced(lambda xp, a, b: xp.quantile(a, 0.9, axis=1)),
+                         lambda a, b: np.quantile(a, 0.9, axis=1)),
+    "nanmedian": (lambda xp, a, b: xp.nanmedian(xp.where(xp.greater(a, 0.9), b * np.nan, a), axis=0),
+                  lambda a, b: np.nanmedian(np.where(a > 0.9, np.nan, a), axis=0)),
+    "topk": (lambda xp, a, b: xp.topk(a, 5, axis=0), lambda a, b: -np.sort(-a, axis=0)[:5]),
+    "argtopk": (lambda xp, a, b: xp.argtopk(a, -5, axis=1), lambda a, b: np.argsort(a, axis=1, kind="stable")[:, :5]),
+    "searchsorted": (lambda xp, a, b: xp.searchsorted(xp.sort(xp.reshape(a, (SHAPE[0] * SHAPE[1],))), b),
+                     lambda a, b: np.searchsorted(np.sort(a.reshape(-1)), b)),
+    "histogram": (lambda xp, a, b: xp.histogram(a, bins=16)[0], lambda a, b: np.histogram(a, bins=16)[0]),
+    "cov": (lambda xp, a, b: xp.cov(a), lambda a, b: np.cov(a)),
+    "corrcoef": (lambda xp, a, b: xp.corrcoef(a), lambda a, b: np.corrcoef(a)),
+    "nanmean": (lambda xp, a, b: _pkg(xp).nanmean(a, axis=0), lambda a, b: np.nanmean(a, axis=0)),
+    "nansum": (lambda xp, a, b: _pkg(xp).nansum(a, axis=1), lambda a, b: np.nansum(a, axis=1)),
+    "nanmax": (lambda xp, a, b: _pkg(xp).nanmax(a, axis=0), lambda a, b: np.nanmax(a, axis=0)),
+    "nanmin": (lambda xp, a, b: _pkg(xp).nanmin(a), lambda a, b: np.nanmin(a)),
+}
+
+
+def _order_build(pkg, xp, name, spec, an, bn):
+    a = pkg.from_array(an, chunks=CHUNKS, spec=spec)
+    b = pkg.from_array(bn, chunks=CHUNKS, spec=spec)
+    return ORDER_OPS[name][0](xp, a, b)
+
+
+@pytest.mark.parametrize("name", sorted(ORDER_OPS))
+def test_order_statistic_within_projected_mem(tmp_path, name):
+    rng = np.random.default_rng(0)
+    an, bn = rng.random(SHAPE), rng.random(SHAPE)
+    ref_probe = _order_build(cubed_tpu, rxp, name, cubed_tpu.Spec(work_dir=str(tmp_path / "r"), allowed_mem="1GB",
+                                                                  reserved_mem=0), an, bn)
+    probe = _order_build(cubed_tpu_torch, pxp, name, cubed_tpu_torch.Spec(work_dir=str(tmp_path / "p"),
+                                                                         allowed_mem="1GB", reserved_mem=0), an, bn)
+    projected = probe.plan.max_projected_mem()
+    assert projected == ref_probe.plan.max_projected_mem() > 0
+    tight = cubed_tpu_torch.Spec(work_dir=str(tmp_path / "t"), allowed_mem=projected, reserved_mem=0)
+    out = _order_build(cubed_tpu_torch, pxp, name, tight, an, bn).compute()
+    expected = ORDER_OPS[name][1](an, bn)
+    assert out.dtype == expected.dtype and out.shape == expected.shape
+    if name in ("cov", "corrcoef"):
+        # sums of products that cancel: numpy adds them in another order
+        np.testing.assert_allclose(out, expected, rtol=0, atol=1e-12)
+    elif expected.dtype.kind == "f":
+        np.testing.assert_allclose(out, expected, rtol=1e-12, atol=0)
+    else:
+        np.testing.assert_array_equal(out, expected)
