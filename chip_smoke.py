@@ -69,9 +69,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    custom ops (against a checkout from before this one's fma_sum_blocks
    took the place of fma_sum's own kernel: that kernel against
    fma_sum_blocks on one (100, 100, 100) and one (40, 40, 40) block); then
-   vorticity's four device computes (cold, capturing, two warm) on each
-   checkout, each in a fresh process (``--time-computes CHECKOUT``), in
-   turns, three rounds, with each compute's median. Then the float32 side
+   the four device computes (cold, capturing, two warm) of vorticity,
+   elemwise, reduce and matmul, one after the other, on each checkout, each
+   in a fresh process (``--time-computes CHECKOUT``), in turns, three
+   rounds, with each compute's median and quartile spread. Then the float32 side
    (``compute_dtype="float32"``): both Philox kernels' float32 entry points
    bit for bit against numpy's float64 streams rounded to float32 and
    against their plain versions (per block at vorticity_f32's (100, 100,
@@ -185,10 +186,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    integer-array index; each op's times, ratio, paths and launches printed;
    Then the order-statistics phase. First its merge kernels
    (csrc/merge_sort.cu: sort_block, argsort_block, merge_split) against
-   their plain versions, exactly, at the phase's blocks and at NaN, -0.0,
-   ties, integer extremes, ragged and one-element cases, ceil(log2 n)
-   launches a sort and one a merge-split, each timed beside its plain
-   version, ``torch.sort`` of the same data and its byte bound. Then 16 ops
+   their plain versions, bit for bit, at the phase's blocks, at NaN, -0.0,
+   ties, integer extremes, ragged and one-element cases, along 16384 steps
+   and past a tile for every dtype on both axes, with the launches of each
+   sort's plan (the tile sort, then its merge passes) and one a
+   merge-split, each timed beside its plain version, ``torch.sort`` of the
+   same data and its byte bound (the sorts also along 16384 steps). Then 16 ops
    (sort, argsort, median, quantile 0.9, topk/argtopk 16, nanmedian,
    nanmean, nansum, nanmax, nanmin along time on a copy with values under
    0.01 made NaN; searchsorted of 2**20 queries in a sorted 2**24 array;
@@ -1307,36 +1310,46 @@ def time_against_cases(torch) -> list:
             for label, fn, args in against_cases(torch, fma_sum, region_sum)]
 
 
-#: rounds of vorticity's device computes in ``--against`` (each round:
-#: theirs, ours, ours, theirs, every one in a fresh process)
+#: rounds of the device computes in ``--against`` (each round: theirs,
+#: ours, ours, theirs, every one in a fresh process)
 COMPUTE_ROUNDS = 3
+#: the cells ``--time-computes`` runs, in the order of the full run
+#: (vorticity first, then BASELINE configs 2-4): each a new CudaExecutor
+TIMED_CELLS = ("vorticity", "elemwise", "reduce", "matmul")
 
 
-def time_vorticity_computes(torch) -> list:
-    """Seconds of vorticity's four device ``compute()``s on one new
-    ``CudaExecutor`` (cold, capturing, two warm), as phase 4 runs them, for
-    the cubed_tpu_torch this process imported."""
+def time_computes(torch) -> dict:
+    """Seconds of each TIMED_CELLS cell's four device ``compute()``s on one
+    new ``CudaExecutor`` (cold, capturing, two warm), as phase 4 runs them,
+    for the cubed_tpu_torch this process imported; the cells one after the
+    other in this process, so a later cell's capture finds the earlier
+    cells' graphs cached, as in the full run."""
     import cubed_tpu_torch
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
-    ex = CudaExecutor()
-    seconds = []
-    for i, seed in enumerate((SEED, SEED + 1, SEED + 2, SEED + 3)):
-        work = os.path.join(WORK_DIR, f"computes-{os.getpid()}-{i}")
-        random.seed(seed)
-        x = vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"))
-        x.plan._finalize(array_names=(x.name,))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        value = float(x.compute(executor=ex))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t)
-        shutil.rmtree(work, ignore_errors=True)
-        check(np.isfinite(value), f"vorticity compute {i}: value {value}")
-        check(ex.stats["segments_compiled"] == (1 if i == 1 else 0)
-              and ex.stats["segment_struct_hits"] == (1 if i >= 2 else 0),
-              f"vorticity compute {i}: stats {dict(ex.stats)}")
-    return seconds
+    builds = {"vorticity": vorticity_build, "elemwise": elemwise_build, "reduce": reduce_build,
+              "matmul": matmul_build}
+    out = {}
+    for cell in TIMED_CELLS:
+        ex = CudaExecutor()
+        seconds = []
+        for i, seed in enumerate((SEED, SEED + 1, SEED + 2, SEED + 3)):
+            work = os.path.join(WORK_DIR, f"computes-{os.getpid()}-{cell}-{i}")
+            random.seed(seed)
+            x = builds[cell](cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"))
+            x.plan._finalize(array_names=(x.name,))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = float(x.compute(executor=ex))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            shutil.rmtree(work, ignore_errors=True)
+            check(np.isfinite(value), f"{cell} compute {i}: value {value}")
+            check(ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+                  and ex.stats["segment_struct_hits"] == (1 if i >= 2 else 0),
+                  f"{cell} compute {i}: stats {dict(ex.stats)}")
+        out[cell] = seconds
+    return out
 
 
 def time_in_process(flag: str, path: str) -> list:
@@ -1355,9 +1368,9 @@ def compare_against(torch, path: str) -> None:
     on the same inputs, in turns: theirs, ours, ours, theirs, by device and
     host time. Against a checkout that still has fma_sum's own kernel
     (before fma_sum_blocks took its place), the fma_sum rows hold that
-    kernel against fma_sum_blocks on a grid of one block. Then vorticity's
-    four device computes (cold, capturing, warm, warm), each checkout in a
-    fresh process, in turns, COMPUTE_ROUNDS rounds."""
+    kernel against fma_sum_blocks on a grid of one block. Then the four
+    device computes (cold, capturing, warm, warm) of each of TIMED_CELLS,
+    each checkout in a fresh process, in turns, COMPUTE_ROUNDS rounds."""
     first = time_in_process("--time-kernels", path)
     ours = [time_against_cases(torch), time_against_cases(torch)]
     last = time_in_process("--time-kernels", path)
@@ -1370,13 +1383,17 @@ def compare_against(torch, path: str) -> None:
     for _ in range(COMPUTE_ROUNDS):
         for side in ("theirs", "ours", "ours", "theirs"):
             runs[side].append(time_in_process("--time-computes", path if side == "theirs" else REPO))
-    for side, secs in runs.items():
-        print(f"against {path}: vorticity device computes, {side}, s (cold, capturing, warm, warm; a fresh "
-              f"process each): " + "; ".join(" / ".join(f"{t:.4f}" for t in r) for r in secs) + f"; {smi_tag()}")
-    for i, what in enumerate(("cold", "capturing", "warm", "warm")):
-        theirs, ours = (float(np.median([r[i] for r in runs[side]])) for side in ("theirs", "ours"))
-        print(f"against {path}: vorticity {what} compute, median of {len(runs['ours'])}: theirs {theirs:.4f} s, "
-              f"ours {ours:.4f} s, ours/theirs {ours / theirs:.3f}")
+    for cell in TIMED_CELLS:
+        for side, secs in runs.items():
+            print(f"against {path}: {cell} device computes, {side}, s (cold, capturing, warm, warm; a fresh "
+                  f"process each): " + "; ".join(" / ".join(f"{t:.4f}" for t in r[cell]) for r in secs)
+                  + f"; {smi_tag()}")
+        for i, what in enumerate(("cold", "capturing", "warm", "warm")):
+            theirs, ours = ([r[cell][i] for r in runs[side]] for side in ("theirs", "ours"))
+            q = {side: np.percentile(v, [25, 50, 75]) for side, v in (("theirs", theirs), ("ours", ours))}
+            print(f"against {path}: {cell} {what} compute, median of {len(ours)} (quartile spread): theirs "
+                  f"{q['theirs'][1]:.4f} s ({q['theirs'][2] - q['theirs'][0]:.4f}), ours {q['ours'][1]:.4f} s "
+                  f"({q['ours'][2] - q['ours'][0]:.4f}), ours/theirs {q['ours'][1] / q['theirs'][1]:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2557,9 +2574,9 @@ def host_device_copies(torch, fn) -> dict:
     merges: dict = {}
     for e in events:
         name = str(e.get("name", ""))
-        if e.get("ph") == "X" and e.get("cat") == "kernel" and "merge_" in name:
-            # the merge kernels' device time (microseconds) and records
-            short = "merge_split_kernel" if "merge_split_kernel" in name else "merge_pass_kernel"
+        short = next((k for k in ("merge_split_kernel", "sort_tiles_kernel", "sort_merge_kernel") if k in name), None)
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and short:
+            # the sort kernels' device time (microseconds) and records
             t = merges.setdefault(short, [0.0, 0])
             t[0] += float(e.get("dur", 0.0))
             t[1] += 1
@@ -2907,7 +2924,43 @@ MERGE_CASES = [
     ("int64 extremes", (41, 9), 0, "int64"),
     ("uint8", (5, 130), 1, "uint8"),
     ("one element", (1, 4), 0, "float64"),
+    ("contiguous lanes, 16-byte loads", (4, 1000), 1, "float32"),
+    ("contiguous lanes past the tile, 16-byte loads", (2, 20000), 1, "int16"),
+    # the last case has no merge-split check (its plain sorts take seconds)
+    ("one long lane in one chunk", (16384, 32, 32), 0, "float64"),
 ]
+MERGE_DTYPES = ("float64", "float32", "int64", "int32", "int16", "int8", "uint8")
+#: lanes along axis 0 of a block with this many lanes beside them (not a
+#: multiple of a tile's lane count), and lanes along the innermost axis
+MERGE_INNER = 20
+
+
+def merge_cases_past_tile() -> list:
+    """Lanes of T + 1 and 3T + 5 elements, T the tile of the values sort's
+    plan for the dtype and layout (a longer lane has merge passes), along
+    axis 0 beside MERGE_INNER lanes and along the innermost axis, for every
+    dtype of the kernels."""
+    from cubed_tpu_torch.kernels import _geometry
+
+    cases = []
+    for dtype in MERGE_DTYPES:
+        itemsize = np.dtype(dtype).itemsize
+        for axis, inner in ((0, MERGE_INNER), (1, 1)):
+            t = _geometry.sort_plan(1, 1 << 20, inner, itemsize, "values").tile
+            for n in (t + 1, 3 * t + 5):
+                shape = (n, MERGE_INNER) if axis == 0 else (3, n)
+                cases.append((f"past the tile ({t}) along axis {axis}", shape, axis, dtype))
+    return cases
+
+
+def sort_launches(shape, axis: int, dtype: str, mode: str) -> int:
+    """Launches of one sort call as its plan has them: the tile sort, then a
+    merge pass a doubling of the tile up to the lane."""
+    from cubed_tpu_torch.kernels import _geometry
+
+    shape = tuple(shape)
+    outer, n, inner = math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:])
+    return _geometry.sort_plan(outer, n, inner, np.dtype(dtype).itemsize, mode).launches
 
 
 def _merge_data(torch, gen, shape, dtype):
@@ -2924,20 +2977,30 @@ def _merge_data(torch, gen, shape, dtype):
 
 
 def _same(a, b) -> bool:
+    """Equal bit for bit (a float's -0.0 and NaN bits included)."""
+    import torch
+
     a, b = a.cpu(), b.cpu()
-    return a.shape == b.shape and a.dtype == b.dtype and bool(
-        (a.eq(b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a.eq(b)).all())
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
+        a, b = a.view(bits), b.view(bits)
+    return bool(a.eq(b).all())
 
 
 def check_merge_sort(torch, config=ORDER_STATS) -> list:
     """The merge kernels (csrc/merge_sort.cu) against their plain versions:
     at the order-statistics phase's shapes (a block of sort's network at its
-    coarsened chunk, a block of argsort's, top-k's per-block order) and at
-    ragged, NaN-holding, integer and one-element cases, exactly (the plain
-    version run on the CPU: torch's stable CPU sort places NaN and -0.0 as
-    numpy does); one launch per merge-split call, ceil(log2 n) per sort;
-    timed beside their plain versions on the card, ``torch.sort`` of the
-    same data, and their byte bounds."""
+    coarsened chunk, a block of argsort's, top-k's per-block order), at
+    ragged, NaN-holding, integer and one-element cases, one long lane in
+    one chunk, and lanes past a tile for every dtype along axis 0 and the
+    innermost axis, bit for bit (the plain version run on the CPU: torch's
+    stable CPU sort places NaN and -0.0 as numpy does); one launch per
+    merge-split call, and per sort the launches of its plan (the tile sort,
+    then its merge passes); timed beside their plain versions on the card,
+    ``torch.sort``/``torch.argsort`` of the same data, and their byte
+    bounds, at the phase's blocks and along 16384 steps."""
     import cubed_tpu_torch
     from cubed_tpu_torch.array_api._block_sort import _coarsen_for_network
     from cubed_tpu_torch.kernels import merge_sort as ms
@@ -2957,41 +3020,50 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
     def passes(n):
         return max(0, (n - 1).bit_length())
 
-    # correctness, exact, against the plain versions on the CPU
-    cases = [(f"main path {sort_shape}", sort_shape, 0, "float64"), (f"main path {arg_shape}", arg_shape, 0,
-                                                                      "float64"),
-             (f"main path {topk_shape}", topk_shape, 0, "float64")] + MERGE_CASES
-    for label, shape, axis, dtype in cases:
+    # correctness, bit for bit, against the plain versions on the CPU; the
+    # merge-split at the phase's blocks and the ragged cases
+    split_cases = [(f"main path {sort_shape}", sort_shape, 0, "float64"),
+                   (f"main path {arg_shape}", arg_shape, 0, "float64"),
+                   (f"main path {topk_shape}", topk_shape, 0, "float64")] + MERGE_CASES[:-1]
+    cases = split_cases + MERGE_CASES[-1:] + merge_cases_past_tile()
+    for case in cases:
+        label, shape, axis, dtype = case
+        with_split = case in split_cases
         v = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
-        w = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
         n = shape[axis]
         idx = torch.randperm(v.numel(), generator=gen, device=dev).reshape(shape)
-        flags = torch.rand(shape[:axis] + (1,) * (len(shape) - axis), generator=gen, device=dev) < 0.5
         before = {k: getattr(ms, k).launches for k in ("sort_block", "argsort_block", "merge_split")}
         got_s = ms.sort_block(v, axis)
         got_p = ms.sort_block(v, axis, idx)
         got_a = ms.argsort_block(v, axis)
-        sv, sw = ms.sort_block_plain(v.cpu(), axis), ms.sort_block_plain(w.cpu(), axis)
-        iv = torch.arange(v.numel()).reshape(shape)
-        pv, piv = ms.sort_block_plain(v.cpu(), axis, iv)
-        pw, piw = ms.sort_block_plain(w.cpu(), axis, iv + v.numel())
-        got_m = ms.merge_split(sv.to(dev), sw.to(dev), flags, axis)
-        got_mp = ms.merge_split(pv.to(dev), pw.to(dev), flags, axis, piv.to(dev), piw.to(dev))
         torch.cuda.synchronize()
         what = f"merge kernels, {label} {dtype} axis {axis}"
+        sv = ms.sort_block_plain(v.cpu(), axis)
         check(_same(got_s, sv), f"{what}: sort_block differs from its plain version")
         ref_p = ms.sort_block_plain(v.cpu(), axis, idx.cpu())
         check(_same(got_p[0], ref_p[0]) and _same(got_p[1], ref_p[1]), f"{what}: sort_block with indices differs")
         check(_same(got_a, ms.argsort_block_plain(v.cpu(), axis)), f"{what}: argsort_block differs")
-        check(_same(got_m, ms.merge_split_plain(sv, sw, flags.cpu(), axis)), f"{what}: merge_split differs")
-        ref_mp = ms.merge_split_plain(pv, pw, flags.cpu(), axis, piv, piw)
-        check(_same(got_mp[0], ref_mp[0]) and _same(got_mp[1], ref_mp[1]), f"{what}: merge_split pairs differ")
+        if with_split:
+            w = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
+            flags = torch.rand(shape[:axis] + (1,) * (len(shape) - axis), generator=gen, device=dev) < 0.5
+            sw = ms.sort_block_plain(w.cpu(), axis)
+            iv = torch.arange(v.numel()).reshape(shape)
+            pv, piv = ms.sort_block_plain(v.cpu(), axis, iv)
+            pw, piw = ms.sort_block_plain(w.cpu(), axis, iv + v.numel())
+            got_m = ms.merge_split(sv.to(dev), sw.to(dev), flags, axis)
+            got_mp = ms.merge_split(pv.to(dev), pw.to(dev), flags, axis, piv.to(dev), piw.to(dev))
+            torch.cuda.synchronize()
+            check(_same(got_m, ms.merge_split_plain(sv, sw, flags.cpu(), axis)), f"{what}: merge_split differs")
+            ref_mp = ms.merge_split_plain(pv, pw, flags.cpu(), axis, piv, piw)
+            check(_same(got_mp[0], ref_mp[0]) and _same(got_mp[1], ref_mp[1]), f"{what}: merge_split pairs differ")
         launched = {k: getattr(ms, k).launches - before[k] for k in before}
-        check(launched == {"sort_block": 2 * passes(n), "argsort_block": passes(n), "merge_split": 2},
-              f"{what}: launches {launched}, expected {2 * passes(n)} / {passes(n)} / 2")
-    print(f"merge kernels: sort_block, argsort_block and merge_split equal their plain versions (exact) over "
+        want = {"sort_block": sort_launches(shape, axis, dtype, "values") + sort_launches(shape, axis, dtype, "pairs"),
+                "argsort_block": sort_launches(shape, axis, dtype, "argsort"), "merge_split": 2 if with_split else 0}
+        check(launched == want, f"{what}: launches {launched}, expected {want}")
+    print(f"merge kernels: sort_block, argsort_block and merge_split equal their plain versions (bit for bit) over "
           f"{len(cases)} cases (the phase's blocks {sort_shape}, {arg_shape}, {topk_shape}; NaN, -0.0, ties, "
-          f"integer extremes, ragged, one element); ceil(log2 n) launches a sort, one a merge-split")
+          f"integer extremes, ragged, one element, (16384, 32, 32), lanes past a tile for each of "
+          f"{len(MERGE_DTYPES)} dtypes on both axes); the plan's launches a sort, one a merge-split")
 
     out = []
     # sort_block: the network's local round of sort
@@ -3000,9 +3072,9 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
     plain = time_ms(torch, ms.sort_block_plain, [(t, 0) for t in v], reps=5)
     lib = time_ms(torch, lambda t: torch.sort(t, dim=0, stable=True), [(t,) for t in v], reps=5)
     b, by = bound_ms(2 * 8 * v[0].numel(), v[0].numel() * passes(sort_shape[0]))
-    print(f"sort_block {sort_shape} f64 axis 0 ({passes(sort_shape[0])} passes): {ms_:.5f} ms "
-          f"({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.sort {lib:.5f} ms; bound {b:.5f} ms ({by}: "
-          f"the block read and written once); {smi_tag()}")
+    print(f"sort_block {sort_shape} f64 axis 0 ({sort_launches(sort_shape, 0, 'float64', 'values')} launch(es)): "
+          f"{ms_:.5f} ms ({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.sort {lib:.5f} ms; bound "
+          f"{b:.5f} ms ({by}: the block read and written once); {smi_tag()}")
     out.append(dict(name="sort_block", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
                     replaces="cubed_tpu/array_api/_block_sort.py:210 (jnp.sort of the local round; not Pallas)",
                     max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
@@ -3012,13 +3084,26 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
     plain = time_ms(torch, ms.argsort_block_plain, [(t, 0) for t in v], reps=5)
     lib = time_ms(torch, lambda t: torch.argsort(t, dim=0, stable=True), [(t,) for t in v], reps=5)
     b, by = bound_ms((8 + 8) * v[0].numel(), v[0].numel() * passes(topk_shape[0]))
-    print(f"argsort_block {topk_shape} f64 axis 0 ({passes(topk_shape[0])} passes): {ms_:.5f} ms "
-          f"({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.argsort {lib:.5f} ms; bound {b:.5f} ms "
-          f"({by}: the block read once, int64 indices written once); {smi_tag()}")
+    print(f"argsort_block {topk_shape} f64 axis 0 ({sort_launches(topk_shape, 0, 'float64', 'argsort')} "
+          f"launch(es)): {ms_:.5f} ms ({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; torch.argsort "
+          f"{lib:.5f} ms; bound {b:.5f} ms ({by}: the block read once, int64 indices written once); {smi_tag()}")
     out.append(dict(name="argsort_block", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
                     replaces="cubed_tpu/array_api/sorting_functions.py:249 (jnp.argsort in "
                              "_stable_argsort_kernel; not Pallas)",
                     max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    # along 16384 steps in one chunk: the tile sort and its merge passes
+    long = ORDER_STATS_SEQ_LONG["shape"]
+    v = [rand(long) for _ in range(2)]
+    for name, fn, plain_fn, lib_fn, mode, out_bytes in (
+            ("sort_block", ms.sort_block, ms.sort_block_plain, torch.sort, "values", 8),
+            ("argsort_block", ms.argsort_block, ms.argsort_block_plain, torch.argsort, "argsort", 8)):
+        t = time_ms(torch, fn, [(a, 0) for a in v], reps=5)
+        plain = time_ms(torch, plain_fn, [(a, 0) for a in v], reps=5)
+        lib = time_ms(torch, lambda a: lib_fn(a, dim=0, stable=True), [(a,) for a in v], reps=5)
+        b, by = bound_ms((8 + out_bytes) * v[0].numel(), v[0].numel() * passes(long[0]))
+        print(f"{name} {long} f64 axis 0 ({sort_launches(long, 0, 'float64', mode)} launches): {t:.5f} ms "
+              f"({100 * b / t:.1f}% of bound); plain {plain:.5f} ms; torch.{lib_fn.__name__} {lib:.5f} ms; bound "
+              f"{b:.5f} ms ({by}); {smi_tag()}")
     # merge_split: a round of sort's network, one pair of blocks
     pairs = []
     for _ in range(2):
@@ -3542,7 +3627,7 @@ def main(argv: list) -> int:
             print(f"chip_smoke: imported {cubed_tpu_torch.__file__}, not the checkout at {root}", file=sys.stderr)
             return 1
         try:
-            times = time_against_cases(torch) if argv[0] == "--time-kernels" else time_vorticity_computes(torch)
+            times = time_against_cases(torch) if argv[0] == "--time-kernels" else time_computes(torch)
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

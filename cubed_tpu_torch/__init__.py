@@ -23,18 +23,22 @@ the sequential executor (the default) and on the device executor
 __version__ = "0.1.0"
 
 from .spec import Spec  # noqa: F401
+from .runtime.types import Callback, TaskEndEvent  # noqa: F401
 from .core.array import compute  # noqa: F401
 from .core.ops import from_array, from_zarr, map_blocks, map_direct, merge_chunks, rechunk  # noqa: F401
 from .core.gufunc import apply_gufunc  # noqa: F401
 from .nan_functions import nanmax, nanmean, nanmin, nansum  # noqa: F401
 from . import array_api  # noqa: F401
 from .array_api import Array  # noqa: F401
+from . import observability  # noqa: F401
 from . import random  # noqa: F401
 
 __all__ = [
     "__version__",
     "Array",
+    "Callback",
     "Spec",
+    "TaskEndEvent",
     "apply_gufunc",
     "array_api",
     "compute",
@@ -47,6 +51,7 @@ __all__ = [
     "nanmean",
     "nanmin",
     "nansum",
+    "observability",
     "random",
     "rechunk",
 ]

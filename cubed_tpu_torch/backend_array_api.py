@@ -472,8 +472,11 @@ def _where(cond, a, b):
 
 def _sort(x, axis=-1, stable=True):
     # stable ascending, NaN last, -0.0 equal to 0.0 (numpy's and XLA's
-    # order): the merge-sort kernel on the card (no int64 indices, no
-    # transposed copy, no scratch), torch.sort on the CPU
+    # order): on the card the sort kernels (a tile sort in shared memory, one
+    # launch where a lane fits a tile, 512 float64 of 16 lanes; merge passes
+    # for a longer lane), holding beside the input its output alone, or for
+    # a lane past the tile two buffers: no int64 indices, transposed copy or
+    # scratch; torch.sort on the CPU
     from .kernels.merge_sort import sort_block
 
     return sort_block(x, axis)
@@ -481,15 +484,16 @@ def _sort(x, axis=-1, stable=True):
 
 def _sort_pairs(x, idx, axis=-1):
     # the pairs (value, index) sorted by value (NaN last), then index:
-    # (values, indices), the kernel carrying the indices on the card
+    # (values, indices), the kernels carrying the indices on the card
     from .kernels.merge_sort import sort_block
 
     return sort_block(x, axis, idx)
 
 
 def _argsort(x, axis=-1, stable=True):
-    # the stable argsort (int64) in the same order: the kernel's indirect
-    # merge sort on the card (the input and two index buffers)
+    # the stable argsort (int64) in the same order: the same tile sort on
+    # the card, int64 positions out (a lane past the tile: two position
+    # buffers, its merge passes gathering each position's value once)
     from .kernels.merge_sort import argsort_block
 
     return argsort_block(x, axis)

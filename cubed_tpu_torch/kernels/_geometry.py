@@ -742,3 +742,164 @@ def fma_blocks_walk(torch, p: FmaBlocksPlan, n_inputs: int = 4):
     blocks = b[row][:, None].expand(-1, p.vector).reshape(-1)
     items = row[:, None].expand(-1, p.vector).reshape(-1)
     return blocks, items, offsets
+
+
+# ---------------------------------------------------------------------------
+# sort_block / argsort_block: a tile sort in shared memory, then merge passes
+# ---------------------------------------------------------------------------
+
+#: outputs a thread of the sort kernels merges at a time (``kItems`` in
+#: csrc/merge_sort.cu); a tile is at least this long
+SORT_ITEMS = 8
+#: dynamic shared memory one CTA may have on an H100
+SORT_SMEM_LIMIT = 232448
+#: shared memory a tile is sized to: two CTAs an SM (228 KB an SM, less
+#: 1 KB the runtime keeps a CTA)
+SORT_SMEM_TARGET = 233472 // 2 - 1024
+#: the sort kernels' modes: values; values with carried int64 indices (the
+#: pair (value, index) the key); argsort (int64 positions out)
+SORT_MODES = {"values": 0, "pairs": 1, "argsort": 2}
+#: most CTAs of one sort launch (each takes work items grid-stride past it)
+SORT_MAX_GRID = 1 << 20
+
+
+def _round16(nbytes: int) -> int:
+    return _ceil_div(nbytes, 16) * 16
+
+
+def sort_smem(tile: int, lanes: int, itemsize: int, mode: int, kernel: str) -> int:
+    """Dynamic shared memory of one CTA (``tile_layout`` / ``merge_layout``
+    in csrc/merge_sort.cu lay it out the same way), each region rounded up
+    to 16 bytes: the carried indices (pairs; lanes of ``tile + 1``), the
+    values (lanes of ``tile + 1``: neighbouring lanes fall in other banks);
+    for the tile sort two order buffers of uint16 positions (lanes of
+    ``tile + 2``); for a merge pass, argsort's int32 positions, one order
+    buffer and each lane's two splits (int64)."""
+    idx = _round16(lanes * (tile + 1) * 8) if mode == SORT_MODES["pairs"] else 0
+    vals = _round16(lanes * (tile + 1) * itemsize)
+    order = _round16(lanes * (tile + 2) * 2)
+    if kernel == "tile":
+        return idx + vals + 2 * order
+    pos = _round16(lanes * tile * 4) if mode == SORT_MODES["argsort"] else 0
+    return idx + vals + pos + order + _round16(2 * lanes * 8)
+
+
+@dataclass(frozen=True)
+class SortPlan:
+    """How ``sort_block``/``argsort_block`` (csrc/merge_sort.cu) sort the
+    lanes of a contiguous ``(outer, n, inner)`` tensor along ``n``.
+
+    A work item (one CTA) is a *tile*: ``tile`` consecutive positions of
+    ``lanes`` neighbouring lanes along ``inner`` (item ``b``: tile ``b %
+    tiles_n`` along n of lane group ``b // tiles_n % lane_groups`` of outer
+    index ``b // tiles_n // lane_groups``). The first launch sorts every
+    tile in shared memory; a lane of at most ``tile`` elements is then
+    sorted, written where it was read. A longer lane's tiles are written as
+    sorted runs of ``tile`` into a buffer whose lanes are contiguous, and
+    one merge pass per width in ``widths`` merges neighbouring runs of that
+    width, each work item producing one tile of the merged pair of runs it
+    lies in; the last pass writes the ``(outer, n, inner)`` layout.
+    ``vector``: elements one load of the tile sort takes (16 bytes where a
+    lane is contiguous and aligned, else 1)."""
+
+    outer: int
+    n: int
+    inner: int
+    itemsize: int
+    mode: int
+    tile: int
+    lanes: int
+    vector: int
+    tiles_n: int
+    lane_groups: int
+    tiles: int  # work items of each launch; 0 when there is nothing to sort
+    grid: int
+    widths: tuple  # run width merged by each pass
+    tile_smem: int
+    merge_smem: int
+
+    @property
+    def launches(self) -> int:
+        return (1 + len(self.widths)) if self.tiles else 0
+
+    @property
+    def smem(self) -> int:
+        return max(self.tile_smem, self.merge_smem)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << _ceil_log2(max(1, n))
+
+
+def sort_plan(outer: int, n: int, inner: int, itemsize: int, mode, ptr: int = 0) -> SortPlan:
+    """The geometry of one ``sort_block``/``argsort_block`` call over a
+    contiguous tensor of ``(outer, n, inner)`` lanes of *itemsize* bytes at
+    address *ptr*; *mode* a name or code of ``SORT_MODES``.
+
+    ``lanes``: a power of two, rows of at least 128 bytes (32 lanes at most)
+    and no more than ``inner`` needs. ``tile``: the largest power of two
+    from ``SORT_ITEMS`` up to what the lane needs whose shared memory fits
+    ``SORT_SMEM_TARGET``: the tile sort's, and a merge pass's where the
+    lane is longer than the tile. A float64 block of (512, 256, 256) along
+    axis 0 is 4096 tiles of 512 x 16: one launch."""
+    mode = SORT_MODES.get(mode, mode)
+    if mode not in SORT_MODES.values():
+        raise ValueError(f"sort_plan: mode {mode!r} is not one of {sorted(SORT_MODES)}")
+    if n >= 2**31:
+        raise ValueError(f"sort_plan: the kernels count positions along a lane in 32 bits, not {n}")
+    lanes = min(max(1, 128 // itemsize), 32, _pow2_at_least(inner))
+    tile = SORT_ITEMS
+    while tile < n and max(sort_smem(2 * tile, lanes, itemsize, mode, k)
+                           for k in (("tile", "merge") if 2 * tile < n else ("tile",))) <= SORT_SMEM_TARGET:
+        tile *= 2
+    tiles_n = _ceil_div(n, tile)
+    lane_groups = _ceil_div(inner, lanes)
+    tiles = outer * lane_groups * tiles_n if outer * n * inner else 0
+    widths, w = [], tile
+    while w < n:
+        widths.append(w)
+        w *= 2
+    vector = 16 // itemsize
+    if not (inner == 1 and vector > 1 and ptr % 16 == 0 and (outer == 1 or (n * itemsize) % 16 == 0)
+            and (tiles_n == 1 or (tile * itemsize) % 16 == 0)):
+        vector = 1
+    return SortPlan(
+        outer=outer, n=n, inner=inner, itemsize=itemsize, mode=mode, tile=tile, lanes=lanes, vector=vector,
+        tiles_n=tiles_n, lane_groups=lane_groups, tiles=tiles, grid=min(tiles, SORT_MAX_GRID),
+        widths=tuple(widths if tiles else ()),
+        tile_smem=sort_smem(tile, lanes, itemsize, mode, "tile"),
+        merge_smem=sort_smem(tile, lanes, itemsize, mode, "merge") if widths else 0,
+    )
+
+
+def sort_walk(torch, p: SortPlan) -> list:
+    """Replay *p* as the sort kernels run it: for the tile sort, then each
+    merge pass, the work item that writes each element and the part of its
+    lane the item sorts or merges. Returns one ``(offsets, items, starts,
+    ends)`` tuple of int64 tensors per launch, an entry per element written:
+    its offset in the ``(outer, n, inner)`` tensor, its work item, and the
+    positions along n where the sorted tile (the tile sort) or the merged
+    pair of runs (a pass) it lies in starts and ends."""
+    i64 = torch.int64
+    if not p.tiles:
+        return []
+    item = torch.arange(p.tiles, dtype=i64)
+    kt = item % p.tiles_n
+    rest = item // p.tiles_n
+    lg = rest % p.lane_groups
+    o = rest // p.lane_groups
+    k0, l0 = kt * p.tile, lg * p.lanes
+    tn = torch.clamp(p.n - k0, max=p.tile)
+    cn = torch.clamp(p.inner - l0, max=p.lanes)
+    k = torch.arange(p.tile, dtype=i64)
+    c = torch.arange(p.lanes, dtype=i64)
+    live = (k[None, :, None] < tn[:, None, None]) & (c[None, None, :] < cn[:, None, None])
+    row = item[:, None, None].expand(-1, p.tile, p.lanes)[live]
+    pos = (k0[:, None, None] + k[None, :, None]).expand(-1, -1, p.lanes)[live]
+    lane = (l0[:, None, None] + c[None, None, :]).expand(-1, p.tile, -1)[live]
+    offsets = (o[row] * p.n + pos) * p.inner + lane
+    out = [(offsets, row, k0[row], k0[row] + tn[row])]
+    for w in p.widths:
+        start = pos // (2 * w) * (2 * w)
+        out.append((offsets, row, start, torch.clamp(start + 2 * w, max=p.n)))
+    return out

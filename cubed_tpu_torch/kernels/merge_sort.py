@@ -10,28 +10,36 @@
   merged, the low or the high half kept, per lane group, by ``take_low``.
 
 The order is numpy's and XLA's: ascending, NaN after every number (all
-NaNs equal), -0.0 equal to 0.0, equal values in their first order. The
-JAX package computes these with ``jnp.sort``/``jnp.lexsort`` outside any
-Pallas kernel (``cubed_tpu/array_api/_block_sort.py:177-309``,
-``sorting_functions.py:94-160``). On the card ``torch.sort`` takes int64
-indices beside its values, and a lane longer than 4096 elements leaves its
-in-place sort of short lanes for CUB's segmented sort, with a transposed
-copy of a non-innermost axis and CUB's scratch: a task then goes past the
-memory its plan projects (the reference's 7 value blocks a merge, 5 a local
-sort; ``chip_smoke.py``'s sequential check reads both bodies along a
-16384-step axis). These kernels take none: a sort is a
-bottom-up merge sort between two buffers (``ceil(log2 n)`` launches, each
-output element found on its runs' merge path by binary search), an argsort
-the same over int64 positions compared by the values they name, a
-merge-split one launch. Task memory on the card: sort, the input and two
-buffers (with indices, two of each); argsort, the input and two index
-buffers; merge-split, the inputs and the output.
+NaNs equal), -0.0 equal to 0.0, equal values in their first order; the
+original bits come out (a -0.0 or a NaN payload as it went in). The JAX
+package computes these with ``jnp.sort``/``jnp.argsort``/``jnp.lexsort``
+outside any Pallas kernel (``cubed_tpu/array_api/_block_sort.py:210``,
+``:220``, ``sorting_functions.py:249``). On the card ``torch.sort`` takes
+int64 indices beside its values, and a lane longer than 4096 elements
+leaves its in-place sort of short lanes for CUB's segmented sort, with a
+transposed copy of a non-innermost axis and CUB's scratch: a task then goes
+past the memory its plan projects (``chip_smoke.py``'s sequential check
+reads both bodies along a 16384-step axis). These kernels take none.
+
+A sort or an argsort is a tile sort in shared memory (a CTA sorts ``tile``
+positions of ``lanes`` neighbouring lanes, rows of contiguous elements in
+and out: each warp sorts runs of 256 of a lane in registers by a bitonic
+network, then merge-path merges in shared memory up to the tile), then,
+for a lane longer than a tile, ``ceil(log2(ceil(n / tile)))`` merge passes
+over sorted runs (a merge-path split per lane and CTA, both segments
+merged in shared memory). The geometry is ``_geometry.sort_plan``; a
+float64 block of (512, 256, 256) along axis 0 is one launch. Task memory
+on the card: a lane within a tile, the input and
+the output (argsort: its int64 positions); a longer lane, the input and two
+buffers (with indices, two of each; argsort, two int64 position buffers,
+its passes gathering each position's value from the input once a pass);
+merge-split, the inputs and the output.
 
 Every function takes any strided tensor (a non-contiguous one is copied
 first) and has a ``torch.func.vmap`` batching rule (custom ops): the batch
-axes become lanes of one launch per pass.
+axes become lanes of the same launches.
 
-Bound on the H100: every element read and written once per pass
+Bound on the H100: bytes, the block read once and the output written once
 (3.35 TB/s).
 
 The plain versions (``*_plain``) are ``torch.sort``/``torch.argsort`` with
@@ -48,7 +56,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _geometry
 
 #: dtypes the kernels take, with the code their C entry points expect
 DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3, torch.int16: 4,
@@ -96,58 +104,53 @@ def sort_block(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor] = None):
     return _sort_pairs(x, idx, axis)
 
 
-def _passes(n: int) -> list:
-    widths, w = [], 1
-    while w < n:
-        widths.append(w)
-        w *= 2
-    return widths
-
-
-def _run_passes(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor], mode: int):
-    """The merge passes of one sort: mode 0 values, 1 values with *idx*, 2
-    indirect (an argsort of *x*; returns the indices)."""
+def _run_sort(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor], mode: str):
+    """One sort on the card: the tile sort, then the plan's merge passes.
+    *mode*: ``values``, ``pairs`` (with *idx*) or ``argsort`` (returns the
+    int64 positions)."""
     outer, n, inner = _lanes(tuple(x.shape), axis)
     x = x.contiguous()
     idx = idx.contiguous() if idx is not None else None
-    widths = _passes(n)
-    if not widths or x.numel() == 0:
-        if mode == 2:
-            shape = [1] * x.ndim
-            shape[axis] = n
-            return torch.arange(n, dtype=torch.int64, device=x.device).reshape(shape).expand(x.shape).contiguous()
-        return x.clone() if idx is None else (x.clone(), idx.clone())
-    fn = _kernel().merge_pass
+    p = _geometry.sort_plan(outer, n, inner, x.element_size(), mode, x.data_ptr())
+    with_vals, with_idx = mode != "argsort", mode != "values"
+
+    def buffers():
+        return (torch.empty_like(x) if with_vals else None,
+                torch.empty(x.shape, dtype=torch.int64, device=x.device) if with_idx else None)
+
+    def result(v, i):
+        return v if mode == "values" else i if mode == "argsort" else (v, i)
+
+    if not p.tiles:
+        return result(*buffers())
+    lib = _kernel(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    grid = _grid(x.numel())
-    src, srci = (x, idx) if mode != 2 else (x, None)
-    bufs = [None, None]
-    ibufs = [None, None]
-    for p, w in enumerate(widths):
-        k = p % 2
-        if mode != 2 and bufs[k] is None:
-            bufs[k] = torch.empty_like(x)
-        if mode != 0 and ibufs[k] is None:
-            ibufs[k] = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-        dst, dsti = bufs[k], ibufs[k]
-        with torch.cuda.device(x.device):
-            err = fn(ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(mode),
-                     ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(srci.data_ptr() if srci is not None else 0),
-                     ctypes.c_void_p(dst.data_ptr() if dst is not None else 0),
-                     ctypes.c_void_p(dsti.data_ptr() if dsti is not None else 0),
-                     ctypes.c_longlong(outer), ctypes.c_longlong(n), ctypes.c_longlong(inner),
-                     ctypes.c_longlong(w), ctypes.c_int(grid), ctypes.c_void_p(stream))
-        _build.check(err, "merge_pass")
-        if mode == 2:
-            srci = dsti
-            argsort_block.launches += 1
-        else:
-            src, srci = dst, dsti
-            sort_block.launches += 1
-            sort_block.paths["pairs" if mode == 1 else "values"] += 1
-    if mode == 2:
-        return srci
-    return src if mode == 0 else (src, srci)
+    code, dtype = ctypes.c_int(p.mode), ctypes.c_int(DTYPES[x.dtype])
+    shifts = (ctypes.c_int(p.tile.bit_length() - 1), ctypes.c_int(p.lanes.bit_length() - 1))
+    work = (ctypes.c_longlong(p.tiles_n), ctypes.c_longlong(p.lane_groups), ctypes.c_longlong(p.tiles))
+    bufs = [buffers()] + ([buffers()] if p.widths else [])
+    with torch.cuda.device(x.device):
+        out, outi = bufs[0]
+        err = lib.sort_tiles(dtype, code, _ptr(x), _ptr(idx), _ptr(out), _ptr(outi), ctypes.c_longlong(n),
+                             ctypes.c_longlong(inner), *shifts, ctypes.c_int(p.vector), *work, ctypes.c_int(p.grid),
+                             ctypes.c_int(p.tile_smem), ctypes.c_int(bool(p.widths)), ctypes.c_void_p(stream))
+        _build.check(err, "sort_tiles")
+        for k, w in enumerate(p.widths):
+            (src, srci), (out, outi) = bufs[k % 2], bufs[1 - k % 2]
+            err = lib.sort_merge(dtype, code, _ptr(x), _ptr(src), _ptr(srci), _ptr(out), _ptr(outi),
+                                 ctypes.c_longlong(n), ctypes.c_longlong(inner), *shifts, *work, ctypes.c_longlong(w),
+                                 ctypes.c_int(p.grid), ctypes.c_int(p.merge_smem),
+                                 ctypes.c_int(k == len(p.widths) - 1), ctypes.c_void_p(stream))
+            _build.check(err, "sort_merge")
+    counter = argsort_block if mode == "argsort" else sort_block
+    counter.launches += p.launches
+    if mode != "argsort":
+        sort_block.paths[mode] += p.launches
+    return result(out, outi)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def _device_call(x: torch.Tensor, what: str) -> bool:
@@ -163,7 +166,7 @@ def _device_call(x: torch.Tensor, what: str) -> bool:
 def _sort(x, axis):
     if not _device_call(x, "sort_block"):
         return x.new_empty(x.shape) if x.device.type == "meta" else sort_block_plain(x, axis)
-    return _run_passes(x, axis, None, 0)
+    return _run_sort(x, axis, None, "values")
 
 
 def _sort_pairs(x, idx, axis):
@@ -171,7 +174,7 @@ def _sort_pairs(x, idx, axis):
         if x.device.type == "meta":
             return x.new_empty(x.shape), idx.new_empty(idx.shape)
         return sort_block_plain(x, axis, idx)
-    return _run_passes(x, axis, idx.to(torch.int64), 1)
+    return _run_sort(x, axis, idx.to(torch.int64), "pairs")
 
 
 @torch.library.custom_op("cubed_tpu_torch::sort_block", mutates_args=())
@@ -239,8 +242,8 @@ def lexsort_plain(keys, axis: int) -> torch.Tensor:
     return perm
 
 
-#: launches of the merge-pass kernel for sort_block, by path: "values" or
-#: "pairs" (indices carried)
+#: launches of the sort kernels (the tile sort and each merge pass) for
+#: sort_block, by path: "values" or "pairs" (indices carried)
 sort_block.launches = 0
 sort_block.paths = {"values": 0, "pairs": 0}
 _build.COUNTED.append(sort_block)
@@ -266,7 +269,7 @@ def _argsort(x, axis):
         if x.device.type == "meta":
             return x.new_empty(x.shape, dtype=torch.int64)
         return argsort_block_plain(x, axis)
-    return _run_passes(x, axis, None, 2)
+    return _run_sort(x, axis, None, "argsort")
 
 
 @torch.library.custom_op("cubed_tpu_torch::argsort_block", mutates_args=())
@@ -292,7 +295,8 @@ def argsort_block_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.argsort(x, dim=axis, stable=True)
 
 
-#: launches of the merge-pass kernel for argsort_block
+#: launches of the sort kernels (the tile sort and each merge pass) for
+#: argsort_block
 argsort_block.launches = 0
 argsort_block.paths = {}
 _build.COUNTED.append(argsort_block)
@@ -451,14 +455,41 @@ merge_split.paths = {"values": 0, "pairs": 0}
 _build.COUNTED.append(merge_split)
 
 
+_READY: set = set()
+
+
+def _kernel(device=None):
+    """The loaded library; with *device*, its sort kernels allowed their
+    dynamic shared memory there first (once a device, outside any capture:
+    the first sort on a device runs before any graph that holds one)."""
+    lib = _library()
+    if device is not None and device.index not in _READY:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("merge_sort: a device's first sort inside a CUDA-graph capture")
+        with torch.cuda.device(device):
+            _build.check(lib.merge_sort_init(), "merge_sort_init")
+        _READY.add(device.index)
+    return lib
+
+
 @functools.cache
-def _kernel():
+def _library():
     lib = _build.load("merge_sort")
-    lib.merge_pass.argtypes = [
+    lib.merge_sort_init.argtypes = []
+    lib.merge_sort_init.restype = ctypes.c_int
+    lib.sort_tiles.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.merge_pass.restype = ctypes.c_int
+    lib.sort_tiles.restype = ctypes.c_int
+    lib.sort_merge.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.sort_merge.restype = ctypes.c_int
     lib.merge_split.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,

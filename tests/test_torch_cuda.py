@@ -995,31 +995,100 @@ def _order_data(shape, dtype, seed=0):
     return np.array([info.min, info.max, 0, 1, 2, 3], dtype=dtype)[rng.integers(0, 6, shape)]
 
 
+def _bits(t) -> np.ndarray:
+    """A tensor's elements as integers of their width: equal bit for bit,
+    a float's -0.0 and NaN payloads included."""
+    a = t.cpu().numpy()
+    return a.view({8: np.int64, 4: np.int32}[a.itemsize]) if a.dtype.kind == "f" else a
+
+
+#: lanes past a sort tile: (n, axis) recipes resolved against the values
+#: sort's plan for the dtype (_geometry.sort_plan's tile T): T + 1 and 3T + 5
+#: along axis 0 beside 20 lanes (not a multiple of a tile's lane count), and
+#: along the innermost axis
+PAST_TILE = {"tile+1": (1, 0), "3tile+5": (3, 5)}
+
+
+def _order_case(shape, axis, dtype):
+    """A (shape, axis) parameter, or a PAST_TILE recipe ("tile+1", 0) /
+    ("tile+1", -1) resolved for *dtype*."""
+    if not isinstance(shape, str):
+        return shape, axis
+    from cubed_tpu_torch.kernels import _geometry
+
+    inner = 20 if axis == 0 else 1
+    times, plus = PAST_TILE[shape]
+    n = times * _geometry.sort_plan(1, 1 << 20, inner, np.dtype(dtype).itemsize, "values").tile + plus
+    return ((n, inner), 0) if axis == 0 else ((3, n), 1)
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32", "int16", "int8", "uint8"])
-@pytest.mark.parametrize("shape, axis", [((37,), 0), ((5, 33, 7), 1), ((64, 3, 4), 0), ((3, 4, 65), 2)])
+@pytest.mark.parametrize("shape, axis", [((37,), 0), ((5, 33, 7), 1), ((64, 3, 4), 0), ((3, 4, 65), 2),
+                                         ((4, 1000), 1), ("tile+1", 0), ("3tile+5", 0), ("tile+1", -1),
+                                         ("3tile+5", -1)])
 def test_order_backend_functions_match_their_plain_versions(cuda, dtype, shape, axis):
     """nxp.sort, argsort, sort_pairs and the merge-split on the card equal
-    their plain versions on the CPU exactly: NaN last, -0.0 equal to 0.0,
-    ties in their first order, the dtype's extremes."""
+    their plain versions on the CPU bit for bit: NaN last, -0.0 equal to
+    0.0 (each keeps its bits), ties in their first order, the dtype's
+    extremes; lanes within a tile and past it (merge passes), along axis 0
+    and along the innermost axis."""
     import torch
 
     from cubed_tpu_torch.backend_array_api import nxp
     from cubed_tpu_torch.kernels import merge_sort as ms
 
+    shape, axis = _order_case(shape, axis, dtype)
     a = torch.from_numpy(_order_data(shape, np.dtype(dtype)))
     b = torch.from_numpy(_order_data(shape, np.dtype(dtype), seed=1))
     idx = torch.from_numpy(np.random.default_rng(2).permutation(a.numel()).reshape(shape))
-    np.testing.assert_array_equal(nxp.sort(a.to(cuda), axis=axis).cpu(), torch.sort(a, dim=axis, stable=True).values)
+    np.testing.assert_array_equal(_bits(nxp.sort(a.to(cuda), axis=axis)),
+                                  _bits(torch.sort(a, dim=axis, stable=True).values))
     np.testing.assert_array_equal(nxp.argsort(a.to(cuda), axis=axis).cpu(),
                                   np.argsort(a.numpy(), axis=axis, kind="stable"))
     got = nxp.sort_pairs(a.to(cuda), idx.to(cuda), axis)
     want = ms.sort_block_plain(a, axis, idx)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.cpu(), w)
+        np.testing.assert_array_equal(_bits(g), _bits(w))
     sa, sb = ms.sort_block_plain(a, axis), ms.sort_block_plain(b, axis)
     flags = torch.from_numpy(np.random.default_rng(3).random(shape[:axis] + (1,) * (len(shape) - axis)) < 0.5)
-    np.testing.assert_array_equal(ms.merge_split(sa.to(cuda), sb.to(cuda), flags.to(cuda), axis).cpu(),
-                                  ms.merge_split_plain(sa, sb, flags, axis))
+    np.testing.assert_array_equal(_bits(ms.merge_split(sa.to(cuda), sb.to(cuda), flags.to(cuda), axis)),
+                                  _bits(ms.merge_split_plain(sa, sb, flags, axis)))
+
+
+@pytest.mark.parametrize("where", ["tile+1", "3tile+5"])
+def test_sort_kernels_launch_as_their_plan_says(cuda, where):
+    """A sort, a sort with indices and an argsort of float64 lanes past the
+    tile count the plan's launches (the tile sort and its merge passes); a
+    block of (512, 256, 256) along axis 0 is one launch each; vmapped blocks
+    sort as one batch of lanes, equal to each block's own sort."""
+    import torch
+
+    from cubed_tpu_torch.kernels import _geometry
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    shape, axis = _order_case(where, 0, "float64")
+    cases = [(shape, 0), ((512, 256, 256), 0)]
+    for shape, axis in cases:
+        a = torch.rand(shape, dtype=torch.float64, device=cuda)
+        outer, n, inner = int(np.prod(shape[:axis])), shape[axis], int(np.prod(shape[axis + 1:]))
+        for mode, call in (("values", lambda: ms.sort_block(a, axis)),
+                           ("pairs", lambda: ms.sort_block(a, axis, torch.zeros_like(a, dtype=torch.int64))),
+                           ("argsort", lambda: ms.argsort_block(a, axis))):
+            wrapper = ms.argsort_block if mode == "argsort" else ms.sort_block
+            before = wrapper.launches
+            call()
+            plan = _geometry.sort_plan(outer, n, inner, 8, mode)
+            assert wrapper.launches - before == plan.launches
+            assert plan.launches == (1 if n <= plan.tile else 1 + int(np.ceil(np.log2(np.ceil(n / plan.tile)))))
+        if shape == (512, 256, 256):
+            assert _geometry.sort_plan(outer, n, inner, 8, "values").launches == 1
+            assert _geometry.sort_plan(outer, n, inner, 8, "argsort").launches == 1
+    batch = torch.rand((3, 512, 16, 16), dtype=torch.float64, device=cuda)
+    before = ms.argsort_block.launches
+    got = torch.func.vmap(lambda t: ms.argsort_block(t, 0))(batch)
+    assert ms.argsort_block.launches - before == _geometry.sort_plan(3, 512, 16 * 16, 8, "argsort").launches == 1
+    for k in range(3):
+        np.testing.assert_array_equal(got[k].cpu(), ms.argsort_block_plain(batch[k].cpu(), 0))
 
 
 @pytest.mark.parametrize("side", ["left", "right"])

@@ -299,3 +299,188 @@ def test_fma_sum_plan_reads_each_element_once_and_sums_like_the_jax_package(case
                         dtype=nxp.float64))
     scale = float(np.sum(np.abs((a * x).astype(np.float64))) + np.sum(np.abs((b * y).astype(np.float64))))
     assert abs(got - ref) <= TOL[dtype] * scale
+
+
+# ---------------------------------------------------------------------------
+# sort_block / argsort_block: the tile sort and its merge passes
+# ---------------------------------------------------------------------------
+
+SORT_ITEMSIZES = (8, 4, 2, 1)
+
+
+def _tile(inner, itemsize, mode="values"):
+    return _geometry.sort_plan(1, 1 << 20, inner, itemsize, mode).tile
+
+
+def _walk_items(p, lane_groups):
+    """Work items of *p* in the given lane groups, every tile and outer index."""
+    o, lg, kt = np.meshgrid(np.arange(p.outer), np.asarray(lane_groups), np.arange(p.tiles_n), indexing="ij")
+    return torch.from_numpy(((o * p.lane_groups + lg) * p.tiles_n + kt).reshape(-1))
+
+
+def _check_sort_walk(p, items=None):
+    """Replay *p*: each launch writes every element of the walked lanes
+    exactly once; the tile sort's tiles and each pass's pairs lie inside
+    their lane, each pair is two runs of the pass's width that the launch
+    before it left sorted (a tile, or a pair of the pass before)."""
+    launches = _geometry.sort_walk(torch, p)
+    assert len(launches) == p.launches
+    outer, n, inner = p.outer, p.n, p.inner
+    if items is None:
+        expected = torch.arange(outer * n * inner)
+    else:
+        lg = torch.unique(torch.div(items // p.tiles_n, 1, rounding_mode="floor") % p.lane_groups)
+        lanes = torch.cat([torch.arange(g * p.lanes, min((g + 1) * p.lanes, inner)) for g in lg.tolist()])
+        o = torch.arange(outer)
+        k = torch.arange(n)
+        expected = ((o[:, None, None] * n + k[None, :, None]) * inner + lanes[None, None, :]).reshape(-1)
+        keep = torch.isin(launches[0][1], items)
+        launches = [tuple(t[keep] for t in launch) for launch in launches]
+    segments = None
+    for j, (offsets, row, starts, ends) in enumerate(launches):
+        # every element of the walked lanes exactly once
+        assert torch.equal(torch.sort(offsets).values, torch.sort(expected).values)
+        pos = offsets // inner % n
+        assert bool(((starts <= pos) & (pos < ends)).all()) and bool((ends <= n).all())
+        assert bool((starts % p.tile == 0).all())
+        lane = offsets // (n * inner) * inner + offsets % inner
+        if j == 0:
+            assert bool((ends - starts <= p.tile).all())
+            assert bool(((pos - starts) < p.tile).all())
+        else:
+            w = p.widths[j - 1]
+            assert bool((starts % (2 * w) == 0).all())
+            # the two runs of each pair were segments the launch before sorted
+            mid = torch.clamp(starts + w, max=n)
+            run_start = torch.where(pos < mid, starts, mid)
+            run_end = torch.where(pos < mid, mid, ends)
+            got = set(zip(lane.tolist(), run_start.tolist(), run_end.tolist()))
+            assert got <= segments
+        # a work item's outputs: at most `tile` positions of at most `lanes`
+        # lanes, one pair (or tile) per lane
+        per_item = torch.unique(torch.stack([row, starts]), dim=1)
+        assert per_item.shape[1] == torch.unique(row).numel()
+        segments = set(zip(lane.tolist(), starts.tolist(), ends.tolist()))
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+@pytest.mark.parametrize("inner", [1, 7])
+@pytest.mark.parametrize("n_at", ["1", "T-1", "T", "T+1", "3T+5", "16384"])
+def test_sort_plan_walks_every_element_once_a_launch(itemsize, inner, n_at):
+    t = _tile(inner, itemsize)
+    n = {"1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "3T+5": 3 * t + 5, "16384": 16384}[n_at]
+    for mode in _geometry.SORT_MODES:
+        p = _geometry.sort_plan(2, n, inner, itemsize, mode)
+        assert p.tiles == 2 * p.lane_groups * p.tiles_n > 0
+        assert p.launches == (1 if n <= p.tile else 1 + int(np.ceil(np.log2(np.ceil(n / p.tile)))))
+        assert max(p.tile_smem, p.merge_smem) <= _geometry.SORT_SMEM_TARGET <= _geometry.SORT_SMEM_LIMIT
+        if mode == "values" or n <= 4 * t:  # the walks of the other modes differ only in their tiles
+            _check_sort_walk(p)
+
+
+@pytest.mark.parametrize("n_at", ["1", "T-1", "T", "T+1", "3T+5"])
+def test_sort_plan_walks_wide_blocks_lane_group_by_lane_group(n_at):
+    """inner 65536 (a (512, 256, 256) block along axis 0): the walk of the
+    first and the last lane groups."""
+    inner = 65536
+    t = _tile(inner, 8)
+    n = {"1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "3T+5": 3 * t + 5}[n_at]
+    p = _geometry.sort_plan(1, n, inner, 8, "values")
+    assert p.lanes == 16 and p.lane_groups == inner // 16
+    _check_sort_walk(p, _walk_items(p, [0, p.lane_groups - 1]))
+
+
+def test_sort_plan_main_path_blocks_take_one_launch():
+    """The order-statistics phase's blocks: sort and top-k (512, 256, 256),
+    the argsort network's shrunk chunk (171, 256, 256), float64 along axis
+    0: one launch of 4096 tiles of 512 (256) x 16 lanes, 64 KB of values;
+    16384 steps in one chunk: the tile sort and five merge passes."""
+    for mode in ("values", "argsort"):
+        p = _geometry.sort_plan(1, 512, 65536, 8, mode)
+        assert (p.tile, p.lanes, p.tiles, p.launches, p.widths) == (512, 16, 4096, 1, ())
+        assert p.tile_smem == 16 * 513 * 8 + 2 * _geometry._round16(16 * 514 * 2)
+    p = _geometry.sort_plan(1, 171, 65536, 8, "pairs")
+    assert (p.tile, p.lanes, p.launches) == (256, 16, 1)
+    p = _geometry.sort_plan(1, 16384, 256, 8, "values")
+    assert (p.tile, p.lanes, p.launches, p.widths) == (512, 16, 6, (512, 1024, 2048, 4096, 8192))
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+def test_sort_plan_shared_memory_fits_every_dtype_and_mode(itemsize):
+    for mode in _geometry.SORT_MODES:
+        for inner in (1, 2, 7, 16, 33, 65536):
+            for n in (1, 8, 100, 4096, 1 << 20):
+                p = _geometry.sort_plan(3, n, inner, itemsize, mode)
+                assert p.tile >= _geometry.SORT_ITEMS and p.tile & (p.tile - 1) == 0
+                assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
+                # rows of 128 bytes, or of every lane there is
+                assert p.lanes * itemsize >= min(128, 32 * itemsize) or p.lanes >= inner
+                assert p.tile_smem <= _geometry.SORT_SMEM_LIMIT and p.merge_smem <= _geometry.SORT_SMEM_LIMIT
+                assert p.smem <= _geometry.SORT_SMEM_TARGET
+                assert p.tile < 2 * max(n, _geometry.SORT_ITEMS) or p.smem > _geometry.SORT_SMEM_TARGET // 2
+
+
+def test_sort_plan_vector_loads_need_a_contiguous_aligned_lane():
+    assert _geometry.sort_plan(4, 1000, 1, 4, "values", 4096).vector == 4
+    assert _geometry.sort_plan(2, 20000, 1, 2, "values", 4096).vector == 8
+    assert _geometry.sort_plan(4, 1000, 1, 4, "values", 4104).vector == 1  # the base not 16-byte aligned
+    assert _geometry.sort_plan(4, 1001, 1, 4, "values", 4096).vector == 1  # a lane's start not aligned
+    assert _geometry.sort_plan(1, 1001, 1, 4, "values", 4096).vector == 4  # one lane: its start is the base
+    assert _geometry.sort_plan(4, 1000, 2, 4, "values", 4096).vector == 1  # lanes not contiguous
+
+
+def test_sort_plan_of_a_vmapped_batch_and_of_nothing():
+    """A vmapped call's batch axes lead the lanes: outer grows, one launch
+    set sorts every example; an empty block plans no launch."""
+    one = _geometry.sort_plan(1, 171, 4096, 8, "argsort")
+    batch = _geometry.sort_plan(5, 171, 4096, 8, "argsort")
+    assert batch.tiles == 5 * one.tiles and batch.launches == one.launches == 1
+    _check_sort_walk(_geometry.sort_plan(5, 37, 9, 8, "argsort"))
+    for shape in ((0, 5, 3), (4, 0, 3), (4, 5, 0)):
+        p = _geometry.sort_plan(*shape, 8, "values")
+        assert p.tiles == 0 and p.launches == 0 and _geometry.sort_walk(torch, p) == []
+
+
+def test_sort_plan_segments_compose_to_the_jax_packages_sort(monkeypatch):
+    """Sorting each tile of the walk, then each pass's pair of runs, with the
+    JAX package's ``nxp.sort`` gives its sort of the whole lane, and the
+    port's ``sort_block`` on the CPU: the tiles and pairs cover the lanes as
+    a merge sort must (tiles forced small: several passes)."""
+    monkeypatch.setattr(_geometry, "SORT_SMEM_TARGET", 2000)
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    rng = np.random.default_rng(7)
+    shape = (3, 150, 5)
+    a = rng.integers(0, 20, shape).astype(np.float64)
+    a[rng.random(shape) < 0.1] = np.nan
+    p = _geometry.sort_plan(*shape, 8, "values")
+    assert len(p.widths) >= 2
+    flat = a.reshape(-1).copy()
+    for offsets, _, starts, _ in _geometry.sort_walk(torch, p):
+        lane = (offsets // (shape[1] * shape[2])) * shape[2] + offsets % shape[2]
+        keys = np.stack([lane.numpy(), starts.numpy()])
+        for key in np.unique(keys, axis=1).T:
+            sel = np.sort(offsets.numpy()[(keys[0] == key[0]) & (keys[1] == key[1])])
+            flat[sel] = np.asarray(nxp.sort(nxp.asarray(flat[sel])))
+    want = np.asarray(nxp.sort(nxp.asarray(a), axis=1))
+    np.testing.assert_array_equal(flat.reshape(shape), want)
+    np.testing.assert_array_equal(ms.sort_block(torch.from_numpy(a), 1).numpy(), want)
+
+
+def test_sort_plan_refuses_what_the_kernels_cannot_index():
+    with pytest.raises(ValueError, match="32 bits"):
+        _geometry.sort_plan(1, 2**31, 1, 1, "values")
+    with pytest.raises(ValueError, match="mode"):
+        _geometry.sort_plan(1, 8, 1, 8, "descending")
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+@pytest.mark.parametrize("inner", [1, 7, 65536])
+def test_sort_plan_launches_one_tile_sort_then_a_pass_a_doubling(itemsize, inner):
+    t = _tile(inner, itemsize)
+    for n in (1, t - 1, t, t + 1, 3 * t + 5, 16384):
+        for mode in _geometry.SORT_MODES:
+            p = _geometry.sort_plan(1, n, inner, itemsize, mode)
+            assert p.launches == (1 if n <= p.tile else 1 + int(np.ceil(np.log2(np.ceil(n / p.tile)))))
+            assert p.widths == tuple(p.tile << k for k in range(p.launches - 1))
+            assert p.smem <= _geometry.SORT_SMEM_LIMIT

@@ -1,0 +1,98 @@
+"""Pin the port's public names to a superset of the JAX package's, less the
+names still to be ported, each listed here (ROADMAP.md, Queue 1).
+
+The counterpart of ``tests/test_public_api.py``: the reference's names are
+read from the JAX package itself, so a name it gains fails here until the
+port carries it or this file lists it as pending.
+"""
+
+import os
+
+os.environ.setdefault("CUBED_TPU_TORCH_DEVICE", "cpu")
+
+import cubed_tpu  # noqa: E402
+import cubed_tpu.array_api as ref_xp  # noqa: E402
+import pytest  # noqa: E402
+
+import cubed_tpu_torch  # noqa: E402
+import cubed_tpu_torch.array_api as xp  # noqa: E402
+
+#: top-level names of the reference not ported yet (ROADMAP Queue 1: results
+#: written to Zarr, map_overlap, plan introspection, the service)
+PENDING_TOP_LEVEL = {
+    "to_zarr", "store",  # item 1
+    "map_overlap",  # item 2
+    "visualize", "measure_reserved_mem",  # item 5
+    "service", "ComputeService", "ServiceConfig",  # item 11: the fleet's service
+}
+
+#: array_api names of the reference not ported yet (Queue 1 items 2 and 4)
+PENDING_ARRAY_API = {"pad", "einsum", "einsum_functions", "fft"}
+
+#: the linalg extension's functions of the reference (the Array API
+#: standard's linalg names it defines)
+REFERENCE_LINALG = {
+    "cholesky", "cross", "det", "diagonal", "eigh", "eigvalsh", "inv", "matmul", "matrix_norm",
+    "matrix_power", "matrix_rank", "matrix_transpose", "outer", "pinv", "qr", "slogdet", "solve", "svd",
+    "svdvals", "tensordot", "trace", "vecdot", "vector_norm",
+}
+
+#: the rest of linalg (Queue 1 item 4): all but diagonal and trace
+PENDING_LINALG = REFERENCE_LINALG - {"diagonal", "trace"}
+
+
+def _public(module) -> set:
+    return {n for n in dir(module) if not n.startswith("_")}
+
+
+def test_top_level_superset_of_reference_less_pending():
+    missing = set(cubed_tpu.__all__) - set(cubed_tpu_torch.__all__) - {"__version__"}
+    assert missing == PENDING_TOP_LEVEL, sorted(missing ^ PENDING_TOP_LEVEL)
+    assert cubed_tpu_torch.__version__ == cubed_tpu.__version__
+
+
+@pytest.mark.parametrize("name", ["Callback", "TaskEndEvent", "observability"])
+def test_observer_names_exported_as_the_reference_does(name):
+    assert name in cubed_tpu_torch.__all__
+    assert getattr(cubed_tpu_torch, name) is not None
+    assert name in cubed_tpu.__all__
+
+
+def test_callback_and_task_end_event_are_the_lifecycles_own():
+    from cubed_tpu_torch.observability import TraceCollector
+    from cubed_tpu_torch.runtime.types import Callback, TaskEndEvent
+
+    assert cubed_tpu_torch.Callback is Callback
+    assert cubed_tpu_torch.TaskEndEvent is TaskEndEvent
+    assert issubclass(TraceCollector, cubed_tpu_torch.Callback)
+    assert cubed_tpu_torch.observability.TraceCollector is TraceCollector
+    assert {f for f in TaskEndEvent.__dataclass_fields__} == set(cubed_tpu.TaskEndEvent.__dataclass_fields__)
+    assert {m for m in dir(Callback) if m.startswith("on_")} == {
+        m for m in dir(cubed_tpu.Callback) if m.startswith("on_")}
+
+
+def test_all_names_resolve():
+    for name in cubed_tpu_torch.__all__:
+        assert getattr(cubed_tpu_torch, name) is not None, name
+
+
+def test_pending_names_are_really_missing():
+    """A name ported later leaves the pending lists with it."""
+    assert not PENDING_TOP_LEVEL & set(cubed_tpu_torch.__all__)
+    assert not {n for n in PENDING_ARRAY_API if hasattr(xp, n)}
+    assert not {n for n in PENDING_LINALG if hasattr(xp.linalg, n)}
+
+
+def test_array_api_superset_of_reference_less_pending():
+    missing = _public(ref_xp) - _public(xp)
+    assert missing == PENDING_ARRAY_API, sorted(missing ^ PENDING_ARRAY_API)
+
+
+def test_array_api_names_resolve():
+    for name in _public(ref_xp) - PENDING_ARRAY_API:
+        assert hasattr(xp, name), name
+
+
+def test_linalg_superset_of_reference_less_pending():
+    assert REFERENCE_LINALG <= _public(ref_xp.linalg)
+    assert REFERENCE_LINALG - PENDING_LINALG <= _public(xp.linalg)
