@@ -702,19 +702,22 @@ def paths_delta(wrapper, before: dict) -> str:
     return "+".join(k for k, v in wrapper.paths.items() if v > before[k])
 
 
-def one_launch_per_call(torch, wrapper, kernel_key: str, calls: list) -> None:
+def one_launch_per_call(torch, wrapper, kernel_key, calls: list) -> None:
     """Run *calls* (thunks) under torch.profiler: the device must run exactly
-    one kernel named *kernel_key* per launch the wrapper counts, and no
-    other kernel (no copy of an input, no second pass). Any other kernel, or
-    more of these than counted, fails at once; a reading with fewer than
-    counted (the profiler dropped a record, see PERF.md) is not used, and
-    the session runs again, up to PROFILE_ATTEMPTS sessions in all."""
+    one kernel named *kernel_key* (or any of a tuple of names) per launch the
+    wrapper counts, and no other kernel (no copy of an input, no second
+    pass). Any other kernel, or more of these than counted, fails at once; a
+    reading with fewer than counted (the profiler dropped a record, see
+    PERF.md) is not used, and the session runs again, up to
+    PROFILE_ATTEMPTS sessions in all."""
+    keys = (kernel_key,) if isinstance(kernel_key, str) else tuple(kernel_key)
+    kernel_key = "+".join(keys)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = wrapper.launches
         kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls])
         launched = wrapper.launches - before
-        ours = sum(n for k, n in kernels.items() if kernel_key in k)
-        others = {k: n for k, n in kernels.items() if kernel_key not in k}
+        ours = sum(n for k, n in kernels.items() if any(key in k for key in keys))
+        others = {k: n for k, n in kernels.items() if not any(key in k for key in keys)}
         print(f"{kernel_key}: {len(calls)} calls, {launched} counted launches, profiler: {ours} "
               f"{kernel_key} kernels, other kernels {others or 'none'} (session {attempt})")
         check(ours <= launched and not others,
@@ -3060,6 +3063,19 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
         want = {"sort_block": sort_launches(shape, axis, dtype, "values") + sort_launches(shape, axis, dtype, "pairs"),
                 "argsort_block": sort_launches(shape, axis, dtype, "argsort"), "merge_split": 2 if with_split else 0}
         check(launched == want, f"{what}: launches {launched}, expected {want}")
+    # each counted sort launch is a kernel the device ran: the profiler's
+    # records of the tile sort and the merge passes against the counts, at
+    # the phase's blocks, past a tile and along 16384 steps
+    rec = [rand(shape) for shape in (sort_shape, topk_shape, ORDER_STATS_SEQ_LONG["shape"])]
+    past = [c[1] for c in merge_cases_past_tile() if c[2] == 0 and c[3] == "float64"][-1]  # 3T+5 along axis 0
+    rec.append(_merge_data(torch, gen, past, "float64"))
+    rec_idx = [torch.randperm(v.numel(), generator=gen, device=dev).reshape(v.shape) for v in rec]
+    sort_kernels = ("sort_tiles_kernel", "sort_merge_kernel")
+    one_launch_per_call(torch, ms.sort_block, sort_kernels,
+                        [lambda v=v: ms.sort_block(v, 0) for v in rec]
+                        + [lambda v=v, i=i: ms.sort_block(v, 0, i) for v, i in zip(rec, rec_idx)])
+    one_launch_per_call(torch, ms.argsort_block, sort_kernels, [lambda v=v: ms.argsort_block(v, 0) for v in rec])
+    del rec, rec_idx
     print(f"merge kernels: sort_block, argsort_block and merge_split equal their plain versions (bit for bit) over "
           f"{len(cases)} cases (the phase's blocks {sort_shape}, {arg_shape}, {topk_shape}; NaN, -0.0, ties, "
           f"integer extremes, ragged, one element, (16384, 32, 32), lanes past a tile for each of "

@@ -767,21 +767,28 @@ def _round16(nbytes: int) -> int:
     return _ceil_div(nbytes, 16) * 16
 
 
-def sort_smem(tile: int, lanes: int, itemsize: int, mode: int, kernel: str) -> int:
-    """Dynamic shared memory of one CTA (``tile_layout`` / ``merge_layout``
-    in csrc/merge_sort.cu lay it out the same way), each region rounded up
-    to 16 bytes: the carried indices (pairs; lanes of ``tile + 1``), the
-    values (lanes of ``tile + 1``: neighbouring lanes fall in other banks);
-    for the tile sort two order buffers of uint16 positions (lanes of
-    ``tile + 2``); for a merge pass, argsort's int32 positions, one order
-    buffer and each lane's two splits (int64)."""
-    idx = _round16(lanes * (tile + 1) * 8) if mode == SORT_MODES["pairs"] else 0
-    vals = _round16(lanes * (tile + 1) * itemsize)
+#: the shared-memory regions of a sort kernel's CTA whose byte offsets the
+#: kernels take (``Regions`` in csrc/merge_sort.cu); the carried indices are
+#: at 0
+SORT_REGIONS = ("vals", "pos", "ord0", "ord1", "splits")
+
+
+def sort_layout(tile: int, lanes: int, itemsize: int, mode: int, kernel: str) -> tuple[tuple, int]:
+    """One CTA's dynamic shared memory for *kernel* (``tile`` or
+    ``merge``): the byte offsets of ``SORT_REGIONS`` and the bytes in all,
+    each region rounded up to 16 bytes: the carried indices (pairs; lanes of
+    ``tile + 1``), the values (lanes of ``tile + 1``: neighbouring lanes fall
+    in other banks); for the tile sort two order buffers of uint16 positions
+    (lanes of ``tile + 2``); for a merge pass, argsort's int32 positions, one
+    order buffer (``ord0`` and ``ord1`` the same) and each lane's two splits
+    (int64). A region the kernel does not use starts where the next does."""
+    vals = _round16(lanes * (tile + 1) * 8) if mode == SORT_MODES["pairs"] else 0
+    pos = vals + _round16(lanes * (tile + 1) * itemsize)
     order = _round16(lanes * (tile + 2) * 2)
     if kernel == "tile":
-        return idx + vals + 2 * order
-    pos = _round16(lanes * tile * 4) if mode == SORT_MODES["argsort"] else 0
-    return idx + vals + pos + order + _round16(2 * lanes * 8)
+        return (vals, pos, pos, pos + order, pos + 2 * order), pos + 2 * order
+    ord0 = pos + (_round16(lanes * tile * 4) if mode == SORT_MODES["argsort"] else 0)
+    return (vals, pos, ord0, ord0, ord0 + order), ord0 + order + _round16(2 * lanes * 8)
 
 
 @dataclass(frozen=True)
@@ -817,6 +824,8 @@ class SortPlan:
     widths: tuple  # run width merged by each pass
     tile_smem: int
     merge_smem: int
+    tile_regions: tuple  # the tile sort's SORT_REGIONS offsets (sort_layout)
+    merge_regions: tuple  # a merge pass's; () without passes
 
     @property
     def launches(self) -> int:
@@ -849,7 +858,7 @@ def sort_plan(outer: int, n: int, inner: int, itemsize: int, mode, ptr: int = 0)
         raise ValueError(f"sort_plan: the kernels count positions along a lane in 32 bits, not {n}")
     lanes = min(max(1, 128 // itemsize), 32, _pow2_at_least(inner))
     tile = SORT_ITEMS
-    while tile < n and max(sort_smem(2 * tile, lanes, itemsize, mode, k)
+    while tile < n and max(sort_layout(2 * tile, lanes, itemsize, mode, k)[1]
                            for k in (("tile", "merge") if 2 * tile < n else ("tile",))) <= SORT_SMEM_TARGET:
         tile *= 2
     tiles_n = _ceil_div(n, tile)
@@ -863,12 +872,13 @@ def sort_plan(outer: int, n: int, inner: int, itemsize: int, mode, ptr: int = 0)
     if not (inner == 1 and vector > 1 and ptr % 16 == 0 and (outer == 1 or (n * itemsize) % 16 == 0)
             and (tiles_n == 1 or (tile * itemsize) % 16 == 0)):
         vector = 1
+    tile_regions, tile_smem = sort_layout(tile, lanes, itemsize, mode, "tile")
+    merge_regions, merge_smem = sort_layout(tile, lanes, itemsize, mode, "merge") if widths else ((), 0)
     return SortPlan(
         outer=outer, n=n, inner=inner, itemsize=itemsize, mode=mode, tile=tile, lanes=lanes, vector=vector,
         tiles_n=tiles_n, lane_groups=lane_groups, tiles=tiles, grid=min(tiles, SORT_MAX_GRID),
-        widths=tuple(widths if tiles else ()),
-        tile_smem=sort_smem(tile, lanes, itemsize, mode, "tile"),
-        merge_smem=sort_smem(tile, lanes, itemsize, mode, "merge") if widths else 0,
+        widths=tuple(widths if tiles else ()), tile_smem=tile_smem, merge_smem=merge_smem,
+        tile_regions=tile_regions, merge_regions=merge_regions,
     )
 
 

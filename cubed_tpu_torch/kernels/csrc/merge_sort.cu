@@ -64,9 +64,10 @@
 // Bound on the H100: bytes, the block read once and its output written once
 // a launch (3.35 TB/s). A tile of 512 x 16 float64 holds 64 KB of values
 // and 32 KB of positions: two CTAs an SM. What holds sort_tiles from it is
-// the compares, not the bytes: chip_smoke_csrc/sort_stages.py times the
-// tile's load and store alone, then with the warps' networks, then whole.
-// Dynamic shared memory past 48 KB is allowed once for every kernel when
+// the compares, not the bytes: the tile's load and store alone take about a
+// fifth of a launch on the H100 (PERF.md, Findings). The shared-memory
+// layout is the plan's (Regions); the kernels take its offsets. Dynamic
+// shared memory past 48 KB is allowed once for every kernel when
 // the library loads (merge_sort_init), never inside a CUDA-graph capture.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
@@ -366,55 +367,31 @@ __device__ __forceinline__ void batched(int total, const Live& live, const Get& 
   }
 }
 
-__host__ __device__ inline long long round16(long long b) { return (b + 15) / 16 * 16; }
-
-// byte offsets of a CTA's shared-memory regions (kernels/_geometry.py:
-// sort_smem computes the same sizes): carried indices, values, then for the
-// tile sort two order buffers, for a merge pass argsort's positions, one
-// order buffer and the splits
-struct Layout {
-  long long idx, vals, pos, ord0, ord1, splits, bytes;
+// byte offsets of a CTA's shared-memory regions, laid out by the Python plan
+// (kernels/_geometry.py: sort_layout; the carried indices at 0): the values,
+// argsort's positions (a merge pass), the order buffers (one for a merge
+// pass) and each lane's splits (a merge pass)
+struct Regions {
+  int vals, pos, ord0, ord1, splits;
 };
-
-__host__ __device__ inline Layout sort_layout(int tile, int lanes, int itemsize, int mode, bool merge) {
-  Layout L{};
-  const long long idx = mode == 1 ? round16((long long)lanes * (tile + 1) * 8) : 0;
-  const long long vals = round16((long long)lanes * (tile + 1) * itemsize);
-  const long long order = round16((long long)lanes * (tile + 2) * 2);
-  L.idx = 0;
-  L.vals = idx;
-  L.pos = L.vals + vals;
-  if (!merge) {
-    L.ord0 = L.pos;
-    L.ord1 = L.ord0 + order;
-    L.splits = L.ord1 + order;
-    L.bytes = L.splits;
-  } else {
-    const long long pos = mode == 2 ? round16((long long)lanes * tile * 4) : 0;
-    L.ord0 = L.ord1 = L.pos + pos;
-    L.splits = L.ord0 + order;
-    L.bytes = L.splits + round16(2LL * lanes * 8);
-  }
-  return L;
-}
 
 // kMode 0: values; 1: values with carried indices; 2: argsort (positions)
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
     sort_tiles_kernel(const T* __restrict__ src, const long long* __restrict__ srci, T* __restrict__ out,
                       long long* __restrict__ outi, long long n, long long inner, int tile_shift, int lane_shift,
-                      int vector, long long tiles_n, long long lane_groups, long long tiles, int runs_out) {
+                      int vector, long long tiles_n, long long lane_groups, long long tiles, Regions R,
+                      int runs_out) {
   using K = typename Order<T>::K;
   constexpr bool kIdx = kMode == 1;
   using E = Elem<K, kIdx>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = 1 << tile_shift, lanes = 1 << lane_shift;
   const int vstride = tile + 1, ostride = tile + 2;
-  const Layout L = sort_layout(tile, lanes, sizeof(T), kMode, false);
-  long long* sidx = reinterpret_cast<long long*>(smem + L.idx);
-  T* svals = reinterpret_cast<T*>(smem + L.vals);
-  unsigned short* ord0 = reinterpret_cast<unsigned short*>(smem + L.ord0);
-  unsigned short* ord1 = reinterpret_cast<unsigned short*>(smem + L.ord1);
+  long long* sidx = reinterpret_cast<long long*>(smem);
+  T* svals = reinterpret_cast<T*>(smem + R.vals);
+  unsigned short* ord0 = reinterpret_cast<unsigned short*>(smem + R.ord0);
+  unsigned short* ord1 = reinterpret_cast<unsigned short*>(smem + R.ord1);
   const int unit_shift = tile_shift - 3;  // log2 of the units (of kItems) a lane
   const int units = 1 << (unit_shift + lane_shift);
 
@@ -563,19 +540,18 @@ __global__ void __launch_bounds__(kThreads, 2)
     sort_merge_kernel(const T* __restrict__ x, const T* __restrict__ src, const long long* __restrict__ srci,
                       T* __restrict__ out, long long* __restrict__ outi, long long n, long long inner,
                       int tile_shift, int lane_shift, long long tiles_n, long long lane_groups, long long tiles,
-                      long long width, int final_out) {
+                      long long width, Regions R, int final_out) {
   using K = typename Order<T>::K;
   constexpr bool kIdx = kMode == 1;
   using E = Elem<K, kIdx>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = 1 << tile_shift, lanes = 1 << lane_shift;
   const int vstride = tile + 1, ostride = tile + 2;
-  const Layout L = sort_layout(tile, lanes, sizeof(T), kMode, true);
-  long long* sidx = reinterpret_cast<long long*>(smem + L.idx);
-  T* svals = reinterpret_cast<T*>(smem + L.vals);
-  int* spos = reinterpret_cast<int*>(smem + L.pos);
-  unsigned short* ord = reinterpret_cast<unsigned short*>(smem + L.ord0);
-  long long* splits = reinterpret_cast<long long*>(smem + L.splits);
+  long long* sidx = reinterpret_cast<long long*>(smem);
+  T* svals = reinterpret_cast<T*>(smem + R.vals);
+  int* spos = reinterpret_cast<int*>(smem + R.pos);
+  unsigned short* ord = reinterpret_cast<unsigned short*>(smem + R.ord0);
+  long long* splits = reinterpret_cast<long long*>(smem + R.splits);
   const int unit_shift = tile_shift - 3;
   const int units = 1 << (unit_shift + lane_shift);
 
@@ -707,23 +683,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <typename T>
 int launch_tiles(int mode, const void* src, const void* srci, void* out, void* outi, long long n, long long inner,
                  int tile_shift, int lane_shift, int vector, long long tiles_n, long long lane_groups,
-                 long long tiles, int grid, int smem, int runs_out, cudaStream_t s) {
-  if (sort_layout(1 << tile_shift, 1 << lane_shift, sizeof(T), mode, false).bytes > smem || smem > kSmemLimit) {
-    return (int)cudaErrorInvalidValue;
-  }
+                 long long tiles, int grid, const Regions& R, int smem, int runs_out, cudaStream_t s) {
   const T* a = static_cast<const T*>(src);
   const long long* ai = static_cast<const long long*>(srci);
   T* b = static_cast<T*>(out);
   long long* bi = static_cast<long long*>(outi);
   if (mode == 0) {
     sort_tiles_kernel<T, 0><<<grid, kThreads, smem, s>>>(a, ai, b, bi, n, inner, tile_shift, lane_shift, vector,
-                                                         tiles_n, lane_groups, tiles, runs_out);
+                                                         tiles_n, lane_groups, tiles, R, runs_out);
   } else if (mode == 1) {
     sort_tiles_kernel<T, 1><<<grid, kThreads, smem, s>>>(a, ai, b, bi, n, inner, tile_shift, lane_shift, vector,
-                                                         tiles_n, lane_groups, tiles, runs_out);
+                                                         tiles_n, lane_groups, tiles, R, runs_out);
   } else {
     sort_tiles_kernel<T, 2><<<grid, kThreads, smem, s>>>(a, ai, b, bi, n, inner, tile_shift, lane_shift, vector,
-                                                         tiles_n, lane_groups, tiles, runs_out);
+                                                         tiles_n, lane_groups, tiles, R, runs_out);
   }
   return (int)cudaGetLastError();
 }
@@ -731,10 +704,8 @@ int launch_tiles(int mode, const void* src, const void* srci, void* out, void* o
 template <typename T>
 int launch_merge(int mode, const void* x, const void* src, const void* srci, void* out, void* outi, long long n,
                  long long inner, int tile_shift, int lane_shift, long long tiles_n, long long lane_groups,
-                 long long tiles, long long width, int grid, int smem, int final_out, cudaStream_t s) {
-  if (sort_layout(1 << tile_shift, 1 << lane_shift, sizeof(T), mode, true).bytes > smem || smem > kSmemLimit) {
-    return (int)cudaErrorInvalidValue;
-  }
+                 long long tiles, long long width, int grid, const Regions& R, int smem, int final_out,
+                 cudaStream_t s) {
   const T* xv = static_cast<const T*>(x);
   const T* a = static_cast<const T*>(src);
   const long long* ai = static_cast<const long long*>(srci);
@@ -742,15 +713,27 @@ int launch_merge(int mode, const void* x, const void* src, const void* srci, voi
   long long* bi = static_cast<long long*>(outi);
   if (mode == 0) {
     sort_merge_kernel<T, 0><<<grid, kThreads, smem, s>>>(xv, a, ai, b, bi, n, inner, tile_shift, lane_shift, tiles_n,
-                                                         lane_groups, tiles, width, final_out);
+                                                         lane_groups, tiles, width, R, final_out);
   } else if (mode == 1) {
     sort_merge_kernel<T, 1><<<grid, kThreads, smem, s>>>(xv, a, ai, b, bi, n, inner, tile_shift, lane_shift, tiles_n,
-                                                         lane_groups, tiles, width, final_out);
+                                                         lane_groups, tiles, width, R, final_out);
   } else {
     sort_merge_kernel<T, 2><<<grid, kThreads, smem, s>>>(xv, a, ai, b, bi, n, inner, tile_shift, lane_shift, tiles_n,
-                                                         lane_groups, tiles, width, final_out);
+                                                         lane_groups, tiles, width, R, final_out);
   }
   return (int)cudaGetLastError();
+}
+
+// the plan's region offsets (vals, pos, ord0, ord1, splits) as Regions:
+// false unless each is 16-byte aligned within the CTA's smem bytes and smem
+// within kSmemLimit
+bool regions_from(const int* r, int smem, Regions& R) {
+  if (smem < 0 || smem > kSmemLimit) return false;
+  for (int k = 0; k < 5; ++k) {
+    if (r[k] < 0 || r[k] % 16 != 0 || r[k] > smem) return false;
+  }
+  R = Regions{r[0], r[1], r[2], r[3], r[4]};
+  return true;
 }
 
 template <typename T>
@@ -797,14 +780,18 @@ extern "C" int merge_sort_init() {
 }
 
 // the tile sort of one sort_block / argsort_block call (mode 0 values, 1
-// pairs, 2 argsort); runs_out: write lanes contiguous (merge passes follow)
+// pairs, 2 argsort); regions: the CTA's five region offsets (Regions);
+// runs_out: write lanes contiguous (merge passes follow)
 extern "C" int sort_tiles(int dtype, int mode, const void* src, const void* srci, void* out, void* outi, long long n,
                           long long inner, int tile_shift, int lane_shift, int vector, long long tiles_n,
-                          long long lane_groups, long long tiles, int grid, int smem, int runs_out, void* stream) {
+                          long long lane_groups, long long tiles, int grid, const int* regions, int smem, int runs_out,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Regions R;
+  if (!regions_from(regions, smem, R)) return (int)cudaErrorInvalidValue;
 #define MS_TILES(T)                                                                                               \
   launch_tiles<T>(mode, src, srci, out, outi, n, inner, tile_shift, lane_shift, vector, tiles_n, lane_groups, tiles, \
-                  grid, smem, runs_out, s)
+                  grid, R, smem, runs_out, s)
   switch (dtype) {
     case 0: return MS_TILES(double);
     case 1: return MS_TILES(float);
@@ -818,16 +805,18 @@ extern "C" int sort_tiles(int dtype, int mode, const void* src, const void* srci
 #undef MS_TILES
 }
 
-// one merge pass of runs of `width`; final_out: write the (outer, n, inner)
-// layout (the last pass)
+// one merge pass of runs of `width`; regions as sort_tiles'; final_out:
+// write the (outer, n, inner) layout (the last pass)
 extern "C" int sort_merge(int dtype, int mode, const void* x, const void* src, const void* srci, void* out,
                           void* outi, long long n, long long inner, int tile_shift, int lane_shift, long long tiles_n,
-                          long long lane_groups, long long tiles, long long width, int grid, int smem, int final_out,
-                          void* stream) {
+                          long long lane_groups, long long tiles, long long width, int grid, const int* regions,
+                          int smem, int final_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Regions R;
+  if (!regions_from(regions, smem, R)) return (int)cudaErrorInvalidValue;
 #define MS_MERGE(T)                                                                                                 \
   launch_merge<T>(mode, x, src, srci, out, outi, n, inner, tile_shift, lane_shift, tiles_n, lane_groups, tiles, width, \
-                  grid, smem, final_out, s)
+                  grid, R, smem, final_out, s)
   switch (dtype) {
     case 0: return MS_MERGE(double);
     case 1: return MS_MERGE(float);

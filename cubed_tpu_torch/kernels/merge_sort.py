@@ -128,29 +128,43 @@ def _run_sort(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor], mode: str
     code, dtype = ctypes.c_int(p.mode), ctypes.c_int(DTYPES[x.dtype])
     shifts = (ctypes.c_int(p.tile.bit_length() - 1), ctypes.c_int(p.lanes.bit_length() - 1))
     work = (ctypes.c_longlong(p.tiles_n), ctypes.c_longlong(p.lane_groups), ctypes.c_longlong(p.tiles))
+    counter = argsort_block if mode == "argsort" else sort_block
     bufs = [buffers()] + ([buffers()] if p.widths else [])
     with torch.cuda.device(x.device):
         out, outi = bufs[0]
         err = lib.sort_tiles(dtype, code, _ptr(x), _ptr(idx), _ptr(out), _ptr(outi), ctypes.c_longlong(n),
                              ctypes.c_longlong(inner), *shifts, ctypes.c_int(p.vector), *work, ctypes.c_int(p.grid),
-                             ctypes.c_int(p.tile_smem), ctypes.c_int(bool(p.widths)), ctypes.c_void_p(stream))
+                             _regions(p.tile_regions), ctypes.c_int(p.tile_smem), ctypes.c_int(bool(p.widths)),
+                             ctypes.c_void_p(stream))
         _build.check(err, "sort_tiles")
+        _counted(counter, mode)
         for k, w in enumerate(p.widths):
             (src, srci), (out, outi) = bufs[k % 2], bufs[1 - k % 2]
             err = lib.sort_merge(dtype, code, _ptr(x), _ptr(src), _ptr(srci), _ptr(out), _ptr(outi),
                                  ctypes.c_longlong(n), ctypes.c_longlong(inner), *shifts, *work, ctypes.c_longlong(w),
-                                 ctypes.c_int(p.grid), ctypes.c_int(p.merge_smem),
+                                 ctypes.c_int(p.grid), _regions(p.merge_regions), ctypes.c_int(p.merge_smem),
                                  ctypes.c_int(k == len(p.widths) - 1), ctypes.c_void_p(stream))
             _build.check(err, "sort_merge")
-    counter = argsort_block if mode == "argsort" else sort_block
-    counter.launches += p.launches
-    if mode != "argsort":
-        sort_block.paths[mode] += p.launches
+            _counted(counter, mode)
     return result(out, outi)
+
+
+def _counted(counter, mode: str) -> None:
+    """One launch of a sort kernel, on its wrapper's count (and sort_block's
+    path)."""
+    counter.launches += 1
+    if mode != "argsort":
+        sort_block.paths[mode] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _regions(offsets) -> ctypes.Array:
+    """The plan's shared-memory region offsets (``_geometry.SORT_REGIONS``)
+    as the C array the sort kernels' entry points take."""
+    return (ctypes.c_int * len(_geometry.SORT_REGIONS))(*offsets)
 
 
 def _device_call(x: torch.Tensor, what: str) -> bool:
@@ -480,14 +494,15 @@ def _library():
     lib.sort_tiles.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.sort_tiles.restype = ctypes.c_int
     lib.sort_merge.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sort_merge.restype = ctypes.c_int
     lib.merge_split.argtypes = [

@@ -420,6 +420,31 @@ def test_sort_plan_shared_memory_fits_every_dtype_and_mode(itemsize):
                 assert p.tile < 2 * max(n, _geometry.SORT_ITEMS) or p.smem > _geometry.SORT_SMEM_TARGET // 2
 
 
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+def test_sort_plan_regions_are_aligned_and_disjoint(itemsize):
+    """The offsets the kernels take (``SORT_REGIONS``): each region 16-byte
+    aligned, after the one before it, and every region a kernel uses (its
+    elements as csrc/merge_sort.cu indexes them) within its shared memory."""
+    for mode, code in _geometry.SORT_MODES.items():
+        for inner, n in ((1, 100), (7, 5000), (65536, 512), (256, 16384)):
+            p = _geometry.sort_plan(1, n, inner, itemsize, mode)
+            rows = p.lanes * (p.tile + 1)
+            order = p.lanes * (p.tile + 2) * 2
+            idx = rows * 8 if code == 1 else 0
+            kernels = [("tile", p.tile_regions, p.tile_smem)]
+            if p.widths:
+                kernels.append(("merge", p.merge_regions, p.merge_smem))
+            for kernel, regions, smem in kernels:
+                r = dict(zip(_geometry.SORT_REGIONS, regions))
+                assert all(v % 16 == 0 for v in regions) and smem % 16 == 0
+                assert idx <= r["vals"] and r["vals"] + rows * itemsize <= r["pos"] <= r["ord0"]
+                if kernel == "tile":
+                    assert r["ord0"] + order <= r["ord1"] and r["ord1"] + order <= smem
+                else:
+                    assert r["pos"] + (p.lanes * p.tile * 4 if code == 2 else 0) <= r["ord0"] == r["ord1"]
+                    assert r["ord0"] + order <= r["splits"] and r["splits"] + 2 * p.lanes * 8 <= smem
+
+
 def test_sort_plan_vector_loads_need_a_contiguous_aligned_lane():
     assert _geometry.sort_plan(4, 1000, 1, 4, "values", 4096).vector == 4
     assert _geometry.sort_plan(2, 20000, 1, 2, "values", 4096).vector == 8
