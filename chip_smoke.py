@@ -186,12 +186,18 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    integer-array index; each op's times, ratio, paths and launches printed;
    Then the order-statistics phase. First its merge kernels
    (csrc/merge_sort.cu: sort_block, argsort_block, merge_split) against
-   their plain versions, bit for bit, at the phase's blocks, at NaN, -0.0,
-   ties, integer extremes, ragged and one-element cases, along 16384 steps
-   and past a tile for every dtype on both axes, with the launches of each
-   sort's plan (the tile sort, then its merge passes) and one a
-   merge-split, each timed beside its plain version, ``torch.sort`` of the
-   same data and its byte bound (the sorts also along 16384 steps). Then 16 ops
+   their plain versions, bit for bit: the sorts at the phase's blocks, at
+   NaN, -0.0, ties, integer extremes, ragged and one-element cases, along
+   16384 steps and past a tile for every dtype on both axes, with the
+   launches of each sort's plan (the tile sort, then its merge passes);
+   merge_split over its own tiles (both halves, values and pairs, every
+   dtype, equal keys with other bits, x below and above y, lanes of 171,
+   T + 1 and 3T + 5 on both axes, the phase's pairs, vmapped batches), one
+   launch a call; each kernel's counted launches held against
+   torch.profiler's records; each timed beside its plain version,
+   ``torch.sort`` of the same data and its byte bound (the sorts also
+   along 16384 steps; merge_split's pairs path at argsort's chunk, and the
+   bytes its loads cover over the bound's). Then 16 ops
    (sort, argsort, median, quantile 0.9, topk/argtopk 16, nanmedian,
    nanmean, nansum, nanmax, nanmin along time on a copy with values under
    0.01 made NaN; searchsorted of 2**20 queries in a sorted 2**24 array;
@@ -248,6 +254,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -395,21 +402,92 @@ PROFILE_ATTEMPTS = 3
 KERNEL_RECORDS = {"philox_uniform": "philox_", "region_sum": "region_sum_", "fma_sum_blocks": "fma_blocks_kernel"}
 
 
-def kernel_launches_by_name(torch, fn) -> dict:
-    """Device kernels launched while *fn* runs, by name (torch.profiler)."""
+#: host seconds a profiling session runs before the work it records and
+#: after that work has ended on the card: the profiler keeps a device record
+#: only inside the session's window on the host's clock
+PROFILE_PAD_S = 0.02
+
+
+def trace_events(prof) -> list:
+    """The events of a finished torch.profiler session's chrome trace."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    os.remove(path)
+    return events.get("traceEvents", events) if isinstance(events, dict) else events
+
+
+def profiled_session(torch, fn, cpu: bool = False):
+    """Run *fn* in a torch.profiler session (the CUDA activity, and the CPU's
+    where *cpu*), opened and closed PROFILE_PAD_S of host time away from the
+    work, the sentinel kernel first; returns (the profiler, its trace's
+    events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_PAD_S)
         torch.cuda._sleep(SENTINEL_CYCLES)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return prof, trace_events(prof)
+
+
+def trace_kernels(events) -> list:
+    """The kernel records of a trace, the sentinel's left out."""
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and SENTINEL_KERNEL not in str(e.get("name", ""))]
+
+
+def kernel_launches_by_name(torch, fn, session: Optional[list] = None) -> dict:
+    """Device kernels launched while *fn* runs, by name: each kernel record
+    of torch.profiler's trace counts once, whatever its duration. With
+    *session* (a list), the session's (profiler, events) are appended to it."""
+    prof, events = profiled_session(torch, fn)
+    if session is not None:
+        session.append((prof, events))
     counts: dict = {}
+    for e in trace_kernels(events):
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def session_report(prof, events) -> str:
+    """A session's raw device records: key_averages' device rows (with their
+    device time), prof.events()' device events, the trace's kernel records
+    (start, duration, correlation) and launch calls, each kernel's start
+    less its launch call's, and the trace's span on the host's clock."""
+    lines = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if t > 0 and not e.key.startswith(("Memcpy", "Memset")) and SENTINEL_KERNEL not in e.key:
-            counts[e.key] = counts.get(e.key, 0) + e.count
-    return counts
+        if t or "kernel" in e.key or "Memcpy" in e.key:
+            lines.append(f"  key_averages: {e.key[:90]} count {e.count} self device us {t}")
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            lines.append(f"  events(): {e.name[:90]} start {e.time_range.start:.3f} end {e.time_range.end:.3f} "
+                         f"async {e.is_async}")
+    launches = {(e.get("args") or {}).get("correlation"): e for e in events
+                if e.get("cat") == "cuda_runtime" and "aunch" in str(e.get("name", ""))}
+    lags = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            corr = (e.get("args") or {}).get("correlation")
+            launch = launches.get(corr)
+            lag = float(e["ts"]) - float(launch["ts"]) if launch else None
+            if lag is not None:
+                lags.append(lag)
+            lines.append(f"  trace kernel: {str(e.get('name'))[:90]} ts {e.get('ts')} dur {e.get('dur')} "
+                         f"correlation {corr} start less launch {lag}")
+    stamps = [float(e["ts"]) for e in events if "ts" in e]
+    ends = [float(e["ts"]) + float(e.get("dur", 0)) for e in events if "ts" in e]
+    lines.append(f"  trace: {len(events)} events, {len(launches)} launch calls, host span "
+                 f"{min(stamps, default=0):.3f}-{max(ends, default=0):.3f} us; kernel start less launch call "
+                 f"{min(lags, default=float('nan')):.3f}..{max(lags, default=float('nan')):.3f} us")
+    return "\n".join(lines)
 
 
 def print_resource_usage() -> None:
@@ -714,12 +792,16 @@ def one_launch_per_call(torch, wrapper, kernel_key, calls: list) -> None:
     kernel_key = "+".join(keys)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = wrapper.launches
-        kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls])
+        session: list = []
+        kernels = kernel_launches_by_name(torch, lambda: [c() for c in calls], session)
         launched = wrapper.launches - before
         ours = sum(n for k, n in kernels.items() if any(key in k for key in keys))
         others = {k: n for k, n in kernels.items() if not any(key in k for key in keys)}
         print(f"{kernel_key}: {len(calls)} calls, {launched} counted launches, profiler: {ours} "
               f"{kernel_key} kernels, other kernels {others or 'none'} (session {attempt})")
+        if ours < launched:
+            print(f"{kernel_key}: session {attempt} recorded fewer kernels than counted; its raw records:\n"
+                  + session_report(*session[0]))
         check(ours <= launched and not others,
               f"{kernel_key}: {ours} kernels and {others} for {launched} counted launches")
         if ours == launched:
@@ -2556,33 +2638,28 @@ def compare_to_oracle(label: str, value, expected, how) -> float:
     return rel
 
 
+#: pieces of the names of the kernels whose device time a profiled compute
+#: of the order-statistics phase reports: the sort kernels, and the
+#: partner gather of a network round (``torch.index_select``, the device
+#: executor's permuted leaves)
+TIMED_KERNELS = ("merge_split_kernel", "sort_tiles_kernel", "sort_merge_kernel", "indexSelect")
+
+
 def host_device_copies(torch, fn) -> dict:
     """H2D and D2H copies of at least 64 KiB made while *fn* runs, from
     torch.profiler's trace (each copy's bytes): data crossing between host
-    and card, not Philox keys or scalars."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SENTINEL_CYCLES)
-        fn()
-        torch.cuda.synchronize()
-    path = os.path.join(WORK_DIR, f"copies-{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)
-    os.remove(path)
-    events = events.get("traceEvents", events) if isinstance(events, dict) else events
+    and card, not Philox keys or scalars. Also the device time (microseconds)
+    and records of the TIMED_KERNELS, and of every kernel ("all")."""
+    _, events = profiled_session(torch, fn, cpu=True)
     out = {"HtoD": 0, "DtoH": 0, "HtoD_small": 0, "DtoH_small": 0, "unsized": 0}
-    merges: dict = {}
+    timed: dict = {}
     for e in events:
         name = str(e.get("name", ""))
-        short = next((k for k in ("merge_split_kernel", "sort_tiles_kernel", "sort_merge_kernel") if k in name), None)
-        if e.get("ph") == "X" and e.get("cat") == "kernel" and short:
-            # the sort kernels' device time (microseconds) and records
-            t = merges.setdefault(short, [0.0, 0])
-            t[0] += float(e.get("dur", 0.0))
-            t[1] += 1
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and SENTINEL_KERNEL not in name:
+            for short in [k for k in TIMED_KERNELS if k in name] + ["all"]:
+                t = timed.setdefault(short, [0.0, 0])
+                t[0] += float(e.get("dur", 0.0))
+                t[1] += 1
         kind = "HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else None
         if e.get("ph") != "X" or kind is None or "Memcpy" not in name:
             continue
@@ -2593,8 +2670,8 @@ def host_device_copies(torch, fn) -> dict:
             out[kind] += 1
         else:
             out[kind + "_small"] += 1
-    if merges:
-        out["merge_kernels_us"] = merges
+    if timed:
+        out["kernels_us"] = timed
     return out
 
 
@@ -3023,17 +3100,13 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
     def passes(n):
         return max(0, (n - 1).bit_length())
 
-    # correctness, bit for bit, against the plain versions on the CPU; the
-    # merge-split at the phase's blocks and the ragged cases
-    split_cases = [(f"main path {sort_shape}", sort_shape, 0, "float64"),
-                   (f"main path {arg_shape}", arg_shape, 0, "float64"),
-                   (f"main path {topk_shape}", topk_shape, 0, "float64")] + MERGE_CASES[:-1]
-    cases = split_cases + MERGE_CASES[-1:] + merge_cases_past_tile()
+    # correctness, bit for bit, against the plain versions on the CPU
+    cases = [(f"main path {sort_shape}", sort_shape, 0, "float64"),
+             (f"main path {arg_shape}", arg_shape, 0, "float64"),
+             (f"main path {topk_shape}", topk_shape, 0, "float64")] + MERGE_CASES + merge_cases_past_tile()
     for case in cases:
         label, shape, axis, dtype = case
-        with_split = case in split_cases
         v = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
-        n = shape[axis]
         idx = torch.randperm(v.numel(), generator=gen, device=dev).reshape(shape)
         before = {k: getattr(ms, k).launches for k in ("sort_block", "argsort_block", "merge_split")}
         got_s = ms.sort_block(v, axis)
@@ -3046,22 +3119,9 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
         ref_p = ms.sort_block_plain(v.cpu(), axis, idx.cpu())
         check(_same(got_p[0], ref_p[0]) and _same(got_p[1], ref_p[1]), f"{what}: sort_block with indices differs")
         check(_same(got_a, ms.argsort_block_plain(v.cpu(), axis)), f"{what}: argsort_block differs")
-        if with_split:
-            w = rand(shape) if label.startswith("main") else _merge_data(torch, gen, shape, dtype)
-            flags = torch.rand(shape[:axis] + (1,) * (len(shape) - axis), generator=gen, device=dev) < 0.5
-            sw = ms.sort_block_plain(w.cpu(), axis)
-            iv = torch.arange(v.numel()).reshape(shape)
-            pv, piv = ms.sort_block_plain(v.cpu(), axis, iv)
-            pw, piw = ms.sort_block_plain(w.cpu(), axis, iv + v.numel())
-            got_m = ms.merge_split(sv.to(dev), sw.to(dev), flags, axis)
-            got_mp = ms.merge_split(pv.to(dev), pw.to(dev), flags, axis, piv.to(dev), piw.to(dev))
-            torch.cuda.synchronize()
-            check(_same(got_m, ms.merge_split_plain(sv, sw, flags.cpu(), axis)), f"{what}: merge_split differs")
-            ref_mp = ms.merge_split_plain(pv, pw, flags.cpu(), axis, piv, piw)
-            check(_same(got_mp[0], ref_mp[0]) and _same(got_mp[1], ref_mp[1]), f"{what}: merge_split pairs differ")
         launched = {k: getattr(ms, k).launches - before[k] for k in before}
         want = {"sort_block": sort_launches(shape, axis, dtype, "values") + sort_launches(shape, axis, dtype, "pairs"),
-                "argsort_block": sort_launches(shape, axis, dtype, "argsort"), "merge_split": 2 if with_split else 0}
+                "argsort_block": sort_launches(shape, axis, dtype, "argsort"), "merge_split": 0}
         check(launched == want, f"{what}: launches {launched}, expected {want}")
     # each counted sort launch is a kernel the device ran: the profiler's
     # records of the tile sort and the merge passes against the counts, at
@@ -3076,10 +3136,10 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
                         + [lambda v=v, i=i: ms.sort_block(v, 0, i) for v, i in zip(rec, rec_idx)])
     one_launch_per_call(torch, ms.argsort_block, sort_kernels, [lambda v=v: ms.argsort_block(v, 0) for v in rec])
     del rec, rec_idx
-    print(f"merge kernels: sort_block, argsort_block and merge_split equal their plain versions (bit for bit) over "
+    print(f"merge kernels: sort_block and argsort_block equal their plain versions (bit for bit) over "
           f"{len(cases)} cases (the phase's blocks {sort_shape}, {arg_shape}, {topk_shape}; NaN, -0.0, ties, "
           f"integer extremes, ragged, one element, (16384, 32, 32), lanes past a tile for each of "
-          f"{len(MERGE_DTYPES)} dtypes on both axes); the plan's launches a sort, one a merge-split")
+          f"{len(MERGE_DTYPES)} dtypes on both axes); the plan's launches a sort")
 
     out = []
     # sort_block: the network's local round of sort
@@ -3120,26 +3180,230 @@ def check_merge_sort(torch, config=ORDER_STATS) -> list:
         print(f"{name} {long} f64 axis 0 ({sort_launches(long, 0, 'float64', mode)} launches): {t:.5f} ms "
               f"({100 * b / t:.1f}% of bound); plain {plain:.5f} ms; torch.{lib_fn.__name__} {lib:.5f} ms; bound "
               f"{b:.5f} ms ({by}); {smi_tag()}")
-    # merge_split: a round of sort's network, one pair of blocks
-    pairs = []
-    for _ in range(2):
-        a, c = ms.sort_block(rand(sort_shape), 0), ms.sort_block(rand(sort_shape), 0)
-        pairs.append((a, c, torch.ones((), dtype=torch.bool, device=dev), 0))
-    ms_ = time_ms(torch, ms.merge_split, pairs, reps=10)
-    plain = time_ms(torch, ms.merge_split_plain, pairs, reps=5)
-    cats = [(torch.cat([p[0], p[1]], dim=0),) for p in pairs]
-    lib = time_ms(torch, lambda t: torch.sort(t, dim=0, stable=True), cats, reps=5)
-    n = pairs[0][0].numel()
-    b, by = bound_ms(3 * 8 * n, n * (passes(sort_shape[0]) + 1))
-    print(f"merge_split {sort_shape} f64 pair: {ms_:.5f} ms ({100 * b / ms_:.1f}% of bound); plain {plain:.5f} ms; "
-          f"torch.sort of the concatenated pair {lib:.5f} ms; bound {b:.5f} ms ({by}: two blocks read, one written); "
-          f"{smi_tag()}")
-    out.append(dict(name="merge_split", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
-                    replaces="cubed_tpu/array_api/_block_sort.py:220 (jnp.sort of the concatenated pair in "
-                             "_round_ops; not Pallas)",
-                    max_abs_err=0.0, ms=ms_, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    out.append(check_merge_split(torch, sort_shape, arg_shape))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     return out
+
+
+#: merge_split's inputs beyond the mixed ones (NaN, -0.0, ties): lanes of
+#: equal keys whose bits differ (x all -0.0 or NaN with a payload, y all
+#: 0.0 or the default NaN: the stable merge keeps x's first), and x wholly
+#: below or wholly above y
+SPLIT_KINDS = ("mixed", "equal keys", "x below y", "x above y")
+
+
+def _split_inputs(torch, gen, shape, axis: int, dtype: str, kind: str) -> tuple:
+    """Two blocks of one of SPLIT_KINDS on the CPU, each sorted along *axis*
+    with int64 indices carried (few distinct indices: ties of (value,
+    index)): (x, y, xi, yi, sorted x, sorted y) -- values alone sorted
+    apart from the pairs."""
+    dt = getattr(torch, dtype)
+    if kind == "mixed":
+        x, y = (_merge_data(torch, gen, shape, dtype).cpu() for _ in range(2))
+    elif kind == "equal keys":
+        if dtype.startswith("float"):
+            bits = {"float64": torch.int64, "float32": torch.int32}[dtype]
+            x, y = torch.full(shape, -0.0, dtype=dt), torch.zeros(shape, dtype=dt)
+            nan = torch.tensor(float("nan"), dtype=dt)
+            payload = (nan.view(bits) + 1).view(dt)  # a NaN with other bits
+            # every other lane NaN, its NaNs in x with the other bits
+            lane_shape = tuple(1 if d == axis else k for d, k in enumerate(shape))
+            where = (torch.arange(math.prod(lane_shape)) % 2 == 0).reshape(lane_shape)
+            x, y = torch.where(where, payload, x), torch.where(where, nan, y)
+        else:
+            x, y = torch.full(shape, 3, dtype=dt), torch.full(shape, 3, dtype=dt)
+    else:
+        lo = torch.randint(0, 10, shape, generator=torch.Generator().manual_seed(int(shape[axis]))).to(dt)
+        hi = lo + 20
+        x, y = (lo, hi) if kind == "x below y" else (hi, lo)
+    cpu = torch.Generator().manual_seed(int(torch.randint(0, 2**30, (1,), generator=gen, device=gen.device)))
+    xi, yi = (torch.randint(0, 4, shape, generator=cpu) for _ in range(2))
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    (px, pxi), (py, pyi) = ms.sort_block_plain(x, axis, xi), ms.sort_block_plain(y, axis, yi)
+    return px, py, pxi, pyi, ms.sort_block_plain(x, axis), ms.sort_block_plain(y, axis)
+
+
+def split_over_read(torch, x, y, take_low: bool, p, item_bytes: int) -> float:
+    """The bytes merge_split's loads cover over its bound's, for sorted
+    float blocks *x*, *y* along axis 0 (one lane group's outer index, no
+    NaN): each CTA's sector groups read the union of their lanes' segment
+    rows, ``sector`` lanes a row (fewer at a ragged edge), and every output
+    is written once; the bound reads n elements a lane and writes n.
+    *item_bytes*: an element's bytes with its carried index. The splits are
+    found here from ranks (each x element's place in the stable merge: its
+    position plus y's elements strictly before it)."""
+    n, inner = p.n, p.inner
+    xt, yt = x.reshape(n, inner).t().contiguous(), y.reshape(n, inner).t().contiguous()
+    rank = torch.arange(n, device=x.device) + torch.searchsorted(yt, xt, side="left")
+    ends = torch.tensor([min(n, k * p.tile) for k in range(p.tiles_n + 1)], device=x.device)
+    ends = ends + (0 if take_low else n)
+    splits = torch.searchsorted(rank, ends.expand(inner, -1).contiguous(), side="left")
+    i0, i1 = splits[:, :-1], splits[:, 1:]  # (inner, tiles_n)
+    tn = (ends[1:] - ends[:-1])[None, :]
+    groups = -(-inner // p.sector)
+    pad = groups * p.sector - inner
+
+    def grouped(t, fill):
+        t = torch.cat([t, torch.full((pad, t.shape[1]), fill, device=t.device, dtype=t.dtype)]) if pad else t
+        return t.reshape(groups, p.sector, -1)
+
+    big = 2 * n + 1
+    min0, max0 = grouped(i0, big).amin(1), grouped(i0, -big).amax(1)
+    min1, max1 = grouped(i1, big).amin(1), grouped(i1, -big).amax(1)
+    width = torch.clamp(inner - torch.arange(groups, device=x.device) * p.sector, max=p.sector)[:, None]
+    rows = (max1 - min0) + (tn + max0 - min1)
+    loaded = int((rows * width).sum()) * item_bytes
+    return (loaded + n * inner * item_bytes) / (2 * n * inner * item_bytes)
+
+
+def check_merge_split(torch, sort_shape, arg_shape) -> dict:
+    """merge_split (csrc/merge_sort.cu) against its plain version, bit for
+    bit: the low and the high half, values and pairs (int64 indices
+    carried, few distinct: ties of (value, index)), every dtype of the
+    kernels, each of SPLIT_KINDS, lanes of 171 steps and past a tile
+    (``split_plan``'s, T + 1 and 3T + 5) along axis 0 beside MERGE_INNER
+    lanes (ragged lane groups) and along the innermost axis (inner 1, three
+    lane groups, each its own flag); the phase's pairs (sort's *sort_shape*
+    values, argsort's *arg_shape* pairs, the plain version on the card);
+    a vmapped batch with a flag an example, one launch. Each call one
+    launch, held against torch.profiler's merge_split_kernel records. Timed
+    at the phase's shapes beside the plain version, ``torch.sort`` of the
+    concatenated pair and the two-block bound, with the over-read (bytes
+    the loads cover over the bound's). Returns the kernels line's entry."""
+    from cubed_tpu_torch.kernels import _geometry
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    calls = 0
+    before = ms.merge_split.launches
+
+    def held(what, x, y, flags, axis, xi=None, yi=None):
+        nonlocal calls
+        got = ms.merge_split(x.to(dev), y.to(dev), flags.to(dev), axis,
+                             *(() if xi is None else (xi.to(dev), yi.to(dev))))
+        calls += 1
+        ref = ms.merge_split_plain(x, y, flags, axis, xi, yi)
+        torch.cuda.synchronize()
+        if xi is None:
+            check(_same(got, ref), f"merge_split {what}: values differ from the plain version")
+        else:
+            check(_same(got[0], ref[0]) and _same(got[1], ref[1]), f"merge_split {what}: pairs differ")
+
+    cases = 0
+    for dtype in MERGE_DTYPES:
+        itemsize = np.dtype(dtype).itemsize
+        for axis, inner in ((0, MERGE_INNER), (1, 1)):
+            t = _geometry.split_plan(1, 1 << 20, inner, itemsize, "values").tile
+            for n in (171, t + 1, 3 * t + 5):
+                shape = (n, inner) if axis == 0 else (3, n)
+                for kind in SPLIT_KINDS if n < 3 * t else SPLIT_KINDS[:1]:
+                    x, y, xi, yi, sx, sy = _split_inputs(torch, gen, shape, axis, dtype, kind)
+                    flags = torch.rand(shape[:axis] + (1,) * (2 - axis), generator=gen, device=dev).cpu() < 0.5
+                    for f in (flags, ~flags):
+                        what = f"{dtype} {shape} axis {axis} {kind} take_low {f.reshape(-1).tolist()}"
+                        held(what, sx, sy, f, axis)
+                        held(what + " with indices", x, y, f, axis, xi, yi)
+                    cases += 1
+    # the phase's pairs, the plain version on the card (no NaN: its
+    # torch.sort places every value as the CPU's)
+    for shape, with_idx in ((sort_shape, False), (sort_shape, True), (arg_shape, True)):
+        x, y = (ms.sort_block(torch.rand(shape, generator=gen, device=dev, dtype=torch.float64), 0)
+                for _ in range(2))
+        xi = torch.randperm(x.numel(), generator=gen, device=dev).reshape(shape)
+        yi = xi + x.numel()
+        for low in (True, False):
+            f = torch.tensor(low, device=dev)
+            got = ms.merge_split(x, y, f, 0, *((xi, yi) if with_idx else ()))
+            calls += 1
+            ref = ms.merge_split_plain(x, y, f, 0, *((xi, yi) if with_idx else ()))
+            torch.cuda.synchronize()
+            same = _same(got[0], ref[0]) and _same(got[1], ref[1]) if with_idx else _same(got, ref)
+            check(same, f"merge_split main path {shape} indices {with_idx} take_low {low}: differs")
+        del x, y, xi, yi, got, ref
+    # a vmapped batch: one launch, each example its own flag
+    for dtype in ("float64", "int8"):
+        t = _geometry.split_plan(1, 1 << 20, MERGE_INNER, np.dtype(dtype).itemsize, "values").tile
+        shape = (t + 1, MERGE_INNER)
+        blocks = [_split_inputs(torch, gen, shape, 0, dtype, "mixed") for _ in range(3)]
+        flags = torch.tensor([True, False, True])
+        xs, ys, xis, yis, sxs, sys_ = (torch.stack([b[k] for b in blocks]).to(dev) for k in range(6))
+        n0 = ms.merge_split.launches
+        got = torch.func.vmap(lambda a, b, f: ms.merge_split(a, b, f, 0))(sxs, sys_, flags.to(dev))
+        got_p = torch.func.vmap(lambda a, b, i, j, f: ms.merge_split(a, b, f, 0, i, j))(xs, ys, xis, yis,
+                                                                                       flags.to(dev))
+        torch.cuda.synchronize()
+        calls += 2
+        check(ms.merge_split.launches - n0 == 2, f"merge_split vmapped {dtype}: {ms.merge_split.launches - n0} "
+                                                 f"launches for two calls")
+        for k, b in enumerate(blocks):
+            check(_same(got[k], ms.merge_split_plain(b[4], b[5], flags[k], 0)),
+                  f"merge_split vmapped {dtype}: example {k} differs")
+            ref = ms.merge_split_plain(b[0], b[1], flags[k], 0, b[2], b[3])
+            check(_same(got_p[0][k], ref[0]) and _same(got_p[1][k], ref[1]),
+                  f"merge_split vmapped {dtype} with indices: example {k} differs")
+    check(ms.merge_split.launches - before == calls, f"merge_split: {ms.merge_split.launches - before} launches "
+                                                      f"for {calls} calls")
+    print(f"merge_split: equal to its plain version (bit for bit) in {calls} calls, one launch each: "
+          f"{cases} cases of {len(MERGE_DTYPES)} dtypes x lanes of 171, T + 1 and 3T + 5 along axis 0 "
+          f"({MERGE_INNER} lanes) and the innermost axis x {SPLIT_KINDS}, both halves, values and pairs; the "
+          f"phase's pairs {sort_shape} and {arg_shape}; vmapped batches of 3 with a flag each")
+
+    # each counted launch a kernel the device ran
+    rec = [(ms.sort_block(torch.rand(shape, generator=gen, device=dev, dtype=torch.float64), 0), shape)
+           for shape in (sort_shape, sort_shape, arg_shape, arg_shape)]
+    low, high = torch.tensor(True, device=dev), torch.tensor(False, device=dev)
+    zeros, ones = (torch.full(arg_shape, k, dtype=torch.int64, device=dev) for k in (0, 1))
+    one_launch_per_call(torch, ms.merge_split, "merge_split_kernel", [
+        lambda: ms.merge_split(rec[0][0], rec[1][0], low, 0),
+        lambda: ms.merge_split(rec[2][0], rec[3][0], high, 0),
+        lambda: ms.merge_split(rec[2][0], rec[3][0], low, 0, zeros, ones)])
+    del rec, zeros, ones
+
+    def pair(shape, with_idx):
+        x, y = (ms.sort_block(torch.rand(shape, generator=gen, device=dev, dtype=torch.float64), 0)
+                for _ in range(2))
+        if not with_idx:
+            return x, y
+        xi = torch.randperm(x.numel(), generator=gen, device=dev).reshape(shape)
+        return x, y, xi, xi + x.numel()
+
+    # the values at sort's pair: the kernels line's entry
+    pairs = [pair(sort_shape, False) for _ in range(2)]
+    n = pairs[0][0].numel()
+    t_low = time_ms(torch, ms.merge_split, [(x, y, low, 0) for x, y in pairs], reps=10)
+    t_high = time_ms(torch, ms.merge_split, [(x, y, high, 0) for x, y in pairs], reps=10)
+    plain = time_ms(torch, ms.merge_split_plain, [(x, y, low, 0) for x, y in pairs], reps=5)
+    cats = [(torch.cat([x, y], dim=0),) for x, y in pairs]
+    lib = time_ms(torch, lambda t: torch.sort(t, dim=0, stable=True), cats, reps=5)
+    del cats
+    b, by = bound_ms(2 * 8 * n, n)
+    p = _geometry.split_plan(1, sort_shape[0], n // sort_shape[0], 8, "values")
+    over = [split_over_read(torch, x, y, lo, p, 8) for x, y in pairs[:1] for lo in (True, False)]
+    print(f"merge_split {sort_shape} f64 pair ({p.tiles} CTAs of {p.tile} x {p.lanes}, sector groups of "
+          f"{p.sector} lanes): low half {t_low:.5f} ms ({100 * b / t_low:.1f}% of bound), high half {t_high:.5f} "
+          f"ms; plain {plain:.5f} ms; torch.sort of the concatenated pair {lib:.5f} ms; bound {b:.5f} ms ({by}: "
+          f"one block read, one written; PR 11's three-block figure {1.5 * b:.5f} ms); loads and stores cover "
+          f"{over[0]:.4f} (low) and {over[1]:.4f} (high) of the bound's bytes; {smi_tag()}")
+    del pairs
+    # the pairs path at argsort's network chunk
+    pairs = [pair(arg_shape, True) for _ in range(2)]
+    n = pairs[0][0].numel()
+    t_pairs = time_ms(torch, lambda x, y, i, j: ms.merge_split(x, y, low, 0, i, j), pairs, reps=10)
+    plain_pairs = time_ms(torch, lambda x, y, i, j: ms.merge_split_plain(x, y, low, 0, i, j), pairs, reps=3)
+    bp, byp = bound_ms(2 * (8 + 8) * n, n)
+    pp = _geometry.split_plan(1, arg_shape[0], n // arg_shape[0], 8, "pairs")
+    over_p = split_over_read(torch, pairs[0][0], pairs[0][1], True, pp, 16)
+    print(f"merge_split {arg_shape} f64 + int64 indices ({pp.tiles} CTAs of {pp.tile} x {pp.lanes}): "
+          f"{t_pairs:.5f} ms ({100 * bp / t_pairs:.1f}% of bound); plain {plain_pairs:.5f} ms; bound {bp:.5f} ms "
+          f"({byp}: a block of values and indices read, one written; PR 11's three-block figure {1.5 * bp:.5f} "
+          f"ms); loads and stores cover {over_p:.4f} of the bound's bytes; {smi_tag()}")
+    del pairs
+    return dict(name="merge_split", route="cuda", source="cubed_tpu_torch/kernels/csrc/merge_sort.cu",
+                replaces="cubed_tpu/array_api/_block_sort.py:220 (jnp.sort of the concatenated pair in "
+                         "_round_ops; not Pallas)",
+                max_abs_err=0.0, ms=t_low, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
 
 
 def _net_chunk(config, with_idx: bool) -> int:
@@ -3329,22 +3593,30 @@ def run_order_stats_phase(torch, config=ORDER_STATS, seq_config=ORDER_STATS_SEQ)
         check(copies["unsized"] == 0, f"{name} [cuda]: the profiler recorded copies without their bytes")
         check(crossing == 0, f"{name} [cuda]: data crossed between host and card beyond the output's writes "
                              f"({copies})")
-        split = copies.get("merge_kernels_us", {}).get("merge_split_kernel")
+        timed = copies.get("kernels_us", {})
+        split = timed.get("merge_split_kernel")
         if split and name in ("sort", "argsort"):
             # a round: one merge-split launch over every block of the
-            # (padded) array; its bound, two blocks read and one written a
-            # task: three of the array's bytes (values, and argsort's int64
-            # indices), over 3.35 TB/s
-            rounds = launches[0]["merge_split"]
+            # (padded) array; its bound, one block read and one written a
+            # task: two of the array's bytes (values, and argsort's int64
+            # indices), over 3.35 TB/s. Beside it, the partner gather of
+            # the round's permuted leaves (torch.index_select)
             padded = math.prod(config["shape"][1:]) * (1 << max(0, (-(-config["shape"][0] // _net_chunk(
                 config, name == "argsort")) - 1).bit_length())) * _net_chunk(config, name == "argsort")
-            round_bytes = 3 * padded * (8 + (8 if name == "argsort" else 0))
+            round_bytes = 2 * padded * (8 + (8 if name == "argsort" else 0))
             round_ms = split[0] / 1e3 / split[1]
             bound = round_bytes / HBM_BYTES_PER_S * 1e3
+            gather = timed.get("indexSelect", [0.0, 0])
+            gather_ms = gather[0] / 1e3 / split[1]
+            every = timed.get("all", [0.0, 0])
             print(f"{name} [cuda]: a bitonic round (one merge_split launch, profiled warm compute): {round_ms:.3f} ms "
                   f"over {split[1]} records; bound {bound:.3f} ms ({round_bytes / 1e9:.2f} GB moved), "
-                  f"{100 * bound / round_ms:.1f}% of it; {smi_tag()}")
-            results_round = dict(round_ms=round_ms, round_bound_ms=bound)
+                  f"{100 * bound / round_ms:.1f}% of it (PR 11's three-block bound {1.5 * bound:.3f} ms); the "
+                  f"partner gather (index_select) {gather_ms:.3f} ms a round ({gather[1]} records in the compute), "
+                  f"{100 * gather_ms / (gather_ms + round_ms):.1f}% of gather + merge_split; every kernel of the "
+                  f"compute {every[0] / 1e3:.3f} ms over {every[1]} records; {smi_tag()}")
+            results_round = dict(round_ms=round_ms, round_bound_ms=bound, gather_ms=gather_ms,
+                                 kernels_ms=every[0] / 1e3)
         else:
             results_round = {}
         shutil.rmtree(work, ignore_errors=True)
@@ -3372,16 +3644,19 @@ def profiled(torch, fn) -> tuple:
     prof, why = profile(activities=[ProfilerActivity.CUDA]), "the profiler recorded no device events"
     try:
         prof.start()
+        time.sleep(PROFILE_PAD_S)
         torch.cuda._sleep(SENTINEL_CYCLES)
     except (AssertionError, RuntimeError) as e:  # no CUDA tracing available here
         prof, why = None, f"the profiler did not start: {e!r}"
     t0 = time.perf_counter()  # the profiler's own start-up is not the run's
     try:
         fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
     finally:
         if prof is not None:
             prof.stop()
-    wall = time.perf_counter() - t0
     kernels_s = copies_s = 0.0
     by_kernel = []
     for e in prof.key_averages() if prof is not None else ():

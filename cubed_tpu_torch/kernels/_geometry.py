@@ -913,3 +913,128 @@ def sort_walk(torch, p: SortPlan) -> list:
         start = pos // (2 * w) * (2 * w)
         out.append((offsets, row, start, torch.clamp(start + 2 * w, max=p.n)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# merge_split: a tiled merge-path pass over a pair of sorted blocks
+# ---------------------------------------------------------------------------
+
+#: merge_split's modes: values; values with carried int64 indices
+SPLIT_MODES = {"values": 0, "pairs": 1}
+#: bytes of one sector of device memory: merge_split loads each group of
+#: lanes that one sector holds over the union of their rows
+SECTOR_BYTES = 32
+#: shared memory a merge_split tile is sized to: four CTAs an SM (as its
+#: 64 registers a thread allow), so that one CTA's split search and loads
+#: overlap another's merge and stores
+SPLIT_SMEM_TARGET = 233472 // 4 - 1024
+#: most sector groups of a merge_split CTA (``kMaxGroups`` in
+#: csrc/merge_sort.cu): 128-byte rows of 32-byte sectors
+SPLIT_MAX_GROUPS = 4
+
+
+def split_layout(tile: int, lanes: int, sector: int, itemsize: int, mode: int) -> tuple[tuple, int]:
+    """One merge_split CTA's dynamic shared memory, as ``SORT_REGIONS``
+    offsets (the unused ``pos``, ``ord0`` and ``ord1`` where ``splits``
+    starts): the carried indices at 0 (pairs; lanes of ``tile + 1``), the
+    values (lanes of ``tile + 1``), each lane's two splits (int64), then
+    four int32 a sector group (its first X row, its X rows, its first Y row
+    and where its loads start) and the CTA's loads. Returns (offsets,
+    bytes)."""
+    vals = _round16(lanes * (tile + 1) * 8) if mode == SPLIT_MODES["pairs"] else 0
+    splits = vals + _round16(lanes * (tile + 1) * itemsize)
+    return (vals, splits, splits, splits, splits), splits + 2 * lanes * 8 + _round16((4 * SPLIT_MAX_GROUPS + 1) * 4)
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How ``merge_split`` (csrc/merge_sort.cu) keeps the low or the high
+    half of the stable merge of two sorted ``(outer, n, inner)`` tensors'
+    lanes along ``n``, in one launch.
+
+    A work item (one CTA) owns ``tile`` consecutive outputs of the kept half
+    of ``lanes`` neighbouring lanes along ``inner`` (item ``b``: tile ``b %
+    tiles_n`` along n of lane group ``b // tiles_n % lane_groups`` of outer
+    index ``b // tiles_n // lane_groups``): the merged positions ``[d0, d0 +
+    tn)``, ``d0 = k0`` for the low half and ``n + k0`` for the high. Its
+    threads find each lane's split of X and Y at both ends by merge path,
+    load each group of ``sector`` lanes (32 bytes of a row) over the union
+    of their segments' rows, merge in shared memory and write rows out."""
+
+    outer: int
+    n: int
+    inner: int
+    itemsize: int
+    mode: int
+    tile: int
+    lanes: int
+    sector: int  # lanes of one 32-byte load group (a power of two, at most lanes)
+    tiles_n: int
+    lane_groups: int
+    tiles: int  # work items; 0 when there is nothing to merge
+    grid: int
+    smem: int
+    regions: tuple  # SORT_REGIONS offsets (split_layout)
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.tiles else 0
+
+
+def split_plan(outer: int, n: int, inner: int, itemsize: int, mode) -> SplitPlan:
+    """The geometry of one ``merge_split`` call over two contiguous tensors
+    of ``(outer, n, inner)`` lanes of *itemsize* bytes; *mode* a name or code
+    of ``SPLIT_MODES``.
+
+    ``lanes`` as :func:`sort_plan`'s (rows of 128 bytes, at most 32 lanes,
+    no more than ``inner`` needs); ``tile`` the largest power of two from
+    ``SORT_ITEMS`` up to what the lane needs whose shared memory fits
+    ``SPLIT_SMEM_TARGET``. A float64 pair of (512, 256, 256) along axis 0 is
+    8192 items of 256 x 16, two along each lane group's kept half."""
+    mode = SPLIT_MODES.get(mode, mode)
+    if mode not in SPLIT_MODES.values():
+        raise ValueError(f"split_plan: mode {mode!r} is not one of {sorted(SPLIT_MODES)}")
+    if n >= 2**31:
+        raise ValueError(f"split_plan: the kernel counts positions along a lane in 32 bits, not {n}")
+    lanes = min(max(1, 128 // itemsize), 32, _pow2_at_least(inner))
+    sector = min(max(1, SECTOR_BYTES // itemsize), lanes)
+    tile = SORT_ITEMS
+    while tile < n and split_layout(2 * tile, lanes, sector, itemsize, mode)[1] <= SPLIT_SMEM_TARGET:
+        tile *= 2
+    tiles_n = _ceil_div(n, tile)
+    lane_groups = _ceil_div(inner, lanes)
+    tiles = outer * lane_groups * tiles_n if outer * n * inner else 0
+    regions, smem = split_layout(tile, lanes, sector, itemsize, mode)
+    return SplitPlan(outer=outer, n=n, inner=inner, itemsize=itemsize, mode=mode, tile=tile, lanes=lanes,
+                     sector=sector, tiles_n=tiles_n, lane_groups=lane_groups, tiles=tiles,
+                     grid=min(tiles, SORT_MAX_GRID), smem=smem, regions=regions)
+
+
+def split_walk(torch, p: SplitPlan, take_low) -> tuple:
+    """Replay *p* as ``merge_split`` runs it, each lane group ``o`` keeping
+    its low half where ``take_low[o]``: for every output element, ``(offset,
+    item, start, end)`` int64 tensors: its offset in the ``(outer, n,
+    inner)`` output, the work item that writes it, and the merged positions
+    ``[start, end)`` of its lane that the item merges (its element is the
+    one at ``start`` plus its place in the item's range)."""
+    i64 = torch.int64
+    if not p.tiles:
+        empty = torch.zeros(0, dtype=i64)
+        return empty, empty, empty, empty
+    item = torch.arange(p.tiles, dtype=i64)
+    kt = item % p.tiles_n
+    rest = item // p.tiles_n
+    lg = rest % p.lane_groups
+    o = rest // p.lane_groups
+    k0, l0 = kt * p.tile, lg * p.lanes
+    tn = torch.clamp(p.n - k0, max=p.tile)
+    cn = torch.clamp(p.inner - l0, max=p.lanes)
+    d0 = torch.where(torch.as_tensor(take_low, dtype=torch.bool).reshape(-1)[o], 0, p.n) + k0
+    k = torch.arange(p.tile, dtype=i64)
+    c = torch.arange(p.lanes, dtype=i64)
+    live = (k[None, :, None] < tn[:, None, None]) & (c[None, None, :] < cn[:, None, None])
+    row = item[:, None, None].expand(-1, p.tile, p.lanes)[live]
+    pos = (k0[:, None, None] + k[None, :, None]).expand(-1, -1, p.lanes)[live]
+    lane = (l0[:, None, None] + c[None, None, :]).expand(-1, p.tile, -1)[live]
+    offsets = (o[row] * p.n + pos) * p.inner + lane
+    return offsets, row, d0[row], d0[row] + tn[row]

@@ -58,11 +58,29 @@
 //     or (the last pass) the (outer, n, inner) layout. ceil(log2(ceil(n /
 //     tile))) passes follow the tile sort. Argsort's passes stay indirect:
 //     each position's value is gathered once a pass, not once a probe.
-// merge_split -- every output element is one thread: its rank's place on
-//     the merge path of the pair by binary search, one element written.
+// merge_split -- one pass over a pair of sorted blocks, keeping the low
+//     or the high half of each lane's stable merge (a flag a lane group): a
+//     CTA owns `tile` consecutive outputs of the kept half of `lanes`
+//     neighbouring lanes, the merged positions [d0, d0 + tn). Its threads
+//     find each lane's split of X and Y at both ends by merge path over the
+//     (outer, n, inner) layout, all the CTA's threads over the ends not
+//     known (16 threads a search for 16 lanes and one end, each round
+//     probing 16 places: 2-3 rounds of loads for a lane of 512, not 9),
+//     then load each lane's two segments into shared memory, a group of
+//     lanes that one 32-byte sector holds at a time over the union of
+//     their segments' rows (the over-read bounded by the spread of the
+//     splits within a sector), and merge in shared memory like sort_merge,
+//     each thread's outputs stored as it merges them (neighbouring threads
+//     on neighbouring lanes: each store a row of the (outer, n, inner)
+//     layout). One launch a call; the output is the only buffer. No stage
+//     streams: the searches and the loads wait on device memory, the merge
+//     on the SM, so the tile is sized for four CTAs an SM (256 x 16
+//     float64, 33 KB), each overlapping the others' stages.
 //
 // Bound on the H100: bytes, the block read once and its output written once
-// a launch (3.35 TB/s). A tile of 512 x 16 float64 holds 64 KB of values
+// a launch (3.35 TB/s); for merge_split one block of the pair read (the
+// kept half is x[0:i] ++ y[0:n-i], or the other end) and one written, the
+// split searches O(log n) a lane. A sort tile of 512 x 16 float64 holds 64 KB of values
 // and 32 KB of positions: two CTAs an SM. What holds sort_tiles from it is
 // the compares, not the bytes: the tile's load and store alone take about a
 // fifth of a launch on the H100 (PERF.md, Findings). The shared-memory
@@ -78,114 +96,6 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ bool is_nan(T) {
-  return false;
-}
-template <>
-__device__ __forceinline__ bool is_nan<float>(float v) {
-  return v != v;
-}
-template <>
-__device__ __forceinline__ bool is_nan<double>(double v) {
-  return v != v;
-}
-
-// a sorts before b: ascending, NaN last
-template <typename T>
-__device__ __forceinline__ bool less(T a, T b) {
-  return a < b || (!is_nan(a) && is_nan(b));
-}
-
-// an element of X goes before an element of Y: by value (by (value, index)
-// with indices), X first on equal keys
-template <typename T, bool kIdx>
-__device__ __forceinline__ bool x_first(T xv, long long xi, T yv, long long yi) {
-  if (less(yv, xv)) return false;
-  if (!kIdx || less(xv, yv)) return true;
-  return xi <= yi;
-}
-
-// a run read along a lane: values, and carried indices when kIdx
-template <typename T, bool kIdx>
-struct Direct {
-  const T* __restrict__ v;
-  const long long* __restrict__ i;
-  long long stride;
-  __device__ __forceinline__ T val(long long j) const { return v[j * stride]; }
-  __device__ __forceinline__ long long idx(long long j) const { return kIdx ? i[j * stride] : 0; }
-};
-
-// the element of rank r in the stable merge of X (nx) and Y (ny)
-template <typename T, bool kIdx, typename Run>
-__device__ __forceinline__ void select_rank(const Run& X, long long nx, const Run& Y, long long ny, long long r,
-                                            T& v, long long& vi) {
-  long long lo = r > ny ? r - ny : 0;
-  long long hi = r < nx ? r : nx;
-  while (lo < hi) {
-    const long long m = (lo + hi) >> 1;
-    // X[m] is among the first r when it goes before Y[r - 1 - m]
-    if (x_first<T, kIdx>(X.val(m), X.idx(m), Y.val(r - 1 - m), Y.idx(r - 1 - m))) {
-      lo = m + 1;
-    } else {
-      hi = m;
-    }
-  }
-  const long long i = lo, j = r - lo;
-  const bool take_x = j >= ny || (i < nx && x_first<T, kIdx>(X.val(i), X.idx(i), Y.val(j), Y.idx(j)));
-  if (take_x) {
-    v = X.val(i);
-    vi = X.idx(i);
-  } else {
-    v = Y.val(j);
-    vi = Y.idx(j);
-  }
-}
-
-// the low (flag 1) or high (flag 0) n of the merge of x's and y's lanes;
-// lane group o (the elements (o, *, *)) reads flag[o]
-template <typename T, bool kIdx>
-__global__ void __launch_bounds__(256) merge_split_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                                          const long long* __restrict__ xi,
-                                                          const long long* __restrict__ yi,
-                                                          const unsigned char* __restrict__ take_low,
-                                                          T* __restrict__ out, long long* __restrict__ outi,
-                                                          long long outer, long long n, long long inner) {
-  const long long total = outer * n * inner;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long l = t % inner;
-    const long long ok = t / inner;
-    const long long k = ok % n;
-    const long long o = ok / n;
-    const long long lane = o * n * inner + l;
-    const Direct<T, kIdx> X{x + lane, kIdx ? xi + lane : nullptr, inner};
-    const Direct<T, kIdx> Y{y + lane, kIdx ? yi + lane : nullptr, inner};
-    T v;
-    long long vi;
-    select_rank<T, kIdx>(X, n, Y, n, take_low[o] ? k : n + k, v, vi);
-    out[t] = v;
-    if (kIdx) outi[t] = vi;
-  }
-}
-
-template <typename T>
-int launch_split(int with_idx, const void* x, const void* y, const void* xi, const void* yi,
-                 const unsigned char* take_low, void* out, void* outi, long long outer, long long n, long long inner,
-                 int grid, cudaStream_t s) {
-  if (with_idx) {
-    merge_split_kernel<T, true><<<grid, 256, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const long long*>(xi),
-        static_cast<const long long*>(yi), take_low, static_cast<T*>(out), static_cast<long long*>(outi), outer, n,
-        inner);
-  } else {
-    merge_split_kernel<T, false><<<grid, 256, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(y), nullptr,
-                                                      nullptr, take_low, static_cast<T*>(out), nullptr, outer, n,
-                                                      inner);
-  }
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // sort_tiles / sort_merge
 // ---------------------------------------------------------------------------
@@ -195,6 +105,7 @@ constexpr int kItems = 8;  // outputs a thread merges at a time (unit_shift belo
 static_assert(kItems == 8, "the kernels count units of kItems by shifts of 3");
 constexpr int kSmemLimit = 232448;
 constexpr int kBatch = 8;  // global loads a thread has in flight
+constexpr int kMaxGroups = 4;  // merge_split's sector groups a CTA (the plan's lanes / sector)
 
 // order-preserving unsigned keys: a < b in the sort's order iff key(a) <
 // key(b); -0.0 and 0.0 share a key, and every NaN takes the largest
@@ -724,6 +635,210 @@ int launch_merge(int mode, const void* x, const void* src, const void* srci, voi
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// merge_split
+// ---------------------------------------------------------------------------
+
+// the low (flag 1) or high (flag 0) n of the stable merge of x's and y's
+// lanes, lane group o (the elements (o, *, *)) reading take_low[o *
+// flag_stride] (a bool or uint8, read in place: stride 0 for one flag): a CTA
+// owns `tile` consecutive outputs of `lanes` neighbouring lanes, the merged
+// positions [d0, d0 + tn) of each (kMode 0 values; 1 with carried indices)
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads, 3)
+    merge_split_kernel(const T* __restrict__ x, const T* __restrict__ y, const long long* __restrict__ xi,
+                       const long long* __restrict__ yi, const unsigned char* __restrict__ take_low,
+                       long long flag_stride, T* __restrict__ out, long long* __restrict__ outi, long long n,
+                       long long inner, int tile_shift, int lane_shift, int sector_shift, long long tiles_n,
+                       long long lane_groups, long long tiles, Regions R) {
+  using K = typename Order<T>::K;
+  constexpr bool kIdx = kMode == 1;
+  constexpr int kLoads = kIdx ? kBatch / 2 : kBatch;  // a thread's loads in flight: 64 bytes
+  using E = Elem<K, kIdx>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = 1 << tile_shift, lanes = 1 << lane_shift, sector = 1 << sector_shift;
+  const int groups = lanes >> sector_shift;
+  const int vstride = tile + 1;
+  long long* sidx = reinterpret_cast<long long*>(smem);
+  T* svals = reinterpret_cast<T*>(smem + R.vals);
+  long long* splits = reinterpret_cast<long long*>(smem + R.splits);  // [end][lane]
+  // [group]: first X row, X rows, first Y row, its first load; then the loads
+  int* rows = reinterpret_cast<int*>(splits + 2 * lanes);
+  const int unit_shift = tile_shift - 3;
+  const int units = 1 << (unit_shift + lane_shift);
+
+  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+    const long long kt = b % tiles_n, rest = b / tiles_n;
+    const long long lg = rest % lane_groups, o = rest / lane_groups;
+    const long long k0 = kt << tile_shift, l0 = lg << lane_shift;
+    const int tn = (int)min((long long)tile, n - k0);
+    const int cn = (int)min((long long)lanes, inner - l0);
+    const long long d0 = (take_low[o * flag_stride] ? 0 : n) + k0;
+    const long long base = o * n * inner + l0;  // element (o, 0, l0)
+
+    // X's elements among the first d of each lane's stable merge (X first
+    // on equal keys), d = d0 and d0 + tn: 0 at d = 0 and n at d = 2n, else
+    // found by `probes` threads a search (a power of two within a warp: the
+    // CTA's threads over the ends to search), each round probing `probes`
+    // evenly spaced places of the interval left
+    {
+      const int skip = d0 == 0, ends = 2 - skip - (d0 + tn == 2 * n);
+      const int probes = min(32, kThreads >> (lane_shift + ends - 1));
+      const int me = threadIdx.x & (probes - 1), search = threadIdx.x / probes;
+      const int c = search & (lanes - 1), which = skip + (search >> lane_shift);
+      const bool live = search < ends * lanes && c < cn;
+      if ((int)threadIdx.x < lanes) {
+        if (skip) splits[threadIdx.x] = 0;
+        if (skip + ends < 2) splits[lanes + threadIdx.x] = n;
+      }
+      const long long d = d0 + (which ? tn : 0);
+      long long lo = live ? max(0LL, d - n) : 0, hi = live ? min(d, n) : 0;
+      while (__any_sync(0xffffffffu, lo < hi)) {
+        const long long span = hi - lo;
+        bool first = false;
+        if (lo < hi) {
+          const long long m = lo + span * (me + 1) / (probes + 1);
+          const long long px = base + m * inner + c, py = base + (d - 1 - m) * inner + c;
+          const K xk = Order<T>::key(x[px]), yk = Order<T>::key(y[py]);
+          // X[m] is among the first d unless Y[d - 1 - m] goes strictly before it
+          first = !(yk < xk || (kIdx && yk == xk && yi[py] < xi[px]));
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, first);
+        const unsigned mine =
+            probes == 32 ? ballot : (ballot >> (threadIdx.x & 31 & ~(probes - 1))) & ((1u << probes) - 1);
+        const int t = __popc(mine);  // the probes before the split: a prefix
+        if (lo < hi) {
+          const long long nlo = t > 0 ? lo + span * t / (probes + 1) + 1 : lo;
+          hi = t < probes ? lo + span * (t + 1) / (probes + 1) : hi;
+          lo = nlo;
+        }
+      }
+      if (me == 0 && search < ends * lanes) splits[which * lanes + c] = live ? lo : 0;
+    }
+    __syncthreads();
+
+    // each sector group's rows: the union of its lanes' segments of X
+    // ([i0, i1)) and of Y ([d0 - i0, d0 + tn - i1)), and where its
+    // elements start in the CTA's order of loads (a scan over the groups)
+    if (threadIdx.x < 32) {
+      const int g = threadIdx.x;
+      long long min0 = LLONG_MAX, max0 = LLONG_MIN, min1 = LLONG_MAX, max1 = LLONG_MIN;
+      for (int c = g << sector_shift; g < groups && c < min(cn, (g + 1) << sector_shift); ++c) {
+        min0 = min(min0, splits[c]);
+        max0 = max(max0, splits[c]);
+        min1 = min(min1, splits[lanes + c]);
+        max1 = max(max1, splits[lanes + c]);
+      }
+      const bool any = g < groups && (g << sector_shift) < cn;  // else no row at all
+      const int nrx = any ? (int)(max1 - min0) : 0, nry = any ? (int)(tn + max0 - min1) : 0;
+      int first = (nrx + nry) << sector_shift;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, first, k);
+        if (g >= k) first += v;
+      }
+      first -= (nrx + nry) << sector_shift;  // exclusive
+      if (g < groups) {
+        rows[4 * g] = any ? (int)min0 : 0;
+        rows[4 * g + 1] = nrx;
+        rows[4 * g + 2] = any ? (int)(d0 - max0) : 0;
+        rows[4 * g + 3] = first;
+      }
+      if (g == groups - 1) rows[4 * kMaxGroups] = first + ((nrx + nry) << sector_shift);
+    }
+    __syncthreads();
+
+    // both segments of each lane into shared memory (X's at [0, nx), Y's at
+    // [nx, tn)): a group's rows of `sector` neighbouring lanes, each row one
+    // sector of device memory; a lane takes the rows of its own segments
+    const int total = rows[4 * kMaxGroups];
+    for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kLoads) {
+      T v[kLoads];
+      long long vi[kLoads];
+      int slot[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int e = e0 + j * kThreads;
+        slot[j] = -1;
+        if (e < total) {
+          int g = 0;
+#pragma unroll
+          for (int k = 1; k < kMaxGroups; ++k) g += k < groups && e >= rows[4 * k + 3];
+          int r = e - rows[4 * g + 3];
+          const int c = (g << sector_shift) + (r & (sector - 1));
+          r >>= sector_shift;
+          const int nrx = rows[4 * g + 1];
+          if (c < cn) {
+            const int i0 = (int)splits[c], i1 = (int)splits[lanes + c];
+            const bool in_x = r < nrx;
+            const int q = in_x ? rows[4 * g] + r : rows[4 * g + 2] + (r - nrx);  // the row along n
+            const int s0 = in_x ? i0 : (int)(d0 - i0), s1 = in_x ? i1 : (int)(d0 + tn - i1);
+            if (q >= s0 && q < s1) {
+              const long long gi = base + (long long)q * inner + c;
+              slot[j] = c * vstride + (q - s0) + (in_x ? 0 : i1 - i0);
+              v[j] = in_x ? x[gi] : y[gi];
+              if constexpr (kIdx) vi[j] = in_x ? xi[gi] : yi[gi];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        if (slot[j] >= 0) {
+          svals[slot[j]] = v[j];
+          if constexpr (kIdx) sidx[slot[j]] = vi[j];
+        }
+      }
+    }
+    __syncthreads();
+
+    // the merge in shared memory, ordered by (key, [index,] place): X first
+    // on equal keys; a thread's kItems outputs of one lane straight out,
+    // neighbouring threads on neighbouring lanes (each store a row)
+    for (int u = threadIdx.x; u < units; u += kThreads) {
+      const int c = u & (lanes - 1), j0 = (u >> lane_shift) * kItems;
+      if (c >= cn || j0 >= tn) continue;
+      const int nxs = (int)(splits[lanes + c] - splits[c]);
+      const T* lv = svals + c * vstride;
+      const long long* li = sidx + c * vstride;
+      auto at = [&](int q) {
+        E e;
+        e.p = q;
+        e.k = Order<T>::key(lv[q]);
+        e.i = kIdx ? li[q] : 0;
+        return e;
+      };
+      const long long g0 = base + (k0 + j0) * inner + c;
+      merge_range<E>(at, 0, nxs, nxs, tn - nxs, j0, min(kItems, tn - j0), [&](int t, const E& e) {
+        out[g0 + t * inner] = lv[e.p];
+        if constexpr (kIdx) outi[g0 + t * inner] = li[e.p];
+      });
+    }
+    __syncthreads();  // the next item's splits and loads overwrite shared memory
+  }
+}
+
+template <typename T>
+int launch_split(int mode, const void* x, const void* y, const void* xi, const void* yi, const unsigned char* f,
+                 long long fs, void* out, void* outi, long long n, long long inner, int tile_shift, int lane_shift,
+                 int sector_shift, long long tiles_n, long long lane_groups, long long tiles, int grid,
+                 const Regions& R, int smem, cudaStream_t s) {
+  const T* a = static_cast<const T*>(x);
+  const T* b = static_cast<const T*>(y);
+  const long long* ai = static_cast<const long long*>(xi);
+  const long long* bi = static_cast<const long long*>(yi);
+  T* o = static_cast<T*>(out);
+  long long* oi = static_cast<long long*>(outi);
+  if (mode == 0) {
+    merge_split_kernel<T, 0><<<grid, kThreads, smem, s>>>(a, b, ai, bi, f, fs, o, oi, n, inner, tile_shift,
+                                                          lane_shift, sector_shift, tiles_n, lane_groups, tiles, R);
+  } else {
+    merge_split_kernel<T, 1><<<grid, kThreads, smem, s>>>(a, b, ai, bi, f, fs, o, oi, n, inner, tile_shift,
+                                                          lane_shift, sector_shift, tiles_n, lane_groups, tiles, R);
+  }
+  return (int)cudaGetLastError();
+}
+
 // the plan's region offsets (vals, pos, ord0, ord1, splits) as Regions:
 // false unless each is 16-byte aligned within the CTA's smem bytes and smem
 // within kSmemLimit
@@ -744,27 +859,11 @@ void allow_smem() {
   cudaFuncSetAttribute(sort_merge_kernel<T, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   cudaFuncSetAttribute(sort_merge_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   cudaFuncSetAttribute(sort_merge_kernel<T, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  cudaFuncSetAttribute(merge_split_kernel<T, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  cudaFuncSetAttribute(merge_split_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
 }
 
 }  // namespace
-
-// dtype: 0 float64, 1 float32, 2 int64, 3 int32, 4 int16, 5 int8, 6 uint8
-extern "C" int merge_split(int dtype, int with_idx, const void* x, const void* y, const void* xi, const void* yi,
-                           const void* take_low, void* out, void* outi, long long outer, long long n, long long inner,
-                           int grid, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* f = static_cast<const unsigned char*>(take_low);
-  switch (dtype) {
-    case 0: return launch_split<double>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 1: return launch_split<float>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 2: return launch_split<long long>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 3: return launch_split<int>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 4: return launch_split<short>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 5: return launch_split<signed char>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    case 6: return launch_split<unsigned char>(with_idx, x, y, xi, yi, f, out, outi, outer, n, inner, grid, s);
-    default: return -1;
-  }
-}
 
 // every sort kernel may take up to kSmemLimit bytes of dynamic shared memory
 // on the current device; called once a device when the library loads
@@ -828,4 +927,37 @@ extern "C" int sort_merge(int dtype, int mode, const void* x, const void* src, c
     default: return -1;
   }
 #undef MS_MERGE
+}
+
+// the merge-split of one merge_split call (mode 0 values, 1 with carried
+// indices); regions as sort_merge's, the sector groups' rows after the
+// splits; take_low: a bool or uint8 flag a lane group, flag_stride apart
+extern "C" int merge_split(int dtype, int mode, const void* x, const void* y, const void* xi, const void* yi,
+                           const void* take_low, long long flag_stride, void* out, void* outi, long long n,
+                           long long inner,
+                           int tile_shift, int lane_shift, int sector_shift, long long tiles_n,
+                           long long lane_groups, long long tiles, int grid, const int* regions, int smem,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Regions R;
+  if (!regions_from(regions, smem, R) || tile_shift < 3 || sector_shift > lane_shift ||
+      (1 << (lane_shift - sector_shift)) > kMaxGroups ||
+      R.splits + 2LL * (1 << lane_shift) * 8 + (4 * kMaxGroups + 1) * 4 > smem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned char* f = static_cast<const unsigned char*>(take_low);
+#define MS_SPLIT(T)                                                                                                  \
+  launch_split<T>(mode, x, y, xi, yi, f, flag_stride, out, outi, n, inner, tile_shift, lane_shift, sector_shift,     \
+                  tiles_n, lane_groups, tiles, grid, R, smem, s)
+  switch (dtype) {
+    case 0: return MS_SPLIT(double);
+    case 1: return MS_SPLIT(float);
+    case 2: return MS_SPLIT(long long);
+    case 3: return MS_SPLIT(int);
+    case 4: return MS_SPLIT(short);
+    case 5: return MS_SPLIT(signed char);
+    case 6: return MS_SPLIT(unsigned char);
+    default: return -1;
+  }
+#undef MS_SPLIT
 }

@@ -28,19 +28,26 @@ network, then merge-path merges in shared memory up to the tile), then,
 for a lane longer than a tile, ``ceil(log2(ceil(n / tile)))`` merge passes
 over sorted runs (a merge-path split per lane and CTA, both segments
 merged in shared memory). The geometry is ``_geometry.sort_plan``; a
-float64 block of (512, 256, 256) along axis 0 is one launch. Task memory
-on the card: a lane within a tile, the input and
-the output (argsort: its int64 positions); a longer lane, the input and two
-buffers (with indices, two of each; argsort, two int64 position buffers,
-its passes gathering each position's value from the input once a pass);
-merge-split, the inputs and the output.
+float64 block of (512, 256, 256) along axis 0 is one launch. A merge-split
+is one launch too, a tiled merge-path pass (``_geometry.split_plan``): a
+CTA owns ``tile`` consecutive outputs of the kept half of ``lanes``
+neighbouring lanes, finds each lane's split of the pair at both ends of its
+range by merge path, loads both segments into shared memory in rows (a
+32-byte sector of neighbouring lanes at a time), merges there and writes
+rows out; a (512, 256, 256) float64 pair is 8192 CTAs of 256 x 16, four an
+SM. Task memory on the card: a lane within a tile, the input
+and the output (argsort: its int64 positions); a longer lane, the input and
+two buffers (with indices, two of each; argsort, two int64 position
+buffers, its passes gathering each position's value from the input once a
+pass); merge-split, the inputs and the output.
 
 Every function takes any strided tensor (a non-contiguous one is copied
 first) and has a ``torch.func.vmap`` batching rule (custom ops): the batch
 axes become lanes of the same launches.
 
 Bound on the H100: bytes, the block read once and the output written once
-(3.35 TB/s).
+(3.35 TB/s); a merge-split's kept half is ``x[0:i] ++ y[0:n-i]`` (or the
+other end), so one block read and one written, as a sort's.
 
 The plain versions (``*_plain``) are ``torch.sort``/``torch.argsort`` with
 ``stable=True`` (the pair order by :func:`lexsort_plain`); the wrappers use
@@ -62,9 +69,6 @@ from . import _build, _geometry
 DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3, torch.int16: 4,
           torch.int8: 5, torch.uint8: 6}
 
-_THREADS = 256
-_MAX_GRID = 1 << 20
-
 
 def _check(x: torch.Tensor, what: str) -> None:
     if x.dtype not in DTYPES:
@@ -73,10 +77,6 @@ def _check(x: torch.Tensor, what: str) -> None:
 
 def _lanes(shape, axis: int) -> tuple[int, int, int]:
     return math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:])
-
-
-def _grid(total: int) -> int:
-    return max(1, min(-(-total // _THREADS), _MAX_GRID))
 
 
 def _batched(*ts) -> bool:
@@ -346,38 +346,47 @@ def merge_split(x: torch.Tensor, y: torch.Tensor, take_low, axis: int, xi: Optio
     return _split_pairs(x, y, xi, yi, take_low, axis)
 
 
-def _flags(take_low: torch.Tensor, shape, axis: int) -> torch.Tensor:
-    """One uint8 flag per lane group: *take_low* right-aligned to *shape*,
-    read at coordinate 0 from *axis* on."""
+def _flags(take_low: torch.Tensor, shape, axis: int) -> tuple[torch.Tensor, int]:
+    """One flag per lane group: *take_low* right-aligned to *shape*, read at
+    coordinate 0 from *axis* on, as (a 1-D bool or uint8 tensor, the stride
+    between lane groups' flags). A view where the broadcast flags lie at one
+    stride (one flag, or a vmapped batch's flag an example): no kernel runs
+    for them; else a copy."""
     t = take_low.reshape((1,) * (len(shape) - take_low.ndim) + tuple(take_low.shape))
     t = t[(slice(None),) * axis + (slice(0, 1),) * (len(shape) - axis)]
-    return t.expand(tuple(shape[:axis]) + (1,) * (len(shape) - axis)).reshape(-1).to(torch.uint8)
+    t = t.expand(tuple(shape[:axis]) + (1,) * (len(shape) - axis)).reshape(-1)
+    if t.dtype not in (torch.bool, torch.uint8):
+        t = t.to(torch.uint8)
+    return t, t.stride(0) if t.numel() > 1 else 0
 
 
 def _launch_split(x, y, xi, yi, take_low, axis):
+    """One merge-split on the card: one launch of the plan's tiles
+    (``_geometry.split_plan``)."""
     outer, n, inner = _lanes(tuple(x.shape), axis)
     x, y = x.contiguous(), y.contiguous()
+    mode = "values" if xi is None else "pairs"
     out = torch.empty_like(x)
     outi = None
     if xi is not None:
         xi, yi = xi.to(torch.int64).contiguous(), yi.to(torch.int64).contiguous()
         outi = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-    if x.numel() == 0:
+    p = _geometry.split_plan(outer, n, inner, x.element_size(), mode)
+    if not p.tiles:
         return out if xi is None else (out, outi)
-    flags = _flags(take_low, tuple(x.shape), axis)
+    flags, flag_stride = _flags(take_low, tuple(x.shape), axis)
+    lib = _kernel(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    shifts = [ctypes.c_int(v.bit_length() - 1) for v in (p.tile, p.lanes, p.sector)]
     with torch.cuda.device(x.device):
-        err = _kernel().merge_split(
-            ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(xi is not None),
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            ctypes.c_void_p(xi.data_ptr() if xi is not None else 0),
-            ctypes.c_void_p(yi.data_ptr() if yi is not None else 0), ctypes.c_void_p(flags.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(outi.data_ptr() if outi is not None else 0),
-            ctypes.c_longlong(outer), ctypes.c_longlong(n), ctypes.c_longlong(inner),
-            ctypes.c_int(_grid(x.numel())), ctypes.c_void_p(stream))
-    _build.check(err, "merge_split")
-    merge_split.launches += 1
-    merge_split.paths["values" if xi is None else "pairs"] += 1
+        err = lib.merge_split(ctypes.c_int(DTYPES[x.dtype]), ctypes.c_int(p.mode), _ptr(x), _ptr(y), _ptr(xi),
+                              _ptr(yi), _ptr(flags), ctypes.c_longlong(flag_stride), _ptr(out), _ptr(outi),
+                              ctypes.c_longlong(n), ctypes.c_longlong(inner), *shifts, ctypes.c_longlong(p.tiles_n),
+                              ctypes.c_longlong(p.lane_groups), ctypes.c_longlong(p.tiles), ctypes.c_int(p.grid),
+                              _regions(p.regions), ctypes.c_int(p.smem), ctypes.c_void_p(stream))
+        _build.check(err, "merge_split")
+        merge_split.launches += 1
+        merge_split.paths[mode] += 1
     return out if xi is None else (out, outi)
 
 
@@ -507,8 +516,9 @@ def _library():
     lib.sort_merge.restype = ctypes.c_int
     lib.merge_split.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
     ]
     lib.merge_split.restype = ctypes.c_int
     return lib

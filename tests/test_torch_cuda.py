@@ -1050,9 +1050,107 @@ def test_order_backend_functions_match_their_plain_versions(cuda, dtype, shape, 
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_bits(g), _bits(w))
     sa, sb = ms.sort_block_plain(a, axis), ms.sort_block_plain(b, axis)
+    (pa, ia), (pb, ib) = ms.sort_block_plain(a, axis, idx), ms.sort_block_plain(b, axis, idx)
     flags = torch.from_numpy(np.random.default_rng(3).random(shape[:axis] + (1,) * (len(shape) - axis)) < 0.5)
-    np.testing.assert_array_equal(_bits(ms.merge_split(sa.to(cuda), sb.to(cuda), flags.to(cuda), axis)),
-                                  _bits(ms.merge_split_plain(sa, sb, flags, axis)))
+    for f in (flags, ~flags):  # each lane group's low half, then its high half
+        np.testing.assert_array_equal(_bits(ms.merge_split(sa.to(cuda), sb.to(cuda), f.to(cuda), axis)),
+                                      _bits(ms.merge_split_plain(sa, sb, f, axis)))
+        got = ms.merge_split(*(t.to(cuda) for t in (pa, pb)), f.to(cuda), axis, ia.to(cuda), ib.to(cuda))
+        for g, w in zip(got, ms.merge_split_plain(pa, pb, f, axis, ia, ib)):
+            np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def _split_pair(shape, axis, dtype, kind, seed):
+    """Two blocks sorted along *axis*, with int64 indices (few distinct:
+    ties of (value, index)): mixed data (NaN, -0.0, ties, extremes); lanes
+    of equal keys whose bits differ (x -0.0 or a NaN with a payload, y 0.0
+    or the default NaN); or x wholly below or above y."""
+    import torch
+
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if kind == "mixed":
+        a, b = _order_data(shape, dt, seed), _order_data(shape, dt, seed + 1)
+    elif kind == "equal keys":
+        if dt.kind == "f":
+            bits = {8: np.int64, 4: np.int32}[dt.itemsize]
+            nan = np.array(np.nan, dtype=dt)
+            payload = (nan.view(bits) + 1).view(dt)
+            lane_shape = tuple(1 if d == axis else k for d, k in enumerate(shape))
+            odd = (np.arange(int(np.prod(lane_shape))) % 2 == 0).reshape(lane_shape)
+            a = np.where(odd, payload, np.full(shape, -0.0, dtype=dt))
+            b = np.where(odd, nan, np.zeros(shape, dtype=dt))
+        else:
+            a, b = np.full(shape, 3, dtype=dt), np.full(shape, 3, dtype=dt)
+    else:
+        lo = rng.integers(0, 10, shape).astype(dt)
+        a, b = (lo, lo + 20) if kind == "x below y" else (lo + 20, lo)
+    ia, ib = (torch.from_numpy(rng.integers(0, 4, shape)) for _ in range(2))
+    a, b = torch.from_numpy(np.ascontiguousarray(a)), torch.from_numpy(np.ascontiguousarray(b))
+    return ms.sort_block_plain(a, axis), ms.sort_block_plain(b, axis), ms.sort_block_plain(a, axis, ia), \
+        ms.sort_block_plain(b, axis, ib)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32", "int16", "int8", "uint8"])
+@pytest.mark.parametrize("n_at", ["171", "tile+1", "3tile+5"])
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("kind", ["mixed", "equal keys", "x below y", "x above y"])
+def test_merge_split_matches_its_plain_version_over_its_tiles(cuda, dtype, n_at, axis, kind):
+    """merge_split on the card equals its plain version on the CPU bit for
+    bit, the low half and the high half, values and pairs: lanes of 171
+    steps, of its tile plus one and of three tiles plus five
+    (``_geometry.split_plan``'s tile: several work items along a lane, each
+    with its own splits), along axis 0 beside 20 lanes (ragged lane
+    groups) and along the innermost axis (inner 1, three lane groups, each
+    its own flag); one launch a call."""
+    import torch
+
+    from cubed_tpu_torch.kernels import _geometry
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    inner = 20 if axis == 0 else 1
+    t = _geometry.split_plan(1, 1 << 20, inner, np.dtype(dtype).itemsize, "values").tile
+    n = {"171": 171, "tile+1": t + 1, "3tile+5": 3 * t + 5}[n_at]
+    shape, axis = ((n, inner), 0) if axis == 0 else ((3, n), 1)
+    sa, sb, (pa, ia), (pb, ib) = _split_pair(shape, axis, dtype, kind, seed=n)
+    flags = torch.from_numpy(np.random.default_rng(n).random(shape[:axis] + (1,) * (2 - axis)) < 0.5)
+    for f in (flags, ~flags):
+        before = ms.merge_split.launches
+        got = ms.merge_split(sa.to(cuda), sb.to(cuda), f.to(cuda), axis)
+        got_p = ms.merge_split(pa.to(cuda), pb.to(cuda), f.to(cuda), axis, ia.to(cuda), ib.to(cuda))
+        assert ms.merge_split.launches - before == 2
+        np.testing.assert_array_equal(_bits(got), _bits(ms.merge_split_plain(sa, sb, f, axis)))
+        for g, w in zip(got_p, ms.merge_split_plain(pa, pb, f, axis, ia, ib)):
+            np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_merge_split_vmapped_is_one_launch_with_a_flag_an_example(cuda):
+    """A vmapped merge-split (the device executor's batched round): the
+    batch's examples become lane groups of one launch, each reading its own
+    flag; the phase's (512, 256, 256) pair takes two CTAs a lane group."""
+    import torch
+
+    from cubed_tpu_torch.kernels import _geometry
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    shape = (_geometry.split_plan(1, 1 << 20, 20, 8, "values").tile + 1, 20)
+    pairs = [_split_pair(shape, 0, "float64", "mixed", seed=k) for k in range(4)]
+    flags = torch.tensor([True, False, False, True])
+    sa, sb = (torch.stack([p[k] for p in pairs]).to(cuda) for k in (0, 1))
+    pa, ia, pb, ib = (torch.stack([p[k][j] for p in pairs]).to(cuda) for k in (2, 3) for j in (0, 1))
+    before = ms.merge_split.launches
+    got = torch.func.vmap(lambda a, b, f: ms.merge_split(a, b, f, 0))(sa, sb, flags.to(cuda))
+    got_p = torch.func.vmap(lambda a, b, i, j, f: ms.merge_split(a, b, f, 0, i, j))(pa, pb, ia, ib, flags.to(cuda))
+    assert ms.merge_split.launches - before == 2
+    for k, p in enumerate(pairs):
+        np.testing.assert_array_equal(_bits(got[k]), _bits(ms.merge_split_plain(p[0], p[1], flags[k], 0)))
+        want = ms.merge_split_plain(p[2][0], p[3][0], flags[k], 0, p[2][1], p[3][1])
+        np.testing.assert_array_equal(_bits(got_p[0][k]), _bits(want[0]))
+        np.testing.assert_array_equal(got_p[1][k].cpu(), want[1])
+    p = _geometry.split_plan(1, 512, 65536, 8, "values")
+    assert (p.tile, p.lanes, p.tiles_n, p.launches) == (256, 16, 2, 1)
 
 
 @pytest.mark.parametrize("where", ["tile+1", "3tile+5"])

@@ -509,3 +509,175 @@ def test_sort_plan_launches_one_tile_sort_then_a_pass_a_doubling(itemsize, inner
             assert p.launches == (1 if n <= p.tile else 1 + int(np.ceil(np.log2(np.ceil(n / p.tile)))))
             assert p.widths == tuple(p.tile << k for k in range(p.launches - 1))
             assert p.smem <= _geometry.SORT_SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# merge_split: a tiled merge-path pass over a pair of sorted blocks
+# ---------------------------------------------------------------------------
+
+
+def _split_tile(inner, itemsize, mode="values"):
+    return _geometry.split_plan(1, 1 << 20, inner, itemsize, mode).tile
+
+
+def _check_split_walk(p, take_low):
+    """Replay *p*: every output element written exactly once; each work item
+    owns at most ``tile`` positions of at most ``lanes`` lanes of one outer
+    index, merging the same merged range for each of its lanes: the kept
+    half's positions ``[d0, d0 + tn)``, ``d0`` its first output plus ``n``
+    for the high half."""
+    offsets, item, start, end = _geometry.split_walk(torch, p, take_low)
+    outer, n, inner = p.outer, p.n, p.inner
+    assert torch.equal(torch.sort(offsets).values, torch.arange(outer * n * inner))
+    o = offsets // (n * inner)
+    pos = offsets // inner % n
+    low = torch.as_tensor(take_low).reshape(-1)[o]
+    merged = pos + torch.where(low, 0, n)
+    assert bool(((start <= merged) & (merged < end)).all())
+    assert bool((end - start <= p.tile).all()) and bool(((start - torch.where(low, 0, n)) % p.tile == 0).all())
+    # one range and one outer index a work item, its lanes neighbours
+    for t in (start, end, o, torch.div(offsets % inner, p.lanes, rounding_mode="floor")):
+        per_item = torch.unique(torch.stack([item, t]), dim=1)
+        assert per_item.shape[1] == torch.unique(item).numel()
+    assert item.max() < p.tiles
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+@pytest.mark.parametrize("inner", [1, 3, 20])
+@pytest.mark.parametrize("n_at", ["1", "T-1", "T", "T+1", "3T+5"])
+def test_split_plan_walks_every_output_once_for_either_half(itemsize, inner, n_at, monkeypatch):
+    """Lanes within a tile and past it (the tile forced small so the walk
+    stays short), ``inner`` of 1, below ``lanes`` and not a multiple of it;
+    each lane group keeping the low or the high half."""
+    monkeypatch.setattr(_geometry, "SPLIT_SMEM_TARGET", 6000)
+    t = _split_tile(inner, itemsize)
+    n = {"1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "3T+5": 3 * t + 5}[n_at]
+    for mode in _geometry.SPLIT_MODES:
+        p = _geometry.split_plan(4, n, inner, itemsize, mode)
+        assert p.tiles == 4 * p.lane_groups * p.tiles_n > 0 and p.launches == 1
+        assert p.tiles_n == -(-n // p.tile)
+        _check_split_walk(p, torch.tensor([True, False, False, True]))
+
+
+def test_split_plan_main_path_pairs_take_one_launch():
+    """The order-statistics phase's rounds, float64 along axis 0: sort's
+    (512, 256, 256) pair is 8192 items of 256 x 16 lanes (two along each
+    lane group's kept half, four CTAs an SM); argsort's (171, 256, 256)
+    pairs with indices 8192 items of 128 x 16; a vmapped batch of 4 pairs is
+    one launch of 4x the items."""
+    p = _geometry.split_plan(1, 512, 65536, 8, "values")
+    assert (p.tile, p.lanes, p.sector, p.tiles_n, p.tiles, p.launches) == (256, 16, 4, 2, 8192, 1)
+    assert 4 * p.smem <= 233472 - 4 * 1024
+    p = _geometry.split_plan(1, 171, 65536, 8, "pairs")
+    assert (p.tile, p.lanes, p.sector, p.tiles_n, p.tiles, p.launches) == (128, 16, 4, 2, 8192, 1)
+    assert 4 * p.smem <= 233472 - 4 * 1024
+    batch = _geometry.split_plan(4, 512, 65536, 8, "values")
+    assert batch.tiles == 4 * 8192 and batch.launches == 1
+    offsets, item, start, end = _geometry.split_walk(torch, _geometry.split_plan(4, 5, 33, 8, "values"),
+                                                     torch.tensor([True, False, True, False]))
+    assert torch.equal(torch.sort(offsets).values, torch.arange(4 * 5 * 33))
+    assert torch.equal(torch.unique(start), torch.tensor([0, 5]))
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+def test_split_plan_shared_memory_fits_every_dtype_and_mode(itemsize):
+    for mode in _geometry.SPLIT_MODES:
+        for inner in (1, 2, 7, 16, 33, 65536):
+            for n in (1, 8, 100, 171, 512, 4096, 1 << 20):
+                p = _geometry.split_plan(3, n, inner, itemsize, mode)
+                assert p.tile >= _geometry.SORT_ITEMS and p.tile & (p.tile - 1) == 0
+                assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
+                assert p.lanes * itemsize >= min(128, 32 * itemsize) or p.lanes >= inner
+                # a sector group: a power of two of lanes, 32 bytes of a row or every lane
+                assert p.sector & (p.sector - 1) == 0 and p.lanes % p.sector == 0
+                assert p.sector * itemsize == min(32, p.lanes * itemsize) or p.sector == p.lanes
+                assert p.smem <= _geometry.SPLIT_SMEM_TARGET <= _geometry.SORT_SMEM_LIMIT
+                # the largest tile that fits, up to what the lane needs
+                assert p.tile >= n or _geometry.split_layout(2 * p.tile, p.lanes, p.sector, itemsize,
+                                                             p.mode)[1] > _geometry.SPLIT_SMEM_TARGET
+                assert p.tile < 2 * max(n, _geometry.SORT_ITEMS)
+
+
+@pytest.mark.parametrize("itemsize", SORT_ITEMSIZES)
+def test_split_plan_regions_are_aligned_and_disjoint(itemsize):
+    """The offsets the kernel takes (``SORT_REGIONS``): the carried indices
+    at 0, then the values, each lane's two splits, four int32 a sector group
+    and the CTA's loads, each 16-byte aligned and within the CTA's shared
+    memory."""
+    for mode, code in _geometry.SPLIT_MODES.items():
+        for inner, n in ((1, 100), (7, 5000), (20, 171), (65536, 512), (65536, 171)):
+            p = _geometry.split_plan(1, n, inner, itemsize, mode)
+            r = dict(zip(_geometry.SORT_REGIONS, p.regions))
+            rows = p.lanes * (p.tile + 1)
+            assert all(v % 16 == 0 for v in p.regions) and p.smem % 16 == 0
+            assert (rows * 8 if code == 1 else 0) <= r["vals"]
+            assert r["vals"] + rows * itemsize <= r["splits"] == r["pos"] == r["ord0"] == r["ord1"]
+            assert p.lanes // p.sector <= _geometry.SPLIT_MAX_GROUPS
+            assert r["splits"] + 2 * p.lanes * 8 + (4 * _geometry.SPLIT_MAX_GROUPS + 1) * 4 <= p.smem
+
+
+def test_split_plan_segments_compose_to_the_jax_packages_round(monkeypatch):
+    """Each walked segment filled from the JAX package's sort of the
+    concatenated pair (``_block_sort.py:220``; with indices its
+    ``_pair_order``) gives the package's round, low half or high by lane
+    group, and the port's ``merge_split`` on the CPU: tiles forced small,
+    so a kept half spans several work items."""
+    monkeypatch.setattr(_geometry, "SPLIT_SMEM_TARGET", 3000)
+    from cubed_tpu.array_api._block_sort import _pair_order
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    rng = np.random.default_rng(11)
+    shape, axis = (4, 150, 5), 1
+    n = shape[axis]
+
+    def sorted_block(seed_shift):
+        a = rng.integers(0, 20, shape).astype(np.float64)
+        a[rng.random(shape) < 0.1] = np.nan
+        a[rng.random(shape) < 0.05] = -0.0
+        i = rng.permutation(a.size).reshape(shape) + seed_shift
+        order = np.asarray(_pair_order(nxp.asarray(a), nxp.asarray(i), axis))
+        return np.take_along_axis(a, order, axis), np.take_along_axis(i, order, axis)
+
+    (x, xi), (y, yi) = sorted_block(0), sorted_block(10**6)
+    low = np.array([True, False, False, True])
+    for pairs in (False, True):
+        mv, mi = np.concatenate([x, y], axis), np.concatenate([xi, yi], axis)
+        if pairs:
+            order = np.asarray(_pair_order(nxp.asarray(mv), nxp.asarray(mi), axis))
+            merged, merged_i = np.take_along_axis(mv, order, axis), np.take_along_axis(mi, order, axis)
+        else:
+            merged, merged_i = np.asarray(nxp.sort(nxp.asarray(mv), axis=axis)), None
+        want = np.where(low[:, None, None], merged[:, :n], merged[:, n:])
+        p = _geometry.split_plan(4, n, 5, 8, "pairs" if pairs else "values")
+        assert p.tiles_n >= 3
+        offsets, item, start, end = _geometry.split_walk(torch, p, torch.from_numpy(low))
+        got = np.full(x.size, -1.0)
+        lane = (offsets // (n * 5)) * 5 + offsets % 5
+        keys = np.stack([lane.numpy(), start.numpy()])
+        flat_merged = merged.transpose(0, 2, 1).reshape(-1, 2 * n)  # lanes (o * inner + l) of 2n
+        for key in np.unique(keys, axis=1).T:
+            sel = np.sort(offsets.numpy()[(keys[0] == key[0]) & (keys[1] == key[1])])
+            got[sel] = flat_merged[key[0], key[1]:key[1] + sel.size]
+        np.testing.assert_array_equal(got.reshape(shape), want)
+        tl = torch.from_numpy(low)[:, None, None]
+        if pairs:
+            mine = ms.merge_split(*(torch.from_numpy(t) for t in (x, y)), tl, axis, torch.from_numpy(xi),
+                                  torch.from_numpy(yi))
+            np.testing.assert_array_equal(mine[0].numpy(), want)
+            np.testing.assert_array_equal(mine[1].numpy(), np.where(low[:, None, None], merged_i[:, :n],
+                                                                   merged_i[:, n:]))
+        else:
+            np.testing.assert_array_equal(ms.merge_split(torch.from_numpy(x), torch.from_numpy(y), tl, axis).numpy(),
+                                          want)
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_index():
+    with pytest.raises(ValueError, match="32 bits"):
+        _geometry.split_plan(1, 2**31, 1, 1, "values")
+    with pytest.raises(ValueError, match="mode"):
+        _geometry.split_plan(1, 8, 1, 8, "argsort")
+    for shape in ((0, 5, 3), (4, 0, 3), (4, 5, 0)):
+        p = _geometry.split_plan(*shape, 8, "values")
+        assert p.tiles == 0 and p.launches == 0
+        assert all(t.numel() == 0 for t in _geometry.split_walk(torch, p, torch.ones(max(1, shape[0]),
+                                                                                      dtype=torch.bool)))
