@@ -3406,6 +3406,24 @@ def check_merge_split(torch, sort_shape, arg_shape) -> dict:
                 max_abs_err=0.0, ms=t_low, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
 
 
+def order_stats_in_fresh_process() -> tuple[list, dict]:
+    """The order-statistics phase, its merge kernels checked first, in a
+    fresh process (``--order-stats-phase``), its output passed on; returns
+    the kernels line's entries and the phase's summary (its last line).
+    After the Array API phase (many profiled computes replaying captured
+    graphs) torch.profiler has recorded no kernel at all in three sessions
+    in a row, and part of a fourth's, where a fresh process records every
+    launch; the merge kernels' checks hold each counted launch against a
+    record."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--order-stats-phase"],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"order-statistics phase: its process failed:\n{proc.stderr[-4000:]}")
+    r = json.loads(lines[-1])
+    return r["kernels"], r["order"]
+
+
 def _net_chunk(config, with_idx: bool) -> int:
     """The time-axis chunk of the sort network's blocks for *config* (after
     ``auto``'s coarsening or shrinking)."""
@@ -3896,8 +3914,9 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             config = ORDER_STATS_FULL if argv[1:] == ["full"] else ORDER_STATS
-            check_merge_sort(torch, config)
-            run_order_stats_phase(torch, config)
+            kernels_order = check_merge_sort(torch, config)
+            order = run_order_stats_phase(torch, config)
+            print(json.dumps({"kernels": kernels_order, "order": order}))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4012,11 +4031,11 @@ def main(argv: list) -> int:
               f"sighting: op by op, no capture); {smi_tag()}")
         array_api = run_array_api_phase(torch)
         print("array API phase summary: " + json.dumps(array_api))
-        # the order-statistics phase, its merge kernels checked first (after
-        # the phases above, which run as they ran before it); the kernels'
-        # launches are those of the phase's first device computes
-        kernels_order = check_merge_sort(torch)
-        order = run_order_stats_phase(torch)
+        # the order-statistics phase, its merge kernels checked first, in a
+        # process of its own (after the phases above, which run as they ran
+        # before it); the kernels' launches are those of the phase's first
+        # device computes
+        kernels_order, order = order_stats_in_fresh_process()
         print("order-statistics phase summary: " + json.dumps(order))
         for k in kernels_order:
             k["launches"] = order["launches"][k["name"]]
