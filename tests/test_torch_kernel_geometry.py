@@ -681,3 +681,167 @@ def test_split_plan_refuses_what_the_kernel_cannot_index():
         assert p.tiles == 0 and p.launches == 0
         assert all(t.numel() == 0 for t in _geometry.split_walk(torch, p, torch.ones(max(1, shape[0]),
                                                                                       dtype=torch.bool)))
+
+
+def _order_key(v) -> tuple:
+    """The kernels' order key (``Order<T>::key``): NaN after every number,
+    all NaNs equal, -0.0 equal to 0.0."""
+    v = float(v)
+    return (1, 0.0) if v != v else (0, v + 0.0)
+
+
+def _split_kernel_model(x, y, xi, yi, flags, p, threads=256):
+    """merge_split_kernel (csrc/merge_sort.cu) replayed work item by work
+    item: the merge-path split searches (all the CTA's threads over the ends
+    not known, ``probes`` places a round, the ballot's prefix taken), each
+    sector group's rows and where its loads start, the loads into each
+    lane's shared-memory segments (every slot filled once), and the merge
+    of the segments by (key, [index,] place). Returns (out, out indices, the
+    elements the loads cover: each group's rows times its lanes, the
+    sectors asked of device memory)."""
+    n, inner, tile, lanes, sector = p.n, p.inner, p.tile, p.lanes, p.sector
+    lane_shift, sector_shift = lanes.bit_length() - 1, sector.bit_length() - 1
+    groups = lanes >> sector_shift
+    xf, yf = x.reshape(-1), y.reshape(-1)
+    pairs = xi is not None
+    xif, yif = (xi.reshape(-1), yi.reshape(-1)) if pairs else (None, None)
+    out, outi = np.zeros_like(xf), np.zeros(xf.shape, dtype=np.int64)
+    written = np.zeros(xf.shape, dtype=bool)
+    covered = 0
+    for b in range(p.tiles):
+        kt, rest = b % p.tiles_n, b // p.tiles_n
+        lg, o = rest % p.lane_groups, rest // p.lane_groups
+        k0, l0 = kt * tile, lg * lanes
+        tn, cn = min(tile, n - k0), min(lanes, inner - l0)
+        d0 = (0 if flags[o] else n) + k0
+        base = o * n * inner + l0
+        splits = [0] * (2 * lanes)
+        skip = int(d0 == 0)
+        ends = 2 - skip - int(d0 + tn == 2 * n)
+        probes = min(32, threads >> (lane_shift + ends - 1))
+        if skip + ends < 2:
+            splits[lanes:] = [n] * lanes
+        for search in range(ends * lanes):
+            c, which = search & (lanes - 1), skip + (search >> lane_shift)
+            d = d0 + (tn if which else 0)
+            lo, hi = (max(0, d - n), min(d, n)) if c < cn else (0, 0)
+            while lo < hi:
+                span = hi - lo
+                first = []
+                for me in range(probes):
+                    m = lo + span * (me + 1) // (probes + 1)
+                    px, py = base + m * inner + c, base + (d - 1 - m) * inner + c
+                    xk, yk = _order_key(xf[px]), _order_key(yf[py])
+                    first.append(not (yk < xk or (pairs and yk == xk and yif[py] < xif[px])))
+                t = sum(first)
+                assert first == [True] * t + [False] * (probes - t)  # a prefix: the ballot's count
+                lo, hi = (lo + span * t // (probes + 1) + 1 if t else lo,
+                          lo + span * (t + 1) // (probes + 1) if t < probes else hi)
+            splits[which * lanes + c] = lo
+        rows, start = [], 0
+        for g in range(groups):
+            cs = range(g << sector_shift, min(cn, (g + 1) << sector_shift))
+            if len(cs):
+                i0s, i1s = [splits[c] for c in cs], [splits[lanes + c] for c in cs]
+                nrx, nry = max(i1s) - min(i0s), tn + max(i0s) - min(i1s)
+                rows.append((min(i0s), nrx, d0 - max(i0s), start))
+                covered += (nrx + nry) * len(cs)
+            else:
+                nrx = nry = 0
+                rows.append((0, 0, 0, start))
+            start += (nrx + nry) << sector_shift
+        seg_v, seg_i = [None] * (lanes * (tile + 1)), [None] * (lanes * (tile + 1))
+        for e in range(start):
+            g = sum(1 for k in range(1, groups) if e >= rows[k][3])
+            r = e - rows[g][3]
+            c = (g << sector_shift) + (r & (sector - 1))
+            r >>= sector_shift
+            if c >= cn:
+                continue
+            i0, i1 = splits[c], splits[lanes + c]
+            in_x = r < rows[g][1]
+            q = rows[g][0] + r if in_x else rows[g][2] + r - rows[g][1]
+            s0, s1 = (i0, i1) if in_x else (d0 - i0, d0 + tn - i1)
+            assert 0 <= q < n
+            if s0 <= q < s1:
+                slot = c * (tile + 1) + q - s0 + (0 if in_x else i1 - i0)
+                assert seg_v[slot] is None
+                gi = base + q * inner + c
+                seg_v[slot] = xf[gi] if in_x else yf[gi]
+                seg_i[slot] = (xif[gi] if in_x else yif[gi]) if pairs else 0
+        for c in range(cn):
+            lane = range(c * (tile + 1), c * (tile + 1) + tn)
+            assert all(seg_v[s] is not None for s in lane)
+            order = sorted(lane, key=lambda s: (_order_key(seg_v[s]), seg_i[s], s))
+            for k, s in enumerate(order):
+                g = base + (k0 + k) * inner + c
+                assert not written[g]
+                written[g] = True
+                out[g], outi[g] = seg_v[s], seg_i[s]
+    assert written.all()
+    return out.reshape(x.shape), outi.reshape(x.shape), covered
+
+
+def _split_model_pair(shape, axis, dtype, pairs, seed):
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for _ in range(2):
+        if np.dtype(dtype).kind == "f":
+            a = (rng.integers(0, 7, shape) * 0.5).astype(dtype)
+            a[rng.random(shape) < 0.1] = np.nan
+            a[rng.random(shape) < 0.05] = -0.0
+        else:
+            a = rng.integers(-3, 4, shape).astype(dtype)
+        i = torch.from_numpy(rng.integers(0, 4, shape))
+        t = torch.from_numpy(a)
+        blocks.append(ms.sort_block_plain(t, axis, i) if pairs else (ms.sort_block_plain(t, axis), None))
+    return blocks
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("shape, axis, dtype", [((37, 5, 3), 0, np.float64), ((6, 4, 65), 2, np.float64),
+                                                ((33, 70), 0, np.float32), ((41, 9), 0, np.int64),
+                                                ((5, 130), 1, np.uint8), ((1, 4), 0, np.float64),
+                                                ((3, 50, 40), 1, np.float64), ((70, 20), 0, np.int8),
+                                                ((2, 77), 1, np.float32)])
+def test_split_kernel_model_equals_the_plain_merge_split(shape, axis, dtype, pairs, monkeypatch):
+    """The kernel's algorithm replayed in Python over the plan's work items
+    (tiles forced small for the wider cases, so lanes span several items,
+    each with its own searches) equals merge_split_plain bit for bit, each
+    lane group keeping its own half: NaN, -0.0 and ties (of (value, index)
+    with pairs) included; every shared-memory slot filled once."""
+    from cubed_tpu_torch.kernels import merge_sort as ms
+
+    if shape[axis] >= 40:
+        monkeypatch.setattr(_geometry, "SPLIT_SMEM_TARGET", 2500)
+    (x, xi), (y, yi) = _split_model_pair(shape, axis, dtype, pairs, seed=sum(shape))
+    outer, n, inner = int(np.prod(shape[:axis])), shape[axis], int(np.prod(shape[axis + 1:]))
+    p = _geometry.split_plan(outer, n, inner, np.dtype(dtype).itemsize, "pairs" if pairs else "values")
+    flags = torch.from_numpy(np.random.default_rng(n).random(shape[:axis] + (1,) * (len(shape) - axis)) < 0.5)
+    for f in (flags, ~flags):
+        low = ms._flags(f, shape, axis)[0].numpy()
+        got, goti, _ = _split_kernel_model(x.numpy(), y.numpy(), xi.numpy() if pairs else None,
+                                           yi.numpy() if pairs else None, low, p)
+        want = ms.merge_split_plain(x, y, f, axis, xi, yi)
+        want, wanti = want if pairs else (want, None)
+        assert got.tobytes() == want.numpy().tobytes()
+        if pairs:
+            np.testing.assert_array_equal(goti, wanti.numpy())
+
+
+def test_split_kernel_model_reads_little_past_the_kept_half():
+    """On uniform random lanes (512 of 64 float64, argsort's 171 with
+    indices) the sector groups' unions of rows cover at most 20% past the
+    kept half's n elements a lane, either half (the spread of the splits
+    within a sector: about 10% at the plan's tiles, two along a lane)."""
+    rng = np.random.default_rng(0)
+    for n, pairs in ((512, False), (171, True)):
+        x, y = (np.sort(rng.random((n, 64)), axis=0) for _ in range(2))
+        xi = rng.permutation(n * 64).reshape(n, 64) if pairs else None
+        yi = xi + n * 64 if pairs else None
+        p = _geometry.split_plan(1, n, 64, 8, "pairs" if pairs else "values")
+        for low in (True, False):
+            _, _, covered = _split_kernel_model(x, y, xi, yi, np.array([low]), p)
+            assert n * 64 <= covered <= 1.2 * n * 64
