@@ -46,8 +46,8 @@ IDENTITY = """      for (int t = 0; t < min(kItems, tn - j0); ++t) {
         out[g0 + t * inner] = lv[j0 + t];
         if constexpr (kIdx) outi[g0 + t * inner] = li[j0 + t];
       }"""
-LOAD = "    for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kLoads) {"
-NO_LOAD = "    for (int e0 = threadIdx.x; e0 < 0; e0 += kThreads * kLoads) {"
+LOAD = "    const int total = rows[4 * kMaxGroups];"
+NO_LOAD = "    const int total = 0 * rows[4 * kMaxGroups];"
 SEARCH = "      while (__any_sync(0xffffffffu, lo < hi)) {"
 NO_SEARCH = "      lo = (lo + hi) >> 1;\n      hi = lo;\n" + SEARCH
 

@@ -69,10 +69,11 @@
 //     then load each lane's two segments into shared memory, a group of
 //     lanes that one 32-byte sector holds at a time over the union of
 //     their segments' rows (the over-read bounded by the spread of the
-//     splits within a sector), and merge in shared memory like sort_merge,
-//     each thread's outputs stored as it merges them (neighbouring threads
-//     on neighbouring lanes: each store a row of the (outer, n, inner)
-//     layout). One launch a call; the output is the only buffer. No stage
+//     splits within a sector; 4- and 8-byte elements by cp.async, all of a
+//     thread's copies in flight at once), and merge in shared memory like
+//     sort_merge, each thread's outputs stored as it merges them
+//     (neighbouring threads on neighbouring lanes: each store a row of the
+//     (outer, n, inner) layout). One launch a call; the output is the only buffer. No stage
 //     streams: the searches and the loads wait on device memory, the merge
 //     on the SM, so the tile is sized for four CTAs an SM (256 x 16
 //     float64, 33 KB), each overlapping the others' stages.
@@ -639,6 +640,15 @@ int launch_merge(int mode, const void* x, const void* src, const void* srci, voi
 // merge_split
 // ---------------------------------------------------------------------------
 
+// one element copied from device to shared memory without a register
+// (cp.async; 4 or 8 bytes, both addresses aligned to them)
+template <typename V>
+__device__ __forceinline__ void copy_async(V* to, const V* from) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(to));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(from), "n"(sizeof(V)));
+}
+
 // the low (flag 1) or high (flag 0) n of the stable merge of x's and y's
 // lanes, lane group o (the elements (o, *, *)) reading take_low[o *
 // flag_stride] (a bool or uint8, read in place: stride 0 for one flag): a CTA
@@ -653,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                        long long lane_groups, long long tiles, Regions R) {
   using K = typename Order<T>::K;
   constexpr bool kIdx = kMode == 1;
-  constexpr int kLoads = kIdx ? kBatch / 2 : kBatch;  // a thread's loads in flight: 64 bytes
+  constexpr int kLoads = kIdx ? kBatch / 2 : kBatch;  // register loads in flight a thread: 64 bytes
   using E = Elem<K, kIdx>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = 1 << tile_shift, lanes = 1 << lane_shift, sector = 1 << sector_shift;
@@ -750,43 +760,65 @@ __global__ void __launch_bounds__(kThreads, 3)
 
     // both segments of each lane into shared memory (X's at [0, nx), Y's at
     // [nx, tn)): a group's rows of `sector` neighbouring lanes, each row one
-    // sector of device memory; a lane takes the rows of its own segments
+    // sector of device memory; a lane takes the rows of its own segments.
+    // Load e's source (1 X, 2 Y, 0 none: outside its lane's segment or a
+    // lane past the edge), its offset and its shared-memory slot:
+    auto locate = [&](int e, long long& gi, int& slot) -> int {
+      int g = 0;
+#pragma unroll
+      for (int k = 1; k < kMaxGroups; ++k) g += k < groups && e >= rows[4 * k + 3];
+      int r = e - rows[4 * g + 3];
+      const int c = (g << sector_shift) + (r & (sector - 1));
+      r >>= sector_shift;
+      const int nrx = rows[4 * g + 1];
+      if (c >= cn) return 0;
+      const int i0 = (int)splits[c], i1 = (int)splits[lanes + c];
+      const bool in_x = r < nrx;
+      const int q = in_x ? rows[4 * g] + r : rows[4 * g + 2] + (r - nrx);  // the row along n
+      const int s0 = in_x ? i0 : (int)(d0 - i0), s1 = in_x ? i1 : (int)(d0 + tn - i1);
+      if (q < s0 || q >= s1) return 0;
+      gi = base + (long long)q * inner + c;
+      slot = c * vstride + (q - s0) + (in_x ? 0 : i1 - i0);
+      return in_x ? 1 : 2;
+    };
     const int total = rows[4 * kMaxGroups];
-    for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kLoads) {
-      T v[kLoads];
-      long long vi[kLoads];
-      int slot[kLoads];
-#pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        const int e = e0 + j * kThreads;
-        slot[j] = -1;
-        if (e < total) {
-          int g = 0;
-#pragma unroll
-          for (int k = 1; k < kMaxGroups; ++k) g += k < groups && e >= rows[4 * k + 3];
-          int r = e - rows[4 * g + 3];
-          const int c = (g << sector_shift) + (r & (sector - 1));
-          r >>= sector_shift;
-          const int nrx = rows[4 * g + 1];
-          if (c < cn) {
-            const int i0 = (int)splits[c], i1 = (int)splits[lanes + c];
-            const bool in_x = r < nrx;
-            const int q = in_x ? rows[4 * g] + r : rows[4 * g + 2] + (r - nrx);  // the row along n
-            const int s0 = in_x ? i0 : (int)(d0 - i0), s1 = in_x ? i1 : (int)(d0 + tn - i1);
-            if (q >= s0 && q < s1) {
-              const long long gi = base + (long long)q * inner + c;
-              slot[j] = c * vstride + (q - s0) + (in_x ? 0 : i1 - i0);
-              v[j] = in_x ? x[gi] : y[gi];
-              if constexpr (kIdx) vi[j] = in_x ? xi[gi] : yi[gi];
-            }
-          }
+    if constexpr (sizeof(T) >= 4) {
+      // copies straight into shared memory (cp.async: 4 or 8 bytes), every
+      // one of a thread's in flight at once, no register held for them
+      for (int e = threadIdx.x; e < total; e += kThreads) {
+        long long gi;
+        int slot;
+        const int from = locate(e, gi, slot);
+        if (from) {
+          copy_async(svals + slot, (from == 1 ? x : y) + gi);
+          if constexpr (kIdx) copy_async(sidx + slot, (from == 1 ? xi : yi) + gi);
         }
       }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    } else {
+      // 1- and 2-byte elements through registers, kLoads in flight a thread
+      for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kLoads) {
+        T v[kLoads];
+        long long vi[kLoads];
+        int slot[kLoads];
 #pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        if (slot[j] >= 0) {
-          svals[slot[j]] = v[j];
-          if constexpr (kIdx) sidx[slot[j]] = vi[j];
+        for (int j = 0; j < kLoads; ++j) {
+          const int e = e0 + j * kThreads;
+          long long gi = 0;
+          const int from = e < total ? locate(e, gi, slot[j]) : 0;
+          if (!from) slot[j] = -1;
+          if (from) {
+            v[j] = from == 1 ? x[gi] : y[gi];
+            if constexpr (kIdx) vi[j] = from == 1 ? xi[gi] : yi[gi];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          if (slot[j] >= 0) {
+            svals[slot[j]] = v[j];
+            if constexpr (kIdx) sidx[slot[j]] = vi[j];
+          }
         }
       }
     }
