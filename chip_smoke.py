@@ -10,7 +10,8 @@ observability phase's, and ``--time-kernels CHECKOUT`` and
 ``--array-api-phase [full]`` runs the Array API phase alone, ``full`` at
 BASELINE.md's 10000 x 10000 / 5000 scale; ``--order-stats-phase [full]``
 the order-statistics phase alone, with its merge kernels' checks, ``full``
-at 4096 steps of the time axis.)
+at 4096 steps of the time axis; ``--zarr-stencil-phase`` the Zarr and
+stencils phase alone.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -184,6 +185,23 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    64 KiB or more between host and card, beyond the output's own chunk
    writes, are none for the resident reads of flip, concat, roll and the
    integer-array index; each op's times, ratio, paths and launches printed;
+   Then the Zarr and stencils phase, on vorticity's four arrays, (500, 450,
+   400) float64 in 100-chunks under 2GB: a horizontal five-point Laplacian
+   by ``map_overlap(depth=(0, 1, 1), boundary="periodic")`` written by
+   ``to_zarr`` compressed with zlib level 1, and vorticity's product
+   ``a[1:]*x[1:] + b[1:]*y[1:]`` written uncompressed by ``store``, each on
+   ``CudaExecutor`` cold and warm and read back with ``from_zarr`` against a
+   numpy oracle drawn from the same Philox blocks (the stencil rtol 1e-12,
+   the product exact), with each write's compression and fsync'd writes
+   timed apart, the bytes written as stored (equal to the store's files),
+   launches, path counters and peak reserved memory; the mean of the
+   stencil's square (Philox and region_sum launched), ``random.normal`` and
+   ``random.randint`` at the same shape bit for bit against numpy's
+   per-block Philox draws, and ``pad`` (constant and edge) of addsum's
+   (5000, 5000) / 1000 array against ``np.pad``; then the same plans on the
+   sequential executor, cut to (100, 450, 400) (pad to (1000, 5000)), under
+   allowed_mem equal to each plan's projected memory, every task's device
+   peak at most that bound;
    Then the order-statistics phase. First its merge kernels
    (csrc/merge_sort.cu: sort_block, argsort_block, merge_split) against
    their plain versions, bit for bit: the sorts at the phase's blocks, at
@@ -2771,6 +2789,367 @@ def run_array_api_phase(torch, config=ARRAY_API) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the Zarr and stencils phase: results written to Zarr (to_zarr compressed,
+# store), the stencil (map_overlap), pad, random.normal and randint
+# ---------------------------------------------------------------------------
+
+#: vorticity's arrays (500, 450, 400) float64 in 100-chunks (720 MB each)
+#: under 2GB; a pangeo stencil on them (a horizontal five-point Laplacian,
+#: periodic in both horizontal axes) written to Zarr with zlib level 1, and
+#: vorticity's product written uncompressed; pad of addsum's (5000, 5000) /
+#: 1000 array; the sequential executor's run cut along the first axis to 100
+ZARR_STENCIL = dict(shape=(500, 450, 400), chunks=100, allowed_mem="2GB", depth=(0, 1, 1),
+                    compressor={"id": "zlib", "level": 1}, pad_shape=(5000, 5000), pad_chunks=1000,
+                    seq_shape=(100, 450, 400), seq_pad_shape=(1000, 5000))
+
+
+def laplacian(torch):
+    """The stencil's block function: the horizontal five-point Laplacian of a
+    block extended by one element along axes 1 and 2 (periodic rolls inside
+    the extended block; the halo's rows are trimmed off by map_overlap)."""
+
+    def laplacian(b):
+        return (torch.roll(b, 1, 1) + torch.roll(b, -1, 1)) + (torch.roll(b, 1, 2) + torch.roll(b, -1, 2)) - 4.0 * b
+
+    return laplacian
+
+
+def laplacian_oracle(a: np.ndarray) -> np.ndarray:
+    """numpy's periodic Laplacian of the whole array, the same five values
+    summed in the same order as :func:`laplacian`."""
+    return (np.roll(a, 1, 1) + np.roll(a, -1, 1)) + (np.roll(a, 1, 2) + np.roll(a, -1, 2)) - 4.0 * a
+
+
+def oracle_draws(shape, chunks, root_seed, draw, dtype=np.float64) -> np.ndarray:
+    """numpy's per-block streams of any distribution: the block at linear
+    offset k is ``draw(Generator(Philox(root_seed + k)), block shape)``,
+    blocks drawn in ORACLE_THREADS threads (numpy's draws release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunks = (chunks,) * len(shape) if isinstance(chunks, int) else tuple(chunks)
+    nblocks = [len(range(0, s, c)) for s, c in zip(shape, chunks)]
+    out = np.empty(shape, dtype=dtype)
+
+    def fill(idx):
+        sel = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
+        rng = np.random.Generator(np.random.Philox(seed=root_seed + int(np.ravel_multi_index(idx, nblocks))))
+        out[sel] = draw(rng, tuple(s.stop - s.start for s in sel))
+
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        list(pool.map(fill, np.ndindex(*nblocks)))
+    return out
+
+
+def zarr_stencil_inputs(spec, shape, chunks):
+    """The phase's arrays in the order their root seeds are drawn after
+    ``random.seed(SEED)``: vorticity's four uniform arrays, then a normal
+    and a randint array of the same shape."""
+    import cubed_tpu_torch
+
+    random.seed(SEED)
+    a, b, x, y = (cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec) for _ in range(4))
+    n = cubed_tpu_torch.random.normal(shape, chunks=chunks, spec=spec)
+    r = cubed_tpu_torch.random.randint(-1000, 1000, shape, chunks=chunks, spec=spec)
+    return a, b, x, y, n, r
+
+
+def zarr_stencil_oracles(shape, chunks) -> dict:
+    random.seed(SEED)
+    roots = [random.getrandbits(30) for _ in range(6)]
+    a, b, x, y = (oracle_draws(shape, chunks, r, lambda g, s: g.random(s)) for r in roots[:4])
+    return dict(
+        stencil=laplacian_oracle(a),
+        product=a[1:] * x[1:] + b[1:] * y[1:],
+        normal=oracle_draws(shape, chunks, roots[4], lambda g, s: g.normal(size=s)),
+        randint=oracle_draws(shape, chunks, roots[5], lambda g, s: g.integers(0, 2000, size=s, dtype=np.int64),
+                             np.int64) - 1000)
+
+
+class StoreTimes:
+    """Times, while open, the two halves of every chunk write of the port's
+    local Zarr stores: the codec's compression and the atomic, fsync'd file
+    write (temp file, fsync, rename, fsync of the directory). The device
+    executor writes a requested output after its tasks, outside any task
+    scope, so its writes carry no ``storage_write`` span to read."""
+
+    def __init__(self):
+        self.compress_s = self.write_s = 0.0
+        self.chunks = 0
+
+    def __enter__(self):
+        from cubed_tpu_torch.storage import store
+
+        self._store = store
+        self._codec_from_meta, self._write = store._codec_from_meta, store._LocalIO.write_bytes_atomic
+        times = self
+
+        def codec_from_meta(comp):
+            codec = times._codec_from_meta(comp)
+            if codec is None:
+                return None
+
+            def compress(data):
+                t = time.perf_counter()
+                try:
+                    return codec[0](data)
+                finally:
+                    times.compress_s += time.perf_counter() - t
+
+            return compress, codec[1]
+
+        def write_bytes_atomic(io, name, data):
+            t = time.perf_counter()
+            try:
+                return times._write(io, name, data)
+            finally:
+                times.write_s += time.perf_counter() - t
+                times.chunks += name != ".zarray"
+
+        store._codec_from_meta, store._LocalIO.write_bytes_atomic = codec_from_meta, write_bytes_atomic
+        return self
+
+    def __exit__(self, *exc):
+        self._store._codec_from_meta, self._store._LocalIO.write_bytes_atomic = self._codec_from_meta, self._write
+
+
+def stored_bytes(store: str) -> int:
+    return sum(os.path.getsize(os.path.join(store, f)) for f in os.listdir(store) if not f.startswith("."))
+
+
+def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray, how, compressor) -> dict:
+    """Run *write* (a to_zarr or store call on *ex*) twice, cold then warm;
+    each time read the store back with ``from_zarr`` and hold it against
+    *expected*; print the times, the write's split, the bytes as stored,
+    launches, path counters and peak reserved memory."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.observability.metrics import get_registry
+
+    runs = []
+    wrappers = kernel_wrappers()
+    cold_store = store + ".cold"
+    for attempt in ("cold", "warm"):
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        before = get_registry().snapshot()
+        with StoreTimes() as st:
+            t = time.perf_counter()
+            write(ex)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        written = get_registry().snapshot_delta(before).get("bytes_written", 0)
+        peak_reserved = torch.cuda.max_memory_reserved()
+        on_disk = stored_bytes(store)
+        t = time.perf_counter()
+        z = cubed_tpu_torch.from_zarr(store)
+        check(z.zarray.compressor == compressor, f"{label}: the store's compressor is {z.zarray.compressor}")
+        if attempt == "cold":
+            err = compare_to_oracle(f"{label} [cuda, {attempt}]", z.compute(), expected, how)
+            os.rename(store, cold_store)
+        else:
+            # the warm compute's chunk files, byte for byte the cold one's
+            # (read back and held against the oracle above)
+            names = sorted(f for f in os.listdir(store) if not f.startswith("."))
+            check(names == sorted(f for f in os.listdir(cold_store) if not f.startswith(".")),
+                  f"{label}: the warm compute wrote other chunks than the cold one")
+            for f in names:
+                with open(os.path.join(store, f), "rb") as w, open(os.path.join(cold_store, f), "rb") as c:
+                    check(w.read() == c.read(), f"{label}: chunk {f} of the warm compute differs from the cold one's")
+            shutil.rmtree(cold_store, ignore_errors=True)
+        read_s = time.perf_counter() - t
+        stats = dict(sorted(ex.stats.items()))
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+            check(stats.get(counter, 0) == 0, f"{label} [cuda]: {counter} = {stats.get(counter)}")
+        check(written == on_disk, f"{label}: bytes_written {written} B, the store holds {on_disk} B")
+        print(f"{label} [cuda, {attempt}]: compute() {seconds:.3f} s; chunk writes {st.chunks}: compression "
+              f"{st.compress_s:.3f} s, fsync'd writes {st.write_s:.3f} s, the rest {seconds - st.compress_s - st.write_s:.3f}"
+              f" s; {written} B written as stored ({written / expected.nbytes:.4f} of {expected.nbytes} B); "
+              f"{'read back and held against the oracle' if attempt == 'cold' else 'chunk files compared with the cold'}"
+              f" {read_s:.3f} s, max rel err {err:.3e}; launches {json.dumps(launches)}; stats {json.dumps(stats)}; "
+              f"peak reserved {peak_reserved} B; {smi_tag()}")
+        runs.append(dict(seconds=seconds, compress_s=st.compress_s, write_s=st.write_s, chunks=st.chunks,
+                         written=written, read_s=read_s, launches=launches, stats=stats,
+                         peak_reserved=peak_reserved))
+    return dict(cold=runs[0], warm=runs[1])
+
+
+def sequential_tight(torch, label: str, build, write_for, expected, how, work: str) -> dict:
+    """*build(spec)* on the sequential executor under allowed_mem equal to its
+    plan's projected memory (reserved_mem 0), written by *write_for(arr)*
+    (a function of the callbacks), each task's device peak at most that
+    bound; the value read back from its store against *expected*."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.core.ops import _store_op
+
+    probe = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB", reserved_mem=0)
+    projected = _store_op(build(probe), os.path.join(work, "probe.zarr")).plan.max_projected_mem()
+    tight = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=projected, reserved_mem=0)
+    arr = build(tight)
+    peaks = TaskPeaks(torch)
+    with StoreTimes() as st:
+        t = time.perf_counter()
+        store = write_for(arr, [peaks])
+        seconds = time.perf_counter() - t
+    err = compare_to_oracle(f"{label} [sequential]", cubed_tpu_torch.from_zarr(store).compute(), expected, how)
+    ratio = peaks.worst / projected
+    print(f"{label} [sequential]: compute() {seconds:.3f} s, {peaks.tasks} tasks; compression {st.compress_s:.3f} s, "
+          f"fsync'd writes {st.write_s:.3f} s ({st.chunks} chunks); largest task device peak {peaks.worst} B "
+          f"({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; max rel err {err:.3e}; {smi_tag()}")
+    check(ratio <= 1.0, f"{label}: a task's device peak {peaks.worst} B is over its projected {projected} B")
+    return dict(seconds=seconds, ratio=ratio, peak=peaks.worst, projected=projected)
+
+
+def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
+    """The Zarr and stencils phase (see the module docstring). Returns its
+    numbers, printed as they come."""
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    t0 = time.perf_counter()
+    shape, chunks, comp = config["shape"], config["chunks"], config["compressor"]
+    oracles = zarr_stencil_oracles(shape, chunks)
+    print(f"zarr and stencils phase: {shape} float64 in {chunks}-chunks, allowed_mem {config['allowed_mem']}; "
+          f"numpy oracles {time.perf_counter() - t0:.1f} s; {smi_tag()}")
+    work = os.path.join(WORK_DIR, "zarr-stencil")
+    out = {}
+    lap = laplacian(torch)
+
+    def stencil(spec):
+        return cubed_tpu_torch.map_overlap(lap, zarr_stencil_inputs(spec, shape, chunks)[0],
+                                           depth=config["depth"], boundary="periodic")
+
+    def product(spec):
+        a, b, x, y = zarr_stencil_inputs(spec, shape, chunks)[:4]
+        return xp.add(xp.multiply(a[1:], x[1:]), xp.multiply(b[1:], y[1:]))
+
+    def mean_square(spec):
+        sq = stencil(spec)
+        return xp.mean(xp.multiply(sq, sq))
+
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
+    store_a, store_b = os.path.join(work, "stencil.zarr"), os.path.join(work, "product.zarr")
+    # (a) the stencil, compressed by to_zarr; (b) the product, uncompressed by store
+    sa = stencil(spec)
+    out["stencil_to_zarr"] = device_write(
+        torch, "stencil to_zarr zlib-1", lambda ex: cubed_tpu_torch.to_zarr(sa, store_a, executor=ex, compressor=comp),
+        store_a, CudaExecutor(), oracles["stencil"], ("rtol", 1e-12), comp)
+    sb = product(spec)
+    out["product_store"] = device_write(
+        torch, "product store", lambda ex: cubed_tpu_torch.store(sb, store_b, executor=ex), store_b, CudaExecutor(),
+        oracles["product"], "exact", None)
+    shutil.rmtree(work, ignore_errors=True)
+
+    # a summary of the stencil, the mean of its square (the region_sum
+    # kernel; its plain mean is zero up to rounding), and the normal and
+    # randint arrays, drawn on the host, each on the device executor
+    wrappers = kernel_wrappers()
+    for name, build, expected, how in (
+        ("stencil mean square", mean_square,
+         np.mean(oracles["stencil"] * oracles["stencil"]), ("rtol", 1e-12)),
+        ("normal", lambda s: zarr_stencil_inputs(s, shape, chunks)[4], oracles["normal"], "exact"),
+        ("randint", lambda s: zarr_stencil_inputs(s, shape, chunks)[5], oracles["randint"], "exact"),
+    ):
+        arr = build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"]))
+        ex = CudaExecutor()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        value = arr.compute(executor=ex)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        err = compare_to_oracle(f"{name} [cuda]", np.asarray(value), np.asarray(expected), how)
+        if name == "stencil mean square":
+            check(launches["philox_uniform"] >= 1 and launches["region_sum"] >= 1,
+                  f"{name}: launches {launches}; the phase runs Philox and region_sum")
+        stats = dict(sorted(ex.stats.items()))
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+            check(stats.get(counter, 0) == 0, f"{name} [cuda]: {counter} = {stats.get(counter)}")
+        print(f"{name} [cuda]: compute() {seconds:.3f} s; max rel err {err:.3e}; launches {json.dumps(launches)}; "
+              f"stats {json.dumps(stats)}; peak reserved {torch.cuda.max_memory_reserved()} B; {smi_tag()}")
+        out[name] = dict(seconds=seconds, launches=launches, stats=stats)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # pad, constant and edge, of addsum's array
+    random.seed(SEED)
+    pshape, pchunks = config["pad_shape"], config["pad_chunks"]
+    pa = oracle_random(pshape, pchunks, random.getrandbits(30))
+    for name, pad, np_pad in (
+        ("pad constant", lambda a: xp.pad(a, 1), lambda a: np.pad(a, 1)),
+        ("pad edge", lambda a: xp.pad(a, ((2, 1), (1, 2)), mode="edge"),
+         lambda a: np.pad(a, ((2, 1), (1, 2)), mode="edge")),
+    ):
+        random.seed(SEED)
+        arr = pad(cubed_tpu_torch.random.random(pshape, chunks=pchunks, spec=cubed_tpu_torch.Spec(
+            work_dir=work, allowed_mem=config["allowed_mem"])))
+        ex = CudaExecutor()
+        t = time.perf_counter()
+        value = arr.compute(executor=ex)
+        seconds = time.perf_counter() - t
+        compare_to_oracle(f"{name} [cuda]", value, np_pad(pa), "exact")
+        print(f"{name} [cuda]: {pshape} / {pchunks} to {value.shape}, compute() {seconds:.3f} s; stats "
+              f"{json.dumps(dict(sorted(ex.stats.items())))}; {smi_tag()}")
+        out[name] = dict(seconds=seconds)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the same plans on the sequential executor, cut, under their projections
+    seq_shape = config["seq_shape"]
+    seq = zarr_stencil_oracles(seq_shape, chunks)
+    seq_store = os.path.join(work, "out.zarr")
+    cases = (
+        ("stencil to_zarr zlib-1", lambda s: cubed_tpu_torch.map_overlap(
+            lap, zarr_stencil_inputs(s, seq_shape, chunks)[0], depth=config["depth"], boundary="periodic"),
+         lambda arr, cbs: cubed_tpu_torch.to_zarr(arr, seq_store, compressor=comp, callbacks=cbs),
+         seq["stencil"], ("rtol", 1e-12)),
+        ("product store", lambda s: (lambda a, b, x, y: xp.add(xp.multiply(a[1:], x[1:]), xp.multiply(b[1:], y[1:])))(
+            *zarr_stencil_inputs(s, seq_shape, chunks)[:4]),
+         lambda arr, cbs: cubed_tpu_torch.store(arr, seq_store, callbacks=cbs), seq["product"], "exact"),
+        ("normal", lambda s: zarr_stencil_inputs(s, seq_shape, chunks)[4],
+         lambda arr, cbs: cubed_tpu_torch.to_zarr(arr, seq_store, callbacks=cbs), seq["normal"], "exact"),
+        ("randint", lambda s: zarr_stencil_inputs(s, seq_shape, chunks)[5],
+         lambda arr, cbs: cubed_tpu_torch.to_zarr(arr, seq_store, callbacks=cbs), seq["randint"], "exact"),
+    )
+    random.seed(SEED)
+    pa = oracle_random(config["seq_pad_shape"], pchunks, random.getrandbits(30))
+
+    def padded(mode):
+        def build(s):
+            random.seed(SEED)
+            a = cubed_tpu_torch.random.random(config["seq_pad_shape"], chunks=pchunks, spec=s)
+            return xp.pad(a, 1) if mode == "constant" else xp.pad(a, ((2, 1), (1, 2)), mode="edge")
+
+        return build
+
+    cases += (
+        ("pad constant", padded("constant"), lambda arr, cbs: cubed_tpu_torch.to_zarr(arr, seq_store, callbacks=cbs),
+         np.pad(pa, 1), "exact"),
+        ("pad edge", padded("edge"), lambda arr, cbs: cubed_tpu_torch.to_zarr(arr, seq_store, callbacks=cbs),
+         np.pad(pa, ((2, 1), (1, 2)), mode="edge"), "exact"),
+    )
+
+    def write_and_name(write):
+        def run(arr, cbs):
+            write(arr, cbs)
+            return seq_store
+
+        return run
+
+    for name, build, write, expected, how in cases:
+        out[f"{name} sequential"] = sequential_tight(torch, f"{name} {seq_shape if 'pad' not in name else ''}".strip(),
+                                                     build, write_and_name(write), expected, how, work)
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"zarr and stencils phase: {out['seconds']:.1f} s; {smi_tag()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the order-statistics phase: sorts, quantiles, top-k, searches, histograms,
 # cov/corrcoef and the nan reductions
 # ---------------------------------------------------------------------------
@@ -3865,9 +4244,9 @@ def main(argv: list) -> int:
         timed = os.path.abspath(argv[1])
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
-                               ["--order-stats-phase", "full"]):
-        print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full]]",
-              file=sys.stderr)
+                               ["--order-stats-phase", "full"], ["--zarr-stencil-phase"]):
+        print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
+              "--zarr-stencil-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3901,6 +4280,18 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             run_array_api_phase(torch, ARRAY_API_FULL if argv[1:] == ["full"] else ARRAY_API)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv == ["--zarr-stencil-phase"]:
+        # the Zarr and stencils phase alone
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            run_zarr_stencil_phase(torch)
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4031,6 +4422,8 @@ def main(argv: list) -> int:
               f"sighting: op by op, no capture); {smi_tag()}")
         array_api = run_array_api_phase(torch)
         print("array API phase summary: " + json.dumps(array_api))
+        zarr_stencil = run_zarr_stencil_phase(torch)
+        print("zarr and stencils phase summary: " + json.dumps(zarr_stencil))
         # the order-statistics phase, its merge kernels checked first, in a
         # process of its own (after the phases above, which run as they ran
         # before it); the kernels' launches are those of the phase's first

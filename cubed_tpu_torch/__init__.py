@@ -14,8 +14,11 @@ and the cumulative scans beside ``sum``/``mean``/``max``/``min``, linear
 algebra), sorting (``sort``/``argsort``/``searchsorted``/``topk`` on a bitonic
 merge-split network of chunks) and the order statistics (``quantile``,
 ``median`` and their NaN forms, ``histogram``, ``cov``/``corrcoef``, the nan
-reductions), ``random.random``, ``from_array``/``from_zarr``, ``rechunk`` and
-``merge_chunks``, ``map_blocks``/``map_direct`` and ``apply_gufunc``, on
+reductions), ``pad``, ``random.random``/``normal``/``randint``,
+``from_array``/``from_zarr``, ``to_zarr``/``store`` (the stdlib codecs
+included), ``rechunk`` and ``merge_chunks``, ``map_blocks``/``map_direct``/
+``map_overlap`` and ``apply_gufunc``, and plan introspection (``visualize``,
+``measure_reserved_mem``), on
 the sequential executor (the default) and on the device executor
 (``runtime.executors.cuda.CudaExecutor``); ROADMAP.md lists the rest.
 """
@@ -24,8 +27,18 @@ __version__ = "0.1.0"
 
 from .spec import Spec  # noqa: F401
 from .runtime.types import Callback, TaskEndEvent  # noqa: F401
-from .core.array import compute  # noqa: F401
-from .core.ops import from_array, from_zarr, map_blocks, map_direct, merge_chunks, rechunk  # noqa: F401
+from .core.array import compute, measure_reserved_mem, visualize  # noqa: F401
+from .core.ops import (  # noqa: F401
+    from_array,
+    from_zarr,
+    map_blocks,
+    map_direct,
+    map_overlap,
+    merge_chunks,
+    rechunk,
+    store,
+    to_zarr,
+)
 from .core.gufunc import apply_gufunc  # noqa: F401
 from .nan_functions import nanmax, nanmean, nanmin, nansum  # noqa: F401
 from . import array_api  # noqa: F401
@@ -46,6 +59,8 @@ __all__ = [
     "from_zarr",
     "map_blocks",
     "map_direct",
+    "map_overlap",
+    "measure_reserved_mem",
     "merge_chunks",
     "nanmax",
     "nanmean",
@@ -54,4 +69,7 @@ __all__ = [
     "observability",
     "random",
     "rechunk",
+    "store",
+    "to_zarr",
+    "visualize",
 ]

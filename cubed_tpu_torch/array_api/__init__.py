@@ -1,8 +1,8 @@
 """The Array API namespace of the port: the standard's surface, sorting and
 the order statistics. Counterpart of ``cubed_tpu/array_api/__init__.py``, in
 its order; ``linalg`` holds ``diagonal`` and ``trace`` so far. The
-extensions not ported yet (the rest of ``linalg``, ``fft``, ``einsum``,
-``pad``) are listed in ROADMAP.md."""
+extensions not ported yet (the rest of ``linalg``, ``fft``, ``einsum``)
+are listed in ROADMAP.md."""
 
 __array_api_version__ = "2022.12"
 
@@ -142,6 +142,7 @@ from .manipulation_functions import (  # noqa: F401
     flatten,
     flip,
     moveaxis,
+    pad,
     permute_dims,
     repeat,
     reshape,

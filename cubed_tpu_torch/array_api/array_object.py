@@ -92,6 +92,14 @@ class Array(CoreArray):
     def __repr__(self) -> str:
         return f"cubed_tpu_torch.Array<{self.name}, shape={self.shape}, dtype={self.dtype}, chunks={self.chunks}>"
 
+    def _repr_html_(self):
+        try:
+            from .html_repr import array_html_repr
+
+            return array_html_repr(self)
+        except Exception:
+            return f"<pre>{self!r}</pre>"
+
     @property
     def mT(self):
         from .linear_algebra_functions import matrix_transpose

@@ -1,6 +1,5 @@
 """Array-API manipulation functions. Counterpart of
-``cubed_tpu/array_api/manipulation_functions.py`` (``pad`` waits for a later
-slice), with the same plans: ``concat`` and ``flip`` read their sources
+``cubed_tpu/array_api/manipulation_functions.py``, with the same plans: ``concat`` and ``flip`` read their sources
 through ``map_direct`` (``concat`` declares ``whole_concat``, which the
 device executor takes as one ``torch.cat`` of resident sources), ``roll``
 is a concat of two slices rechunked back, ``reshape`` a rechunk and a
@@ -8,7 +7,8 @@ one-to-one block reshape, ``repeat`` an expand, broadcast and reshape, and
 ``tile`` a concat of references to one array. numpy's ``repeat`` is
 ``torch.repeat_interleave`` and its ``tile`` is ``Tensor.repeat``; neither
 torch call is used, since each block is computed as the JAX package
-computes it."""
+computes it. ``pad`` concatenates virtual ``full`` arrays (constant) or
+broadcasts of the edge slice (edge)."""
 
 from __future__ import annotations
 
@@ -397,4 +397,66 @@ def tile(x, repetitions, /):
             out = out[tuple(slice(0, 0) if dd == d else slice(None) for dd in range(out.ndim))]
         elif r > 1:
             out = concat([out] * r, axis=d)
+    return out
+
+
+def pad(x, pad_width, mode="constant", *, constant_values=0):
+    """Pad with a constant or by repeating the edge (numpy's ``constant`` and
+    ``edge`` modes). A constant pad concatenates virtual ``full`` arrays,
+    which are never materialized; an edge pad concatenates a
+    ``broadcast_to`` of the edge slice, which reads only the edge blocks.
+
+    ``pad_width``: an int, ``(before, after)``, or a per-axis sequence of
+    either."""
+    from .creation_functions import full
+
+    if mode not in ("constant", "edge"):
+        raise NotImplementedError(f"pad: unsupported mode {mode!r}")
+    if isinstance(pad_width, (int, np.integer)):
+        widths = [(int(pad_width), int(pad_width))] * x.ndim
+    else:
+        pw = list(pad_width)
+        if pw and isinstance(pw[0], (int, np.integer)):
+            if len(pw) != 2:
+                raise ValueError("pad_width must be an int, (before, after), or a per-axis sequence of those")
+            widths = [(int(pw[0]), int(pw[1]))] * x.ndim
+        else:
+            if len(pw) != x.ndim:
+                raise ValueError(f"pad_width has {len(pw)} entries for {x.ndim} axes")
+            widths = [
+                (int(b), int(a))
+                for b, a in (w if not isinstance(w, (int, np.integer)) else (w, w) for w in pw)
+            ]
+    if any(b < 0 or a < 0 for b, a in widths):
+        raise ValueError("pad widths must be non-negative")
+
+    out = x
+    for ax, (before, after) in enumerate(widths):
+        if before == 0 and after == 0:
+            continue
+        if mode == "constant":
+            ck = tuple(min(out.chunksize[d], out.shape[d]) or 1 for d in range(out.ndim))
+
+            def side(n):
+                return full(
+                    tuple(n if d == ax else s for d, s in enumerate(out.shape)), constant_values,
+                    dtype=out.dtype, chunks=tuple(min(n, ck[d]) if d == ax else ck[d] for d in range(out.ndim)),
+                    spec=x.spec,
+                )
+        else:
+            n_ax = out.shape[ax]
+            if n_ax == 0:
+                raise ValueError("pad: cannot edge-pad an empty axis")
+
+            def side(n, at=None):
+                edge = tuple(slice(at, at + 1) if d == ax else slice(None) for d in range(out.ndim))
+                return broadcast_to(out[edge], tuple(n if d == ax else s for d, s in enumerate(out.shape)))
+
+        parts = []
+        if before:
+            parts.append(side(before) if mode == "constant" else side(before, 0))
+        parts.append(out)
+        if after:
+            parts.append(side(after) if mode == "constant" else side(after, out.shape[ax] - 1))
+        out = concat(parts, axis=ax) if len(parts) > 1 else parts[0]
     return out

@@ -49,6 +49,10 @@ class CoreArray:
         return tuple(len(c) for c in self.chunks)
 
     @property
+    def npartitions(self) -> int:
+        return prod(self.numblocks) if self.shape else 1
+
+    @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self.zarray_maybe_lazy.shape)
 
@@ -59,6 +63,10 @@ class CoreArray:
     @property
     def nbytes(self) -> int:
         return self.size * self.dtype.itemsize
+
+    @property
+    def itemsize(self) -> int:
+        return self.dtype.itemsize
 
     @property
     def zarray(self):
@@ -79,6 +87,10 @@ class CoreArray:
         from .ops import rechunk
 
         return rechunk(self, chunks, **kwargs)
+
+    def visualize(self, *args, **kwargs):
+        """The plan that computes this array, drawn (``Plan.visualize``)."""
+        return self.plan.visualize(*args, **kwargs)
 
     def __getitem__(self, key):
         from .ops import index
@@ -104,18 +116,30 @@ def check_array_specs(arrays: Sequence) -> Optional[Spec]:
     return first
 
 
-def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True) -> list[np.ndarray]:
+def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True,
+            optimize_function=None) -> list[np.ndarray]:
     """Compute several arrays in one plan execution; return numpy results.
 
     The executor is *executor*, else the arrays' ``Spec.executor``, else the
-    sequential ``PythonDagExecutor``. The chunk device is resolved first, so
-    a missing card fails here, before any task runs
-    (``backend_array_api.get_device``)."""
+    sequential ``PythonDagExecutor``. The plan is optimized by
+    *optimize_function* (default: the fusion of
+    ``multiple_inputs_optimize_dag``) unless *optimize_graph* is false. The
+    chunk device is resolved first, so a missing card fails here, before any
+    task runs (``backend_array_api.get_device``)."""
+    if not arrays:
+        return []
+    execute(*arrays, executor=executor, callbacks=callbacks, optimize_graph=optimize_graph,
+            optimize_function=optimize_function)
+    return [a._read_stored() for a in arrays]
+
+
+def execute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True, optimize_function=None) -> None:
+    """Run the plan of *arrays* as ``compute`` does, leaving the results in
+    their stores (``to_zarr`` and ``store``: the user's store is the result,
+    not read back)."""
     from ..backend_array_api import get_device
     from .plan import arrays_to_plan
 
-    if not arrays:
-        return []
     get_device()
     spec = check_array_specs(arrays)
     if executor is None:
@@ -128,7 +152,31 @@ def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True)
         executor=executor,
         callbacks=callbacks,
         optimize_graph=optimize_graph,
+        optimize_function=optimize_function,
         array_names=tuple(a.name for a in arrays),
         spec=spec,
     )
-    return [a._read_stored() for a in arrays]
+
+
+def visualize(*arrays, filename="cubed", format=None, **kwargs):
+    """Draw the combined plan of *arrays* (``Plan.visualize``)."""
+    from .plan import arrays_to_plan
+
+    return arrays_to_plan(*arrays).visualize(filename=filename, format=format, **kwargs)
+
+
+def measure_reserved_mem(executor=None, work_dir: Optional[str] = None, **kwargs) -> int:
+    """The memory the runtime holds before a task loads any data: the peak
+    host memory that a one-element compute's task reports, for use as
+    ``Spec(reserved_mem=...)``. It runs on *executor* (by default the
+    sequential executor) on the chunk device, which is the card unless the
+    caller asks for the CPU: without a card it raises, as ``compute`` does."""
+    from ..array_api.creation_functions import ones
+    from ..extensions.history import HistoryCallback
+    from ..utils import peak_measured_mem
+
+    a = ones((1,), chunks=(1,), spec=Spec(work_dir=work_dir, allowed_mem="100MB"))
+    history = HistoryCallback()
+    a.compute(executor=executor, callbacks=[history], **kwargs)
+    peaks = [e.peak_measured_mem_start for e in history.events if e.peak_measured_mem_start is not None]
+    return max(peaks) if peaks else peak_measured_mem()

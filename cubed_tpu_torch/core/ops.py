@@ -8,9 +8,10 @@ rechunks them), ``elemwise``, ``map_blocks`` (with ``drop_axis``,
 ``supports_offset``)/``map_direct``, ``index`` (ints, slices
 of any step, ``None`` and one integer array), ``rechunk``,
 ``merge_chunks``, the tree ``reduction`` (an aggregate over a plain or a
-pytree-field intermediate: mean's ``{n, total}``) and ``arg_reduction``.
-``map_overlap``, ``store``/``to_zarr`` and ``measure_reserved_mem`` are not
-ported (ROADMAP.md).
+pytree-field intermediate: mean's ``{n, total}``) and ``arg_reduction``,
+``to_zarr``/``store`` (an identity blockwise into the user's store, which
+fuses with its producer) and ``map_overlap`` (the stencil: each task reads
+its block and the halo, and pads at the array's boundary).
 """
 
 from __future__ import annotations
@@ -117,6 +118,58 @@ def from_zarr(store, path=None, spec=None) -> "CoreArray":
     return new_array(name, target, spec, Plan._new(name, "from_zarr", target))
 
 
+def to_zarr(x: CoreArray, store, path=None, executor=None, storage_options=None, compressor=None,
+            **kwargs) -> None:
+    """Compute the array and write it to a new local Zarr store (eagerly).
+
+    ``compressor`` is a Zarr v2 compressor config (``{"id": "zlib",
+    "level": 1}``; the stdlib codecs zlib, gzip, bz2 and lzma). The target's
+    metadata is stamped first, so every chunk write goes through the codec:
+    the plan's lazy target opens existing metadata rather than replacing it.
+    The stored result is not read back (the JAX package's ``to_zarr`` reads
+    it and drops it).
+    """
+    from .array import execute
+
+    _check_storage_options(storage_options)
+    target = str(store) if path is None else f"{store}/{path}"
+    if compressor is not None:
+        open_zarr_array(target, mode="w", shape=x.shape, dtype=x.dtype, chunks=x.chunksize if x.ndim else (),
+                        compressor=compressor)
+    execute(_store_op(x, target), executor=executor, **kwargs)
+
+
+def store(sources, targets, executor=None, **kwargs) -> None:
+    """Compute several arrays into several stores, in one plan (nothing is
+    read back)."""
+    from .array import execute
+
+    if isinstance(sources, CoreArray):
+        sources, targets = [sources], [targets]
+    execute(*[_store_op(s, t) for s, t in zip(sources, targets)], executor=executor, **kwargs)
+
+
+def _store_op(x: CoreArray, store) -> CoreArray:
+    def _identity(a):
+        return a
+
+    _identity.batchable = True
+    # an identity blockwise into an explicit target store; it fuses with
+    # its producer, which then writes the store itself
+    return blockwise(
+        _identity, tuple(range(x.ndim))[::-1], x, tuple(range(x.ndim))[::-1], dtype=x.dtype,
+        target_store=str(store), shape_invariant=True,
+    )
+
+
+def _check_storage_options(storage_options) -> None:
+    if storage_options:
+        raise NotImplementedError(
+            "storage_options are for remote (fsspec) stores, which cubed_tpu_torch does not have yet "
+            "(ROADMAP.md Queue 1 item 10); its stores are local directories"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Blockwise (core wrapper)
 # ---------------------------------------------------------------------------
@@ -131,10 +184,16 @@ def blockwise(
     new_axes: Optional[dict] = None,
     align_arrays: bool = True,
     extra_projected_mem: int = 0,
+    target_store=None,
+    storage_options=None,
     fusable: bool = True,
     shape_invariant: bool = False,
     **kwargs,
 ) -> CoreArray:
+    """Apply *func* across blocks matched by index notation. The output goes
+    to *target_store* where one is given (a local path), else to a
+    temporary store in the work dir."""
+    _check_storage_options(storage_options)
     arrays = list(args[0::2])
     inds = [tuple(i) if i is not None else None for i in args[1::2]]
     spec = _spec_of(*arrays)
@@ -164,7 +223,7 @@ def blockwise(
     chunks_out = tuple(chunks_out)
     shape = tuple(sum(c) for c in chunks_out)
 
-    multi, names, target_store = _alloc_output_names_stores(dtype, spec)
+    multi, names, target_store = _alloc_output_names_stores(dtype, spec, target_store)
     prim_args = []
     for a, ind in zip(arrays, inds):
         prim_args.extend([a.zarray_maybe_lazy, ind])
@@ -235,12 +294,18 @@ def general_blockwise(
     return _wrap_op_outputs(op, op_name, spec, arrays, names)
 
 
-def _alloc_output_names_stores(dtype, spec):
-    """(multi?, output names, temp store path(s)) for an op's output(s)."""
+def _alloc_output_names_stores(dtype, spec, target_store=None):
+    """(multi?, output names, store path(s)) for an op's output(s): the
+    *target_store* given (a list of one per output for a multi-output op),
+    else temporary paths."""
     multi = isinstance(dtype, (list, tuple))
     names = [gensym("array") for _ in dtype] if multi else [gensym("array")]
-    stores = [new_temp_path(n, spec) for n in names]
-    return multi, names, stores if multi else stores[0]
+    if target_store is None:
+        stores = [new_temp_path(n, spec) for n in names]
+        return multi, names, stores if multi else stores[0]
+    if multi and isinstance(target_store, str):
+        raise TypeError("multi-output ops require target_store to be a list (one store per output) or None")
+    return multi, names, target_store
 
 
 def _wrap_op_outputs(op, op_label: str, spec, arrays, names):
@@ -510,6 +575,138 @@ def map_direct(
         dag.add_edge(a.name, op_node)
     mapped.plan = Plan(dag)
     return mapped
+
+
+def map_overlap(func: Callable, x: CoreArray, *, depth, boundary="reflect", dtype=None,
+                trim: bool = True) -> CoreArray:
+    """Map *func* over blocks extended by *depth* halo elements on each side:
+    the chunked stencil (dask.array.map_overlap's semantics).
+
+    Each task reads its block and the halo from the source in one region
+    read, pads at the array's boundary by *boundary* (``"reflect"``, which
+    includes the edge element as numpy's ``symmetric`` does, ``"nearest"``,
+    ``"periodic"``, or a number, cast to the input's dtype), applies *func*
+    to the extended block and, with *trim*, cuts *depth* off the result;
+    without it the output's chunks grow by ``2 * depth``. A task's memory is
+    its block and halo, priced into the plan. *depth* is an int, a per-axis
+    sequence, or a dict of axis (negative allowed) to depth.
+
+    The task body takes tensors from its reads (``device_reads``): on the
+    device executor it reads a resident input as a view on the card, and the
+    halo is built there by slices and ``torch.cat``, for every dtype."""
+    if dtype is None:
+        dtype = x.dtype
+    if isinstance(depth, (int, np.integer)):
+        depths = [int(depth)] * x.ndim
+    elif isinstance(depth, dict):
+        norm = {}
+        for ax, d in depth.items():
+            if not -x.ndim <= ax < x.ndim:
+                raise IndexError(f"map_overlap: depth axis {ax} is out of bounds for array of dimension {x.ndim}")
+            norm[ax % x.ndim] = int(d)
+        depths = [norm.get(ax, 0) for ax in range(x.ndim)]
+    else:
+        depths = [int(d) for d in depth]
+        if len(depths) != x.ndim:
+            raise ValueError(f"depth has {len(depths)} entries for {x.ndim} axes")
+    if any(d < 0 for d in depths):
+        raise ValueError("map_overlap: depth must be non-negative")
+    if any(d > s for d, s in zip(depths, x.shape)):
+        raise ValueError("map_overlap: depth exceeds the array extent")
+    fill = None
+    if not isinstance(boundary, str):
+        # np.pad's cast: the constant assigned into the input's dtype
+        cast = np.zeros((), dtype=x.dtype)
+        cast[()] = float(boundary)
+        fill = cast.item()
+    elif boundary not in ("reflect", "nearest", "periodic"):
+        raise ValueError(f"map_overlap: unsupported boundary {boundary!r}")
+
+    chunks, shape, ndim = x.chunks, x.shape, x.ndim
+    periodic = boundary == "periodic"
+
+    def _read_overlap(block, zarray, block_id=None):
+        if periodic:
+            # a wrapped halo comes from the far end of the array: the
+            # window's positions along an axis are at most three runs mod n,
+            # and the block is stitched from the product of the runs
+            runs = []
+            for ax in range(ndim):
+                start = sum(chunks[ax][: block_id[ax]])
+                lo, hi = start - depths[ax], start + chunks[ax][block_id[ax]] + depths[ax]
+                n_ax = shape[ax]
+                ax_runs = [slice(n_ax + lo, n_ax)] if lo < 0 else []
+                ax_runs.append(slice(max(0, lo), min(n_ax, hi)))
+                if hi > n_ax:
+                    ax_runs.append(slice(0, hi - n_ax))
+                runs.append(ax_runs)
+
+            def rec(ax, prefix):
+                if ax == ndim:
+                    return numpy_array_to_backend_array(zarray[tuple(prefix)])
+                parts = [rec(ax + 1, prefix + [s]) for s in runs[ax]]
+                return torch.cat(parts, dim=ax) if len(parts) > 1 else parts[0]
+
+            data = rec(0, [])
+        else:
+            sel, pads = [], []
+            for ax in range(ndim):
+                start = sum(chunks[ax][: block_id[ax]])
+                lo, hi = start - depths[ax], start + chunks[ax][block_id[ax]] + depths[ax]
+                sel.append(slice(max(0, lo), min(shape[ax], hi)))
+                pads.append((max(0, -lo), max(0, hi - shape[ax])))
+            data = _pad_halo(numpy_array_to_backend_array(zarray[tuple(sel)]), pads, boundary, fill)
+        out = func(data)
+        if trim:
+            out = out[tuple(slice(depths[ax], out.shape[ax] - depths[ax] or None) for ax in range(ndim))]
+        return out
+
+    _read_overlap.__name__ = getattr(func, "__name__", "map_overlap")
+    _read_overlap.device_reads = True
+
+    halo_elems = math.prod(x.chunksize[ax] + 2 * depths[ax] for ax in range(ndim))
+    # the read and its padded copy are in the input's dtype, func's result in
+    # the output's: priced at the wider of the two
+    extra = 4 * halo_elems * max(np.dtype(x.dtype).itemsize, np.dtype(dtype).itemsize)
+    if trim:
+        out_shape, out_chunks = shape, chunks
+    else:
+        # the untrimmed result keeps its halo: every output block is the
+        # extended block, so the grid stays and each chunk grows by 2 * depth
+        out_chunks = tuple(tuple(c + 2 * depths[ax] for c in chunks[ax]) for ax in range(ndim))
+        out_shape = tuple(sum(c) for c in out_chunks)
+    return map_direct(
+        _read_overlap, x, shape=out_shape, dtype=np.dtype(dtype), chunks=out_chunks,
+        extra_projected_mem=extra, spec=x.spec,
+    )
+
+
+def _pad_halo(data: torch.Tensor, pads, boundary, fill) -> torch.Tensor:
+    """*data* padded by *pads* (a (before, after) pair per axis) as np.pad
+    pads it: ``constant`` with *fill* (where *fill* is not None), ``edge``
+    for ``"nearest"``, ``symmetric`` for ``"reflect"``. By slices and
+    ``torch.cat``, which take every dtype (torch's own ``pad`` has no
+    symmetric mode and refuses integer tensors)."""
+    for ax, (lo, hi) in enumerate(pads):
+        if not lo and not hi:
+            continue
+        n = data.shape[ax]
+
+        def side(width, at_start):
+            if fill is not None:
+                size = list(data.shape)
+                size[ax] = width
+                return torch.full(size, fill, dtype=data.dtype, device=data.device)
+            if boundary == "nearest":
+                edge = data.narrow(ax, 0 if at_start else n - 1, 1)
+                return edge.expand(*[width if d == ax else s for d, s in enumerate(data.shape)])
+            # symmetric: the edge element included, mirrored (width <= n,
+            # since depth never exceeds the array's extent)
+            return torch.flip(data.narrow(ax, 0 if at_start else n - width, width), dims=(ax,))
+
+        parts = ([side(lo, True)] if lo else []) + [data] + ([side(hi, False)] if hi else [])
+        data = torch.cat(parts, dim=ax)
+    return data
 
 
 # ---------------------------------------------------------------------------

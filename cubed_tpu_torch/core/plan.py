@@ -12,11 +12,12 @@ the metrics registry's delta and the per-op summary (``executor_stats``).
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import tempfile
 import uuid
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from ..observability import accounting, logs
 from ..observability.callback import _ComputeAggregator
@@ -25,7 +26,7 @@ from ..observability.metrics import get_registry
 from ..primitive.types import CubedPipeline, PrimitiveOperation
 from ..runtime.types import ComputeEndEvent, ComputeStartEvent, callbacks_on
 from ..storage.zarr import LazyZarrArray
-from ..utils import gensym, join_path  # noqa: F401  (gensym re-exported for plan builders)
+from ..utils import extract_stack_summaries, gensym, join_path  # noqa: F401  (gensym re-exported for plan builders)
 
 logger = logging.getLogger(__name__)
 
@@ -84,6 +85,13 @@ class Dag:
 
     def number_of_edges(self, u: str, v: str) -> int:
         return self._succ[u].get(v, 0)
+
+    def edges(self) -> Iterator[tuple[str, str]]:
+        """Every edge as (source, target), a pair once for each of its edges."""
+        for u, succ in self._succ.items():
+            for v, k in succ.items():
+                for _ in range(k):
+                    yield u, v
 
     def copy(self) -> "Dag":
         """A new graph with copies of every attribute dict (values shared)."""
@@ -151,6 +159,7 @@ class Plan:
         """A plan adding one op (and its output array, or arrays when *name*
         and *target* are lists) to the union of the source arrays' plans."""
         dag = arrays_to_dag(*source_arrays)
+        frame = inspect.currentframe()
         op_node = gensym(f"op-{op_name}")
         names = list(name) if isinstance(name, (list, tuple)) else [name]
         targets = list(target) if isinstance(name, (list, tuple)) else [target]
@@ -158,9 +167,12 @@ class Plan:
             op_node,
             name=op_node,
             type="op",
+            op_display_name=f"{op_name}\n" + "\n".join(names),
             op_name=op_name,
             primitive_op=primitive_op,
             hidden=hidden,
+            # the caller's frames, for visualize's tooltips and labels
+            stack_summaries=extract_stack_summaries(frame.f_back if frame else None),
         )
         for n, t in zip(names, targets):
             dag.add_node(n, name=n, type="array", target=t, hidden=hidden)
@@ -169,25 +181,51 @@ class Plan:
             dag.add_edge(x.name, op_node)
         return Plan(dag)
 
-    def _finalize(self, optimize_graph: bool = True, array_names=None) -> "FinalizedPlan":
-        """The plan as it runs: fused (unless *optimize_graph* is false; the
-        arrays in *array_names* are kept as outputs), with its create-arrays op."""
+    def _finalize(self, optimize_graph: bool = True, optimize_function: Optional[Callable] = None,
+                  array_names=None) -> "FinalizedPlan":
+        """The plan as it runs: optimized by *optimize_function* (default: the
+        fusion of ``multiple_inputs_optimize_dag``) unless *optimize_graph*
+        is false, the arrays in *array_names* kept as outputs, with its
+        create-arrays op."""
+        dag = self.optimize(optimize_function, array_names).dag if optimize_graph else self.dag
+        return FinalizedPlan(create_lazy_zarr_arrays(dag.copy()))
+
+    def optimize(self, optimize_function: Optional[Callable] = None, array_names=None) -> "Plan":
+        """This plan rewritten by *optimize_function* (a function of a graph
+        and ``array_names``), by default ``multiple_inputs_optimize_dag``."""
         from .optimization import multiple_inputs_optimize_dag
 
-        dag = self.dag.copy()
-        if optimize_graph:
-            dag = multiple_inputs_optimize_dag(dag, array_names=array_names)
-        return FinalizedPlan(create_lazy_zarr_arrays(dag))
+        if optimize_function is None:
+            optimize_function = multiple_inputs_optimize_dag
+        return Plan(optimize_function(self.dag.copy(), array_names=array_names))
 
-    def num_tasks(self, optimize_graph: bool = True) -> int:
-        return self._finalize(optimize_graph).num_tasks()
+    def num_tasks(self, optimize_graph: bool = True, optimize_function=None) -> int:
+        return self._finalize(optimize_graph, optimize_function).num_tasks()
 
-    def max_projected_mem(self, optimize_graph: bool = True) -> int:
+    def num_arrays(self, optimize_graph: bool = True, optimize_function=None) -> int:
+        return self._finalize(optimize_graph, optimize_function).num_arrays()
+
+    def max_projected_mem(self, optimize_graph: bool = True, optimize_function=None) -> int:
         """The largest memory any task of the plan is projected to need."""
-        return self._finalize(optimize_graph).max_projected_mem()
+        return self._finalize(optimize_graph, optimize_function).max_projected_mem()
+
+    def total_nbytes_written(self, optimize_graph: bool = True, optimize_function=None) -> int:
+        return self._finalize(optimize_graph, optimize_function).total_nbytes_written()
+
+    def visualize(self, filename="cubed", format=None, rankdir="TB", optimize_graph=True,
+                  optimize_function=None, show_hidden=False):
+        """Write the finalized plan as DOT to ``filename.dot`` and, where a
+        graphviz ``dot`` program is installed, render it; returns the path
+        written last (``core/visualization.py``)."""
+        from .visualization import visualize_dag
+
+        finalized = self._finalize(optimize_graph, optimize_function)
+        return visualize_dag(finalized.dag, filename=filename, format=format, rankdir=rankdir,
+                             show_hidden=show_hidden)
 
     def execute(
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
+        optimize_function=None,
     ) -> None:
         """Finalize the plan and run it on *executor* (default: the
         sequential ``PythonDagExecutor``), as one compute: a compute id, a
@@ -203,7 +241,7 @@ class Plan:
             from ..runtime.executors.python import PythonDagExecutor
 
             executor = PythonDagExecutor()
-        dag = self._finalize(optimize_graph, array_names).dag
+        dag = self._finalize(optimize_graph, optimize_function, array_names).dag
         compute_id = f"c-{uuid.uuid4().hex[:10]}"
         aggregator = _ComputeAggregator()
         all_callbacks = list(callbacks) if callbacks else []
@@ -250,12 +288,23 @@ class FinalizedPlan:
     def num_tasks(self) -> int:
         return sum(d["primitive_op"].num_tasks for _, d in iter_op_nodes(self.dag))
 
+    def num_arrays(self) -> int:
+        return sum(1 for d in self.dag.nodes.values() if d.get("type") == "array")
+
     def num_ops(self) -> int:
         return sum(1 for _ in iter_op_nodes(self.dag))
 
     def max_projected_mem(self) -> int:
         mems = [d["primitive_op"].projected_mem for _, d in iter_op_nodes(self.dag)]
         return max(mems) if mems else 0
+
+    def total_nbytes_written(self) -> int:
+        """Bytes of every array the plan writes to storage (uncompressed)."""
+        return sum(
+            d["target"].nbytes
+            for d in self.dag.nodes.values()
+            if d.get("type") == "array" and isinstance(d.get("target"), LazyZarrArray)
+        )
 
 
 def create_lazy_zarr_arrays(dag: Dag) -> Dag:
@@ -281,8 +330,8 @@ def create_lazy_zarr_arrays(dag: Dag) -> Dag:
     )
     others = [name for name, _ in iter_op_nodes(dag)]
     dag.add_node(
-        op_node, name=op_node, type="op", op_name=op_node,
-        primitive_op=primitive_op, hidden=False,
+        op_node, name=op_node, type="op", op_display_name=f"{op_node}\n{len(targets)} arrays", op_name=op_node,
+        primitive_op=primitive_op, hidden=False, stack_summaries=[],
     )
     for name in others:
         dag.add_edge(op_node, name)

@@ -42,8 +42,9 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   negative strides), an integer array ``index_select`` (its positions
   uploaded once a plan, never under a capture); ``resident_identity``
   passes the value through and ``whole_concat`` concatenates on the device
-  (virtual sources made there). Any other map_direct (``flip``) is an
-  eager op whose task bodies, where they declare ``device_reads``, read
+  (virtual sources made there). Any other map_direct (``flip``,
+  ``map_overlap``) is an eager op whose task bodies, where they declare
+  ``device_reads``, read
   their resident side inputs as views on the card: no side input is
   written to storage or crosses to the host.
 - **Virtual constants** (``zeros``, ``ones``, ``full``) are filled on the
@@ -77,7 +78,9 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   dropped first; every storage source is resident; else
   ``segment_mem_aborts``) is keyed by a structural key of its plan
   metadata (:meth:`CudaExecutor._structural_key`: seeds and store paths
-  masked; a plan it cannot describe runs op by op, uncaptured). At the
+  masked; a plan it cannot describe, or whose ops draw blocks on the host
+  (``host_draws``: ``random.normal``/``randint``), runs op by op,
+  uncaptured). At the
   key's first sighting the segment runs op by op, on the paths a capture
   takes, and nothing is captured: a plan computed once pays nothing for
   graphs. At its second it is captured into a ``torch.cuda.CUDAGraph``
@@ -446,6 +449,17 @@ def _leaf_functions(f) -> Iterator:
     for g in (root, *f.arg_functions):
         if g is not None:
             yield from _leaf_functions(g)
+
+
+def _repeated(f, n: int):
+    """*f* with a new leading axis of *n* equal results (on each tensor of
+    its output), as ``torch.func.vmap`` would give over *n* equal
+    inputs; vmap itself refuses a level that no input follows."""
+
+    def g(*args):
+        return torch.utils._pytree.tree_map(lambda r: r.unsqueeze(0).expand(n, *r.shape), f(*args))
+
+    return g
 
 
 def _batchable(f) -> bool:
@@ -1149,10 +1163,11 @@ class CudaExecutor(DagExecutor):
             record_decision("cuda_segment_mem_abort", segment=",".join(name for name, _ in ops))
             self._run_ops(ops, resident, budget, requested)
             return
-        if skey is None or np.unique(seeds).size != seeds.size:
+        if skey is None or np.unique(seeds).size != seeds.size or self._host_draws(ops):
             # a graph that no later compute could replay (its plan is not
             # described, or two blocks share a seed and so a key row) would
-            # be captured for nothing
+            # be captured for nothing; blocks drawn on the host cannot be
+            # captured at all
             self._run_ops(ops, resident, budget, requested)
             return
         self._graph_key = skey
@@ -1192,6 +1207,17 @@ class CudaExecutor(DagExecutor):
         self.stats["segments_traced"] += 1
         if entry is not None:
             self.stats["segment_hbm_footprint"] = max(self.stats["segment_hbm_footprint"], entry.nbytes)
+
+    @staticmethod
+    def _host_draws(ops) -> bool:
+        """Whether an op of the segment draws its blocks on the host
+        (``normal``, ``randint``: a function of its tree declares
+        ``host_draws``)."""
+        return any(
+            getattr(g, "host_draws", False)
+            for _, node in ops if node["primitive_op"].pipeline.function is apply_blockwise
+            for g in _leaf_functions(node["primitive_op"].pipeline.config.function)
+        )
 
     def _capture(self, ops, inputs, seeds, keep_list, requested, resident, budget, dev) -> _Graph:
         """Capture the segment's ops into a CUDA graph. Everything a capture
@@ -1610,7 +1636,13 @@ class CudaExecutor(DagExecutor):
                     in_dims.append(dims_per_level)
                 batched = task
                 for lvl in reversed(range(len(levels))):
-                    batched = torch.func.vmap(batched, in_dims=tuple(d[lvl] for d in in_dims), out_dims=0)
+                    level_dims = tuple(d[lvl] for d in in_dims)
+                    if all(d is None for d in level_dims):
+                        # no input varies along this level (a broadcast
+                        # axis): its blocks are equal, computed once
+                        batched = _repeated(batched, sizes[lvl])
+                    else:
+                        batched = torch.func.vmap(batched, in_dims=level_dims, out_dims=0)
                 result = batched(*args)
                 results = result if spec.writes_rest else (result,)
                 for j, (w, cs, r) in enumerate(zip(spec.writes, out_sets, results)):

@@ -2,15 +2,15 @@
 
 Counterpart of ``cubed_tpu/storage/store.py``, trimmed to local directories.
 The on-disk layout is the standard Zarr v2 one the JAX package writes: a
-``.zarray`` JSON document and one raw (uncompressed, C-order) file per chunk,
-named by ``.``-separated chunk indices. Each chunk write is atomic and
-durable: temp file, fsync, rename, fsync of the directory. That is what makes
-a re-run or duplicate task safe, and it is kept whole here. Checksum
-sidecars, breakers, compressors and remote (fsspec) stores are not ported.
-Every chunk read and write is counted as stored (uncompressed, as the JAX
-package stores by default) and spanned (``storage_read`` /
-``storage_write``) by ``observability/accounting.py``, against the task
-scope that does it, else the process registry.
+``.zarray`` JSON document and one C-order file per chunk, named by
+``.``-separated chunk indices, raw or compressed by one of the stdlib codecs
+(zlib, gzip, bz2, lzma). Each chunk write is atomic and durable: temp file,
+fsync, rename, fsync of the directory. That is what makes a re-run or
+duplicate task safe, and it is kept whole here. Checksum sidecars, breakers
+and remote (fsspec) stores are not ported. Every chunk read and write is
+counted as stored (the compressed length on a compressed store) and spanned
+(``storage_read`` / ``storage_write``) by ``observability/accounting.py``,
+against the task scope that does it, else the process registry.
 """
 
 from __future__ import annotations
@@ -119,6 +119,56 @@ def _decode_dtype(d: Any) -> np.dtype:
     return np.dtype(d)
 
 
+def _codec_from_meta(comp: Optional[dict]):
+    """(compress, decompress) callables for a Zarr v2 ``compressor`` config.
+
+    Covers the numcodecs ids expressible with the stdlib: ``zlib``, ``gzip``,
+    ``bz2`` and ``lzma``. Any other id (blosc among them) needs the numcodecs
+    C library and raises ``ValueError`` rather than reading garbage."""
+    if comp is None:
+        return None
+    cid = comp.get("id")
+    if cid == "zlib":
+        import zlib
+
+        level = int(comp.get("level", 1))
+        return (lambda b: zlib.compress(b, level)), zlib.decompress
+    if cid == "gzip":
+        import gzip
+
+        level = int(comp.get("level", 1))
+        return (lambda b: gzip.compress(b, compresslevel=level)), gzip.decompress
+    if cid == "bz2":
+        import bz2
+
+        level = int(comp.get("level", 1))
+        return (lambda b: bz2.compress(b, level)), bz2.decompress
+    if cid == "lzma":
+        import lzma
+
+        preset = comp.get("preset")
+        fmt = comp.get("format", lzma.FORMAT_XZ)
+        filters = comp.get("filters")
+        # a FORMAT_RAW stream cannot be decoded without its filter chain, but
+        # the container formats (XZ/ALONE) embed it and lzma.decompress
+        # refuses an explicit filters argument for them
+        if fmt == lzma.FORMAT_RAW:
+            decompress = lambda b: lzma.decompress(  # noqa: E731
+                b, format=lzma.FORMAT_RAW, filters=filters
+            )
+        else:
+            decompress = lzma.decompress
+        return (
+            lambda b: lzma.compress(b, format=fmt, preset=preset, filters=filters),
+            decompress,
+        )
+    raise ValueError(
+        f"Unsupported Zarr compressor {cid!r}: this store supports the "
+        "stdlib codecs zlib/gzip/bz2/lzma (blosc and friends need the "
+        "numcodecs C library)"
+    )
+
+
 def _encode_fill(fill_value: Any, dtype: np.dtype) -> Any:
     if fill_value is None:
         return None
@@ -146,11 +196,8 @@ class ZarrV2Array:
     def __init__(self, store: str, meta: dict):
         self.store = str(store)
         self._io = _LocalIO(_local_root(store))
-        if meta.get("compressor") is not None:
-            raise ValueError(
-                f"{store}: compressed Zarr stores are not supported by "
-                "cubed_tpu_torch yet"
-            )
+        self.compressor: Optional[dict] = meta.get("compressor")
+        self._codec = _codec_from_meta(self.compressor)
         self.shape: tuple[int, ...] = tuple(meta["shape"])
         self.chunks: tuple[int, ...] = tuple(meta["chunks"])
         self.dtype: np.dtype = _decode_dtype(meta["dtype"])
@@ -177,16 +224,22 @@ class ZarrV2Array:
         with scope_span("storage_read", cat="storage", key=key) as sp:
             data = self._io.read_bytes(key)
             sp.attrs["bytes"] = len(data)
+        # bytes as stored (before decompression)
         record_bytes_read(self.store, len(data))
+        if self._codec is not None:
+            data = self._codec[1](data)
         arr = np.frombuffer(data, dtype=self.dtype)
         return arr.reshape(self.chunks if self.shape else ())
 
     def _write_chunk(self, idx: tuple[int, ...], arr: np.ndarray) -> None:
         arr = np.ascontiguousarray(arr, dtype=self.dtype)
+        data = memoryview(arr).cast("B")
+        if self._codec is not None:
+            data = self._codec[0](data)
         key = self._chunk_key(idx)
-        with scope_span("storage_write", cat="storage", key=key, bytes=arr.nbytes):
-            self._io.write_bytes_atomic(key, memoryview(arr).cast("B"))
-        record_bytes_written(self.store, arr.nbytes)
+        with scope_span("storage_write", cat="storage", key=key, bytes=len(data)):
+            self._io.write_bytes_atomic(key, data)
+        record_bytes_written(self.store, len(data))
 
     def _empty_chunk(self) -> np.ndarray:
         fill = self.fill_value if self.fill_value is not None else 0
@@ -348,8 +401,13 @@ def open_zarr_array(
     dtype: Any = None,
     chunks: Optional[Sequence[int]] = None,
     fill_value: Any = None,
+    compressor: Optional[dict] = None,
 ) -> ZarrV2Array:
-    """Open (``r``: must exist; ``a``: open or create) a Zarr v2 array."""
+    """Open (``r``: must exist; ``a``: open or create) a Zarr v2 array.
+
+    ``compressor`` (a numcodecs-style config such as ``{"id": "zlib",
+    "level": 1}``) applies only when the array is created: mode ``a`` on an
+    existing array keeps the metadata, compressor included, as it is."""
     io = _LocalIO(_local_root(store))
     if mode != "r":
         io.sweep_tmp()
@@ -366,12 +424,14 @@ def open_zarr_array(
         chunks = shape
     chunks = tuple(int(c) for c in chunks) if shape else ()
     chunks = tuple(min(c, s) if s > 0 else max(1, c) for c, s in zip(chunks, shape))
+    if compressor is not None:
+        _codec_from_meta(compressor)  # an unsupported id fails at create time
     meta = {
         "zarr_format": 2,
         "shape": list(shape),
         "chunks": [max(1, c) for c in chunks] if shape else [],
         "dtype": _encode_dtype(dtype),
-        "compressor": None,
+        "compressor": dict(compressor) if compressor is not None else None,
         "fill_value": _encode_fill(fill_value if fill_value is not None else 0, dtype),
         "order": "C",
         "filters": None,

@@ -4,6 +4,7 @@ counts its logical bytes as ``virtual_bytes_read`` (no IO)."""
 
 from __future__ import annotations
 
+from math import prod
 from typing import Any, Sequence
 
 import numpy as np
@@ -33,6 +34,18 @@ class _VirtualBase:
     shape: tuple[int, ...]
     dtype: np.dtype
     chunks: tuple[int, ...]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return prod(self.shape) if self.shape else 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
 
     def chunkset(self):
         return blockdims_from_blockshape(self.shape, self.chunks)

@@ -3,6 +3,7 @@ op runs. Counterpart of ``cubed_tpu/storage/zarr.py``."""
 
 from __future__ import annotations
 
+from math import prod
 from typing import Any, Sequence
 
 import numpy as np
@@ -28,11 +29,17 @@ class LazyZarrArray:
         self.chunks = tuple(int(c) for c in chunks)
         self.fill_value = fill_value
 
+    @property
+    def nbytes(self) -> int:
+        return (prod(self.shape) if self.shape else 1) * self.dtype.itemsize
+
     def chunkset(self) -> tuple[tuple[int, ...], ...]:
         return blockdims_from_blockshape(self.shape, self.chunks)
 
     def create(self) -> ZarrV2Array:
-        """Write the array metadata (keeping chunks a previous run wrote)."""
+        """Write the array metadata, or open the metadata already there (its
+        compressor included, as ``to_zarr`` stamps it), keeping chunks a
+        previous run wrote."""
         return open_zarr_array(
             self.store, mode="a", shape=self.shape, dtype=self.dtype,
             chunks=self.chunks, fill_value=self.fill_value,

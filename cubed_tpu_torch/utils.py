@@ -1,7 +1,8 @@
 """General utilities: plan-node names, byte strings, chunk memory and chunk math.
 
 Counterpart of ``cubed_tpu/utils.py``, trimmed to what the port's plan and
-storage layers call, and the peak host memory a task reports. The memory
+storage layers call, the peak host memory a task reports, and the caller's
+frames a plan node records for ``visualize``. The memory
 reckoning is the JAX package's, unchanged, so both packages bound the same
 plan by the same projected memory.
 """
@@ -15,6 +16,7 @@ import threading
 from math import prod
 from pathlib import Path
 from posixpath import join as _urljoin
+from dataclasses import dataclass
 from resource import RUSAGE_SELF, getrusage
 from typing import Sequence
 from urllib.parse import urlsplit, urlunsplit
@@ -177,3 +179,37 @@ def peak_measured_mem() -> int:
     if platform.system() == "Darwin":
         return ru_maxrss
     return ru_maxrss * 1024
+
+
+@dataclass
+class StackSummary:
+    """One frame of the caller's stack, as a plan node records it."""
+
+    filename: str
+    lineno: int
+    name: str
+    array_names_to_variable_names: dict[str, str]
+
+    def is_cubed(self) -> bool:
+        normalized = self.filename.replace("\\", "/")
+        return "/cubed_tpu_torch/" in normalized or normalized.endswith("cubed_tpu_torch")
+
+
+def extract_stack_summaries(frame, limit: int = 10) -> list[StackSummary]:
+    """The frames from *frame* outward (at most *limit*, outermost first),
+    each with the names of the plan's arrays that its local variables hold,
+    so ``visualize`` can label a node with the user's own variable name."""
+    summaries: list[StackSummary] = []
+    while frame is not None and len(summaries) < limit:
+        name_map = {}
+        try:
+            for var, val in frame.f_locals.items():
+                nm = getattr(val, "name", None)
+                if nm is not None and type(nm) is str and hasattr(val, "zarray_maybe_lazy"):
+                    name_map[nm] = var
+        except Exception:
+            pass
+        summaries.append(StackSummary(frame.f_code.co_filename, frame.f_lineno, frame.f_code.co_name, name_map))
+        frame = frame.f_back
+    summaries.reverse()
+    return summaries

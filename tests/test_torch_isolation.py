@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads no JAX, networkx, cloudpickle,
-fsspec or module of the JAX package, neither does chip_smoke.py, and with no
+fsspec, graphviz binding or module of the JAX package, neither does
+chip_smoke.py, and with no
 device asked for and no CUDA it refuses to compute instead of running on the
 CPU. Each check runs in a fresh interpreter."""
 
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "networkx", "cloudpickle", "fsspec", "cubed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "networkx", "cloudpickle", "fsspec", "cubed_tpu", "graphviz", "pydot",
+             "pygraphviz")
 
 
 def _forbidden(module: str) -> bool:
@@ -37,6 +39,7 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.observability, cubed_tpu_torch.extensions, cubed_tpu_torch.extensions.profiler\n"
         "import cubed_tpu_torch.array_api.sorting_functions, cubed_tpu_torch.array_api._block_sort\n"
         "import cubed_tpu_torch.array_api.linalg, cubed_tpu_torch.nan_functions, cubed_tpu_torch.kernels.merge_sort\n"
+        "import cubed_tpu_torch.core.visualization, cubed_tpu_torch.array_api.html_repr\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -108,7 +111,8 @@ def test_source_walk_covers_every_subpackage():
     for module in ("constants", "device", "indexing_functions", "searching_functions", "set_functions",
                    "utility_functions", "sorting_functions", "_block_sort", "linalg"):
         assert os.path.join("cubed_tpu_torch", "array_api", f"{module}.py") in SOURCES, module
-    for path in (("nan_functions.py",), ("kernels", "merge_sort.py")):
+    for path in (("nan_functions.py",), ("kernels", "merge_sort.py"), ("core", "visualization.py"),
+                 ("array_api", "html_repr.py"), ("random.py",), ("storage", "store.py")):
         assert os.path.join("cubed_tpu_torch", *path) in SOURCES, path
 
 
@@ -140,6 +144,51 @@ def test_compute_without_cuda_raises_instead_of_running_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["RAISED", "True"] * 3
     assert not list(tmp_path.rglob("*.zarr")), "no task may run before the device check"
+
+
+def test_zarr_stencil_random_and_introspection_on_cpu_load_no_jax(tmp_path):
+    """to_zarr (compressed), map_overlap, normal, randint, pad, visualize and
+    the HTML repr in a fresh interpreter load no forbidden module."""
+    proc = _run(
+        "import sys, torch, cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+        f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB')\n"
+        "a = ct.random.normal((8, 8), chunks=4, spec=spec)\n"
+        "b = ct.map_overlap(lambda t: torch.roll(t, 1, 0) - t, a, depth=1, boundary='periodic')\n"
+        f"ct.to_zarr(b, {str(tmp_path / 'out.zarr')!r}, compressor={{'id': 'zlib', 'level': 1}})\n"
+        "r = xp.pad(ct.random.randint(0, 9, (4, 4), chunks=2, spec=spec), 1, mode='edge')\n"
+        "print(r.compute().shape, b._repr_html_().count('<svg'))\n"
+        f"ct.visualize(b, r, filename={str(tmp_path / 'plan')!r})\n"
+        "print('\\n'.join(sorted(sys.modules)))",
+        {"CUBED_TPU_TORCH_DEVICE": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[:3] == ["(6,", "6)", "1"]
+    assert [m for m in proc.stdout.split() if _forbidden(m)] == []
+    assert (tmp_path / "plan.dot").exists()
+
+
+def test_to_zarr_and_measure_reserved_mem_without_cuda_raise(tmp_path):
+    """The default device is the card: without one, to_zarr and
+    measure_reserved_mem raise before any task runs, as compute does."""
+    proc = _run(
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "import cubed_tpu_torch as ct\n"
+        f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB')\n"
+        "a = ct.random.normal((8, 8), chunks=4, spec=spec)\n"
+        f"runs = [lambda: ct.to_zarr(a, {str(tmp_path / 'out.zarr')!r}),\n"
+        f"        lambda: ct.measure_reserved_mem(work_dir={str(tmp_path)!r})]\n"
+        "for run in runs:\n"
+        "    try:\n"
+        "        run()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', 'is_available() is False' in str(e))\n"
+        "    else:\n"
+        "        print('COMPUTED')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["RAISED", "True"] * 2
+    assert not (tmp_path / "out.zarr").exists()
 
 
 def test_device_seam_env_and_set_device():

@@ -17,17 +17,14 @@ import pytest  # noqa: E402
 import cubed_tpu_torch  # noqa: E402
 import cubed_tpu_torch.array_api as xp  # noqa: E402
 
-#: top-level names of the reference not ported yet (ROADMAP Queue 1: results
-#: written to Zarr, map_overlap, plan introspection, the service)
+#: top-level names of the reference not ported yet (ROADMAP Queue 1: the
+#: service)
 PENDING_TOP_LEVEL = {
-    "to_zarr", "store",  # item 1
-    "map_overlap",  # item 2
-    "visualize", "measure_reserved_mem",  # item 5
     "service", "ComputeService", "ServiceConfig",  # item 11: the fleet's service
 }
 
-#: array_api names of the reference not ported yet (Queue 1 items 2 and 4)
-PENDING_ARRAY_API = {"pad", "einsum", "einsum_functions", "fft"}
+#: array_api names of the reference not ported yet (Queue 1 item 4)
+PENDING_ARRAY_API = {"einsum", "einsum_functions", "fft"}
 
 #: the linalg extension's functions of the reference (the Array API
 #: standard's linalg names it defines)
@@ -74,6 +71,16 @@ def test_callback_and_task_end_event_are_the_lifecycles_own():
 def test_all_names_resolve():
     for name in cubed_tpu_torch.__all__:
         assert getattr(cubed_tpu_torch, name) is not None, name
+
+
+@pytest.mark.parametrize("name", ["to_zarr", "store", "map_overlap", "visualize", "measure_reserved_mem"])
+def test_zarr_stencil_and_introspection_names_exported(name):
+    assert name in cubed_tpu_torch.__all__
+    assert callable(getattr(cubed_tpu_torch, name))
+
+
+def test_pad_exported_from_array_api():
+    assert callable(xp.pad)
 
 
 def test_pending_names_are_really_missing():
