@@ -189,10 +189,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    400) float64 in 100-chunks under 2GB: a horizontal five-point Laplacian
    by ``map_overlap(depth=(0, 1, 1), boundary="periodic")`` written by
    ``to_zarr`` compressed with zlib level 1, and vorticity's product
-   ``a[1:]*x[1:] + b[1:]*y[1:]`` written uncompressed by ``store``, each on
-   ``CudaExecutor`` cold and warm and read back with ``from_zarr`` against a
-   numpy oracle drawn from the same Philox blocks (the stencil rtol 1e-12,
-   the product exact), with each write's compression and fsync'd writes
+   ``a[1:]*x[1:] + b[1:]*y[1:]`` written uncompressed by ``store``, on
+   ``CudaExecutor`` (the stencil cold, the product cold and warm), each
+   store read back with ``from_zarr`` against a numpy oracle drawn from the
+   same Philox blocks (the stencil rtol 1e-12, the product exact; the warm
+   write's chunk files byte for byte the cold one's), with each write's
+   compression and fsync'd writes
    timed apart, the bytes written as stored (equal to the store's files),
    launches, path counters and peak reserved memory; the mean of the
    stencil's square (Philox and region_sum launched), ``random.normal`` and
@@ -2916,10 +2918,12 @@ def stored_bytes(store: str) -> int:
     return sum(os.path.getsize(os.path.join(store, f)) for f in os.listdir(store) if not f.startswith("."))
 
 
-def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray, how, compressor) -> dict:
-    """Run *write* (a to_zarr or store call on *ex*) twice, cold then warm;
-    each time read the store back with ``from_zarr`` and hold it against
-    *expected*; print the times, the write's split, the bytes as stored,
+def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray, how, compressor,
+                 attempts=("cold", "warm")) -> dict:
+    """Run *write* (a to_zarr or store call on *ex*) once for each of
+    *attempts*, cold then warm; read the cold store back with ``from_zarr``
+    and hold it against *expected*, and the warm one's chunk files against
+    the cold one's; print the times, the write's split, the bytes as stored,
     launches, path counters and peak reserved memory."""
     import cubed_tpu_torch
     from cubed_tpu_torch.observability.metrics import get_registry
@@ -2927,7 +2931,7 @@ def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray,
     runs = []
     wrappers = kernel_wrappers()
     cold_store = store + ".cold"
-    for attempt in ("cold", "warm"):
+    for attempt in attempts:
         shutil.rmtree(store, ignore_errors=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2973,14 +2977,15 @@ def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray,
         runs.append(dict(seconds=seconds, compress_s=st.compress_s, write_s=st.write_s, chunks=st.chunks,
                          written=written, read_s=read_s, launches=launches, stats=stats,
                          peak_reserved=peak_reserved))
-    return dict(cold=runs[0], warm=runs[1])
+    shutil.rmtree(cold_store, ignore_errors=True)
+    return dict(zip(attempts, runs))
 
 
-def sequential_tight(torch, label: str, build, write_for, expected, how, work: str) -> dict:
+def sequential_tight(torch, label: str, build, write, store: str, expected, how, work: str) -> dict:
     """*build(spec)* on the sequential executor under allowed_mem equal to its
-    plan's projected memory (reserved_mem 0), written by *write_for(arr)*
-    (a function of the callbacks), each task's device peak at most that
-    bound; the value read back from its store against *expected*."""
+    plan's projected memory (reserved_mem 0), written to *store* by
+    *write(arr, callbacks)*, each task's device peak at most that bound; the
+    value read back from the store against *expected*."""
     import cubed_tpu_torch
     from cubed_tpu_torch.core.ops import _store_op
 
@@ -2991,7 +2996,7 @@ def sequential_tight(torch, label: str, build, write_for, expected, how, work: s
     peaks = TaskPeaks(torch)
     with StoreTimes() as st:
         t = time.perf_counter()
-        store = write_for(arr, [peaks])
+        write(arr, [peaks])
         seconds = time.perf_counter() - t
     err = compare_to_oracle(f"{label} [sequential]", cubed_tpu_torch.from_zarr(store).compute(), expected, how)
     ratio = peaks.worst / projected
@@ -3032,11 +3037,13 @@ def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
 
     spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
     store_a, store_b = os.path.join(work, "stencil.zarr"), os.path.join(work, "product.zarr")
-    # (a) the stencil, compressed by to_zarr; (b) the product, uncompressed by store
+    # (a) the stencil, compressed by to_zarr, cold only: a warm compute
+    # repeats its compression, 94% of the cold one (PERF.md §5); (b) the
+    # product, uncompressed by store, cold and warm
     sa = stencil(spec)
     out["stencil_to_zarr"] = device_write(
         torch, "stencil to_zarr zlib-1", lambda ex: cubed_tpu_torch.to_zarr(sa, store_a, executor=ex, compressor=comp),
-        store_a, CudaExecutor(), oracles["stencil"], ("rtol", 1e-12), comp)
+        store_a, CudaExecutor(), oracles["stencil"], ("rtol", 1e-12), comp, attempts=("cold",))
     sb = product(spec)
     out["product_store"] = device_write(
         torch, "product store", lambda ex: cubed_tpu_torch.store(sb, store_b, executor=ex), store_b, CudaExecutor(),
@@ -3133,16 +3140,9 @@ def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
          np.pad(pa, ((2, 1), (1, 2)), mode="edge"), "exact"),
     )
 
-    def write_and_name(write):
-        def run(arr, cbs):
-            write(arr, cbs)
-            return seq_store
-
-        return run
-
     for name, build, write, expected, how in cases:
         out[f"{name} sequential"] = sequential_tight(torch, f"{name} {seq_shape if 'pad' not in name else ''}".strip(),
-                                                     build, write_and_name(write), expected, how, work)
+                                                     build, write, seq_store, expected, how, work)
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
     print(f"zarr and stencils phase: {out['seconds']:.1f} s; {smi_tag()}")

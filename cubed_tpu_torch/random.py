@@ -180,16 +180,12 @@ def _upload(host: np.ndarray, like_dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=like_dtype)
 
 
-def draw_blocks(like: torch.Tensor, seeds: torch.Tensor, kind: str, span: int) -> torch.Tensor:
+@torch.library.custom_op("cubed_tpu_torch::host_draws", mutates_args=())
+def _host_draws_op(like: torch.Tensor, seeds: torch.Tensor, kind: str, span: int) -> torch.Tensor:
     """Blocks of *like*'s shape and dtype on its device, one for each seed:
     *seeds* is an int64 tensor of shape ``batch + (1,) * like.ndim`` on the
     CPU; block ``b`` is drawn by :func:`_draw` from ``seeds[b]``. The blocks
     are drawn on the host and uploaded in one copy."""
-    return _host_draws_op(like, seeds, kind, span)
-
-
-@torch.library.custom_op("cubed_tpu_torch::host_draws", mutates_args=())
-def _host_draws_op(like: torch.Tensor, seeds: torch.Tensor, kind: str, span: int) -> torch.Tensor:
     block = tuple(like.shape)
     batch = tuple(seeds.shape[: seeds.ndim - like.ndim])
     flat = seeds.detach().cpu().numpy().reshape(-1)
@@ -221,7 +217,7 @@ def _host_draws_vmap(info, in_dims, like, seeds, kind, span):
 
 def _host_block(kind: str, span: int, chunk, seeded_offset):
     if isinstance(seeded_offset, torch.Tensor):
-        return draw_blocks(chunk, seeded_offset, kind, span)
+        return _host_draws_op(chunk, seeded_offset, kind, span)
     seed = int(np.asarray(seeded_offset).reshape(-1)[0])
     return _upload(_draw(kind, span, seed, tuple(chunk.shape)), chunk.dtype, chunk.device)
 

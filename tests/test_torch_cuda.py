@@ -1343,3 +1343,76 @@ def test_a_captured_graph_keeps_the_device_constants_it_reads(cuda, tmp_path, mo
         np.testing.assert_array_equal(got, np.argsort(a.compute(), axis=0, kind="stable"))
         assert (ex.stats["segment_struct_hits"] > 0) == (k == 2), dict(ex.stats)
     del junk
+
+
+# -- results written to Zarr, the stencils, normal/randint --------------------
+
+
+def _laplacian(b):
+    import torch
+
+    return (torch.roll(b, 1, 1) + torch.roll(b, -1, 1)) + (torch.roll(b, 1, 2) + torch.roll(b, -1, 2)) - 4.0 * b
+
+
+ZARR_STENCIL_PLANS = {
+    "stencil_periodic": lambda ct, xp, s: ct.map_overlap(
+        _laplacian, ct.random.random((30, 45, 40), chunks=(10, 20, 15), spec=s), depth=(0, 1, 1),
+        boundary="periodic"),
+    "stencil_reflect_untrimmed": lambda ct, xp, s: ct.map_overlap(
+        _laplacian, xp.multiply(ct.random.random((30, 45, 40), chunks=(10, 20, 15), spec=s), 2.0),
+        depth=(1, 2, 1), boundary="reflect", trim=False),
+    "normal_scaled": lambda ct, xp, s: ct.random.normal((40, 30), mean=10.0, stddev=3.0, chunks=(10, 12), spec=s),
+    "randint_padded": lambda ct, xp, s: xp.pad(ct.random.randint(-5, 5, (40, 30), chunks=(10, 12), spec=s),
+                                              ((2, 1), (0, 3)), mode="edge"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZARR_STENCIL_PLANS))
+def test_zarr_stencil_plans_on_the_card(cuda, tmp_path, name):
+    """Three computes on one device executor (a segment's first sighting,
+    its capture unless it draws on the host, a replay), each with its own
+    seeds, equal to the sequential executor's; the host draws never
+    captured."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    for seed in (51, 52, 53):
+        values = []
+        for executor in (ex, None):
+            random.seed(seed)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{seed}-{executor is None}"), allowed_mem="500MB")
+            values.append(ZARR_STENCIL_PLANS[name](ct, xp, spec).compute(executor=executor))
+        got, want = values
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+            assert ex.stats[counter] == 0, counter
+        if name.startswith(("normal", "randint")):
+            assert ex.stats["segments_compiled"] == 0 and ex.stats["segment_struct_hits"] == 0
+
+
+def test_compressed_to_zarr_from_a_resident_stencil_on_the_card(cuda, tmp_path):
+    """to_zarr of a stencil of a resident array with zlib: the input read as
+    a view (its store never written), the output written through the codec,
+    equal to the sequential executor's store."""
+    import os
+
+    import cubed_tpu_torch as ct
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.storage.store import open_zarr_array
+
+    stores = []
+    for executor in (CudaExecutor(), None):
+        random.seed(61)
+        spec = ct.Spec(work_dir=str(tmp_path / f"work-{executor is None}"), allowed_mem="500MB")
+        a = ct.random.random((30, 45, 40), chunks=(10, 20, 15), spec=spec)
+        lap = ct.map_overlap(_laplacian, a, depth=(0, 1, 1), boundary="periodic")
+        stores.append(str(tmp_path / f"out-{executor is None}.zarr"))
+        ct.to_zarr(lap, stores[-1], executor=executor, compressor={"id": "zlib", "level": 1})
+        if executor is not None:
+            assert not os.path.exists(a.zarray_maybe_lazy.store)
+    got, want = (open_zarr_array(s, "r") for s in stores)
+    assert got.compressor == {"id": "zlib", "level": 1}
+    np.testing.assert_array_equal(got[...], want[...])

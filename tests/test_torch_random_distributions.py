@@ -18,7 +18,6 @@ exactly. The counterparts of ``tests/test_random.py:86-115``.
 import os
 
 os.environ["CUBED_TPU_TORCH_DEVICE"] = "cpu"
-os.environ["CUBED_TPU_RNG"] = "philox"
 
 import random  # noqa: E402
 
@@ -33,6 +32,13 @@ from cubed_tpu.runtime.executors.jax import JaxExecutor  # noqa: E402
 from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor  # noqa: E402
 
 from ._torch_parity import FAILED_CHECKS, PATH_COUNTERS, plan_of  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def philox_route(monkeypatch):
+    """The reference's Philox route, for this file's tests only (every test
+    file is imported by every worker, so the variable is not set at import)."""
+    monkeypatch.setenv("CUBED_TPU_RNG", "philox")
 
 CASES = {
     "normal": lambda pkg, spec: pkg.random.normal((40, 30), chunks=(10, 10), spec=spec),
