@@ -26,7 +26,7 @@ from ..observability.metrics import get_registry
 from ..primitive.types import CubedPipeline, PrimitiveOperation
 from ..runtime.types import ComputeEndEvent, ComputeStartEvent, callbacks_on
 from ..storage.zarr import LazyZarrArray
-from ..utils import extract_stack_summaries, gensym, join_path  # noqa: F401  (gensym re-exported for plan builders)
+from ..utils import extract_stack_summaries, gensym, join_path  # noqa: F401  (gensym re-exported for the modules that build plans)
 
 logger = logging.getLogger(__name__)
 
