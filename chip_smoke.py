@@ -11,7 +11,8 @@ observability phase's, and ``--time-kernels CHECKOUT`` and
 BASELINE.md's 10000 x 10000 / 5000 scale; ``--order-stats-phase [full]``
 the order-statistics phase alone, with its merge kernels' checks, ``full``
 at 4096 steps of the time axis; ``--zarr-stencil-phase`` the Zarr and
-stencils phase alone.)
+stencils phase alone; ``--linalg-fft-phase`` the linear algebra and
+spectra phase alone, its summary JSON on its last line.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -236,7 +237,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    the weighted histogram rtol 1e-11; cov and corrcoef atol 1e-12), no
    failed check, and a profiled warm compute with no copy between host and
    card beyond the output's writes and each sort's bitonic round timed
-   against its byte bound; every kernel of the path launched;
+   against its byte bound; every kernel of the path launched.
+   Then the linear algebra and spectra phase, in a process of its own
+   (``--linalg-fft-phase``), under 2GB, every input drawn by the batched
+   Philox (``random.random``; the integer product's by ``randint``): einsum
+   on vorticity's arrays (``tyx,tyx->yx``, ``tyx,t->yx``), at matmul's
+   4000^2 / 1000 in float64 and in float32 under ``matmul_precision=
+   "bfloat16"`` (against its exact model and ``contraction.matmul_plain``
+   on the card), and an int64 product at 2000^2 / 500, exact; ``rfft``
+   along time of a (2048, 256, 256) / (512, 64, 64) climatology, its power
+   spectrum's mean over gridpoints, ``rfftn``/``irfftn`` over vorticity's
+   horizontal axes, ``fftshift(fftfreq)``; TSQR of a (2^20, 128) / (65536,
+   128) matrix (Q, with Q R and Q^T Q checked on the card; R against
+   numpy's after canonical signs), ``svdvals``, the Frobenius norm; the
+   solvers on (65536, 8, 8) / (8192, 8, 8) SPD matrices (cholesky, solve,
+   inv, slogdet, eigh, and cholesky of a batch with one matrix that is not
+   positive definite: NaN on and below its diagonal, 0 above); the blocked
+   Cholesky of an 8192^2 matrix (L L^T checked on the card). Each op on
+   ``CudaExecutor`` cold, capturing and warm against a numpy oracle on the
+   same Philox streams, with its seconds, path counters (no failed check),
+   Philox and region_sum launches, whether its segment was captured (the
+   host-synchronising solvers, eigh and svd, run op by op) and its peak
+   reserved memory; then cut plans on the sequential executor under the
+   tight bound, every task's device peak at most its projection;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -3150,6 +3173,454 @@ def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the linear algebra and spectra phase: einsum, fft and linalg (TSQR, the
+# per-matrix solvers, the blocked Cholesky, norms)
+# ---------------------------------------------------------------------------
+
+#: each (shape, chunks), float64 under allowed_mem 2GB: einsum on
+#: vorticity's arrays (a per-gridpoint covariance numerator, a weighted
+#: time mean) and at matmul's 4000^2 / 1000 (float64, and float32 under
+#: matmul_precision="bfloat16"), an int64 product of randint arrays; the
+#: spectra of the order-statistics phase's climatology (2048 daily steps of
+#: a 256 x 256 tile) with (512, 64, 64) chunks, so that the time axis
+#: gathered for rfft is a 64 MB chunk, and rfftn/irfftn over vorticity's
+#: horizontal axes; TSQR of an EOF data matrix (2^20 samples of 128
+#: modes, 1.07 GB in 16 panels); the solvers on one 8 x 8 covariance
+#: matrix per gridpoint of a 256 x 256 grid; the blocked Cholesky of an
+#: 8192^2 matrix (5 n^2 8 B over 2GB: 3952 blocks, 3 panels, the last of
+#: 288); the sequential executor's cuts under the tight bound
+LINALG_FFT = dict(
+    allowed_mem="2GB",
+    vort=((500, 450, 400), 100), weights=((500,), 100), matmul=((4000, 4000), 1000), imatmul=((2000, 2000), 500),
+    clim=((2048, 256, 256), (512, 64, 64)), tsqr=((1048576, 128), (65536, 128)), batch=((65536, 8, 8), (8192, 8, 8)),
+    chol=(8192, 3952), chol_mem="2GB",
+)
+#: the sequential executor's cut: every op of the phase (but the float32
+#: einsum, the float64 plan under the device executor's options) at these
+#: sizes, under the tight bound; the blocked Cholesky planned under 4MB so
+#: that it is blocked (5 n^2 8 B over the budget), its 100 blocks kept
+#: (3 panels); the products' grids of two blocks a side (their task counts
+#: rule the sequential time)
+LINALG_FFT_SEQ = dict(
+    allowed_mem="2GB",
+    vort=((100, 90, 80), (25, 30, 40)), weights=((100,), 25), matmul=((200, 200), 100), imatmul=((100, 100), 50),
+    clim=((256, 32, 32), (64, 16, 16)), tsqr=((16384, 32), (2048, 32)), batch=((1024, 8, 8), (256, 8, 8)),
+    chol=(300, 100), chol_mem="1500KB",
+)
+#: the root seeds' order: each input of the phase draws its own after
+#: ``random.seed`` of its own value
+LINALG_SEEDS = dict(a=SEED + 100, b=SEED + 101, w=SEED + 102, m1=SEED + 103, m2=SEED + 104, i1=SEED + 105,
+                    i2=SEED + 106, clim=SEED + 107, tsqr=SEED + 108, batch=SEED + 109, rhs=SEED + 110,
+                    chol=SEED + 111)
+
+
+def phase_random(spec, shape, chunks, key: str):
+    """``random.random`` of the phase's input *key* (its own root seed)."""
+    import cubed_tpu_torch
+
+    random.seed(LINALG_SEEDS[key])
+    return cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec)
+
+
+def phase_randint(spec, shape, chunks, key: str):
+    import cubed_tpu_torch
+
+    random.seed(LINALG_SEEDS[key])
+    return cubed_tpu_torch.random.randint(-9, 9, shape, chunks=chunks, spec=spec)
+
+
+def phase_oracle(shape, chunks, key: str, integer: bool = False) -> np.ndarray:
+    """numpy's draws of the phase's input *key*, block by block."""
+    random.seed(LINALG_SEEDS[key])
+    root = random.getrandbits(30)
+    if integer:
+        return oracle_draws(shape, chunks, root, lambda g, s: g.integers(0, 18, size=s, dtype=np.int64),
+                            np.int64) - 9
+    return oracle_draws(shape, chunks, root, lambda g, s: g.random(s))
+
+
+def spd_stack(xp, b):
+    """One SPD matrix per gridpoint: B B^T / n + n I (eigenvalues in [n, 2n])."""
+    n = b.shape[-1]
+    return xp.add(xp.divide(xp.matmul(b, xp.matrix_transpose(b)), float(n)),
+                  xp.multiply(xp.eye(n, dtype=xp.float64, chunks=(b.chunks[-2], b.chunks[-1]), spec=b.spec),
+                              float(n)))
+
+
+def spd_oracle(bn: np.ndarray) -> np.ndarray:
+    n = bn.shape[-1]
+    return bn @ np.swapaxes(bn, -1, -2) / n + n * np.eye(n)
+
+
+def nonpd_shift(xp, a, spec):
+    """*a* with its first matrix shifted by -100 I (not positive definite)."""
+    import cubed_tpu_torch
+
+    shift = np.zeros((a.shape[0], 1, 1))
+    shift[0] = 100.0
+    s = cubed_tpu_torch.from_array(shift, chunks=(a.chunksize[0], 1, 1), spec=spec)
+    return xp.subtract(a, xp.multiply(xp.eye(a.shape[-1], dtype=xp.float64, spec=spec), s))
+
+
+def cholesky_failed(spd: np.ndarray) -> np.ndarray:
+    """The JAX package's result for a batch whose first matrix is not
+    positive definite: NaN on and below its diagonal, 0 above; the others
+    numpy's factors."""
+    n = spd.shape[-1]
+    out = np.empty_like(spd)
+    out[0] = np.where(np.tril(np.ones((n, n), bool)), np.nan, 0.0)
+    out[1:] = np.linalg.cholesky(spd[1:])
+    return out
+
+
+def compare_norm(label: str, value, expected, tol: float) -> float:
+    """The largest difference over the largest magnitude of the oracle (for
+    values that cancel to about zero, as transforms' do); NaN where the
+    oracle is NaN, and no other non-finite value."""
+    value, expected = np.asarray(value), np.asarray(expected)
+    check(value.dtype == expected.dtype and value.shape == expected.shape,
+          f"{label}: {value.dtype}{value.shape}, numpy's oracle {expected.dtype}{expected.shape}")
+    check(np.array_equal(np.isnan(value), np.isnan(expected)) and np.isfinite(value[~np.isnan(expected)]).all(),
+          f"{label}: its NaN pattern is not the oracle's")
+    finite = ~np.isnan(expected)
+    err = float(np.max(np.abs(value[finite] - expected[finite]), initial=0.0)) / float(
+        np.max(np.abs(expected[finite]), initial=1.0))
+    check(err <= tol, f"{label}: differs from the numpy oracle by {err:.3e} of its largest magnitude > {tol}")
+    return err
+
+
+def canonical_rows(r: np.ndarray) -> np.ndarray:
+    """R's rows scaled so that its diagonal is non-negative (a QR's R is
+    defined up to these signs)."""
+    d = np.sign(np.diagonal(r, axis1=-2, axis2=-1))
+    return r * np.where(d == 0, 1, d)[..., :, None]
+
+
+def canonical_cols(v: np.ndarray) -> np.ndarray:
+    """Each column signed so that its largest entry is positive."""
+    idx = np.argmax(np.abs(v), axis=-2)[..., None, :]
+    s = np.sign(np.take_along_axis(v, idx, axis=-2))
+    return v * np.where(s == 0, 1, s)
+
+
+def numpy_tsqr_r(x: np.ndarray, rows: int) -> np.ndarray:
+    """numpy's R of *x* by panels of *rows* (numpy's QR of each panel in
+    ORACLE_THREADS threads, then of their stacked R factors): R up to the
+    signs of its rows, as ``np.linalg.qr(x, mode="r")`` gives it, in a
+    fraction of its time on a tall matrix."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        rs = list(pool.map(lambda i: np.linalg.qr(x[i:i + rows], mode="r"), range(0, x.shape[0], rows)))
+    return np.linalg.qr(np.concatenate(rs), mode="r")
+
+
+#: ops checked after the loop on the card at full size (Q R and Q^T Q; L
+#: L^T, and numpy's Cholesky of the card's A), not by a host oracle
+CHECKED_ON_THE_CARD = ("qr Q", "blocked cholesky")
+
+
+def op_mem(config, name: str) -> str:
+    """The budget an op of the phase is planned under."""
+    return config["chol_mem"] if name == "blocked cholesky" else config["allowed_mem"]
+
+
+#: ops whose output is large: each is computed cold and capturing (the
+#: capture replays at once); a third, warm compute would repeat its output's
+#: fsync'd writes (3.6-4.5 s a GB) and is cut
+LINALG_BIG_OUTPUTS = ("rfft (time)", "rfftn/irfftn (y, x)", "qr Q", "blocked cholesky")
+
+
+def linalg_fft_ops(config, cache: Optional[dict] = None) -> dict:
+    """name -> (build(spec), oracle() -> expected, comparison, executor options):
+    a comparison is ("norm", tol) (:func:`compare_norm`), a ("rtol", tol)
+    or "exact" of :func:`compare_to_oracle`, or a function(value, expected)
+    returning the error after checking."""
+    import cubed_tpu_torch.array_api as xp
+
+    (vshape, vch), (wshape, wch) = config["vort"], config["weights"]
+    (mshape, mch), (ishape, ich) = config["matmul"], config["imatmul"]
+    (cshape, cch), (tshape, tch), (bshape, bch) = config["clim"], config["tsqr"], config["batch"]
+    n, nch = config["chol"]
+    cache = {} if cache is None else cache
+
+    def host(key, shape, chunks, integer=False):
+        if key not in cache:
+            cache[key] = phase_oracle(shape, chunks, key, integer)
+        return cache[key]
+
+    def rfft_host():
+        if "rfft" not in cache:
+            cache["rfft"] = np.fft.rfft(host("clim", cshape, cch), axis=0)
+        return cache["rfft"]
+
+    def tsqr_r_host():
+        if "tsqr_r" not in cache:
+            cache["tsqr_r"] = numpy_tsqr_r(host("tsqr", tshape, tch), tch[0])
+        return cache["tsqr_r"]
+
+    def solvers_host():
+        if "spd" not in cache:
+            cache["spd"] = spd_oracle(host("batch", bshape, bch))
+        return cache["spd"]
+
+    def rhs_host():
+        return host("rhs", (bshape[0], bshape[1], 1), (bch[0], bch[1], 1))
+
+    def tsqr_r_check(value, expected):
+        # R against numpy's after the signs are made canonical
+        return compare_norm("qr R", canonical_rows(value), canonical_rows(expected), 1e-10)
+
+    def eigh_vecs_check(value, expected):
+        return compare_norm("eigh eigenvectors", canonical_cols(value), canonical_cols(expected), 1e-9)
+
+    def vort(s, key):
+        return phase_random(s, vshape, vch, key)
+
+    return {
+        "einsum tyx,tyx->yx": (lambda s: xp.einsum("tyx,tyx->yx", vort(s, "a"), vort(s, "b")),
+                               lambda: np.einsum("tyx,tyx->yx", host("a", vshape, vch), host("b", vshape, vch)),
+                               ("rtol", 1e-12), {}),
+        "einsum tyx,t->yx": (lambda s: xp.einsum("tyx,t->yx", vort(s, "a"), phase_random(s, wshape, wch, "w")),
+                             lambda: np.einsum("tyx,t->yx", host("a", vshape, vch), host("w", wshape, wch)),
+                             ("rtol", 1e-12), {}),
+        "einsum ij,jk->ik": (lambda s: xp.einsum("ij,jk->ik", phase_random(s, mshape, mch, "m1"),
+                                                 phase_random(s, mshape, mch, "m2")),
+                             lambda: host("m1", mshape, mch) @ host("m2", mshape, mch), ("rtol", 1e-12), {}),
+        "einsum ij,jk->ik f32 bf16": (
+            lambda s: xp.einsum("ij,jk->ik", phase_random(s, mshape, mch, "m1"), phase_random(s, mshape, mch, "m2")),
+            lambda: mode_model(host("m1", mshape, mch), host("m2", mshape, mch), "bfloat16"), ("rtol", 1e-5),
+            dict(compute_dtype="float32", matmul_precision="bfloat16")),
+        "einsum ij,jk->ik int64": (
+            lambda s: xp.einsum("ij,jk->ik", phase_randint(s, ishape, ich, "i1"), phase_randint(s, ishape, ich, "i2")),
+            # |sums| < 2000 * 81, exact in a float64 product
+            lambda: (host("i1", ishape, ich, True).astype(np.float64) @ host("i2", ishape, ich, True)).astype(np.int64),
+            "exact", {}),
+        "rfft (time)": (lambda s: xp.fft.rfft(phase_random(s, cshape, cch, "clim"), axis=0), rfft_host,
+                        ("norm", 1e-12), {}),
+        "power spectrum mean": (
+            lambda s: xp.mean(xp.square(xp.abs(xp.fft.rfft(phase_random(s, cshape, cch, "clim"), axis=0))),
+                              axis=(1, 2)),
+            lambda: np.mean(np.abs(rfft_host()) ** 2, axis=(1, 2)), ("rtol", 1e-12), {}),
+        "rfftn/irfftn (y, x)": (
+            lambda s: xp.fft.irfftn(xp.fft.rfftn(vort(s, "a"), axes=(1, 2)), s=vshape[1:], axes=(1, 2)),
+            lambda: host("a", vshape, vch), ("norm", 1e-12), {}),
+        "fftshift(fftfreq)": (lambda s: xp.fft.fftshift(xp.fft.fftfreq(cshape[0], d=1 / 365.25, spec=s)),
+                              lambda: np.fft.fftshift(np.fft.fftfreq(cshape[0], d=1 / 365.25)), ("norm", 1e-15), {}),
+        # Q R and Q^T Q are checked on the card (run_linalg_fft_phase); the
+        # sequential cut's Q against numpy's after canonical signs
+        "qr Q": (lambda s: xp.linalg.qr(phase_random(s, tshape, tch, "tsqr")).Q,
+                 lambda: np.linalg.qr(host("tsqr", tshape, tch))[0],
+                 lambda v, e: compare_norm("qr Q", canonical_cols(v), canonical_cols(e), 1e-10), {}),
+        "qr R": (lambda s: xp.linalg.qr(phase_random(s, tshape, tch, "tsqr")).R, tsqr_r_host, tsqr_r_check, {}),
+        # X's singular values are its R's: numpy's SVD of numpy's R (of X
+        # whole, 6.7 s more)
+        "svdvals": (lambda s: xp.linalg.svdvals(phase_random(s, tshape, tch, "tsqr")),
+                    lambda: np.linalg.svd(tsqr_r_host(), compute_uv=False), ("rtol", 1e-10), {}),
+        "matrix_norm fro": (lambda s: xp.linalg.matrix_norm(phase_random(s, tshape, tch, "tsqr"), ord="fro"),
+                            lambda: np.linalg.norm(host("tsqr", tshape, tch)), ("rtol", 1e-12), {}),
+        "cholesky": (lambda s: xp.linalg.cholesky(spd_stack(xp, phase_random(s, bshape, bch, "batch"))),
+                     lambda: np.linalg.cholesky(solvers_host()), ("norm", 1e-12), {}),
+        "solve": (lambda s: xp.linalg.solve(spd_stack(xp, phase_random(s, bshape, bch, "batch")),
+                                            phase_random(s, (bshape[0], bshape[1], 1), (bch[0], bch[1], 1), "rhs")),
+                  lambda: np.linalg.solve(solvers_host(), rhs_host()), ("norm", 1e-12), {}),
+        "inv": (lambda s: xp.linalg.inv(spd_stack(xp, phase_random(s, bshape, bch, "batch"))),
+                lambda: np.linalg.inv(solvers_host()), ("norm", 1e-12), {}),
+        "slogdet": (lambda s: xp.linalg.slogdet(spd_stack(xp, phase_random(s, bshape, bch, "batch"))).logabsdet,
+                    lambda: np.linalg.slogdet(solvers_host())[1], ("rtol", 1e-12), {}),
+        "eigh eigenvalues": (lambda s: xp.linalg.eigh(spd_stack(xp, phase_random(s, bshape, bch, "batch"))).eigenvalues,
+                             lambda: np.linalg.eigvalsh(solvers_host()), ("rtol", 1e-12), {}),
+        "eigh eigenvectors": (
+            lambda s: xp.linalg.eigh(spd_stack(xp, phase_random(s, bshape, bch, "batch"))).eigenvectors,
+            lambda: np.linalg.eigh(solvers_host())[1], eigh_vecs_check, {}),
+        "cholesky, one not positive definite": (
+            lambda s: xp.linalg.cholesky(nonpd_shift(xp, spd_stack(xp, phase_random(s, bshape, bch, "batch")), s)),
+            lambda: cholesky_failed(solvers_host()), ("norm", 1e-12), {}),
+        "blocked cholesky": (lambda s: xp.linalg.cholesky(spd_stack(xp, phase_random(s, (n, n), nch, "chol"))),
+                             lambda: np.linalg.cholesky(spd_oracle(host("chol", (n, n), nch))), ("norm", 1e-12), {}),
+    }
+
+
+def run_linalg_fft_phase(torch, config=LINALG_FFT) -> dict:
+    """The linear algebra and spectra phase (see the module docstring).
+    Returns its numbers, printed as they come."""
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch import contraction
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    t0 = time.perf_counter()
+    print(f"linalg and fft phase: allowed_mem {config['allowed_mem']}; {smi_tag()}")
+    work = os.path.join(WORK_DIR, "linalg-fft")
+    wrappers = kernel_wrappers()
+    host: dict = {}  # numpy's inputs and results, each drawn or computed once
+    ops = linalg_fft_ops(config, host)
+    out: dict = {"ops": {}, "launches": {"philox_uniform": 0, "region_sum": 0}}
+    values: dict = {}
+    # the process's first touch of cuBLAS, cuFFT and cuSOLVER (handles,
+    # workspaces, module loads), on small plans, so that no op's cold
+    # compute pays for it
+    t = time.perf_counter()
+    small = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
+    x = phase_random(small, (64, 8, 8), (16, 8, 8), "batch")
+    for warm in (xp.einsum("tyx,tyx->yx", x, x), xp.fft.rfft(x, axis=0), xp.linalg.qr(x[0]).R,
+                 xp.linalg.cholesky(spd_stack(xp, x)), xp.linalg.inv(spd_stack(xp, x)),
+                 xp.linalg.eigh(spd_stack(xp, x)).eigenvalues):
+        warm.compute(executor=CudaExecutor())
+    torch.cuda.synchronize()
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"linalg and fft phase: the process's first library calls (small plans) {time.perf_counter() - t:.2f} s")
+    for name, (build, oracle, how, options) in ops.items():
+        spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=op_mem(config, name))
+        arr = build(spec)
+        ex = CudaExecutor(**options)
+        seconds, stats, launches = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2 if name in LINALG_BIG_OUTPUTS else 3):
+            for w in wrappers.values():
+                w.launches = 0
+            t = time.perf_counter()
+            value = arr.compute(executor=ex)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            launches.append({k: w.launches for k, w in wrappers.items()})
+            stats.append(dict(sorted(ex.stats.items())))
+            for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+                check(ex.stats.get(counter, 0) == 0, f"{name} [cuda] compute {i}: {counter} = {ex.stats.get(counter)}")
+            if i == 0:
+                values[name] = value
+        captured = stats[1].get("segments_compiled", 0) > 0
+        uncapturable = stats[1].get("segments_uncapturable", 0) > 0
+        if name not in CHECKED_ON_THE_CARD:
+            t = time.perf_counter()
+            expected = oracle()
+            oracle_s = time.perf_counter() - t
+            if callable(how):
+                err = how(values[name], expected)
+            elif how != "exact" and how[0] == "norm":
+                err = compare_norm(name, values[name], expected, how[1])
+            else:
+                err = compare_to_oracle(name, values[name], expected, how)
+        else:
+            err, oracle_s = None, 0.0
+        for k in out["launches"]:
+            out["launches"][k] += launches[0][k]
+        warm = f", warm {seconds[2]:.3f} s" if len(seconds) > 2 else " (warm cut)"
+        print(f"{name} [cuda]: {arr.shape} {arr.dtype}; compute() cold {seconds[0]:.3f} s, capturing "
+              f"{seconds[1]:.3f} s{warm}; captured {captured}"
+              f"{' (a host-synchronising solver: op by op)' if uncapturable else ''}; stats cold "
+              f"{json.dumps(stats[0])}, last {json.dumps(stats[-1])}; launches cold {json.dumps(launches[0])}; "
+              f"peak reserved {torch.cuda.max_memory_reserved()} B; max err {err}; oracle {oracle_s:.1f} s; "
+              f"{smi_tag()}")
+        out["ops"][name] = dict(cold_s=seconds[0], capturing_s=seconds[1], warm_s=seconds[2] if len(seconds) > 2 else None,
+                                captured=captured, stats=stats[-1], launches=launches[0],
+                                peak_reserved=torch.cuda.max_memory_reserved(), err=err)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the float32 einsum under bf16 against contraction.matmul_plain on the
+    # card (the same rounding, one float32 GEMM of the whole operands)
+    a32 = torch.from_numpy(host["m1"].astype(np.float32)).cuda()
+    b32 = torch.from_numpy(host["m2"].astype(np.float32)).cuda()
+    plain = contraction.matmul_plain(a32, b32, "bfloat16").double().cpu().numpy()
+    err = compare_to_oracle("einsum f32 bf16 against matmul_plain",
+                            values["einsum ij,jk->ik f32 bf16"], plain, ("rtol", 1e-5))
+    print(f"einsum ij,jk->ik f32 bf16 against contraction.matmul_plain on the card: max rel err {err:.3e}")
+
+    # TSQR's Q and the blocked Cholesky's L held on the card: Q R against
+    # the input and Q^T Q against I; L L^T against A (A computed on the
+    # card, then numpy's Cholesky of it)
+    (tshape, tch) = config["tsqr"]
+    x = torch.from_numpy(host["tsqr"]).cuda()
+    q = torch.from_numpy(np.asarray(values["qr Q"])).cuda()
+    r = torch.from_numpy(np.asarray(values["qr R"])).cuda()
+    qr_err = float((q @ r - x).abs().max()) / float(x.abs().max())
+    orth_err = float((q.T @ q - torch.eye(tshape[1], dtype=q.dtype, device=q.device)).abs().max())
+    print(f"qr on the card: max |Q R - X| / max |X| {qr_err:.3e}, max |Q^T Q - I| {orth_err:.3e}")
+    check(qr_err <= 1e-12 and orth_err <= 1e-10, "qr: Q R is not X or Q is not orthonormal")
+    del x, q, r
+    host.clear()
+    n, nch = config["chol"]
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"])
+    a_np = np.asarray(spd_stack(xp, phase_random(spec, (n, n), nch, "chol")).compute(executor=CudaExecutor()))
+    shutil.rmtree(work, ignore_errors=True)
+    lo = torch.from_numpy(np.asarray(values["blocked cholesky"])).cuda()
+    a = torch.from_numpy(a_np).cuda()
+    llt_err = float((lo @ lo.T - a).abs().max()) / float(a.abs().max())
+    del lo, a
+    t = time.perf_counter()
+    chol_err = compare_norm("blocked cholesky", values["blocked cholesky"], np.linalg.cholesky(a_np), 1e-12)
+    print(f"blocked cholesky {n}^2: max |L L^T - A| / max |A| {llt_err:.3e} on the card; against numpy's "
+          f"{chol_err:.3e} (numpy {time.perf_counter() - t:.1f} s)")
+    check(llt_err <= 1e-12, "blocked cholesky: L L^T is not A")
+    values.clear()
+    check(out["launches"]["philox_uniform"] > 0 and out["launches"]["region_sum"] > 0,
+          f"the phase launched {out['launches']}: it runs Philox and region_sum")
+
+    # the sequential executor under the tight bound, cut
+    out["sequential"] = linalg_fft_sequential(torch, LINALG_FFT_SEQ, work)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"linalg and fft phase: {out['seconds']:.1f} s; {smi_tag()}")
+    return out
+
+
+def linalg_fft_sequential(torch, config, work) -> dict:
+    """Every op of the phase (but the float32 einsum: the float64 plan under
+    the device executor's options) at the cut sizes of *config* on the
+    sequential executor, under allowed_mem equal to the plan's projected
+    memory (reserved_mem 0; the plan built again under it until its
+    projection holds still, as a planner's choices, the blocked Cholesky's
+    block size, read the budget), each task's device peak at most that
+    bound, each value against numpy's."""
+    import cubed_tpu_torch
+
+    out = {}
+    for name, (build, oracle, how, options) in linalg_fft_ops(config).items():
+        if options:
+            continue
+        projected = build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=op_mem(config, name),
+                                               reserved_mem=0)).plan.max_projected_mem()
+        for _ in range(4):
+            arr = build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=projected, reserved_mem=0))
+            again = arr.plan.max_projected_mem()
+            if again == projected:
+                break
+            projected = again
+        check(arr.plan.max_projected_mem() == projected, f"{name} [sequential]: its projection does not hold still")
+        peaks = TaskPeaks(torch)
+        t = time.perf_counter()
+        value = np.asarray(arr.compute(callbacks=[peaks]))
+        seconds = time.perf_counter() - t
+        expected = oracle()
+        if callable(how):
+            err = how(value, expected)
+        elif how != "exact" and how[0] == "norm":
+            err = compare_norm(f"{name} [sequential]", value, expected, how[1])
+        else:
+            err = compare_to_oracle(f"{name} [sequential]", value, expected, how)
+        ratio = peaks.worst / projected
+        print(f"{name} [sequential]: {arr.shape}, compute() {seconds:.3f} s, {peaks.tasks} tasks; largest task "
+              f"device peak {peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; max err "
+              f"{err:.3e}; {smi_tag()}")
+        check(ratio <= 1.0, f"{name}: a task's device peak {peaks.worst} B is over its projected {projected} B")
+        out[name] = dict(seconds=seconds, ratio=ratio, peak=peaks.worst, projected=projected)
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def linalg_fft_in_fresh_process() -> dict:
+    """The linear algebra and spectra phase in a fresh process
+    (``--linalg-fft-phase``), its output passed on; returns its summary
+    (its last line)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-fft-phase"],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"linalg and fft phase: its process failed:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
 # the order-statistics phase: sorts, quantiles, top-k, searches, histograms,
 # cov/corrcoef and the nan reductions
 # ---------------------------------------------------------------------------
@@ -4244,9 +4715,9 @@ def main(argv: list) -> int:
         timed = os.path.abspath(argv[1])
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
-                               ["--order-stats-phase", "full"], ["--zarr-stencil-phase"]):
+                               ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
-              "--zarr-stencil-phase]", file=sys.stderr)
+              "--zarr-stencil-phase | --linalg-fft-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4292,6 +4763,18 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             run_zarr_stencil_phase(torch)
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv == ["--linalg-fft-phase"]:
+        # the linear algebra and spectra phase alone, its summary the last line
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            print(json.dumps(run_linalg_fft_phase(torch)))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4433,6 +4916,11 @@ def main(argv: list) -> int:
         for k in kernels_order:
             k["launches"] = order["launches"][k["name"]]
         kernels += kernels_order
+        # the linear algebra and spectra phase, in a process of its own
+        linalg_fft = linalg_fft_in_fresh_process()
+        print(f"linalg and fft phase summary: {linalg_fft['seconds']:.1f} s; launches of its first device "
+              f"computes {json.dumps(linalg_fft['launches'])}; sequential task peak / projected "
+              + ", ".join(f"{k} {v['ratio']:.4f}" for k, v in linalg_fft["sequential"].items()))
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
         run_sequential_observed(torch, sequential["seconds"])

@@ -1,8 +1,7 @@
 """The Array API namespace of the port: the standard's surface, sorting and
-the order statistics. Counterpart of ``cubed_tpu/array_api/__init__.py``, in
-its order; ``linalg`` holds ``diagonal`` and ``trace`` so far. The
-extensions not ported yet (the rest of ``linalg``, ``fft``, ``einsum``)
-are listed in ROADMAP.md."""
+the order statistics, and the extensions ``linalg``, ``fft`` and
+``einsum``. Counterpart of ``cubed_tpu/array_api/__init__.py``, in its
+order."""
 
 __array_api_version__ = "2022.12"
 
@@ -170,7 +169,8 @@ from .statistical_functions import (  # noqa: F401
 
 from .utility_functions import all, any, diff  # noqa: F401
 
-from . import linalg  # noqa: F401  (extension namespace: diagonal, trace)
+from . import fft  # noqa: F401  (extension namespace)
+from . import linalg  # noqa: F401  (extension namespace)
 
 from .searching_functions import nonzero  # noqa: F401  (refused)
 from .set_functions import (  # noqa: F401  (refused)
@@ -180,6 +180,7 @@ from .set_functions import (  # noqa: F401  (refused)
     unique_values,
 )
 from .creation_functions import from_dlpack  # noqa: F401
+from .einsum_functions import einsum  # noqa: F401  (beyond the standard)
 from .statistical_functions import median, quantile  # noqa: F401  (beyond the standard)
 from .statistical_functions import corrcoef, cov, histogram  # noqa: F401  (beyond the standard)
 from .statistical_functions import nanmedian, nanquantile  # noqa: F401  (beyond the standard)

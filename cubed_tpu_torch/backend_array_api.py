@@ -199,7 +199,8 @@ def numpy_array_to_backend_array(arr):
         one = torch.from_numpy(a.reshape(-1)[:1].astype(narrow or a.dtype)).reshape(())
         return one.to(dev).expand(a.shape)
     # under the narrowing scope rounded on the host, so half the bytes cross
-    a = np.ascontiguousarray(a, dtype=narrow)
+    # (ascontiguousarray makes a 0-d array 1-d: its shape is put back)
+    a = np.ascontiguousarray(a, dtype=narrow).reshape(a.shape)
     if dev.type == "cpu":
         return torch.from_numpy(a if a.flags.writeable else a.copy())
     with warnings.catch_warnings():
@@ -620,6 +621,12 @@ def _full(shape, fill_value, dtype=None):
     return torch.full(tuple(shape), fill_value, dtype=dt, device=get_device())
 
 
+def _conj(x):
+    # the conjugate bit resolved: a copy that torch.func.vmap batches
+    # (conj_physical of a complex tensor has no batching rule)
+    return x.conj().resolve_conj() if x.is_complex() else torch.conj_physical(x)
+
+
 def _arange(n, dtype=np.int64):
     return torch.arange(n, dtype=to_torch_dtype(dtype), device=get_device())
 
@@ -730,5 +737,5 @@ nxp = types.SimpleNamespace(
     matmul=contraction.matmul,
     tensordot=contraction.tensordot,
     einsum=torch.einsum,
-    conj=torch.conj_physical,
+    conj=_conj,
 )

@@ -189,11 +189,6 @@ def _check_full(x: torch.Tensor, mode: str) -> None:
                            "TF32 on (torch.backends.cuda.matmul.allow_tf32 / set_float32_matmul_precision)")
 
 
-#: elements of the broadcast products a step of :func:`integer_matmul`
-#: holds at least (else at most the output's)
-_INTEGER_PANEL = 1 << 16
-
-
 def _integer(a: torch.Tensor, b: torch.Tensor) -> bool:
     """A product of two integer tensors on the card."""
     return a.device.type == "cuda" and not (a.is_floating_point() or a.is_complex()
@@ -204,15 +199,17 @@ def integer_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of integer tensors, exact in their common dtype (wrapping
     as numpy's does): the contracted axis in panels, each panel's broadcast
     products summed over it in that dtype, the panels' sums added. A
-    panel's products hold at most the output's elements (at least
-    ``_INTEGER_PANEL``). No in-place update, so it runs under
+    panel's products hold at most as many elements as the larger of the
+    output and the two operands together (a task's projected memory holds
+    each of them twice). No in-place update, so it runs under
     ``torch.func.vmap``."""
     dt = torch.promote_types(a.dtype, b.dtype)
     x = (a.unsqueeze(0) if a.ndim == 1 else a).to(dt)
     y = (b.unsqueeze(-1) if b.ndim == 1 else b).to(dt)
     m, k, n = x.shape[-2], x.shape[-1], y.shape[-1]
-    out_elems = math.prod(torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])) * m * n
-    panel = max(1, min(k, max(out_elems, _INTEGER_PANEL) // max(1, out_elems)))
+    batch = math.prod(torch.broadcast_shapes(x.shape[:-2], y.shape[:-2]))
+    out_elems = batch * m * n
+    panel = max(1, min(k, max(out_elems, batch * (m * k + k * n)) // max(1, out_elems)))
     out = None
     for k0 in range(0, max(k, 1), panel):
         p = min(panel, k - k0)
@@ -220,7 +217,9 @@ def integer_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out = step if out is None else out + step
     if b.ndim == 1:
         out = out.squeeze(-1)
-    return out.squeeze(-2) if a.ndim == 1 else out
+    if a.ndim == 1:
+        out = out.squeeze(-1 if b.ndim == 1 else -2)
+    return out
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -259,3 +258,72 @@ def tensordot(a: torch.Tensor, b: torch.Tensor, axes=2) -> torch.Tensor:
     y = b.permute(ax_b + free_b).reshape(k, -1)
     shape = tuple(a.shape[d] for d in free_a) + tuple(b.shape[d] for d in free_b)
     return matmul(x, y).reshape(shape)
+
+
+def _labels_sum(x: torch.Tensor, labels: str, keep: str):
+    """*x* (axes *labels*) summed over the labels not in *keep*, in its own
+    dtype: (the result, its labels)."""
+    drop = [d for d, ch in enumerate(labels) if ch not in keep]
+    if not drop:
+        return x, labels
+    return x.sum(dim=drop, dtype=x.dtype), "".join(ch for ch in labels if ch in keep)
+
+
+def _pair(a: torch.Tensor, la: str, b: torch.Tensor, lb: str, keep: str):
+    """The product of *a* and *b* over their shared labels not in *keep*, as
+    one :func:`matmul` of ``(batch, m, k) @ (batch, k, n)``: (the result, its
+    labels: the shared kept labels, then *a*'s own, then *b*'s own)."""
+    a, la = _labels_sum(a, la, lb + keep)
+    b, lb = _labels_sum(b, lb, la + keep)
+    batch = [ch for ch in la if ch in lb and ch in keep]
+    contracted = [ch for ch in la if ch in lb and ch not in keep]
+    left = [ch for ch in la if ch not in lb]
+    right = [ch for ch in lb if ch not in la]
+    size = {ch: n for ch, n in zip(la + lb, tuple(a.shape) + tuple(b.shape))}
+
+    def prod(chs):
+        return math.prod(size[ch] for ch in chs)
+
+    x = a.permute([la.index(ch) for ch in batch + left + contracted])
+    y = b.permute([lb.index(ch) for ch in batch + contracted + right])
+    x = x.reshape(prod(batch), prod(left), prod(contracted))
+    y = y.reshape(prod(batch), prod(contracted), prod(right))
+    out = matmul(x, y).reshape(tuple(size[ch] for ch in batch + left + right))
+    return out, "".join(batch + left + right)
+
+
+def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(subscripts, *operands)`` at the mode in force: under a
+    reduced mode on float32 operands, or of integers on the card (where
+    torch's einsum reaches an integer GEMM that its CUDA build lacks), the
+    operands are contracted pairwise, left to right, each pair one batched
+    :func:`matmul` after a permute and a reshape (exact for integers,
+    wrapping as numpy's does; rounded as the mode says for float32).
+    *subscripts* is explicit (``"ij,jk->ik"``), without ellipsis or a label
+    repeated within one operand."""
+    if not _by_products(operands):
+        if all(x.dtype == torch.float32 for x in operands) and _PRECISION.get() is not None:
+            _check_full(operands[0], _PRECISION.get())
+        return torch.einsum(subscripts, *operands)
+    return einsum_by_products(subscripts, *operands)
+
+
+def _by_products(operands) -> bool:
+    """Whether :func:`einsum` takes :func:`einsum_by_products`: float32
+    operands under a reduced mode, or integers on the card."""
+    if _PRECISION.get() in REDUCED and all(x.dtype == torch.float32 for x in operands):
+        return True
+    return operands[0].device.type == "cuda" and not any(x.is_floating_point() or x.is_complex() for x in operands)
+
+
+def einsum_by_products(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
+    """The explicit *subscripts*' contraction as pairwise :func:`matmul`
+    products (see :func:`einsum`)."""
+    lhs, out_labels = subscripts.split("->")
+    labels = lhs.split(",")
+    x, lx = operands[0], labels[0]
+    for i in range(1, len(operands)):
+        keep = out_labels + "".join(labels[i + 1:])
+        x, lx = _pair(x, lx, operands[i], labels[i], keep)
+    x, lx = _labels_sum(x, lx, out_labels)
+    return x.permute([lx.index(ch) for ch in out_labels])

@@ -119,11 +119,16 @@ def apply_gufunc(
 
 class _UnwrapCoreDims:
     """Core dims are one chunk each, so a block function gives them as
-    single-element nested lists; unwrap them to plain chunks."""
+    single-element nested lists; unwrap them to plain chunks. The function's
+    own hints to the device executor (``batchable``, ``host_sync``) carry
+    over."""
 
     def __init__(self, func):
         self.func = func
         self.__name__ = getattr(func, "__name__", "apply_gufunc")
+        for attr in ("batchable", "host_sync"):
+            if hasattr(func, attr):
+                setattr(self, attr, getattr(func, attr))
 
     def __call__(self, *args, **kwargs):
         return self.func(*[_unwrap_single(a) for a in args], **kwargs)
@@ -135,6 +140,7 @@ class _HostVectorized(_UnwrapCoreDims):
     def __init__(self, func, signature: str):
         super().__init__(func)
         self.func = np.vectorize(func, signature=signature)
+        self.batchable = False  # host code: never under torch.func.vmap
 
     def __call__(self, *args, **kwargs):
         out = self.func(*[backend_array_to_numpy_array(_unwrap_single(a)) for a in args], **kwargs)

@@ -260,7 +260,9 @@ def general_blockwise(
     op_name: str = "general_blockwise",
 ):
     """Apply an explicit block function. Multi-output: ``dtype`` (and
-    ``shape``) as lists; ``func`` returns a tuple of arrays per task."""
+    ``shape``) as lists; ``func`` returns a tuple of arrays per task.
+    ``chunks`` may then be a list, one entry per output, each normalized
+    against its own shape (the outputs must share one block grid)."""
     spec = _spec_of(*arrays)
     multi, names, target_store = _alloc_output_names_stores(dtype, spec)
     if multi:
@@ -268,7 +270,15 @@ def general_blockwise(
             list(shape) if shape and isinstance(shape[0], (list, tuple))
             else [tuple(shape)] * len(dtype)
         )
-        chunks = normalize_chunks(chunks, shapes[0], dtype=dtype[0])
+        if isinstance(chunks, list):
+            if len(chunks) != len(dtype):
+                raise ValueError(
+                    "per-output chunks list must have one entry per "
+                    f"output; got {len(chunks)} for {len(dtype)} outputs"
+                )
+            chunks = [normalize_chunks(c, s, dtype=dt) for c, s, dt in zip(chunks, shapes, dtype)]
+        else:
+            chunks = normalize_chunks(chunks, shapes[0], dtype=dtype[0])
         out_name = names
         shape_arg = [tuple(s) for s in shapes]
     else:

@@ -281,6 +281,10 @@ def general_blockwise(
     Multi-output: pass ``dtype``, ``shape``, ``target_store`` and ``out_name``
     as lists, one entry per output, all outputs on ONE block grid; ``function``
     then returns a tuple of arrays, and the op carries ``target_arrays``.
+    Outputs may have chunk sizes of their own (``chunks`` a list of each
+    output's normalized chunks) as long as their block grids agree: TSQR's
+    panel op writes Q blocks ``(c, n)`` and R blocks ``(n, n)`` on one
+    ``(b, 1)`` grid.
     """
     multi = isinstance(dtype, (list, tuple))
     if multi:
@@ -295,13 +299,20 @@ def general_blockwise(
         dtypes = list(dtype)
         if not (len(shapes) == len(stores) == len(out_names) == n_out):
             raise ValueError("multi-output lists must have equal length")
-        chunksizes = [to_chunksize(chunks) if s else () for s in shapes]
+        if isinstance(chunks, list):  # per-output chunks
+            if len(chunks) != n_out:
+                raise ValueError("per-output chunks list must have one entry per output")
+            chunks_list = [tuple(c) for c in chunks]
+        else:
+            chunks_list = [chunks] * n_out
+        chunksizes = [to_chunksize(c) if s else () for c, s in zip(chunks_list, shapes)]
         nbs = {
             chunks_to_numblocks(blockdims_from_blockshape(s, cs))
             for s, cs in zip(shapes, chunksizes)
         }
         if len(nbs) != 1:
             raise ValueError(f"multi-output arrays must share one block grid; got {sorted(nbs)}")
+        chunks = chunks_list[0]  # output 0 defines the mappable grid
     else:
         shapes = [tuple(shape)]
         stores = [target_store]

@@ -79,8 +79,9 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   ``segment_mem_aborts``) is keyed by a structural key of its plan
   metadata (:meth:`CudaExecutor._structural_key`: seeds and store paths
   masked; a plan it cannot describe, or whose ops draw blocks on the host
-  (``host_draws``: ``random.normal``/``randint``), runs op by op,
-  uncaptured). At the
+  (``host_draws``: ``random.normal``/``randint``) or make a library call
+  that synchronises the host (``host_sync``: ``linalg.eigh``, ``svd``),
+  runs op by op, uncaptured: ``segments_uncapturable``). At the
   key's first sighting the segment runs op by op, on the paths a capture
   takes, and nothing is captured: a plan computed once pays nothing for
   graphs. At its second it is captured into a ``torch.cuda.CUDAGraph``
@@ -556,6 +557,8 @@ class _Describer:
     def __call__(self, obj):
         if isinstance(obj, self._PLAIN):
             return obj if not isinstance(obj, float) else ("float", repr(obj))
+        if obj is Ellipsis:
+            return ("ellipsis",)  # a code constant of ``x[..., i]``
         if isinstance(obj, (np.generic,)):
             return ("np", str(obj.dtype), repr(obj.item()))
         if isinstance(obj, (np.dtype, torch.dtype, torch.device, slice, range)):
@@ -1163,11 +1166,14 @@ class CudaExecutor(DagExecutor):
             record_decision("cuda_segment_mem_abort", segment=",".join(name for name, _ in ops))
             self._run_ops(ops, resident, budget, requested)
             return
-        if skey is None or np.unique(seeds).size != seeds.size or self._host_draws(ops):
+        uncapturable = self._uncapturable(ops)
+        if skey is None or np.unique(seeds).size != seeds.size or uncapturable:
             # a graph that no later compute could replay (its plan is not
             # described, or two blocks share a seed and so a key row) would
-            # be captured for nothing; blocks drawn on the host cannot be
-            # captured at all
+            # be captured for nothing; blocks drawn on the host, and a
+            # library call that waits on the host, cannot be captured at all
+            if uncapturable:
+                self.stats["segments_uncapturable"] += 1
             self._run_ops(ops, resident, budget, requested)
             return
         self._graph_key = skey
@@ -1209,12 +1215,14 @@ class CudaExecutor(DagExecutor):
             self.stats["segment_hbm_footprint"] = max(self.stats["segment_hbm_footprint"], entry.nbytes)
 
     @staticmethod
-    def _host_draws(ops) -> bool:
-        """Whether an op of the segment draws its blocks on the host
-        (``normal``, ``randint``: a function of its tree declares
-        ``host_draws``)."""
+    def _uncapturable(ops) -> bool:
+        """Whether an op of the segment cannot run under a CUDA graph
+        capture: a function of its tree draws its blocks on the host
+        (``host_draws``: ``normal``, ``randint``) or makes a library call
+        that synchronises the host (``host_sync``: ``eigh``, ``svd``, whose
+        ``torch.linalg`` calls check their ``info`` on the host)."""
         return any(
-            getattr(g, "host_draws", False)
+            getattr(g, "host_draws", False) or getattr(g, "host_sync", False)
             for _, node in ops if node["primitive_op"].pipeline.function is apply_blockwise
             for g in _leaf_functions(node["primitive_op"].pipeline.config.function)
         )

@@ -1416,3 +1416,201 @@ def test_compressed_to_zarr_from_a_resident_stencil_on_the_card(cuda, tmp_path):
     got, want = (open_zarr_array(s, "r") for s in stores)
     assert got.compressor == {"id": "zlib", "level": 1}
     np.testing.assert_array_equal(got[...], want[...])
+
+
+# -- einsum, fft and linalg ----------------------------------------------------
+
+
+def _spd_plan(ct, xp, s, batch=6, n=8):
+    """A stack of SPD matrices made on the card, B B^T / n + n I (one (60,
+    60) matrix in (20, 20) blocks with *batch* None)."""
+    if batch is None:
+        b = ct.random.random((n, n), chunks=(20, 20), spec=s)
+        eye = xp.eye(n, dtype=xp.float64, chunks=(20, 20), spec=s)
+    else:
+        b = ct.random.random((batch, n, n), chunks=(2, n, n), spec=s)
+        eye = xp.eye(n, dtype=xp.float64, spec=s)
+    return xp.add(xp.divide(xp.matmul(b, xp.matrix_transpose(b)), float(n)), xp.multiply(eye, float(n)))
+
+
+def _tall(ct, s):
+    return ct.random.random((120, 8), chunks=(30, 8), spec=s)
+
+
+#: einsum, fft and linalg plans on random inputs: each solver on the batched
+#: route, TSQR's three stages (stage 3 reads its block offsets on the card),
+#: the blocked Cholesky's panels and its one-write assembly; (plan, captured?)
+LINALG_FFT_PLANS = {
+    "einsum_covariance": (lambda ct, xp, s: xp.einsum("tyx,tyx->yx", ct.random.random((20, 9, 8), chunks=(5, 3, 4),
+                                                                                      spec=s),
+                                                      ct.random.random((20, 9, 8), chunks=(5, 3, 4), spec=s)), True),
+    "einsum_int64": (lambda ct, xp, s: xp.einsum("ij,jk->ik", ct.random.randint(-9, 9, (40, 30), chunks=(10, 10),
+                                                                                spec=s),
+                                                 ct.random.randint(-9, 9, (30, 20), chunks=(10, 10), spec=s)), False),
+    "rfft_power": (lambda ct, xp, s: xp.mean(xp.square(xp.abs(xp.fft.rfft(
+        ct.random.random((64, 12, 10), chunks=(16, 6, 5), spec=s), axis=0))), axis=(1, 2)), True),
+    "rfftn_irfftn": (lambda ct, xp, s: xp.fft.irfftn(xp.fft.rfftn(
+        ct.random.random((10, 12, 16), chunks=(5, 6, 8), spec=s), axes=(1, 2)), s=(12, 16), axes=(1, 2)), True),
+    "tsqr_q": (lambda ct, xp, s: xp.linalg.qr(_tall(ct, s)).Q, True),
+    "svdvals": (lambda ct, xp, s: xp.linalg.svdvals(_tall(ct, s)), False),
+    "cholesky": (lambda ct, xp, s: xp.linalg.cholesky(_spd_plan(ct, xp, s)), True),
+    "solve": (lambda ct, xp, s: xp.linalg.solve(_spd_plan(ct, xp, s), ct.random.random((6, 8, 1), chunks=(2, 8, 1),
+                                                                                       spec=s)), True),
+    "inv": (lambda ct, xp, s: xp.linalg.inv(_spd_plan(ct, xp, s)), True),
+    "slogdet": (lambda ct, xp, s: xp.linalg.slogdet(_spd_plan(ct, xp, s)).logabsdet, True),
+    "det": (lambda ct, xp, s: xp.linalg.det(_spd_plan(ct, xp, s)), True),
+    "eigh": (lambda ct, xp, s: xp.linalg.eigh(_spd_plan(ct, xp, s)).eigenvalues, True),
+    "svd": (lambda ct, xp, s: xp.linalg.svd(_tall(ct, s), full_matrices=False).S, False),
+    "blocked_cholesky": (lambda ct, xp, s: xp.linalg.cholesky(_spd_plan(ct, xp, s, batch=None, n=60)), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LINALG_FFT_PLANS))
+def test_linalg_fft_plans_capture_or_run_op_by_op_on_the_card(cuda, tmp_path, name):
+    """Three computes on one device executor, each with its own seeds, equal
+    to the sequential executor's: a plan whose solvers capture is captured
+    at its second compute and replayed at its third; one holding a solver
+    that synchronises the host (svd, svdvals) or host draws (randint) runs
+    op by op every time; no failed check."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    build, captured = LINALG_FFT_PLANS[name]
+    mem = 100_000 if name == "blocked_cholesky" else "500MB"
+    ex = CudaExecutor()
+    for k, seed in enumerate((71, 72, 73)):
+        values = []
+        for executor in (ex, None):
+            random.seed(seed)
+            spec = ct.Spec(work_dir=str(tmp_path / f"{seed}-{executor is None}"), allowed_mem=mem)
+            values.append(build(ct, xp, spec).compute(executor=executor))
+        got, want = values
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-10)
+        for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
+            assert ex.stats[counter] == 0, counter
+        if captured and k:
+            assert ex.stats["segments_compiled" if k == 1 else "segment_struct_hits"] >= 1, dict(ex.stats)
+        elif not captured:
+            assert ex.stats["segments_compiled"] == 0 and ex.stats["segment_struct_hits"] == 0, dict(ex.stats)
+    if name in ("svd", "svdvals"):
+        assert ex.stats["segments_uncapturable"] >= 1
+
+
+def test_an_fft_segment_captures_after_the_cufft_plan_cache_is_cleared(cuda, tmp_path):
+    """The cache filled by the first (op by op) compute and cleared before
+    the second: the capture makes its plan and captures cleanly; the replay
+    of the third compute agrees."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    ex = CudaExecutor()
+    for k, seed in enumerate((81, 82, 83)):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / str(seed)), allowed_mem="500MB")
+        a = ct.random.random((64, 12, 10), chunks=(16, 6, 5), spec=spec)
+        f = xp.fft.rfft(a, axis=0)
+        if k == 1:
+            torch.backends.cuda.cufft_plan_cache[cuda.index or 0].clear()
+            assert torch.backends.cuda.cufft_plan_cache[cuda.index or 0].size == 0
+        got = f.compute(executor=ex)
+        np.testing.assert_allclose(got, np.fft.rfft(a.compute(), axis=0), rtol=1e-12, atol=1e-12)
+        assert ex.stats["segments_compiled"] == (1 if k == 1 else 0), dict(ex.stats)
+        assert ex.stats["eager_fallbacks"] == 0
+
+
+def test_integer_einsum_is_exact_on_the_card(cuda, tmp_path):
+    """torch.einsum of int64 CUDA tensors reaches an integer GEMM that torch's
+    CUDA build lacks: the block contraction takes the exact product route."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    rng = np.random.default_rng(9)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    for sub, shapes, chunks in (("ij,jk->ik", [(60, 50), (50, 40)], [(20, 25), (25, 20)]),
+                                ("abc,cd,be->ade", [(3, 4, 5), (5, 6), (4, 2)], [(1, 2, 5), (5, 3), (2, 2)])):
+        data = [rng.integers(-2**40, 2**40, s) for s in shapes]
+        arrays = [ct.from_array(d, chunks=c, spec=spec) for d, c in zip(data, chunks)]
+        for executor in (None, CudaExecutor()):
+            np.testing.assert_array_equal(xp.einsum(sub, *arrays).compute(executor=executor), np.einsum(sub, *data))
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "bfloat16_3x", "tensorfloat32", "float32"])
+def test_float32_einsum_rounds_as_the_mode_says_on_the_card(cuda, tmp_path, mode):
+    """A float32 einsum under each ``matmul_precision`` mode: its block
+    contraction against ``contraction.matmul_plain`` (the operands rounded
+    as the mode says, float32 sums), and the plan against its exact model."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch import contraction
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    rng = np.random.default_rng(10)
+    an, bn = rng.random((256, 192)), rng.random((192, 128))
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    a = ct.from_array(an, chunks=(64, 64), spec=spec)
+    b = ct.from_array(bn, chunks=(64, 64), spec=spec)
+    got = xp.einsum("ij,jk->ik", a, b).compute(executor=CudaExecutor(compute_dtype="float32", matmul_precision=mode))
+    np.testing.assert_allclose(got, _mode_model(an, bn, mode), rtol=1e-6)
+    if mode in contraction.REDUCED:
+        x = torch.from_numpy(an.astype(np.float32)).to(cuda)
+        y = torch.from_numpy(bn.astype(np.float32)).to(cuda)
+        with contraction.precision(mode):
+            block = contraction.einsum("ij,jk->ik", x, y)
+        torch.testing.assert_close(block, contraction.matmul_plain(x, y, mode), rtol=1e-6, atol=0)
+
+
+def test_solver_failures_give_the_jax_packages_pattern_on_the_card(cuda, tmp_path):
+    """cholesky of a matrix that is not positive definite: NaN on and below
+    the diagonal, 0 above, the batch's others unaffected; inv and solve of a
+    singular matrix: the LU's infinities; nothing raises, on both executors."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    an = np.array([[[4., 2, 0], [2, 3, 1], [0, 1, 2]], [[1., 2, 3], [2, 1, 0], [3, 0, 1]]])
+    sn = np.array([[[1., 2], [2, 4]], [[2., 1], [1, 2]]])
+    a = ct.from_array(an, chunks=(1, 3, 3), spec=spec)
+    s = ct.from_array(sn, chunks=(1, 2, 2), spec=spec)
+    for executor in (None, CudaExecutor()):
+        lo = xp.linalg.cholesky(a).compute(executor=executor)
+        np.testing.assert_allclose(lo[0], np.linalg.cholesky(an[0]), atol=1e-12)
+        np.testing.assert_array_equal(np.isnan(lo[1]), np.tril(np.ones((3, 3), bool)))
+        np.testing.assert_array_equal(np.triu(lo[1], 1), 0)
+        inv = xp.linalg.inv(s).compute(executor=executor)
+        np.testing.assert_array_equal(inv[0], [[-np.inf, np.inf], [np.inf, -np.inf]])
+        np.testing.assert_allclose(inv[1], np.linalg.inv(sn[1]), rtol=1e-12)
+        x = xp.linalg.solve(s, ct.from_array(np.ones((2, 2, 1)), chunks=(1, 2, 1), spec=spec)).compute(
+            executor=executor)
+        np.testing.assert_array_equal(x[0], [[-np.inf], [np.inf]])
+        np.testing.assert_allclose(x[1], np.linalg.solve(sn[1], np.ones((2, 1))), rtol=1e-12)
+
+
+def test_tsqr_on_the_card_reads_its_offsets_on_the_device(cuda, tmp_path):
+    """TSQR's stage 3 on the batched route: each panel's rows of Q2 picked by
+    a device index from its block offset; Q R equals the input and Q's
+    columns are orthonormal."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    random.seed(91)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    x = ct.random.random((4096, 32), chunks=(512, 32), spec=spec)
+    an = x.compute()
+    q, r = xp.linalg.qr(x)
+    ex = CudaExecutor()
+    qn = q.compute(executor=ex)
+    # the panels with their random input, and stage 3, each one batched op
+    assert ex.stats["batched_ops"] == 2 and ex.stats["batched_errors"] == 0, dict(ex.stats)
+    rn = r.compute(executor=CudaExecutor())
+    np.testing.assert_allclose(qn @ rn, an, atol=1e-10)
+    np.testing.assert_allclose(qn.T @ qn, np.eye(32), atol=1e-10)

@@ -23,8 +23,8 @@ PENDING_TOP_LEVEL = {
     "service", "ComputeService", "ServiceConfig",  # item 11: the fleet's service
 }
 
-#: array_api names of the reference not ported yet (Queue 1 item 4)
-PENDING_ARRAY_API = {"einsum", "einsum_functions", "fft"}
+#: array_api names of the reference not ported yet
+PENDING_ARRAY_API = set()
 
 #: the linalg extension's functions of the reference (the Array API
 #: standard's linalg names it defines)
@@ -34,8 +34,8 @@ REFERENCE_LINALG = {
     "svdvals", "tensordot", "trace", "vecdot", "vector_norm",
 }
 
-#: the rest of linalg (Queue 1 item 4): all but diagonal and trace
-PENDING_LINALG = REFERENCE_LINALG - {"diagonal", "trace"}
+#: linalg names of the reference not ported yet
+PENDING_LINALG = set()
 
 
 def _public(module) -> set:
@@ -103,3 +103,17 @@ def test_array_api_names_resolve():
 def test_linalg_superset_of_reference_less_pending():
     assert REFERENCE_LINALG <= _public(ref_xp.linalg)
     assert REFERENCE_LINALG - PENDING_LINALG <= _public(xp.linalg)
+
+
+def test_linalg_all_equals_the_references():
+    assert xp.linalg.__all__ == ref_xp.linalg.__all__
+
+
+@pytest.mark.parametrize("name", ["QRResult", "SVDResult", "EighResult", "SlogdetResult"])
+def test_linalg_result_tuples_have_the_references_fields(name):
+    assert getattr(xp.linalg, name)._fields == getattr(ref_xp.linalg, name)._fields
+
+
+def test_fft_and_einsum_names_equal_the_references():
+    assert xp.fft.__all__ == ref_xp.fft.__all__
+    assert callable(xp.einsum) and xp.einsum_functions.__all__ == ref_xp.einsum_functions.__all__

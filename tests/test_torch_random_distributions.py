@@ -75,7 +75,12 @@ def test_bit_identical_to_the_jax_package(tmp_path, case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_device_executor_agrees_with_the_jax_executor(tmp_path, case):
     r, p = _build(cubed_tpu, tmp_path, case), _build(cubed_tpu_torch, tmp_path, case)
+    # the reference's compiled-program caches, both: its segment cache is
+    # keyed by the lowered HLO's text, where a large constant (host draws
+    # embedded in the program) is elided, so an earlier program of the same
+    # shape in this process would be replayed with its own draws
     jax_executor_module._STRUCT_CACHE.clear()
+    jax_executor_module._SEGMENT_CACHE.clear()
     rex, pex = JaxExecutor(), CudaExecutor()
     ref = np.asarray(r.compute(executor=rex))
     got = p.compute(executor=pex)
