@@ -12,7 +12,9 @@ BASELINE.md's 10000 x 10000 / 5000 scale; ``--order-stats-phase [full]``
 the order-statistics phase alone, with its merge kernels' checks, ``full``
 at 4096 steps of the time axis; ``--zarr-stencil-phase`` the Zarr and
 stencils phase alone; ``--linalg-fft-phase`` the linear algebra and
-spectra phase alone, its summary JSON on its last line.)
+spectra phase alone, its summary JSON on its last line;
+``--reliability-phase`` the memory guard and reliability phase alone, its
+summary JSON on its last line.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -178,8 +180,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``random.random`` inputs of 5000 x 5000 float64 in 2500 x 2500 chunks,
    allowed_mem 2GB. Each on the sequential executor under allowed_mem
    equal to its plan's projected memory (reserved_mem 0), every task's
-   device peak (the allocator's, reset at the task's start) at most that
-   bound; then on ``CudaExecutor`` cold and warm, each value against a
+   device peak (the allocator's peak over the task's start, read by the
+   library's memory guard; its ``guard_mem_peak``, which also holds the
+   task's RSS growth, printed beside) at most that bound; then on
+   ``CudaExecutor`` cold and warm, each value against a
    numpy oracle drawn from the same Philox blocks (exact where the op
    moves values or rounds once, sums rtol 1e-12, the scan within n eps
    max|x|), no failed check, and a profiled warm compute whose copies of
@@ -259,7 +263,38 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Philox and region_sum launches, whether its segment was captured (the
    host-synchronising solvers, eigh and svd, run op by op) and its peak
    reserved memory; then cut plans on the sequential executor under the
-   tight bound, every task's device peak at most its projection;
+   tight bound, every task's device peak at most its projection.
+   Then the memory guard and reliability phase, in a process of its own
+   (``--reliability-phase``), on vorticity's product ``a[1:]*x[1:] +
+   b[1:]*y[1:]`` and mean, inputs drawn by ``random.random``, each checked
+   against numpy on the same Philox streams: (1) on the sequential executor
+   at (200, 180, 160) / 40 under ``memory_guard="enforce"`` and allowed_mem
+   the plan's projected memory, every task passes and its guard reading
+   over its op's projection is at most 1.0, the device reading equal to the
+   allocator's peak from a reset at the task's start; (2) a ``map_blocks``
+   with a hidden temporary of four blocks on the card,
+   ``extra_projected_mem=0``: under observe every task soft-exceeds and
+   the value is right, under enforce with 2 retries the actionable abort
+   naming the op and the bytes after at most 3 attempts; (3) a task
+   allocating past the card's free memory: ``torch.OutOfMemoryError``,
+   classified RESOURCE, the actionable abort, ``memory_allocated`` back to
+   its value before, the next compute right; (4) the product written by
+   ``to_zarr`` under ``integrity="verify"``, 6 retries and seeded write
+   failures (leaving ``.tmp`` litter), corruption and task failures, every
+   op's output stored, then resumed with the faults disarmed: the store
+   equal to a fault-free one bit for bit, faults, retries, detected and
+   quarantined chunks all counted; (5) the product's compute cancelled
+   after 37 tasks of its store's op, ``num_tasks(resume=True)`` equal to
+   the tasks not done, a resume running exactly those, then a rotten chunk
+   quarantined and its one task re-run; on ``CudaExecutor`` at (500, 450,
+   400) / 100: (6) resume of the stored product, whole (its op skipped)
+   and with one chunk corrupt (quarantined, its op re-run, the store
+   verified), then vorticity's cold compute with ``deadline_s`` at half its
+   time, aborted at a boundary, and the next compute right; (7) the product
+   written with integrity off, write, and write with a verified read-back,
+   seconds and the host's CRC rate; (8) vorticity's warm (replayed) compute
+   with the guard off and observing, 20 each in turns, medians and
+   quartiles;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op, timing each op kind; both with the
@@ -1531,16 +1566,24 @@ def compare_against(torch, path: str) -> None:
 
 def oracle_random(shape, chunks, root_seed) -> np.ndarray:
     """numpy's own per-block streams: block at linear offset k draws from
-    Philox(seed=root_seed + k). *chunks* an int or one per axis."""
+    Philox(seed=root_seed + k). *chunks* an int or one per axis. The blocks
+    are drawn on the host's cores (numpy's generators release the GIL while
+    they fill)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     out = np.empty(shape, dtype=np.float64)
     chunks = (chunks,) * len(shape) if isinstance(chunks, int) else tuple(chunks)
     grids = [range(0, s, c) for s, c in zip(shape, chunks)]
     nblocks = [len(g) for g in grids]
-    for idx in np.ndindex(*nblocks):
+
+    def draw(idx):
         sel = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
-        bshape = tuple(s.stop - s.start for s in sel)
         k = int(np.ravel_multi_index(idx, nblocks))
-        out[sel] = np.random.Generator(np.random.Philox(seed=root_seed + k)).random(bshape)
+        out[sel] = np.random.Generator(np.random.Philox(seed=root_seed + k)).random(
+            tuple(s.stop - s.start for s in sel))
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        list(pool.map(draw, np.ndindex(*nblocks)))
     return out
 
 
@@ -1551,6 +1594,24 @@ def kernel_wrappers() -> dict:
     from cubed_tpu_torch.kernels.region_sum import region_sum
 
     return {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum_blocks": fma_sum_blocks}
+
+
+def reset_peaks() -> None:
+    """Start a compute-level reading of the card's peak memory: the
+    allocator's peak statistics and the memory guard's running maximum
+    reset (the guard resets the statistics at every task and folds them
+    into that maximum first)."""
+    from cubed_tpu_torch.runtime import memory
+
+    memory.reset_device_peaks()
+
+
+def read_peaks() -> dict:
+    """The card's peak allocated and reserved bytes since
+    :func:`reset_peaks`, the guard's resets folded in."""
+    from cubed_tpu_torch.runtime import memory
+
+    return memory.device_peaks()
 
 
 def stores_with_chunks(work_dir: str) -> set:
@@ -1592,7 +1653,7 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
     wrappers = kernel_wrappers()
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peaks()
     for w in wrappers.values():
         w.launches = 0  # just before the run: its launches alone
     paths = {k: dict(w.paths) for k, w in wrappers.items() if hasattr(w, "paths")}
@@ -1603,8 +1664,7 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
     launches = {k: w.launches for k, w in wrappers.items()}
     paths = {k: {p: wrappers[k].paths[p] - n for p, n in before.items() if wrappers[k].paths[p] > n}
              for k, before in paths.items()}
-    peak = torch.cuda.max_memory_allocated()
-    peak_reserved = torch.cuda.max_memory_reserved()
+    peak, peak_reserved = read_peaks()["allocated"], read_peaks()["reserved"]
     stored = stores_with_chunks(work)
     shutil.rmtree(work, ignore_errors=True)
 
@@ -2634,28 +2694,37 @@ def array_api_oracle_inputs(config=ARRAY_API):
 
 
 class TaskPeaks:
-    """A callback holding each task's device peak: the allocator's peak
-    from the task's start (its statistics reset there) less what was
-    allocated when it started; the largest is kept."""
+    """A callback holding each task's memory-guard readings, read by the
+    library's guard (which the compute arms with the spec's
+    ``allowed_mem``), the largest of each kept: the device peak (the
+    allocator's peak over the task's start, ``memory.last_readings``), §2's
+    gate; and ``TaskEndEvent.guard_mem_peak``, the larger of that and the
+    task's RSS growth, which also counts what the process loads the first
+    time it uses a library kernel (corrcoef's elementwise task grew the RSS
+    past its 25 MB bound while its device peak stayed under: PERF.md §6).
+    It resets nothing: the guard owns the allocator's peak statistics
+    (``runtime/memory.py``)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.start = 0
-        self.worst = 0
-        self.worst_op = None
+        self.worst = self.worst_guard = 0
+        self.worst_op = self.worst_guard_op = None
         self.tasks = 0
 
-    def on_task_start(self, event):
-        self.torch.cuda.synchronize()
-        self.torch.cuda.reset_peak_memory_stats()
-        self.start = self.torch.cuda.memory_allocated()
-
     def on_task_end(self, event):
-        self.torch.cuda.synchronize()
-        peak = self.torch.cuda.max_memory_allocated() - self.start
-        if peak > self.worst:
-            self.worst, self.worst_op = peak, event.array_name
+        from cubed_tpu_torch.runtime import memory
+
+        device = memory.last_readings()["device"]
+        check(event.guard_mem_peak is not None and device is not None,
+              f"{event.array_name}: a task without the guard's device reading")
+        if device > self.worst:
+            self.worst, self.worst_op = device, event.array_name
+        if event.guard_mem_peak > self.worst_guard:
+            self.worst_guard, self.worst_guard_op = event.guard_mem_peak, event.array_name
         self.tasks += 1
+
+    def guard_note(self) -> str:
+        return f"largest guard_mem_peak {self.worst_guard} B ({self.worst_guard_op})"
 
 
 def compare_to_oracle(label: str, value, expected, how) -> float:
@@ -2767,8 +2836,8 @@ def run_array_api_phase(torch, config=ARRAY_API) -> dict:
         err = compare_to_oracle(f"{name} [sequential]", value, expected, how)
         ratio = peaks.worst / projected
         print(f"{name} [sequential]: compute() {seq_s:.3f} s, {peaks.tasks} tasks; largest task device peak "
-              f"{peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; launches "
-              f"{json.dumps(seq_launches)}; "
+              f"{peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f} ({peaks.guard_note()}); "
+              f"launches {json.dumps(seq_launches)}; "
               f"max rel err {err:.3e}; {smi_tag()}")
         check(ratio <= 1.0, f"{name}: a task's device peak {peaks.worst} B is over its projected {projected} B")
         shutil.rmtree(work, ignore_errors=True)
@@ -2957,7 +3026,7 @@ def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray,
     for attempt in attempts:
         shutil.rmtree(store, ignore_errors=True)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peaks()
         for w in wrappers.values():
             w.launches = 0
         before = get_registry().snapshot()
@@ -2968,7 +3037,7 @@ def device_write(torch, label: str, write, store: str, ex, expected: np.ndarray,
             seconds = time.perf_counter() - t
         launches = {k: w.launches for k, w in wrappers.items()}
         written = get_registry().snapshot_delta(before).get("bytes_written", 0)
-        peak_reserved = torch.cuda.max_memory_reserved()
+        peak_reserved = read_peaks()["reserved"]
         on_disk = stored_bytes(store)
         t = time.perf_counter()
         z = cubed_tpu_torch.from_zarr(store)
@@ -3025,7 +3094,8 @@ def sequential_tight(torch, label: str, build, write, store: str, expected, how,
     ratio = peaks.worst / projected
     print(f"{label} [sequential]: compute() {seconds:.3f} s, {peaks.tasks} tasks; compression {st.compress_s:.3f} s, "
           f"fsync'd writes {st.write_s:.3f} s ({st.chunks} chunks); largest task device peak {peaks.worst} B "
-          f"({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; max rel err {err:.3e}; {smi_tag()}")
+          f"({peaks.worst_op}) / projected {projected} B = {ratio:.4f} ({peaks.guard_note()}); max rel err "
+          f"{err:.3e}; {smi_tag()}")
     check(ratio <= 1.0, f"{label}: a task's device peak {peaks.worst} B is over its projected {projected} B")
     return dict(seconds=seconds, ratio=ratio, peak=peaks.worst, projected=projected)
 
@@ -3086,7 +3156,7 @@ def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
         arr = build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"]))
         ex = CudaExecutor()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peaks()
         for w in wrappers.values():
             w.launches = 0
         t = time.perf_counter()
@@ -3102,7 +3172,7 @@ def run_zarr_stencil_phase(torch, config=ZARR_STENCIL) -> dict:
         for counter in ("eager_fallbacks", "whole_array_errors", "whole_select_errors", "batched_errors"):
             check(stats.get(counter, 0) == 0, f"{name} [cuda]: {counter} = {stats.get(counter)}")
         print(f"{name} [cuda]: compute() {seconds:.3f} s; max rel err {err:.3e}; launches {json.dumps(launches)}; "
-              f"stats {json.dumps(stats)}; peak reserved {torch.cuda.max_memory_reserved()} B; {smi_tag()}")
+              f"stats {json.dumps(stats)}; peak reserved {read_peaks()['reserved']} B; {smi_tag()}")
         out[name] = dict(seconds=seconds, launches=launches, stats=stats)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3476,7 +3546,7 @@ def run_linalg_fft_phase(torch, config=LINALG_FFT) -> dict:
         ex = CudaExecutor(**options)
         seconds, stats, launches = [], [], []
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peaks()
         for i in range(2 if name in LINALG_BIG_OUTPUTS else 3):
             for w in wrappers.values():
                 w.launches = 0
@@ -3511,11 +3581,11 @@ def run_linalg_fft_phase(torch, config=LINALG_FFT) -> dict:
               f"{seconds[1]:.3f} s{warm}; captured {captured}"
               f"{' (a host-synchronising solver: op by op)' if uncapturable else ''}; stats cold "
               f"{json.dumps(stats[0])}, last {json.dumps(stats[-1])}; launches cold {json.dumps(launches[0])}; "
-              f"peak reserved {torch.cuda.max_memory_reserved()} B; max err {err}; oracle {oracle_s:.1f} s; "
+              f"peak reserved {read_peaks()['reserved']} B; max err {err}; oracle {oracle_s:.1f} s; "
               f"{smi_tag()}")
         out["ops"][name] = dict(cold_s=seconds[0], capturing_s=seconds[1], warm_s=seconds[2] if len(seconds) > 2 else None,
                                 captured=captured, stats=stats[-1], launches=launches[0],
-                                peak_reserved=torch.cuda.max_memory_reserved(), err=err)
+                                peak_reserved=read_peaks()["reserved"], err=err)
         shutil.rmtree(work, ignore_errors=True)
 
     # the float32 einsum under bf16 against contraction.matmul_plain on the
@@ -3600,8 +3670,8 @@ def linalg_fft_sequential(torch, config, work) -> dict:
             err = compare_to_oracle(f"{name} [sequential]", value, expected, how)
         ratio = peaks.worst / projected
         print(f"{name} [sequential]: {arr.shape}, compute() {seconds:.3f} s, {peaks.tasks} tasks; largest task "
-              f"device peak {peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f}; max err "
-              f"{err:.3e}; {smi_tag()}")
+              f"device peak {peaks.worst} B ({peaks.worst_op}) / projected {projected} B = {ratio:.4f} "
+              f"({peaks.guard_note()}); max err {err:.3e}; {smi_tag()}")
         check(ratio <= 1.0, f"{name}: a task's device peak {peaks.worst} B is over its projected {projected} B")
         out[name] = dict(seconds=seconds, ratio=ratio, peak=peaks.worst, projected=projected)
         shutil.rmtree(work, ignore_errors=True)
@@ -3617,6 +3687,672 @@ def linalg_fft_in_fresh_process() -> dict:
     lines = proc.stdout.strip().splitlines()
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
     check(proc.returncode == 0, f"linalg and fft phase: its process failed:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
+# the reliability phase: the memory guard, classified retries, checksums,
+# resume and cancellation
+# ---------------------------------------------------------------------------
+
+#: the phase's cells: vorticity's product a[1:]*x[1:] + b[1:]*y[1:] (the
+#: operand of BASELINE config 5's mean), written by ``to_zarr``, and the mean
+#: itself; at full width on the device executor; on the sequential one cut
+#: to (160, 160, 120) / 40 (48 blocks an array: about 20 ms a task there,
+#: most of it the fsync'd chunk writes), from the spilled cut (200, 180, 160)
+#: / 40 that took the phase to 134 s. Faults: the chaos check's seeded profile
+RELIABILITY = dict(full=VORTICITY, seq=dict(shape=(160, 160, 120), chunks=40), allowed_mem="2GB", seed=SEED + 15,
+                   faults=dict(seed=15, storage_write_failure_rate=0.1, storage_write_leaves_tmp=True,
+                               storage_corrupt_rate=0.05, task_failure_rate=0.05),
+                   names=915_000_000, cancel_after=37, guard_turns=20)
+
+
+def product_build(spec, config):
+    import cubed_tpu_torch
+
+    shape, chunks = config["shape"], config["chunks"]
+    a, b, x, y = [cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec) for _ in range(4)]
+    return a[1:] * x[1:] + b[1:] * y[1:]
+
+
+def product_oracle(config) -> np.ndarray:
+    shape, chunks = config["shape"], config["chunks"]
+    a, b, x, y = [oracle_random(shape, chunks, random.getrandbits(30)) for _ in range(4)]
+    return a[1:] * x[1:] + b[1:] * y[1:]
+
+
+@contextlib.contextmanager
+def pinned_names(base: int):
+    """Plan names drawn from *base* on while open, then the counter moves on
+    past them: the fault injector hashes chunk keys, which hold array names,
+    so a pinned plan gets the same seeded faults in every process."""
+    from cubed_tpu_torch import utils
+
+    saved = utils.sym_counter
+    utils.sym_counter = itertools.count(base)
+    try:
+        yield
+    finally:
+        used = next(utils.sym_counter) - base
+        utils.sym_counter = itertools.count(next(saved) + used)
+
+
+def read_store(store: str) -> np.ndarray:
+    from cubed_tpu_torch.storage.store import open_zarr_array
+
+    return open_zarr_array(store, mode="r")[...]
+
+
+def middle_chunk(store: str) -> str:
+    """The middle one of a store's chunk files, in name order."""
+    names = sorted(f for f in os.listdir(store) if not f.startswith(".") and not f.endswith(".tmp"))
+    return names[len(names) // 2]
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        byte = f.read(1)
+        f.seek(offset)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def store_writer(arr, store: str) -> tuple:
+    """(name, task count) of the op of *arr*'s finalized plan that writes
+    *store*, and the create-arrays op's task count."""
+    from cubed_tpu_torch.core.plan import iter_op_nodes
+
+    dag = arr.plan._finalize(array_names=(arr.name,)).dag
+    ops = dict(iter_op_nodes(dag))
+    name = next(n for n, d in ops.items() if getattr(d["primitive_op"].target_array, "store", None) == store)
+    return name, ops[name]["primitive_op"].num_tasks, ops["create-arrays"]["primitive_op"].num_tasks
+
+
+def op_projections(arr, array_names=None) -> dict:
+    """op name -> projected memory of the finalized plan's ops."""
+    from cubed_tpu_torch.core.plan import iter_op_nodes
+
+    dag = arr.plan._finalize(array_names=array_names or (arr.name,)).dag
+    return {name: d["primitive_op"].projected_mem for name, d in iter_op_nodes(dag)}
+
+
+class GuardPeaks:
+    """Each task's memory-guard reading (``TaskEndEvent.guard_mem_peak``)
+    over the plan's bound (its largest projection: §2's gate), the largest
+    kept, and the largest device reading over its own op's projection;
+    with *compare*, also the reading ``TaskPeaks`` used to take itself (the
+    allocator's peak from the task's start, its statistics reset there)
+    beside the guard's two readings apart (``memory.last_readings``)."""
+
+    def __init__(self, torch, projections: dict, bound: int, compare: bool = False):
+        self.torch, self.projections, self.bound, self.compare = torch, projections, bound, compare
+        self.tasks = self.equal = 0
+        self.worst = self.worst_device = 0.0
+        self.worst_op = self.worst_device_op = None
+        self.worst_device_bytes = (0, 0)
+        self.diffs: list = []
+        self.start = 0
+
+    def on_task_start(self, event):
+        if self.compare:
+            self.torch.cuda.synchronize()
+            self.torch.cuda.reset_peak_memory_stats()
+            self.start = self.torch.cuda.memory_allocated()
+
+    def on_task_end(self, event):
+        from cubed_tpu_torch.runtime import memory
+
+        self.tasks += 1
+        check(event.guard_mem_peak is not None, f"{event.array_name}: a task without a guard reading")
+        ratio = event.guard_mem_peak / self.bound
+        if ratio > self.worst:
+            self.worst, self.worst_op = ratio, event.array_name
+        projected = self.projections.get(event.array_name)
+        device = memory.last_readings()["device"]
+        if projected and device / projected > self.worst_device:
+            self.worst_device, self.worst_device_op = device / projected, event.array_name
+            self.worst_device_bytes = (device, projected)
+        if self.compare:
+            self.torch.cuda.synchronize()
+            old = self.torch.cuda.max_memory_allocated() - self.start
+            if old == event.guard_mem_peak:
+                self.equal += 1
+            else:
+                self.diffs.append((event.array_name, event.chunk_key, old, event.guard_mem_peak, device,
+                                   memory.last_readings()["host"]))
+
+
+class CancelAfter:
+    """Cancels *token* once *n* tasks of the op named *op* have ended."""
+
+    def __init__(self, token, op: str, n: int):
+        self.token, self.op, self.n, self.seen = token, op, n, 0
+
+    def on_task_end(self, event):
+        if event.array_name == self.op:
+            self.seen += 1
+            if self.seen == self.n:
+                self.token.cancel("the phase's client asked")
+
+
+class UnitPeaks:
+    """The device executor's guard readings: each op's task event carries
+    the reading of the segment or eager op it ran in."""
+
+    def __init__(self):
+        self.units: dict = {}
+
+    def on_task_end(self, event):
+        self.units.setdefault(event.guard_mem_peak, []).append(event.array_name)
+
+
+class OpTasks:
+    """Counts the ended tasks of each op."""
+
+    def __init__(self):
+        from collections import Counter
+
+        self.by_op = Counter()
+
+    def on_task_end(self, event):
+        self.by_op[event.array_name] += event.num_tasks
+
+
+def reliability_guard_checks(torch, config, work, timings) -> dict:
+    """Checks 1-3: the guard under the bound, an under-modelled op, a real
+    CUDA out-of-memory (the sequential executor)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+    from cubed_tpu_torch.runtime.memory import MemoryGuardExceededError
+
+    out = {}
+    seq = config["seq"]
+    # 1. every task under the bound, enforced: allowed_mem = the plan's
+    # projected memory, reserved_mem 0; the kernels and the host's buffers
+    # warmed first by a compute of 8 blocks of the same plan (observed)
+    t0 = time.perf_counter()
+    random.seed(config["seed"])
+    probe = vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB", reserved_mem=0), seq)
+    bound = probe.plan.max_projected_mem()
+    random.seed(config["seed"])
+    expected = vorticity_oracle(seq)
+    warm = dict(seq, shape=tuple(2 * seq["chunks"] for _ in seq["shape"]))
+    vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=bound, reserved_mem=0), warm).compute()
+    random.seed(config["seed"])
+    arr = vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=bound, reserved_mem=0,
+                                               memory_guard="enforce"), seq)
+    peaks = GuardPeaks(torch, op_projections(arr), bound, compare=True)
+    before = get_registry().snapshot()
+    value = float(arr.compute(callbacks=[peaks]))
+    delta = get_registry().snapshot_delta(before)
+    rel = abs(value - expected) / abs(expected)
+    seconds = time.perf_counter() - t0
+    print(f"reliability 1 (guard under the bound, sequential, enforce) {seq['shape']} / {seq['chunks']}: "
+          f"{peaks.tasks} tasks all passed in {seconds:.3f} s; largest guard_mem_peak / the bound "
+          f"(allowed_mem {bound} B) {peaks.worst:.4f} ({peaks.worst_op}); largest device reading / its op's "
+          f"projection {peaks.worst_device:.4f} ({peaks.worst_device_op}: {peaks.worst_device_bytes[0]} B of the "
+          f"allocator's blocks / {peaks.worst_device_bytes[1]} B); guard readings equal to the "
+          f"reset-based reading in {peaks.equal} of {peaks.tasks} tasks; rel err {rel:.3e}; "
+          f"mem_guard_soft_exceeded {delta.get('mem_guard_soft_exceeded', 0)}; {smi_tag()}")
+    for name, key, old, new, device, host in peaks.diffs[:8]:
+        print(f"  differs: {name} {key}: reset-based {old} B, guard {new} B (device {device} B, host RSS growth "
+              f"{host} B): {'the host RSS growth is the larger' if (host or 0) > (device or 0) else 'the device'}")
+    check(rel <= 1e-12, f"reliability 1: value off by rtol {rel}")
+    check(peaks.worst <= 1.0, f"reliability 1: a task's guard_mem_peak is {peaks.worst:.4f} of the bound")
+    check(all(device == old for _, _, old, _, device, _ in peaks.diffs),
+          "reliability 1: the guard's device reading differs from the reset-based reading")
+    out["guard"] = dict(seconds=seconds, tasks=peaks.tasks, worst=peaks.worst, worst_device=peaks.worst_device,
+                        equal=peaks.equal, host_larger=len(peaks.diffs))
+    timings["1"] = seconds
+
+    # 2. an under-modelled op: a hidden temporary of four blocks on the card
+    t0 = time.perf_counter()
+    block = seq["chunks"] ** 3
+
+    def hidden(x):
+        tmp = torch.empty(4 * block, dtype=x.dtype, device=x.device)
+        tmp.fill_(1.0)
+        return x * 2.0 + (tmp[0] - 1.0)
+
+    def under_modelled(mode, retries=0):
+        random.seed(config["seed"])
+        probe = cubed_tpu_torch.random.random(seq["shape"], chunks=seq["chunks"],
+                                              spec=cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB",
+                                                                        reserved_mem=0))
+        allowed = cubed_tpu_torch.map_blocks(hidden, probe, dtype=np.float64).plan.max_projected_mem()
+        random.seed(config["seed"])
+        spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem=allowed, reserved_mem=0, memory_guard=mode)
+        a = cubed_tpu_torch.random.random(seq["shape"], chunks=seq["chunks"], spec=spec)
+        return cubed_tpu_torch.map_blocks(hidden, a, dtype=np.float64, extra_projected_mem=0), allowed
+
+    t = time.perf_counter()
+    r, allowed = under_modelled("observe")
+    plans_s = time.perf_counter() - t
+    tasks = int(np.prod(r.numblocks))
+    random.seed(config["seed"])
+    expected = oracle_random(seq["shape"], seq["chunks"], random.getrandbits(30)) * 2.0
+    before = get_registry().snapshot()
+    t = time.perf_counter()
+    value = r.compute()
+    observe_s = time.perf_counter() - t
+    soft = get_registry().snapshot_delta(before).get("mem_guard_soft_exceeded", 0)
+    compare_to_oracle("reliability 2 [observe]", value, expected, "exact")
+    print(f"reliability 2 (under-modelled op, observe): plans built in {plans_s:.3f} s (map_blocks traces its "
+          f"function at plan time); {tasks} tasks in {observe_s:.3f} s, mem_guard_soft_exceeded {soft}; allowed_mem "
+          f"{allowed} B, the hidden temporary {4 * block * 8} B; {smi_tag()}")
+    check(soft == tasks, f"reliability 2: mem_guard_soft_exceeded {soft}, expected {tasks}")
+    r, allowed = under_modelled("enforce")
+
+    class Attempts:
+        n = 0
+
+        def on_task_start(self, event):
+            if event.array_name != "create-arrays":
+                Attempts.n += 1
+
+    t = time.perf_counter()
+    try:
+        r.compute(executor=PythonDagExecutor(retries=2), callbacks=[Attempts()])
+        raise PhaseFailed("reliability 2: the enforced under-modelled op did not raise")
+    except MemoryGuardExceededError as e:
+        print(f"reliability 2 (enforce, retries=2): raised after {Attempts.n} attempts, "
+              f"{time.perf_counter() - t:.3f} s: {e}")
+        check(Attempts.n <= 3, f"reliability 2: {Attempts.n} attempts of the first task")
+        check(e.op_name is not None and e.measured is not None and e.allowed == allowed
+              and "measured" in str(e) and "allowed_mem" in str(e),
+              f"reliability 2: the abort does not name the op, measured and allowed bytes: {e}")
+    seconds = time.perf_counter() - t0
+    out["under_modelled"] = dict(seconds=seconds, tasks=tasks, soft=soft, attempts=Attempts.n)
+    timings["2"] = seconds
+
+    # 3. a real CUDA out-of-memory: allocate past the card's free memory
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def too_big(x):
+        if x.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(x.device)
+            torch.empty(free + 2**30, dtype=torch.uint8, device=x.device)
+        return x
+
+    random.seed(config["seed"])
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
+    a = cubed_tpu_torch.random.random(seq["shape"], chunks=seq["chunks"], spec=spec)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev)
+    before = get_registry().snapshot()
+    try:
+        cubed_tpu_torch.map_blocks(too_big, a, dtype=np.float64).compute(executor=PythonDagExecutor(retries=2))
+        raise PhaseFailed("reliability 3: the out-of-memory task did not raise")
+    except MemoryGuardExceededError as e:
+        cause = type(e.__cause__).__name__
+        print(f"reliability 3 (CUDA out of memory): {cause} classified RESOURCE "
+              f"(task_resource_failures {get_registry().snapshot_delta(before).get('task_resource_failures', 0)}); "
+              f"the abort: {str(e)[:160]}")
+        check(isinstance(e.__cause__, torch.OutOfMemoryError), f"reliability 3: caused by {cause}")
+    # the caught error is gone (its traceback held the failed task's block)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    print(f"reliability 3: memory_allocated {allocated} B before, {after} B after")
+    check(after == allocated, f"reliability 3: memory_allocated {after} B after the abort, {allocated} B before")
+    random.seed(config["seed"])
+    expected = oracle_random(seq["shape"], seq["chunks"], random.getrandbits(30)) * 2.0
+    random.seed(config["seed"])
+    a = cubed_tpu_torch.random.random(seq["shape"], chunks=seq["chunks"], spec=spec)
+    compare_to_oracle("reliability 3 [the next compute]", cubed_tpu_torch.map_blocks(
+        lambda x: x * 2.0, a, dtype=np.float64).compute(), expected, "exact")
+    seconds = time.perf_counter() - t0
+    print(f"reliability 3: the next compute equals its oracle; {seconds:.3f} s")
+    out["oom"] = dict(seconds=seconds, allocated_before=allocated, allocated_after=after, cause=cause)
+    timings["3"] = seconds
+    return out
+
+
+def reliability_store_checks(torch, config, work, timings) -> dict:
+    """Checks 4 and 5 on the sequential executor: chaos into a verified
+    store, then a cancelled compute resumed (and a rotten chunk repaired)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.core.array import execute
+    from cubed_tpu_torch.core.ops import _store_op
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime.cancellation import CancellationToken, ComputeCancelledError
+    from cubed_tpu_torch.runtime import faults
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+    from cubed_tpu_torch.runtime.faults import FaultConfig
+    from cubed_tpu_torch.runtime.resilience import RetryPolicy
+
+    out = {}
+    seq = config["seq"]
+    random.seed(config["seed"])
+    expected = product_oracle(seq)
+
+    # 4. chaos: the same plan under seeded faults (every op's output
+    # stored: the intermediates are read, and verified, by the ops after
+    # them), armed for that compute alone; nothing reads the output store
+    # in it, so a resume of the plan with the faults disarmed (a repeat
+    # would repeat the injector's decisions) verifies the store and re-runs
+    # the tasks of any chunk corrupted on its way there. The fault-free
+    # store: the same plan on the device executor
+    t0 = time.perf_counter()
+    clean = os.path.join(work, "clean.zarr")
+    random.seed(config["seed"])
+    cubed_tpu_torch.to_zarr(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"), seq), clean,
+                            executor=CudaExecutor())
+    chaos = os.path.join(work, "chaos.zarr")
+    random.seed(config["seed"])
+    with pinned_names(config["names"]):
+        out_arr = _store_op(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB", integrity="verify"),
+                                          seq), chaos)
+    executor = PythonDagExecutor(retry_policy=RetryPolicy(retries=6, backoff_base=0.0, seed=0))
+    before = get_registry().snapshot()
+    with faults.scoped(FaultConfig(**config["faults"])):
+        execute(out_arr, executor=executor, optimize_graph=False)
+    repaired = OpTasks()
+    execute(out_arr, executor=executor, optimize_graph=False, resume=True, callbacks=[repaired])
+    delta = get_registry().snapshot_delta(before)
+    counters = {k: delta.get(k, 0) for k in ("faults_injected", "faults_injected_storage_write",
+                                              "faults_injected_storage_corrupt", "faults_injected_task",
+                                              "task_retries", "chunks_corrupt_detected", "chunks_quarantined",
+                                              "chunks_recomputed", "tasks_skipped_resume")}
+    tmps = sum(f.endswith(".tmp") for _, _, names in os.walk(work) for f in names)
+    got = read_store(chaos)
+    seconds = time.perf_counter() - t0
+    print(f"reliability 4 (chaos, sequential, verify, retries=6) {seq['shape']} / {seq['chunks']}: {seconds:.3f} s; "
+          f"{json.dumps(counters)}; .tmp litter {tmps}; the resume with the faults disarmed ran "
+          f"{json.dumps(dict(repaired.by_op))}; {smi_tag()}")
+    check(np.array_equal(got.view(np.uint64), read_store(clean).view(np.uint64)),
+          "reliability 4: the chaos store differs from the fault-free store")
+    compare_to_oracle("reliability 4 [fault-free store]", read_store(clean), expected, "exact")
+    for k in ("faults_injected", "task_retries", "chunks_corrupt_detected", "chunks_quarantined"):
+        check(counters[k] > 0, f"reliability 4: {k} is {counters[k]}")
+    out["chaos"] = dict(seconds=seconds, **counters)
+    timings["4"] = seconds
+
+    # 5. resume: cancel after 37 tasks of the product op, resume, then rot
+    # one chunk and resume again
+    t0 = time.perf_counter()
+    store = os.path.join(work, "resume.zarr")
+    random.seed(config["seed"])
+    out_arr = _store_op(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"), seq), store)
+    op, product_tasks, create_tasks = store_writer(out_arr, store)
+    token = CancellationToken()
+    try:
+        execute(out_arr, cancellation=token, callbacks=[CancelAfter(token, op, config["cancel_after"])])
+        raise PhaseFailed("reliability 5: the cancelled compute did not raise")
+    except ComputeCancelledError as e:
+        print(f"reliability 5: cancelled after {config['cancel_after']} tasks of {op}: {e}")
+    total = out_arr.plan.num_tasks()
+    pending = out_arr.plan.num_tasks(resume=True)
+    tasks = OpTasks()
+    execute(out_arr, resume=True, callbacks=[tasks])
+    ran = sum(tasks.by_op.values())
+    compare_to_oracle("reliability 5 [resumed store]", read_store(store), expected, "exact")
+    print(f"reliability 5: num_tasks {total}, num_tasks(resume=True) {pending} (create-arrays {create_tasks} + "
+          f"{pending - create_tasks} of {product_tasks} tasks of {op} not done); the resumed compute ran {ran} "
+          f"tasks ({dict(tasks.by_op)})")
+    check(pending == create_tasks + product_tasks - config["cancel_after"],
+          f"reliability 5: num_tasks(resume=True) {pending}")
+    check(ran == pending, f"reliability 5: the resumed compute ran {ran} tasks, num_tasks(resume=True) {pending}")
+    chunk = middle_chunk(store)
+    flip_byte(os.path.join(store, chunk), 1000)
+    before = get_registry().snapshot()
+    tasks = OpTasks()
+    execute(out_arr, resume=True, callbacks=[tasks])
+    delta = get_registry().snapshot_delta(before)
+    compare_to_oracle("reliability 5 [repaired store]", read_store(store), expected, "exact")
+    seconds = time.perf_counter() - t0
+    print(f"reliability 5: chunk {chunk} rotted; the second resume quarantined {delta.get('chunks_quarantined', 0)} "
+          f"and ran {tasks.by_op[op]} task(s) of {op} ({dict(tasks.by_op)}); {seconds:.3f} s")
+    check(delta.get("chunks_quarantined", 0) == 1 and tasks.by_op[op] == 1,
+          f"reliability 5: the second resume quarantined {delta.get('chunks_quarantined', 0)}, ran {tasks.by_op[op]}")
+    out["resume"] = dict(seconds=seconds, pending=pending, ran=ran, repaired=tasks.by_op[op])
+    timings["5"] = seconds
+    return out
+
+
+def reliability_device_checks(torch, config, work, timings, launches) -> dict:
+    """Checks 6-8 on the device executor at full width: resume and
+    cancellation, what checksums cost, what the guard costs."""
+    import zlib
+
+    import cubed_tpu_torch
+    from cubed_tpu_torch.backend_array_api import get_device
+    from cubed_tpu_torch.core.array import execute
+    from cubed_tpu_torch.core.ops import _store_op
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime import memory
+    from cubed_tpu_torch.runtime.cancellation import ComputeDeadlineExceededError
+    from cubed_tpu_torch.runtime.executors import cuda as cuda_module
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.storage.store import open_zarr_array
+
+    out = {}
+    full = config["full"]
+    wrappers = kernel_wrappers()
+    paths = ("whole_array_hits", "whole_concat_hits", "batched_ops", "chunked_ops", "eager_ops", "eager_fallbacks",
+             "batched_errors")
+
+    # 6. resume of the to-Zarr product: whole (the product op skipped), then
+    # with one chunk corrupt (quarantined by the scan, the op re-run)
+    t0 = time.perf_counter()
+    store = os.path.join(work, "product.zarr")
+    random.seed(config["seed"])
+    expected = product_oracle(full)
+    random.seed(config["seed"])
+    out_arr = _store_op(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"]), full),
+                        store)
+    memory.reset_device_peaks()
+    for w in wrappers.values():
+        w.launches = 0
+    ex = CudaExecutor()
+    units = UnitPeaks()
+    t = time.perf_counter()
+    execute(out_arr, executor=ex, callbacks=[units])
+    write_s = time.perf_counter() - t
+    cold = {c: ex.stats.get(c, 0) for c in paths}
+    launches["product"] = {k: w.launches for k, w in wrappers.items()}
+    # the guard's reading of each unit beside the residency budget and the
+    # segment's resident inputs (none: its random arrays are drawn in it)
+    # and kept outputs (the stored product)
+    kept = int(np.prod(out_arr.shape)) * out_arr.dtype.itemsize
+    print(f"reliability 6 (the device executor's units, the product's first write): "
+          + "; ".join(f"{len(names)} op(s) ({names[0]}...) read {peak} B" for peak, names in units.units.items())
+          + f"; residency budget {ex._budget(out_arr.spec, get_device())} B; the segment's resident inputs "
+          f"0 B, kept outputs {kept} B (the four random arrays it draws: {4 * int(np.prod(full['shape'])) * 8} B); "
+          f"{smi_tag()}")
+    check(all(peak is not None for peak in units.units), "reliability 6: a unit without a guard reading")
+    first = read_store(store)
+    compare_to_oracle("reliability 6 [product store]", first, expected, "exact")
+    # vorticity's mean on the same seeds
+    expected = float(np.mean(expected))
+    runs = {}
+    for label, damage in (("whole", None), ("one chunk corrupt", middle_chunk(store))):
+        if damage:
+            flip_byte(os.path.join(store, damage), 4096)
+        ex = CudaExecutor()
+        before = get_registry().snapshot()
+        t = time.perf_counter()
+        execute(out_arr, executor=ex, resume=True)
+        seconds = time.perf_counter() - t
+        delta = get_registry().snapshot_delta(before)
+        counters = {c: ex.stats.get(c, 0) for c in paths}
+        valid, corrupt, verified = open_zarr_array(store, mode="r").verify_chunks(quarantine=False)
+        same = np.array_equal(read_store(store).view(np.uint64), first.view(np.uint64))
+        print(f"reliability 6 (resume, cuda, {label}): {seconds:.3f} s; path counters {json.dumps(counters)}; "
+              f"quarantined {delta.get('chunks_quarantined', 0)}; the store verifies: {verified and not corrupt} "
+              f"({len(valid)} chunks), equal to the first write: {same}; {smi_tag()}")
+        check(same and verified and not corrupt, f"reliability 6 ({label}): the store does not verify")
+        # as JaxExecutor's on this plan in the CPU parity test
+        # (tests/test_torch_resume.py): a whole store skips the product op
+        # alone (the random ops persisted nothing and run again), a corrupt
+        # chunk re-runs it: the first compute's counters less one op on one
+        # route, or all of them
+        fewer = {c: cold[c] - counters[c] for c in paths}
+        skipped_one = sorted(fewer.values()) == [0] * (len(paths) - 1) + [1]
+        check(skipped_one if damage is None else counters == cold,
+              f"reliability 6 ({label}): path counters {counters}, the first compute's {cold}")
+        runs[label] = dict(seconds=seconds, counters=counters, quarantined=delta.get("chunks_quarantined", 0))
+    del first
+
+    # the deadline: vorticity's cold compute (a first sighting of its plan
+    # shape: op by op), then the same with deadline_s at half its time
+    def vorticity(seed):
+        random.seed(seed)
+        return vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"]), full)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cuda_module._SEEN.clear()
+    cuda_module._GRAPHS.shrink(dev, 0)
+    memory.reset_device_peaks()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    value = float(vorticity(config["seed"]).compute(executor=CudaExecutor()))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches["vorticity"] = {k: w.launches for k, w in wrappers.items()}
+    check(abs(value - expected) <= 1e-12 * abs(expected), f"reliability 6: vorticity {value}, oracle {expected}")
+    # the process's first compute of the plan shape paid its one-time costs,
+    # and a cold compute's time varies twofold: the cold time the deadline
+    # halves is the shortest of three more first sightings
+    colds = []
+    for _ in range(3):
+        cuda_module._SEEN.clear()
+        t = time.perf_counter()
+        vorticity(config["seed"] + 1).compute(executor=CudaExecutor())
+        torch.cuda.synchronize()
+        colds.append(time.perf_counter() - t)
+    first_s, cold_s = cold_s, min(colds)
+    cuda_module._SEEN.clear()
+    deadline = cold_s / 2
+    arr = vorticity(config["seed"] + 1)
+    t = time.perf_counter()
+    try:
+        arr.compute(executor=CudaExecutor(), deadline_s=deadline)
+        raise PhaseFailed(f"reliability 6: a compute with deadline {deadline:.4f} s did not raise")
+    except ComputeDeadlineExceededError as e:
+        late = time.perf_counter() - t - deadline
+        print(f"reliability 6 (deadline): the process's first compute {first_s:.4f} s, cold computes "
+              f"{', '.join(f'{c:.4f}' for c in colds)} s; "
+              f"deadline_s {deadline:.4f} s raised {type(e).__name__} {late * 1e3:.2f} ms past the deadline (at a "
+              f"segment boundary)")
+    torch.cuda.synchronize()
+    value = float(vorticity(config["seed"]).compute(executor=CudaExecutor()))
+    check(abs(value - expected) <= 1e-12 * abs(expected), f"reliability 6: the next compute {value}, oracle {expected}")
+    seconds = time.perf_counter() - t0
+    print(f"reliability 6: the next compute equals its oracle; {seconds:.3f} s in all")
+    out["resume_cancel"] = dict(seconds=seconds, first_write_s=write_s, first_counters=cold, runs=runs,
+                                unit_readings={str(k): len(v) for k, v in units.units.items()},
+                                first_s=first_s, cold_s=cold_s,
+                                deadline_s=deadline, late_ms=late * 1e3)
+    timings["6"] = seconds
+
+    # 7. what checksums cost: the product written three times
+    t0 = time.perf_counter()
+    buf = np.random.default_rng(0).random(8 * 2**20).tobytes()
+    t = time.perf_counter()
+    zlib.crc32(buf)
+    crc_mb_s = len(buf) / 1e6 / (time.perf_counter() - t)
+    writes = {}
+    for mode, read_back in (("off", False), ("write", False), ("write", True)):
+        raw = os.path.join(work, f"raw-{mode}-{read_back}.zarr")
+        random.seed(config["seed"])
+        arr = product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"], integrity=mode),
+                            full)
+        t = time.perf_counter()
+        cubed_tpu_torch.to_zarr(arr, raw, executor=CudaExecutor())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t
+        verify_s = None
+        if read_back:
+            t = time.perf_counter()
+            valid, corrupt, verified = open_zarr_array(raw, mode="r").verify_chunks(quarantine=False)
+            verify_s = time.perf_counter() - t
+            check(verified and not corrupt and len(valid) == open_zarr_array(raw, mode="r").nchunks,
+                  "reliability 7: the verified read-back failed")
+        nbytes = sum(os.path.getsize(os.path.join(raw, f)) for f in os.listdir(raw) if not f.startswith("."))
+        label = f"integrity={mode}" + (" + verify read-back" if read_back else "")
+        writes[label] = dict(write_s=write_s, verify_s=verify_s, bytes=nbytes)
+        shutil.rmtree(raw, ignore_errors=True)
+    off_s = writes["integrity=off"]["write_s"]
+    print(f"reliability 7 (checksums, cuda, {full['shape']}): the host's zlib.crc32 {crc_mb_s:.0f} MB/s; "
+          + "; ".join(f"{k}: write {v['write_s']:.3f} s"
+                      + (f", verify read-back {v['verify_s']:.3f} s" if v["verify_s"] is not None else "")
+                      for k, v in writes.items())
+          + f"; CRC of the {writes['integrity=off']['bytes']} B written at {crc_mb_s:.0f} MB/s predicts "
+          f"{writes['integrity=off']['bytes'] / 1e6 / crc_mb_s:.3f} s over off's {off_s:.3f} s; {smi_tag()}")
+    seconds = time.perf_counter() - t0
+    out["checksums"] = dict(seconds=seconds, crc_mb_s=crc_mb_s, writes=writes)
+    timings["7"] = seconds
+
+    # 8. what the guard costs: vorticity's warm (replayed) compute, guard off
+    # and observe in turns
+    t0 = time.perf_counter()
+    arrays = {}
+    for mode in ("off", "observe"):
+        random.seed(config["seed"] + 3)
+        arrays[mode] = vorticity_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"],
+                                                            memory_guard=mode), full)
+    ex = CudaExecutor()
+    for _ in range(2):  # the first sighting, then the capture
+        for mode in ("off", "observe"):
+            arrays[mode].compute(executor=ex)
+    times = {"off": [], "observe": []}
+    for i in range(config["guard_turns"]):
+        for mode in (("off", "observe") if i % 2 == 0 else ("observe", "off")):
+            t = time.perf_counter()
+            arrays[mode].compute(executor=ex)
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t)
+            check(ex.stats.get("segment_struct_hits", 0) == 1, f"reliability 8: a {mode} compute did not replay")
+    q = {m: [float(np.percentile(v, p)) for p in (25, 50, 75)] for m, v in times.items()}
+    diff = q["observe"][1] - q["off"][1]
+    limit = max(1e-3, 0.05 * q["off"][1])
+    print(f"reliability 8 (the guard's cost, cuda, warm vorticity, {config['guard_turns']} each in turns): "
+          f"off median {q['off'][1] * 1e3:.3f} ms (quartiles {q['off'][0] * 1e3:.3f}-{q['off'][2] * 1e3:.3f}), "
+          f"observe median {q['observe'][1] * 1e3:.3f} ms (quartiles {q['observe'][0] * 1e3:.3f}-"
+          f"{q['observe'][2] * 1e3:.3f}); difference {diff * 1e3:.3f} ms, the observers' limit {limit * 1e3:.3f} ms: "
+          f"{'within' if diff <= limit else 'NOT within'}; {smi_tag()}")
+    seconds = time.perf_counter() - t0
+    out["guard_cost"] = dict(seconds=seconds, quartiles_ms={m: [x * 1e3 for x in v] for m, v in q.items()},
+                             diff_ms=diff * 1e3, limit_ms=limit * 1e3)
+    timings["8"] = seconds
+    return out
+
+
+def run_reliability_phase(torch, config=RELIABILITY) -> dict:
+    """The reliability phase (see the module docstring); returns its
+    numbers, printed as they come."""
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "reliability")
+    timings: dict = {}
+    launches: dict = {}
+    out = {}
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        out.update(reliability_guard_checks(torch, config, work, timings))
+        shutil.rmtree(work, ignore_errors=True)
+        out.update(reliability_store_checks(torch, config, work, timings))
+        shutil.rmtree(work, ignore_errors=True)
+        out.update(reliability_device_checks(torch, config, work, timings, launches))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    print(f"reliability phase: {seconds:.1f} s (" + ", ".join(f"check {k} {v:.1f} s" for k, v in timings.items())
+          + f"); launches {json.dumps(launches)}; {smi_tag()}")
+    return dict(out, seconds=seconds, timings=timings, launches=launches)
+
+
+def reliability_in_fresh_process() -> dict:
+    """The reliability phase in a fresh process (``--reliability-phase``),
+    its output passed on; returns its summary (its last line)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--reliability-phase"],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"reliability phase: its process failed:\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1])
 
 
@@ -4417,7 +5153,7 @@ def run_order_stats_phase(torch, config=ORDER_STATS, seq_config=ORDER_STATS_SEQ)
         ratio = peaks.worst / projected
         print(f"{label}: compute() {seq_s:.3f} s, {peaks.tasks} tasks, network ops {json.dumps(_network_rounds(arr))};"
               f" largest task device peak {peaks.worst} B ({peaks.worst_op}) / projected {projected} B = "
-              f"{ratio:.4f}; max err {err:.3e}; {smi_tag()}")
+              f"{ratio:.4f} ({peaks.guard_note()}); max err {err:.3e}; {smi_tag()}")
         check(ratio <= 1.0, f"{label}: a task's device peak {peaks.worst} B is over its projected {projected} B")
         entry = dict(seq_s=seq_s, ratio=ratio, peak=peaks.worst, projected=projected)
         if mode == "long":
@@ -4715,9 +5451,10 @@ def main(argv: list) -> int:
         timed = os.path.abspath(argv[1])
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
-                               ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"]):
+                               ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"],
+                               ["--reliability-phase"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
-              "--zarr-stencil-phase | --linalg-fft-phase]", file=sys.stderr)
+              "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4775,6 +5512,18 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             print(json.dumps(run_linalg_fft_phase(torch)))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv == ["--reliability-phase"]:
+        # the memory guard and reliability phase alone, its summary the last line
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            print(json.dumps(run_reliability_phase(torch)))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4921,6 +5670,10 @@ def main(argv: list) -> int:
         print(f"linalg and fft phase summary: {linalg_fft['seconds']:.1f} s; launches of its first device "
               f"computes {json.dumps(linalg_fft['launches'])}; sequential task peak / projected "
               + ", ".join(f"{k} {v['ratio']:.4f}" for k, v in linalg_fft["sequential"].items()))
+        # the memory guard and reliability phase, in a process of its own
+        reliability = reliability_in_fresh_process()
+        print(f"reliability phase summary: {reliability['seconds']:.1f} s; launches {json.dumps(reliability['launches'])}; "
+              f"checks {json.dumps({k: round(v, 3) for k, v in reliability['timings'].items()})}")
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
         run_sequential_observed(torch, sequential["seconds"])

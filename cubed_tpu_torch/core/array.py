@@ -117,7 +117,7 @@ def check_array_specs(arrays: Sequence) -> Optional[Spec]:
 
 
 def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True,
-            optimize_function=None) -> list[np.ndarray]:
+            optimize_function=None, resume: Optional[bool] = None, **kwargs) -> list[np.ndarray]:
     """Compute several arrays in one plan execution; return numpy results.
 
     The executor is *executor*, else the arrays' ``Spec.executor``, else the
@@ -125,15 +125,17 @@ def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True,
     *optimize_function* (default: the fusion of
     ``multiple_inputs_optimize_dag``) unless *optimize_graph* is false. The
     chunk device is resolved first, so a missing card fails here, before any
-    task runs (``backend_array_api.get_device``)."""
+    task runs (``backend_array_api.get_device``). ``resume``,
+    ``deadline_s`` and ``cancellation`` go to ``Plan.execute``."""
     if not arrays:
         return []
     execute(*arrays, executor=executor, callbacks=callbacks, optimize_graph=optimize_graph,
-            optimize_function=optimize_function)
+            optimize_function=optimize_function, resume=resume, **kwargs)
     return [a._read_stored() for a in arrays]
 
 
-def execute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True, optimize_function=None) -> None:
+def execute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True, optimize_function=None,
+            resume: Optional[bool] = None, **kwargs) -> None:
     """Run the plan of *arrays* as ``compute`` does, leaving the results in
     their stores (``to_zarr`` and ``store``: the user's store is the result,
     not read back)."""
@@ -155,6 +157,8 @@ def execute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True,
         optimize_function=optimize_function,
         array_names=tuple(a.name for a in arrays),
         spec=spec,
+        resume=resume,
+        **kwargs,
     )
 
 

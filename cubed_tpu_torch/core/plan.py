@@ -24,6 +24,7 @@ from ..observability.callback import _ComputeAggregator
 from ..observability.collect import TraceCollector
 from ..observability.metrics import get_registry
 from ..primitive.types import CubedPipeline, PrimitiveOperation
+from ..runtime.pipeline import ResumeState, already_computed, iter_op_nodes, pending_mappable
 from ..runtime.types import ComputeEndEvent, ComputeStartEvent, callbacks_on
 from ..storage.zarr import LazyZarrArray
 from ..utils import extract_stack_summaries, gensym, join_path  # noqa: F401  (gensym re-exported for the modules that build plans)
@@ -133,13 +134,6 @@ class Dag:
         return order
 
 
-def iter_op_nodes(dag: Dag) -> Iterator[tuple[str, dict]]:
-    """(name, node data) of every op node that carries real work."""
-    for name, d in dag.nodes.items():
-        if d.get("type") == "op" and d.get("primitive_op") is not None:
-            yield name, d
-
-
 class Plan:
     """A deferred computation: a DAG of whole-array operations."""
 
@@ -199,15 +193,15 @@ class Plan:
             optimize_function = multiple_inputs_optimize_dag
         return Plan(optimize_function(self.dag.copy(), array_names=array_names))
 
-    def num_tasks(self, optimize_graph: bool = True, optimize_function=None) -> int:
-        return self._finalize(optimize_graph, optimize_function).num_tasks()
+    def num_tasks(self, optimize_graph: bool = True, optimize_function=None, resume=None) -> int:
+        return self._finalize(optimize_graph, optimize_function).num_tasks(resume=resume)
 
     def num_arrays(self, optimize_graph: bool = True, optimize_function=None) -> int:
         return self._finalize(optimize_graph, optimize_function).num_arrays()
 
-    def max_projected_mem(self, optimize_graph: bool = True, optimize_function=None) -> int:
+    def max_projected_mem(self, optimize_graph: bool = True, optimize_function=None, resume=None) -> int:
         """The largest memory any task of the plan is projected to need."""
-        return self._finalize(optimize_graph, optimize_function).max_projected_mem()
+        return self._finalize(optimize_graph, optimize_function).max_projected_mem(resume=resume)
 
     def total_nbytes_written(self, optimize_graph: bool = True, optimize_function=None) -> int:
         return self._finalize(optimize_graph, optimize_function).total_nbytes_written()
@@ -225,7 +219,8 @@ class Plan:
 
     def execute(
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
-        optimize_function=None,
+        optimize_function=None, resume: Optional[bool] = None, deadline_s: Optional[float] = None,
+        cancellation=None, **kwargs,
     ) -> None:
         """Finalize the plan and run it on *executor* (default: the
         sequential ``PythonDagExecutor``), as one compute: a compute id, a
@@ -234,33 +229,63 @@ class Plan:
         armed while a ``TraceCollector`` is attached), and, even when the
         compute fails, ``on_compute_end`` with ``executor_stats`` (the
         executor's own ``stats``, the registry's delta over the compute and
-        the per-op summary) and the error. The reference's journal,
-        telemetry, flight recorder, run history, faults, integrity, memory
-        guard and dispatch profiler are not ported (ROADMAP Queue 1)."""
+        the per-op summary) and the error.
+
+        The reliability layers are armed for the compute's duration, as in
+        the reference (``cubed_tpu/core/plan.py:222-441``): the spec's
+        ``fault_injection``, ``integrity`` and ``memory_guard`` (with its
+        ``allowed_mem``), each exported to the env; and a cancellation
+        token, *cancellation* or one minted for ``deadline_s`` (which
+        tightens a given token), registered under the compute id and passed
+        to the executor. ``resume=True`` skips the tasks (on the device
+        executor the ops) whose outputs all verify. The reference's journal,
+        telemetry, flight recorder, run history and dispatch profiler are
+        not ported (ROADMAP Queue 1 items 9 and 11)."""
+        from ..runtime import cancellation as cancel_mod
+        from ..runtime import faults, memory
+        from ..storage import integrity
+
         if executor is None:
             from ..runtime.executors.python import PythonDagExecutor
 
             executor = PythonDagExecutor()
+        cancel_token = cancellation
+        if deadline_s is not None:
+            if cancel_token is None:
+                cancel_token = cancel_mod.CancellationToken()
+            cancel_token.set_deadline(deadline_s)
+        if cancel_token is not None:
+            kwargs["cancellation"] = cancel_token
         dag = self._finalize(optimize_graph, optimize_function, array_names).dag
         compute_id = f"c-{uuid.uuid4().hex[:10]}"
         aggregator = _ComputeAggregator()
         all_callbacks = list(callbacks) if callbacks else []
         all_callbacks.append(aggregator)
         metrics_before = get_registry().snapshot()
-        callbacks_on(all_callbacks, "on_compute_start", ComputeStartEvent(dag, compute_id=compute_id))
+        callbacks_on(all_callbacks, "on_compute_start", ComputeStartEvent(dag, resume, compute_id=compute_id))
+        if cancel_token is not None:
+            cancel_mod.register_compute(compute_id, cancel_token)
         compute_error: Optional[BaseException] = None
         try:
             # span recording is armed only while a collector merges the
             # spans; None leaves an operator's CUBED_TPU_TORCH_TASK_SPANS as
-            # it is
+            # it is. A None spec setting leaves its layer to the env var or
+            # its default; no spec at all arms no memory guard (no budget)
             armed = True if any(isinstance(cb, TraceCollector) for cb in all_callbacks) else None
             with logs.compute_scope(compute_id, export_env=True), \
-                    accounting.spans_scoped(armed, export_env=True):
-                executor.execute_dag(dag, callbacks=all_callbacks, array_names=array_names, spec=spec)
+                    accounting.spans_scoped(armed, export_env=True), \
+                    faults.scoped(getattr(spec, "fault_injection", None), export_env=True), \
+                    integrity.scoped(getattr(spec, "integrity", None), export_env=True), \
+                    memory.scoped(getattr(spec, "memory_guard", None),
+                                  allowed_mem=getattr(spec, "allowed_mem", None), export_env=True):
+                executor.execute_dag(dag, callbacks=all_callbacks, array_names=array_names, resume=resume,
+                                     spec=spec, **kwargs)
         except BaseException as e:
             compute_error = e
             raise
         finally:
+            if cancel_token is not None:
+                cancel_mod.unregister_compute(compute_id)
             # the end event fires even when the compute fails; assembling
             # its stats never masks the executor's own exception. Where an
             # executor counter shares a name with a registry metric, the
@@ -277,6 +302,11 @@ class Plan:
                                  len(stats))
             callbacks_on(all_callbacks, "on_compute_end", ComputeEndEvent(
                 dag, executor_stats=stats or None, compute_id=compute_id, error=compute_error))
+            # the error's traceback holds this frame: a reference to the
+            # error from here would keep both, and every block a failed
+            # task's frames hold (on the card too), until a garbage
+            # collection
+            compute_error = None
 
 
 class FinalizedPlan:
@@ -285,8 +315,22 @@ class FinalizedPlan:
     def __init__(self, dag: Dag):
         self.dag = dag
 
-    def num_tasks(self) -> int:
-        return sum(d["primitive_op"].num_tasks for _, d in iter_op_nodes(self.dag))
+    def num_tasks(self, resume=None) -> int:
+        """Task count, chunk-granular under ``resume``: a partly complete op
+        counts only its pending tasks, as the sequential executor would run
+        them. The scan is read-only (no quarantine, no metrics)."""
+        state = ResumeState(count=False) if resume else None
+        total = 0
+        for name in self.dag.topological_sort():
+            if already_computed(name, self.dag, self.dag.nodes, resume, state):
+                continue
+            node = self.dag.nodes[name]
+            if resume:
+                _, skipped = pending_mappable(name, node, resume, state, record=False)
+                total += node["primitive_op"].num_tasks - skipped
+            else:
+                total += node["primitive_op"].num_tasks
+        return total
 
     def num_arrays(self) -> int:
         return sum(1 for d in self.dag.nodes.values() if d.get("type") == "array")
@@ -294,8 +338,15 @@ class FinalizedPlan:
     def num_ops(self) -> int:
         return sum(1 for _ in iter_op_nodes(self.dag))
 
-    def max_projected_mem(self) -> int:
-        mems = [d["primitive_op"].projected_mem for _, d in iter_op_nodes(self.dag)]
+    def max_projected_mem(self, resume=None) -> int:
+        """Peak projected memory over the ops a compute would run; under
+        ``resume`` an op whose outputs all verify drops out."""
+        state = ResumeState(count=False) if resume else None
+        mems = [
+            self.dag.nodes[name]["primitive_op"].projected_mem
+            for name in self.dag.topological_sort()
+            if not already_computed(name, self.dag, self.dag.nodes, resume, state)
+        ]
         return max(mems) if mems else 0
 
     def total_nbytes_written(self) -> int:

@@ -167,9 +167,10 @@ class _ComputeAggregator(EventLogCallback):
         self._bytes_read: dict[str, int] = {}
         self._bytes_written: dict[str, int] = {}
         self._peaks: dict[str, int] = {}
-        #: per-op max of the memory guard's per-task RSS-growth attribution
-        #: (``TaskEndEvent.guard_mem_peak``; None until the guard is ported,
-        #: ROADMAP Queue 1 item 5)
+        #: per-op max of the memory guard's per-task reading
+        #: (``TaskEndEvent.guard_mem_peak`` of an event with a chunk key: on
+        #: a CUDA device the allocator's peak over the task's start or its
+        #: RSS growth, the larger)
         self._guard_peaks: dict[str, int] = {}
 
     # note: no on_task_start override — the tasks_started counter lives in
@@ -208,7 +209,10 @@ class _ComputeAggregator(EventLogCallback):
             self._peaks[name] = max(
                 self._peaks.get(name, 0), event.peak_measured_mem_end
             )
-        if event.guard_mem_peak is not None:
+        if event.guard_mem_peak is not None and event.chunk_key is not None:
+            # a task's own reading: the device executor's events carry the
+            # reading of a whole segment or eager op (no chunk key), which
+            # is no task's and is not judged against a task's projection
             self._guard_peaks[name] = max(
                 self._guard_peaks.get(name, 0), event.guard_mem_peak
             )

@@ -136,7 +136,23 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   Preloads and the output's flush run outside any task scope, so their
   storage bytes go to the metrics registry (``observability/accounting.py``).
 
-Not ported yet: meshes, ``task_guard``, resume and the compute journal. No fast path, capture or
+- **Reliability** (the reference's, ``jax.py:404-460`` and :620-660),
+  all of it outside any CUDA graph capture or replay, at op and segment
+  boundaries:
+  - *Resume* is op-granular: an op whose persisted outputs all verify is
+    skipped, a corrupt chunk is quarantined by the scan and its op re-run;
+    an op that only feeds resident arrays cannot be skipped, nothing of it
+    having been persisted.
+  - *Cancellation*: the compute's token is checked at every op and segment
+    boundary and before the outputs' flush; a replay is never interrupted
+    and a cancelled compute flushes nothing of a segment it did not finish.
+  - *The memory guard* wraps every segment and eager op in
+    ``task_guard(..., observe_only=True)``: its reading (on the card, the
+    allocator's peak over the unit's start) is each op's
+    ``TaskEndEvent.guard_mem_peak``. It measures and never fails a unit,
+    and this executor retries nothing, as ``JaxExecutor``.
+
+Not ported yet: meshes and the compute journal. No fast path, capture or
 kernel is wrapped in an ``except``: where one cannot run, a check says so and
 the op takes the next path.
 """
@@ -188,7 +204,9 @@ from ...storage.store import ZarrV2Array
 from ...storage.virtual import VirtualEmptyArray, VirtualFullArray, VirtualInMemoryArray, VirtualOffsetsArray
 from ...storage.zarr import LazyZarrArray
 from ...utils import convert_to_bytes, get_item
-from ..pipeline import visit_nodes
+from ..cancellation import abort as cancel_abort
+from ..memory import task_guard
+from ..pipeline import ResumeState, visit_nodes
 from ..types import (
     DagExecutor,
     OperationEndEvent,
@@ -828,6 +846,8 @@ class CudaExecutor(DagExecutor):
         #: structural key of the segment being captured or replayed: its
         #: graph is not dropped to make room for the segment's own outputs
         self._graph_key: Optional[str] = None
+        #: the running compute's cancellation token, if it has one
+        self._cancellation = None
 
     @property
     def name(self) -> str:
@@ -846,9 +866,9 @@ class CudaExecutor(DagExecutor):
         # both scopes are this thread's (or task's) alone, and are restored
         # on every exit, a failing compute's included
         with narrowing(self.compute_dtype == "float32"), contraction.precision(self.matmul_precision):
-            self._execute_dag(dag, callbacks, array_names, resume, spec)
+            self._execute_dag(dag, callbacks, array_names, resume, spec, kwargs.get("cancellation"))
 
-    def _execute_dag(self, dag, callbacks, array_names, resume, spec) -> None:
+    def _execute_dag(self, dag, callbacks, array_names, resume, spec, cancellation=None) -> None:
         dev = get_device()
         self.stats = Counter()
         self._uploads = {}  # id of a VirtualInMemoryArray -> its device tensor
@@ -862,7 +882,10 @@ class CudaExecutor(DagExecutor):
             and (array_names is None or name in array_names)
         }
         segment: list = []
-        for name, node in visit_nodes(dag, resume=resume):
+        self._cancellation = cancellation
+        state = ResumeState(quarantine=True) if resume else None
+        for name, node in visit_nodes(dag, resume=resume, state=state):
+            self._check_cancelled()
             if self.fuse_plan and self._classify(node["primitive_op"]) == "segment":
                 segment.append((name, node))
                 continue
@@ -871,6 +894,9 @@ class CudaExecutor(DagExecutor):
             self.stats["eager_ops"] += 1
             self._run([(name, node)], dag, resident, budget, requested, callbacks, in_segment=False)
         self._run(segment, dag, resident, budget, requested, callbacks, in_segment=True)
+        # the outputs are whole here: a compute cancelled before this point
+        # flushes nothing of them
+        self._check_cancelled()
         for store, res in list(resident.items()):
             if store in requested:
                 self._flush(res)
@@ -898,27 +924,39 @@ class CudaExecutor(DagExecutor):
             return "eager"  # a map_direct whose task body reads storage
         return "segment"
 
+    def _check_cancelled(self) -> None:
+        """The cooperative abort at an op or segment boundary."""
+        if self._cancellation is not None and self._cancellation.cancelled:
+            raise cancel_abort(self._cancellation)
+
     def _run(self, ops, dag, resident, budget, requested, callbacks, in_segment: bool) -> None:
-        """Run *ops* in order; their wall time is apportioned by task count."""
+        """Run *ops* in order, under one observe-only memory guard (its
+        reading is every op's ``guard_mem_peak``); their wall time is
+        apportioned by task count."""
         if not ops:
             return
+        self._check_cancelled()
         t0 = time.time()
         for name, node in ops:
             num_tasks = node["primitive_op"].num_tasks
             callbacks_on(callbacks, "on_operation_start", OperationStartEvent(name, num_tasks))
             fire_task_start(callbacks, name, num_tasks=num_tasks)
-        if in_segment:
-            for arr in self._segment_sources(ops):
-                if _key(arr) not in resident and self._preload(arr, resident, budget):
-                    self.stats["segment_preloads"] += 1
-            self._segment_deaths = self._deaths(ops, self._segment_keep(ops, dag, requested))
-        try:
-            if in_segment and get_device().type == "cuda":
-                self._run_segment(ops, dag, resident, budget, requested)
-            else:
-                self._run_ops(ops, resident, budget, requested)
-        finally:
-            self._segment_deaths = {}
+        unit = f"segment:{','.join(name for name, _ in ops)}" if in_segment else f"eager:{ops[0][0]}"
+        # the guard's entry and exit synchronize and read the allocator:
+        # both sit outside any capture or replay
+        with task_guard(unit, observe_only=True) as guard:
+            if in_segment:
+                for arr in self._segment_sources(ops):
+                    if _key(arr) not in resident and self._preload(arr, resident, budget):
+                        self.stats["segment_preloads"] += 1
+                self._segment_deaths = self._deaths(ops, self._segment_keep(ops, dag, requested))
+            try:
+                if in_segment and get_device().type == "cuda":
+                    self._run_segment(ops, dag, resident, budget, requested)
+                else:
+                    self._run_ops(ops, resident, budget, requested)
+            finally:
+                self._segment_deaths = {}
         elapsed = time.time() - t0
         total_tasks = sum(node["primitive_op"].num_tasks for _, node in ops) or 1
         start = t0
@@ -928,7 +966,7 @@ class CudaExecutor(DagExecutor):
             callbacks_on(callbacks, "on_task_end", TaskEndEvent(
                 array_name=name, num_tasks=num_tasks, task_create_tstamp=start,
                 function_start_tstamp=start, function_end_tstamp=end,
-                task_result_tstamp=end, executor=self.name,
+                task_result_tstamp=end, executor=self.name, guard_mem_peak=guard.measured,
             ))
             callbacks_on(callbacks, "on_operation_end", OperationEndEvent(name, num_tasks))
             start = end

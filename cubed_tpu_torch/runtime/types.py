@@ -11,8 +11,9 @@ fired by every executor (``Plan.execute`` fires the compute events):
     on_compute_end(ComputeEndEvent)                # carries executor_stats
 
 The task events carry every field of the reference's;
-``TaskEndEvent.guard_mem_peak`` and ``dispatch`` stay None until the memory
-guard and the fleet are ported (ROADMAP Queue 1 items 5 and 10).
+``TaskEndEvent.guard_mem_peak`` is the memory guard's reading
+(``runtime/memory.py``), and ``dispatch`` stays None until the fleet is
+ported (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -79,8 +80,10 @@ class TaskEndEvent:
     #: observability/accounting.py ``record_scoped_counter``), measured
     #: where the task ran and folded into the registry like bytes
     counters: Optional[dict] = None
-    #: peak RSS growth the memory guard attributed to this task (bytes);
-    #: None until the guard is ported (ROADMAP Queue 1 item 5)
+    #: the memory guard's reading of this task (bytes): on a CUDA device the
+    #: larger of the allocator's peak over the task's start and its RSS
+    #: growth, else RSS growth (plus any injected spike); on the device
+    #: executor, the segment's or eager op's; None while the guard is off
     guard_mem_peak: Optional[int] = None
     #: spans recorded inside this task's body (storage IO, kernel apply),
     #: measured on the executing process's clock — see
@@ -94,7 +97,7 @@ class TaskEndEvent:
     #: fleet worker name when the task ran on a named worker, else None
     worker: Optional[str] = None
     #: the task's control-plane dispatch ledger (client-clock stamps of its
-    #: dispatch); None until the fleet is ported (ROADMAP Queue 1 item 10)
+    #: dispatch); None until the fleet is ported (ROADMAP Queue 1 item 11)
     dispatch: Optional[dict] = None
 
 

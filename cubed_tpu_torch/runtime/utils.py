@@ -26,25 +26,43 @@ def execute_with_stats(function, *args, **kwargs):
     """Run a task function, returning (result, stats-dict).
 
     The body runs inside a task scope (its storage bytes and spans) and a
-    log context (its op and chunk). The reference's fault injector,
-    cancellation check and memory guard (``task_guard``) wrap the body
-    here too; they come with ROADMAP Queue 1 item 9 (faults, cancellation)
-    and item 5 (the guard).
+    log context (its op and chunk). This is the one chokepoint where the
+    reliability layers wrap every task, as in the reference
+    (``cubed_tpu/runtime/utils.py:52-80``): the compute's cancellation check
+    before the body; the fault injector's task sites (a straggler delay or
+    an injected failure, and a synthetic memory spike handed to the guard);
+    and the memory guard (``runtime/memory.task_guard``) around the body,
+    whose reading (``guard_mem_peak``: on a CUDA device the allocator's peak
+    over the task's start, else RSS growth) joins the stats dict and, under
+    ``memory_guard="enforce"``, fails a task over ``allowed_mem``.
     """
+    from .cancellation import check_current
+    from .faults import get_injector
+    from .memory import task_guard
+
     peak_before = peak_measured_mem()
     start = None
     try:
         with task_scope() as scope:
+            # a tripped token aborts before the body runs; the storage layer
+            # checks again between chunk reads and writes
+            check_current()
+            injector = get_injector()
             key = chunk_key(args[0]) if args else ""
             # blockwise mappable items are (out_name, i, j, ...) tuples: the
             # first element names the op's output array
             op = None
             if args and isinstance(args[0], tuple) and args[0]:
                 op = str(args[0][0])
+            spike = injector.task_mem_spike(key) if injector is not None else 0
             with logs.task_context(op=op, chunk=key):
-                start = clock.now()
-                result = function(*args, **kwargs)
-                end = clock.now()
+                with task_guard(key, injected_bytes=spike) as guard:
+                    start = clock.now()
+                    # an injected straggler delay is part of the task's time
+                    if injector is not None:
+                        injector.task_fault(key)
+                    result = function(*args, **kwargs)
+                    end = clock.now()
     except Exception as e:
         # a raising task produces no stats dict, so its span buffer would
         # vanish: attach it to the exception (the attribute survives
@@ -72,6 +90,7 @@ def execute_with_stats(function, *args, **kwargs):
         peak_measured_mem_end=peak_after,
         pid=os.getpid(),
         worker=get_process_label(),
+        **guard.stats(),
         **scope.stats(),
     )
 

@@ -1,6 +1,7 @@
 """Resource specification carried by every array. Counterpart of
 ``cubed_tpu/spec.py``, trimmed to the work directory, the memory bounds, the
-executor and the device executor's residency budget."""
+executor, the device executor's residency budget and the reliability
+settings (fault injection, chunk integrity, the runtime memory guard)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ class Spec:
         device_mem: Union[int, str, None] = None,
         executor_name: Optional[str] = None,
         executor_options: Optional[dict] = None,
+        fault_injection: Optional[Any] = None,
+        integrity: Optional[str] = None,
+        memory_guard: Optional[str] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -37,6 +41,19 @@ class Spec:
         self._executor_name = executor_name
         self._executor_options = executor_options
         self._device_mem = convert_to_bytes(device_mem) if device_mem is not None else None
+        self._fault_injection = fault_injection
+        if integrity is not None:
+            from .storage.integrity import MODES
+
+            if integrity not in MODES:
+                raise ValueError(f"invalid integrity mode {integrity!r}; expected one of {MODES}")
+        self._integrity = integrity
+        if memory_guard is not None:
+            from .runtime.memory import MODES as GUARD_MODES
+
+            if memory_guard not in GUARD_MODES:
+                raise ValueError(f"invalid memory_guard mode {memory_guard!r}; expected one of {GUARD_MODES}")
+        self._memory_guard = memory_guard
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -70,6 +87,32 @@ class Spec:
         """Residency budget (bytes) of the device executor, when it is not
         given one itself."""
         return self._device_mem
+
+    @property
+    def fault_injection(self) -> Optional[Any]:
+        """Fault-injection config (a ``runtime.faults.FaultConfig`` or a plain
+        dict), armed by ``Plan.execute`` for the compute; None injects
+        nothing."""
+        return self._fault_injection
+
+    @property
+    def integrity(self) -> Optional[str]:
+        """Chunk-integrity mode: ``"off"``, ``"write"`` (checksums recorded on
+        every chunk write: the effective default) or ``"verify"`` (every
+        task-scope read verified too, a corrupt chunk quarantined and its
+        producer re-run). None defers to ``CUBED_TPU_TORCH_INTEGRITY`` or the
+        default (``storage/integrity.py``)."""
+        return self._integrity
+
+    @property
+    def memory_guard(self) -> Optional[str]:
+        """Runtime memory-guard mode: ``"off"``, ``"observe"`` (count and warn
+        when a task's measured memory exceeds ``allowed_mem``: the effective
+        default) or ``"enforce"`` (fail such tasks, classified RESOURCE).
+        None defers to ``CUBED_TPU_TORCH_MEMORY_GUARD`` or the default;
+        ``Plan.execute`` arms it with this spec's ``allowed_mem``
+        (``runtime/memory.py``)."""
+        return self._memory_guard
 
     def __repr__(self) -> str:
         return (

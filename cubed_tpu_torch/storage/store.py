@@ -6,17 +6,29 @@ The on-disk layout is the standard Zarr v2 one the JAX package writes: a
 ``.``-separated chunk indices, raw or compressed by one of the stdlib codecs
 (zlib, gzip, bz2, lzma). Each chunk write is atomic and durable: temp file,
 fsync, rename, fsync of the directory. That is what makes a re-run or
-duplicate task safe, and it is kept whole here. Checksum sidecars, breakers
-and remote (fsspec) stores are not ported. Every chunk read and write is
+duplicate task safe, and it is kept whole here. Every chunk read and write is
 counted as stored (the compressed length on a compressed store) and spanned
 (``storage_read`` / ``storage_write``) by ``observability/accounting.py``,
 against the task scope that does it, else the process registry.
+
+The reliability layers sit here as in the reference (its ``store.py``
+:100-145 and :530-540): every chunk write records its checksum in the
+array's sidecar manifest, and under ``integrity="verify"`` every task-scope
+read is verified (``storage/integrity.py``); a resume scan verifies every
+chunk (:meth:`ZarrV2Array.verify_chunks`); the fault injector's storage
+sites fire inside task scopes (``runtime/faults.py``); throttles are paced
+by the store's health breaker (``storage/health.py``); transient read
+errors retry in place; and the compute's cancellation token is checked
+between chunk reads and writes (``runtime/cancellation.py``). Remote
+(fsspec) stores are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import logging
 import os
 import time
 import uuid
@@ -26,10 +38,27 @@ from urllib.parse import urlsplit
 import numpy as np
 
 from ..chunks import blockdims_from_blockshape
-from ..observability.accounting import record_bytes_read, record_bytes_written, scope_span
+from ..observability.accounting import (
+    record_bytes_read,
+    record_bytes_written,
+    record_scoped_counter,
+    scope_span,
+)
+from ..observability.metrics import get_registry
+from ..runtime import cancellation
+from ..runtime.faults import FaultInjectedIOError, FaultInjectedThrottleError, get_injector
+from ..runtime.resilience import RetryPolicy
+from . import health, integrity
+from .integrity import ChunkIntegrityError
+
+logger = logging.getLogger(__name__)
 
 #: a crashed writer's orphaned ``.tmp`` is only swept once it is this old
 ORPHAN_TMP_MAX_AGE_S = 60.0
+
+#: in-place retries of a chunk read's transient IO error (the reference's
+#: default), with short backoff
+_READ_RETRY_POLICY = RetryPolicy(retries=2, backoff_base=0.02, backoff_max=0.5)
 
 
 def _local_root(store: str) -> str:
@@ -68,12 +97,36 @@ class _LocalIO:
         return os.path.exists(os.path.join(self.root, name))
 
     def read_bytes(self, name: str) -> bytes:
+        injector = get_injector()
+        if injector is not None:
+            if injector.storage_throttle_fault(_fault_key(self.root, name)):
+                raise FaultInjectedThrottleError(f"injected store throttle (503 SlowDown): {name}")
+            if injector.storage_read_fault(_fault_key(self.root, name)):
+                raise FaultInjectedIOError(f"injected read failure: {name}")
         with open(os.path.join(self.root, name), "rb") as f:
             return f.read()
 
-    def write_bytes_atomic(self, name: str, data) -> None:
+    def write_bytes_atomic(self, name: str, data, inject: bool = True) -> None:
         path = os.path.join(self.root, name)
         tmp = path + f".{uuid.uuid4().hex[:8]}.tmp"
+        injector = get_injector() if inject else None
+        if injector is not None:
+            key = _fault_key(self.root, name)
+            if injector.storage_throttle_fault(key):
+                # a throttled write touches nothing: the request was refused
+                raise FaultInjectedThrottleError(f"injected store throttle (503 SlowDown): {name}")
+            if injector.storage_write_fault(key):
+                if injector.config.storage_write_leaves_tmp:
+                    # a writer killed mid-write: a partial temp file is left
+                    # behind, the chunk itself untouched
+                    with open(tmp, "wb") as f:
+                        f.write(data[: max(1, len(data) // 2)])
+                raise FaultInjectedIOError(f"injected write failure: {name}")
+            # seeded bit-flip or truncation: the write "succeeds" with wrong
+            # bytes, which only the checksum (of the bytes meant) can catch
+            corrupted = injector.storage_corrupt_fault(key, data)
+            if corrupted is not None:
+                data = corrupted
         with open(tmp, "wb") as f:
             f.write(data)
             f.flush()
@@ -82,6 +135,15 @@ class _LocalIO:
             os.fsync(f.fileno())
         os.replace(tmp, path)  # atomic on POSIX
         _fsync_dir(os.path.dirname(path))
+
+    def rename(self, old: str, new: str) -> None:
+        os.replace(os.path.join(self.root, old), os.path.join(self.root, new))
+
+    def append_bytes(self, name: str, data: bytes) -> None:
+        """O_APPEND write for the manifest's JSONL shards: one writer per shard
+        by construction, no fsync (the loader skips a torn tail line)."""
+        with open(os.path.join(self.root, name), "ab") as f:
+            f.write(data)
 
     def list_names(self) -> list[str]:
         try:
@@ -104,7 +166,48 @@ class _LocalIO:
                 removed += 1
             except OSError:
                 continue
+        if removed:
+            get_registry().counter("orphan_tmps_swept").inc(removed)
         return removed
+
+
+def _fault_key(root: str, name: str) -> str:
+    """Injection-decision key: the array's directory name and the chunk
+    name, not the full path, so a seeded run replays across work dirs."""
+    return f"{os.path.basename(str(root).rstrip('/'))}/{name}"
+
+
+def _active_breaker(store: str):
+    """The store's health breaker, or None when it is disabled."""
+    return health.store_breaker(store) if health.breaker_enabled() else None
+
+
+@contextlib.contextmanager
+def _breaker_slot(breaker, key: str):
+    """Hold the breaker's IO slot around one IO attempt (retry sleeps run
+    outside it); while degraded the wait is a ``throttle_wait`` span, and the
+    cancellation token is polled between wait quanta."""
+    if breaker is None:
+        yield
+        return
+    if breaker.state == "closed":
+        breaker.acquire()
+    else:
+        with scope_span("throttle_wait", cat="throttle", site="breaker_slot", key=key):
+            breaker.acquire(poll=cancellation.check_current)
+    try:
+        yield
+    finally:
+        breaker.release()
+
+
+def _note_throttle(store: str, breaker) -> float:
+    """Count a throttle (``store_throttled``) and step the breaker down;
+    returns its paced retry delay."""
+    record_scoped_counter("store_throttled")
+    if breaker is not None:
+        return breaker.on_throttle()
+    return 0.0
 
 
 def _encode_dtype(dtype: np.dtype) -> Any:
@@ -202,10 +305,37 @@ class ZarrV2Array:
         self.chunks: tuple[int, ...] = tuple(meta["chunks"])
         self.dtype: np.dtype = _decode_dtype(meta["dtype"])
         self.fill_value = _decode_fill(meta.get("fill_value"))
+        #: merged checksum manifest, loaded at the first verified read
+        self._manifest_cache: Optional[tuple[dict, bool]] = None
 
     @property
     def ndim(self) -> int:
         return len(self.shape)
+
+    @property
+    def cdata_shape(self) -> tuple[int, ...]:
+        """Number of chunks along each dimension."""
+        return tuple(max(1, -(-s // c)) for s, c in zip(self.shape, self.chunks)) if self.shape else ()
+
+    @property
+    def nchunks(self) -> int:
+        return int(np.prod(self.cdata_shape)) if self.shape else 1
+
+    def _chunk_names(self) -> list[str]:
+        """Names of the chunk files present: digit-dotted keys only (no
+        metadata, manifests, ``.tmp`` litter or ``*.quarantine.*``)."""
+        out = []
+        for name in self._io.list_names():
+            if name.startswith(".") or name.endswith(".tmp"):
+                continue
+            if all(p.lstrip("-").isdigit() for p in name.split(".")):
+                out.append(name)
+        return out
+
+    @property
+    def nchunks_initialized(self) -> int:
+        """Number of chunk files present (the existence-only resume count)."""
+        return len(self._chunk_names())
 
     def chunkset(self) -> tuple[tuple[int, ...], ...]:
         return blockdims_from_blockshape(self.shape, self.chunks)
@@ -219,27 +349,184 @@ class ZarrV2Array:
     def _read_chunk(self, idx: tuple[int, ...]) -> Optional[np.ndarray]:
         """The full (padded) chunk at block index *idx*, or None if absent."""
         key = self._chunk_key(idx)
+        # between chunk reads is a safe abort boundary
+        cancellation.check_current()
+        verify = integrity.verify_reads_active()
         if not self._io.exists(key):
+            if verify and key in self._manifest()[0]:
+                # the manifest says it was written: its absence is an
+                # integrity failure (quarantined, or lost), never fill values
+                record_scoped_counter("chunks_corrupt_detected")
+                raise ChunkIntegrityError(
+                    f"chunk {key} of {self.store} is recorded in the manifest but missing from the store",
+                    store=self.store, chunk_key=key, kind="missing",
+                )
             return None
         with scope_span("storage_read", cat="storage", key=key) as sp:
-            data = self._io.read_bytes(key)
+            data = self._read_bytes_with_retries(key)
             sp.attrs["bytes"] = len(data)
         # bytes as stored (before decompression)
         record_bytes_read(self.store, len(data))
+        if verify:
+            with scope_span("integrity_verify", cat="integrity", key=key):
+                self._verify_chunk_bytes(key, data)
         if self._codec is not None:
             data = self._codec[1](data)
         arr = np.frombuffer(data, dtype=self.dtype)
         return arr.reshape(self.chunks if self.shape else ())
 
+    def _manifest(self) -> tuple[dict, bool]:
+        """Merged checksum manifest ``(entries, had_shards)``, cached per
+        instance (instances are opened per task)."""
+        if self._manifest_cache is None:
+            self._manifest_cache = integrity.load_manifest(self._io)
+        return self._manifest_cache
+
+    def _verify_chunk_bytes(self, key: str, data: bytes) -> None:
+        """Verify stored chunk bytes against the manifest; on a mismatch
+        quarantine the file and raise :class:`ChunkIntegrityError`. A chunk
+        with no entry passes unverified (nothing to check against)."""
+        entry = self._manifest()[0].get(key)
+        if entry is None:
+            return
+        record_scoped_counter("chunks_verified")
+        actual = (integrity.checksum(data), len(data))
+        expected = (entry.get("c"), entry.get("n"))
+        if actual != expected:
+            record_scoped_counter("chunks_corrupt_detected")
+            integrity.quarantine_chunk(self._io, key, store=self.store)
+            raise ChunkIntegrityError(
+                f"chunk {key} of {self.store} failed checksum verification "
+                f"(expected crc32={expected[0]} len={expected[1]}, got "
+                f"crc32={actual[0]} len={actual[1]}); file quarantined",
+                store=self.store, chunk_key=key, kind="checksum",
+                expected=expected, actual=actual,
+            )
+
+    def verify_chunks(self, quarantine: bool = True, verify: bool = True,
+                      count: bool = True) -> tuple[set, list, bool]:
+        """Verify every stored chunk against the manifest.
+
+        Returns ``(valid, corrupt, verified)``: the chunk keys whose bytes
+        match their checksum, those that failed (renamed to
+        ``*.quarantine.*`` with *quarantine*), and whether verification ran.
+        With no manifest, or ``verify=False`` (a resume under
+        ``integrity="off"``), every present chunk is valid and ``verified``
+        is False: existence-only accounting. ``count=False`` keeps the scan
+        off the metrics (plan introspection). A chunk present but absent
+        from the manifest is reported corrupt (untrusted) but never
+        quarantined: re-running its producer overwrites it in place."""
+        names = self._chunk_names()
+        if not verify:
+            return set(names), [], False
+        entries, had_shards = integrity.load_manifest(self._io)
+        if not had_shards:
+            return set(names), [], False
+        valid: set = set()
+        corrupt: list = []
+        for name in names:
+            entry = entries.get(name)
+            ok = False
+            if entry is not None:
+                try:
+                    data = self._io.read_bytes(name)
+                except OSError:
+                    data = None
+                ok = data is not None and len(data) == entry.get("n") and integrity.checksum(data) == entry.get("c")
+                if count:
+                    record_scoped_counter("chunks_verified")
+            if ok:
+                valid.add(name)
+            else:
+                corrupt.append(name)
+                if count:
+                    record_scoped_counter("chunks_corrupt_detected")
+                if quarantine and entry is not None:
+                    integrity.quarantine_chunk(self._io, name, store=self.store)
+        return valid, corrupt, True
+
+    def _read_bytes_with_retries(self, key: str) -> bytes:
+        """A chunk read that retries transient IO errors in place (two cheap
+        retries absorb a blip a task retry would pay for with all its work),
+        and throttles with the breaker's pacing. A ``FileNotFoundError``
+        after ``exists()`` retries like any OSError: it must never read as
+        an absent chunk (fill values in place of real data)."""
+        policy = _READ_RETRY_POLICY
+        breaker = _active_breaker(self.store)
+        failures = throttles = 0
+        while True:
+            try:
+                with _breaker_slot(breaker, key):
+                    data = self._io.read_bytes(key)
+                if breaker is not None:
+                    breaker.on_success()
+                return data
+            except OSError as exc:
+                if health.is_throttle_error(exc):
+                    throttles += 1
+                    delay = _note_throttle(self.store, breaker)
+                    if breaker is None or throttles > health.THROTTLE_IO_RETRIES:
+                        raise
+                    if delay > 0:
+                        with scope_span("throttle_wait", cat="throttle", site="storage_read", key=key):
+                            time.sleep(delay)
+                    cancellation.check_current()
+                    continue
+                failures += 1
+                if failures > policy.retries:
+                    raise
+                delay = policy.backoff_delay(failures)
+                logger.info("retrying chunk read %s/%s (attempt %d) in %.3fs: %s",
+                            self.store, key, failures + 1, delay, exc)
+                get_registry().counter("storage_read_retries").inc()
+                if delay > 0:
+                    with scope_span("retry_sleep", cat="retry", site="storage_read", key=key):
+                        time.sleep(delay)
+
     def _write_chunk(self, idx: tuple[int, ...], arr: np.ndarray) -> None:
+        # checked before the write starts: an abort never interrupts an
+        # atomic chunk write, so the store and its manifest stay consistent
+        cancellation.check_current()
         arr = np.ascontiguousarray(arr, dtype=self.dtype)
         data = memoryview(arr).cast("B")
         if self._codec is not None:
             data = self._codec[0](data)
         key = self._chunk_key(idx)
         with scope_span("storage_write", cat="storage", key=key, bytes=len(data)):
-            self._io.write_bytes_atomic(key, data)
+            self._write_bytes_throttle_paced(key, data)
+            if integrity.current_mode() != "off":
+                # after the chunk's write: a crash between the two leaves a
+                # chunk without an entry (re-run on resume), never an entry
+                # without its chunk
+                entry = integrity.record_checksum(self._io, self.store, key, data)
+                if self._manifest_cache is not None:
+                    self._manifest_cache[0][key] = entry
+                    self._manifest_cache = (self._manifest_cache[0], True)
         record_bytes_written(self.store, len(data))
+
+    def _write_bytes_throttle_paced(self, key: str, data) -> None:
+        """Atomic chunk write with the breaker's paced in-place retries for
+        throttles only; any other failure goes to the task level."""
+        breaker = _active_breaker(self.store)
+        throttles = 0
+        while True:
+            try:
+                with _breaker_slot(breaker, key):
+                    self._io.write_bytes_atomic(key, data)
+                if breaker is not None:
+                    breaker.on_success()
+                return
+            except OSError as exc:
+                if not health.is_throttle_error(exc):
+                    raise
+                throttles += 1
+                delay = _note_throttle(self.store, breaker)
+                if breaker is None or throttles > health.THROTTLE_IO_RETRIES:
+                    raise
+                if delay > 0:
+                    with scope_span("throttle_wait", cat="throttle", site="storage_write", key=key):
+                        time.sleep(delay)
+                cancellation.check_current()
 
     def _empty_chunk(self) -> np.ndarray:
         fill = self.fill_value if self.fill_value is not None else 0
@@ -415,7 +702,23 @@ def open_zarr_array(
     if mode == "r" or (mode == "a" and meta_exists):
         if not meta_exists:
             raise FileNotFoundError(f"No zarr array at {store}")
-        return ZarrV2Array(store, json.loads(io.read_bytes(".zarray")))
+        try:
+            return ZarrV2Array(store, json.loads(io.read_bytes(".zarray")))
+        except (ValueError, KeyError, TypeError, UnicodeDecodeError) as exc:
+            # a corrupt .zarray: a reader fails loudly; a writer with the
+            # creation parameters quarantines it and writes it anew (chunk
+            # data untouched: a verified resume decides per chunk)
+            if mode == "r" or shape is None or dtype is None:
+                raise ValueError(
+                    f"corrupt .zarray metadata at {store}: {exc!r} (reopen in a writer mode with shape/dtype "
+                    "to recreate it)"
+                ) from exc
+            logger.warning("quarantining corrupt .zarray at %s and recreating metadata (%s)", store, exc)
+            try:
+                io.rename(".zarray", f".zarray.quarantine.{int(time.time() * 1000)}")
+            except OSError:
+                pass
+            get_registry().counter("zarray_meta_recreated").inc()
     if shape is None or dtype is None:
         raise ValueError("shape and dtype required to create a new array")
     dtype = np.dtype(dtype)

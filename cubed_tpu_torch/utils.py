@@ -1,7 +1,8 @@
 """General utilities: plan-node names, byte strings, chunk memory and chunk math.
 
 Counterpart of ``cubed_tpu/utils.py``, trimmed to what the port's plan and
-storage layers call, the peak host memory a task reports, and the caller's
+storage layers call, the peak and current host memory a task reports (the
+memory guard reads the current), and the caller's
 frames a plan node records for ``visualize``. The memory
 reckoning is the JAX package's, unchanged, so both packages bound the same
 plan by the same projected memory.
@@ -179,6 +180,34 @@ def peak_measured_mem() -> int:
     if platform.system() == "Darwin":
         return ru_maxrss
     return ru_maxrss * 1024
+
+
+def current_measured_mem() -> int | None:
+    """Current RSS of this process in bytes (VmRSS from ``/proc/self/status``),
+    or None where there is no ``/proc``: the memory guard's host reading
+    (``runtime/memory.py``). Counterpart of
+    ``cubed_tpu/utils.py:current_measured_mem``."""
+    return _proc_field("/proc/self/status", "VmRSS:")
+
+
+def host_available_mem() -> int | None:
+    """``MemAvailable`` from ``/proc/meminfo`` in bytes, or None: the memory
+    guard's host-pressure floor. Counterpart of
+    ``cubed_tpu/utils.py:host_available_mem``."""
+    return _proc_field("/proc/meminfo", "MemAvailable:")
+
+
+def _proc_field(path: str, field: str) -> int | None:
+    if platform.system() != "Linux":
+        return None
+    try:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(field):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
 
 
 @dataclass

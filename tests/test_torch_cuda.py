@@ -1614,3 +1614,139 @@ def test_tsqr_on_the_card_reads_its_offsets_on_the_device(cuda, tmp_path):
     rn = r.compute(executor=CudaExecutor())
     np.testing.assert_allclose(qn @ rn, an, atol=1e-10)
     np.testing.assert_allclose(qn.T @ qn, np.eye(32), atol=1e-10)
+
+
+# -- the memory guard and reliability on the card ---------------------------
+
+
+def test_guard_reads_the_allocator_for_one_task(cuda):
+    """The guard's device reading of a task that allocates a known tensor:
+    the allocator's peak over the task's start, at least the tensor's bytes
+    (rounded up to the allocator's block) and no more than one block above."""
+    import torch
+
+    from cubed_tpu_torch.runtime import memory
+
+    nbytes = 48 * 2**20
+    with memory.scoped("observe", allowed_mem=10**12):
+        with memory.task_guard("k") as g:
+            t = torch.empty(nbytes // 8, dtype=torch.float64, device=cuda)
+            t.fill_(1.0)
+            del t
+    assert nbytes <= g.device_measured <= nbytes + 2 * 2**20
+    assert g.measured == max(g.device_measured, g.host_measured or 0)
+    assert memory.last_readings()["device"] == g.device_measured
+
+
+def test_the_peak_fold_survives_the_guards_reset(cuda):
+    """A compute-level peak reading (``memory.device_peaks``) still sees a
+    large allocation after a later guard reset the allocator's peak."""
+    import torch
+
+    from cubed_tpu_torch.runtime import memory
+
+    memory.reset_device_peaks()
+    base = torch.cuda.memory_allocated()  # what earlier tests still hold
+    big = 256 * 2**20
+    with memory.scoped("observe", allowed_mem=10**12):
+        with memory.task_guard("big"):
+            t = torch.empty(big // 8, dtype=torch.float64, device=cuda)
+            del t
+        with memory.task_guard("small"):  # resets the allocator's peak
+            s = torch.empty(1024, dtype=torch.float64, device=cuda)
+            del s
+    assert torch.cuda.max_memory_allocated() < base + big  # the reset happened
+    peaks = memory.device_peaks()
+    assert peaks["allocated"] >= base + big and peaks["reserved"] >= big
+
+
+def test_a_cuda_out_of_memory_classifies_resource(cuda):
+    import torch
+
+    from cubed_tpu_torch.runtime.resilience import Classification, RetryPolicy
+
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(1 << 50, dtype=torch.uint8, device=cuda)
+    assert RetryPolicy().classify(ei.value) is Classification.RESOURCE
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_no_guard_inside_a_capture_and_a_guarded_segment_replays(cuda, tmp_path):
+    """The guard refuses to run inside a capture; the device executor's
+    guard sits outside it, so a captured segment under the default observe
+    mode is captured and replayed, and every op's task event carries the
+    guard's allocator reading."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime import memory
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.types import Callback
+
+    with memory.scoped("observe", allowed_mem=10**12):
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        x = torch.zeros(16, device=cuda)
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(graph, stream=stream):
+                y = x + 1
+                with memory.task_guard("inside"):
+                    pass
+        del y
+    torch.cuda.synchronize()
+
+    class Peaks(Callback):
+        def __init__(self):
+            self.peaks = []
+
+        def on_task_end(self, event):
+            self.peaks.append(event.guard_mem_peak)
+
+    ex = CudaExecutor()
+    for i, seed in enumerate((31, 32, 33)):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / f"w{seed}"), allowed_mem="500MB")
+        a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+        peaks = Peaks()
+        value = float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=ex, callbacks=[peaks]))
+        assert np.isfinite(value)
+        assert peaks.peaks and all(p is not None and p >= 0 for p in peaks.peaks)
+        assert ex.stats["segments_compiled"] == (1 if i == 1 else 0)
+        assert ex.stats["segment_struct_hits"] == (1 if i == 2 else 0)
+
+
+def test_op_granular_resume_on_the_card(cuda, tmp_path):
+    """The to-Zarr product: with its store whole a resume skips the product
+    op (the random ops, which persisted nothing, run again); with one chunk
+    corrupt the scan quarantines it, the op re-runs, and the store verifies."""
+    import cubed_tpu_torch as ct
+    from cubed_tpu_torch.core.ops import _store_op
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    store = str(tmp_path / "product.zarr")
+    random.seed(41)
+    spec = ct.Spec(work_dir=str(tmp_path / "w"), allowed_mem="500MB")
+    a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+    out = _store_op(a[1:] * x[1:] + b[1:] * y[1:], store)
+    out.compute(executor=CudaExecutor())
+    expected = ct.from_zarr(store).compute()
+    ex = CudaExecutor()
+    out.compute(executor=ex, resume=True)
+    assert ex.stats["batched_ops"] == 4
+    with open(f"{store}/1.0.1", "r+b") as f:
+        f.seek(9)
+        byte = f.read(1)
+        f.seek(9)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    before = get_registry().snapshot()
+    ex = CudaExecutor()
+    out.compute(executor=ex, resume=True)
+    assert ex.stats["batched_ops"] == 5
+    assert get_registry().snapshot_delta(before).get("chunks_quarantined", 0) == 1
+    np.testing.assert_array_equal(ct.from_zarr(store).compute(), expected)
+    valid, corrupt, verified = ct.from_zarr(store).zarray.verify_chunks(quarantine=False)
+    assert verified and not corrupt

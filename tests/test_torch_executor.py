@@ -387,11 +387,24 @@ def test_residency_budget_defaults():
 
 
 def test_resume_is_not_ported(tmp_path):
+    # resume is ported now (op-granular on the device executor): a second
+    # run of a computed plan under resume=True skips the op whose persisted
+    # output verifies (the sum's last); the ops that only fed resident
+    # arrays persisted nothing and run again
     spec = cubed_tpu_torch.Spec(work_dir=str(tmp_path), allowed_mem="100MB")
     a = cubed_tpu_torch.from_array(_an((4, 4)), chunks=2, spec=spec)
-    plan = pxp.sum(a).plan._finalize()
-    with pytest.raises(NotImplementedError):
-        CudaExecutor().execute_dag(plan.dag, resume=True)
+    s = pxp.sum(a)
+    plan = s.plan._finalize(array_names=(s.name,))
+    ex = CudaExecutor()
+
+    def ops_run():
+        return sum(v for k, v in ex.stats.items() if k in ("eager_ops", "batched_ops", "chunked_ops"))
+
+    ex.execute_dag(plan.dag, array_names=(s.name,))
+    ran = ops_run()
+    ex.execute_dag(plan.dag, array_names=(s.name,), resume=True)
+    assert ops_run() == ran - 1
+    np.testing.assert_allclose(s.zarray[...], _an((4, 4)).sum(), rtol=1e-12)
 
 
 def test_task_end_events_partition_each_run_of_ops(tmp_path):
