@@ -14,7 +14,8 @@ at 4096 steps of the time axis; ``--zarr-stencil-phase`` the Zarr and
 stencils phase alone; ``--linalg-fft-phase`` the linear algebra and
 spectra phase alone, its summary JSON on its last line;
 ``--reliability-phase`` the memory guard and reliability phase alone, its
-summary JSON on its last line.)
+summary JSON on its last line; ``--threads-phase`` the threaded executor's
+phase alone, three timing rounds, its summary JSON on its last line.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -169,11 +170,13 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    computes in turns, COST_ROUNDS rounds, four ways (the executor alone, as
    ``compute()`` ran before the lifecycle; ``compute()`` unobserved; with a
    TraceCollector; with all four observers), with their medians. On the
-   sequential executor, vorticity with a TraceCollector: one task span per
-   task (921), storage and kernel sub-spans accounting for every chunk read
-   and written and every blockwise task, bytes and chunks written equal to
-   what the plan's outputs take as stored, the collector's own callback
-   time, and the wall clock beside phase 4's unobserved run;
+   sequential executor, vorticity at the spilled cut (the same 921 tasks)
+   with a TraceCollector: one task span per task, storage and kernel
+   sub-spans accounting for every chunk read and written and every
+   blockwise task, bytes and chunks written equal to what the plan's
+   outputs take as stored, the collector's own callback time, and the wall
+   clock beside the threads phase's unobserved sequential run of it (this
+   observed run ends the whole run, after the threads phase);
    Then the Array API phase: 22 ops (tests/test_mem_utilization.py's
    ``OPS`` that the port has, flip, roll, var, std, cumulative_sum,
    argmax, where, count_nonzero and an integer-array index) on two
@@ -293,11 +296,36 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    time, aborted at a boundary, and the next compute right; (7) the product
    written with integrity off, write, and write with a verified read-back,
    seconds and the host's CRC rate; (8) vorticity's warm (replayed) compute
-   with the guard off and observing, 20 each in turns, medians and
-   quartiles;
+   with the guard off and observing, 200 each in turns, medians and
+   quartiles; (9) each unit's guard reading, taken without a synchronize,
+   equal to the synchronized reading at the same points: vorticity's cold,
+   capturing and replayed computes, a matmul plan with every op eager (a
+   cuBLAS product), a unit freeing a block used on a side stream
+   (``record_stream``).
+   Then the threads phase, in a process of its own (``--threads-phase``),
+   ``AsyncPythonDagExecutor`` running every task through
+   ``execute_with_stats`` in a pool thread: (6, first) wall times in turns
+   on the spilled cut, the sequential executor against threads at 1, 4, 8
+   and 16 workers under the dataflow scheduler, every value and launch
+   count bit for bit the first sequential run's (alone three rounds; in the
+   whole run one round, and checks 2, 3 and 6 at the reliability phase's
+   cut (160, 160, 120) / 40, to stay near the run's 1050 s aim); (1) vorticity at full width on 8 threads under both
+   schedulers against the numpy oracle (rtol 1e-12), the per-block Philox,
+   region_sum and fma_sum launches equal to phase 4's sequential run's, and
+   tasks dispatched early under dataflow; (2) the cut under oplevel at 1, 4
+   and 8 workers, bit for bit the sequential's; (3) ``enforce`` at the
+   plan's bound on the cut: at one worker every task's device reading equal
+   to the synchronized reset-based one, at 8 every reading at least its
+   one-worker reading, admission stepping down, the value bit for bit; (4)
+   seeded storage and task faults with speculative backups at the
+   reliability phase's cut, the store bit for bit the fault-free one's; (5)
+   a journaled compute cancelled partway, resumed from its journal on
+   threads and on ``CudaExecutor``: each runs exactly the tasks (the ops)
+   not both journaled and verified;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
-   the sequential one op by op, timing each op kind; both with the
+   the sequential one op by op at the spilled cut, timing each op kind;
+   both with the
    device's busy time and idle share. Every profiling session opens with a
    sentinel kernel that is not counted: the profiler can drop a session's
    first kernel record. The device executor's profiled run is a replay of
@@ -330,6 +358,7 @@ import os
 import random
 import shutil
 import subprocess
+import threading
 import sys
 import time
 from typing import Optional
@@ -2558,11 +2587,12 @@ def plan_chunk_writes(plan) -> tuple[int, int, int]:
     return chunks, nbytes, tasks
 
 
-def run_sequential_observed(torch, unobserved_seconds: float) -> float:
-    """Vorticity on the sequential executor with a TraceCollector: one task
-    span per task, storage sub-spans, and the bytes and chunks written
-    worked out from the plan; its wall clock beside phase 4's unobserved
-    run's."""
+def run_sequential_observed(torch, unobserved_seconds: float, config) -> float:
+    """Vorticity on the sequential executor with a TraceCollector, at the
+    threads phase's cut (*config*): one task span per task, storage
+    sub-spans, and the bytes and chunks written worked out from the plan;
+    its wall clock beside the threads phase's unobserved sequential run of
+    the same plan."""
     import cubed_tpu_torch
     from cubed_tpu_torch.observability import TraceCollector
 
@@ -2584,7 +2614,7 @@ def run_sequential_observed(torch, unobserved_seconds: float) -> float:
     work = os.path.join(WORK_DIR, "vorticity-sequential-observed")
     spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
     random.seed(SEED)
-    x = vorticity_build(spec)
+    x = vorticity_build(spec, config)
     plan = x.plan._finalize(array_names=(x.name,))
     col = TimedCollector(trace_dir=os.path.join(work, "trace"))
     t = time.perf_counter()
@@ -2601,9 +2631,10 @@ def run_sequential_observed(torch, unobserved_seconds: float) -> float:
              for name in ("storage_read", "storage_write", "kernel_apply")}
     task_spans = sum(e.get("cat") == "task" for e in merged)
     chunks, nbytes, kernel_tasks = plan_chunk_writes(plan)
-    expected = ORACLES["vorticity", SEED]
+    expected = cached_oracle(f"vorticity {config['shape']}", lambda: vorticity_oracle(config), SEED)
     rel = abs(value - expected) / abs(expected)
-    print(f"{label}: compute() {seconds:.3f} s with a TraceCollector, unobserved (phase 4) "
+    print(f"{label} {config['shape']} / {config['chunks']}: compute() {seconds:.3f} s with a TraceCollector, "
+          f"unobserved (the threads phase's first sequential run) "
           f"{unobserved_seconds:.3f} s ({100 * (seconds / unobserved_seconds - 1):+.2f}%), the collector's "
           f"callbacks {col.seconds:.3f} s ({100 * col.seconds / seconds:.2f}% of the run); value {value!r}, "
           f"rel err {rel:.3e}; {task_spans} task spans (plan {plan.num_tasks()}), sub-spans {json.dumps(spans)}, "
@@ -2611,7 +2642,7 @@ def run_sequential_observed(torch, unobserved_seconds: float) -> float:
           f"chunks_written {es['chunks_written']} (plan {chunks}), bytes_read {es['bytes_read']}, chunks_read "
           f"{es['chunks_read']}; merged trace {len(merged)} events, loaded in {load_s:.2f} s; {smi_tag()}")
     check(rel <= 1e-12, f"{label}: value differs from the numpy oracle beyond rtol 1e-12")
-    check(task_spans == plan.num_tasks() == es["tasks_completed"] == 921,
+    check(task_spans == plan.num_tasks() == es["tasks_completed"],
           f"{label}: {task_spans} task spans, {es['tasks_completed']} tasks completed, plan {plan.num_tasks()}")
     check((es["bytes_written"], es["chunks_written"]) == (nbytes, chunks),
           f"{label}: wrote {es['bytes_written']} B in {es['chunks_written']} chunks, plan {nbytes} B in {chunks}")
@@ -3704,7 +3735,7 @@ def linalg_fft_in_fresh_process() -> dict:
 RELIABILITY = dict(full=VORTICITY, seq=dict(shape=(160, 160, 120), chunks=40), allowed_mem="2GB", seed=SEED + 15,
                    faults=dict(seed=15, storage_write_failure_rate=0.1, storage_write_leaves_tmp=True,
                                storage_corrupt_rate=0.05, task_failure_rate=0.05),
-                   names=915_000_000, cancel_after=37, guard_turns=20)
+                   names=915_000_000, cancel_after=37, guard_turns=200)
 
 
 def product_build(spec, config):
@@ -4113,8 +4144,9 @@ def reliability_store_checks(torch, config, work, timings) -> dict:
 
 
 def reliability_device_checks(torch, config, work, timings, launches) -> dict:
-    """Checks 6-8 on the device executor at full width: resume and
-    cancellation, what checksums cost, what the guard costs."""
+    """Checks 6-9 on the device executor at full width: resume and
+    cancellation, what checksums cost, what the guard costs, and the
+    guard's reading without a synchronize against the synchronized one."""
     import zlib
 
     import cubed_tpu_torch
@@ -4319,6 +4351,57 @@ def reliability_device_checks(torch, config, work, timings, launches) -> dict:
     out["guard_cost"] = dict(seconds=seconds, quartiles_ms={m: [x * 1e3 for x in v] for m, v in q.items()},
                              diff_ms=diff * 1e3, limit_ms=limit * 1e3)
     timings["8"] = seconds
+
+    # 9. the guard reads the allocator without synchronizing: each unit's
+    # reading against the synchronized reading at the same points, for
+    # every kind of unit: vorticity's cold (op by op), capturing and
+    # replayed computes, a matmul plan's ops each eager (a cuBLAS product
+    # in each), and a unit that frees a block used on a side stream
+    # (record_stream) before it allocates another
+    t0 = time.perf_counter()
+    units: dict = {}
+    cuda_module._SEEN.clear()
+    cuda_module._GRAPHS.shrink(dev, 0)
+    ex = CudaExecutor()
+    for i, kind in enumerate(("cold", "capturing", "replayed")):
+        with guard_readings(torch) as rows:
+            vorticity(config["seed"] + 20 + i).compute(executor=ex)
+        units[kind] = rows
+        check(ex.stats.get("segments_compiled", 0) == (kind == "capturing")
+              and ex.stats.get("segment_struct_hits", 0) == (kind == "replayed"),
+              f"reliability 9: the {kind} compute's segment counters {dict(ex.stats)}")
+    random.seed(config["seed"])
+    product = matmul_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem=config["allowed_mem"]))
+    with guard_readings(torch) as rows:
+        product.compute(executor=CudaExecutor(fuse_plan=False))
+    units["eager, cuBLAS"] = rows
+    nbytes = 64 * 2**20
+    with memory.scoped("observe", allowed_mem=10**12), guard_readings(torch) as rows:
+        with memory.task_guard("record_stream", observe_only=True):
+            x = torch.ones(nbytes // 8, dtype=torch.float64, device=dev)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                y = x * 2.0
+                for _ in range(50):
+                    y.mul_(1.0)
+            x.record_stream(side)
+            del x
+            z = torch.full((nbytes // 8,), 3.0, dtype=torch.float64, device=dev)
+            del z
+            torch.cuda.current_stream().wait_stream(side)
+            del y
+    units["record_stream"] = rows
+    for kind, rows in units.items():
+        same = sum(r == synced and base for _, r, synced, base in rows)
+        print(f"reliability 9 (the guard's reading without a synchronize, cuda, {kind}): {len(rows)} unit(s) "
+              + ", ".join(f"{key[:40]} {r} B" for key, r, _, _ in rows[:4]) + f"; equal to the synchronized "
+              f"reading at the same points in {same} of {len(rows)}")
+        check(rows and same == len(rows), f"reliability 9 ({kind}): readings differ: "
+              f"{[row for row in rows if row[1] != row[2] or not row[3]][:3]}")
+    seconds = time.perf_counter() - t0
+    out["unsynced_readings"] = {k: len(v) for k, v in units.items()}
+    timings["9"] = seconds
     return out
 
 
@@ -4353,6 +4436,415 @@ def reliability_in_fresh_process() -> dict:
     lines = proc.stdout.strip().splitlines()
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
     check(proc.returncode == 0, f"reliability phase: its process failed:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
+# the threaded executor: AsyncPythonDagExecutor with the chunk-level dataflow
+# scheduler, speculative backups and the compute journal
+# ---------------------------------------------------------------------------
+
+#: the threads phase, in a process of its own (``--threads-phase``):
+#: vorticity at full width (config 5) and at the spilled cut (200, 180, 160)
+#: / 40, where each of 921 tasks takes about 9 ms of fsync'd writes; the
+#: chaos and journal checks at the reliability phase's sequential cut (160,
+#: 160, 120) / 40 (447 tasks). ``rounds`` is check 6's timing rounds. Alone
+#: the phase takes 3 rounds at the spilled cut; the whole run
+#: (``THREADS_WHOLE_RUN``) takes 1 round, and checks 2, 3 and 6 at the
+#: smaller cut, to stay near its 1050 s aim (PERF.md §5)
+THREADS = dict(full=VORTICITY, cut=SPILL, small=RELIABILITY["seq"], allowed_mem="2GB", seed=SEED,
+               workers=(1, 4, 8), timing_workers=(1, 4, 8, 16), rounds=3, full_workers=8, names=916_000_000,
+               faults=dict(seed=16, storage_write_failure_rate=0.05, storage_write_leaves_tmp=True,
+                           task_failure_rate=0.05, straggler_rate=0.02, straggler_delay_s=1.0),
+               cancel_after=12)
+THREADS_WHOLE_RUN = dict(rounds=1, cut=RELIABILITY["seq"])
+#: the kernels whose launches the threads phase counts (their per-block and
+#: chunked routes: the threaded executor runs each task's block function)
+THREADS_LAUNCHES = ("philox_uniform", "philox_uniform:block", "region_sum", "fma_sum_blocks")
+
+
+class StatsCapture:
+    """The compute's ``executor_stats``, kept at its end."""
+
+    stats: dict = {}
+
+    def on_compute_end(self, event):
+        self.stats = event.executor_stats or {}
+
+
+def counted_compute(torch, arr, executor, callbacks=(), **kwargs) -> tuple:
+    """``arr.compute(executor=...)`` with every kernel's count set to 0 just
+    before and read just after: (value, seconds, launches, executor_stats)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+        for k in w.paths:
+            w.paths[k] = 0
+    cap = StatsCapture()
+    t = time.perf_counter()
+    value = arr.compute(executor=executor, callbacks=[cap, *callbacks], **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["philox_uniform:block"] = wrappers["philox_uniform"].paths["block"]
+    return value, seconds, {k: launches[k] for k in THREADS_LAUNCHES}, cap.stats
+
+
+def threads_executor(workers: int, **kw):
+    from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
+
+    return AsyncPythonDagExecutor(max_workers=workers, **kw)
+
+
+def vorticity_arr(config, work, seed, **spec_kw):
+    import cubed_tpu_torch
+
+    random.seed(seed)
+    spec = cubed_tpu_torch.Spec(work_dir=work, **dict(dict(allowed_mem="2GB"), **spec_kw))
+    return vorticity_build(spec, config)
+
+
+@contextlib.contextmanager
+def guard_readings(torch):
+    """While active, each guarded task's or unit's device reading (taken
+    without a synchronization) is recorded with the synchronized reading at
+    the same points: at entry, a synchronize and the bytes allocated; at
+    exit, a synchronize and the allocator's peak less that start (the peak
+    statistics having been reset where the unit's window opened, as they
+    were at every task when the guard reset at each). Yields a list of
+    ``(key, reading, synced, base_equal)``, in the order the units ended."""
+    from cubed_tpu_torch.runtime import memory
+
+    start_inner, end_inner = memory._start_device_reading, memory._end_device_reading
+    exit_inner = memory.task_guard.__exit__
+    local = threading.local()
+    rows: list = []
+    rows_lock = threading.Lock()
+
+    def start(dev):
+        base = start_inner(dev)
+        torch.cuda.synchronize(dev)
+        local.synced_start = torch.cuda.memory_allocated(dev)
+        local.base = base
+        return base
+
+    def end(dev, base):
+        reading = end_inner(dev, base)
+        torch.cuda.synchronize(dev)
+        local.synced = torch.cuda.max_memory_allocated(dev) - local.synced_start
+        return reading
+
+    def exit_(self, *exc):
+        try:
+            return exit_inner(self, *exc)
+        finally:
+            if self.device_measured is not None:
+                with rows_lock:
+                    rows.append((self._key, self.device_measured, local.synced,
+                                 local.base == local.synced_start))
+
+    memory._start_device_reading, memory._end_device_reading = start, end
+    memory.task_guard.__exit__ = exit_
+    try:
+        yield rows
+    finally:
+        memory._start_device_reading, memory._end_device_reading = start_inner, end_inner
+        memory.task_guard.__exit__ = exit_inner
+
+
+def journal_frontier(arr, path: str, op_granular: bool = False) -> dict:
+    """What a resume of *arr* from the journal at *path* must run: op ->
+    tasks, for every op whose tasks are not all both journaled complete and
+    verified on disk (each output chunk read back against the checksum
+    manifest); op-granular, an op runs whole or not at all. Computed from
+    the journal file and the stores, apart from the executors' resume."""
+    from cubed_tpu_torch.core.plan import iter_op_nodes
+    from cubed_tpu_torch.runtime.journal import load_journal
+    from cubed_tpu_torch.runtime.pipeline import _task_chunk_key
+    from cubed_tpu_torch.runtime.utils import chunk_key
+    from cubed_tpu_torch.storage.store import open_zarr_array
+
+    completed = load_journal(path)["completed"]
+    dag = arr.plan._finalize(optimize_graph=False, array_names=(arr.name,)).dag
+    out = {}
+    for name, node in iter_op_nodes(dag):
+        op = node["primitive_op"]
+        if name == "create-arrays":
+            out[name] = op.num_tasks
+            continue
+        valid = set()
+        try:
+            valid, _corrupt, _verified = open_zarr_array(op.target_array.store, mode="r").verify_chunks(
+                quarantine=False, count=False)
+        except FileNotFoundError:
+            pass
+        pending = [m for m in op.pipeline.mappable
+                   if not ((name, chunk_key(m)) in completed and _task_chunk_key(m) in valid)]
+        if pending:
+            out[name] = op.num_tasks if op_granular else len(pending)
+    return out
+
+
+def threads_values(torch, config, work, timings, sequential_full, out) -> dict:
+    """Checks 1 and 2: values, launches and overlap on both schedulers
+    (after check 6, whose first run is the spilled cut's sequential one)."""
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+
+    full, cut = config["full"], config["cut"]
+    # 1. full width on 8 threads, both schedulers: the oracle at rtol 1e-12,
+    # the launches the sequential executor's on the same plan
+    t0 = time.perf_counter()
+    expected = cached_oracle(f"vorticity {full['shape']}", lambda: vorticity_oracle(full), config["seed"])
+    if sequential_full is None:
+        value, seconds, sequential_full, _ = counted_compute(
+            torch, vorticity_arr(full, work, config["seed"]), PythonDagExecutor())
+        print(f"threads 1: the sequential executor's launches on the full-width plan {json.dumps(sequential_full)} "
+              f"({seconds:.3f} s)")
+    runs = {}
+    for mode in ("dataflow", "oplevel"):
+        arr = vorticity_arr(full, work, config["seed"], scheduler=mode)
+        value, seconds, launches, stats = counted_compute(torch, arr, threads_executor(config["full_workers"]))
+        rel = abs(float(value) - expected) / abs(expected)
+        early = stats.get("tasks_dispatched_early", 0)
+        print(f"threads 1 ({mode}, {config['full_workers']} workers) {full['shape']} / {full['chunks']}: "
+              f"{seconds:.3f} s; rel err {rel:.3e}; launches {json.dumps(launches)} (sequential "
+              f"{json.dumps(sequential_full)}); tasks {stats.get('tasks_completed', 0)}, dispatched early {early}, "
+              f"op barrier waits {stats.get('op_barrier_waits', 0)}; {smi_tag()}")
+        check(rel <= 1e-12, f"threads 1 ({mode}): rel err {rel}")
+        check(launches == sequential_full, f"threads 1 ({mode}): launches {launches}, sequential {sequential_full}")
+        check(mode == "oplevel" or early > 0, "threads 1: no task dispatched early under dataflow")
+        runs[mode] = dict(seconds=seconds, rel=rel, launches=launches, early=early)
+    out["full"] = dict(runs, sequential_launches=sequential_full)
+    timings["1"] = time.perf_counter() - t0
+
+    # 2. the spilled cut, bitwise against the sequential executor (check
+    # 6's first run) at 1, 4 and 8 workers on both schedulers: check 6's
+    # dataflow runs, and here the oplevel ones
+    t0 = time.perf_counter()
+    value, launches = out["cut_sequential"]["value"], out["cut_sequential"]["launches"]
+    for workers in config["workers"]:
+        v, s, lc, _ = counted_compute(torch, vorticity_arr(cut, work, config["seed"], scheduler="oplevel"),
+                                      threads_executor(workers))
+        same = float(v).hex() == value
+        print(f"threads 2 (oplevel, {workers} workers) {cut['shape']} / {cut['chunks']}: {s:.3f} s; "
+              f"{float(v).hex()} against the sequential {value}: {'equal' if same else 'DIFFERENT'}; "
+              f"launches {json.dumps(lc)}")
+        check(same and lc == launches, f"threads 2 (oplevel, {workers}): value or launches differ")
+    timings["2"] = time.perf_counter() - t0
+    return out
+
+
+def threads_guard(torch, config, work, timings, sequential_value: str) -> dict:
+    """Check 3: the guard at the plan's bound under enforce, at 1 and 8
+    workers, each value bit for bit the sequential executor's."""
+    from cubed_tpu_torch.runtime.resilience import RetryPolicy
+
+    t0 = time.perf_counter()
+    cut = config["cut"]
+    bound = vorticity_arr(cut, work, config["seed"]).plan.max_projected_mem()
+    arr = vorticity_arr(cut, work, config["seed"], allowed_mem=bound, reserved_mem=0, memory_guard="enforce")
+    readings, out = {}, {}
+    for workers in (1, 8):
+        with guard_readings(torch) as rows:
+            value, seconds, _, stats = counted_compute(
+                torch, arr, threads_executor(workers, retry_policy=RetryPolicy(retries=10, backoff_base=0.0, seed=0)))
+        last = {}
+        for key, reading, synced, base_equal in rows:
+            last[key] = (reading, synced, base_equal)
+        readings[workers] = last
+        counters = {k: stats.get(k, 0) for k in ("tasks_throttled", "mem_pressure_stepdowns",
+                                                 "mem_guard_hard_exceeded", "task_retries", "tasks_completed")}
+        equal = sum(r == s and b for r, s, b in last.values())
+        print(f"threads 3 (enforce at the plan's bound {bound} B, {workers} workers) {cut['shape']} / "
+              f"{cut['chunks']}: {seconds:.3f} s; {len(rows)} guarded attempts, {len(last)} tasks; readings equal "
+              f"to the synchronized reading at the same points in {equal} of {len(last)}; largest "
+              f"{max(r for r, _, _ in last.values())} B; {json.dumps(counters)}; {smi_tag()}")
+        check(float(value).hex() == sequential_value, f"threads 3 ({workers}): the value differs")
+        if workers == 1:
+            check(equal == len(last), "threads 3: at one worker a reading differs from the reset-based one")
+        out[workers] = dict(seconds=seconds, tasks=len(last), equal=equal, **counters)
+    below = [k for k, (r, _, _) in readings[8].items() if r < readings[1][k][0]]
+    higher = sum(r > readings[1][k][0] for k, (r, _, _) in readings[8].items())
+    print(f"threads 3: at 8 workers {higher} of {len(readings[8])} readings above their one-worker reading, "
+          f"{len(below)} below")
+    check(set(readings[8]) == set(readings[1]) and not below,
+          f"threads 3: readings below their one-worker reading: {below[:4]}")
+    out["above_one_worker"] = higher
+    timings["3"] = time.perf_counter() - t0
+    return out
+
+
+def threads_chaos(torch, config, work, timings) -> dict:
+    """Check 4: seeded storage and task faults with speculative backups;
+    the store bit for bit the fault-free one's."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.core.array import execute
+    from cubed_tpu_torch.core.ops import _store_op
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime import faults
+    from cubed_tpu_torch.runtime.faults import FaultConfig
+    from cubed_tpu_torch.runtime.resilience import RetryPolicy
+
+    t0 = time.perf_counter()
+    cut = config["small"]
+    clean = os.path.join(work, "clean.zarr")
+    random.seed(config["seed"])
+    cubed_tpu_torch.to_zarr(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"), cut), clean,
+                            executor=threads_executor(8))
+    chaos = os.path.join(work, "chaos.zarr")
+    random.seed(config["seed"])
+    with pinned_names(config["names"]):
+        out_arr = _store_op(product_build(cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB", integrity="verify"),
+                                          cut), chaos)
+    executor = threads_executor(8, use_backups=True, retry_policy=RetryPolicy(retries=6, backoff_base=0.0, seed=0))
+    before = get_registry().snapshot()
+    with faults.scoped(FaultConfig(**config["faults"])):
+        execute(out_arr, executor=executor, optimize_graph=False)
+    # nothing reads the output store in the compute: a resume with the
+    # faults disarmed verifies it
+    repaired = OpTasks()
+    execute(out_arr, executor=executor, optimize_graph=False, resume=True, callbacks=[repaired])
+    delta = get_registry().snapshot_delta(before)
+    counters = {k: delta.get(k, 0) for k in ("faults_injected", "faults_injected_storage_write",
+                                              "faults_injected_task", "faults_injected_straggler", "task_retries",
+                                              "speculative_backups", "tasks_dispatched_early",
+                                              "tasks_skipped_resume")}
+    same = np.array_equal(read_store(chaos).view(np.uint64), read_store(clean).view(np.uint64))
+    seconds = time.perf_counter() - t0
+    print(f"threads 4 (chaos, 8 workers, backups, verify, retries=6) {cut['shape']} / {cut['chunks']}: "
+          f"{seconds:.3f} s; {json.dumps(counters)}; the resume ran {json.dumps(dict(repaired.by_op))}; the store "
+          f"{'equals' if same else 'DIFFERS FROM'} the fault-free one bit for bit; {smi_tag()}")
+    check(same, "threads 4: the chaos store differs from the fault-free store")
+    for k in ("faults_injected", "task_retries", "speculative_backups"):
+        check(counters[k] > 0, f"threads 4: {k} is {counters[k]}")
+    timings["4"] = seconds
+    return dict(seconds=seconds, **counters)
+
+
+def threads_journal(torch, config, work, timings) -> dict:
+    """Check 5: a journaled compute cancelled partway, resumed from its
+    journal on threads (chunk-granular) and on ``CudaExecutor``
+    (op-granular)."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.core.array import execute
+    from cubed_tpu_torch.core.ops import _store_op
+    from cubed_tpu_torch.runtime.cancellation import CancellationToken, ComputeCancelledError
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+
+    t0 = time.perf_counter()
+    cut = config["small"]
+    random.seed(config["seed"])
+    expected = product_oracle(cut)
+    out = {}
+    for name in ("threads", "cuda"):
+        store = os.path.join(work, f"journal-{name}.zarr")
+        path = os.path.join(work, f"{name}.journal.jsonl")
+        random.seed(config["seed"])
+        arr = _store_op(product_build(cubed_tpu_torch.Spec(work_dir=os.path.join(work, name), allowed_mem="2GB",
+                                                           journal=path), cut), store)
+        op, _tasks, _create = store_writer(arr, store)
+        token = CancellationToken()
+        try:
+            execute(arr, executor=threads_executor(8), optimize_graph=False, cancellation=token,
+                    callbacks=[CancelAfter(token, op, config["cancel_after"])])
+            raise PhaseFailed("threads 5: the cancelled compute did not raise")
+        except ComputeCancelledError:
+            pass
+        frontier = journal_frontier(arr, path, op_granular=name == "cuda")
+        ran = OpTasks()
+        execute(arr, executor=threads_executor(8) if name == "threads" else CudaExecutor(), optimize_graph=False,
+                resume_from_journal=path, callbacks=[ran])
+        compare_to_oracle(f"threads 5 [{name}]", read_store(store), expected, "exact")
+        print(f"threads 5 (journal, cancelled after {config['cancel_after']} tasks of {op}, resumed on {name}): "
+              f"the resume ran {json.dumps(dict(ran.by_op))}; not both journaled and verified "
+              f"{json.dumps(frontier)}")
+        check(dict(ran.by_op) == frontier, f"threads 5 ({name}): the resume ran {dict(ran.by_op)}, "
+              f"the frontier {frontier}")
+        out[name] = dict(ran=sum(ran.by_op.values()), ops=len(ran.by_op))
+    timings["5"] = time.perf_counter() - t0
+    return out
+
+
+def threads_timings(torch, config, work, timings) -> dict:
+    """Check 6: wall times in turns, ``rounds`` rounds: the sequential
+    executor against threads (dataflow) at 1, 4, 8 and 16 workers on the
+    spilled cut, each value and its launches bit for bit the first
+    sequential run's (check 2's dataflow runs); and threads at 8 workers at
+    full width, whose last round check 1 takes. Returns the times and that
+    first sequential run."""
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+
+    t0 = time.perf_counter()
+    cut, full = config["cut"], config["full"]
+    arr = vorticity_arr(cut, work, config["seed"])
+    settings = ["sequential"] + [f"threads {w}" for w in config["timing_workers"]]
+    times = {s: [] for s in settings}
+    sequential = None
+    for r in range(config["rounds"]):
+        for setting in (settings if r % 2 == 0 else list(reversed(settings))):
+            executor = PythonDagExecutor() if setting == "sequential" else threads_executor(int(setting.split()[1]))
+            value, seconds, launches, _ = counted_compute(torch, arr, executor)
+            times[setting].append(seconds)
+            if sequential is None:
+                sequential = dict(value=float(value).hex(), launches=launches)
+            check(float(value).hex() == sequential["value"] and launches == sequential["launches"],
+                  f"threads 2 ({setting}, dataflow): value {float(value).hex()} or launches {launches} differ "
+                  f"from the sequential {sequential['value']}, {sequential['launches']}")
+    full_arr = vorticity_arr(full, work, config["seed"])
+    times["threads 8, full width"] = [counted_compute(torch, full_arr, threads_executor(8))[1]
+                                      for _ in range(config["rounds"] - 1)]
+    timings["6"] = time.perf_counter() - t0
+    return dict(times=times, sequential=sequential)
+
+
+def print_threads_timings(config, times: dict) -> dict:
+    cut, full = config["cut"], config["full"]
+    for setting, v in times.items():
+        where = full if "full" in setting else cut
+        print(f"threads 6 ({setting}) {where['shape']} / {where['chunks']}: "
+              + ", ".join(f"{x:.3f}" for x in v) + f" s (median {float(np.median(v)):.3f}); {smi_tag()}")
+    return {k: [float(x) for x in v] for k, v in times.items()}
+
+
+def run_threads_phase(torch, config=THREADS, sequential_full=None) -> dict:
+    """The threads phase (see the module docstring); returns its numbers,
+    printed as they come."""
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "threads")
+    timings: dict = {}
+    out = {}
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        six = threads_timings(torch, config, work, timings)
+        out["cut_sequential"] = dict(six["sequential"], seconds=six["times"]["sequential"][0])
+        threads_values(torch, config, work, timings, sequential_full, out)
+        six["times"]["threads 8, full width"].append(out["full"]["dataflow"]["seconds"])
+        out["timings_s"] = print_threads_timings(config, six["times"])
+        shutil.rmtree(work, ignore_errors=True)
+        out["guard"] = threads_guard(torch, config, work, timings, out["cut_sequential"]["value"])
+        shutil.rmtree(work, ignore_errors=True)
+        out["chaos"] = threads_chaos(torch, config, work, timings)
+        shutil.rmtree(work, ignore_errors=True)
+        out["journal"] = threads_journal(torch, config, work, timings)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    print(f"threads phase: {seconds:.1f} s (" + ", ".join(f"check {k} {v:.1f} s" for k, v in sorted(timings.items()))
+          + f"); launches at full width {json.dumps(out['full']['dataflow']['launches'])}; {smi_tag()}")
+    return dict(out, seconds=seconds, timings=timings, launches=out["full"]["dataflow"]["launches"])
+
+
+def threads_in_fresh_process(sequential_full: dict, **cuts) -> dict:
+    """The threads phase in a fresh process (``--threads-phase``), given the
+    sequential executor's launches on the full-width plan and the whole
+    run's cuts (``rounds``, ``cut``); its output passed on; returns its
+    summary (its last line)."""
+    args = [sys.executable, os.path.abspath(__file__), "--threads-phase",
+            json.dumps(dict(cuts, sequential=sequential_full))]
+    proc = subprocess.run(args, capture_output=True, text=True, timeout=600, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"threads phase: its process failed:\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1])
 
 
@@ -5449,12 +5941,14 @@ def main(argv: list) -> int:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
+    elif argv[:1] == ["--threads-phase"] and len(argv) <= 2:
+        pass
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
                                ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"],
                                ["--reliability-phase"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
-              "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase]", file=sys.stderr)
+              "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5524,6 +6018,22 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             print(json.dumps(run_reliability_phase(torch)))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv[:1] == ["--threads-phase"]:
+        # the threads phase alone, its summary the last line; the full run
+        # passes its sequential executor's launches on vorticity's plan
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            given = json.loads(argv[1]) if argv[1:] else {}
+            config = dict(THREADS, **{k: given[k] for k in ("rounds", "cut") if k in given})
+            config["cut"] = dict(config["cut"], shape=tuple(config["cut"]["shape"]))
+            print(json.dumps(run_threads_phase(torch, config, sequential_full=given.get("sequential"))))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -5674,14 +6184,22 @@ def main(argv: list) -> int:
         reliability = reliability_in_fresh_process()
         print(f"reliability phase summary: {reliability['seconds']:.1f} s; launches {json.dumps(reliability['launches'])}; "
               f"checks {json.dumps({k: round(v, 3) for k, v in reliability['timings'].items()})}")
+        # the threaded executor, in a process of its own, its full-width
+        # launches held to the sequential executor's above
+        threads = threads_in_fresh_process(dict(
+            sequential["launches"], **{"philox_uniform:block": sequential["paths"]["philox_uniform"].get("block", 0)}),
+            **THREADS_WHOLE_RUN)
+        print(f"threads phase summary: {threads['seconds']:.1f} s; launches at full width "
+              f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
-        run_sequential_observed(torch, sequential["seconds"])
+        run_sequential_observed(torch, threads["cut_sequential"]["seconds"], THREADS_WHOLE_RUN["cut"])
         breakdown_device(torch, "vorticity", vorticity_build)
         # where a rechunk's device compute goes: its output is (450, 400) in
         # 100 chunks, written to storage and read back
         breakdown_device_ops(torch, "rechunk-2GB", rechunk_build)
-        breakdown(torch, "vorticity", vorticity_build)
+        # the sequential executor op by op, at the threads phase's cut
+        breakdown(torch, "vorticity-cut", lambda spec: vorticity_build(spec, THREADS_WHOLE_RUN["cut"]))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

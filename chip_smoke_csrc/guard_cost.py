@@ -4,10 +4,12 @@ the sequential executor.
 Times vorticity's warm (replayed) compute on ``CudaExecutor`` at full width
 ((500, 450, 400) / 100, as ``chip_smoke.py --reliability-phase`` check 8
 does), in turns, under five settings of the guard: off; observe (the
-default); observe without the RSS sampler thread; observe without the
-guard's two synchronizations (the allocator read as it is); observe without
-any host (RSS) reading. Each setting is the same plan shape, so every
-compute after the first two replays the same captured graph.
+default: the allocator read without synchronizing, an observe-only unit's
+RSS read at its entry and exit); observe with a synchronize before each of
+the allocator's reads (as the guard read it before); observe with the RSS
+sampler running for observe-only units too; and observe with both, the
+guard as it was. Each setting is the same plan shape, so every compute
+after the first two replays the same captured graph.
 
 With ``--sequential``: vorticity on the sequential executor at chip_smoke's
 spilled cut ((200, 180, 160) / 40: 921 tasks, each writing its chunks
@@ -41,15 +43,28 @@ TURNS = 30
 SEQUENTIAL_ROUNDS = 2
 
 
-def no_sync_start(memory, dev):
-    stats = memory._allocator_stats(dev)
-    memory._fold(dev, stats)
-    torch.cuda.reset_peak_memory_stats(dev)
-    return stats["allocated"]["current"]
+def synced(memory, name):
+    """The guard's allocator read *name*, a synchronize before it."""
+    inner = getattr(memory, name)
+
+    def read(dev, *args):
+        torch.cuda.synchronize(dev)
+        return inner(dev, *args)
+
+    return read
 
 
-def no_sync_end(memory, dev, start):
-    return max(0, memory._allocator_stats(dev)["allocated"]["peak"] - start)
+def sampled_guard(memory):
+    """The guard as a retryable task's: its unit registered with the RSS
+    sampler (the device executor's units are observe-only, which read RSS at
+    entry and exit alone). Under ``observe`` at allowed_mem 2GB nothing is
+    judged over the budget either way."""
+
+    class Sampled(memory.task_guard):
+        def __init__(self, key: str = "", injected_bytes: int = 0, observe_only: bool = False):
+            super().__init__(key, injected_bytes, observe_only=False)
+
+    return Sampled
 
 
 def sequential(card: str) -> dict:
@@ -89,6 +104,7 @@ def main(argv: list) -> int:
     import cubed_tpu_torch
     from cubed_tpu_torch.kernels import _build
     from cubed_tpu_torch.runtime import memory
+    from cubed_tpu_torch.runtime.executors import cuda as cuda_module
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
     _build.build_all()
@@ -96,15 +112,15 @@ def main(argv: list) -> int:
     if argv == ["--sequential"]:
         print(json.dumps(sequential(card)))
         return 0
+    sync = {"_start_device_reading": synced(memory, "_start_device_reading"),
+            "_end_device_reading": synced(memory, "_end_device_reading")}
+    sampled = {"task_guard": sampled_guard(memory)}
     settings = {
         "off": ("off", {}),
         "observe": ("observe", {}),
-        "observe, no sampler": ("observe", {"_ensure_sampler": lambda: None}),
-        "observe, no synchronize": ("observe", {
-            "_start_device_reading": lambda dev: no_sync_start(memory, dev),
-            "_end_device_reading": lambda dev, start: no_sync_end(memory, dev, start)}),
-        "observe, no host reading": ("observe", {"_read_rss": lambda max_age_s=0.0: None,
-                                                 "_ensure_sampler": lambda: None}),
+        "observe, synchronized reads": ("observe", sync),
+        "observe, sampled": ("observe", sampled),
+        "observe, synchronized reads and sampled (the guard before)": ("observe", dict(sync, **sampled)),
     }
     work = os.path.join(cs.WORK_DIR, "guard-cost")
     arrays = {}
@@ -121,10 +137,11 @@ def main(argv: list) -> int:
         for i in range(TURNS):
             for name in (list(settings) if i % 2 == 0 else list(reversed(list(settings)))):
                 patches = settings[name][1]
-                saved = {k: getattr(memory, k) for k in patches}
+                owners = {k: cuda_module if k == "task_guard" else memory for k in patches}
+                saved = {k: getattr(owners[k], k) for k in patches}
                 for k, v in patches.items():
-                    setattr(memory, k, v)
-                if "_ensure_sampler" in patches:
+                    setattr(owners[k], k, v)
+                if "task_guard" not in patches:
                     memory.stop_sampler()
                 try:
                     t = time.perf_counter()
@@ -133,7 +150,7 @@ def main(argv: list) -> int:
                     times[name].append(time.perf_counter() - t)
                 finally:
                     for k, v in saved.items():
-                        setattr(memory, k, v)
+                        setattr(owners[k], k, v)
                 if ex.stats.get("segment_struct_hits", 0) != 1:
                     print(f"guard_cost: a compute under {name} did not replay", file=sys.stderr)
                     return 1

@@ -126,7 +126,8 @@ def compute(*arrays, executor=None, callbacks=None, optimize_graph: bool = True,
     ``multiple_inputs_optimize_dag``) unless *optimize_graph* is false. The
     chunk device is resolved first, so a missing card fails here, before any
     task runs (``backend_array_api.get_device``). ``resume``,
-    ``deadline_s`` and ``cancellation`` go to ``Plan.execute``."""
+    ``resume_from_journal``, ``deadline_s`` and ``cancellation`` go to
+    ``Plan.execute``."""
     if not arrays:
         return []
     execute(*arrays, executor=executor, callbacks=callbacks, optimize_graph=optimize_graph,

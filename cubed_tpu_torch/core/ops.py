@@ -166,7 +166,7 @@ def _check_storage_options(storage_options) -> None:
     if storage_options:
         raise NotImplementedError(
             "storage_options are for remote (fsspec) stores, which cubed_tpu_torch does not have yet "
-            "(ROADMAP.md Queue 1 item 10); its stores are local directories"
+            "(ROADMAP.md Queue 1 item 11c); its stores are local directories"
         )
 
 

@@ -220,7 +220,7 @@ class Plan:
     def execute(
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
         optimize_function=None, resume: Optional[bool] = None, deadline_s: Optional[float] = None,
-        cancellation=None, **kwargs,
+        cancellation=None, resume_from_journal: Optional[str] = None, **kwargs,
     ) -> None:
         """Finalize the plan and run it on *executor* (default: the
         sequential ``PythonDagExecutor``), as one compute: a compute id, a
@@ -238,9 +238,12 @@ class Plan:
         token, *cancellation* or one minted for ``deadline_s`` (which
         tightens a given token), registered under the compute id and passed
         to the executor. ``resume=True`` skips the tasks (on the device
-        executor the ops) whose outputs all verify. The reference's journal,
-        telemetry, flight recorder, run history and dispatch profiler are
-        not ported (ROADMAP Queue 1 items 9 and 11)."""
+        executor the ops) whose outputs all verify. ``Spec(journal=path)``
+        attaches a ``runtime.journal.JournalCallback`` writing the compute's
+        tasks and decisions there; ``resume_from_journal=path`` resumes,
+        skipping only what both verifies and the journal recorded complete.
+        The reference's telemetry, flight recorder, run history and dispatch
+        profiler are not ported (ROADMAP Queue 1 item 9)."""
         from ..runtime import cancellation as cancel_mod
         from ..runtime import faults, memory
         from ..storage import integrity
@@ -256,11 +259,23 @@ class Plan:
             cancel_token.set_deadline(deadline_s)
         if cancel_token is not None:
             kwargs["cancellation"] = cancel_token
+        if resume_from_journal is not None:
+            # the journal's completions intersect the integrity scan (the
+            # executors build their ResumeState from it)
+            from ..runtime.journal import load_journal
+
+            resume = True
+            kwargs["journal"] = load_journal(resume_from_journal)
         dag = self._finalize(optimize_graph, optimize_function, array_names).dag
         compute_id = f"c-{uuid.uuid4().hex[:10]}"
         aggregator = _ComputeAggregator()
         all_callbacks = list(callbacks) if callbacks else []
         all_callbacks.append(aggregator)
+        journal_path = getattr(spec, "journal", None)
+        if journal_path:
+            from ..runtime.journal import JournalCallback
+
+            all_callbacks.append(JournalCallback(journal_path))
         metrics_before = get_registry().snapshot()
         callbacks_on(all_callbacks, "on_compute_start", ComputeStartEvent(dag, resume, compute_id=compute_id))
         if cancel_token is not None:

@@ -183,6 +183,9 @@ def reserve_tickets(device):
 #: the kernel wrappers that count their launches: each has ``launches`` and
 #: ``paths`` (its launches by path), plain integers
 COUNTED: list = []
+#: held while a count changes: the threaded executor's tasks launch kernels
+#: from several threads, and ``+=`` on a shared count is not atomic
+COUNT_LOCK = threading.Lock()
 
 
 def launch_counts() -> dict:
@@ -199,10 +202,11 @@ def launch_counts() -> dict:
 def add_launch_counts(delta: dict) -> None:
     """Add *delta* (as :func:`launch_counts` keys it) to the wrappers'
     counts: a replayed CUDA graph counts the launches it holds."""
-    for w in COUNTED:
-        w.launches += delta.get((w.__name__, None), 0)
-        for k in w.paths:
-            w.paths[k] += delta.get((w.__name__, k), 0)
+    with COUNT_LOCK:
+        for w in COUNTED:
+            w.launches += delta.get((w.__name__, None), 0)
+            for k in w.paths:
+                w.paths[k] += delta.get((w.__name__, k), 0)
 
 
 def check(err: int, what: str) -> None:

@@ -125,9 +125,10 @@ def fma_sum_blocks(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.T
             ctypes.c_void_p(counters.data_ptr()), params, ctypes.c_void_p(stream),
         )
     _build.check(err, "fma_sum_blocks")
-    fma_sum_blocks.launches += 1
-    for key in p.paths + (("float32",) if a.dtype == torch.float32 else ()):
-        fma_sum_blocks.paths[key] += 1
+    with _build.COUNT_LOCK:
+        fma_sum_blocks.launches += 1
+        for key in p.paths + (("float32",) if a.dtype == torch.float32 else ()):
+            fma_sum_blocks.paths[key] += 1
     return out
 
 

@@ -152,9 +152,10 @@ def _run_sort(x: torch.Tensor, axis: int, idx: Optional[torch.Tensor], mode: str
 def _counted(counter, mode: str) -> None:
     """One launch of a sort kernel, on its wrapper's count (and sort_block's
     path)."""
-    counter.launches += 1
-    if mode != "argsort":
-        sort_block.paths[mode] += 1
+    with _build.COUNT_LOCK:
+        counter.launches += 1
+        if mode != "argsort":
+            sort_block.paths[mode] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -385,8 +386,9 @@ def _launch_split(x, y, xi, yi, take_low, axis):
                               ctypes.c_longlong(p.lane_groups), ctypes.c_longlong(p.tiles), ctypes.c_int(p.grid),
                               _regions(p.regions), ctypes.c_int(p.smem), ctypes.c_void_p(stream))
         _build.check(err, "merge_split")
-        merge_split.launches += 1
-        merge_split.paths[mode] += 1
+        with _build.COUNT_LOCK:
+            merge_split.launches += 1
+            merge_split.paths[mode] += 1
     return out if xi is None else (out, outi)
 
 

@@ -214,10 +214,11 @@ def philox_uniform(out: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
             ctypes.c_int(_THREADS), ctypes.c_void_p(stream),
         )
     _build.check(err, "philox_uniform")
-    philox_uniform.launches += 1
-    philox_uniform.paths["block"] += 1
-    if out.dtype == torch.float32:
-        philox_uniform.paths["block_f32"] += 1
+    with _build.COUNT_LOCK:
+        philox_uniform.launches += 1
+        philox_uniform.paths["block"] += 1
+        if out.dtype == torch.float32:
+            philox_uniform.paths["block_f32"] += 1
     return out
 
 
@@ -293,9 +294,10 @@ def philox_uniform_blocks(out: torch.Tensor, chunks, keys) -> torch.Tensor:
             ctypes.c_void_p(keys_dev.data_ptr()), ctypes.c_int(p.grid), ctypes.c_void_p(stream),
         )
     _build.check(err, "philox_uniform_blocks")
-    philox_uniform.launches += 1
-    for key in ("batched", *(("batched_f32",) if suffix == "f32" else ()), *p.paths):
-        philox_uniform.paths[key] += 1
+    with _build.COUNT_LOCK:
+        philox_uniform.launches += 1
+        for key in ("batched", *(("batched_f32",) if suffix == "f32" else ()), *p.paths):
+            philox_uniform.paths[key] += 1
     return out
 
 

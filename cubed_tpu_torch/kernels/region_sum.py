@@ -106,9 +106,10 @@ def _region_sum(x: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
             ctypes.c_int(p.threads), ctypes.c_void_p(stream),
         )
     _build.check(err, "region_sum")
-    region_sum.launches += 1
-    for key in p.paths + (("float32",) if x.dtype == torch.float32 else ()):
-        region_sum.paths[key] += 1
+    with _build.COUNT_LOCK:
+        region_sum.launches += 1
+        for key in p.paths + (("float32",) if x.dtype == torch.float32 else ()):
+            region_sum.paths[key] += 1
     return out
 
 

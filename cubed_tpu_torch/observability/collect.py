@@ -61,11 +61,33 @@ _samples: deque = deque(maxlen=MAX_SAMPLES)
 _oob_tasks: deque = deque(maxlen=MAX_OOB_TASKS)
 
 
+#: consumers of decision entries beyond the bounded ring: the compute
+#: journal (runtime/journal.py) registers here, so a crashed client still
+#: leaves the decision timeline on disk
+_decision_sinks: list = []
+
+
+def add_decision_sink(fn) -> None:
+    """Register a callable receiving every decision entry (a plain dict)."""
+    with _ring_lock:
+        if fn not in _decision_sinks:
+            _decision_sinks.append(fn)
+
+
+def remove_decision_sink(fn) -> None:
+    with _ring_lock:
+        try:
+            _decision_sinks.remove(fn)
+        except ValueError:
+            pass
+
+
 def record_decision(kind: str, **attrs) -> None:
     """Record one scheduler/controller decision (timestamped, correlated).
 
     Cheap (a dict append under a lock) and bounded; called from the
-    executors and the device profiler callbacks."""
+    executors and the device profiler callbacks. Each sink gets a copy; a
+    sink that raises is logged and never fails the decision's site."""
     entry = {"ts": clock.now(), "kind": kind}
     cid = logs.current_compute_id()
     if cid is not None:
@@ -74,6 +96,12 @@ def record_decision(kind: str, **attrs) -> None:
         entry.update(attrs)
     with _ring_lock:
         _decisions.append(entry)
+        sinks = list(_decision_sinks)
+    for fn in sinks:
+        try:
+            fn(dict(entry))
+        except Exception:
+            logger.exception("decision sink failed")
 
 
 def record_sample(**attrs) -> None:

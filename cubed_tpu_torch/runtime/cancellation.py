@@ -3,13 +3,16 @@ time the way the rest of the stack bounds its memory.
 
 Counterpart of ``cubed_tpu/runtime/cancellation.py``, less the fleet's
 wire (worker-side token mirrors and ``compute_cancel`` frames come with
-ROADMAP Queue 1 item 11):
+ROADMAP Queue 1 item 11c):
 
 - **One token per compute.** ``Plan.execute(deadline_s=...)`` (or an
   explicit ``cancellation=CancellationToken()``) mints it. The deadline is
   an absolute wall-clock epoch.
 - **Where it is checked.** The sequential executor's loop before every
-  task; ``execute_with_stats`` before a task body; the storage layer
+  task; the threaded executor's dispatch loop on every turn (pending
+  futures cancelled: the compute id's contextvar is not copied into pool
+  threads, so a task body there does not see the token);
+  ``execute_with_stats`` before a task body; the storage layer
   between chunk reads and writes (``storage/store.py``); the device
   executor at every op and segment boundary, never inside a CUDA graph
   capture or replay (a replay cannot be interrupted). A task aborts at

@@ -1,5 +1,7 @@
 """Executor registry: create executors by name (``Spec(executor_name=...)``).
-Counterpart of ``cubed_tpu/runtime/create.py`` with the port's two executors."""
+Counterpart of ``cubed_tpu/runtime/create.py`` with the port's executors:
+the sequential one, the threaded one and the device executor (the
+reference's process pool and fleet are not ported)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,10 @@ def create_executor(name: str, executor_options: Optional[dict] = None):
         from .executors.python import PythonDagExecutor
 
         return PythonDagExecutor(**executor_options)
+    if name in ("threads", "async-python"):
+        from .executors.python_async import AsyncPythonDagExecutor
+
+        return AsyncPythonDagExecutor(**executor_options)
     if name == "cuda":
         from .executors.cuda import CudaExecutor
 

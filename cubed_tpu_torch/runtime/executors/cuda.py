@@ -142,7 +142,10 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
   - *Resume* is op-granular: an op whose persisted outputs all verify is
     skipped, a corrupt chunk is quarantined by the scan and its op re-run;
     an op that only feeds resident arrays cannot be skipped, nothing of it
-    having been persisted.
+    having been persisted. Resumed from a compute journal
+    (``compute(resume_from_journal=...)``), an op is skipped only when the
+    journal also recorded every one of its tasks complete (this executor's
+    own units journal no chunk keys, so its journal skips nothing).
   - *Cancellation*: the compute's token is checked at every op and segment
     boundary and before the outputs' flush; a replay is never interrupted
     and a cancelled compute flushes nothing of a segment it did not finish.
@@ -152,7 +155,7 @@ Counterpart of ``cubed_tpu/runtime/executors/jax.py:JaxExecutor``:
     ``TaskEndEvent.guard_mem_peak``. It measures and never fails a unit,
     and this executor retries nothing, as ``JaxExecutor``.
 
-Not ported yet: meshes and the compute journal. No fast path, capture or
+Not ported yet: meshes. No fast path, capture or
 kernel is wrapped in an ``except``: where one cannot run, a check says so and
 the op takes the next path.
 """
@@ -866,9 +869,10 @@ class CudaExecutor(DagExecutor):
         # both scopes are this thread's (or task's) alone, and are restored
         # on every exit, a failing compute's included
         with narrowing(self.compute_dtype == "float32"), contraction.precision(self.matmul_precision):
-            self._execute_dag(dag, callbacks, array_names, resume, spec, kwargs.get("cancellation"))
+            self._execute_dag(dag, callbacks, array_names, resume, spec, kwargs.get("cancellation"),
+                              kwargs.get("journal"))
 
-    def _execute_dag(self, dag, callbacks, array_names, resume, spec, cancellation=None) -> None:
+    def _execute_dag(self, dag, callbacks, array_names, resume, spec, cancellation=None, journal=None) -> None:
         dev = get_device()
         self.stats = Counter()
         self._uploads = {}  # id of a VirtualInMemoryArray -> its device tensor
@@ -883,7 +887,7 @@ class CudaExecutor(DagExecutor):
         }
         segment: list = []
         self._cancellation = cancellation
-        state = ResumeState(quarantine=True) if resume else None
+        state = ResumeState(quarantine=True, journal=journal) if resume else None
         for name, node in visit_nodes(dag, resume=resume, state=state):
             self._check_cancelled()
             if self.fuse_plan and self._classify(node["primitive_op"]) == "segment":

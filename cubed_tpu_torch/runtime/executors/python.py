@@ -23,7 +23,11 @@ its classification:
   drawing on the compute-wide budget.
 
 A failed task on the card is retried on the card: nothing falls back to
-the CPU.
+the CPU. A loaded compute journal (``journal=``, from
+``compute(resume_from_journal=...)``) narrows resume's skips to journal ∩
+integrity. This executor keeps op order whatever ``Spec(scheduler=...)``
+asks: it is the bitwise reference of the threaded one, and an explicit
+``dataflow`` request is logged, as in the reference.
 """
 
 from __future__ import annotations
@@ -77,12 +81,18 @@ class PythonDagExecutor(DagExecutor):
 
     def execute_dag(self, dag, callbacks=None, array_names=None, resume=None, spec=None,
                     retries: Optional[int] = None, retry_policy: Optional[RetryPolicy] = None,
-                    cancellation=None, **kwargs) -> None:
+                    journal=None, cancellation=None, **kwargs) -> None:
+        from ..dataflow import requested_scheduler
+
         retries = self.retries if retries is None else retries
         policy = resolve_policy(retry_policy or self.retry_policy, retries)
         budget = compute_retry_budget(policy, dag)
+        if requested_scheduler(spec) == "dataflow":
+            # only an explicit request is worth a note: dataflow is the
+            # threaded executor's default
+            logger.debug("scheduler=dataflow requested; the sequential oracle keeps op-level ordering by design")
         metrics = get_registry()
-        state = ResumeState(quarantine=True) if resume else None
+        state = ResumeState(quarantine=True, journal=journal) if resume else None
         resolver = RecomputeResolver(dag)
         for name, node in visit_nodes(dag, resume=resume, state=state):
             primitive_op = node["primitive_op"]

@@ -20,7 +20,7 @@ inside a task scope), and task bodies (``runtime/utils.execute_with_stats``:
 failures, stragglers, a synthetic memory spike handed to the guard). The
 worker, control-plane, peer and coordinator fields are kept, so that a
 config's JSON round-trips between the packages, and stay inert until the
-fleet is ported (ROADMAP Queue 1 item 11).
+fleet is ported (ROADMAP Queue 1 item 11c).
 """
 
 from __future__ import annotations

@@ -9,12 +9,20 @@ use; this module watches what it does use:
   device executor around every segment and eager op) measures the task's
   growth. On the host, as in the reference: a shared sampler thread reads
   the process RSS every ``sample_interval_s`` and keeps, per active task,
-  the peak of ``rss_now - rss_at_task_start``. **On a CUDA device the guard
-  also reads the caching allocator**, where a task's blocks live and which
-  RSS does not see: at entry it synchronizes, folds the allocator's peak
-  statistics into a process-wide running maximum, resets them and records
-  ``memory_allocated()``; at exit it synchronizes and reads
-  ``max_memory_allocated()`` less that start. ``measured`` is the larger of
+  the peak of ``rss_now - rss_at_task_start`` (an observe-only unit of the
+  device executor reads RSS at its entry and exit only, see
+  :class:`task_guard`). **On a CUDA device the guard also reads the caching
+  allocator**, where a task's blocks live and which RSS does not see. The
+  allocator counts a block when the host allocates or frees it, not when a
+  kernel runs, so the guard reads it without synchronizing the device. The
+  first guarded task in flight on a device opens a *window*: it folds the
+  allocator's peak statistics into a process-wide running maximum, resets
+  them, and records ``memory_allocated()`` as the window's base; every task
+  in flight reads ``max_memory_allocated()`` at its exit less that base;
+  the last one out closes the window. At one task in flight that is the
+  task's own peak over its own start; with several, a task reads the
+  window's peak (the others' blocks too: conservative, as RSS is in the
+  reference, and never below its own growth). ``measured`` is the larger of
   the device growth and the RSS growth, plus any injected spike, and rides
   the task's stats as ``guard_mem_peak``. When it exceeds ``allowed_mem``:
   mode ``observe`` (the default) counts ``mem_guard_soft_exceeded``, records
@@ -24,8 +32,9 @@ use; this module watches what it does use:
   no-op. If the allocator cannot be read on a CUDA device the guard raises:
   it never turns into a host-only reading there.
 - **One owner of the peak statistics.** ``torch.cuda.reset_peak_memory_stats``
-  is process-wide, so the guard is its only caller in the library, and
-  every reset first folds the current ``max_memory_allocated()`` and
+  is process-wide, so the guard is its only caller in the library, it
+  resets only when a window opens (never under a task in flight), and every
+  reset first folds the current ``max_memory_allocated()`` and
   ``max_memory_reserved()`` into :func:`device_peaks`'s running maximum: a
   compute-level reading (a gate on peak reserved memory) reads that, and
   still sees the compute's true peak. The guard refuses to run inside a
@@ -37,8 +46,8 @@ use; this module watches what it does use:
   gauges and read by :func:`pressure_level`.
 - **Admission control.** :class:`AdmissionController` bounds tasks in
   flight, halving on a RESOURCE failure or hard pressure and doubling back
-  after a window of successes (AIMD). Its consumer is the parallel
-  executors' map, which comes with the fleet (ROADMAP Queue 1 item 11).
+  after a window of successes (AIMD). Its consumer is the threaded
+  executor's map (``executors/python_async.map_unordered``).
 
 Activation mirrors the integrity layer: ``Spec(memory_guard=...)`` (armed by
 ``Plan.execute`` with the spec's ``allowed_mem`` for the compute), and the
@@ -276,12 +285,16 @@ class scoped:
 
 #: device index -> [max allocated, max reserved] folded in before each reset
 _device_fold: dict = {}
+#: device index -> [guarded tasks in flight, the window's base: the bytes
+#: allocated when the first of them started]
+_windows: dict = {}
 _fold_lock = threading.Lock()
 
 
 def _guard_device() -> Optional[torch.device]:
     """The chunk device when it is a CUDA device (the guard then reads its
-    allocator), else None."""
+    allocator), else None. ``get_device()`` names no index on a one-card
+    process: a pool thread's current device is the card."""
     from ..backend_array_api import get_device
 
     dev = get_device()
@@ -298,13 +311,25 @@ def _allocator_stats(dev: torch.device) -> dict:
     return {"allocated": stats["allocated_bytes"]["all"], "reserved": stats["reserved_bytes"]["all"]}
 
 
+def _reset_peaks(dev: torch.device) -> None:
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+def _fold_locked(dev: torch.device, stats: dict) -> list:
+    folded = _device_fold.setdefault(dev.index, [0, 0])
+    folded[0] = max(folded[0], stats["allocated"]["peak"])
+    folded[1] = max(folded[1], stats["reserved"]["peak"])
+    return list(folded)
+
+
 def _fold(dev: torch.device, stats: Optional[dict] = None) -> list:
     stats = stats or _allocator_stats(dev)
     with _fold_lock:
-        folded = _device_fold.setdefault(dev.index, [0, 0])
-        folded[0] = max(folded[0], stats["allocated"]["peak"])
-        folded[1] = max(folded[1], stats["reserved"]["peak"])
-        return list(folded)
+        return _fold_locked(dev, stats)
 
 
 def device_peaks() -> dict:
@@ -318,31 +343,39 @@ def device_peaks() -> dict:
 def reset_device_peaks() -> None:
     """Start a compute-level peak reading on the current CUDA device: the
     allocator's peak statistics and the guard's running maximum, both
-    reset."""
+    reset (call it between computes, with no guarded task in flight)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     with _fold_lock:
         _device_fold[dev.index] = [0, 0]
-    torch.cuda.reset_peak_memory_stats(dev)
+        _reset_peaks(dev)
 
 
 def _start_device_reading(dev: torch.device) -> int:
-    """Synchronize, fold the allocator's peaks into the running maximum,
-    reset them; the bytes allocated now (the task's start)."""
-    if torch.cuda.is_current_stream_capturing():
+    """Enter the device's window, opening it (fold the allocator's peaks into
+    the running maximum, reset them, record the bytes allocated as its base)
+    when no guarded task is in flight; the window's base."""
+    if _capturing():
         raise RuntimeError("the memory guard cannot run inside a CUDA graph capture")
-    torch.cuda.synchronize(dev)
-    stats = _allocator_stats(dev)
-    _fold(dev, stats)
-    torch.cuda.reset_peak_memory_stats(dev)
-    return stats["allocated"]["current"]
+    with _fold_lock:
+        window = _windows.get(dev.index)
+        if window is None or window[0] == 0:
+            stats = _allocator_stats(dev)
+            _fold_locked(dev, stats)
+            _reset_peaks(dev)
+            window = _windows[dev.index] = [0, stats["allocated"]["current"]]
+        window[0] += 1
+        return window[1]
 
 
-def _end_device_reading(dev: torch.device, start: int) -> int:
-    """Synchronize; the allocator's peak since the start, less the start."""
-    if torch.cuda.is_current_stream_capturing():
+def _end_device_reading(dev: torch.device, base: int) -> int:
+    """Leave the device's window; the allocator's peak since it opened, less
+    its base."""
+    if _capturing():
         raise RuntimeError("the memory guard cannot run inside a CUDA graph capture")
-    torch.cuda.synchronize(dev)
-    return max(0, _allocator_stats(dev)["allocated"]["peak"] - start)
+    with _fold_lock:
+        peak = _allocator_stats(dev)["allocated"]["peak"]
+        _windows[dev.index][0] -= 1
+    return max(0, peak - base)
 
 
 # ----------------------------------------------------------------------
@@ -512,7 +545,11 @@ class task_guard:
     the measured peak. ``observe_only=True`` measures and never judges:
     the device executor's guarded unit is a whole segment or eager op, not
     a retryable task, so comparing it with the per-task budget would say
-    nothing (the reference's ``JaxExecutor`` does the same).
+    nothing (the reference's ``JaxExecutor`` does the same). Such a unit
+    reads RSS at its entry and exit and does not wake the sampler: for a
+    unit shorter than one sampler period (the device executor's warm units)
+    that is what the sampler gives too, and its thread would contend for
+    the interpreter with the short units it cannot add to.
     """
 
     def __init__(self, key: str = "", injected_bytes: int = 0, observe_only: bool = False):
@@ -523,6 +560,7 @@ class task_guard:
         self._cfg: Optional[MemoryGuardConfig] = None
         self._dev: Optional[torch.device] = None
         self._dev_start = 0
+        self._sampled = False
         #: the larger of the device growth and the RSS growth, plus the
         #: injected spike (bytes); None while inactive
         self.measured: Optional[int] = None
@@ -543,7 +581,8 @@ class task_guard:
             self._dev_start = _start_device_reading(dev)
         self._cfg = cfg
         self._task = _GuardedTask(self._key, start, self._injected)
-        if start is not None:
+        self._sampled = start is not None and not self._observe_only
+        if self._sampled:
             with _tasks_lock:
                 _tasks[id(self)] = self._task
                 _tasks_present.set()
@@ -556,12 +595,13 @@ class task_guard:
         if task is None:
             return
         if task.start_rss is not None:
-            with _tasks_lock:
-                _tasks.pop(id(self), None)
-                if not _tasks:
-                    _tasks_present.clear()
-                    # no task in flight, no watermark to exceed
-                    _pressure_level = "ok"
+            if self._sampled:
+                with _tasks_lock:
+                    _tasks.pop(id(self), None)
+                    if not _tasks:
+                        _tasks_present.clear()
+                        # no task in flight, no watermark to exceed
+                        _pressure_level = "ok"
             # one last sample, so a task shorter than a period still counts
             rss = _read_rss(max_age_s=self._cfg.sample_interval_s * 1.5)
             if rss is not None:

@@ -1,19 +1,21 @@
 """Plan traversal with trustworthy chunk-granular resume, and the resolver
 that re-runs the producer of a corrupt chunk.
 
-Counterpart of ``cubed_tpu/runtime/pipeline.py``, less the compute
-journal's narrowing of the skip frontier (the journal comes with ROADMAP
-Queue 1 item 11). With ``resume=True`` an op is skipped when every chunk of
-its outputs is present and verifies against the checksum manifest
-(``storage/integrity.py``); bare existence is not proof, so a corrupt or
-torn output re-runs instead of poisoning the ops downstream. A partly
-complete blockwise or rechunk op re-runs only the tasks whose output chunks
-are missing or invalid (:func:`pending_mappable`). Under ``integrity="off"``
-the scan is existence-only.
+Counterpart of ``cubed_tpu/runtime/pipeline.py``. With ``resume=True`` an
+op is skipped when every chunk of its outputs is present and verifies
+against the checksum manifest (``storage/integrity.py``); bare existence is
+not proof, so a corrupt or torn output re-runs instead of poisoning the ops
+downstream. A partly complete blockwise or rechunk op re-runs only the tasks
+whose output chunks are missing or invalid (:func:`pending_mappable`). Under
+``integrity="off"`` the scan is existence-only. A loaded compute journal
+(``runtime/journal.load_journal``) narrows the skip frontier to journal ∩
+integrity: a task is skipped only when its chunks verify and the journal
+recorded it complete.
 
-The dotted chunk-key helpers are the reference's (``runtime/shuffle.py``):
-the shuffle itself is not ported, but resume needs the keys a rechunk task
-writes.
+The dotted chunk-key and region helpers are the reference's pure index
+functions from ``runtime/shuffle.py`` (the keys a rechunk task reads and
+writes: resume and the dataflow scheduler's edges need them); the rest of
+that module is the fleet's chunk exchange, not ported.
 """
 
 from __future__ import annotations
@@ -61,11 +63,36 @@ def chunks_overlapping_region(region: Tuple[slice, ...], chunks: Tuple[int, ...]
     yield from itertools.product(*ranges)
 
 
+def is_region_item(m) -> bool:
+    """True for a rechunk mappable item: a tuple of slices over the write
+    grid (blockwise items are ``(out_name, i, j, ...)`` tuples instead)."""
+    return isinstance(m, tuple) and len(m) > 0 and all(isinstance(s, slice) for s in m)
+
+
+def region_identity(m) -> str:
+    """A compact, stable identity for a slice-region item, ``"0:4,8:16"``:
+    where blockwise items use their dotted chunk key (the trace's join key
+    stays ``utils.chunk_key``)."""
+    return ",".join(f"{s.start}:{s.stop}" for s in m)
+
+
+def region_chunk_keys(region: Tuple[slice, ...], chunks: Tuple[int, ...]) -> List[str]:
+    """Dotted chunk keys a region overlaps."""
+    return [chunk_key_str(i) for i in chunks_overlapping_region(region, chunks)]
+
+
+def rechunk_task_reads(m, config) -> List[tuple]:
+    """``[(source store, source chunk key), ...]`` a rechunk task reads: the
+    source chunks its region overlaps (the dataflow scheduler's edges)."""
+    store = str(getattr(config.read.array, "store", "") or "")
+    return [(store, k) for k in region_chunk_keys(m, tuple(config.read.chunks))]
+
+
 def rechunk_task_writes(m, config) -> List[str]:
     """Dotted target chunk keys a rechunk task's region covers (write regions
     are whole multiples of the target's chunks, so each target chunk is
     covered by exactly one task)."""
-    return [chunk_key_str(i) for i in chunks_overlapping_region(m, tuple(config.write.chunks))]
+    return region_chunk_keys(m, tuple(config.write.chunks))
 
 
 # ----------------------------------------------------------------------
@@ -82,9 +109,12 @@ class ResumeState:
     (executors) corrupt chunks are renamed to ``*.quarantine.*`` as they are
     found; introspection (``FinalizedPlan.num_tasks``) scans read-only with
     ``count=False``. Under integrity ``"off"`` the scan is existence-only.
+    With a loaded ``journal`` the skip frontier is journal ∩ integrity: a
+    task must verify on disk and be journaled complete to be skipped, so
+    the journal only narrows resume, never widens it.
     """
 
-    def __init__(self, quarantine: bool = False, count: bool = True):
+    def __init__(self, quarantine: bool = False, count: bool = True, journal=None):
         from ..storage import integrity
 
         self.quarantine = quarantine
@@ -95,6 +125,25 @@ class ResumeState:
         #: store -> set of valid chunk keys, or None when the target is
         #: unreadable or not created (nothing trustworthy: run everything)
         self._valid: dict = {}
+        #: the journal's (op, chunk key) completions, and their count by op
+        self._journal_completed = None
+        self._journal_op_counts: dict = {}
+        if journal is not None:
+            self._journal_completed = set(journal.get("completed") or ())
+            for op, _key in self._journal_completed:
+                self._journal_op_counts[op] = self._journal_op_counts.get(op, 0) + 1
+
+    def journal_allows_op_skip(self, name: str, num_tasks: int) -> bool:
+        """Without a journal, True; with one, an op may be skipped whole only
+        when the journal recorded every one of its tasks complete."""
+        if self._journal_completed is None:
+            return True
+        return self._journal_op_counts.get(name, 0) >= num_tasks
+
+    def journal_allows_task_skip(self, name: str, key: str) -> bool:
+        if self._journal_completed is None:
+            return True
+        return (name, key) in self._journal_completed
 
     def valid_chunks(self, target) -> Optional[set]:
         """The verified-valid chunk keys of *target*'s store, or None when
@@ -173,6 +222,10 @@ def already_computed(name, dag, nodes: dict, resume: Optional[bool], state: Opti
     if resume:
         if state is None:
             state = ResumeState()
+        if not state.journal_allows_op_skip(name, pipeline.num_tasks):
+            # the journal says the op never finished all its tasks: the
+            # per-task skip decides, even where every output chunk verifies
+            return False
         for succ in dag.successors(name):
             target = nodes[succ].get("target", None)
             if target is None:
@@ -189,12 +242,14 @@ def pending_mappable(name, node, resume: Optional[bool], state: Optional[ResumeS
     array has its chunk verified; a rechunk region when every target chunk
     it covers is. Ops without an output-chunk mapping (create-arrays) run
     in full. Skips count ``tasks_skipped_resume`` unless ``record=False``
-    (plan introspection)."""
+    (plan introspection). With a journal, a task is skipped only when the
+    journal also recorded it complete (journal ∩ integrity)."""
     primitive_op = node["primitive_op"]
     pipeline = primitive_op.pipeline
     if not resume or state is None:
         return pipeline.mappable, 0
     from ..primitive.blockwise import apply_blockwise
+    from .utils import chunk_key
 
     rechunk = is_rechunk_pipeline(pipeline)
     if pipeline.function is not apply_blockwise and not rechunk:
@@ -212,7 +267,8 @@ def pending_mappable(name, node, resume: Optional[bool], state: Optional[ResumeS
     skipped = 0
     for m in pipeline.mappable:
         keys = rechunk_task_writes(m, pipeline.config) if rechunk else [_task_chunk_key(m)]
-        if all(key in valid for valid in valid_sets for key in keys):
+        if all(key in valid for valid in valid_sets for key in keys) and \
+                state.journal_allows_task_skip(name, chunk_key(m)):
             skipped += 1
         else:
             pending.append(m)
@@ -307,3 +363,36 @@ def visit_nodes(dag, resume: Optional[bool] = None, state: Optional[ResumeState]
         if already_computed(name, dag, nodes, resume, state):
             continue
         yield name, nodes[name]
+
+
+def topological_generations(dag) -> Iterator[list]:
+    """The DAG's nodes in generations: the first holds the nodes without
+    predecessors, each next one the nodes all of whose predecessors are in
+    earlier generations (``networkx.topological_generations`` on the
+    port's own graph; nodes keep their insertion order within one)."""
+    indeg = {n: len(dag.predecessors(n)) for n in dag.nodes}
+    generation = [n for n in dag.nodes if indeg[n] == 0]
+    while generation:
+        yield generation
+        following = []
+        for n in generation:
+            for s in dag.successors(n):
+                indeg[s] -= 1
+                if indeg[s] == 0:
+                    following.append(s)
+        generation = following
+
+
+def visit_node_generations(dag, resume: Optional[bool] = None,
+                           state: Optional[ResumeState] = None) -> Iterator[list]:
+    """Yield lists of (name, node data) for the op nodes with work of one
+    topological generation each; under ``resume`` the ops whose outputs all
+    verify are left out."""
+    nodes = dag.nodes
+    if resume and state is None:
+        state = ResumeState()
+    for generation in topological_generations(dag):
+        gen = [(name, nodes[name]) for name in generation
+               if not already_computed(name, dag, nodes, resume, state)]
+        if gen:
+            yield gen

@@ -49,7 +49,7 @@ class Classification(enum.Enum):
 
     RETRY = "retry"  #: transient: backoff, consume one retry, re-run
     FAIL_FAST = "fail_fast"  #: deterministic: one attempt, no backoff
-    REQUEUE = "requeue"  #: the worker died, not the task (the fleet's; item 11)
+    REQUEUE = "requeue"  #: the worker died, not the task (a broken pool; the fleet's, item 11c)
     #: a stored input chunk failed integrity verification: the producing
     #: op's task for that chunk re-runs first, then the reader retries
     RECOMPUTE = "recompute"

@@ -12,8 +12,8 @@ fired by every executor (``Plan.execute`` fires the compute events):
 
 The task events carry every field of the reference's;
 ``TaskEndEvent.guard_mem_peak`` is the memory guard's reading
-(``runtime/memory.py``), and ``dispatch`` stays None until the fleet is
-ported (ROADMAP Queue 1 item 11).
+(``runtime/memory.py``), and ``dispatch`` is the threaded executor's
+dispatch ledger (None on the other executors).
 """
 
 from __future__ import annotations
@@ -96,8 +96,9 @@ class TaskEndEvent:
     pid: Optional[int] = None
     #: fleet worker name when the task ran on a named worker, else None
     worker: Optional[str] = None
-    #: the task's control-plane dispatch ledger (client-clock stamps of its
-    #: dispatch); None until the fleet is ported (ROADMAP Queue 1 item 11)
+    #: the task's dispatch ledger (client-clock stamps: when it became
+    #: dispatchable, when it was submitted, what the submit cost), from the
+    #: threaded executor's dispatch loop; None on the other executors
     dispatch: Optional[dict] = None
 
 

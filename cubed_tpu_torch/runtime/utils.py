@@ -19,7 +19,7 @@ from ..observability import clock, logs
 from ..observability.accounting import get_process_label, spans_enabled, task_scope
 from ..observability.metrics import get_registry
 from ..utils import peak_measured_mem
-from .types import Callback, TaskEndEvent, TaskStartEvent, callbacks_on
+from .types import Callback, OperationEndEvent, OperationStartEvent, TaskEndEvent, TaskStartEvent, callbacks_on
 
 
 def execute_with_stats(function, *args, **kwargs):
@@ -167,6 +167,32 @@ def fire_task_start(
             backup=backup,
         ),
     )
+
+
+def merge_generation(generation, callbacks, resume=None, resume_state=None) -> tuple[list, dict]:
+    """Interleave one topological generation's tasks for a single map.
+
+    Fires ``on_operation_start`` for every op of the generation and returns
+    ``(items, pipelines)``: the merged ``(op_name, task_input)`` list, and op
+    name -> its pipeline. Under ``resume`` the tasks whose output chunks all
+    verify are left out (``pipeline.pending_mappable``)."""
+    from .pipeline import pending_mappable
+
+    items: list = []
+    pipelines: dict = {}
+    for name, node in generation:
+        primitive_op = node["primitive_op"]
+        callbacks_on(callbacks, "on_operation_start", OperationStartEvent(name, primitive_op.num_tasks))
+        pipelines[name] = primitive_op.pipeline
+        mappable, _skipped = pending_mappable(name, node, resume, resume_state)
+        items.extend((name, m) for m in mappable)
+    return items, pipelines
+
+
+def end_generation(generation, callbacks) -> None:
+    """Fire ``on_operation_end`` for every op of a completed generation."""
+    for name, node in generation:
+        callbacks_on(callbacks, "on_operation_end", OperationEndEvent(name, node["primitive_op"].num_tasks))
 
 
 def batched(iterable: Iterable, n: int) -> Iterator[list]:

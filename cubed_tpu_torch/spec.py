@@ -1,7 +1,8 @@
 """Resource specification carried by every array. Counterpart of
 ``cubed_tpu/spec.py``, trimmed to the work directory, the memory bounds, the
-executor, the device executor's residency budget and the reliability
-settings (fault injection, chunk integrity, the runtime memory guard)."""
+executor, the device executor's residency budget, the reliability settings
+(fault injection, chunk integrity, the runtime memory guard), the threaded
+executor's scheduler and the compute journal."""
 
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ class Spec:
         fault_injection: Optional[Any] = None,
         integrity: Optional[str] = None,
         memory_guard: Optional[str] = None,
+        scheduler: Optional[str] = None,
+        journal: Optional[str] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -54,6 +57,15 @@ class Spec:
             if memory_guard not in GUARD_MODES:
                 raise ValueError(f"invalid memory_guard mode {memory_guard!r}; expected one of {GUARD_MODES}")
         self._memory_guard = memory_guard
+        if scheduler is not None:
+            from .runtime.dataflow import MODES as SCHEDULER_MODES
+
+            if scheduler not in SCHEDULER_MODES:
+                raise ValueError(f"invalid scheduler mode {scheduler!r}; expected one of {SCHEDULER_MODES}")
+        self._scheduler = scheduler
+        if journal is not None and not isinstance(journal, str):
+            raise ValueError(f"journal must be a file path (str) or None, got {type(journal).__name__}")
+        self._journal = journal
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -113,6 +125,27 @@ class Spec:
         ``Plan.execute`` arms it with this spec's ``allowed_mem``
         (``runtime/memory.py``)."""
         return self._memory_guard
+
+    @property
+    def scheduler(self) -> Optional[str]:
+        """Task scheduling on the threaded executor: ``"dataflow"`` (the
+        effective default: a task dispatches the moment its own input
+        chunks are written, across op boundaries) or ``"oplevel"`` (every
+        task of an op finishes before any task of the next starts; also
+        what a defaulted scheduler falls back to when ``batch_size`` is
+        set). None defers to ``CUBED_TPU_TORCH_SCHEDULER`` (the operator's
+        override, which wins) or the default. The sequential and the device
+        executors keep op order (``runtime/dataflow.py``)."""
+        return self._scheduler
+
+    @property
+    def journal(self) -> Optional[str]:
+        """Path of the durable compute journal (append-only JSONL, fsync'd
+        completion records): ``Plan.execute`` attaches a
+        ``runtime.journal.JournalCallback`` writing there, and
+        ``compute(resume_from_journal=path)`` resumes from it. None (the
+        default) journals nothing."""
+        return self._journal
 
     def __repr__(self) -> str:
         return (

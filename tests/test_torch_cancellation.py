@@ -1,9 +1,10 @@
 """Deadlines and cooperative cancellation in the port, held against the JAX
 package's: the token, its errors and classification, the per-compute
-registry, deadline aborts and explicit cancels on the sequential executor
-with resume after them (counterpart of the sequential cases of
-tests/runtime/test_cancellation.py), and the device executor's aborts at op
-and segment boundaries, whose path counters equal ``JaxExecutor``'s."""
+registry, deadline aborts and explicit cancels on the sequential and the
+threaded executors with resume after them (counterpart of the sequential and
+threaded cases of tests/runtime/test_cancellation.py), and the device
+executor's aborts at op and segment boundaries, whose path counters equal
+``JaxExecutor``'s."""
 
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from cubed_tpu_torch.runtime.cancellation import (
 )
 from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
 from cubed_tpu_torch.runtime.resilience import Classification, RetryPolicy
 from cubed_tpu_torch.runtime.types import Callback
 
@@ -212,6 +214,65 @@ def test_cancelled_compute_resumes_bitwise_sequential(tmp_path):
     expected = (ref_xp.sqrt(ct_ref.from_array(an, chunks=(4, 4), spec=ref_spec)) * 3.0).compute()
     np.testing.assert_array_equal(res, expected)
     np.testing.assert_array_equal(res, np.sqrt(an) * 3.0)
+
+
+# -- the threaded executor -------------------------------------------------
+
+
+def test_deadline_threaded(tmp_path):
+    """16 tasks of 0.15 s on 4 threads (about 0.6 s of work) against a 0.2 s
+    deadline: the dispatch loop aborts within a task and a wake-up."""
+    b = xp.ones((16, 16), chunks=(4, 4), spec=_slow_spec(tmp_path, straggler_delay_s=0.15)) + 1
+    before = get_registry().snapshot()
+    t0 = time.monotonic()
+    with pytest.raises(ComputeDeadlineExceededError):
+        b.compute(executor=AsyncPythonDagExecutor(max_workers=4), deadline_s=0.2)
+    assert time.monotonic() - t0 < 0.2 + 1.5
+    assert get_registry().snapshot_delta(before).get("deadline_aborts", 0) >= 1
+
+
+def test_cancel_threaded_zero_retry_draw(tmp_path):
+    b = xp.ones((16, 16), chunks=(4, 4), spec=_slow_spec(tmp_path)) * 3
+    tok = CancellationToken()
+    before = get_registry().snapshot()
+    t0 = time.monotonic()
+    with pytest.raises(ComputeCancelledError) as ei:
+        b.compute(executor=AsyncPythonDagExecutor(max_workers=4, retries=3), cancellation=tok,
+                  callbacks=[_CancelAfter(tok, 5)])
+    assert not isinstance(ei.value, ComputeDeadlineExceededError)
+    assert time.monotonic() - t0 < 3.0
+    delta = get_registry().snapshot_delta(before)
+    assert delta.get("cancellations", 0) >= 1
+    assert delta.get("task_retries", 0) == 0, delta
+
+
+def test_cancelled_compute_resumes_bitwise_threaded(tmp_path):
+    """Cancel a threaded compute after 5 task ends, then resume: only the
+    remainder runs, as the plan's introspection says, and the result equals
+    the reference's bit for bit."""
+    an = np.arange(256, dtype=np.float64).reshape(16, 16)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB",
+                   fault_injection=dict(seed=5, straggler_rate=1.0, straggler_delay_s=0.05))
+    b = xp.sqrt(ct.from_array(an, chunks=(4, 4), spec=spec)) + 7.0
+    tok = CancellationToken()
+    with pytest.raises(ComputeCancelledError):
+        b.compute(executor=AsyncPythonDagExecutor(max_workers=2), cancellation=tok, callbacks=[_CancelAfter(tok, 5)])
+    pending = b.plan.num_tasks(resume=True)
+    assert 1 < pending < 1 + 16
+
+    class Count(Callback):
+        n = 0
+
+        def on_task_end(self, event):
+            Count.n += event.num_tasks
+
+    before = get_registry().snapshot()
+    res = b.compute(executor=AsyncPythonDagExecutor(max_workers=2), resume=True, callbacks=[Count()])
+    assert Count.n == pending
+    assert get_registry().snapshot_delta(before).get("tasks_skipped_resume", 0) == 1 + 16 - pending
+    ref_spec = ct_ref.Spec(work_dir=str(tmp_path / "ref"), allowed_mem="500MB")
+    np.testing.assert_array_equal(res, (ref_xp.sqrt(ct_ref.from_array(an, chunks=(4, 4), spec=ref_spec)) + 7.0)
+                                  .compute())
 
 
 # -- the device executor, against JaxExecutor ----------------------------

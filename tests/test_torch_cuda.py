@@ -1750,3 +1750,121 @@ def test_op_granular_resume_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(ct.from_zarr(store).compute(), expected)
     valid, corrupt, verified = ct.from_zarr(store).zarray.verify_chunks(quarantine=False)
     assert verified and not corrupt
+
+
+def _synced_guard_readings(monkeypatch):
+    """Each guarded unit's device reading (the guard reads the allocator
+    without synchronizing) recorded beside the synchronized reading at the
+    same points: ``(key, reading, synchronized reading)`` per unit."""
+    import torch
+
+    from cubed_tpu_torch.runtime import memory
+
+    start_inner, end_inner, exit_inner = memory._start_device_reading, memory._end_device_reading, \
+        memory.task_guard.__exit__
+    state, rows = {}, []
+
+    def start(dev):
+        base = start_inner(dev)
+        torch.cuda.synchronize(dev)
+        state["start"] = torch.cuda.memory_allocated(dev)
+        state["base_equal"] = base == state["start"]
+        return base
+
+    def end(dev, base):
+        reading = end_inner(dev, base)
+        torch.cuda.synchronize(dev)
+        state["synced"] = torch.cuda.max_memory_allocated(dev) - state["start"]
+        return reading
+
+    def exit_(self, *exc):
+        try:
+            return exit_inner(self, *exc)
+        finally:
+            if self.device_measured is not None:
+                rows.append((self._key, self.device_measured, state["synced"], state["base_equal"]))
+
+    monkeypatch.setattr(memory, "_start_device_reading", start)
+    monkeypatch.setattr(memory, "_end_device_reading", end)
+    monkeypatch.setattr(memory.task_guard, "__exit__", exit_)
+    return rows
+
+
+def test_guard_readings_without_a_synchronize_equal_the_synchronized_ones(cuda, tmp_path, monkeypatch):
+    """Every segment's and eager op's ``guard_mem_peak`` on the device
+    executor (cold, capturing, replayed; every op eager, a cuBLAS product in
+    the matmul's) equals the reset-based reading a synchronize before each
+    read gives, and so does a unit that frees a block used on a side
+    stream (``record_stream``) before it allocates another."""
+    import torch
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.runtime import memory
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.types import Callback
+
+    class Peaks(Callback):
+        def __init__(self):
+            self.peaks = []
+
+        def on_task_end(self, event):
+            self.peaks.append(event.guard_mem_peak)
+
+    rows = _synced_guard_readings(monkeypatch)
+    ex = CudaExecutor()
+    for seed in (51, 52, 53):
+        random.seed(seed)
+        spec = ct.Spec(work_dir=str(tmp_path / f"w{seed}"), allowed_mem="500MB")
+        a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+        peaks = Peaks()
+        xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=ex, callbacks=[peaks])
+        assert set(peaks.peaks) <= {r for _, r, _, _ in rows}
+    assert any(k.startswith("segment:") for k, _, _, _ in rows)
+    random.seed(54)
+    spec = ct.Spec(work_dir=str(tmp_path / "mm"), allowed_mem="500MB")
+    m = xp.sum(xp.matmul(*[ct.random.random((512, 512), chunks=256, spec=spec) for _ in range(2)]))
+    before = len(rows)
+    m.compute(executor=CudaExecutor(fuse_plan=False))
+    # every op its own eager unit: create-arrays, the two random arrays, the
+    # product (a blockwise op) and the sum's reductions
+    eager = [k for k, _, _, _ in rows[before:]]
+    assert len(eager) >= 5 and all(k.startswith("eager:") for k in eager), eager
+    with memory.scoped("observe", allowed_mem=10**12):
+        with memory.task_guard("record_stream", observe_only=True):
+            x = torch.ones(2**22, dtype=torch.float64, device=cuda)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                y = x * 2.0
+            x.record_stream(side)
+            del x
+            z = torch.full((2**22,), 3.0, dtype=torch.float64, device=cuda)
+            del z
+            torch.cuda.current_stream().wait_stream(side)
+            del y
+    assert rows[-1][0] == "record_stream" and rows[-1][1] >= 2 * 2**25
+    assert [row for row in rows if row[1] != row[2] or not row[3]] == []
+
+
+def test_threaded_executor_on_the_card_equals_the_sequential(cuda, tmp_path):
+    """Vorticity's plan on 4 threads, both schedulers: the value bit for bit
+    the sequential executor's, the kernels launched as often."""
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.kernels.region_sum import region_sum
+    from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
+
+    def run(executor, scheduler=None):
+        random.seed(61)
+        spec = ct.Spec(work_dir=str(tmp_path / str(scheduler)), allowed_mem="500MB", scheduler=scheduler)
+        a, b, x, y = [ct.random.random((40, 35, 30), chunks=10, spec=spec) for _ in range(4)]
+        philox_uniform.launches = region_sum.launches = 0
+        value = float(xp.mean(a[1:] * x[1:] + b[1:] * y[1:]).compute(executor=executor))
+        return value.hex(), philox_uniform.launches, region_sum.launches
+
+    sequential = run(None)
+    assert sequential[1] == 4 * 4 * 4 * 3
+    for scheduler in ("dataflow", "oplevel"):
+        assert run(AsyncPythonDagExecutor(max_workers=4), scheduler) == sequential

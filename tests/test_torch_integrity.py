@@ -1,7 +1,7 @@
 """Chunk integrity in the port, held against the JAX package's: checksum
 manifests, quarantine, read-time verification, corrupt metadata, the
 corruption fault site (counterpart of tests/storage/test_integrity.py), stores
-that verify across the packages, and the sequential cases of
+that verify across the packages, and the sequential and threaded cases of
 tests/runtime/test_integrity.py (a corrupt chunk repaired mid-compute, an
 unhealable one failing loudly, corruption and a kill then resume)."""
 
@@ -23,6 +23,7 @@ from cubed_tpu_torch.observability.accounting import task_scope
 from cubed_tpu_torch.observability.metrics import get_registry
 from cubed_tpu_torch.runtime import faults
 from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
 from cubed_tpu_torch.runtime.faults import FaultConfig, FaultInjector
 from cubed_tpu_torch.runtime.resilience import RetryBudgetExceededError, RetryPolicy
 from cubed_tpu_torch.storage import integrity
@@ -430,3 +431,86 @@ def test_chaos_corruption_kill_resume_sequential(tmp_path):
     assert delta.get("tasks_skipped_resume", 0) > 0, delta
     assert 0 < delta.get("tasks_started", 0) < full, delta
     assert delta.get("tasks_skipped_resume", 0) + delta.get("tasks_started", 0) >= full
+
+
+# -- the threaded executor -------------------------------------------------
+
+
+def test_chaos_recompute_repairs_corrupt_chunk_threaded(tmp_path):
+    """As the sequential case, on the threaded executor under the op-level
+    scheduler (the corruptor fires at the producer's op end, which precedes
+    every read only under the op barrier; tests/test_torch_dataflow.py has
+    the repair mid-overlap)."""
+    an = np.arange(100.0, dtype=np.float64).reshape(10, 10)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB", integrity="verify", scheduler="oplevel")
+    c = xp.multiply(xp.add(ct.from_array(an, chunks=(2, 2), spec=spec), 1.0), 2.0)
+    corruptor = _CorruptFirstPopulatedStore(str(tmp_path))
+    before = get_registry().snapshot()
+    res = c.compute(executor=AsyncPythonDagExecutor(retry_policy=RetryPolicy(retries=3, backoff_base=0.01, seed=0)),
+                    optimize_graph=False, callbacks=[corruptor])
+    np.testing.assert_array_equal(res, (an + 1.0) * 2.0)
+    assert corruptor.corrupted is not None
+    delta = get_registry().snapshot_delta(before)
+    assert delta.get("chunks_corrupt_detected", 0) >= 1, delta
+    assert delta.get("chunks_quarantined", 0) >= 1, delta
+    assert delta.get("chunks_recomputed", 0) >= 1, delta
+    assert delta.get("chunks_verified", 0) > 0, delta
+    assert delta.get("task_failfast", 0) == 0, delta
+
+
+def test_chaos_unhealable_corruption_fails_loudly_threaded(tmp_path):
+    an = np.arange(16.0, dtype=np.float64).reshape(4, 4)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB", integrity="verify",
+                   fault_injection=dict(seed=3, storage_corrupt_rate=1.0))
+    c = xp.multiply(xp.add(ct.from_array(an, chunks=(2, 2), spec=spec), 1.0), 2.0)
+    with pytest.raises((ChunkIntegrityError, RetryBudgetExceededError)):
+        c.compute(executor=AsyncPythonDagExecutor(retry_policy=RetryPolicy(retries=2, backoff_base=0.01, seed=0)),
+                  optimize_graph=False)
+
+
+def test_chaos_corruption_kill_resume_threaded(tmp_path):
+    """Seeded write corruption and a kill on a late block on the threaded
+    executor (a speculative twin may write a chunk twice: the manifest's
+    records stay consistent); one more chunk rots at rest; a clean resume
+    quarantines every corrupt chunk, runs strictly fewer tasks than the plan
+    and equals the reference's result bit for bit."""
+    import cubed_tpu as ct_ref
+
+    an = np.arange(400.0, dtype=np.float64).reshape(20, 20)
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB")
+    a = ct.from_array(an, chunks=(2, 2), spec=spec)
+    kill_flag = os.path.join(str(tmp_path), "kill.flag")
+    open(kill_flag, "w").close()
+    b = ct.map_blocks(_KillableAdd(kill_flag), a, dtype=np.float64)
+    full = b.plan.num_tasks(optimize_graph=False)
+
+    def executor(retries):
+        return AsyncPythonDagExecutor(max_workers=4, use_backups=True,
+                                      retry_policy=RetryPolicy(retries=retries, backoff_base=0.01, seed=0))
+
+    with faults.scoped(dict(seed=1234, storage_corrupt_rate=0.05), export_env=True):
+        with pytest.raises(Exception, match="mid-compute kill"):
+            b.compute(executor=executor(0), optimize_graph=False)
+    stores = _stores_with_chunks(str(tmp_path))
+    survivors = _chunk_files(stores[0])
+    assert 0 < len(survivors) < 100
+    _flip_byte(os.path.join(stores[0], survivors[0]), offset=7)
+    os.unlink(kill_flag)
+    class Ended:
+        n = 0
+
+        def on_task_end(self, event):
+            Ended.n += event.num_tasks
+
+    before = get_registry().snapshot()
+    res = b.compute(executor=executor(2), optimize_graph=False, resume=True, callbacks=[Ended()])
+    delta = get_registry().snapshot_delta(before)
+    assert delta.get("chunks_quarantined", 0) > 0, delta
+    assert delta.get("tasks_skipped_resume", 0) > 0, delta
+    # tasks, not attempts (a backup twin is another attempt of its task)
+    assert 0 < Ended.n < full, (Ended.n, full)
+    assert delta.get("tasks_skipped_resume", 0) + Ended.n >= full
+    ref = ct_ref.map_blocks(lambda x: x + 1.0, ct_ref.from_array(an, chunks=(2, 2), spec=ct_ref.Spec(
+        work_dir=str(tmp_path / "ref"), allowed_mem="500MB")), dtype=np.float64)
+    np.testing.assert_array_equal(res, ref.compute(optimize_graph=False))
+    assert not open_zarr_array(stores[0], mode="r").verify_chunks(quarantine=False)[1]

@@ -40,6 +40,8 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.array_api.sorting_functions, cubed_tpu_torch.array_api._block_sort\n"
         "import cubed_tpu_torch.array_api.linalg, cubed_tpu_torch.nan_functions, cubed_tpu_torch.kernels.merge_sort\n"
         "import cubed_tpu_torch.core.visualization, cubed_tpu_torch.array_api.html_repr\n"
+        "import cubed_tpu_torch.runtime.executors.python_async, cubed_tpu_torch.runtime.dataflow\n"
+        "import cubed_tpu_torch.runtime.journal, cubed_tpu_torch.runtime.backup\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -65,6 +67,8 @@ def _compute_on_cpu(tmp_path, observed: bool) -> None:
         "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
         "z = xp.zeros((8, 8), chunks=4, spec=spec)  # a VirtualFullArray, read on the CPU\n"
         "print(float(xp.mean(a[1:] * (a[1:] + z[1:])).compute(callbacks=cbs)))\n"
+        "from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor\n"
+        "print(float(xp.sum(a).compute(executor=AsyncPythonDagExecutor(max_workers=2))))\n"
         "print('\\n'.join(sorted(sys.modules)))",
         {"CUBED_TPU_TORCH_DEVICE": "cpu"},
     )
@@ -112,7 +116,9 @@ def test_source_walk_covers_every_subpackage():
                    "utility_functions", "sorting_functions", "_block_sort", "linalg"):
         assert os.path.join("cubed_tpu_torch", "array_api", f"{module}.py") in SOURCES, module
     for path in (("nan_functions.py",), ("kernels", "merge_sort.py"), ("core", "visualization.py"),
-                 ("array_api", "html_repr.py"), ("random.py",), ("storage", "store.py")):
+                 ("array_api", "html_repr.py"), ("random.py",), ("storage", "store.py"),
+                 ("runtime", "executors", "python_async.py"), ("runtime", "dataflow.py"), ("runtime", "journal.py"),
+                 ("runtime", "backup.py")):
         assert os.path.join("cubed_tpu_torch", *path) in SOURCES, path
 
 

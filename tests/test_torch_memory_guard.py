@@ -1,9 +1,12 @@
 """The runtime memory guard in the port, held against the JAX package's:
 RESOURCE classification, the guard's modes, its config and activation, the
-admission controller, and the sequential executor's outcomes, counters and
-decisions under seeded memory spikes (counterpart of the sequential and unit
-cases of tests/runtime/test_memory_guard.py). The guard's device reading
-(the card's allocator) is tested in tests/test_torch_cuda.py."""
+admission controller, the sequential executor's outcomes, counters and
+decisions under seeded memory spikes, and the threaded executor degrading
+under them (counterpart of the sequential, threaded and unit cases of
+tests/runtime/test_memory_guard.py). The guard's device reading under
+concurrency is driven here through a fake allocator, in interleavings of
+two and four tasks; its reading of the card's allocator is tested in
+tests/test_torch_cuda.py."""
 
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from cubed_tpu_torch.observability import collect
 from cubed_tpu_torch.observability.metrics import get_registry
 from cubed_tpu_torch.runtime import faults, memory
 from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
 from cubed_tpu_torch.runtime.memory import (
     AdmissionController,
     MemoryGuardConfig,
@@ -452,3 +456,303 @@ def test_a_failed_compute_frees_its_task_blocks_without_a_collection(tmp_path):
     finally:
         if enabled:
             gc.enable()
+
+
+# -- the threaded executor under seeded spikes ------------------------------
+
+
+class _StatsCapture:
+    stats: dict = {}
+
+    def on_compute_end(self, event):
+        self.stats = event.executor_stats or {}
+
+
+THREADED_SPIKE = dict(seed=11, task_mem_spike_rate=0.25, task_mem_spike_bytes=600_000_000)
+
+
+@pytest.mark.chaos
+@pytest.mark.mem
+def test_chaos_threaded_mem_spikes_degrade_and_complete(tmp_path):
+    """About one attempt in four spikes over the budget: the threaded
+    executor steps admission down, throttles, and completes; the result
+    equals the reference's threaded run of the same seeded plan bit for bit
+    (thread order varies which attempts spike, so the counts are not
+    compared between the packages)."""
+    from cubed_tpu.runtime.executors.python_async import AsyncPythonDagExecutor as RefAsyncPythonDagExecutor
+    from cubed_tpu.runtime.resilience import RetryPolicy as RefRetryPolicy
+
+    an = np.arange(400, dtype=np.float64).reshape(20, 20)
+    results = {}
+    cap = _StatsCapture()
+    for name, pkg, mod, ex in (
+        ("port", ct, xp, AsyncPythonDagExecutor(retry_policy=RetryPolicy(retries=6, backoff_base=0.005, seed=0))),
+        ("ref", ct_ref, ref_xp, RefAsyncPythonDagExecutor(
+            retry_policy=RefRetryPolicy(retries=6, backoff_base=0.005, seed=0))),
+    ):
+        with _pinned_names(900_000_000):
+            spec = pkg.Spec(work_dir=str(tmp_path / name), allowed_mem="500MB", fault_injection=THREADED_SPIKE,
+                            memory_guard="enforce")
+            arr = mod.add(pkg.from_array(an, chunks=(2, 2), spec=spec), 1.0)  # 100 tasks
+        results[name] = arr.compute(executor=ex, callbacks=[cap] if name == "port" else None)
+    np.testing.assert_array_equal(results["port"], results["ref"])
+    np.testing.assert_array_equal(results["port"], an + 1.0)
+    for counter in ("faults_injected_task_mem_spike", "mem_guard_hard_exceeded", "mem_pressure_stepdowns",
+                    "tasks_throttled"):
+        assert cap.stats.get(counter, 0) > 0, (counter, cap.stats)
+
+
+@pytest.mark.chaos
+@pytest.mark.mem
+def test_chaos_unfixable_over_memory_op_aborts_promptly(tmp_path):
+    """Every attempt spikes: admission degrades to one task in flight, then
+    the compute aborts with the actionable error, in fewer attempts than
+    plain retries would take."""
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB", memory_guard="enforce",
+                   fault_injection=dict(seed=5, task_mem_spike_rate=1.0, task_mem_spike_bytes=600_000_000))
+    a = ct.from_array(np.arange(64, dtype=np.float64).reshape(8, 8), chunks=(2, 2), spec=spec)  # 16 tasks
+    n_tasks, retries = 16, 6
+    cap = _StatsCapture()
+    with pytest.raises(MemoryGuardExceededError, match="allowed_mem"):
+        xp.add(a, 1.0).compute(
+            executor=AsyncPythonDagExecutor(retry_policy=RetryPolicy(retries=retries, backoff_base=0.005, seed=0)),
+            callbacks=[cap])
+    assert cap.stats.get("tasks_started", 0) < n_tasks * (retries + 1), cap.stats
+    assert cap.stats.get("mem_guard_aborts", 0) >= 1, cap.stats
+
+
+@pytest.mark.chaos
+def test_chaos_guard_off_ignores_spikes_threaded(tmp_path):
+    spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="500MB", memory_guard="off",
+                   fault_injection=dict(seed=5, task_mem_spike_rate=1.0, task_mem_spike_bytes=10**12))
+    an = np.arange(64, dtype=np.float64).reshape(8, 8)
+    cap = _StatsCapture()
+    result = xp.add(ct.from_array(an, chunks=(2, 2), spec=spec), 1.0).compute(
+        executor=AsyncPythonDagExecutor(), callbacks=[cap])
+    np.testing.assert_array_equal(result, an + 1.0)
+    for counter in ("mem_guard_hard_exceeded", "mem_guard_soft_exceeded", "mem_pressure_stepdowns"):
+        assert cap.stats.get(counter, 0) == 0, (counter, cap.stats)
+
+
+# -- the device reading under concurrency, on a fake allocator ---------------
+
+
+class FakeAllocator:
+    """A caching allocator's byte counts (current and peak since the last
+    reset), and for each task in flight the reset-based reading the guard
+    took when it reset the statistics at every task: its peak over its own
+    start, less that start."""
+
+    def __init__(self):
+        self.current = self.peak = self.true_peak = 0
+        self.resets = 0
+        self.own = {}  # task -> [bytes it holds, most it held]
+        self.windows = {}  # task -> [start, peak since its start]
+
+    def stats(self, dev):
+        return {"allocated": {"current": self.current, "peak": self.peak},
+                "reserved": {"current": self.current, "peak": self.peak}}
+
+    def reset(self, dev):
+        self.peak = self.current
+        self.resets += 1
+
+    def enter(self, task):
+        self.own[task] = [0, 0]
+        self.windows[task] = [self.current, self.current]
+
+    def alloc(self, task, n):
+        self.current += n
+        self.peak = max(self.peak, self.current)
+        self.true_peak = max(self.true_peak, self.current)
+        self.own[task][0] += n
+        self.own[task][1] = max(self.own[task][1], self.own[task][0])
+        for w in self.windows.values():
+            w[1] = max(w[1], self.current)
+
+    def free(self, task, n):
+        self.current -= n
+        self.own[task][0] -= n
+
+    def reset_based(self, task) -> int:
+        start, peak = self.windows[task]
+        return peak - start
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    fake = FakeAllocator()
+    monkeypatch.setattr(memory, "_guard_device", lambda: torch.device("cuda", 0))
+    monkeypatch.setattr(memory, "_allocator_stats", fake.stats)
+    monkeypatch.setattr(memory, "_reset_peaks", fake.reset)
+    monkeypatch.setattr(memory, "_capturing", lambda: False)
+    monkeypatch.setattr(memory, "_read_rss", lambda max_age_s=0.0: None)  # the device reading alone
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(memory, "_windows", {})
+    monkeypatch.setattr(memory, "_device_fold", {})
+    fake.current = 1000  # blocks held before any task (resident arrays)
+    fake.peak = fake.true_peak = 1000
+    with memory.scoped("observe", allowed_mem=10**12):
+        yield fake
+
+
+def _schedule(rng, n_tasks: int, steps: int = 4) -> list:
+    """A random interleaving of *n_tasks* tasks' events: each enters, makes
+    *steps* allocations or frees of its own blocks, and exits, in order."""
+    events = {t: ["enter"] + [("alloc" if rng.random() < 0.6 else "free") for _ in range(steps)] + ["exit"]
+              for t in range(n_tasks)}
+    order = []
+    while events:
+        t = int(rng.choice(sorted(events)))
+        order.append((t, events[t].pop(0)))
+        if not events[t]:
+            del events[t]
+    return order
+
+
+def _drive(fake, order, rng) -> dict:
+    """Run *order* through task guards; each task's (reading, reset-based
+    reading, own growth)."""
+    guards, out = {}, {}
+    for t, event in order:
+        if event == "enter":
+            fake.enter(t)
+            guards[t] = memory.task_guard(f"t{t}", observe_only=True).__enter__()
+        elif event == "alloc":
+            fake.alloc(t, int(rng.integers(1, 5)) * 256)
+        elif event == "free":
+            held = fake.own[t][0]
+            if held:
+                fake.free(t, int(rng.integers(1, held // 256 + 1)) * 256)
+        else:
+            fake.free(t, fake.own[t][0])
+            g = guards.pop(t)
+            g.__exit__(None, None, None)
+            out[t] = (g.device_measured, fake.reset_based(t), fake.own[t][1])
+            del fake.windows[t]
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_guard_at_one_task_in_flight_equals_the_reset_based_reading(fake_card, seed):
+    rng = np.random.default_rng(seed)
+    order = [(t, e) for t in range(4) for e in ["enter", "alloc", "free", "alloc", "alloc", "exit"]]
+    readings = _drive(fake_card, order, rng)
+    assert all(reading == reset_based for reading, reset_based, _own in readings.values()), readings
+    assert fake_card.resets == 4  # each task opened its own window
+    assert memory.device_peaks()["allocated"] == fake_card.true_peak
+
+
+@pytest.mark.parametrize("n_tasks", [2, 4])
+@pytest.mark.parametrize("seed", range(8))
+def test_guard_under_concurrency_never_reads_below_a_tasks_own_growth(fake_card, n_tasks, seed):
+    """Interleaved tasks: each reading is at least the task's own growth and
+    at least its reset-based reading (the window's peak covers its own
+    interval); the compute-level peak keeps the true peak."""
+    rng = np.random.default_rng(100 * n_tasks + seed)
+    readings = _drive(fake_card, _schedule(rng, n_tasks), rng)
+    assert len(readings) == n_tasks
+    for t, (reading, reset_based, own) in readings.items():
+        assert reading >= own, (t, readings)
+        assert reading >= reset_based, (t, readings)
+    assert memory.device_peaks()["allocated"] == fake_card.true_peak
+    assert memory._windows[0][0] == 0  # every task left its window
+
+
+def test_guard_reading_when_another_task_frees_under_it(fake_card):
+    """Task 0 holds 4 KiB when task 1 starts, then frees it; task 1 then
+    allocates 2 KiB. Task 1's reading is at least its own 2 KiB (a reading
+    from its own start would be 0: the window's base is the bytes allocated
+    when the first task in flight started)."""
+    fake = fake_card
+    rng = np.random.default_rng(0)
+    fake.enter(0)
+    g0 = memory.task_guard("t0", observe_only=True).__enter__()
+    fake.alloc(0, 4096)
+    fake.enter(1)
+    g1 = memory.task_guard("t1", observe_only=True).__enter__()
+    fake.free(0, 4096)
+    g0.__exit__(None, None, None)
+    fake.alloc(1, 2048)
+    fake.free(1, 2048)
+    g1.__exit__(None, None, None)
+    assert g0.device_measured == 4096
+    assert g1.device_measured >= 2048
+    assert fake.resets == 1
+    del rng
+
+
+def test_guard_on_the_card_is_per_thread_and_opens_one_window(fake_card):
+    """Two threads' guards in flight at once share one window, and each
+    thread's ``last_readings`` is its own task's."""
+    import threading
+
+    fake = fake_card
+    entered, release = threading.Barrier(2), threading.Event()
+    seen = {}
+
+    def task(t, nbytes):
+        with memory.task_guard(f"t{t}", observe_only=True):
+            fake.current += nbytes
+            fake.peak = max(fake.peak, fake.current)
+            entered.wait()
+            release.wait(5)
+        seen[t] = memory.last_readings()["key"]
+
+    threads = [threading.Thread(target=task, args=(t, 512 * (t + 1))) for t in range(2)]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 5
+    while memory._windows.get(0, [0])[0] < 2 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert memory._windows[0][0] == 2  # both in flight in one window
+    release.set()
+    for th in threads:
+        th.join(5)
+    assert seen == {0: "t0", 1: "t1"}
+    assert fake.resets == 1
+
+
+def test_guard_windows_under_a_thread_stress(fake_card):
+    """16 threads, each entering and leaving 40 guards with allocations in
+    between, under a 1 us switch interval: every reading is at least its
+    task's own growth, every window closes, and the compute-level peak
+    holds the true peak (a lost update to the window count would leave it
+    open or reset it under a task in flight)."""
+    import sys
+    import threading
+
+    fake = fake_card
+    lock = threading.Lock()
+    failures: list = []
+
+    def alloc(n):
+        with lock:
+            fake.current += n
+            fake.peak = max(fake.peak, fake.current)
+            fake.true_peak = max(fake.true_peak, fake.current)
+
+    def worker(t):
+        rng = np.random.default_rng(t)
+        for _ in range(40):
+            with memory.task_guard(f"t{t}", observe_only=True) as g:
+                held = int(rng.integers(1, 8)) * 512
+                alloc(held)
+                alloc(-held)
+            if g.device_measured < held:
+                failures.append((t, g.device_measured, held))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert failures == []
+    assert memory._windows[0][0] == 0
+    assert memory.device_peaks()["allocated"] == fake.true_peak

@@ -20,7 +20,7 @@ import cubed_tpu_torch.array_api as xp  # noqa: E402
 #: top-level names of the reference not ported yet (ROADMAP Queue 1: the
 #: service)
 PENDING_TOP_LEVEL = {
-    "service", "ComputeService", "ServiceConfig",  # item 11: the fleet's service
+    "service", "ComputeService", "ServiceConfig",  # item 11c: the fleet's service
 }
 
 #: array_api names of the reference not ported yet

@@ -3,7 +3,9 @@ checksum-trustworthy restarts, plan introspection under ``resume=True``
 equal to what the executors run and to the reference's count on the same
 store, corrupt metadata tolerated (counterpart of the sequential cases of
 tests/runtime/test_resume.py), and the device executor's op-granular resume,
-whose path counters equal ``JaxExecutor``'s on the same plan and store."""
+whose path counters equal ``JaxExecutor``'s on the same plan and store; and
+resume after a threaded compute with speculative backups (the reference's
+``test_resume_with_speculative_backups``)."""
 
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from cubed_tpu_torch.core.ops import _store_op
 from cubed_tpu_torch.observability.metrics import get_registry
 from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+from cubed_tpu_torch.runtime.executors.python_async import AsyncPythonDagExecutor
 from cubed_tpu_torch.runtime.types import Callback
 
 
@@ -255,3 +258,34 @@ def test_device_executor_resume_counters_equal_the_jax_executor(tmp_path, corrup
              "rechunk_virtual", "eager_fallbacks", "batched_errors")
     assert {c: counters["port"].get(c, 0) for c in paths} == {c: counters["ref"].get(c, 0) for c in paths}
     assert counters["port"].get("batched_ops", 0) == (5 if corrupt else 4)
+
+
+def test_resume_with_speculative_backups(spec, monkeypatch):
+    """Resume after a threaded compute whose every task got a backup twin:
+    the twins rewrite identical bytes, the manifests stay consistent, and
+    the resumed result equals the reference's bit for bit."""
+    import cubed_tpu_torch.runtime.executors.python_async as pa
+
+    launched = []
+
+    def always(fut, now, start_times, end_times):
+        launched.append(fut)
+        return True
+
+    monkeypatch.setattr(pa, "should_launch_backup", always)
+    an = np.arange(100.0).reshape(10, 10)
+    b = xp.add(ct.from_array(an, chunks=(2, 2), spec=spec), 1.0)
+    ex = AsyncPythonDagExecutor(use_backups=True)
+    before = get_registry().snapshot()
+    b.compute(optimize_graph=False, executor=ex)
+    assert launched and get_registry().snapshot_delta(before).get("speculative_backups", 0) > 0
+    store = _output_store(spec.work_dir)
+    assert not ct.from_zarr(store).zarray.verify_chunks(quarantine=False)[1]
+    for name in _chunk_files(store)[:5]:
+        os.unlink(os.path.join(store, name))
+    before = get_registry().snapshot()
+    res = b.compute(optimize_graph=False, resume=True, executor=ex)
+    assert get_registry().snapshot_delta(before).get("tasks_skipped_resume") == 20
+    ref_spec = ct_ref.Spec(work_dir=str(spec.work_dir) + "-ref", allowed_mem="500MB")
+    np.testing.assert_array_equal(res, ref_xp.add(ct_ref.from_array(an, chunks=(2, 2), spec=ref_spec), 1.0)
+                                  .compute(optimize_graph=False))

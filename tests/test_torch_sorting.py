@@ -126,7 +126,7 @@ def test_argsort_one_op_per_round(tmp_path, force):
 
 def test_multioutput_round_resident_on_the_device_executor(tmp_path, force):
     """The reference runs a multi-output op on its distributed executor; the
-    port has none yet (ROADMAP Queue 1 item 10), so its counterpart: every
+    port has none yet (ROADMAP Queue 1 item 11c), so its counterpart: every
     round's two outputs admitted to residency on the device executor, the
     requested indices alone written to storage."""
     an = np.random.default_rng(8).integers(0, 9, 48)
@@ -140,9 +140,10 @@ def test_multioutput_round_resident_on_the_device_executor(tmp_path, force):
 
 
 def test_multioutput_op_computes_every_output(tmp_path):
-    """The reference checks resume of a multi-output op (resume is not
-    ported: ROADMAP Queue 1 item 9); here both outputs of one op, each
-    computed alone on both executors, equal the reference's."""
+    """The reference checks resume of a multi-output op here (the port's
+    counterpart is tests/test_torch_resume.py::test_multioutput_resume_skips_per_task);
+    here both outputs of one op, each computed alone on both executors,
+    equal the reference's."""
     an = np.arange(12, dtype=np.float64)
     outs = {}
     for xp, pkg, spec in ((rxp, cubed_tpu, _specs(tmp_path)[0]), (pxp, cubed_tpu_torch, _specs(tmp_path)[1])):

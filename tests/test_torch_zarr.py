@@ -367,7 +367,7 @@ def test_blockwise_storage_options_refused(tmp_path):
 
     ps = _specs(tmp_path)[1]
     a = cubed_tpu_torch.from_array(np.arange(4.0), chunks=(2,), spec=ps)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
         blockwise(lambda x: x, "i", a, "i", dtype=np.float64, storage_options={"anon": True})
     with pytest.raises(NotImplementedError, match="fsspec"):
         cubed_tpu_torch.to_zarr(a, str(tmp_path / "x.zarr"), storage_options={"anon": True})
