@@ -15,7 +15,9 @@ stencils phase alone; ``--linalg-fft-phase`` the linear algebra and
 spectra phase alone, its summary JSON on its last line;
 ``--reliability-phase`` the memory guard and reliability phase alone, its
 summary JSON on its last line; ``--threads-phase`` the threaded executor's
-phase alone, three timing rounds, its summary JSON on its last line.)
+phase alone, three timing rounds, its summary JSON on its last line;
+``--analytics-phase`` the observability analytics phase alone, its summary
+JSON on its last line.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -166,7 +168,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    output's flush) and a ``per_op`` row per op, the merged trace loadable
    with one operation span per op, the profiler's trace of every compute
    (the capturing one too) recording each hand kernel as many times as its
-   wrapper counted, and the allocator's peak within the budget; then warm
+   wrapper counted, and the allocator's peak within the budget; the
+   capturing compute also runs with the dispatch profiler armed, and its
+   time over the warm computes' and its top stacks are printed; then warm
    computes in turns, COST_ROUNDS rounds, four ways (the executor alone, as
    ``compute()`` ran before the lifecycle; ``compute()`` unobserved; with a
    TraceCollector; with all four observers), with their medians. On the
@@ -176,7 +180,36 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    blockwise task, bytes and chunks written equal to what the plan's
    outputs take as stored, the collector's own callback time, and the wall
    clock beside the threads phase's unobserved sequential run of it (this
-   observed run ends the whole run, after the threads phase);
+   observed run comes after the threads phase);
+   Then the analytics phase, in a process of its own (``--analytics-phase``,
+   alone it first runs phase 4's unobserved computes in another process,
+   ``--analytics-unobserved``): (1) vorticity at full width on
+   ``CudaExecutor``, cold, capturing and warm, of one seed, each with a
+   ``FlightRecorder`` and ``Spec(run_history=..., telemetry_port=0,
+   dispatch_profile=True)``: each value against the numpy oracle (rtol
+   1e-12), the Philox, region_sum and fma_sum_blocks launches equal to
+   phase 4's unobserved computes', ``analyze()`` reading one task span per
+   op with the op graph as the critical path's source and its buckets
+   covering the wall clock, ``explain()``'s tasks and its output op's bytes
+   equal to ``executor_stats``' (only the output reaches storage), three
+   run records of one fingerprint (no card byte copied for it) and
+   ``regress`` rendering the diff of the last two, a block function holding
+   a CUDA tensor fingerprinted from a host copy, counted; ``/metrics``,
+   ``/healthz`` and ``/snapshot.json`` scraped over loopback with each
+   compute's tasks done equal to its total, and ``python -m
+   cubed_tpu_torch.top --once`` rendering from the endpoint; (2) the
+   reliability phase's cut (160, 160, 120) / 40 on 8 threads under
+   dataflow with the dispatch profiler: a chunk graph recorded and read as
+   the critical path's source, a "dispatch profile" lane, the value bit for
+   bit the sequential executor's (the observability phase's run of the cut
+   with a TraceCollector, passed in; alone the phase runs its own), and
+   both computes' bucket splits (critical path and busy time); (3) a seeded task
+   fault exhausting its retries with ``CUBED_TPU_TORCH_FLIGHT_RECORDER``
+   set: one bundle naming the failing op and chunk, and ``python -m
+   cubed_tpu_torch.diagnose <bundle> --analyze`` exiting 0 on it; (4)
+   vorticity's warm compute, 30 turns each, unobserved and with the three
+   knobs armed, medians and quartiles (not a gate). Its summary JSON is its
+   last line. The whole run ends with phase 5;
    Then the Array API phase: 22 ops (tests/test_mem_utilization.py's
    ``OPS`` that the port has, flip, roll, var, std, cumulative_sum,
    argmax, where, count_nonzero and an integer-array index) on two
@@ -308,8 +341,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    on the spilled cut, the sequential executor against threads at 1, 4, 8
    and 16 workers under the dataflow scheduler, every value and launch
    count bit for bit the first sequential run's (alone three rounds; in the
-   whole run one round, and checks 2, 3 and 6 at the reliability phase's
-   cut (160, 160, 120) / 40, to stay near the run's 1050 s aim); (1) vorticity at full width on 8 threads under both
+   whole run one round, checks 2, 3 and 6 at the reliability phase's
+   cut (160, 160, 120) / 40, and check 1 under dataflow alone, to stay
+   near the run's 1050 s aim); (1) vorticity at full width on 8 threads under both
    schedulers against the numpy oracle (rtol 1e-12), the per-block Philox,
    region_sum and fma_sum launches equal to phase 4's sequential run's, and
    tasks dispatched early under dataflow; (2) the cut under oplevel at 1, 4
@@ -2404,6 +2438,7 @@ def observe_device_run(torch) -> int:
     four observers. Prints what the parent checks as one JSON line."""
     import cubed_tpu_torch
     from cubed_tpu_torch.observability import TraceCollector
+    from cubed_tpu_torch.observability.dispatchprofile import profile_for
     from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
     from cubed_tpu_torch.runtime.types import Callback
 
@@ -2417,7 +2452,10 @@ def observe_device_run(torch) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     computes = []
     for i, seed in enumerate(OBSERVED_SEEDS):
-        spec = cubed_tpu_torch.Spec(work_dir=os.path.join(out_dir, f"work-{i}"), allowed_mem="2GB")
+        # the capturing compute (the second) also with the dispatch
+        # profiler armed: where its host time goes
+        spec = cubed_tpu_torch.Spec(work_dir=os.path.join(out_dir, f"work-{i}"), allowed_mem="2GB",
+                                    dispatch_profile=True if i == 1 else None)
         random.seed(seed)
         x = vorticity_build(spec)
         plan = x.plan._finalize(array_names=(x.name,))
@@ -2435,6 +2473,7 @@ def observe_device_run(torch) -> int:
         merged = json.load(open(obs["collector"].trace_path))["traceEvents"]
         tracing = json.load(open(obs["tracing"].trace_path))["traceEvents"]
         es = obs["collector"].executor_stats
+        prof = profile_for(obs["collector"].compute_id)
         computes.append(dict(
             seed=seed, value=value, seconds=seconds, stats=dict(ex.stats),
             launches={k: w.launches for k, w in wrappers.items()},
@@ -2446,7 +2485,8 @@ def observe_device_run(torch) -> int:
             merged_lanes=sorted({e["args"]["name"] for e in merged if e.get("ph") == "M"}),
             tracing_tasks=sum(e["args"]["num_tasks"] for e in tracing if e.get("cat") == "task"),
             memory_peaks=[m["peak_bytes_in_use"] for m in obs["memory"].samples], budget=ex._budget(spec, dev),
-            trace_bytes=os.path.getsize(obs["profiler"].trace_path)))
+            trace_bytes=os.path.getsize(obs["profiler"].trace_path),
+            profile=prof.summary() if prof is not None else None))
         shutil.rmtree(spec.work_dir, ignore_errors=True)
     def bare(x) -> float:
         dag = x.plan._finalize(array_names=(x.name,)).dag
@@ -2556,6 +2596,16 @@ def check_observed_device_run(torch, unobserved: list) -> dict:
               f"{label}: per_op {len(c['per_op'])}, plan ops {c['ops']}, operation spans {c['operation_spans']}")
         check(len(peaks) == c["ops"] and peak is not None and peak <= c["budget"],
               f"{label}: device memory peaks {peaks} B, budget {c['budget']} B")
+    # the capturing compute, profiled: where its host time went when it
+    # read several times the warm computes' (PERF.md, open questions)
+    capturing, warm = r["computes"][1], float(np.median([c["seconds"] for c in r["computes"][2:]]))
+    prof = capturing["profile"] or {}
+    print(f"observability [cuda, capturing]: {capturing['seconds']:.4f} s, {capturing['seconds'] / warm:.2f}x the "
+          f"warm computes' median {warm:.4f} s; dispatch profiler {prof.get('samples')} samples at {prof.get('hz')} "
+          f"Hz over {prof.get('duration_s')} s, top stacks:")
+    for st in prof.get("top_stacks") or []:
+        print(f"  {st['fraction']:.1%} {st['count']} {st['stack'][-600:]}")
+    check(prof.get("samples", 0) > 0, "observability [cuda, capturing]: the dispatch profiler took no sample")
     print(f"observability [cuda]: warm compute() over {COST_ROUNDS} rounds in turns, median s: " + "; ".join(
         f"{way} {float(np.median(t)):.4f} ({' / '.join(f'{x:.4f}' for x in t)})" for way, t in r["cost"].items())
         + f"; {smi_tag()}")
@@ -2587,12 +2637,13 @@ def plan_chunk_writes(plan) -> tuple[int, int, int]:
     return chunks, nbytes, tasks
 
 
-def run_sequential_observed(torch, unobserved_seconds: float, config) -> float:
+def run_sequential_observed(torch, unobserved_seconds: float, config) -> dict:
     """Vorticity on the sequential executor with a TraceCollector, at the
     threads phase's cut (*config*): one task span per task, storage
     sub-spans, and the bytes and chunks written worked out from the plan;
     its wall clock beside the threads phase's unobserved sequential run of
-    the same plan."""
+    the same plan. Returns its value (``float.hex``) and ``analyze()``'s
+    bucket split, which the analytics phase holds its threaded run to."""
     import cubed_tpu_torch
     from cubed_tpu_torch.observability import TraceCollector
 
@@ -2650,7 +2701,7 @@ def run_sequential_observed(torch, unobserved_seconds: float, config) -> float:
     check(sum(spans.values()) + es.get("spans_dropped", 0) == es["chunks_read"] + es["chunks_written"] + kernel_tasks,
           f"{label}: sub-spans {spans} and {es.get('spans_dropped', 0)} dropped, not one per chunk read, chunk "
           f"written and blockwise task")
-    return seconds
+    return dict(value=value.hex(), split=bucket_split(col, label, seconds))
 
 
 # ---------------------------------------------------------------------------
@@ -4450,14 +4501,16 @@ def reliability_in_fresh_process() -> dict:
 #: chaos and journal checks at the reliability phase's sequential cut (160,
 #: 160, 120) / 40 (447 tasks). ``rounds`` is check 6's timing rounds. Alone
 #: the phase takes 3 rounds at the spilled cut; the whole run
-#: (``THREADS_WHOLE_RUN``) takes 1 round, and checks 2, 3 and 6 at the
-#: smaller cut, to stay near its 1050 s aim (PERF.md §5)
+#: (``THREADS_WHOLE_RUN``) takes 1 round, checks 2, 3 and 6 at the
+#: smaller cut, and check 1 under dataflow alone (oplevel stays checked at
+#: the cut by check 2), to stay near its 1050 s aim (PERF.md §5)
 THREADS = dict(full=VORTICITY, cut=SPILL, small=RELIABILITY["seq"], allowed_mem="2GB", seed=SEED,
-               workers=(1, 4, 8), timing_workers=(1, 4, 8, 16), rounds=3, full_workers=8, names=916_000_000,
+               workers=(1, 4, 8), timing_workers=(1, 4, 8, 16), rounds=3, full_workers=8,
+               full_modes=("dataflow", "oplevel"), names=916_000_000,
                faults=dict(seed=16, storage_write_failure_rate=0.05, storage_write_leaves_tmp=True,
                            task_failure_rate=0.05, straggler_rate=0.02, straggler_delay_s=1.0),
                cancel_after=12)
-THREADS_WHOLE_RUN = dict(rounds=1, cut=RELIABILITY["seq"])
+THREADS_WHOLE_RUN = dict(rounds=1, cut=RELIABILITY["seq"], full_modes=["dataflow"])
 #: the kernels whose launches the threads phase counts (their per-block and
 #: chunked routes: the threaded executor runs each task's block function)
 THREADS_LAUNCHES = ("philox_uniform", "philox_uniform:block", "region_sum", "fma_sum_blocks")
@@ -4586,12 +4639,13 @@ def journal_frontier(arr, path: str, op_granular: bool = False) -> dict:
 
 
 def threads_values(torch, config, work, timings, sequential_full, out) -> dict:
-    """Checks 1 and 2: values, launches and overlap on both schedulers
-    (after check 6, whose first run is the spilled cut's sequential one)."""
+    """Checks 1 and 2: values, launches and overlap on the schedulers of
+    ``full_modes`` at full width and on oplevel at the cut (after check 6,
+    whose first run is the cut's sequential one)."""
     from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
 
     full, cut = config["full"], config["cut"]
-    # 1. full width on 8 threads, both schedulers: the oracle at rtol 1e-12,
+    # 1. full width on 8 threads, each scheduler: the oracle at rtol 1e-12,
     # the launches the sequential executor's on the same plan
     t0 = time.perf_counter()
     expected = cached_oracle(f"vorticity {full['shape']}", lambda: vorticity_oracle(full), config["seed"])
@@ -4601,7 +4655,7 @@ def threads_values(torch, config, work, timings, sequential_full, out) -> dict:
         print(f"threads 1: the sequential executor's launches on the full-width plan {json.dumps(sequential_full)} "
               f"({seconds:.3f} s)")
     runs = {}
-    for mode in ("dataflow", "oplevel"):
+    for mode in config["full_modes"]:
         arr = vorticity_arr(full, work, config["seed"], scheduler=mode)
         value, seconds, launches, stats = counted_compute(torch, arr, threads_executor(config["full_workers"]))
         rel = abs(float(value) - expected) / abs(expected)
@@ -4846,6 +4900,387 @@ def threads_in_fresh_process(sequential_full: dict, **cuts) -> dict:
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
     check(proc.returncode == 0, f"threads phase: its process failed:\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
+# the analytics phase: the flight recorder, run history, explain, analyze,
+# regress, live telemetry and the dispatch profiler around the device path
+# ---------------------------------------------------------------------------
+
+#: the analytics phase, in a process of its own (``--analytics-phase``):
+#: part 1 vorticity at full width on ``CudaExecutor``, cold, capturing and
+#: warm, all of one seed (so the three run records share a fingerprint);
+#: part 2 the reliability phase's sequential cut (160, 160, 120) / 40 (447
+#: tasks) on the threads executor, against the sequential executor's run;
+#: part 3 a failing compute at a small cut; part 4 arming's cost,
+#: ``cost_rounds`` warm computes each way in turns
+ANALYTICS = dict(full=VORTICITY, cut=RELIABILITY["seq"], seed=SEED, workers=8, cost_rounds=30,
+                 failing=dict(shape=(40, 36, 32), chunks=8), faults=dict(seed=17, task_failure_rate=1.0), retries=2)
+#: the kernels whose launches part 1 holds against phase 4's unobserved computes
+ANALYTICS_LAUNCHES = ("philox_uniform", "region_sum", "fma_sum_blocks")
+#: the buckets the sequential and the threaded computes' split is printed in
+SPLIT_BUCKETS = ("storage_read", "storage_write", "kernel", "queue_wait", "ready_wait", "dispatch_overhead",
+                 "uninstrumented", "other")
+
+
+def http_get(port: int, path: str) -> tuple:
+    """(status, body) of ``GET http://127.0.0.1:<port><path>``."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def bucket_split(collector, label: str, seconds: float) -> dict:
+    """``analyze()`` of a compute's collector, printed: the critical path's
+    split into :data:`SPLIT_BUCKETS` and the busy seconds per bucket over
+    every task (the per-op rows summed)."""
+    from cubed_tpu_torch.observability import analyze
+
+    d = analyze(collector).to_dict()
+    busy: dict = {}
+    for row in (d.get("per_op") or {}).values():
+        for k, v in row["buckets"].items():
+            busy[k] = busy.get(k, 0.0) + v
+    split = dict(seconds=seconds, source=d["critical_path_source"], tasks=d["tasks_analyzed"],
+                 path={k: d["attribution"].get(k, 0.0) for k in SPLIT_BUCKETS},
+                 busy={k: busy.get(k, 0.0) for k in SPLIT_BUCKETS})
+    print(f"{label}: compute() {seconds:.3f} s, {d['tasks_analyzed']} task spans, critical path "
+          f"{len(d['critical_path'])} tasks from the {d['critical_path_source']}; critical-path split (s) "
+          + ", ".join(f"{k} {split['path'][k]:.4f}" for k in SPLIT_BUCKETS) + "; busy split over every task (s) "
+          + ", ".join(f"{k} {split['busy'][k]:.4f}" for k in SPLIT_BUCKETS) + f"; {smi_tag()}")
+    return split
+
+
+def started_cli(module: str, *args) -> tuple:
+    """``python -m <module> <args>`` started from the checkout's root."""
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=REPO)
+    return proc, time.perf_counter()
+
+
+def finished_cli(started: tuple, timeout: float = 120) -> tuple:
+    """(exit code, stdout, stderr, seconds since it started) of a
+    :func:`started_cli` process, waited for."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+
+def analytics_device(torch, config, work, given, out) -> tuple:
+    """Part 1: vorticity at full width on ``CudaExecutor``, observed by a
+    ``FlightRecorder`` with run history, telemetry and the dispatch
+    profiler armed by the Spec. Returns the executor (its graph captured)
+    and a callable that checks the top frame taken beside the next part."""
+    import io
+
+    import cubed_tpu_torch
+    from cubed_tpu_torch import regress
+    from cubed_tpu_torch.observability import FlightRecorder, analyze, export
+    from cubed_tpu_torch.observability.dispatchprofile import profile_for
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.observability.runhistory import load_runs
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.service.cache import structural_fingerprint
+
+    hist = os.path.join(work, "history")
+    wrappers = kernel_wrappers()
+    ex = CudaExecutor()
+    fp_bytes = get_registry().snapshot().get("fingerprint_device_bytes", 0)
+    ids = []
+    for i, label in enumerate(("cold", "capturing", "warm")):
+        spec = cubed_tpu_torch.Spec(work_dir=os.path.join(work, f"device-{i}"), allowed_mem="2GB", run_history=hist,
+                                    telemetry_port=0, dispatch_profile=True)
+        random.seed(config["seed"])
+        x = vorticity_build(spec, config["full"])
+        plan = x.plan._finalize(array_names=(x.name,))
+        fr = FlightRecorder(bundle_dir=os.path.join(work, "bundles"), always=True)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        value = float(x.compute(executor=ex, callbacks=[fr]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: wrappers[k].launches for k in ANALYTICS_LAUNCHES}
+        d = analyze(fr).to_dict()
+        expl = x.explain().to_dict()
+        es = fr.executor_stats or {}
+        prof = profile_for(fr.compute_id)
+        rel = abs(value - given["expected"]) / abs(given["expected"])
+        tag = f"analytics [cuda, {label}, seed {config['seed']}]"
+        print(f"{tag}: compute() {seconds:.4f} s, value {value!r}, numpy oracle {given['expected']!r}, rel err "
+              f"{rel:.3e}; launches {json.dumps(launches)} (phase 4's unobserved {json.dumps(given['launches'][i])}); "
+              f"{smi_tag()}")
+        print(f"{tag}: analyze(): {d['tasks_analyzed']} task spans (plan: {plan.num_ops()} ops, {plan.num_tasks()} "
+              f"tasks), critical path {len(d['critical_path'])} ops from the {d['critical_path_source']}, attribution "
+              f"coverage {d['attribution_coverage']}, wall clock {d['wall_clock_s']:.4f} s, buckets "
+              f"{json.dumps({k: v for k, v in d['attribution'].items() if v})}; explain(): {expl['totals']['tasks']} "
+              f"tasks, bytes written {expl['totals']['bytes_written']} B predicted through storage, the output op's "
+              f"{expl['ops'][-1]['bytes_written']} B; executor_stats bytes_written {es.get('bytes_written')} B, "
+              f"tasks_completed {es.get('tasks_completed')}; dispatch profiler {prof.samples if prof else None} samples")
+        check(rel <= 1e-12, f"{tag}: value differs from the numpy oracle beyond rtol 1e-12")
+        check(launches == {k: given["launches"][i][k] for k in ANALYTICS_LAUNCHES},
+              f"{tag}: launches {launches}, phase 4's unobserved {given['launches'][i]}")
+        check(d["tasks_analyzed"] == plan.num_ops() and d["critical_path"] and d["critical_path_source"] == "op_graph",
+              f"{tag}: analyze() read {d['tasks_analyzed']} task spans, path {d['critical_path']}")
+        check(abs(d["attribution_coverage"] - 1.0) <= 0.01, f"{tag}: coverage {d['attribution_coverage']}")
+        check(expl["totals"]["tasks"] == es.get("tasks_completed") == plan.num_tasks(),
+              f"{tag}: explain {expl['totals']['tasks']} tasks, executor_stats {es.get('tasks_completed')}")
+        # the device executor writes only the output: the output op's
+        # predicted bytes, all that reached storage
+        check(expl["ops"][-1]["bytes_written"] == es.get("bytes_written") == 8,
+              f"{tag}: predicted {expl['ops'][-1]['bytes_written']} B, written {es.get('bytes_written')} B")
+        check(prof is not None and prof._thread is None, f"{tag}: the dispatch profiler was not armed and stopped")
+        ids.append((fr.compute_id, plan.num_tasks()))
+        out.setdefault("device", []).append(dict(seconds=seconds, value=value, launches=launches,
+                                                 buckets=d["attribution"], coverage=d["attribution_coverage"]))
+        shutil.rmtree(spec.work_dir, ignore_errors=True)
+    # run history: three records of one fingerprint, no card bytes copied
+    # for it (the plan holds no tensor), and regress's diff of the last two
+    records, bad = load_runs(hist)
+    fps = {r.get("fingerprint") for r in records}
+    copied = get_registry().snapshot().get("fingerprint_device_bytes", 0) - fp_bytes
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = regress.main(["--history", hist])
+    print(f"analytics [run history]: {len(records)} records ({bad} unreadable), fingerprints {sorted(fps)}, card "
+          f"bytes copied to fingerprint {copied}; python -m cubed_tpu_torch.regress exited {rc}:\n{buf.getvalue()}")
+    check(len(records) == 3 and bad == 0 and len(fps) == 1 and None not in fps and copied == 0,
+          f"analytics [run history]: records {records}")
+    check(rc in (0, 1) and "REGRESSION" in buf.getvalue() and all(r.get("buckets") for r in records),
+          f"analytics [run history]: regress exited {rc}")
+    # a plan that holds a tensor on the card: two builds fingerprint equal,
+    # another tensor differs, each hash copying the tensor's bytes once
+    a = cubed_tpu_torch.random.random((64, 64), chunks=32, spec=cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB"))
+    ws = [torch.ones(1 << 16, device="cuda", dtype=torch.float64) for _ in range(2)]
+    ws.append(torch.zeros(1 << 16, device="cuda", dtype=torch.float64))
+    before = get_registry().snapshot().get("fingerprint_device_bytes", 0)
+    held = [structural_fingerprint(cubed_tpu_torch.map_blocks(lambda b, w=w: b * w[0], a, dtype=np.float64).plan.dag)[0]
+            for w in ws]
+    copied = get_registry().snapshot().get("fingerprint_device_bytes", 0) - before
+    print(f"analytics [fingerprint]: a block function holding a CUDA tensor of {ws[0].numel() * 8} B, three builds: "
+          f"equal {held[0] == held[1]}, another tensor differs {held[0] != held[2]}, card bytes copied {copied}")
+    check(held[0] == held[1] != held[2] and copied == 3 * ws[0].numel() * 8, "analytics [fingerprint]: fingerprints")
+    # the live endpoints over loopback, and top rendering from them
+    rt = export.get_runtime()
+    check(rt is not None, "analytics [telemetry]: not armed")
+    rt.sampler.sample_once()
+    metrics_code, metrics_body = http_get(rt.port, "/metrics")
+    health_code, health_body = http_get(rt.port, "/healthz")
+    snap_code, snap_body = http_get(rt.port, "/snapshot.json")
+    snap = json.loads(snap_body)
+    rows = {c["compute_id"]: c for c in snap["computes"]}
+    done = [(rows[c]["tasks_done"], rows[c]["tasks_total"], n, rows[c]["status"]) for c, n in ids if c in rows]
+    families = sum(line.startswith("# TYPE ") for line in metrics_body.splitlines())
+    print(f"analytics [telemetry]: 127.0.0.1:{rt.port} /metrics {metrics_code} ({families} families, "
+          f"{len(metrics_body)} B), /healthz {health_code} {health_body}, /snapshot.json {snap_code}: computes "
+          f"(done, total, plan's tasks, status) {done}")
+    check(metrics_code == 200 and "cubed_tpu_torch_tasks_completed " in metrics_body,
+          "analytics [telemetry]: /metrics")
+    check(health_code == 200 and json.loads(health_body)["status"] == "ok", "analytics [telemetry]: /healthz")
+    check(len(done) == 3 and all(dn == tot == n and st == "succeeded" for dn, tot, n, st in done),
+          f"analytics [telemetry]: progress {done}")
+    # top in a process of its own, run beside part 2 (the endpoint serves
+    # on); its frame is checked by the returned callable
+    top = started_cli("cubed_tpu_torch.top", f"127.0.0.1:{rt.port}", "--once")
+
+    def finish_top() -> None:
+        rc, stdout, stderr, seconds = finished_cli(top)
+        print(f"analytics [top]: python -m cubed_tpu_torch.top --once exited {rc} after {seconds:.1f} s:\n"
+              f"{stdout}{stderr[-2000:]}")
+        check(rc == 0 and "COMPUTES" in stdout and f"{ids[-1][1]}/{ids[-1][1]}" in stdout,
+              "analytics [top]: no frame from the endpoint")
+
+    ticks = []
+    for _ in range(30):
+        t = time.perf_counter()
+        rt.sampler.sample_once()
+        ticks.append(time.perf_counter() - t)
+    out["sampler_tick_ms"] = float(np.median(ticks)) * 1e3
+    print(f"analytics [telemetry]: one sampler tick (the registry into the store, the alert rules) median "
+          f"{out['sampler_tick_ms']:.4f} ms of 30, once a second; {smi_tag()}")
+    return ex, finish_top
+
+
+def sequential_cut_observed(torch, config) -> dict:
+    """The cut on the sequential executor with a ``TraceCollector``: its
+    value (``float.hex``) and bucket split, what part 2 holds the threads
+    executor to (the whole run passes in the observability phase's run of
+    this plan instead)."""
+    from cubed_tpu_torch.observability import TraceCollector
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+
+    work = os.path.join(WORK_DIR, "analytics-sequential")
+    cut = config["cut"]
+    col = TraceCollector(trace_dir=None)
+    x = vorticity_arr(cut, work, config["seed"])
+    t = time.perf_counter()
+    value = float(x.compute(executor=PythonDagExecutor(), callbacks=[col]))
+    seconds = time.perf_counter() - t
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(value=value.hex(), split=bucket_split(col, f"analytics [sequential, {cut['shape']} / "
+                                                           f"{cut['chunks']}]", seconds))
+
+
+def analytics_threads(torch, config, work, sequential, out) -> None:
+    """Part 2: the cut on the threads executor under dataflow with a
+    ``FlightRecorder`` and the dispatch profiler: a chunk graph recorded and
+    read as the critical path's source, a "dispatch profile" lane, the
+    value bit for bit the sequential executor's (*sequential*: its value
+    and bucket split), and the compute's bucket split."""
+    from cubed_tpu_torch.observability import FlightRecorder
+
+    cut = config["cut"]
+    fr = FlightRecorder(bundle_dir=os.path.join(work, "bundles-threads"), always=True)
+    x = vorticity_arr(cut, os.path.join(work, "thr"), config["seed"], scheduler="dataflow", dispatch_profile=True)
+    t = time.perf_counter()
+    value = float(x.compute(executor=threads_executor(config["workers"]), callbacks=[fr]))
+    split = bucket_split(fr, f"analytics [threads, {cut['shape']} / {cut['chunks']}]", time.perf_counter() - t)
+    graph = fr.chunk_graph()
+    lanes = {e["args"]["name"] for e in fr.merged_tracer().chrome_events() if e.get("ph") == "M"}
+    print(f"analytics [threads]: chunk graph of {len(graph or {})} tasks recorded, merged trace lanes "
+          f"{sorted(lanes)}; value {value.hex()}, the sequential executor's {sequential['value']}")
+    check(value.hex() == sequential["value"], "analytics [threads]: the value differs from the sequential one")
+    check(graph is not None and len(graph) == split["tasks"], "analytics [threads]: no chunk graph")
+    check(split["source"] == "chunk_graph", f"analytics [threads]: source {split['source']}")
+    check("dispatch profile" in lanes, f"analytics [threads]: no dispatch profile lane in {sorted(lanes)}")
+    out["split"] = dict(sequential=sequential["split"], threads=split)
+
+
+def analytics_failing(config, work, out):
+    """Part 3: a seeded task fault exhausting its retries with the flight
+    recorder armed by ``CUBED_TPU_TORCH_FLIGHT_RECORDER``: one bundle,
+    naming the failing op and chunk, and ``diagnose --analyze`` on it (in a
+    process of its own, run beside the next part; the returned callable
+    checks it)."""
+    from cubed_tpu_torch.observability.flightrecorder import FLIGHT_RECORDER_ENV_VAR, load_bundle
+
+    bundles = os.path.join(work, "bundles-failed")
+    x = vorticity_arr(config["failing"], os.path.join(work, "failing"), config["seed"],
+                      fault_injection=config["faults"])
+    os.environ[FLIGHT_RECORDER_ENV_VAR] = bundles
+    try:
+        try:
+            x.compute(executor=threads_executor(4, retries=config["retries"]))
+        except Exception as e:
+            error = e
+        else:
+            error = None
+    finally:
+        del os.environ[FLIGHT_RECORDER_ENV_VAR]
+    made = sorted(os.listdir(bundles)) if os.path.isdir(bundles) else []
+    check(error is not None and len(made) == 1, f"analytics [failing]: error {error!r}, bundles {made}")
+    path = os.path.join(bundles, made[0])
+    m = load_bundle(path)["manifest"]
+    err = m.get("error") or {}
+    print(f"analytics [failing]: {type(error).__name__} after {config['retries']} retries; bundle {made[0]}: "
+          f"{sorted(os.listdir(path))}, error {err.get('type')} in op {err.get('op')} chunk {err.get('chunk')}")
+    check(err.get("type") == "FaultInjectedTaskError" and err.get("op") and err.get("chunk"),
+          f"analytics [failing]: manifest error {err}")
+    diagnose = started_cli("cubed_tpu_torch.diagnose", path, "--analyze")
+
+    def finish_diagnose() -> None:
+        rc, stdout, stderr, seconds = finished_cli(diagnose)
+        print(f"analytics [failing]: python -m cubed_tpu_torch.diagnose --analyze exited {rc} after {seconds:.1f} "
+              f"s:\n" + "\n".join(stdout.splitlines()[:12]) + f"\n{stderr[-2000:]}")
+        check(rc == 0 and "[failed]" in stdout and err["op"] in stdout and "== analysis" in stdout,
+              "analytics [failing]: diagnose")
+        out["failing"] = dict(op=err["op"], chunk=err["chunk"], diagnose_rc=rc)
+
+    return finish_diagnose
+
+
+def analytics_cost(torch, config, work, ex, out) -> None:
+    """Part 4: vorticity's warm (replayed) compute in turns, unobserved and
+    with telemetry, the dispatch profiler and run history armed by the
+    Spec; medians and quartiles. The telemetry sampler, once armed in part
+    1, ticks beside both ways (a process keeps its endpoint)."""
+    import cubed_tpu_torch
+
+    ways = {"unobserved": {}, "armed": dict(run_history=os.path.join(work, "history-cost"), telemetry_port=0,
+                                            dispatch_profile=True)}
+    times: dict = {way: [] for way in ways}
+    for r in range(config["cost_rounds"]):
+        order = list(ways) if r % 2 == 0 else list(ways)[::-1]
+        for j, way in enumerate(order):
+            random.seed(config["seed"] + 200 + 2 * r + j)
+            spec = cubed_tpu_torch.Spec(work_dir=os.path.join(work, f"cost-{r}-{j}"), allowed_mem="2GB", **ways[way])
+            x = vorticity_build(spec, config["full"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = float(x.compute(executor=ex))
+            torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t)
+            check(np.isfinite(value) and ex.stats["segment_struct_hits"] == 1,
+                  f"analytics [cost, {way}]: value {value}, stats {dict(ex.stats)}")
+            shutil.rmtree(spec.work_dir, ignore_errors=True)
+    q = {way: [float(np.percentile(np.asarray(t) * 1e3, p)) for p in (25, 50, 75)] for way, t in times.items()}
+    extra = q["armed"][1] - q["unobserved"][1]
+    print(f"analytics [cost]: warm compute() over {config['cost_rounds']} turns each (ms, quartiles 25/50/75): "
+          + "; ".join(f"{way} {a:.4f} / {m:.4f} / {b:.4f}" for way, (a, m, b) in q.items())
+          + f"; arming costs {extra:+.4f} ms a compute ({extra / q['unobserved'][1]:+.1%}; the limit 1 ms or 5% is "
+          f"not a gate); {smi_tag()}")
+    out["cost_ms"] = q
+
+
+def run_analytics_phase(torch, config=ANALYTICS, given=None) -> dict:
+    """The analytics phase (see :data:`ANALYTICS`); *given* carries phase 4's
+    oracle value and unobserved launches, and the observability phase's
+    sequential run of the cut (the whole run passes them in; alone they are
+    worked out first). Returns its summary."""
+    from cubed_tpu_torch.observability import export
+
+    t0 = time.perf_counter()
+    work = os.path.join(WORK_DIR, f"analytics-{os.getpid()}")
+    out: dict = {}
+    try:
+        ex, finish_top = analytics_device(torch, config, work, given, out)
+        sequential = given.get("sequential") or sequential_cut_observed(torch, config)
+        analytics_threads(torch, config, work, sequential, out)
+        finish_top()
+        finish_diagnose = analytics_failing(config, work, out)
+        analytics_cost(torch, config, work, ex, out)
+        finish_diagnose()
+    finally:
+        export.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"analytics phase: {out['seconds']:.1f} s in its process; {smi_tag()}")
+    return out
+
+
+def analytics_unobserved(torch) -> dict:
+    """``--analytics-unobserved``: vorticity's oracle value and the launches
+    of three unobserved computes of its seed on a new ``CudaExecutor`` in a
+    process of its own (cold, capturing, warm), what the phase alone is held
+    to."""
+    expected = cached_oracle("vorticity", vorticity_oracle, ANALYTICS["seed"])
+    runs = run_device_repeats(torch, "vorticity", vorticity_build, vorticity_oracle, {},
+                              seeds=(ANALYTICS["seed"],) * 3, footprint=0)
+    return dict(expected=expected, launches=[r["launches"] for r in runs])
+
+
+def analytics_in_fresh_process(given: dict) -> dict:
+    """The analytics phase in a fresh process (``--analytics-phase``), given
+    phase 4's oracle value and unobserved launches; its output passed on;
+    returns its summary (its last line)."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--analytics-phase", json.dumps(given)],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"analytics phase: its process failed:\n{proc.stderr[-4000:]}")
+    return dict(json.loads(lines[-1]), whole_seconds=time.perf_counter() - t)
 
 
 # ---------------------------------------------------------------------------
@@ -5941,14 +6376,15 @@ def main(argv: list) -> int:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
-    elif argv[:1] == ["--threads-phase"] and len(argv) <= 2:
+    elif argv[:1] in (["--threads-phase"], ["--analytics-phase"]) and len(argv) <= 2:
         pass
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
                                ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"],
-                               ["--reliability-phase"]):
+                               ["--reliability-phase"], ["--analytics-unobserved"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
-              "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase]", file=sys.stderr)
+              "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase | "
+              "--analytics-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6031,9 +6467,42 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             given = json.loads(argv[1]) if argv[1:] else {}
-            config = dict(THREADS, **{k: given[k] for k in ("rounds", "cut") if k in given})
+            config = dict(THREADS, **{k: given[k] for k in ("rounds", "cut", "full_modes") if k in given})
             config["cut"] = dict(config["cut"], shape=tuple(config["cut"]["shape"]))
             print(json.dumps(run_threads_phase(torch, config, sequential_full=given.get("sequential"))))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv == ["--analytics-unobserved"]:
+        # the analytics phase's yardstick when it runs alone
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            print(json.dumps(analytics_unobserved(torch)))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv[:1] == ["--analytics-phase"]:
+        # the analytics phase, its summary the last line; the full run passes
+        # phase 4's oracle value and unobserved launches, alone they come
+        # from a process of their own
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            if argv[1:]:
+                given = json.loads(argv[1])
+            else:
+                proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--analytics-unobserved"],
+                                      capture_output=True, text=True, timeout=600, cwd=REPO)
+                check(proc.returncode == 0, f"analytics phase: the unobserved run failed:\n{proc.stderr[-4000:]}")
+                given = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps(run_analytics_phase(torch, ANALYTICS, given)))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -6193,7 +6662,15 @@ def main(argv: list) -> int:
               f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
-        run_sequential_observed(torch, threads["cut_sequential"]["seconds"], THREADS_WHOLE_RUN["cut"])
+        observed = run_sequential_observed(torch, threads["cut_sequential"]["seconds"], THREADS_WHOLE_RUN["cut"])
+        # the analytics phase, in a process of its own, held to phase 4's
+        # oracle value and unobserved launches of vorticity and to the
+        # sequential run of the cut above
+        analytics = analytics_in_fresh_process(dict(expected=ORACLES["vorticity", SEED],
+                                                    launches=[r["launches"] for r in runs[:3]], sequential=observed))
+        print(f"analytics phase summary: {analytics['whole_seconds']:.1f} s with its process's start "
+              f"({analytics['seconds']:.1f} s in it); cost (ms, quartiles) "
+              f"{json.dumps(analytics['cost_ms'])}; sampler tick {analytics['sampler_tick_ms']:.4f} ms")
         breakdown_device(torch, "vorticity", vorticity_build)
         # where a rechunk's device compute goes: its output is (450, 400) in
         # 100 chunks, written to storage and read back

@@ -92,6 +92,13 @@ class CoreArray:
         """The plan that computes this array, drawn (``Plan.visualize``)."""
         return self.plan.visualize(*args, **kwargs)
 
+    def explain(self, **kwargs):
+        """EXPLAIN the plan that computes this array (``Plan.explain``),
+        defaulting the spec and target array name to this array's."""
+        kwargs.setdefault("spec", self.spec)
+        kwargs.setdefault("array_names", (self.name,))
+        return self.plan.explain(**kwargs)
+
     def __getitem__(self, key):
         from .ops import index
 

@@ -16,6 +16,7 @@ import inspect
 import logging
 import os
 import tempfile
+import time
 import uuid
 from typing import Callable, Iterator, Optional
 
@@ -206,6 +207,19 @@ class Plan:
     def total_nbytes_written(self, optimize_graph: bool = True, optimize_function=None) -> int:
         return self._finalize(optimize_graph, optimize_function).total_nbytes_written()
 
+    def explain(self, spec=None, optimize_graph=True, optimize_function=None, array_names=None):
+        """EXPLAIN this plan before it runs: finalize it as ``execute`` would
+        and report per-op task counts, projected memory against
+        ``allowed_mem``, predicted bytes read and written, the fusion outcome
+        and the scheduler's barrier decisions, an
+        :class:`~cubed_tpu_torch.observability.analytics.ExplainReport`
+        (``print()`` it, ``.to_dict()`` it, or ``.save(path)`` for
+        ``python -m cubed_tpu_torch.explain``)."""
+        from ..observability.analytics import explain as _explain
+
+        return _explain(self, spec=spec, optimize_graph=optimize_graph, optimize_function=optimize_function,
+                        array_names=array_names)
+
     def visualize(self, filename="cubed", format=None, rankdir="TB", optimize_graph=True,
                   optimize_function=None, show_hidden=False):
         """Write the finalized plan as DOT to ``filename.dot`` and, where a
@@ -242,8 +256,17 @@ class Plan:
         attaches a ``runtime.journal.JournalCallback`` writing the compute's
         tasks and decisions there; ``resume_from_journal=path`` resumes,
         skipping only what both verifies and the journal recorded complete.
-        The reference's telemetry, flight recorder, run history and dispatch
-        profiler are not ported (ROADMAP Queue 1 item 9)."""
+
+        Observability is armed as in the reference
+        (``cubed_tpu/core/plan.py:283-335,367-402,466-480``): live telemetry
+        (``observability/export.py``, env > ``Spec(telemetry_port=)``), with
+        a ``ComputeProgressCallback`` when it runs; a ``FlightRecorder`` when
+        ``CUBED_TPU_TORCH_FLIGHT_RECORDER`` names a directory and no
+        collector is attached; ``Spec(run_history=)`` reuses the attached
+        collector (or attaches one) and appends the compute's record after
+        ``on_compute_end``, fingerprinting the pre-finalize plan; the
+        dispatch profiler around the executor (env >
+        ``Spec(dispatch_profile=)``)."""
         from ..runtime import cancellation as cancel_mod
         from ..runtime import faults, memory
         from ..storage import integrity
@@ -276,6 +299,28 @@ class Plan:
             from ..runtime.journal import JournalCallback
 
             all_callbacks.append(JournalCallback(journal_path))
+        from ..observability import dispatchprofile
+        from ..observability import export as telemetry_export
+        from ..observability.flightrecorder import FLIGHT_RECORDER_ENV_VAR, FlightRecorder
+        from ..observability.timeseries import ComputeProgressCallback
+
+        if telemetry_export.maybe_start(spec) is not None:
+            all_callbacks.append(ComputeProgressCallback())
+        recorder_dir = os.environ.get(FLIGHT_RECORDER_ENV_VAR)
+        if recorder_dir and not any(isinstance(cb, TraceCollector) for cb in all_callbacks):
+            # two collectors would double-count spans_dropped and the
+            # straggler watch: an attached one suppresses the recorder
+            all_callbacks.append(FlightRecorder(bundle_dir=recorder_dir))
+        # the run record's buckets need the merged task spans: an attached
+        # collector is reused, else one is attached
+        run_history_dir = getattr(spec, "run_history", None)
+        run_collector = None
+        if run_history_dir:
+            run_collector = next((cb for cb in all_callbacks if isinstance(cb, TraceCollector)), None)
+            if run_collector is None:
+                run_collector = TraceCollector(trace_dir=None)
+                all_callbacks.append(run_collector)
+        run_started_at = time.monotonic()
         metrics_before = get_registry().snapshot()
         callbacks_on(all_callbacks, "on_compute_start", ComputeStartEvent(dag, resume, compute_id=compute_id))
         if cancel_token is not None:
@@ -292,7 +337,8 @@ class Plan:
                     faults.scoped(getattr(spec, "fault_injection", None), export_env=True), \
                     integrity.scoped(getattr(spec, "integrity", None), export_env=True), \
                     memory.scoped(getattr(spec, "memory_guard", None),
-                                  allowed_mem=getattr(spec, "allowed_mem", None), export_env=True):
+                                  allowed_mem=getattr(spec, "allowed_mem", None), export_env=True), \
+                    dispatchprofile.profile_scoped(spec, compute_id):
                 executor.execute_dag(dag, callbacks=all_callbacks, array_names=array_names, resume=resume,
                                      spec=spec, **kwargs)
         except BaseException as e:
@@ -317,6 +363,15 @@ class Plan:
                                  len(stats))
             callbacks_on(all_callbacks, "on_compute_end", ComputeEndEvent(
                 dag, executor_stats=stats or None, compute_id=compute_id, error=compute_error))
+            if run_history_dir:
+                # after on_compute_end, so the collector's trace is sealed;
+                # the pre-finalize dag, whose intermediates' paths the
+                # fingerprint masks. The append never raises
+                from ..observability import runhistory
+
+                runhistory.record_compute(run_history_dir, compute_id=compute_id, dag=self.dag,
+                                          error=compute_error, stats=stats, collector=run_collector,
+                                          wall_clock_s=time.monotonic() - run_started_at)
             # the error's traceback holds this frame: a reference to the
             # error from here would keep both, and every block a failed
             # task's frames hold (on the card too), until a garbage
@@ -371,6 +426,12 @@ class FinalizedPlan:
             for d in self.dag.nodes.values()
             if d.get("type") == "array" and isinstance(d.get("target"), LazyZarrArray)
         )
+
+    def explain(self, spec=None):
+        """EXPLAIN this already-finalized plan (see ``Plan.explain``)."""
+        from ..observability.analytics import explain_finalized
+
+        return explain_finalized(self, spec=spec)
 
 
 def create_lazy_zarr_arrays(dag: Dag) -> Dag:

@@ -16,7 +16,15 @@ is a callback that merges, for one compute:
   segment memory aborts, the device profiler's start and stop, device
   memory readings, failed tasks -- as instants on a ``scheduler`` lane;
 - **memory samples** (``record_sample``) as Perfetto counter tracks on a
-  ``memory`` lane.
+  ``memory`` lane;
+- **the dispatch profiler's samples** (``dispatchprofile.py``), when it was
+  armed for the compute, as instants on a ``dispatch profile`` lane.
+
+For the analytics (``analytics.analyze``) a collector also keeps the
+compute's op-level dependency skeleton (:meth:`TraceCollector.op_graph`,
+from the finalized DAG at compute start) and finds the chunk-level edges
+the dataflow scheduler recorded (:func:`record_chunk_graph`,
+:meth:`TraceCollector.chunk_graph`).
 
 Task timestamps from another process are **clock-aligned** before export:
 a handshake offset when the executor stats carry one per worker, else a
@@ -51,6 +59,11 @@ logger = logging.getLogger(__name__)
 MAX_DECISIONS = 4096
 MAX_SAMPLES = 4096
 MAX_OOB_TASKS = 1024
+#: chunk graphs retained for post-compute analytics (one per recent
+#: compute) and the per-graph task bound — a million-task graph must not
+#: pin a million edge lists in the ring; truncation is counted, not silent
+MAX_CHUNK_GRAPHS = 4
+MAX_GRAPH_TASKS = 50_000
 
 _ring_lock = threading.Lock()
 _decisions: deque = deque(maxlen=MAX_DECISIONS)
@@ -59,6 +72,10 @@ _samples: deque = deque(maxlen=MAX_SAMPLES)
 #: and repairs — work with no TaskEndEvent to ride, merged into the trace
 #: at export like the decision ring
 _oob_tasks: deque = deque(maxlen=MAX_OOB_TASKS)
+#: chunk-level dependency edges per recent compute (the dataflow scheduler
+#: records them while spans are armed); the flight recorder embeds them in
+#: its manifest so ``analytics.analyze`` can walk the true critical path
+_chunk_graphs: deque = deque(maxlen=MAX_CHUNK_GRAPHS)
 
 
 #: consumers of decision entries beyond the bounded ring: the compute
@@ -191,6 +208,85 @@ def oob_tasks_since(t0: float) -> list:
         return [t for t in _oob_tasks if t["ts"] >= t0]
 
 
+def record_chunk_graph(edges: dict, compute_id: Optional[str] = None) -> None:
+    """Retain one compute's chunk-level dependency edges for analytics.
+
+    ``edges`` maps ``"<op>\\t<chunk>"`` task keys to lists of the task keys
+    they depend on (``ChunkGraph.edges_by_key``). Graphs beyond
+    ``MAX_GRAPH_TASKS`` tasks are truncated to the bound (counted in
+    ``chunk_graph_tasks_truncated``): the analytics fall back to the
+    op-graph approximation for the missing tail."""
+    if compute_id is None:
+        compute_id = logs.current_compute_id()
+    truncated = 0
+    if len(edges) > MAX_GRAPH_TASKS:
+        truncated = len(edges) - MAX_GRAPH_TASKS
+        edges = dict(list(edges.items())[:MAX_GRAPH_TASKS])
+        get_registry().counter("chunk_graph_tasks_truncated").inc(truncated)
+        logger.warning(
+            "chunk graph for compute %s exceeds the %d-task analytics "
+            "bound; %d task(s) truncated (critical-path extraction falls "
+            "back to op-level edges for them)",
+            compute_id, MAX_GRAPH_TASKS, truncated,
+        )
+    entry = {
+        "ts": clock.now(),
+        "compute_id": compute_id,
+        "edges": edges,
+        "truncated": truncated,
+    }
+    with _ring_lock:
+        _chunk_graphs.append(entry)
+
+
+def chunk_graph_for(
+    compute_id: Optional[str] = None, since: Optional[float] = None,
+) -> Optional[dict]:
+    """The most recent recorded chunk graph matching ``compute_id`` (or,
+    when None, the newest one recorded at/after ``since``); None when the
+    compute ran without the dataflow scheduler or unobserved."""
+    with _ring_lock:
+        entries = list(_chunk_graphs)
+    for entry in reversed(entries):
+        if compute_id is not None and entry["compute_id"] == compute_id:
+            return entry["edges"]
+    if compute_id is not None and since is None:
+        return None
+    for entry in reversed(entries):
+        # graphs recorded outside a compute scope (a scheduler driven
+        # directly): the newest graph in the window
+        if entry["compute_id"] is None and (
+            since is None or entry["ts"] >= since
+        ):
+            return entry["edges"]
+    return None
+
+
+def op_dependencies(dag) -> dict:
+    """``op -> sorted producing ops`` of a plan's (port) ``Dag``: an op's
+    predecessors through its input arrays, ops without a primitive op
+    left out."""
+    nodes = dag.nodes
+
+    def real_op(name) -> bool:
+        d = nodes[name]
+        return d.get("type") == "op" and d.get("primitive_op") is not None
+
+    graph = {}
+    for name in nodes:
+        if not real_op(name):
+            continue
+        preds = set()
+        for pred in dag.predecessors(name):
+            if nodes[pred].get("type") == "op":
+                if real_op(pred):
+                    preds.add(pred)
+                continue
+            preds.update(p for p in dag.predecessors(pred) if real_op(p))
+        graph[name] = sorted(preds)
+    return graph
+
+
 class TraceCollector(EventLogCallback):
     """Merge lifecycle spans, task spans, decisions and memory samples into
     a single clock-aligned Perfetto trace for one compute.
@@ -243,6 +339,10 @@ class TraceCollector(EventLogCallback):
         #: worker/pid key -> smallest observed (result-receipt - worker-end)
         #: delta, the latency-bounded clock-offset estimate
         self._raw_offsets: dict[str, float] = {}
+        #: op -> sorted producing-op names, captured from the finalized dag
+        #: at compute start: the op-level skeleton analytics falls back to
+        #: when no chunk graph was recorded
+        self._op_graph: dict[str, list] = {}
         self._lock = threading.Lock()
 
     # -- lifecycle -----------------------------------------------------
@@ -260,6 +360,20 @@ class TraceCollector(EventLogCallback):
         self._peaks = {}
         self._durations = {}
         self._raw_offsets = {}
+        self._op_graph = {}
+        try:
+            self._op_graph = op_dependencies(event.dag)
+        except Exception:  # introspection must never fail a compute
+            logger.exception("op-graph capture failed; analytics degrades")
+
+    def op_graph(self) -> dict:
+        """``op -> [producing op, ...]`` for the compute's finalized dag."""
+        return {k: list(v) for k, v in self._op_graph.items()}
+
+    def chunk_graph(self) -> Optional[dict]:
+        """This compute's recorded chunk-level edges (dataflow scheduler,
+        spans armed), or None — see :func:`chunk_graph_for`."""
+        return chunk_graph_for(self.compute_id, since=self._t0)
 
     def on_task_end(self, event) -> None:
         # deliberately NOT super(): fold into bounded records instead of
@@ -509,6 +623,14 @@ class TraceCollector(EventLogCallback):
         for d in decisions_since(self._t0):
             attrs = {k: v for k, v in d.items() if k not in ("ts", "kind")}
             tr.instant(d["kind"], lane="scheduler", ts=d["ts"], **attrs)
+        from .dispatchprofile import profile_for
+
+        prof = profile_for(self.compute_id)
+        if prof is not None:
+            # the dispatch profiler's leaf reservoir as instants, aligned
+            # with the task lanes the client dispatched
+            for ts, leaf in prof.lane_samples():
+                tr.instant(leaf, lane="dispatch profile", ts=ts)
         for s in samples_since(self._t0):
             # samples that carry a worker name get their own memory lane
             mlane = (

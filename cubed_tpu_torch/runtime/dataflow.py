@@ -33,8 +33,10 @@ sequential executor and the device executor keep op order.
 Counters: ``tasks_dispatched_early`` (tasks dispatched while an upstream op
 of theirs still had unfinished tasks: the overlap) and ``op_barrier_waits``
 (tasks gated by a conservative op-level barrier, the ``create-arrays``
-bootstrap excluded). The reference also hands the chunk graph to its trace
-analytics, which come with ROADMAP Queue 1 item 9.
+bootstrap excluded). While span recording is armed (a trace collector is
+attached), ``start`` also hands the chunk-level edges to
+``observability.collect.record_chunk_graph``, so ``analytics.analyze`` walks
+the true critical path instead of the op-barrier approximation.
 """
 
 from __future__ import annotations
@@ -424,10 +426,13 @@ class DataflowScheduler:
         close the ops with nothing to run. An op's start event fires at its
         first dispatch: under dataflow its lifetime is first dispatch to
         last completion."""
-        from ..observability.collect import record_decision
+        from ..observability import accounting
+        from ..observability.collect import record_chunk_graph, record_decision
 
         if self.graph.barrier_tasks:
             get_registry().counter("op_barrier_waits").inc(self.graph.barrier_tasks)
+        if accounting.spans_enabled():
+            record_chunk_graph(self.graph.edges_by_key())
         record_decision("dataflow_graph", ops=len(self.graph.op_order), tasks=len(self.graph.items),
                         barrier_ops=[o for o in self.graph.barrier_ops if o != CREATE_ARRAYS_OP][:16],
                         barrier_tasks=self.graph.barrier_tasks)

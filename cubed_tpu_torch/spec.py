@@ -2,7 +2,11 @@
 ``cubed_tpu/spec.py``, trimmed to the work directory, the memory bounds, the
 executor, the device executor's residency budget, the reliability settings
 (fault injection, chunk integrity, the runtime memory guard), the threaded
-executor's scheduler and the compute journal."""
+executor's scheduler, the compute journal, and the observability knobs (the
+run-history archive, live telemetry and the dispatch profiler). The
+reference's ``storage_options``, ``mesh_shape``, ``peer_transfer`` and
+``service`` wait for the modules that read them (ROADMAP Queue 1 items 11c
+and 12)."""
 
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ class Spec:
         memory_guard: Optional[str] = None,
         scheduler: Optional[str] = None,
         journal: Optional[str] = None,
+        run_history: Optional[str] = None,
+        telemetry_port: Optional[int] = None,
+        dispatch_profile: Optional[bool] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -66,6 +73,15 @@ class Spec:
         if journal is not None and not isinstance(journal, str):
             raise ValueError(f"journal must be a file path (str) or None, got {type(journal).__name__}")
         self._journal = journal
+        if run_history is not None and not isinstance(run_history, str):
+            raise ValueError(f"run_history must be a directory path (str) or None, got {type(run_history).__name__}")
+        self._run_history = run_history
+        if telemetry_port is not None:
+            telemetry_port = int(telemetry_port)
+            if telemetry_port < 0 or telemetry_port > 65535:
+                raise ValueError(f"telemetry_port must be 0-65535 (0 = ephemeral), got {telemetry_port}")
+        self._telemetry_port = telemetry_port
+        self._dispatch_profile = None if dispatch_profile is None else bool(dispatch_profile)
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -146,6 +162,44 @@ class Spec:
         ``compute(resume_from_journal=path)`` resumes from it. None (the
         default) journals nothing."""
         return self._journal
+
+    @property
+    def run_history(self) -> Optional[str]:
+        """Directory of the durable run-history archive (``runs.jsonl``:
+        append-only, fsync'd, size-rotated, torn-line tolerant). When set,
+        every ``Plan.execute`` appends one compact record at completion:
+        compute id, the plan's structural fingerprint, wall clock, the
+        ``analyze()`` bucket decomposition, metrics highlights and the error
+        outcome, what ``python -m cubed_tpu_torch.regress`` diffs
+        (``observability/runhistory.py``). None (the default) archives
+        nothing."""
+        return self._run_history
+
+    @property
+    def telemetry_port(self) -> Optional[int]:
+        """Live-telemetry HTTP port: arming it makes ``Plan.execute`` start
+        the process-global telemetry pipeline (a ~1s sampler of the metrics
+        registry into a bounded time-series store, the alert engine, and a
+        Prometheus ``/metrics`` + ``/healthz`` + ``/snapshot.json`` endpoint
+        on this port, ``0`` = ephemeral, bound to 127.0.0.1); read it live
+        with ``python -m cubed_tpu_torch.top``. None defers to the
+        ``CUBED_TPU_TORCH_TELEMETRY_PORT`` env var (the operator's override,
+        which wins; ``off`` disables) or the off default
+        (``observability/export.py``)."""
+        return self._telemetry_port
+
+    @property
+    def dispatch_profile(self) -> Optional[bool]:
+        """Client self-profiling: ``True`` arms the bounded
+        ``sys._current_frames()`` sampling profiler over the client's
+        threads for each compute: collapsed stacks land as
+        ``profile-<compute_id>.folded`` in the flight-recorder bundle, a
+        "dispatch profile" lane joins the merged trace, and ``diagnose``
+        names the top stacks. None defers to the
+        ``CUBED_TPU_TORCH_DISPATCH_PROFILE`` env var (which wins; ``1``
+        enables) or the off default; off is a true no-op
+        (``observability/dispatchprofile.py``)."""
+        return self._dispatch_profile
 
     def __repr__(self) -> str:
         return (

@@ -42,6 +42,12 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.core.visualization, cubed_tpu_torch.array_api.html_repr\n"
         "import cubed_tpu_torch.runtime.executors.python_async, cubed_tpu_torch.runtime.dataflow\n"
         "import cubed_tpu_torch.runtime.journal, cubed_tpu_torch.runtime.backup\n"
+        "import cubed_tpu_torch.observability.slo, cubed_tpu_torch.observability.alerts\n"
+        "import cubed_tpu_torch.observability.dispatchprofile, cubed_tpu_torch.observability.flightrecorder\n"
+        "import cubed_tpu_torch.observability.analytics, cubed_tpu_torch.observability.runhistory\n"
+        "import cubed_tpu_torch.observability.timeseries, cubed_tpu_torch.observability.export\n"
+        "import cubed_tpu_torch.service.cache\n"
+        "import cubed_tpu_torch.explain, cubed_tpu_torch.regress, cubed_tpu_torch.diagnose, cubed_tpu_torch.top\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -87,6 +93,37 @@ def test_observed_compute_on_cpu_loads_no_jax_or_reference_modules(tmp_path):
     _compute_on_cpu(tmp_path, observed=True)
 
 
+def test_armed_observability_and_the_clis_load_no_jax(tmp_path):
+    """A compute with run history, live telemetry, the dispatch profiler and
+    a flight recorder armed, then the four CLIs on what it left (top from
+    the live endpoint), in a fresh interpreter: no forbidden module."""
+    proc = _run(
+        "import sys, cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+        "from cubed_tpu_torch import explain, regress, diagnose, top\n"
+        "from cubed_tpu_torch.observability import FlightRecorder, export\n"
+        f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB', run_history={str(tmp_path / 'h')!r},\n"
+        "               telemetry_port=0, dispatch_profile=True)\n"
+        "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
+        "try:\n"
+        "    for _ in range(2):\n"
+        f"        fr = FlightRecorder(bundle_dir={str(tmp_path / 'fr')!r}, always=True)\n"
+        "        xp.sum(a).compute(callbacks=[fr])\n"
+        f"    xp.sum(a).plan.explain(spec=spec).save({str(tmp_path / 'e.json')!r})\n"
+        f"    rcs = [explain.main([{str(tmp_path / 'e.json')!r}]), diagnose.main([fr.bundle_path, '--analyze']),\n"
+        f"           regress.main(['--history', {str(tmp_path / 'h')!r}]),\n"
+        "           top.main([f'127.0.0.1:{export.get_runtime().port}', '--once'])]\n"
+        "finally:\n"
+        "    export.shutdown()\n"
+        "print('RCS', rcs[0], rcs[1], rcs[3], rcs[2] in (0, 1))\n"
+        "print('\\n'.join(sorted(sys.modules)))",
+        {"CUBED_TPU_TORCH_DEVICE": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout.split()
+    assert out[out.index("RCS"):out.index("RCS") + 5] == ["RCS", "0", "0", "0", "True"]
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def _imported_modules(path: str) -> set:
     with open(path) as f:
         tree = ast.parse(f.read())
@@ -118,8 +155,12 @@ def test_source_walk_covers_every_subpackage():
     for path in (("nan_functions.py",), ("kernels", "merge_sort.py"), ("core", "visualization.py"),
                  ("array_api", "html_repr.py"), ("random.py",), ("storage", "store.py"),
                  ("runtime", "executors", "python_async.py"), ("runtime", "dataflow.py"), ("runtime", "journal.py"),
-                 ("runtime", "backup.py")):
+                 ("runtime", "backup.py"), ("service", "cache.py"), ("explain.py",), ("regress.py",),
+                 ("diagnose.py",), ("top.py",)):
         assert os.path.join("cubed_tpu_torch", *path) in SOURCES, path
+    for module in ("slo", "alerts", "dispatchprofile", "flightrecorder", "analytics", "runhistory",
+                   "timeseries", "export"):
+        assert os.path.join("cubed_tpu_torch", "observability", f"{module}.py") in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES)
