@@ -17,7 +17,11 @@ spectra phase alone, its summary JSON on its last line;
 summary JSON on its last line; ``--threads-phase`` the threaded executor's
 phase alone, three timing rounds, its summary JSON on its last line;
 ``--analytics-phase`` the observability analytics phase alone, its summary
-JSON on its last line.)
+JSON on its last line; ``--fleet-phase`` the process pool and TCP fleet
+phase alone, its summary JSON on its last line; ``--spare`` a fresh
+process that imports torch and the port, then runs the arguments it reads
+from stdin, one JSON line: the whole run starts each process of its own
+that way ahead of its use.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -26,7 +30,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (one nvcc per source, all at once, with chip_smoke's own
    ``chip_smoke_csrc/philox_rounds.cu``: Philox's rounds alone, for
    measurement only), print the build seconds and each kernel's registers
-   and spills (ptxas -v);
+   and spills (ptxas -v); phase 4's numpy oracles are computed meanwhile;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time both (CUDA events):
    philox_uniform bit for bit against numpy's Philox stream and the plain
@@ -355,7 +359,32 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    reliability phase's cut, the store bit for bit the fault-free one's; (5)
    a journaled compute cancelled partway, resumed from its journal on
    threads and on ``CudaExecutor``: each runs exactly the tasks (the ops)
-   not both journaled and verified;
+   not both journaled and verified.
+   Then the fleet phase, in a process of its own (``--fleet-phase``): the
+   process pool (``MultiprocessDagExecutor``) and the TCP fleet
+   (``DistributedDagExecutor``), four workers each on this card, every
+   task in a worker process on ``cuda``, under the dataflow scheduler.
+   The pool in one compute (each pool compute pays its workers' start):
+   vorticity at full width under ``enforce`` at the plan's bound, a worker
+   SIGKILLed after 800 of its 921 tasks: (1) the value at rtol 1e-12 of the
+   numpy oracle, the launches the workers report summed equal to phase 4's
+   sequential run's, every worker on ``cuda`` with a launch, none in this
+   process; (2) bit for bit phase 4's sequential value; (3) the pool
+   rebuilt with half its workers; (5) each task's guard reading, taken in
+   its worker, within the bound, and no attempt over it. The fleet: (1) at
+   full width as the pool; (2) and (5) the reliability phase's cut (160,
+   160, 120) / 40 under ``enforce`` at its plan's bound, bit for bit the
+   threads phase's sequential value at that cut; (4) a rechunk of the cut
+   reading peers' caches, equal to a store-only run, and again under
+   seeded ``peer_corrupt_rate`` faults, each fallback counted; (3) a worker
+   SIGKILLed mid-compute at the cut (one worker lost, its tasks requeued),
+   the value bit for bit. (6) ``close()`` leaves no live child process;
+   (7) the fleet's start and one round at the cut (the threads phase's
+   sequential and 4-thread times, the fleet's) are printed, not a gate.
+   Alone the phase computes the sequential values and times itself. The
+   whole run takes the linear algebra and spectra phase after the threads
+   phase and runs the fleet phase beside it, in a work directory of its
+   own (``.chip_smoke_work_fleet/``): its times there are under that load;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op at the spilled cut, timing each op kind;
@@ -383,8 +412,10 @@ stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
+import functools
 import itertools
 import json
 import math
@@ -401,6 +432,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(REPO, ".chip_smoke_work")
+#: the work directories of the phases the whole run runs beside others
+SIDE_WORK_DIRS = {"--threads-phase": os.path.join(REPO, ".chip_smoke_work_threads"),
+                  "--fleet-phase": os.path.join(REPO, ".chip_smoke_work_fleet")}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
 #: float32 rate, used as the rate of the floating-point adds and multiplies
@@ -1772,7 +1806,8 @@ def run_main_path(torch, name: str, executor_name: str, build, expected,
             check({os.path.normpath(p) for p in stored} == {output_store},
                   f"{label}: chunk files in {sorted(stored)}, expected the output's alone")
     return dict(launches=launches, paths=paths, stats=stats, seconds=elapsed, rel=rel, plan=plan,
-                projected=projected, peak=peak, peak_reserved=peak_reserved)
+                projected=projected, peak=peak, peak_reserved=peak_reserved,
+                value=None if value.shape else float(value).hex())
 
 
 def addsum_build(spec):
@@ -1960,8 +1995,7 @@ def check_recorded_layouts(torch, runs: dict) -> None:
     os.makedirs(WORK_DIR, exist_ok=True)
     with open(path, "w") as f:
         json.dump({name: layouts_to_json(calls) for name, calls in runs.items()}, f)
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--check-layouts", path],
-                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    proc = run_fresh(["--check-layouts", path])
     print(proc.stdout, end="")
     check(proc.returncode == 0, f"--check-layouts: the run failed:\n{proc.stderr[-4000:]}")
 
@@ -2060,10 +2094,7 @@ def run_baseline_configs(torch, layouts: dict) -> dict:
          # the pool holds at least a and b
          2 * 8 * int(np.prod(MATMUL["shape"]))),
     ):
-        random.seed(SEED)
-        t = time.perf_counter()
-        expected = oracle()
-        print(f"{name}: numpy oracle {time.perf_counter() - t:.1f} s")
+        expected = cached_oracle(name, oracle, SEED)
         shared = {"fma_sum_blocks": (0, 0)}
         seq = run_main_path(torch, name, "sequential", build, expected, dict(shared, **seq_required))
         with recorded_kernel_calls(torch) as layouts[name]:
@@ -2130,6 +2161,19 @@ def cached_oracle(name: str, oracle, seed: int):
         ORACLES[name, seed] = oracle()
         print(f"{name} seed {seed}: numpy oracle {time.perf_counter() - t:.1f} s")
     return ORACLES[name, seed]
+
+
+def phase4_oracles() -> list:
+    """Phase 4's numpy oracles, (name, oracle, seeds), as its runs ask
+    :func:`cached_oracle` for them."""
+    three, four = (SEED, SEED + 1, SEED + 2), (SEED, SEED + 1, SEED + 2, SEED + 3)
+    return [("addsum", addsum_oracle, (SEED,)), ("vorticity", vorticity_oracle, four),
+            ("vorticity-spill", functools.partial(vorticity_oracle, SPILL), (SEED,)),
+            ("vorticity_f32", vorticity_f32_oracle, three),
+            ("vorticity_f32-spill", functools.partial(vorticity_f32_oracle, SPILL), (SEED,)),
+            ("matmul_bf16", matmul_bf16_oracle, three), ("addsum_scaled", addsum_scaled_oracle, (SEED,)),
+            ("elemwise", elemwise_oracle, three), ("reduce", reduce_oracle, three),
+            ("matmul", matmul_oracle, three), ("rechunk-2GB", rechunk_oracle, three)]
 
 
 def run_device_repeats(torch, name: str, build, oracle, required: dict, seeds, footprint: int,
@@ -2351,10 +2395,9 @@ def run_bench_cells(torch, layouts: dict) -> dict:
             "stats:eager_ops": (1, 1), "stats:segments_traced": (1, 1), "stats:segment_mem_aborts": (0, 0)},
             seeds=(SEED, SEED + 1, SEED + 2), footprint=4 * 4 * int(np.prod(VORTICITY["shape"])),
             executor_options=f32, rtol=1e-6)
-    random.seed(SEED)
     out["vorticity_f32-spill"] = run_main_path(
         torch, "vorticity_f32-spill", "cuda", lambda spec: vorticity_build(spec, SPILL),
-        vorticity_f32_oracle(SPILL), {
+        cached_oracle("vorticity_f32-spill", functools.partial(vorticity_f32_oracle, SPILL), SEED), {
             "philox_uniform:block_f32": (400, 400), "philox_uniform:batched": (0, 0),
             "fma_sum_blocks": (100, 100), "fma_sum_blocks:float32": (100, 100),
             "stats:segment_mem_aborts": (1, 1), "stats:segments_traced": (0, 0)},
@@ -2367,10 +2410,7 @@ def run_bench_cells(torch, layouts: dict) -> dict:
             "stats:segment_mem_aborts": (0, 0)},
             seeds=(SEED, SEED + 1, SEED + 2), footprint=2 * 4 * int(np.prod(MATMUL["shape"])),
             executor_options=dict(f32, matmul_precision="bfloat16"), rtol=1e-5)
-    random.seed(SEED)
-    t = time.perf_counter()
-    expected = addsum_scaled_oracle()
-    print(f"addsum_scaled: numpy oracle {time.perf_counter() - t:.1f} s")
+    expected = cached_oracle("addsum_scaled", addsum_scaled_oracle, SEED)
     seq = run_main_path(torch, "addsum_scaled", "sequential", addsum_scaled_build, expected, {
         "philox_uniform": (128, 128), "philox_uniform:batched": (0, 0), "region_sum": (64, 10**9),
         "fma_sum_blocks": (0, 0)})
@@ -2558,8 +2598,7 @@ def check_observed_device_run(torch, unobserved: list) -> dict:
     computes against phase 4's unobserved run of the same seed (*unobserved*:
     its counters and launches), the numpy oracle (rtol 1e-12) and the
     plan."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--observe-device-run"],
-                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    proc = run_fresh(["--observe-device-run"])
     check(proc.returncode == 0, f"observability [cuda]: the observed run failed:\n{proc.stderr[-4000:]}")
     r = json.loads(proc.stdout.strip().splitlines()[-1])
     for i, (c, plain) in enumerate(zip(r["computes"], unobserved)):
@@ -3760,18 +3799,6 @@ def linalg_fft_sequential(torch, config, work) -> dict:
     return out
 
 
-def linalg_fft_in_fresh_process() -> dict:
-    """The linear algebra and spectra phase in a fresh process
-    (``--linalg-fft-phase``), its output passed on; returns its summary
-    (its last line)."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-fft-phase"],
-                          capture_output=True, text=True, timeout=900, cwd=REPO)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    check(proc.returncode == 0, f"linalg and fft phase: its process failed:\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])
-
-
 # ---------------------------------------------------------------------------
 # the reliability phase: the memory guard, classified retries, checksums,
 # resume and cancellation
@@ -4479,17 +4506,6 @@ def run_reliability_phase(torch, config=RELIABILITY) -> dict:
     return dict(out, seconds=seconds, timings=timings, launches=launches)
 
 
-def reliability_in_fresh_process() -> dict:
-    """The reliability phase in a fresh process (``--reliability-phase``),
-    its output passed on; returns its summary (its last line)."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--reliability-phase"],
-                          capture_output=True, text=True, timeout=600, cwd=REPO)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    check(proc.returncode == 0, f"reliability phase: its process failed:\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])
-
-
 # ---------------------------------------------------------------------------
 # the threaded executor: AsyncPythonDagExecutor with the chunk-level dataflow
 # scheduler, speculative backups and the compute journal
@@ -4888,18 +4904,336 @@ def run_threads_phase(torch, config=THREADS, sequential_full=None) -> dict:
     return dict(out, seconds=seconds, timings=timings, launches=out["full"]["dataflow"]["launches"])
 
 
-def threads_in_fresh_process(sequential_full: dict, **cuts) -> dict:
-    """The threads phase in a fresh process (``--threads-phase``), given the
-    sequential executor's launches on the full-width plan and the whole
-    run's cuts (``rounds``, ``cut``); its output passed on; returns its
-    summary (its last line)."""
-    args = [sys.executable, os.path.abspath(__file__), "--threads-phase",
-            json.dumps(dict(cuts, sequential=sequential_full))]
-    proc = subprocess.run(args, capture_output=True, text=True, timeout=600, cwd=REPO)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    check(proc.returncode == 0, f"threads phase: its process failed:\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])
+# ---------------------------------------------------------------------------
+# the fleet phase: the process pool and the TCP fleet on this card
+# ---------------------------------------------------------------------------
+
+#: the fleet phase, in a process of its own (``--fleet-phase``): one pool
+#: compute, vorticity at full width under ``enforce`` at the plan's bound
+#: with a worker SIGKILLed after ``pool_kill_after`` of its 921 tasks (a
+#: pool pays its workers' start, 12-18 s, in every compute, so the pool's
+#: checks share one); then the fleet of as many workers at full width and
+#: at the reliability phase's cut (the bit-for-bit, guard, rechunk and kill
+#: checks); one CUDA context a worker on the one card
+FLEET = dict(full=VORTICITY, cut=RELIABILITY["seq"], seed=SEED, workers=4, threads=4, pool_kill_after=800,
+             fleet_kill_after=60, rechunk=(160, 20, 120), peer_faults=dict(seed=18, peer_corrupt_rate=0.3))
+#: the kernels whose worker launches check 1 sums against the sequential run's
+FLEET_LAUNCHES = ("philox_uniform", "region_sum", "fma_sum_blocks")
+
+
+class TaskLog:
+    """Each completed task's guard reading, and when the first ended."""
+
+    def __init__(self, on_end=None):
+        self.readings: list = []
+        self.first_end: Optional[float] = None
+        self.on_end = on_end
+
+    def on_task_end(self, event):
+        if self.first_end is None:
+            self.first_end = time.perf_counter()
+        self.readings.append(event.guard_mem_peak)
+        if self.on_end is not None:
+            self.on_end(len(self.readings))
+
+
+def child_pids() -> list:
+    """This process's live children: (pid, command line)."""
+    me = os.getpid()
+    out = []
+    for tid in os.listdir(f"/proc/{me}/task"):
+        try:
+            with open(f"/proc/{me}/task/{tid}/children") as f:
+                pids = [int(p) for p in f.read().split()]
+        except OSError:
+            continue
+        for pid in pids:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read()
+                with open(f"/proc/{pid}/stat") as f:
+                    state = f.read().rsplit(")", 1)[1].split()[0]
+            except OSError:
+                continue
+            if state != "Z":
+                out.append((pid, cmd))
+    return out
+
+
+def pool_worker_pids() -> list:
+    """The live process-pool workers among this process's children."""
+    return [pid for pid, cmd in child_pids() if b"spawn_main" in cmd]
+
+
+def live_children() -> list:
+    """This process's live children, multiprocessing's resource tracker
+    (which lives as long as this process, by design) aside."""
+    return [pid for pid, cmd in child_pids() if b"resource_tracker" not in cmd]
+
+
+def fleet_compute(torch, arr, executor, log=None) -> tuple:
+    """``arr.compute(executor=...)`` with this process's kernel counts set
+    to 0 just before and read just after: (value, seconds, this process's
+    launches, executor_stats)."""
+    value, seconds, launches, stats = counted_compute(torch, arr, executor, callbacks=[log] if log else ())
+    return value, seconds, {k: v for k, v in launches.items() if k in FLEET_LAUNCHES}, stats
+
+
+def worker_launches(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in FLEET_LAUNCHES}
+
+
+def check_workers(label: str, reports: dict, expected: int) -> None:
+    """Every worker ran on the card and launched a kernel."""
+    devices = {name: r["device"] for name, r in reports.items()}
+    launched = {name: sum(r["launches"].values()) for name, r in reports.items()}
+    print(f"{label}: workers {json.dumps(devices)}, tasks "
+          f"{json.dumps({n: r['tasks'] for n, r in reports.items()})}, launches {json.dumps(launched)}")
+    check(len(reports) >= expected, f"{label}: {len(reports)} workers reported, {expected} expected")
+    check(all(d.startswith("cuda") for d in devices.values()), f"{label}: a worker not on cuda: {devices}")
+    check(all(n > 0 for n in launched.values()), f"{label}: a worker launched nothing: {launched}")
+
+
+def fleet_yardsticks(torch, config, work, given: dict) -> dict:
+    """What the phase holds its executors to: the numpy oracle at full
+    width (``expected``), the sequential executor's value and launches
+    there (``full_sequential``), its value and time at the cut
+    (``cut_sequential``) and 4 threads' time there (``cut_threads_s``). The
+    whole run passes them on from phase 4 and the threads phase (the same
+    plans and seed on the same card); alone the phase computes them."""
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+
+    full, cut, seed = config["full"], config["cut"], config["seed"]
+    out = dict(given)
+    if "expected" not in out:
+        out["expected"] = cached_oracle(f"vorticity {full['shape']}", functools.partial(vorticity_oracle, full), seed)
+    if "full_sequential" not in out:
+        value, seconds, launches, _ = fleet_compute(torch, vorticity_arr(full, work, seed), PythonDagExecutor())
+        out["full_sequential"] = dict(value=float(value).hex(), launches=launches)
+        print(f"fleet: the sequential executor on the full-width plan: {float(value).hex()}, launches "
+              f"{json.dumps(launches)} ({seconds:.3f} s)")
+    if "cut_sequential" not in out:
+        value, seconds, _, _ = fleet_compute(torch, vorticity_arr(cut, work, seed), PythonDagExecutor())
+        out["cut_sequential"] = dict(value=float(value).hex(), seconds=seconds)
+        v, out["cut_threads_s"], _, _ = fleet_compute(torch, vorticity_arr(cut, work, seed),
+                                                      threads_executor(config["threads"]))
+        check(float(v).hex() == out["cut_sequential"]["value"], "fleet: 4 threads differ from the sequential")
+    return out
+
+
+def guarded(torch, config, where: str, work: str, log, ex) -> tuple:
+    """Vorticity at *where* ("full" or "cut") under ``enforce`` at its
+    plan's bound on *ex*: (value, seconds, this process's launches, stats,
+    bound). Each task's guard reading, taken in its worker, is held within
+    the bound, and no attempt may have crossed it (check 5)."""
+    shape = config[where]
+    bound = vorticity_arr(shape, work, config["seed"]).plan.max_projected_mem()
+    arr = vorticity_arr(shape, work, config["seed"], allowed_mem=bound, reserved_mem=0, memory_guard="enforce")
+    value, seconds, here, stats = fleet_compute(torch, arr, ex, log)
+    largest = max(r or 0 for r in log.readings)
+    over = stats.get("mem_guard_hard_exceeded", 0)
+    print(f"fleet 5 ({ex.name}, {where}, enforce at the plan's bound {bound} B): {len(log.readings)} tasks, guard "
+          f"readings taken in the workers, largest {largest} B ({largest / bound:.4f} of the bound), "
+          f"{sum(r is None for r in log.readings)} unread; attempts over the bound {over}, retries "
+          f"{stats.get('task_retries', 0)}, step-downs {stats.get('mem_pressure_stepdowns', 0)}")
+    check(all(r is not None for r in log.readings), f"fleet 5 ({ex.name}): a task without a guard reading")
+    check(largest <= bound, f"fleet 5 ({ex.name}): a reading {largest} B over the bound {bound} B")
+    check(over == 0, f"fleet 5 ({ex.name}): {over} attempts over the bound")
+    return value, seconds, here, stats, dict(largest=largest, bound=bound, tasks=len(log.readings), over_bound=over)
+
+
+def fleet_pool(torch, config, work, ys, out) -> None:
+    """Checks 1, 2, 3 and 5 on the pool, in one compute: vorticity at full
+    width under ``enforce`` at the plan's bound, a worker SIGKILLed after
+    ``pool_kill_after`` tasks; the value at rtol 1e-12 of the oracle and bit
+    for bit the sequential executor's, the workers' launches summed equal
+    to its launches, the pool rebuilt with half its workers."""
+    import signal
+
+    from cubed_tpu_torch.observability.collect import decisions_since
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime.executors.multiprocess import MultiprocessDagExecutor
+
+    full, workers = config["full"], config["workers"]
+    sequential = ys["full_sequential"]
+    killed: list = []
+
+    def kill_a_worker(n):
+        if n == config["pool_kill_after"] and not killed:
+            victims = pool_worker_pids()
+            if victims:
+                os.kill(victims[0], signal.SIGKILL)
+                killed.append(victims[0])
+
+    reg = get_registry()
+    ex = MultiprocessDagExecutor(max_workers=workers)
+    log = TaskLog(kill_a_worker)
+    before, t_dec, t0 = reg.snapshot(), time.time(), time.perf_counter()
+    value, seconds, here, _, guard = guarded(torch, config, "full", work, log, ex)
+    delta = reg.snapshot_delta(before)
+    rebuilds = [d for d in decisions_since(t_dec) if d["kind"] == "pool_rebuild"]
+    rel = abs(float(value) - ys["expected"]) / abs(ys["expected"])
+    summed = worker_launches({}, ex.stats["worker_launches"])
+    expected_launches = {k: sequential["launches"][k] for k in FLEET_LAUNCHES}
+    print(f"fleet 1, 2, 3 (pool of {workers}) {full['shape']} / {full['chunks']}: {seconds:.3f} s, first task ended "
+          f"{log.first_end - t0:.3f} s in; worker {killed} SIGKILLed after {config['pool_kill_after']} tasks: "
+          f"pool_rebuilds {delta.get('pool_rebuilds', 0)}, worker_oom_kills {delta.get('worker_oom_kills', 0)}, "
+          f"rebuilt with {[d.get('workers') for d in rebuilds]} workers (exit codes "
+          f"{[d.get('exitcodes') for d in rebuilds]}); {float(value).hex()} against the sequential "
+          f"{sequential['value']}, rel err {rel:.3e}; workers' launches {json.dumps(summed)} (sequential "
+          f"{json.dumps(expected_launches)}); this process's {json.dumps(here)}; {smi_tag()}")
+    check(rel <= 1e-12, f"fleet 1 (pool): rel err {rel}")
+    check(float(value).hex() == sequential["value"], "fleet 2 (pool): the value differs from the sequential")
+    check(summed == expected_launches, f"fleet 1 (pool): workers' launches {summed}, sequential {expected_launches}")
+    check(sum(here.values()) == 0, f"fleet 1 (pool): kernels launched in the client {here}")
+    check_workers("fleet 1 (pool)", ex.stats["workers"], workers)
+    check(bool(killed), "fleet 3: no pool worker found to kill")
+    check(delta.get("pool_rebuilds", 0) >= 1, "fleet 3: the pool was not rebuilt")
+    check(rebuilds and rebuilds[0].get("workers") == workers // 2, f"fleet 3: rebuilt pool {rebuilds}")
+    out["pool"] = dict(seconds=seconds, rel=rel, launches=summed, first_task_s=log.first_end - t0, guard=guard,
+                       rebuilds=delta.get("pool_rebuilds", 0), workers_after=rebuilds[0].get("workers"))
+
+
+def fleet_values(torch, config, work, ys, fl, out) -> None:
+    """Checks 1, 2 and 5 on the fleet: vorticity at full width (the oracle
+    at rtol 1e-12, the workers' launches summed equal to the sequential
+    run's), then the cut under ``enforce`` at its plan's bound, bit for bit
+    the sequential executor's."""
+    full, workers = config["full"], config["workers"]
+    sequential = {k: ys["full_sequential"]["launches"][k] for k in FLEET_LAUNCHES}
+    before = dict(fl.stats["worker_launches"])
+    value, seconds, here, stats = fleet_compute(torch, vorticity_arr(full, work, config["seed"]), fl)
+    rel = abs(float(value) - ys["expected"]) / abs(ys["expected"])
+    summed = worker_launches(before, fl.stats["worker_launches"])
+    print(f"fleet 1 (fleet of {workers}) {full['shape']} / {full['chunks']}: {seconds:.3f} s; rel err {rel:.3e}; "
+          f"workers' launches {json.dumps(summed)}; this process's {json.dumps(here)}; tasks sent "
+          f"{fl.stats['tasks_sent']}; peer hits {stats.get('peer_hits', 0)}; {smi_tag()}")
+    check(rel <= 1e-12, f"fleet 1 (fleet): rel err {rel}")
+    check(summed == sequential, f"fleet 1 (fleet): workers' launches {summed}, sequential {sequential}")
+    check(sum(here.values()) == 0, f"fleet 1 (fleet): kernels launched in the client {here}")
+    check_workers("fleet 1 (fleet)", fl.stats["worker_reports"], workers)
+    out["fleet_full"] = dict(seconds=seconds, rel=rel, launches=summed)
+
+    cut, value_cut = config["cut"], ys["cut_sequential"]["value"]
+    value, seconds, _, _, guard = guarded(torch, config, "cut", work, TaskLog(), fl)
+    print(f"fleet 2 (fleet of {workers}) {cut['shape']} / {cut['chunks']}: {seconds:.3f} s; {float(value).hex()} "
+          f"against the sequential {value_cut}; {smi_tag()}")
+    check(float(value).hex() == value_cut, "fleet 2 (fleet): the value differs from the sequential")
+    out["fleet_cut"] = dict(seconds=seconds, guard=guard)
+    out["round_s"] = {"sequential": ys["cut_sequential"]["seconds"], f"threads {config['threads']}":
+                      ys["cut_threads_s"], f"fleet {workers}": seconds}
+    print("fleet 7: one round at the cut (s): " + ", ".join(f"{k} {v:.3f}" for k, v in out["round_s"].items())
+          + f" (the pool's one compute is check 1's at full width, {out['pool']['seconds']:.3f} s with a worker "
+          f"killed); {smi_tag()}")
+
+
+def fleet_peer(torch, config, work, fl, out) -> None:
+    """Check 4: a rechunk of the cut on the fleet reads peers, equal to a
+    store-only run, and again under seeded peer corruption."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.observability.metrics import get_registry
+
+    cut = config["cut"]
+
+    def rechunked(**spec_kw):
+        random.seed(config["seed"] + 4)
+        spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB", **spec_kw)
+        a = cubed_tpu_torch.random.random(cut["shape"], chunks=cut["chunks"], spec=spec)
+        return cubed_tpu_torch.map_blocks(lambda t: t * 2.0, a, dtype=np.float64).rechunk(config["rechunk"])
+
+    reg = get_registry()
+    runs = {}
+    for label, kw in (("peers", dict(peer_transfer=True)), ("store only", dict(peer_transfer=False)),
+                      ("peers, corrupt", dict(peer_transfer=True, fault_injection=config["peer_faults"]))):
+        before = reg.snapshot()
+        t0 = time.perf_counter()
+        value = np.asarray(rechunked(**kw).compute(executor=fl))
+        seconds = time.perf_counter() - t0
+        delta = reg.snapshot_delta(before)
+        counters = {k: delta.get(k, 0) for k in ("peer_hits", "peer_misses", "peer_range_fetches",
+                                                 "shuffle_bytes_peer", "peer_bytes_fetched",
+                                                 "store_read_bytes_saved", "peer_fetch_fallbacks", "task_retries")}
+        runs[label] = value
+        print(f"fleet 4 ({label}) rechunk {cut['shape']} / {cut['chunks']} -> {config['rechunk']}: {seconds:.3f} s; "
+              f"{json.dumps(counters)}")
+        if label == "store only":
+            check(counters["peer_hits"] == 0, "fleet 4: a store-only run read a peer")
+            check(np.array_equal(value, runs["peers"]), "fleet 4 (peers): differs from the store-only run")
+        else:
+            check(counters["peer_hits"] > 0 or counters["shuffle_bytes_peer"] > 0, f"fleet 4 ({label}): no peer read")
+            check(counters["task_retries"] == 0, f"fleet 4 ({label}): a peer fault drew a retry")
+        if label == "peers, corrupt":
+            check(np.array_equal(value, runs["store only"]), f"fleet 4 ({label}): differs from the store-only run")
+            check(counters["peer_fetch_fallbacks"] > 0, "fleet 4: no seeded corruption fell back to the store")
+        out[f"peer {label}"] = dict(seconds=seconds, **counters)
+
+
+def fleet_kill(torch, config, work, ys, fl, out) -> None:
+    """Check 3 on the fleet: a worker SIGKILLed mid-compute at the cut, one
+    worker lost, its tasks requeued, the value bit for bit the sequential
+    one's."""
+    import signal
+
+    from cubed_tpu_torch.observability.metrics import get_registry
+
+    cut, workers, sequential = config["cut"], config["workers"], ys["cut_sequential"]["value"]
+    victim = fl._procs[0]
+    fired: list = []
+
+    def kill_fleet_worker(n):
+        if n == config["fleet_kill_after"] and not fired:
+            os.kill(victim.pid, signal.SIGKILL)
+            fired.append(victim.pid)
+
+    reg = get_registry()
+    lost = fl.stats["workers_lost"]
+    before = reg.snapshot()
+    v, seconds, _, _ = fleet_compute(torch, vorticity_arr(cut, work, config["seed"]), fl, TaskLog(kill_fleet_worker))
+    delta = reg.snapshot_delta(before)
+    requeues = delta.get("worker_loss_requeues", 0)
+    print(f"fleet 3 (fleet of {workers}, local-0 SIGKILLed after {config['fleet_kill_after']} tasks): {seconds:.3f} s; "
+          f"{float(v).hex()} against {sequential}; workers_lost {fl.stats['workers_lost'] - lost}, requeued "
+          f"{requeues}, workers left {fl._coordinator.n_workers}; {smi_tag()}")
+    check(fl.stats["workers_lost"] - lost == 1, "fleet 3: the fleet did not lose exactly one worker")
+    check(requeues >= 1, "fleet 3: no task of the killed worker was requeued")
+    check(float(v).hex() == sequential, "fleet 3 (fleet): the value differs")
+    out["fleet_kill"] = dict(seconds=seconds, requeued=requeues)
+
+
+def run_fleet_phase(torch, config=FLEET, given=None) -> dict:
+    """The fleet phase (see the module docstring); returns its numbers,
+    printed as they come."""
+    from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
+
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    out, timings = {}, {}
+    ys = fleet_yardsticks(torch, config, work, given or {})
+    timings["yardsticks"] = time.perf_counter() - started
+    fl = DistributedDagExecutor(n_local_workers=config["workers"])
+    try:
+        for name, part in (("pool", lambda: fleet_pool(torch, config, work, ys, out)),
+                           ("fleet start", fl._ensure_fleet),
+                           ("fleet 1, 2, 5", lambda: fleet_values(torch, config, work, ys, fl, out)),
+                           ("fleet 4", lambda: fleet_peer(torch, config, work, fl, out)),
+                           ("fleet 3", lambda: fleet_kill(torch, config, work, ys, fl, out))):
+            t0 = time.perf_counter()
+            part()
+            shutil.rmtree(work, ignore_errors=True)
+            timings[name] = time.perf_counter() - t0
+    finally:
+        fl.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["fleet_start_s"] = timings["fleet start"]
+    print(f"fleet 7: the fleet of {config['workers']} started in {out['fleet_start_s']:.3f} s; {smi_tag()}")
+    left = live_children()
+    print(f"fleet 6: after close(), live children {left}")
+    check(left == [], f"fleet 6: live child processes after close(): {left}")
+    seconds = time.perf_counter() - started
+    print(f"fleet phase: {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items())
+          + f"); {smi_tag()}")
+    return dict(out, seconds=seconds, timings=timings)
 
 
 # ---------------------------------------------------------------------------
@@ -5268,19 +5602,6 @@ def analytics_unobserved(torch) -> dict:
     runs = run_device_repeats(torch, "vorticity", vorticity_build, vorticity_oracle, {},
                               seeds=(ANALYTICS["seed"],) * 3, footprint=0)
     return dict(expected=expected, launches=[r["launches"] for r in runs])
-
-
-def analytics_in_fresh_process(given: dict) -> dict:
-    """The analytics phase in a fresh process (``--analytics-phase``), given
-    phase 4's oracle value and unobserved launches; its output passed on;
-    returns its summary (its last line)."""
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--analytics-phase", json.dumps(given)],
-                          capture_output=True, text=True, timeout=600, cwd=REPO)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    check(proc.returncode == 0, f"analytics phase: its process failed:\n{proc.stderr[-4000:]}")
-    return dict(json.loads(lines[-1]), whole_seconds=time.perf_counter() - t)
 
 
 # ---------------------------------------------------------------------------
@@ -5919,24 +6240,6 @@ def check_merge_split(torch, sort_shape, arg_shape) -> dict:
                 max_abs_err=0.0, ms=t_low, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
 
 
-def order_stats_in_fresh_process() -> tuple[list, dict]:
-    """The order-statistics phase, its merge kernels checked first, in a
-    fresh process (``--order-stats-phase``), its output passed on; returns
-    the kernels line's entries and the phase's summary (its last line).
-    After the Array API phase (many profiled computes replaying captured
-    graphs) torch.profiler has recorded no kernel at all in three sessions
-    in a row, and part of a fourth's, where a fresh process records every
-    launch; the merge kernels' checks hold each counted launch against a
-    record."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--order-stats-phase"],
-                          capture_output=True, text=True, timeout=900, cwd=REPO)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    check(proc.returncode == 0, f"order-statistics phase: its process failed:\n{proc.stderr[-4000:]}")
-    r = json.loads(lines[-1])
-    return r["kernels"], r["order"]
-
-
 def _net_chunk(config, with_idx: bool) -> int:
     """The time-axis chunk of the sort network's blocks for *config* (after
     ``auto``'s coarsening or shrinking)."""
@@ -6300,8 +6603,7 @@ def breakdown_device(torch, name: str, build) -> None:
     # below unseen, so a reading counts only when it recorded every launch
     # the wrappers counted
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-device-run"],
-                              capture_output=True, text=True, timeout=600, cwd=REPO)
+        proc = run_fresh(["--profile-device-run"])
         check(proc.returncode == 0, f"{name} [cuda]: the profiled run failed:\n{proc.stderr[-4000:]}")
         r = json.loads(proc.stdout.strip().splitlines()[-1])
         recorded = {k: sum(n for _, n, key in r["by_kernel"] if KERNEL_RECORDS[k] in key) for k in r["counted"]}
@@ -6367,16 +6669,108 @@ def breakdown_device_ops(torch, name: str, build, allowed_mem: str = "2GB") -> N
     print(f"{name} breakdown [cuda, op by op]: wall {wall:.3f} s; by op kind: {ops}")
 
 
+#: the fresh process that waits for its arguments (:func:`start_fresh`),
+#: and those given theirs that are not yet waited for
+_SPARE: Optional[subprocess.Popen] = None
+_STARTED: list = []
+
+
+def _spawn_spare() -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spare"], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+
+
+def start_fresh(args: list) -> tuple:
+    """Start ``chip_smoke.py ARGS`` in a fresh process of this checkout. A
+    spare process (``--spare``) imports torch and the port while the run
+    goes on, then waits for its arguments (one JSON line on stdin); this
+    takes it and starts the next spare. Returns a handle for
+    :func:`finish_fresh`; the process's output is read meanwhile."""
+    global _SPARE
+    proc = _SPARE or _spawn_spare()
+    _SPARE = _spawn_spare()
+    box: dict = {}
+
+    def talk():
+        box["out"], box["err"] = proc.communicate(json.dumps(args) + "\n")
+
+    reader = threading.Thread(target=talk, daemon=True)
+    reader.start()
+    _STARTED.append(proc)
+    return args, proc, reader, box, time.perf_counter()
+
+
+def warm_spare() -> None:
+    """Start the first spare process (:func:`start_fresh`) now."""
+    global _SPARE
+    if _SPARE is None:
+        _SPARE = _spawn_spare()
+
+
+def finish_fresh(handle: tuple, timeout: float = 600) -> tuple:
+    """Wait for a process of :func:`start_fresh` (killed past *timeout*
+    seconds from its start): (CompletedProcess, seconds from its start)."""
+    args, proc, reader, box, t0 = handle
+    reader.join(max(0.0, timeout - (time.perf_counter() - t0)))
+    _STARTED.remove(proc)
+    if reader.is_alive():
+        proc.kill()
+        reader.join()
+        raise PhaseFailed(f"chip_smoke.py {args[0]}: ran past {timeout} s")
+    return subprocess.CompletedProcess(args, proc.returncode, box["out"], box["err"]), time.perf_counter() - t0
+
+
+def run_fresh(args: list, timeout: float = 600) -> subprocess.CompletedProcess:
+    """``chip_smoke.py ARGS`` in a fresh process (:func:`start_fresh`)."""
+    return finish_fresh(start_fresh(args), timeout)[0]
+
+
+def stop_fresh() -> None:
+    """End the spare process and any not waited for (a failed run)."""
+    global _SPARE
+    for proc in ([_SPARE] if _SPARE is not None else []) + _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    _SPARE = None
+    _STARTED.clear()
+
+
+def phase_result(handle: tuple, label: str, timeout: float = 600) -> dict:
+    """A phase run in a fresh process (:func:`start_fresh`): its output
+    passed on; returns its summary (its last line) and ``whole_seconds``,
+    from its start to its end."""
+    proc, seconds = finish_fresh(handle, timeout)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    check(proc.returncode == 0, f"{label}: its process failed:\n{proc.stderr[-4000:]}")
+    return dict(json.loads(lines[-1]), whole_seconds=seconds)
+
+
 def main(argv: list) -> int:
-    global CARD
+    global CARD, WORK_DIR
     against = timed = layouts = None
+    if argv == ["--spare"]:
+        # a fresh process started ahead of its use (start_fresh): import,
+        # then run the arguments it is given
+        sys.path.insert(0, REPO)
+        try:
+            import torch  # noqa: F401
+            import cubed_tpu_torch  # noqa: F401
+            from cubed_tpu_torch.kernels import _build  # noqa: F401
+        except ImportError:
+            pass  # main reports it
+        line = sys.stdin.readline()
+        return main(json.loads(line)) if line else 1
+    if argv[:1] and argv[0] in SIDE_WORK_DIRS:
+        WORK_DIR = SIDE_WORK_DIRS[argv[0]]
     if argv[:1] == ["--against"] and len(argv) == 2:
         against = argv[1]
     elif argv[:1] == ["--check-layouts"] and len(argv) == 2:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
-    elif argv[:1] in (["--threads-phase"], ["--analytics-phase"]) and len(argv) <= 2:
+    elif argv[:1] in (["--threads-phase"], ["--analytics-phase"], ["--fleet-phase"]) and len(argv) <= 2:
         pass
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
@@ -6384,7 +6778,7 @@ def main(argv: list) -> int:
                                ["--reliability-phase"], ["--analytics-unobserved"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
               "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase | "
-              "--analytics-phase]", file=sys.stderr)
+              "--analytics-phase | --fleet-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6467,9 +6861,23 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             given = json.loads(argv[1]) if argv[1:] else {}
-            config = dict(THREADS, **{k: given[k] for k in ("rounds", "cut", "full_modes") if k in given})
+            config = dict(THREADS, **{k: given[k] for k in ("rounds", "cut", "full_modes", "workers", "timing_workers")
+                                      if k in given})
             config["cut"] = dict(config["cut"], shape=tuple(config["cut"]["shape"]))
             print(json.dumps(run_threads_phase(torch, config, sequential_full=given.get("sequential"))))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv[:1] == ["--fleet-phase"]:
+        # the fleet phase alone, its summary the last line; the full run
+        # passes phase 4's and the threads phase's yardsticks
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            print(json.dumps(run_fleet_phase(torch, FLEET, json.loads(argv[1]) if argv[1:] else {})))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -6554,9 +6962,19 @@ def main(argv: list) -> int:
     try:
         t0 = time.perf_counter()
         rounds_build = start_rounds_build()
-        _build.build_all()
+        warm_spare()
+        # phase 4's numpy oracles on the host's cores while nvcc runs
+        with concurrent.futures.ThreadPoolExecutor(1) as builder:
+            built = builder.submit(lambda: _build.build_all() or time.perf_counter())
+            for name, oracle, seeds in phase4_oracles():
+                for seed in seeds:
+                    cached_oracle(name, oracle, seed)
+            oracles_s = time.perf_counter() - t0
+            build_end = built.result()
         rounds_lib = finish_rounds_build(rounds_build)
-        print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(_build.SOURCES)}; {ROUNDS_SOURCE})")
+        print(f"build: {max(build_end, time.perf_counter()) - t0:.2f} s ({', '.join(_build.SOURCES)}; "
+              f"{ROUNDS_SOURCE}), the package's libraries {build_end - t0:.2f} s; phase 4's numpy oracles beside it "
+              f"{oracles_s:.2f} s")
         print_resource_usage()
 
         kernels = [check_philox(torch, rounds_lib), check_region_sum(torch), check_fma_sum_blocks(torch)]
@@ -6570,8 +6988,7 @@ def main(argv: list) -> int:
         # addsum: the random ops fuse into their consumer; on the device
         # executor that op takes the batched route (the Philox and region
         # sum batching rules, one launch each)
-        random.seed(SEED)
-        expected = addsum_oracle()
+        expected = cached_oracle("addsum", addsum_oracle, SEED)
         addsum = {
             "sequential": run_main_path(torch, "addsum", "sequential", addsum_build, expected, {
                 "philox_uniform": (50, 50), "philox_uniform:batched": (0, 0), "region_sum": (25, 10**9),
@@ -6597,8 +7014,7 @@ def main(argv: list) -> int:
             # the graph's pool holds at least the four random arrays
             footprint=4 * 8 * int(np.prod(VORTICITY["shape"])))
         # the fusion rule's chunked form: fma_sum block by block
-        random.seed(SEED)
-        expected = vorticity_oracle(SPILL)
+        expected = cached_oracle("vorticity-spill", functools.partial(vorticity_oracle, SPILL), SEED)
         from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
 
         spill = run_main_path(
@@ -6631,43 +7047,60 @@ def main(argv: list) -> int:
         print(f"addsum [cuda] launches {json.dumps(addsum['cuda']['launches'])} (the Philox and region "
               f"sum batching rules on the fused op); compute() cold {addsum['cuda']['seconds']:.4f} s (a first "
               f"sighting: op by op, no capture); {smi_tag()}")
+        # the threaded executor, in a process of its own beside the Array API
+        # and Zarr phases, its full-width launches held to the sequential
+        # executor's above
+        threads_run = start_fresh(["--threads-phase", json.dumps(dict(THREADS_WHOLE_RUN, sequential=dict(
+            sequential["launches"], **{"philox_uniform:block": sequential["paths"]["philox_uniform"].get("block", 0)})))])
         array_api = run_array_api_phase(torch)
         print("array API phase summary: " + json.dumps(array_api))
         zarr_stencil = run_zarr_stencil_phase(torch)
         print("zarr and stencils phase summary: " + json.dumps(zarr_stencil))
+        threads = phase_result(threads_run, "threads phase", timeout=900)
+        print(f"threads phase summary: {threads['whole_seconds']:.1f} s with its process's start, beside the Array "
+              f"API and Zarr phases ({threads['seconds']:.1f} s in it); launches at full width "
+              f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
         # the order-statistics phase, its merge kernels checked first, in a
         # process of its own (after the phases above, which run as they ran
         # before it); the kernels' launches are those of the phase's first
         # device computes
-        kernels_order, order = order_stats_in_fresh_process()
+        r = phase_result(start_fresh(["--order-stats-phase"]), "order-statistics phase", timeout=900)
+        kernels_order, order = r["kernels"], r["order"]
         print("order-statistics phase summary: " + json.dumps(order))
         for k in kernels_order:
             k["launches"] = order["launches"][k["name"]]
         kernels += kernels_order
-        # the linear algebra and spectra phase, in a process of its own
-        linalg_fft = linalg_fft_in_fresh_process()
+        # the memory guard and reliability phase, in a process of its own
+        reliability = phase_result(start_fresh(["--reliability-phase"]), "reliability phase")
+        print(f"reliability phase summary: {reliability['seconds']:.1f} s; launches {json.dumps(reliability['launches'])}; "
+              f"checks {json.dumps({k: round(v, 3) for k, v in reliability['timings'].items()})}")
+        # the process pool and the TCP fleet, in a process of their own, held
+        # to phase 4's oracle value, sequential value and launches at full
+        # width and to the threads phase's sequential value and times at the
+        # cut (the same plans), beside the linear algebra and spectra phase
+        # (its host work and device memory fit beside the fleet's)
+        check(THREADS_WHOLE_RUN["cut"] == FLEET["cut"] and THREADS["seed"] == FLEET["seed"],
+              "the threads phase's cut is not the fleet phase's")
+        fleet_run = start_fresh(["--fleet-phase", json.dumps(dict(
+            expected=ORACLES["vorticity", SEED], full_sequential=dict(value=sequential["value"],
+                                                                      launches=sequential["launches"]),
+            cut_sequential=threads["cut_sequential"],
+            cut_threads_s=threads["timings_s"][f"threads {FLEET['threads']}"][0]))])
+        linalg_fft = phase_result(start_fresh(["--linalg-fft-phase"]), "linalg and fft phase", timeout=900)
         print(f"linalg and fft phase summary: {linalg_fft['seconds']:.1f} s; launches of its first device "
               f"computes {json.dumps(linalg_fft['launches'])}; sequential task peak / projected "
               + ", ".join(f"{k} {v['ratio']:.4f}" for k, v in linalg_fft["sequential"].items()))
-        # the memory guard and reliability phase, in a process of its own
-        reliability = reliability_in_fresh_process()
-        print(f"reliability phase summary: {reliability['seconds']:.1f} s; launches {json.dumps(reliability['launches'])}; "
-              f"checks {json.dumps({k: round(v, 3) for k, v in reliability['timings'].items()})}")
-        # the threaded executor, in a process of its own, its full-width
-        # launches held to the sequential executor's above
-        threads = threads_in_fresh_process(dict(
-            sequential["launches"], **{"philox_uniform:block": sequential["paths"]["philox_uniform"].get("block", 0)}),
-            **THREADS_WHOLE_RUN)
-        print(f"threads phase summary: {threads['seconds']:.1f} s; launches at full width "
-              f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
+        fleet = phase_result(fleet_run, "fleet phase", timeout=900)
+        print(f"fleet phase summary: {fleet['whole_seconds']:.1f} s with its process's start, beside the linear "
+              f"algebra phase ({fleet['seconds']:.1f} s in the phase); round at the cut (s) {json.dumps(fleet['round_s'])}")
         # the observability phase: vorticity observed on both executors
         check_observed_device_run(torch, runs)
         observed = run_sequential_observed(torch, threads["cut_sequential"]["seconds"], THREADS_WHOLE_RUN["cut"])
-        # the analytics phase, in a process of its own, held to phase 4's
-        # oracle value and unobserved launches of vorticity and to the
-        # sequential run of the cut above
-        analytics = analytics_in_fresh_process(dict(expected=ORACLES["vorticity", SEED],
-                                                    launches=[r["launches"] for r in runs[:3]], sequential=observed))
+        # the analytics phase, held to phase 4's oracle value and unobserved
+        # launches of vorticity and to the sequential run of the cut above
+        analytics = phase_result(start_fresh(["--analytics-phase", json.dumps(dict(
+            expected=ORACLES["vorticity", SEED], launches=[r["launches"] for r in runs[:3]], sequential=observed))]),
+            "analytics phase")
         print(f"analytics phase summary: {analytics['whole_seconds']:.1f} s with its process's start "
               f"({analytics['seconds']:.1f} s in it); cost (ms, quartiles) "
               f"{json.dumps(analytics['cost_ms'])}; sampler tick {analytics['sampler_tick_ms']:.4f} ms")
@@ -6681,6 +7114,7 @@ def main(argv: list) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        stop_fresh()
         if rounds_build is not None and rounds_build[0].poll() is None:
             rounds_build[0].kill()
             rounds_build[0].wait()

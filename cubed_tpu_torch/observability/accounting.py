@@ -76,6 +76,19 @@ def spans_enabled() -> bool:
     return False
 
 
+def spans_wire() -> bool:
+    """The client's resolved arming, attached to every fleet task message
+    so pre-started workers record spans exactly when the client collects
+    them (and stop when it doesn't)."""
+    return spans_enabled()
+
+
+def arm_spans_from_wire(armed) -> None:
+    """Fleet-worker side: mirror the arming a task message carried."""
+    global _spans_armed
+    _spans_armed = None if armed is None else bool(armed)
+
+
 class spans_scoped:
     """Arm span recording for a ``with`` block (``Plan.execute`` uses this
     while a trace collector is attached); ``None`` is a no-op. With

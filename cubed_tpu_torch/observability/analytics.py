@@ -42,12 +42,12 @@ questions an operator actually asks:
   projections exceeded, wall-clock concentration far above an op's task
   share).
 
-Counterpart of ``cubed_tpu/observability/analytics.py``. The peer data
-plane (``runtime/transfer.py``) and the compute service are not ported yet
-(ROADMAP Queue 1 item 11c): EXPLAIN reports peer transfer off, as the JAX
-package does with it disarmed (no peer-eligible or shuffle bytes; the fields
-stay, so reports and renders line up), and the per-tenant cost accounting
-waits for the service. ANALYZE accepts the device executor's computes,
+Counterpart of ``cubed_tpu/observability/analytics.py``. EXPLAIN's
+peer-eligible and predicted shuffle bytes follow the fleet's peer data
+plane (``runtime/transfer.py``) as a compute would arm it
+(``Spec(peer_transfer=)``, ``CUBED_TPU_TORCH_P2P``, else on), as in the
+reference. The compute service is not ported yet (ROADMAP Queue 1 item
+11c), so the per-tenant cost accounting waits for it. ANALYZE accepts the device executor's computes,
 whose task spans are one per op covering its ``num_tasks`` tasks, as the
 reference accepts its ``JaxExecutor``'s.
 """
@@ -194,12 +194,14 @@ def explain_finalized(
     """Build an :class:`ExplainReport` from a ``FinalizedPlan``."""
     from ..runtime.dataflow import build_chunk_graph, resolve_scheduler
     from ..runtime.pipeline import iter_op_nodes
+    from ..runtime.transfer import resolve_peer_transfer
 
     dag = finalized.dag
     nodes = dag.nodes
     scheduler = resolve_scheduler(spec)
-    # the peer data plane is not ported: its reads are the store's
-    peer = False
+    # the fleet's peer data plane, as a compute on it would arm it (env >
+    # Spec > on): the bytes it could serve from peers' caches
+    peer = resolve_peer_transfer(spec)
 
     graph = None
     try:

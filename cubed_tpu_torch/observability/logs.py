@@ -197,3 +197,14 @@ def recent_records(n: Optional[int] = None) -> list:
     """The last structured records captured in this process ([] before
     :func:`install` has run)."""
     return _ring.records(n) if _ring is not None else []
+
+
+def basic_structured_config(level: int = logging.INFO) -> None:
+    """Convenience: root handler emitting JSON lines with correlation ids
+    (what the fleet worker entry point uses with ``--log-json``)."""
+    handler = logging.StreamHandler()
+    handler.setFormatter(StructuredFormatter())
+    handler.addFilter(ContextFilter())
+    root = logging.getLogger()
+    root.addHandler(handler)
+    root.setLevel(level)

@@ -17,13 +17,13 @@ readable after the compute ends. This module is the *live* layer:
   reads the registry only: it adds no reading of the card. Each tick also
   evaluates the alert engine (``observability/alerts.py``).
 
-The fleet and the compute service are not ported yet (ROADMAP Queue 1 item
-11c). Their hooks are: :func:`register_fleet` / :func:`live_fleets` and
-:func:`register_service` / :func:`live_services` take any object with the
-reference coordinator's ``load_view``/``stats_snapshot``/``_closed`` or the
-service's ``stats_snapshot``/``closed``; the sampler derives the per-worker,
-fleet-aggregate, per-tenant and SLO series from them as the reference does,
-and stays quiet while none is registered.
+The fleet's coordinator (``runtime/distributed.py``) registers itself with
+:func:`register_fleet` while it lives, and the sampler derives the
+per-worker and fleet-aggregate series from its ``stats_snapshot`` as the
+reference does. The compute service is not ported yet (ROADMAP Queue 1 item
+11c): :func:`register_service` / :func:`live_services` take any object with
+the service's ``stats_snapshot``/``closed``, and the per-tenant and SLO
+series stay quiet while none is registered.
 
 The HTTP endpoints over this store (``/metrics``, ``/healthz``,
 ``/snapshot.json``) and the arming precedence live in

@@ -31,8 +31,14 @@ from .types import CubedArrayProxy, CubedCopySpec, CubedPipeline, PrimitiveOpera
 def copy_read_to_write(chunk_key, *, config: CubedCopySpec) -> None:
     """Task body: read one region of the source and write it to the target.
     The tasks of one op write disjoint regions, each a whole number of the
-    target's chunks (or the array's edge), so no two tasks share a chunk."""
-    data = config.read.open()[chunk_key]
+    target's chunks (or the array's edge), so no two tasks share a chunk.
+    The read runs in the exchange's scope: on a fleet worker the source
+    chunks may come from peers (``runtime/shuffle.py``)."""
+    from ..runtime.shuffle import exchange_scope
+
+    read_arr = config.read.open()
+    with exchange_scope():
+        data = read_arr[chunk_key]
     config.write.open()[chunk_key] = data
 
 

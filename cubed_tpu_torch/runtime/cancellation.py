@@ -1,9 +1,7 @@
 """End-to-end deadlines and cooperative cancellation: bound a compute's
 time the way the rest of the stack bounds its memory.
 
-Counterpart of ``cubed_tpu/runtime/cancellation.py``, less the fleet's
-wire (worker-side token mirrors and ``compute_cancel`` frames come with
-ROADMAP Queue 1 item 11c):
+Counterpart of ``cubed_tpu/runtime/cancellation.py``:
 
 - **One token per compute.** ``Plan.execute(deadline_s=...)`` (or an
   explicit ``cancellation=CancellationToken()``) mints it. The deadline is
@@ -18,6 +16,10 @@ ROADMAP Queue 1 item 11c):
   capture or replay (a replay cannot be interrupted). A task aborts at
   the next safe boundary, never mid-write, so a resumed compute after an
   abort is bitwise correct.
+- **The fleet's wire.** A token's plain-dict form (``wire``) rides every
+  fleet task message (``wire_for_compute``); a worker mirrors it by
+  compute id (``arm_from_wire``), and a ``compute_cancel`` frame trips it
+  (``cancel_compute``) even before the compute's first task arrives.
 - **The errors** (:class:`ComputeCancelledError` /
   :class:`ComputeDeadlineExceededError`) are picklable and classified
   ``CANCELLED`` by the resilience layer: no retry, no budget drawn.
@@ -34,6 +36,13 @@ from collections import OrderedDict
 from typing import Callable, Optional
 
 from ..observability.metrics import get_registry
+
+#: bounded worker-side token registries (a long-lived fleet worker serves
+#: many computes; stale tokens age out)
+MAX_WORKER_TOKENS = 128
+#: compute ids cancelled by ``compute_cancel`` frames, kept so a cancel that
+#: races its compute's first task message still sticks
+MAX_CANCELLED_IDS = 512
 
 class ComputeCancelledError(RuntimeError):
     """The compute's cancellation token was tripped (explicit
@@ -188,6 +197,22 @@ class CancellationToken:
         if self.cancelled:
             raise self.error()
 
+    # -- wire ----------------------------------------------------------
+
+    def wire(self) -> Optional[dict]:
+        """The plain-dict form riding distributed task messages. ``None``
+        when there is nothing to enforce (no deadline, not cancelled) —
+        workers then skip registration entirely."""
+        cancelled = self._event.is_set()
+        if self.deadline_epoch is None and not cancelled:
+            return None
+        return {
+            "compute": self.compute_id,
+            "deadline": self.deadline_epoch,
+            "cancelled": cancelled,
+            "reason": self.reason,
+        }
+
     def __repr__(self) -> str:
         return (
             f"CancellationToken(compute={self.compute_id!r}, "
@@ -197,11 +222,18 @@ class CancellationToken:
 
 
 # ----------------------------------------------------------------------
-# the per-process registry: compute id -> the token Plan.execute armed
+# per-process registries: the client's (Plan.execute) and a fleet
+# worker's (task-message arming and compute_cancel frames)
 # ----------------------------------------------------------------------
 
 _lock = threading.Lock()
+#: client process: compute id -> the token Plan.execute armed for it
 _client_tokens: "OrderedDict[str, CancellationToken]" = OrderedDict()
+#: worker process: compute id -> the token mirrored off task messages
+_worker_tokens: "OrderedDict[str, CancellationToken]" = OrderedDict()
+#: worker process: compute ids cancelled by compute_cancel frames (kept so
+#: a cancel racing the compute's first task message still lands)
+_cancelled_ids: "OrderedDict[str, float]" = OrderedDict()
 #: fast path: True only while ANY token is registered in this process —
 #: the per-chunk-IO check must cost one attribute read when unused
 _any_tokens = False
@@ -209,7 +241,7 @@ _any_tokens = False
 
 def _refresh_any() -> None:
     global _any_tokens
-    _any_tokens = bool(_client_tokens)
+    _any_tokens = bool(_client_tokens or _worker_tokens)
 
 
 def register_compute(compute_id: str, token: CancellationToken) -> None:
@@ -227,6 +259,67 @@ def unregister_compute(compute_id: str) -> None:
         _refresh_any()
 
 
+def wire_for_compute(compute_id: Optional[str]) -> Optional[dict]:
+    """The wire form of the current compute's token, for task messages
+    (None = nothing to enforce). Read per submit, so a cancel that trips
+    mid-compute rides every LATER task message too — a worker that missed
+    the broadcast still learns."""
+    if compute_id is None:
+        return None
+    with _lock:
+        token = _client_tokens.get(compute_id)
+    return token.wire() if token is not None else None
+
+
+def arm_from_wire(raw: Optional[dict]) -> Optional[CancellationToken]:
+    """Worker side: adopt the token a task message carried. Registered by
+    compute id (bounded LRU), merged with any ``compute_cancel`` frame
+    that arrived first."""
+    if not isinstance(raw, dict):
+        return None
+    cid = raw.get("compute")
+    if not cid:
+        return None
+    with _lock:
+        token = _worker_tokens.get(cid)
+        if token is None:
+            token = CancellationToken(compute_id=cid)
+            _worker_tokens[cid] = token
+            while len(_worker_tokens) > MAX_WORKER_TOKENS:
+                _worker_tokens.popitem(last=False)
+        else:
+            _worker_tokens.move_to_end(cid)
+        already_cancelled = cid in _cancelled_ids
+        _refresh_any()
+    deadline = raw.get("deadline")
+    if deadline is not None:
+        with token._lock:
+            if (
+                token.deadline_epoch is None
+                or deadline < token.deadline_epoch
+            ):
+                token.deadline_epoch = float(deadline)
+    if raw.get("cancelled") or already_cancelled:
+        token.cancel(raw.get("reason"))
+    return token
+
+
+def cancel_compute(compute_id: Optional[str],
+                   reason: Optional[str] = None) -> None:
+    """Worker side: a ``compute_cancel`` frame arrived. Trips the
+    registered token (or records the id so a racing task message's
+    arming finds the cancel waiting)."""
+    if not compute_id:
+        return
+    with _lock:
+        _cancelled_ids[compute_id] = time.time()
+        while len(_cancelled_ids) > MAX_CANCELLED_IDS:
+            _cancelled_ids.popitem(last=False)
+        token = _worker_tokens.get(compute_id)
+    if token is not None:
+        token.cancel(reason or "coordinator compute_cancel")
+
+
 def current_token() -> Optional[CancellationToken]:
     """The token governing the CURRENT compute, resolved through the
     compute-id contextvar only (set by ``Plan.execute``), not the env-var
@@ -241,7 +334,7 @@ def current_token() -> Optional[CancellationToken]:
     if not cid:
         return None
     with _lock:
-        return _client_tokens.get(cid)
+        return _client_tokens.get(cid) or _worker_tokens.get(cid)
 
 
 def check_current() -> None:

@@ -1,7 +1,7 @@
 """Executor registry: create executors by name (``Spec(executor_name=...)``).
 Counterpart of ``cubed_tpu/runtime/create.py`` with the port's executors:
-the sequential one, the threaded one and the device executor (the
-reference's process pool and fleet are not ported)."""
+the sequential one, the threaded one, the process pool, the TCP fleet and
+the device executor."""
 
 from __future__ import annotations
 
@@ -18,6 +18,14 @@ def create_executor(name: str, executor_options: Optional[dict] = None):
         from .executors.python_async import AsyncPythonDagExecutor
 
         return AsyncPythonDagExecutor(**executor_options)
+    if name == "processes":
+        from .executors.multiprocess import MultiprocessDagExecutor
+
+        return MultiprocessDagExecutor(**executor_options)
+    if name == "distributed":
+        from .executors.distributed import DistributedDagExecutor
+
+        return DistributedDagExecutor(**executor_options)
     if name == "cuda":
         from .executors.cuda import CudaExecutor
 

@@ -149,6 +149,19 @@ def task_hint_key(m) -> str:
     return _task_chunk_key(m)
 
 
+def task_tag(name: str, m):
+    """The durable ``(op, chunk key)`` identity of one dispatched task, or
+    None for an item with no chunk-shaped identity (a create-arrays item).
+    It is derived from the plan alone, so two builds of the same plan tag
+    the same task alike."""
+    if not isinstance(m, (tuple, list)):
+        return None
+    try:
+        return (name, task_hint_key(m))
+    except Exception:
+        return None
+
+
 class ChunkGraph:
     """The chunk-level task graph of one finalized plan.
 
@@ -414,12 +427,35 @@ class DataflowScheduler:
         return self.graph.items
 
     @property
+    def array_names(self) -> List[str]:
+        return self.graph.array_names
+
+    @property
     def dependencies(self) -> Dict[int, Set[int]]:
         return self.graph.dependencies
 
     @property
     def pipelines(self) -> Dict[str, Any]:
         return self.graph.pipelines
+
+    def locality_hints(self) -> Dict[tuple, tuple]:
+        """``(op, output chunk key) -> ((store, input chunk key), ...)`` for
+        every task whose reads the graph walk resolved: what the fleet's
+        dispatch scores workers by (input bytes already in their chunk
+        caches). Keyed by (op, chunk), as the fleet's pool adapter sees
+        ``(op, task input)`` items, not indices."""
+        out: Dict[tuple, tuple] = {}
+        for idx, reads in self.graph.reads.items():
+            op, m = self.graph.items[idx]
+            out[(op, task_hint_key(m))] = reads
+        return out
+
+    @property
+    def completed(self) -> Set[int]:
+        """The live set of completed item indices: a process pool's re-run
+        after a crash passes it as ``completed_inputs``, and resumes where
+        the broken pool stopped."""
+        return self._done
 
     def start(self) -> None:
         """Land the graph's shape on the metrics and the decision ring, and

@@ -16,9 +16,11 @@ executor's. Failures are classified (``runtime/resilience.py``):
 - ``RESOURCE`` halves the admission limit (``memory.AdmissionController``)
   and retries; a task that fails it twice while admitted alone, with
   nothing completing in between, aborts with the actionable error;
-- ``REQUEUE`` (a broken pool) reroutes without spending a retry, up to
-  the policy's ``max_requeues`` (the reference's poison-task verdict on
-  workers that die under a task is the fleet's, ROADMAP Queue 1 item 11c);
+- ``REQUEUE`` (a broken pool, a lost fleet worker) reroutes without
+  spending a retry, up to the policy's ``max_requeues``; a task whose
+  worker died abruptly under it ``max_requeues + 1`` times in a row is
+  quarantined with ``PoisonTaskError`` (clean drains, and tasks only queued
+  on the dead worker, never count);
 - ``CANCELLED``, and a tripped token seen by the dispatch loop, abort the
   compute with the typed error and draw no budget.
 
@@ -56,6 +58,7 @@ from ..pipeline import RecomputeResolver, ResumeState, pending_mappable, visit_n
 from ..resilience import (
     DEFAULT_RETRIES,
     Classification,
+    PoisonTaskError,
     RetryBudget,
     RetryPolicy,
     budget_exhausted_error,
@@ -64,10 +67,25 @@ from ..resilience import (
     resolve_policy,
 )
 from ..types import DagExecutor, OperationEndEvent, OperationStartEvent, callbacks_on
-from ..utils import chunk_key, end_generation, execute_with_stats, fire_task_start, handle_callbacks, merge_generation
+from ..utils import (
+    WORKER_REPORT_KEY,
+    chunk_key,
+    end_generation,
+    execute_with_stats,
+    fire_task_start,
+    handle_callbacks,
+    merge_generation,
+)
 from .python import _count_integrity_failure
 
 logger = logging.getLogger(__name__)
+
+
+def _clean_worker_loss(exc: BaseException) -> bool:
+    """True for a worker that left cleanly (a drain or a preemption notice,
+    ``WorkerDrainedError``): evidence about the fleet, never the task.
+    Matched by class name, so this module needs no fleet import."""
+    return any(c.__name__ == "WorkerDrainedError" for c in type(exc).__mro__)
 
 
 def map_unordered(
@@ -90,6 +108,7 @@ def map_unordered(
     on_input_done: Optional[Callable[[int], None]] = None,
     completed_inputs: Optional[set] = None,
     cancellation=None,
+    worker_tally=None,
     **kwargs,
 ) -> None:
     """Run *function* over *inputs* on *executor*, in completion order, with
@@ -110,7 +129,8 @@ def map_unordered(
     inputs done before anything dispatches (their dependents' edges count
     as met). ``cancellation`` is checked on every turn of the loop: a tripped
     token stops submissions, cancels pending futures and raises the typed
-    error.
+    error. ``worker_tally`` (``utils.WorkerTally``) takes the device and
+    kernel launches a worker process reports with each task's stats.
     """
     policy = resolve_policy(retry_policy, retries)
     if admission is None:
@@ -120,7 +140,7 @@ def map_unordered(
                          "batching would split the dependency index space")
     common = dict(use_backups=use_backups, callbacks=callbacks, array_name=array_name,
                   executor_name=executor_name, recompute_resolver=recompute_resolver, admission=admission,
-                  cancellation=cancellation, **kwargs)
+                  cancellation=cancellation, worker_tally=worker_tally, **kwargs)
     if array_names is not None:
         inputs = list(inputs)
         if len(array_names) != len(inputs):
@@ -160,6 +180,7 @@ def _map_unordered_batch(
     on_input_done: Optional[Callable[[int], None]] = None,
     completed_inputs: Optional[set] = None,
     cancellation=None,
+    worker_tally=None,
     **kwargs,
 ) -> None:
     metrics = get_registry()
@@ -169,8 +190,11 @@ def _map_unordered_batch(
     if admission is None:
         admission = AdmissionController()
     attempts: Dict[int, int] = {i: 0 for i in range(len(inputs))}
-    #: free reroutes after a broken pool, per input
+    #: free reroutes after a broken pool or a lost worker, per input
     requeues: Dict[int, int] = {}
+    #: abrupt worker deaths under each input (never clean drains): one
+    #: input taking out max_requeues + 1 workers in a row is poison
+    fatal_strikes: Dict[int, int] = {}
     #: min-heap of (due time, input) retries waiting out their backoff
     delayed: list = []
     #: inputs ready to run, waiting for an admission slot
@@ -391,6 +415,18 @@ def _map_unordered_batch(
                                     error_type=type(exc).__name__, error=str(exc)[:200],
                                     classification=cls.name.lower())
                     record_failed_task(op_of(i), key_of(i), attempt, exc)
+                    if (cls is Classification.REQUEUE and not _clean_worker_loss(exc)
+                            and getattr(exc, "was_executing", True)):
+                        # an abrupt death with this task executing (a task
+                        # only queued on the dead worker is innocent): one
+                        # strike toward the poison verdict
+                        fatal_strikes[i] = fatal_strikes.get(i, 0) + 1
+                        if fatal_strikes[i] > policy.max_requeues:
+                            metrics.counter("poison_quarantined").inc()
+                            record_decision("poison_quarantine", op=op_of(i), chunk=key_of(i),
+                                            attempts=fatal_strikes[i])
+                            cancel_pending()
+                            raise PoisonTaskError(op_of(i), key_of(i), fatal_strikes[i]) from exc
                     if cls is Classification.REQUEUE and requeues.get(i, 0) < policy.max_requeues:
                         # the worker died, not the task: no retry spent
                         requeues[i] = requeues.get(i, 0) + 1
@@ -484,6 +520,9 @@ def _map_unordered_batch(
                         submit_meta.pop(f, None)
                 stats = dict(stats)
                 disp = stats.pop("dispatch", None) or {}
+                report = stats.pop(WORKER_REPORT_KEY, None)
+                if report is not None and worker_tally is not None:
+                    worker_tally.add(stats.get("worker"), stats.get("pid"), report)
                 if meta:
                     disp = dict(disp, **meta)
                 handle_callbacks(callbacks, dict(

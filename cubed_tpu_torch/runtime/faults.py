@@ -13,14 +13,19 @@ arms for its compute (``scoped``); or the env var
 ``CUBED_TPU_TORCH_FAULTS='{"seed": 42, "storage_write_failure_rate": 0.1}'``,
 a JSON ``FaultConfig``.
 
-Live sites in the port: storage chunk reads and writes
-(``storage/store.py``: read and write failures, a failed write that leaves a
-partial ``.tmp``, silent bit-flip or truncation corruption, throttles; only
-inside a task scope), and task bodies (``runtime/utils.execute_with_stats``:
-failures, stragglers, a synthetic memory spike handed to the guard). The
-worker, control-plane, peer and coordinator fields are kept, so that a
-config's JSON round-trips between the packages, and stay inert until the
-fleet is ported (ROADMAP Queue 1 item 11c).
+Sites: storage chunk reads and writes (``storage/store.py``: read and write
+failures, a failed write that leaves a partial ``.tmp``, silent bit-flip or
+truncation corruption, throttles; only inside a task scope); task bodies
+(``runtime/utils.execute_with_stats``: failures, stragglers, a synthetic
+memory spike handed to the guard); fleet workers (``runtime/distributed.py``:
+a crash, hang or spot preemption after a worker's nth task, a poison chunk
+that kills every worker it lands on, a timed one-way partition); the
+control plane's frames (drop, duplicate, delay, reset); peer chunk fetches
+(``runtime/transfer.py``: drop, corrupt, delay, a server's reset); and the
+coordinator's dispatches. ``wire_config``/``arm_from_wire`` carry the
+client's arming on every fleet task message, so a worker started before
+the compute mirrors it. (The coordinator crash knobs serve live failover,
+which is not ported: ROADMAP Queue 1 item 11c.)
 """
 
 from __future__ import annotations
@@ -224,6 +229,9 @@ class FaultInjector:
         #: (site, key) -> occurrence count; the count is part of the hash
         #: input, so a retry of the same operation rolls a fresh decision
         self._counts: dict = {}
+        #: worker name -> monotonic deadline of its active one-way
+        #: partition (armed by worker_task_tick, consulted per frame)
+        self._partition_until: dict = {}
 
     # -- the decision function ------------------------------------------
 
@@ -333,6 +341,32 @@ class FaultInjector:
                 f"injected task failure (seed={self.config.seed}, key={key!r})"
             )
 
+    def task_fatal(self, chunk_key: str) -> bool:
+        """True -> this task's worker must hard-exit (fleet-only call
+        site: ``run_worker``, which ``os._exit(137)``s before executing).
+
+        Unlike every other site this decision does NOT advance an
+        occurrence counter: the roll is a pure function of
+        ``(seed, chunk_key)``, so the same poison chunk kills its host on
+        EVERY attempt — requeues reroute it to a fresh worker and kill
+        that one too, which is exactly the shape the poison-request
+        quarantine must end."""
+        cfg = self.config
+        if not (cfg.task_fatal_rate or cfg.task_fatal_chunk_keys):
+            return False
+        hit = str(chunk_key) in cfg.task_fatal_chunk_keys
+        if not hit and cfg.task_fatal_rate > 0.0:
+            digest = hashlib.sha256(
+                f"{cfg.seed}:task_fatal:{chunk_key}:0".encode()
+            ).digest()
+            hit = (
+                int.from_bytes(digest[:8], "big") / 2**64
+                < cfg.task_fatal_rate
+            )
+        if hit:
+            self._count_injection("task_fatal", key=str(chunk_key)[:120])
+        return hit
+
     def task_mem_spike(self, key: str) -> int:
         """Synthetic memory-spike bytes for this task attempt (0 = none).
 
@@ -347,6 +381,166 @@ class FaultInjector:
         if self._hit("task_mem_spike", key, cfg.task_mem_spike_rate):
             return int(cfg.task_mem_spike_bytes)
         return 0
+
+
+    # -- control plane (coordinator <-> worker framing) -----------------
+
+    def net_fault(self, direction: str, worker_name: str,
+                  msg_type: Optional[str]) -> Optional[str]:
+        """One seeded decision for a control-plane frame: ``"drop"``,
+        ``"reset"``, ``"dup"``, ``"delay"``, or None (deliver faithfully).
+        ``direction`` is the worker's view ("tx" = worker→coordinator).
+        At most one fault per frame, evaluated in severity order."""
+        cfg = self.config
+        if not (
+            cfg.net_msg_drop_rate
+            or cfg.net_msg_dup_rate
+            or cfg.net_msg_delay_rate
+            or cfg.net_reset_rate
+        ):
+            return None
+        key = f"{worker_name}:{direction}:{msg_type}"
+        if self._hit(f"net_{direction}_drop", key, cfg.net_msg_drop_rate):
+            return "drop"
+        if self._hit(f"net_{direction}_reset", key, cfg.net_reset_rate):
+            return "reset"
+        if self._hit(f"net_{direction}_dup", key, cfg.net_msg_dup_rate):
+            return "dup"
+        if self._hit(f"net_{direction}_delay", key, cfg.net_msg_delay_rate):
+            return "delay"
+        return None
+
+    def peer_fetch_fault(self, key: str) -> Optional[str]:
+        """One seeded decision for a peer chunk fetch on the reading side:
+        ``"drop"`` (reply vanishes → store fallback), ``"corrupt"`` (a bit
+        flips in the fetched bytes — the CRC verify must catch it), or
+        ``"delay"`` (sleep ``peer_delay_s`` in the fetch path); None =
+        fetch faithfully. At most one fault per fetch, severity order."""
+        cfg = self.config
+        if not (
+            cfg.peer_drop_rate or cfg.peer_corrupt_rate or cfg.peer_delay_rate
+        ):
+            return None
+        if self._hit("peer_drop", key, cfg.peer_drop_rate):
+            return "drop"
+        if self._hit("peer_corrupt", key, cfg.peer_corrupt_rate):
+            return "corrupt"
+        if self._hit("peer_delay", key, cfg.peer_delay_rate):
+            return "delay"
+        return None
+
+    def peer_serve_reset(self, key: str) -> bool:
+        """True -> the SERVING worker closes the peer connection instead of
+        answering this chunk_get — a peer dying mid-fetch, as seen by the
+        reader (who must fall back to the store)."""
+        return self._hit("peer_reset", key, self.config.peer_reset_rate)
+
+    def partitioned(self, worker_name: str, direction: str) -> bool:
+        """True while ``worker_name`` is inside its injected one-way
+        partition window for frames flowing in ``direction``. A reconnect
+        attempt must check both directions — a real partition blackholes
+        the TCP handshake too."""
+        cfg = self.config
+        if not (cfg.partition_worker_names and cfg.partition_after_tasks):
+            return False
+        if worker_name not in cfg.partition_worker_names:
+            return False
+        with self._lock:
+            until = self._partition_until.get(worker_name)
+        if until is None:
+            return False
+        import time
+
+        if time.monotonic() >= until:
+            return False
+        return cfg.partition_direction in ("both", direction)
+
+    # -- distributed workers --------------------------------------------
+
+    def worker_task_tick(self, worker_name: str) -> Optional[str]:
+        """Called once per executed task on a fleet worker; returns
+        ``"crash"``/``"hang"``/``"preempt"`` exactly when this worker's
+        per-process task count reaches the configured threshold (one-shot
+        per process). Preemption is decided by a seeded per-name roll
+        rather than an explicit name list: at ``worker_preempt_rate=0.3``
+        about 30% of the fleet — the SAME ~30% in every replay — gets a
+        SIGTERM-then-hard-kill spot preemption mid-compute."""
+        cfg = self.config
+        if not (
+            (cfg.worker_crash_names and cfg.worker_crash_after_tasks)
+            or (cfg.worker_hang_names and cfg.worker_hang_after_tasks)
+            or (cfg.worker_preempt_rate and cfg.worker_preempt_after_tasks)
+            or (cfg.partition_worker_names and cfg.partition_after_tasks)
+        ):
+            return None
+        with self._lock:
+            n = self._counts.get(("worker_tick", worker_name), 0) + 1
+            self._counts[("worker_tick", worker_name)] = n
+        if (
+            cfg.partition_worker_names
+            and worker_name in cfg.partition_worker_names
+            and n == cfg.partition_after_tasks
+        ):
+            # arm the one-way partition window; the task itself proceeds —
+            # the point is that work completed DURING the partition must
+            # reach the coordinator afterwards via the reconnect/replay path
+            import time
+
+            with self._lock:
+                self._partition_until[worker_name] = (
+                    time.monotonic() + cfg.partition_duration_s
+                )
+            self._count_injection("partition", worker=worker_name)
+        if (
+            worker_name in cfg.worker_crash_names
+            and n == cfg.worker_crash_after_tasks
+        ):
+            self._count_injection("worker_crash", worker=worker_name)
+            return "crash"
+        if (
+            worker_name in cfg.worker_hang_names
+            and n == cfg.worker_hang_after_tasks
+        ):
+            self._count_injection("worker_hang", worker=worker_name)
+            return "hang"
+        if (
+            cfg.worker_preempt_rate
+            and n == cfg.worker_preempt_after_tasks
+            # decided per NAME at occurrence 0 (no count consumed by other
+            # ticks): deterministic per (seed, worker) — the fleet loses
+            # the same ~rate fraction in every replay, and a replacement
+            # worker (fresh name) rolls its own fate
+            # _hit counts the injection (faults_injected +
+            # faults_injected_worker_preempt) — unlike the name-list
+            # branches above, nothing to count here
+            and self._hit(
+                "worker_preempt", worker_name, cfg.worker_preempt_rate
+            )
+        ):
+            return "preempt"
+        return None
+
+    # -- coordinator (live-failover chaos) -------------------------------
+
+    def coordinator_dispatch_tick(self, epoch: int) -> bool:
+        """Called once per REAL task dispatch on the coordinator; True
+        exactly when this process should hard-exit (one-shot per process,
+        mirroring ``worker_task_tick``). ``coordinator_crash_after_dispatches``
+        fires in any epoch; the ``_takeover_`` variant only in a successor
+        (epoch > 0), modelling a second control-plane crash landing while
+        the first takeover is still settling."""
+        cfg = self.config
+        n_any = cfg.coordinator_crash_after_dispatches
+        n_tko = cfg.coordinator_takeover_crash_after_dispatches
+        if not n_any and not (n_tko and epoch > 0):
+            return False
+        with self._lock:
+            n = self._counts.get(("coordinator_tick", ""), 0) + 1
+            self._counts[("coordinator_tick", "")] = n
+        if (n_any and n == n_any) or (n_tko and epoch > 0 and n == n_tko):
+            self._count_injection("coordinator_crash", epoch=epoch)
+            return True
+        return False
 
 
 # ----------------------------------------------------------------------
@@ -411,6 +605,41 @@ def get_injector() -> Optional[FaultInjector]:
     with _lock:
         _env_cache = (raw, inj)
     return inj
+
+
+def wire_config() -> Optional[str]:
+    """The client's current arming state, serialized for task messages
+    (``None`` = unarmed). The distributed coordinator attaches this to
+    every task so fleet workers mirror the client exactly — workers that
+    joined before arming still inject, and disarming propagates instead of
+    leaving stale spawn-time env state behind."""
+    inj = get_injector()
+    return inj.config.to_env_json() if inj is not None else None
+
+
+#: (raw wire string, injector) — the worker-side mirror persists across
+#: tasks with the same config so occurrence counters advance
+_wire_cache: tuple = (None, None)
+
+
+def arm_from_wire(raw: Optional[str]) -> Optional[FaultInjector]:
+    """Fleet-worker side: adopt the arming state a task message carried.
+
+    ``None`` disarms (the client says no injection — overriding any stale
+    env the worker process was spawned with)."""
+    global _active, _wire_cache
+    if raw is None:
+        with _lock:
+            _active = None
+        return None
+    cached_raw, cached_inj = _wire_cache
+    if raw != cached_raw:
+        cfg = FaultConfig.from_dict(json.loads(raw))
+        cached_inj = FaultInjector(cfg) if cfg.any_enabled else None
+    with _lock:
+        _wire_cache = (raw, cached_inj)
+        _active = cached_inj
+    return cached_inj
 
 
 class scoped:

@@ -247,6 +247,51 @@ def get_guard_config() -> Optional[MemoryGuardConfig]:
     return _active
 
 
+def wire_config() -> Optional[str]:
+    """The client's current arming state, serialized for distributed task
+    messages (None = unarmed) — pre-started fleets mirror the client."""
+    cfg = get_guard_config()
+    return cfg.to_env_json() if cfg is not None else None
+
+
+_wire_cache: tuple = (None, None)
+
+
+def arm_from_wire(raw: Optional[str]) -> Optional[MemoryGuardConfig]:
+    """Fleet-worker side: adopt the guard config a task message carried
+    (None disarms, overriding any stale spawn-time env)."""
+    global _active, _wire_cache, _baseline_rss
+    if raw is None:
+        with _lock:
+            _active = None
+        return None
+    cached_raw, cached_cfg = _wire_cache
+    fresh = raw != cached_raw
+    if fresh:
+        try:
+            cached_cfg = MemoryGuardConfig.from_dict(json.loads(raw))
+        except (ValueError, TypeError):
+            logger.warning("ignoring invalid memory-guard config from wire")
+            return _active
+    with _lock:
+        _wire_cache = (raw, cached_cfg)
+        _active = cached_cfg
+        # re-baseline on a new wire config OR whenever this worker is idle
+        # (no guarded task in flight): a persistent fleet worker's slow
+        # cache growth across many computes must not accrue into phantom
+        # pressure — and back-to-back computes with an IDENTICAL Spec send
+        # identical wire strings, so "new config" alone is not enough.
+        # Idle arming ≈ a task starting with nothing else running, which
+        # is exactly when growth-so-far is nobody's working set.
+        if cached_cfg is not None and cached_cfg.enabled and (
+            fresh or not _tasks
+        ):
+            _baseline_rss = _read_rss(
+                max_age_s=cached_cfg.sample_interval_s
+            )
+    return cached_cfg
+
+
 class scoped:
     """Arm the guard for a ``with`` block (``Plan.execute`` uses this for
     ``Spec(memory_guard=...)``). ``mode=None`` with a known ``allowed_mem``

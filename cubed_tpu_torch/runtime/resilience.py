@@ -23,9 +23,13 @@ this module decides when running it again is worth anything:
   ``max(budget_min, budget_factor * n_tasks * retries)``; exhaustion aborts
   the compute with ``RetryBudgetExceededError`` chaining the last error.
 
-The reference's ``REQUEUE`` branches read the fleet's ``WorkerLostError``
-and ``RemoteTaskError``; the port has no fleet yet (ROADMAP Queue 1 item
-11), so those branches come with it.
+- **The fleet's errors.** ``WorkerLostError`` (and a broken process pool)
+  classify ``REQUEUE``: the worker died, not the task. A ``RemoteTaskError``
+  classifies by the root exception's class name the worker shipped
+  (``remote_type``): integrity failures ``RECOMPUTE``, out of memory
+  ``RESOURCE``, programming errors ``FAIL_FAST`` (import errors aside: on a
+  mixed fleet a missing module is one host's), throttles ``THROTTLE``,
+  anything else ``RETRY``.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ class Classification(enum.Enum):
 
     RETRY = "retry"  #: transient: backoff, consume one retry, re-run
     FAIL_FAST = "fail_fast"  #: deterministic: one attempt, no backoff
-    REQUEUE = "requeue"  #: the worker died, not the task (a broken pool; the fleet's, item 11c)
+    REQUEUE = "requeue"  #: the worker died, not the task (a broken pool, a lost fleet worker)
     #: a stored input chunk failed integrity verification: the producing
     #: op's task for that chunk re-runs first, then the reader retries
     RECOMPUTE = "recompute"
@@ -192,12 +196,16 @@ class RetryPolicy:
         from ..storage.health import is_throttle_error
         from ..storage.integrity import ChunkIntegrityError
         from .cancellation import ComputeCancelledError
-        from .memory import MemoryGuardExceededError
+        from .distributed import RemoteTaskError, WorkerLostError
+        from .memory import RESOURCE_TYPE_NAMES, MemoryGuardExceededError
 
-        if isinstance(exc, ComputeCancelledError):
-            # an instruction, not a failure: never retried, no budget drawn
+        remote_type = getattr(exc, "remote_type", None)
+        if isinstance(exc, ComputeCancelledError) or remote_type in (
+                "ComputeCancelledError", "ComputeDeadlineExceededError"):
+            # an instruction, not a failure: never retried, no budget drawn,
+            # locally or off the fleet's wire
             return Classification.CANCELLED
-        if isinstance(exc, PoisonTaskError):
+        if isinstance(exc, PoisonTaskError) or remote_type == "PoisonTaskError":
             return Classification.FAIL_FAST
         if isinstance(exc, (MemoryError, MemoryGuardExceededError)) or is_cuda_out_of_memory(exc):
             # out of memory on the host, under the guard or on the card:
@@ -209,8 +217,23 @@ class RetryPolicy:
         if isinstance(exc, ChunkIntegrityError):
             # a corrupt input chunk (quarantined): its producer re-runs first
             return Classification.RECOMPUTE
-        if isinstance(exc, BrokenExecutor):
+        if isinstance(exc, (WorkerLostError, BrokenExecutor)):
+            # the worker or the whole pool died, not the task: each in-flight
+            # future of a broken pool fails alike, and the pool's rebuild
+            # (not each of them) pays one budget unit
             return Classification.REQUEUE
+        if isinstance(exc, RemoteTaskError):
+            if remote_type == "ChunkIntegrityError":
+                return Classification.RECOMPUTE
+            if remote_type in RESOURCE_TYPE_NAMES:
+                return Classification.RESOURCE
+            # a missing module is one host's environment on a mixed fleet:
+            # another worker may have it
+            if remote_type in FAIL_FAST_TYPE_NAMES and remote_type not in ("ImportError", "ModuleNotFoundError"):
+                return Classification.FAIL_FAST
+            if is_throttle_error(exc):
+                return Classification.THROTTLE
+            return Classification.RETRY
         if _fail_fast_by_mro(exc):
             return Classification.FAIL_FAST
         if is_throttle_error(exc):

@@ -95,6 +95,90 @@ def execute_with_stats(function, *args, **kwargs):
     )
 
 
+#: the stats key under which a worker process reports its chunk device and
+#: the kernel launches of the task (popped before the task's end event)
+WORKER_REPORT_KEY = "worker_report"
+
+
+def execute_in_worker(function, *args, **kwargs):
+    """:func:`execute_with_stats` in a pool or fleet worker process, whose
+    kernel launches the client's counts do not see: the stats also carry
+    the worker's chunk device and the launches the task made, by wrapper."""
+    from ..backend_array_api import get_device
+    from ..kernels._build import launch_counts
+
+    before = launch_counts()
+    result, stats = execute_with_stats(function, *args, **kwargs)
+    after = launch_counts()
+    launches = {name: n - before.get((name, path), 0) for (name, path), n in after.items() if path is None}
+    stats[WORKER_REPORT_KEY] = {"device": str(get_device()),
+                                "launches": {k: v for k, v in launches.items() if v}}
+    return result, stats
+
+
+def prepare_worker_device(device: Optional[str]) -> str:
+    """Pin a pool or fleet worker's chunk device (``None`` keeps the
+    environment's) and ready it before the first task: on the card, the
+    CUDA context, the kernel libraries and torch's common elementwise,
+    copy and reduction kernels (which CUDA loads at their first use), so
+    that a task's guarded reading does not hold the process's one-time
+    loads. Raises where the device is absent; returns its name."""
+    from ..backend_array_api import get_device, set_device
+
+    if device is not None:
+        set_device(device)
+    dev = get_device()
+    if dev.type == "cuda":
+        import torch
+
+        from ..kernels import _build
+
+        for name in _build.SOURCES:
+            _build.load(name)
+        for dtype in (torch.float64, torch.float32, torch.int64):
+            t = torch.ones((4, 4), dtype=dtype, device=dev)
+            u = torch.cat([t[1:], t[:1]]).contiguous() * 2 + t - t / 2
+            (u.sum(), u.sum(dim=0), u.mean(dim=(0,)) if dtype.is_floating_point else u.max(), u.amax(0),
+             torch.where(u > 1, u, t), u.to(torch.float64).cpu())
+        torch.cuda.synchronize(dev)
+    return str(dev)
+
+
+def build_before_spawn(device: str) -> None:
+    """Build every kernel library here before worker processes start on
+    *device*, so that they only load them and never race each other's nvcc
+    runs. Nothing is built without a card in this process: a worker asked
+    for ``cuda`` then fails its own device check."""
+    if device.startswith("cuda"):
+        import torch
+
+        if torch.cuda.is_available():
+            from ..kernels._build import build_all
+
+            build_all()
+
+
+class WorkerTally:
+    """What an executor's worker processes reported: each worker's chunk
+    device, tasks and kernel launches, and the launches summed."""
+
+    def __init__(self):
+        self.workers: dict = {}
+        self.launches: dict = {}
+
+    def add(self, worker, pid, report: dict) -> None:
+        row = self.workers.setdefault(str(worker or pid), {"device": None, "tasks": 0, "launches": {}})
+        row["device"] = report.get("device")
+        row["tasks"] += 1
+        for name, n in (report.get("launches") or {}).items():
+            row["launches"][name] = row["launches"].get(name, 0) + n
+            self.launches[name] = self.launches.get(name, 0) + n
+
+    def snapshot(self) -> dict:
+        return {"workers": {k: dict(v, launches=dict(v["launches"])) for k, v in self.workers.items()},
+                "launches": dict(self.launches)}
+
+
 def execution_stats(function):
     """Decorator adding timing/memory stats to a task function's return value."""
     return partial(execute_with_stats, function)

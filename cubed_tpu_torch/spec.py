@@ -2,9 +2,9 @@
 ``cubed_tpu/spec.py``, trimmed to the work directory, the memory bounds, the
 executor, the device executor's residency budget, the reliability settings
 (fault injection, chunk integrity, the runtime memory guard), the threaded
-executor's scheduler, the compute journal, and the observability knobs (the
-run-history archive, live telemetry and the dispatch profiler). The
-reference's ``storage_options``, ``mesh_shape``, ``peer_transfer`` and
+executor's scheduler, the compute journal, the fleet's peer transfer, and
+the observability knobs (the run-history archive, live telemetry and the
+dispatch profiler). The reference's ``storage_options``, ``mesh_shape`` and
 ``service`` wait for the modules that read them (ROADMAP Queue 1 items 11c
 and 12)."""
 
@@ -40,6 +40,7 @@ class Spec:
         run_history: Optional[str] = None,
         telemetry_port: Optional[int] = None,
         dispatch_profile: Optional[bool] = None,
+        peer_transfer: Optional[bool] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -82,6 +83,7 @@ class Spec:
                 raise ValueError(f"telemetry_port must be 0-65535 (0 = ephemeral), got {telemetry_port}")
         self._telemetry_port = telemetry_port
         self._dispatch_profile = None if dispatch_profile is None else bool(dispatch_profile)
+        self._peer_transfer = None if peer_transfer is None else bool(peer_transfer)
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -200,6 +202,16 @@ class Spec:
         enables) or the off default; off is a true no-op
         (``observability/dispatchprofile.py``)."""
         return self._dispatch_profile
+
+    @property
+    def peer_transfer(self) -> Optional[bool]:
+        """Peer-to-peer chunk transfer on the fleet (``runtime/transfer.py``):
+        a task may fetch an input chunk from the worker that produced it,
+        verified against the store's manifest, with the store read as the
+        fallback on any miss; the store stays the durable tier. ``None``
+        defers to ``CUBED_TPU_TORCH_P2P`` (the operator's override, which
+        wins) or the executor's setting, else on; ``False`` is store-only."""
+        return self._peer_transfer
 
     def __repr__(self) -> str:
         return (

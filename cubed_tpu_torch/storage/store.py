@@ -19,8 +19,11 @@ chunk (:meth:`ZarrV2Array.verify_chunks`); the fault injector's storage
 sites fire inside task scopes (``runtime/faults.py``); throttles are paced
 by the store's health breaker (``storage/health.py``); transient read
 errors retry in place; and the compute's cancellation token is checked
-between chunk reads and writes (``runtime/cancellation.py``). Remote
-(fsspec) stores are not ported.
+between chunk reads and writes (``runtime/cancellation.py``). On a fleet
+worker with the peer data plane armed, a task's chunk read first tries a
+peer's cache (a sub-chunk byte range for a rechunk's sliver), verified
+against the manifest, and a checksummed write fills this worker's cache
+(``runtime/transfer.py``). Remote (fsspec) stores are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..observability.accounting import (
 )
 from ..observability.metrics import get_registry
 from ..runtime import cancellation
+from ..runtime import transfer as p2p
 from ..runtime.faults import FaultInjectedIOError, FaultInjectedThrottleError, get_injector
 from ..runtime.resilience import RetryPolicy
 from . import health, integrity
@@ -346,12 +350,26 @@ class ZarrV2Array:
     def _chunk_key(idx: tuple[int, ...]) -> str:
         return ".".join(str(int(i)) for i in idx) if idx else "0"
 
-    def _read_chunk(self, idx: tuple[int, ...]) -> Optional[np.ndarray]:
-        """The full (padded) chunk at block index *idx*, or None if absent."""
+    def _read_chunk(self, idx: tuple[int, ...], allow_peer: bool = True) -> Optional[np.ndarray]:
+        """The full (padded) chunk at block index *idx*, or None if absent.
+        ``allow_peer=False`` skips the peer path: a sub-chunk fetch already
+        tried it for this chunk, and one read records one peer outcome."""
         key = self._chunk_key(idx)
         # between chunk reads is a safe abort boundary
         cancellation.check_current()
         verify = integrity.verify_reads_active()
+        if allow_peer and p2p.task_fetch_active():
+            # a fleet worker's peer path: the producer's cached bytes,
+            # verified against this chunk's manifest entry (a chunk without
+            # one never takes it); any miss reads the store below
+            entry = self._manifest()[0].get(key)
+            if entry is not None:
+                data = p2p.fetch_chunk(self.store, key, entry)
+                if data is not None:
+                    if self._codec is not None:
+                        data = self._codec[1](data)
+                    arr = np.frombuffer(data, dtype=self.dtype)
+                    return arr.reshape(self.chunks if self.shape else ())
         if not self._io.exists(key):
             if verify and key in self._manifest()[0]:
                 # the manifest says it was written: its absence is an
@@ -374,6 +392,32 @@ class ZarrV2Array:
             data = self._codec[1](data)
         arr = np.frombuffer(data, dtype=self.dtype)
         return arr.reshape(self.chunks if self.shape else ())
+
+    def _read_chunk_region(self, idx: tuple[int, ...], chunk_sel: tuple[slice, ...]):
+        """A fleet worker's sub-chunk peer fetch of the region of one chunk a
+        read needs (the rechunk exchange). Returns ``(region, attempted)``:
+        the sub-array, or None with whether the peer path already tried (the
+        caller then reads the store directly). Only for uncompressed stores,
+        unit-step selections, chunks in the manifest and regions that
+        ``shuffle.byte_ranges`` finds worth a ranged fetch."""
+        if self._codec is not None or not p2p.task_fetch_active():
+            return None, False
+        if any((s.step or 1) != 1 for s in chunk_sel):
+            return None, False
+        key = self._chunk_key(idx)
+        entry = self._manifest()[0].get(key)
+        if entry is None:
+            return None, False  # unverifiable: never the peer path
+        from ..runtime.shuffle import byte_ranges
+
+        ranges = byte_ranges(self.chunks if self.shape else (), self.dtype.itemsize, chunk_sel)
+        if ranges is None:
+            return None, False
+        data, attempted = p2p.fetch_chunk_ranges(self.store, key, entry, ranges)
+        if data is None:
+            return None, attempted
+        arr = np.frombuffer(data, dtype=self.dtype)
+        return arr.reshape(tuple(s.stop - s.start for s in chunk_sel)), True
 
     def _manifest(self) -> tuple[dict, bool]:
         """Merged checksum manifest ``(entries, had_shards)``, cached per
@@ -502,6 +546,10 @@ class ZarrV2Array:
                 if self._manifest_cache is not None:
                     self._manifest_cache[0][key] = entry
                     self._manifest_cache = (self._manifest_cache[0], True)
+                # after the durable write and its checksum: a fleet worker
+                # caches the bytes for its peers (only checksummed chunks:
+                # a reader refuses bytes it cannot verify)
+                p2p.note_chunk_written(self.store, key, data)
         record_bytes_written(self.store, len(data))
 
     def _write_bytes_throttle_paced(self, key: str, data) -> None:
@@ -588,7 +636,13 @@ class ZarrV2Array:
                 out_sel.append(slice((lo - s.start) // step, (hi - s.start + step - 1) // step))
             if skip:
                 continue
-            chunk = self._read_chunk(cidx)
+            # a fleet worker fetches the sliver of the chunk it reads from a
+            # peer first; a fetch that was tried and missed reads the store
+            region, peer_tried = self._read_chunk_region(cidx, tuple(chunk_sel))
+            if region is not None:
+                out[tuple(out_sel)] = region
+                continue
+            chunk = self._read_chunk(cidx, allow_peer=not peer_tried)
             if chunk is None:
                 chunk = self._empty_chunk()
             out[tuple(out_sel)] = chunk[tuple(chunk_sel)]

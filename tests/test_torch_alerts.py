@@ -10,6 +10,7 @@ import os
 
 os.environ["CUBED_TPU_TORCH_DEVICE"] = "cpu"
 
+import itertools  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -20,6 +21,7 @@ from cubed_tpu import diagnose as ref_diagnose  # noqa: E402
 from cubed_tpu.observability import alerts as ref_alerts  # noqa: E402
 from cubed_tpu.observability import timeseries as ref_ts  # noqa: E402
 from cubed_tpu_torch import diagnose as port_diagnose  # noqa: E402
+from cubed_tpu_torch import utils as port_utils  # noqa: E402
 from cubed_tpu_torch.observability import alerts as port_alerts  # noqa: E402
 from cubed_tpu_torch.observability import export  # noqa: E402
 from cubed_tpu_torch.observability import timeseries as port_ts  # noqa: E402
@@ -212,6 +214,10 @@ def test_format_alert_row_matches_reference():
 # ---------------------------------------------------------------------------
 
 
+#: the plan-name counter's value for the seeded chaos run
+CHAOS_NAMES_BASE = 7_300_000
+
+
 def test_chaos_retry_burn_fires_alert_into_ring_bundle_and_diagnose(tmp_path, monkeypatch):
     export.shutdown()
     monkeypatch.delenv(export.TELEMETRY_PORT_ENV_VAR, raising=False)
@@ -219,6 +225,9 @@ def test_chaos_retry_burn_fires_alert_into_ring_bundle_and_diagnose(tmp_path, mo
                    fault_injection={"storage_read_failure_rate": 0.25, "seed": 7})
     fr = FlightRecorder(bundle_dir=str(tmp_path / "bundles"), always=True)
     an = np.arange(144.0).reshape(12, 12)
+    # the injector hashes keys that hold array names: pinned, the seeded
+    # faults hit the same tasks whatever ran before in this process
+    monkeypatch.setattr(port_utils, "sym_counter", itertools.count(CHAOS_NAMES_BASE))
     a = ct.from_array(an, chunks=(3, 3), spec=spec)
     r = ct.map_blocks(lambda x: x + 2.0, a, dtype=np.float64)
     retries_before = get_registry().snapshot().get("task_retries", 0)

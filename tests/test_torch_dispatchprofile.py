@@ -234,7 +234,14 @@ def test_armed_compute_bundles_folded_profile_and_diagnose(monkeypatch, tmp_path
 def test_device_executor_compute_has_the_reference_lanes(monkeypatch, tmp_path):
     """An armed compute on ``CudaExecutor`` (chunks on the CPU) and on the
     reference's ``JaxExecutor``: the merged traces carry the same lanes,
-    a "dispatch profile" lane among them."""
+    a "dispatch profile" lane among them. Both run with the memory guard
+    off: a guard variable an earlier test left in the environment (which
+    outranks the Spec) is cleared, as the guard's own tests clear it."""
+    from cubed_tpu.runtime import memory as ref_memory
+    from cubed_tpu_torch.runtime import memory
+
+    monkeypatch.delenv(ref_memory.MEMORY_GUARD_ENV_VAR, raising=False)
+    monkeypatch.delenv(memory.MEMORY_GUARD_ENV_VAR, raising=False)
     lanes = []
     for mod, pkg, col_cls, ex in ((ref_dp, cubed_tpu, RefTraceCollector, JaxExecutor()),
                                   (dispatchprofile, ct, TraceCollector, CudaExecutor())):

@@ -4,11 +4,9 @@ tests/observability/test_explain.py. Each plan is built in both packages
 from the same numpy input, and the reports are compared row by row (ops
 matched in order, their names aside): kind, tasks, projected and allowed
 memory, bytes read and written, chunk-structured or barrier, and every
-total. The peer data plane is not ported, so the reference is explained
-with ``peer_transfer=False``, and the port reports the peer fields as the
-reference does then; the case that arms it on the reference checks that the
-port, which has no such knob, reports what the reference's store-only
-escape hatch reports."""
+total. Both packages are explained with ``peer_transfer=False`` (the
+store-only mode), and the case that arms the fleet's peer data plane
+compares the two armed reports, peer-eligible bytes included."""
 
 import os
 
@@ -32,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _specs(tmp_path, **kw):
     return (cubed_tpu.Spec(work_dir=str(tmp_path / "ref"), allowed_mem="500MB", peer_transfer=False, **kw),
-            ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB", **kw))
+            ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB", peer_transfer=False, **kw))
 
 
 def _chain(pkg, spec, depth=2):
@@ -112,16 +110,21 @@ def test_explain_reports_scheduler_and_rechunk_chunked(tmp_path):
     for row in rechunk_rows:
         assert row["chunk_structured"] and not row["barrier"], row
     assert d["barriers"]["ops"] == []
-    # no peer data plane: no predicted shuffle
+    # store-only: no predicted shuffle
     assert d["totals"]["predicted_shuffle_bytes"] == 0
 
 
 def test_explain_peer_eligible_bytes(tmp_path):
-    """The reference armed predicts peer-eligible bytes; the port, without
-    the peer data plane, reports zero as the reference's store-only mode."""
+    """Armed, both packages predict the same peer-eligible bytes; store-only,
+    both report zero and otherwise the armed totals."""
     spec = cubed_tpu.Spec(work_dir=str(tmp_path / "ref"), allowed_mem="500MB", peer_transfer=True)
     armed = _chain(cubed_tpu, spec).explain(optimize_graph=False).to_dict()
     assert armed["peer_transfer"] is True and armed["totals"]["peer_eligible_bytes"] > 0
+    port_spec = ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB", peer_transfer=True)
+    port_armed = _chain(ct, port_spec).explain(optimize_graph=False).to_dict()
+    assert port_armed["peer_transfer"] is True
+    assert port_armed["totals"] == armed["totals"]
+    assert _rows(port_armed) == _rows(armed)
     rs, ps = _specs(tmp_path)
     d = _same_report(_chain(cubed_tpu, rs).explain(optimize_graph=False),
                      _chain(ct, ps).explain(optimize_graph=False))

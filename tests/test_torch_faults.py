@@ -6,6 +6,8 @@ retries, write litter), each compute also run on the JAX package."""
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import random
@@ -50,6 +52,26 @@ class _StatsCapture:
 
 def _spec(pkg, tmp_path, **fault_kwargs):
     return pkg.Spec(work_dir=str(tmp_path), allowed_mem="500MB", fault_injection=fault_kwargs or None)
+
+
+@contextlib.contextmanager
+def _pinned_names(base: int):
+    """Pin both packages' plan-name counters to *base*: the injector hashes
+    keys that hold array names, so a seeded run then decides the same
+    tasks whatever tests ran before it in this process, and the same plan
+    built in each package meets the same faults."""
+    import cubed_tpu.utils as ref_utils
+    import cubed_tpu_torch.utils as utils
+
+    saved = (utils.sym_counter, ref_utils.sym_counter)
+    utils.sym_counter = itertools.count(base)
+    ref_utils.sym_counter = itertools.count(base)
+    try:
+        yield
+    finally:
+        used = max(next(utils.sym_counter), next(ref_utils.sym_counter)) - base
+        utils.sym_counter = itertools.count(next(saved[0]) + used)
+        ref_utils.sym_counter = itertools.count(next(saved[1]) + used)
 
 
 # -- decisions ----------------------------------------------------------------
@@ -117,9 +139,10 @@ def test_chaos_sequential_storage_flakiness(tmp_path):
                          (ct_ref, ref_xp, RefPythonDagExecutor(
                              retry_policy=RefRetryPolicy(retries=6, backoff_base=0.0, seed=0)))):
         spec = _spec(pkg, tmp_path / pkg.__name__, **CHAOS_STORAGE)
-        a = pkg.from_array(an, chunks=(2, 2), spec=spec)  # 36 chunks
         cap = _StatsCapture()
-        results[pkg.__name__] = mod.multiply(a, 2.0).compute(executor=ex, callbacks=[cap])
+        with _pinned_names(7_000_000):
+            a = pkg.from_array(an, chunks=(2, 2), spec=spec)  # 36 chunks
+            results[pkg.__name__] = mod.multiply(a, 2.0).compute(executor=ex, callbacks=[cap])
         assert cap.stats.get("faults_injected", 0) > 0, cap.stats
         assert cap.stats.get("task_retries", 0) > 0, cap.stats
     np.testing.assert_array_equal(results["cubed_tpu_torch"], an * 2.0)
@@ -199,9 +222,10 @@ def test_chaos_retry_budget_bounds_systemic_outage(tmp_path):
 def test_chaos_injected_stragglers_complete(tmp_path):
     an = np.arange(64, dtype=np.float64).reshape(8, 8)
     spec = _spec(ct, tmp_path, seed=1, straggler_rate=0.3, straggler_delay_s=0.01)
-    a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 16 tasks
     cap = _StatsCapture()
-    result = xp.add(a, 5.0).compute(callbacks=[cap])
+    with _pinned_names(7_100_000):
+        a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 16 tasks
+        result = xp.add(a, 5.0).compute(callbacks=[cap])
     np.testing.assert_array_equal(result, an + 5.0)
     assert cap.stats.get("faults_injected_straggler", 0) >= 1, cap.stats
 
@@ -237,9 +261,10 @@ def test_chaos_write_faults_leave_tmp_litter_that_resume_ignores(tmp_path):
     never counts them as chunks."""
     spec = _spec(ct, tmp_path, seed=3, storage_write_failure_rate=0.3, storage_write_leaves_tmp=True)
     an = np.arange(100, dtype=np.float64).reshape(10, 10)
-    a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 25 chunks
-    b = xp.add(a, 1.0)
-    result = b.compute(executor=PythonDagExecutor(retry_policy=RetryPolicy(retries=6, backoff_base=0.0, seed=0)))
+    with _pinned_names(7_200_000):
+        a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 25 chunks
+        b = xp.add(a, 1.0)
+        result = b.compute(executor=PythonDagExecutor(retry_policy=RetryPolicy(retries=6, backoff_base=0.0, seed=0)))
     np.testing.assert_array_equal(result, an + 1.0)
     tmps = [f for _, _, names in os.walk(str(tmp_path)) for f in names if f.endswith(".tmp")]
     assert tmps, "expected injected write failures to leave .tmp litter"

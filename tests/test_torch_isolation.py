@@ -47,6 +47,9 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.observability.analytics, cubed_tpu_torch.observability.runhistory\n"
         "import cubed_tpu_torch.observability.timeseries, cubed_tpu_torch.observability.export\n"
         "import cubed_tpu_torch.service.cache\n"
+        "import cubed_tpu_torch.runtime.payload, cubed_tpu_torch.runtime.distributed, cubed_tpu_torch.runtime.worker\n"
+        "import cubed_tpu_torch.runtime.transfer, cubed_tpu_torch.runtime.shuffle\n"
+        "import cubed_tpu_torch.runtime.executors.multiprocess, cubed_tpu_torch.runtime.executors.distributed\n"
         "import cubed_tpu_torch.explain, cubed_tpu_torch.regress, cubed_tpu_torch.diagnose, cubed_tpu_torch.top\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
@@ -156,7 +159,9 @@ def test_source_walk_covers_every_subpackage():
                  ("array_api", "html_repr.py"), ("random.py",), ("storage", "store.py"),
                  ("runtime", "executors", "python_async.py"), ("runtime", "dataflow.py"), ("runtime", "journal.py"),
                  ("runtime", "backup.py"), ("service", "cache.py"), ("explain.py",), ("regress.py",),
-                 ("diagnose.py",), ("top.py",)):
+                 ("diagnose.py",), ("top.py",), ("runtime", "payload.py"), ("runtime", "distributed.py"),
+                 ("runtime", "transfer.py"), ("runtime", "shuffle.py"), ("runtime", "worker.py"),
+                 ("runtime", "executors", "multiprocess.py"), ("runtime", "executors", "distributed.py")):
         assert os.path.join("cubed_tpu_torch", *path) in SOURCES, path
     for module in ("slo", "alerts", "dispatchprofile", "flightrecorder", "analytics", "runhistory",
                    "timeseries", "export"):
@@ -249,3 +254,70 @@ def test_device_seam_env_and_set_device():
     )
     assert proc.stdout.split() == ["cpu"]
     assert proc.returncode != 0 and "RuntimeError" in proc.stderr
+
+
+_WORKER_PROBE = (
+    "import sys\n"
+    "sys.path.insert(0, {repo!r})\n"
+    "import multiprocessing, numpy as np, cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+    "from cubed_tpu_torch.runtime.executors.multiprocess import MultiprocessDagExecutor, _ProcessTaskRunner\n"
+    "from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor\n"
+    "from cubed_tpu_torch.runtime.pipeline import visit_nodes\n"
+    "from cubed_tpu_torch.runtime.utils import execute_in_worker\n"
+    "from tests._torch_fleet import loaded_modules\n"
+    "if __name__ == '__main__':\n"
+    "    spec = ct.Spec(work_dir={work_dir!r}, allowed_mem='100MB')\n"
+    "    a, b = [ct.random.random((8, 8, 6), chunks=4, spec=spec) for _ in range(2)]\n"
+    "    v = xp.mean(ct.map_blocks(lambda t: t * 2.0, a, dtype=np.float64)[1:] * b[1:])\n"
+    "    ex = MultiprocessDagExecutor(max_workers=1)\n"
+    "    print('POOL', float(v.compute(executor=ex)))\n"
+    "    pool = ex._new_pool(multiprocessing.get_context('spawn'), 1, 'cpu')\n"
+    "    for name, node in visit_nodes(v.plan._finalize().dag):\n"
+    "        p = node['primitive_op'].pipeline\n"
+    "        pool.submit(execute_in_worker, _ProcessTaskRunner(p.function, p.config), list(p.mappable)[0]).result()\n"
+    "    print('POOLMODS', pool.submit(loaded_modules).result())\n"
+    "    pool.shutdown()\n"
+    "    with DistributedDagExecutor(n_local_workers=1) as fl:\n"
+    "        print('FLEET', float(v.compute(executor=fl)))\n"
+    "        print('FLEETMODS', fl._coordinator.submit(None, loaded_modules, None).result(timeout=60)[0])\n"
+)
+
+
+def test_pool_and_fleet_workers_load_no_jax_cloudpickle_or_reference(tmp_path):
+    """A spawned pool worker, after running a task of every op of a plan,
+    and a fleet worker, after a whole compute, hold no forbidden module."""
+    proc = _run(_WORKER_PROBE.format(repo=REPO, work_dir=str(tmp_path)), {"CUBED_TPU_TORCH_DEVICE": "cpu"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines() if " " in line)
+    assert lines["POOL"] == lines["FLEET"]
+    for key in ("POOLMODS", "FLEETMODS"):
+        mods = ast.literal_eval(lines[key])
+        assert "cubed_tpu_torch.runtime.payload" in mods, key
+        assert [m for m in mods if _forbidden(m)] == [], key
+
+
+def test_workers_asked_for_cuda_without_a_card_fail_the_compute(tmp_path):
+    """A pool worker and a fleet worker asked for ``cuda`` on a machine with
+    no card fail the compute with the device error; no task runs."""
+    import numpy as np
+
+    import cubed_tpu_torch as ct
+    import cubed_tpu_torch.array_api as xp
+    from cubed_tpu_torch.backend_array_api import set_device
+    from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
+    from cubed_tpu_torch.runtime.executors.multiprocess import MultiprocessDagExecutor
+
+    set_device("cpu")
+    try:
+        spec = ct.Spec(work_dir=str(tmp_path), allowed_mem="100MB")
+        a = ct.from_array(np.ones((4, 4)), chunks=(2, 2), spec=spec)
+        r = ct.map_blocks(lambda x: x + 1.0, a, dtype=np.float64)
+        with pytest.raises(RuntimeError, match="is_available\\(\\) is False"):
+            r.compute(executor=MultiprocessDagExecutor(max_workers=1, device="cuda", retries=0))
+        with pytest.raises(RuntimeError, match="exited with code 1 before joining.*'cuda'"):
+            r.compute(executor=DistributedDagExecutor(n_local_workers=1, device="cuda"))
+        written = [p for p in tmp_path.rglob("*") if p.is_file() and p.parent.name.endswith(".zarr")
+                   and not p.name.startswith(".")]
+        assert written == [], "a task ran although its worker had no device"
+    finally:
+        set_device(None)

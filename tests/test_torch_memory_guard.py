@@ -186,13 +186,21 @@ def test_enforce_never_masks_the_body_error():
 
 
 @pytest.mark.mem
-def test_guard_measures_real_allocation():
+def test_guard_measures_real_allocation(monkeypatch):
     """No injection: a task allocating well past allowed_mem is caught by
-    RSS-growth sampling."""
+    RSS-growth sampling. The task maps and touches 60 MB of pages of its
+    own: a heap allocation can reuse free memory that earlier tests left
+    resident in this process, and then the process's RSS does not grow."""
+    import mmap
+
     from cubed_tpu_torch.runtime.utils import execute_with_stats
 
+    monkeypatch.delenv(memory.MEMORY_GUARD_ENV_VAR, raising=False)
+
     def hog(_m, config=None):
-        big = np.ones(60 * 1024 * 1024 // 8, dtype=np.float64)  # ~60 MB
+        big = mmap.mmap(-1, 60 * 1024 * 1024)  # ~60 MB of fresh pages
+        for offset in range(0, len(big), mmap.PAGESIZE):
+            big[offset] = 1
         time.sleep(0.08)  # a few sampler periods
         return big
 

@@ -4,7 +4,7 @@ tests/observability/test_timeseries.py. The store cases apply the same
 writes to both packages' stores and compare every read; the sampler cases
 give both samplers the same registry contents and compare the stores they
 fill. The fleet hooks are driven with the reference test's stand-in
-coordinator (the port's fleet comes with ROADMAP Queue 1 item 11c); the
+coordinator (a live fleet's are in tests/test_torch_distributed.py); the
 progress callback folds the device executor's one-event-per-op task counts
 to ``tasks_total`` as the reference's does ``JaxExecutor``'s. Every sampler
 thread is stopped in a ``finally``."""
@@ -179,8 +179,8 @@ class _FakeCoordinator:
 
 
 def test_sampler_records_fleet_series_per_worker_and_aggregate():
-    """The hook 11c's coordinator calls: a registered fleet's rows become
-    per-worker and aggregate series, as the reference's do."""
+    """The hook the fleet's coordinator calls: a registered fleet's rows
+    become per-worker and aggregate series, as the reference's do."""
     coord = _FakeCoordinator()
     port_ts.register_fleet(coord)
     try:
