@@ -18,7 +18,10 @@ summary JSON on its last line; ``--threads-phase`` the threaded executor's
 phase alone, three timing rounds, its summary JSON on its last line;
 ``--analytics-phase`` the observability analytics phase alone, its summary
 JSON on its last line; ``--fleet-phase`` the process pool and TCP fleet
-phase alone, its summary JSON on its last line; ``--spare`` a fresh
+phase alone, its summary JSON on its last line; ``--service-phase`` the
+compute service phase alone, its summary JSON on its last line
+(``--service-failover run|recover JOB`` are its check 3's processes);
+``--spare`` a fresh
 process that imports torch and the port, then runs the arguments it reads
 from stdin, one JSON line: the whole run starts each process of its own
 that way ahead of its use.)
@@ -384,7 +387,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Alone the phase computes the sequential values and times itself. The
    whole run takes the linear algebra and spectra phase after the threads
    phase and runs the fleet phase beside it, in a work directory of its
-   own (``.chip_smoke_work_fleet/``): its times there are under that load;
+   own (``.chip_smoke_work_fleet/``): its times there are under that load.
+   The service phase, in a process of its own (``--service-phase``),
+   started before the order-statistics phase and collected after it, in
+   ``.chip_smoke_work_service/``: (1) a ``ComputeService`` of two tenants
+   (weights 4 and 1) on one ``CudaExecutor`` takes vorticity at full width
+   from both at once, each value bit for bit phase 4's and the launches
+   twice phase 4's first compute's; a rebuilt identical plan is a
+   plan-cache hit, and with the result cache an identical submit is a hit
+   with no task run; (2) a durable service over a fleet of one worker on
+   ``cuda`` with the autoscaler (at most three) takes a backlog of four
+   requests at the reliability phase's cut, each bit for bit the threads
+   phase's sequential value; the autoscaler spawns a worker (the kernels
+   built first, ``--device cuda``) and retires one after idle; every worker
+   reports ``cuda`` and a launch; (3) a service process and its
+   coordinator SIGKILLed after half of a request's tasks at the cut; a
+   successor service process on the same ``service_dir`` adopts the
+   orphaned workers (one takeover, no worker lost), resumes fewer tasks
+   than the plan's, the value bit for bit, and the invariant auditor is
+   clean over the journal, the control dir and the work dir; (4) check 2's
+   tasks under ``enforce`` at the plan's bound, each reading (taken in its
+   worker) within it, none over; (5) ``close()`` leaves no live child and
+   the control log's worker pids are all gone; (6) a warm request through
+   the service against the bare executor, the autoscaler's spawn to first
+   task, the takeover from the kill to the successor's first completion,
+   and the control log's cost at the cut are printed, not a gate;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op at the spilled cut, timing each op kind;
@@ -434,7 +461,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(REPO, ".chip_smoke_work")
 #: the work directories of the phases the whole run runs beside others
 SIDE_WORK_DIRS = {"--threads-phase": os.path.join(REPO, ".chip_smoke_work_threads"),
-                  "--fleet-phase": os.path.join(REPO, ".chip_smoke_work_fleet")}
+                  "--fleet-phase": os.path.join(REPO, ".chip_smoke_work_fleet"),
+                  "--service-phase": os.path.join(REPO, ".chip_smoke_work_service")}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
 #: float32 rate, used as the rate of the floating-point adds and multiplies
@@ -1691,6 +1719,14 @@ def kernel_wrappers() -> dict:
     from cubed_tpu_torch.kernels.region_sum import region_sum
 
     return {"philox_uniform": philox_uniform, "region_sum": region_sum, "fma_sum_blocks": fma_sum_blocks}
+
+
+def zero_launches() -> None:
+    """Every kernel's launch and path counts set to 0."""
+    for w in kernel_wrappers().values():
+        w.launches = 0
+        for k in w.paths:
+            w.paths[k] = 0
 
 
 def reset_peaks() -> None:
@@ -4545,10 +4581,7 @@ def counted_compute(torch, arr, executor, callbacks=(), **kwargs) -> tuple:
     """``arr.compute(executor=...)`` with every kernel's count set to 0 just
     before and read just after: (value, seconds, launches, executor_stats)."""
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-        for k in w.paths:
-            w.paths[k] = 0
+    zero_launches()
     cap = StatsCapture()
     t = time.perf_counter()
     value = arr.compute(executor=executor, callbacks=[cap, *callbacks], **kwargs)
@@ -5232,6 +5265,460 @@ def run_fleet_phase(torch, config=FLEET, given=None) -> dict:
     check(left == [], f"fleet 6: live child processes after close(): {left}")
     seconds = time.perf_counter() - started
     print(f"fleet phase: {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items())
+          + f"); {smi_tag()}")
+    return dict(out, seconds=seconds, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# the service phase: the multi-tenant compute service on the device executor
+# and over an autoscaled fleet, live coordinator failover under it, and the
+# invariant auditor
+# ---------------------------------------------------------------------------
+
+#: the service phase, in a process of its own (``--service-phase``): check 1
+#: vorticity at full width (phase 4's plan and seed) from two tenants on one
+#: ``CudaExecutor``; checks 2 and 4 a backlog of ``backlog`` requests at the
+#: reliability phase's cut (447 tasks) under ``enforce`` at the plan's bound
+#: on a fleet of one local worker that the autoscaler may grow to
+#: ``max_workers``; check 3 one request at the cut on ``failover_workers``
+#: workers whose coordinator is SIGKILLed after ``kill_fraction`` of its
+#: tasks; ``timing_rounds`` warm requests each way for check 6. One task
+#: slot a worker: with two tasks in flight a worker's guard reading covers
+#: both (an upper bound, not a task's own), and ``enforce`` at one task's
+#: bound then fails tasks that fit it (PERF.md §6, run W6); and the store
+#: alone (``peer_transfer=False``): a worker serving its cached chunks to
+#: peers grows its RSS inside another task's reading
+SERVICE = dict(full=VORTICITY, cut=RELIABILITY["seq"], seed=SEED, backlog=4, max_workers=3, worker_threads=1,
+               failover_workers=2, kill_fraction=0.5, timing_rounds=3,
+               policy=dict(min_workers=1, max_workers=3, interval_s=0.5, scale_up_queue_per_thread=1.0,
+                           cooldown_up_s=1.0, idle_rounds_before_down=2, cooldown_down_s=1.0, drain_grace_s=5.0,
+                           spawn_pending_timeout_s=60.0))
+#: the kernels whose launches check 1 holds against phase 4's first compute
+SERVICE_LAUNCHES = ("philox_uniform", "region_sum", "fma_sum_blocks")
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items() if k in SERVICE_LAUNCHES}
+
+
+class TaskSpy:
+    """Each task's guard reading and when the first task ended, fed by the
+    executor's events (wrapped around its ``execute_dag``: the service
+    passes its own callbacks)."""
+
+    def __init__(self):
+        self.readings: list = []
+        self.first_end: Optional[float] = None
+
+    def on_task_end(self, event):
+        if self.first_end is None:
+            self.first_end = time.time()
+        self.readings.append(event.guard_mem_peak)
+
+
+def spy_on(executor, spy) -> None:
+    """Add *spy* to the callbacks of every compute *executor* runs."""
+    run = executor.execute_dag
+
+    def execute_dag(dag, callbacks=None, **kwargs):
+        return run(dag, callbacks=list(callbacks or []) + [spy], **kwargs)
+
+    executor.execute_dag = execute_dag
+
+
+def service_yardsticks(torch, config, work, given: dict) -> dict:
+    """Phase 4's device value and launches of vorticity at full width, and
+    the sequential executor's value at the cut: passed on by the whole run
+    (the same plans and seed on the same card), computed here alone."""
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.runtime.executors.python import PythonDagExecutor
+
+    out = dict(given)
+    if "device_value" not in out:
+        arr = vorticity_arr(config["full"], work, config["seed"])
+        zero_launches()
+        value = arr.compute(executor=CudaExecutor())
+        torch.cuda.synchronize()
+        out["device_value"], out["device_launches"] = float(value).hex(), read_launches()
+    if "cut_sequential" not in out:
+        value = vorticity_arr(config["cut"], work, config["seed"]).compute(executor=PythonDagExecutor())
+        out["cut_sequential"] = dict(value=float(value).hex())
+    print(f"service yardsticks: phase 4's device value {out['device_value']}, launches "
+          f"{json.dumps(out['device_launches'])}; the sequential value at the cut {out['cut_sequential']['value']}")
+    return out
+
+
+def service_tenants(torch, config, work, ys, out) -> None:
+    """Check 1: two tenants at once on one ``CudaExecutor``, each value and
+    their launches against phase 4's; a rebuilt identical plan a plan-cache
+    hit; with the result cache, an identical submit a hit with no task run.
+    Check 6's first time: warm requests through the service against the
+    bare executor, in turns."""
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime.executors.cuda import CudaExecutor
+    from cubed_tpu_torch.service import ComputeService
+
+    full, seed, want = config["full"], config["seed"], ys["device_value"]
+    ex = CudaExecutor()
+    reg = get_registry()
+    with ComputeService(executor=ex, tenants={"gold": 4.0, "free": 1.0}, max_concurrent=2,
+                        result_cache=False) as svc:
+        arrays = {t: vorticity_arr(full, work, seed) for t in ("gold", "free")}
+        zero_launches()
+        t0 = time.perf_counter()
+        handles = {t: svc.submit(a, tenant=t) for t, a in arrays.items()}
+        values = {t: float(h.result(600)).hex() for t, h in handles.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        twice = {k: 2 * ys["device_launches"][k] for k in SERVICE_LAUNCHES}
+        rows = svc.stats_snapshot()["tenants"]
+        print(f"service 1 (two tenants on CudaExecutor) {full['shape']} / {full['chunks']}: {seconds:.3f} s for both; "
+              f"values {json.dumps(values)} against phase 4's {want}; launches {json.dumps(launches)} (twice phase "
+              f"4's {json.dumps(twice)}); completed {json.dumps({t: r['completed'] for t, r in rows.items()})}; "
+              f"{smi_tag()}")
+        check(all(v == want for v in values.values()), f"service 1: {values} differ from phase 4's {want}")
+        check(launches == twice, f"service 1: launches {launches}, twice phase 4's {twice}")
+        rebuilt = svc.submit(vorticity_arr(full, work, seed), tenant="gold")
+        check(float(rebuilt.result(600)).hex() == want, "service 1: the rebuilt plan's value differs")
+        check(rebuilt.plan_cache_hit, "service 1: a rebuilt identical plan missed the plan cache")
+        # check 6: a warm request through the service against the bare
+        # executor, in turns (the plan cache serves the service's)
+        svc_s, bare_s = [], []
+        for _ in range(config["timing_rounds"]):
+            arr = vorticity_arr(full, work, seed)
+            t0 = time.perf_counter()
+            svc.submit(arr, tenant="gold").result(600)
+            svc_s.append(time.perf_counter() - t0)
+            arr = vorticity_arr(full, work, seed)
+            t0 = time.perf_counter()
+            arr.compute(executor=ex)
+            torch.cuda.synchronize()
+            bare_s.append(time.perf_counter() - t0)
+    with ComputeService(executor=ex, max_concurrent=1) as svc:
+        first = svc.submit(vorticity_arr(full, work, seed), tenant="gold")
+        check(float(first.result(600)).hex() == want, "service 1: the cached service's value differs")
+        before = reg.snapshot()
+        again = svc.submit(vorticity_arr(full, work, seed), tenant="free")
+        value = float(again.result(600)).hex()
+        delta = reg.snapshot_delta(before)
+        print(f"service 1: an identical submit with the result cache: hit {again.result_cache_hit}, tasks run "
+              f"{delta.get('tasks_completed', 0)}, value {value}; rebuilt plan: plan-cache hit {rebuilt.plan_cache_hit}")
+        check(again.result_cache_hit and delta.get("tasks_completed", 0) == 0 and value == want,
+              "service 1: an identical submit was not a result-cache hit with no task run")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    print(f"service 6: a warm vorticity request through the service {med(svc_s):.4f} s against the bare CudaExecutor "
+          f"{med(bare_s):.4f} s (medians of {config['timing_rounds']}, in turns: service {json.dumps(svc_s)}, bare "
+          f"{json.dumps(bare_s)}); {smi_tag()}")
+    out["tenants"] = dict(seconds=seconds, launches=launches, service_s=svc_s, bare_s=bare_s,
+                          overhead_s=med(svc_s) - med(bare_s))
+
+
+def service_fleet(torch, config, work, ys, out) -> None:
+    """Checks 2 and 4 (and 6's spawn time): a durable service over a fleet of
+    one worker with the autoscaler, a backlog at the cut under ``enforce``
+    at the plan's bound: every value bit for bit the sequential one's; the
+    autoscaler spawns a worker and retires one after idle; every worker on
+    ``cuda`` with a launch; every task's reading within the bound."""
+    from cubed_tpu_torch.observability.collect import decisions_since
+    from cubed_tpu_torch.observability.metrics import get_registry
+    from cubed_tpu_torch.runtime import distributed
+    from cubed_tpu_torch.runtime.autoscale import AutoscalePolicy
+    from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
+    from cubed_tpu_torch.runtime.journal import control_log_path
+    from cubed_tpu_torch.service import ComputeService
+    from cubed_tpu_torch.service.durability import service_control_dir
+
+    cut, seed, want = config["cut"], config["seed"], ys["cut_sequential"]["value"]
+    sdir = os.path.join(work, "svc-fleet")
+    bound = vorticity_arr(cut, work, seed).plan.max_projected_mem()
+    ex = DistributedDagExecutor(n_local_workers=1, max_workers=config["max_workers"],
+                                worker_threads=config["worker_threads"],
+                                autoscale_policy=AutoscalePolicy(**config["policy"]))
+    spy = TaskSpy()
+    spy_on(ex, spy)
+    reg = get_registry()
+    first_task: dict = {}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.wait(0.05):
+            for name, row in list((ex.stats.get("worker_reports") or {}).items()):
+                if row.get("tasks") and name not in first_task:
+                    first_task[name] = time.time()
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    # the root type and last line of every attempt that failed in a worker
+    remote: list = []
+    fail_future = distributed._fail_future
+
+    def spy_failure(fut, exc):
+        if isinstance(exc, distributed.RemoteTaskError):
+            lines = str(exc).strip().splitlines() or [""]
+            remote.append((exc.remote_type, lines[-1][:300]))
+        return fail_future(fut, exc)
+
+    distributed._fail_future = spy_failure
+    try:
+        t_dec = time.time()
+        t0 = time.perf_counter()
+        with ComputeService(executor=ex, service_dir=sdir, max_concurrent=2, result_cache=False) as svc:
+            ex._ensure_fleet()
+            start_s = time.perf_counter() - t0
+            watcher.start()
+            arrays = [vorticity_arr(cut, work, seed, allowed_mem=bound, reserved_mem=0, memory_guard="enforce",
+                                    peer_transfer=False) for _ in range(config["backlog"])]
+            before = reg.snapshot()
+            t1 = time.perf_counter()
+            handles = [svc.submit(a, tenant=f"t{i % 2}") for i, a in enumerate(arrays)]
+            values = [float(h.result(900)).hex() for h in handles]
+            backlog_s = time.perf_counter() - t1
+            delta = reg.snapshot_delta(before)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and ex.stats["autoscale"]["workers_scaled_down"] < 1:
+                time.sleep(0.25)
+            scale = dict(ex.stats["autoscale"])
+            reports = dict(ex.stats["worker_reports"])
+        decisions = decisions_since(t_dec)
+        spawned = {d["worker"]: d["ts"] for d in decisions if d["kind"] == "scale_up"}
+        retired = [d["worker"] for d in decisions if d["kind"] == "scale_down"]
+        records = [json.loads(line) for line in open(control_log_path(service_control_dir(sdir)))]
+    finally:
+        stop.set()
+        distributed._fail_future = fail_future
+        ex.close()
+    largest = max(r or 0 for r in spy.readings)
+    # a worker's guard trip reaches the client as a remote failure, whose
+    # root type the spy on the coordinator's failures kept
+    trips = [r for r in remote if r[0] == "MemoryGuardExceededError"]
+    over = delta.get("mem_guard_hard_exceeded", 0) + len(trips)
+    spawn_to_task = {n: first_task[n] - ts for n, ts in spawned.items() if n in first_task}
+    per_request = {k: sum(1 for r in records if r["kind"] == k) / config["backlog"]
+                   for k in ("dispatch", "done", "chunk_loc")}
+    print(f"service 2 (durable service over an autoscaled fleet) {cut['shape']} / {cut['chunks']}: fleet start "
+          f"{start_s:.3f} s, backlog of {config['backlog']} in {backlog_s:.3f} s; values {json.dumps(values)} against "
+          f"the sequential {want}; autoscaler {json.dumps(scale)}, spawned {sorted(spawned)}, retired {retired}; "
+          f"{smi_tag()}")
+    ran = sorted(set(spawned) & set(reports))
+    check_workers("service 2", reports, 1 + len(ran))
+    check(all(v == want for v in values), "service 2: a value differs from the sequential one")
+    check(len(spawned) >= 1, "service 2: the autoscaler spawned no worker")
+    check(len(ran) >= 1, f"service 2: no spawned worker ran a task: spawned {sorted(spawned)}, ran {sorted(reports)}")
+    check(len(retired) >= 1, "service 2: the autoscaler retired no worker after idle")
+    halves = sum(1 for r in spy.readings if (r or 0) > bound / 2)
+    print(f"service 4 (enforce at the plan's bound {bound} B): {len(spy.readings)} tasks, readings taken in the "
+          f"workers ({config['worker_threads']} tasks in flight a worker), largest {largest} B ({largest / bound:.4f} "
+          f"of the bound), {halves} over half of it, {sum(r is None for r in spy.readings)} unread; attempts over "
+          f"the bound {over}; failed attempts {len(remote)} (resource {delta.get('task_resource_failures', 0)}), "
+          f"retries {delta.get('task_retries', 0)}")
+    for kind, last in remote:
+        print(f"service 4: a failed attempt in a worker: {kind}: {last}")
+    check(spy.readings and all(r is not None for r in spy.readings), "service 4: a task without a guard reading")
+    check(largest <= bound, f"service 4: a reading {largest} B over the bound {bound} B")
+    check(over == 0, f"service 4: {over} attempts over the bound")
+    print(f"service 6: spawn to first task (s) {json.dumps({n: round(s, 3) for n, s in spawn_to_task.items()})}; "
+          f"control-log records a request at the cut {json.dumps(per_request)}; {smi_tag()}")
+    out["fleet"] = dict(start_s=start_s, backlog_s=backlog_s, autoscale=scale, spawned=sorted(spawned),
+                        retired=retired, spawn_to_first_task_s=spawn_to_task, guard=dict(largest=largest, bound=bound,
+                        tasks=len(spy.readings), over_bound=over), control_records_per_request=per_request)
+
+
+def control_log_cost(work: str, records: dict, n: int = 4000) -> dict:
+    """Check 6's control-log cost at the cut: the time of *n* appends of each
+    kind a request writes (flushed, not fsync'd) in a scratch log, times the
+    records of each kind a request wrote."""
+    from cubed_tpu_torch.runtime.journal import ControlLog
+
+    log = ControlLog(os.path.join(work, "cost-ctrl"))
+    per = {}
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            log.record_dispatch(i, ("op-a", f"{i}.0.0"), "local-0")
+        per["dispatch"] = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            log.record_done(i)
+        per["done"] = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            log.record_chunk_locations("local-0", [("store", f"{i}.0.0", 1_536_000)])
+        per["chunk_loc"] = (time.perf_counter() - t0) / n
+    finally:
+        log.close()
+    total = sum(per[k] * records.get(k, 0) for k in per)
+    return dict(per_record_s=per, per_request_s=total)
+
+
+def service_failover(torch, config, work, ys, out, spares: list) -> None:
+    """Checks 3 and 5 (and 6's takeover time): a service process and its
+    coordinator over a fleet on one ``service_dir``, SIGKILLed after
+    ``kill_fraction`` of a request's tasks; a successor service process
+    adopts the orphaned workers (one takeover, no worker lost), resumes
+    fewer tasks than the plan's, the value bit for bit; the auditor clean
+    over the journal, the control dir and the work dir; the orphans reaped
+    by the control log's pids, none left."""
+    import signal
+
+    from cubed_tpu_torch.runtime.audit import InvariantAuditor
+    from cubed_tpu_torch.runtime.journal import control_log_path
+    from cubed_tpu_torch.service.durability import load_requests, service_control_dir
+
+    cut, want = config["cut"], ys["cut_sequential"]["value"]
+    fdir = os.path.join(work, "failover")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    job = dict(work=os.path.join(fdir, "work"), sdir=os.path.join(fdir, "svc"), journal=os.path.join(fdir, "c.jsonl"),
+               seed=config["seed"], cut=cut, workers=config["failover_workers"], threads=config["worker_threads"])
+    tasks = vorticity_arr(cut, os.path.join(fdir, "plan"), config["seed"]).plan.num_tasks()
+    first = feed(spares[0], ["--service-failover", "run", json.dumps(job)])
+    killed_at = None
+    deadline = time.monotonic() + 300
+    done = 0
+    while time.monotonic() < deadline:
+        try:
+            with open(job["journal"]) as f:
+                done = sum(1 for line in f if '"kind": "complete"' in line)
+        except OSError:
+            done = 0
+        if done >= config["kill_fraction"] * tasks:
+            os.kill(first[0].pid, signal.SIGKILL)
+            killed_at = time.time()
+            break
+        if first[0].poll() is not None:
+            break
+        time.sleep(0.05)
+    if killed_at is None:
+        proc = drain(first, 60, "--service-failover run")
+        raise PhaseFailed(f"service 3: the service process ended before its kill ({done} of {tasks} tasks):\n"
+                          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    # its orphaned workers keep the killed process's output pipe open: the
+    # reader goes on reading it, and only the process's end is waited for
+    first[0].wait(timeout=30)
+    control_dir = service_control_dir(job["sdir"])
+    pids = sorted({r["pid"] for r in map(json.loads, open(control_log_path(control_dir)))
+                   if r.get("kind") == "worker" and r.get("pid")})
+    # the successor is told which request the journal holds
+    job["request"] = [r["request_id"] for recs in load_requests(job["sdir"]).values() for r in recs]
+    second = drain(feed(spares[1], ["--service-failover", "recover", json.dumps(job)]), 300, "--service-failover recover")
+    lines = second.stdout.strip().splitlines()
+    check(second.returncode == 0 and lines, f"service 3: the successor failed:\n{second.stderr[-4000:]}")
+    r = json.loads(lines[-1])
+    takeover_s = r["first_end"] - killed_at if r.get("first_end") else None
+    report = InvariantAuditor(journal=job["journal"], control_dir=control_dir, work_dir=job["work"]).audit()
+    print(f"service 3 (live failover under the service) {cut['shape']} / {cut['chunks']}: SIGKILLed after {done} of "
+          f"{tasks} tasks; successor: {r['value']} against {want}, coordinator_takeovers {r['takeovers']}, "
+          f"workers_lost {r['workers_lost']}, tasks_readopted {r['readopted']}, tasks resumed {r['tasks']} of "
+          f"{tasks}; {smi_tag()}")
+    print(f"service 3: invariant audit {'clean' if report.ok else 'VIOLATED'}: checked {report.checked}; "
+          + "; ".join(v.render() for v in report.violations))
+    check(r["value"] == want, "service 3: the recovered value differs")
+    check(r["takeovers"] == 1 and r["workers_lost"] == 0, f"service 3: takeovers {r['takeovers']}, lost "
+          f"{r['workers_lost']}")
+    check(0 < r["tasks"] < tasks, f"service 3: {r['tasks']} tasks resumed of the plan's {tasks}")
+    check(report.ok and "single_ownership" in report.checked, "service 3: the invariant audit is not clean")
+    left = []
+    deadline = time.monotonic() + 15
+    while pids and time.monotonic() < deadline:
+        left = [p for p in pids if pid_alive(p)]
+        if not left:
+            break
+        time.sleep(0.2)
+    for p in left:
+        os.kill(p, signal.SIGKILL)
+    print(f"service 5: the control log's worker pids {pids}, alive after the successor's close {left} (reaped); "
+          f"takeover from the kill to the successor's first completion {takeover_s if takeover_s is None else round(takeover_s, 3)} s")
+    check(left == [], f"service 5: orphaned workers alive after the successor's close: {left}")
+    check(len(pids) == config["failover_workers"], f"service 3: control log names {pids}")
+    out["failover"] = dict(killed_after=done, tasks=tasks, resumed=r["tasks"], readopted=r["readopted"],
+                           takeover_s=takeover_s, audit=report.checked, orphans_left=len(left))
+
+
+def pid_alive(pid: int) -> bool:
+    """True while *pid* runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def service_failover_child(mode: str, job: dict) -> int:
+    """One side of check 3, in a process of its own. ``run``: a durable
+    service over a fleet, one request at the cut, until it is killed.
+    ``recover``: the successor service on the same ``service_dir``, with a
+    coordinator that adopts the fleet; its summary on the last line."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
+    from cubed_tpu_torch.service import ComputeService
+
+    if mode == "run":
+        # the orphaned workers wait out the kill and the successor's start
+        os.environ["CUBED_TPU_TORCH_RECONNECT_GIVE_UP_S"] = "120"
+        ex = DistributedDagExecutor(n_local_workers=job["workers"], worker_threads=job["threads"])
+        svc = ComputeService(executor=ex, service_dir=job["sdir"], result_cache=False, plan_cache=False).start()
+        random.seed(job["seed"])
+        spec = cubed_tpu_torch.Spec(work_dir=job["work"], allowed_mem="2GB", journal=job["journal"])
+        arr = vorticity_build(spec, dict(job["cut"], shape=tuple(job["cut"]["shape"])))
+        print(json.dumps({"request": svc.submit(arr, tenant="gold").request_id}), flush=True)
+        svc.wait_idle(600)
+        print(json.dumps({"finished": True}), flush=True)
+        return 0
+    ex = DistributedDagExecutor(n_local_workers=0, min_workers=1)
+    spy = TaskSpy()
+    spy_on(ex, spy)
+    svc = ComputeService(executor=ex, service_dir=job["sdir"], result_cache=False, plan_cache=False)
+    try:
+        svc.start()
+        check(svc.wait_idle(300), "service 3: the successor did not finish")
+        check(len(job["request"]) == 1, f"service 3: the journal holds {job['request']}")
+        handle = svc.handle(job["request"][0])
+        check(handle is not None, "service 3: the successor did not recover the request")
+        value = float(handle.result(60)).hex()
+        stats = ex._coordinator.stats
+        summary = dict(value=value, takeovers=stats["coordinator_takeovers"], workers_lost=stats["workers_lost"],
+                       readopted=stats["tasks_readopted"], tasks=(handle.cost or {}).get("tasks"),
+                       first_end=spy.first_end)
+    finally:
+        svc.close()
+        ex.close()
+    print(json.dumps(summary))
+    return 0
+
+
+def run_service_phase(torch, config=SERVICE, given=None) -> dict:
+    """The service phase (see the module docstring); returns its numbers,
+    printed as they come."""
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "service")
+    shutil.rmtree(work, ignore_errors=True)
+    out, timings = {}, {}
+    # check 3's two processes import torch and the port while checks 1-2 run
+    spares = [_spawn_spare(), _spawn_spare()]
+    try:
+        ys = service_yardsticks(torch, config, work, given or {})
+        timings["yardsticks"] = time.perf_counter() - started
+        for name, part in (("service 1", lambda: service_tenants(torch, config, work, ys, out)),
+                           ("service 2, 4", lambda: service_fleet(torch, config, work, ys, out)),
+                           ("service 3, 5", lambda: service_failover(torch, config, work, ys, out, spares))):
+            t0 = time.perf_counter()
+            part()
+            timings[name] = time.perf_counter() - t0
+    finally:
+        for proc in spares:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    out["control_log_cost"] = control_log_cost(work, out["fleet"]["control_records_per_request"])
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"service 6: the control log's cost a request at the cut {out['control_log_cost']['per_request_s']:.6f} s "
+          f"(per record {json.dumps({k: round(v * 1e6, 3) for k, v in out['control_log_cost']['per_record_s'].items()})} "
+          f"us, flushed, not fsync'd); {smi_tag()}")
+    left = live_children()
+    print(f"service 5: after close(), live children {left}")
+    check(left == [], f"service 5: live child processes after close(): {left}")
+    seconds = time.perf_counter() - started
+    print(f"service phase: {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items())
           + f"); {smi_tag()}")
     return dict(out, seconds=seconds, timings=timings)
 
@@ -6680,6 +7167,30 @@ def _spawn_spare() -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
 
 
+def feed(proc, args: list) -> tuple:
+    """Give a warm process (``_spawn_spare``) its arguments; its output is
+    read meanwhile. Returns a handle for :func:`drain`."""
+    box: dict = {}
+
+    def talk():
+        box["out"], box["err"] = proc.communicate(json.dumps(args) + "\n")
+
+    reader = threading.Thread(target=talk, daemon=True)
+    reader.start()
+    return proc, reader, box
+
+
+def drain(handle: tuple, timeout: float, label: str) -> subprocess.CompletedProcess:
+    """Wait for a process of :func:`feed` (killed past *timeout*)."""
+    proc, reader, box = handle
+    reader.join(timeout)
+    if reader.is_alive():
+        proc.kill()
+        reader.join()
+        raise PhaseFailed(f"chip_smoke.py {label}: ran past {timeout} s")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, box["out"], box["err"])
+
+
 def start_fresh(args: list) -> tuple:
     """Start ``chip_smoke.py ARGS`` in a fresh process of this checkout. A
     spare process (``--spare``) imports torch and the port while the run
@@ -6689,15 +7200,8 @@ def start_fresh(args: list) -> tuple:
     global _SPARE
     proc = _SPARE or _spawn_spare()
     _SPARE = _spawn_spare()
-    box: dict = {}
-
-    def talk():
-        box["out"], box["err"] = proc.communicate(json.dumps(args) + "\n")
-
-    reader = threading.Thread(target=talk, daemon=True)
-    reader.start()
     _STARTED.append(proc)
-    return args, proc, reader, box, time.perf_counter()
+    return args, feed(proc, args), time.perf_counter()
 
 
 def warm_spare() -> None:
@@ -6710,14 +7214,9 @@ def warm_spare() -> None:
 def finish_fresh(handle: tuple, timeout: float = 600) -> tuple:
     """Wait for a process of :func:`start_fresh` (killed past *timeout*
     seconds from its start): (CompletedProcess, seconds from its start)."""
-    args, proc, reader, box, t0 = handle
-    reader.join(max(0.0, timeout - (time.perf_counter() - t0)))
-    _STARTED.remove(proc)
-    if reader.is_alive():
-        proc.kill()
-        reader.join()
-        raise PhaseFailed(f"chip_smoke.py {args[0]}: ran past {timeout} s")
-    return subprocess.CompletedProcess(args, proc.returncode, box["out"], box["err"]), time.perf_counter() - t0
+    args, fed, t0 = handle
+    _STARTED.remove(fed[0])
+    return drain(fed, max(0.0, timeout - (time.perf_counter() - t0)), args[0]), time.perf_counter() - t0
 
 
 def run_fresh(args: list, timeout: float = 600) -> subprocess.CompletedProcess:
@@ -6770,7 +7269,10 @@ def main(argv: list) -> int:
         layouts = argv[1]
     elif argv[:1] in (["--time-kernels"], ["--time-computes"]) and len(argv) == 2:
         timed = os.path.abspath(argv[1])
-    elif argv[:1] in (["--threads-phase"], ["--analytics-phase"], ["--fleet-phase"]) and len(argv) <= 2:
+    elif argv[:1] in (["--threads-phase"], ["--analytics-phase"], ["--fleet-phase"], ["--service-phase"]) \
+            and len(argv) <= 2:
+        pass
+    elif argv[:1] == ["--service-failover"] and len(argv) == 3 and argv[1] in ("run", "recover"):
         pass
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
@@ -6778,7 +7280,7 @@ def main(argv: list) -> int:
                                ["--reliability-phase"], ["--analytics-unobserved"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
               "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase | "
-              "--analytics-phase | --fleet-phase]", file=sys.stderr)
+              "--analytics-phase | --fleet-phase | --service-phase]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6884,6 +7386,29 @@ def main(argv: list) -> int:
         finally:
             shutil.rmtree(WORK_DIR, ignore_errors=True)
         return 0
+    if argv[:1] == ["--service-phase"]:
+        # the service phase alone, its summary the last line; the full run
+        # passes phase 4's device value and launches and the threads phase's
+        # sequential value at the cut
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            print(json.dumps(run_service_phase(torch, SERVICE, json.loads(argv[1]) if argv[1:] else {})))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv[:1] == ["--service-failover"]:
+        # one side of the service phase's check 3 (run until killed, or the
+        # successor that recovers), in a process of its own
+        CARD = nvidia_smi()
+        try:
+            return service_failover_child(argv[1], json.loads(argv[2]))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
     if argv == ["--analytics-unobserved"]:
         # the analytics phase's yardstick when it runs alone
         CARD = nvidia_smi()
@@ -7060,6 +7585,14 @@ def main(argv: list) -> int:
         print(f"threads phase summary: {threads['whole_seconds']:.1f} s with its process's start, beside the Array "
               f"API and Zarr phases ({threads['seconds']:.1f} s in it); launches at full width "
               f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
+        # the compute service, in a process of its own beside the
+        # order-statistics phase, held to phase 4's device value and launches
+        # of vorticity and to the threads phase's sequential value at the cut
+        check(THREADS_WHOLE_RUN["cut"] == SERVICE["cut"] and THREADS["seed"] == SERVICE["seed"],
+              "the threads phase's cut is not the service phase's")
+        service_run = start_fresh(["--service-phase", json.dumps(dict(
+            device_value=runs[0]["value"], device_launches={k: runs[0]["launches"][k] for k in SERVICE_LAUNCHES},
+            cut_sequential=dict(value=threads["cut_sequential"]["value"])))])
         # the order-statistics phase, its merge kernels checked first, in a
         # process of its own (after the phases above, which run as they ran
         # before it); the kernels' launches are those of the phase's first
@@ -7070,6 +7603,10 @@ def main(argv: list) -> int:
         for k in kernels_order:
             k["launches"] = order["launches"][k["name"]]
         kernels += kernels_order
+        service = phase_result(service_run, "service phase", timeout=900)
+        print(f"service phase summary: {service['whole_seconds']:.1f} s with its process's start, beside the "
+              f"order-statistics phase ({service['seconds']:.1f} s in the phase); checks "
+              f"{json.dumps({k: round(v, 3) for k, v in service['timings'].items()})}")
         # the memory guard and reliability phase, in a process of its own
         reliability = phase_result(start_fresh(["--reliability-phase"]), "reliability phase")
         print(f"reliability phase summary: {reliability['seconds']:.1f} s; launches {json.dumps(reliability['launches'])}; "

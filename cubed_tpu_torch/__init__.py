@@ -45,11 +45,15 @@ from . import array_api  # noqa: F401
 from .array_api import Array  # noqa: F401
 from . import observability  # noqa: F401
 from . import random  # noqa: F401
+from . import service  # noqa: F401
+from .service import ComputeService, ServiceConfig  # noqa: F401
 
 __all__ = [
     "__version__",
     "Array",
     "Callback",
+    "ComputeService",
+    "ServiceConfig",
     "Spec",
     "TaskEndEvent",
     "apply_gufunc",
@@ -69,6 +73,7 @@ __all__ = [
     "observability",
     "random",
     "rechunk",
+    "service",
     "store",
     "to_zarr",
     "visualize",

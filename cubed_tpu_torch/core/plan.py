@@ -234,7 +234,7 @@ class Plan:
     def execute(
         self, executor=None, callbacks=None, optimize_graph=True, array_names=None, spec=None,
         optimize_function=None, resume: Optional[bool] = None, deadline_s: Optional[float] = None,
-        cancellation=None, resume_from_journal: Optional[str] = None, **kwargs,
+        cancellation=None, resume_from_journal: Optional[str] = None, finalized=None, **kwargs,
     ) -> None:
         """Finalize the plan and run it on *executor* (default: the
         sequential ``PythonDagExecutor``), as one compute: a compute id, a
@@ -266,7 +266,11 @@ class Plan:
         collector (or attaches one) and appends the compute's record after
         ``on_compute_end``, fingerprinting the pre-finalize plan; the
         dispatch profiler around the executor (env >
-        ``Spec(dispatch_profile=)``)."""
+        ``Spec(dispatch_profile=)``).
+
+        ``finalized`` runs a plan finalized earlier (the compute service's
+        plan cache) and skips optimization and lazy-array creation; the
+        caller answers for the structural match that makes this sound."""
         from ..runtime import cancellation as cancel_mod
         from ..runtime import faults, memory
         from ..storage import integrity
@@ -289,7 +293,9 @@ class Plan:
 
             resume = True
             kwargs["journal"] = load_journal(resume_from_journal)
-        dag = self._finalize(optimize_graph, optimize_function, array_names).dag
+        if finalized is None:
+            finalized = self._finalize(optimize_graph, optimize_function, array_names)
+        dag = finalized.dag
         compute_id = f"c-{uuid.uuid4().hex[:10]}"
         aggregator = _ComputeAggregator()
         all_callbacks = list(callbacks) if callbacks else []

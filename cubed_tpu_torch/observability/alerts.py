@@ -1,7 +1,7 @@
 """Alert rules over the live time series: threshold + burn-rate + stall.
 Counterpart of ``cubed_tpu/observability/alerts.py``, with the same rules:
-those over fleet, service and peer-transfer series stay quiet until the
-modules that feed them are ported (ROADMAP Queue 1 item 11c).
+those over fleet, service and peer-transfer series stay quiet while no
+fleet, service or peer plane feeds them.
 
 The rules run inside the telemetry sampler's ~1s tick
 (``observability/timeseries.py``), so alert latency is one sampling

@@ -46,8 +46,8 @@ Counterpart of ``cubed_tpu/observability/analytics.py``. EXPLAIN's
 peer-eligible and predicted shuffle bytes follow the fleet's peer data
 plane (``runtime/transfer.py``) as a compute would arm it
 (``Spec(peer_transfer=)``, ``CUBED_TPU_TORCH_P2P``, else on), as in the
-reference. The compute service is not ported yet (ROADMAP Queue 1 item
-11c), so the per-tenant cost accounting waits for it. ANALYZE accepts the device executor's computes,
+reference. The compute service's per-tenant cost accounting
+(``service/service.py``) folds the same task events. ANALYZE accepts the device executor's computes,
 whose task spans are one per op covering its ``num_tasks`` tasks, as the
 reference accepts its ``JaxExecutor``'s.
 """

@@ -1,8 +1,7 @@
 """Per-tenant SLOs: declarative objectives, durable error budgets,
 multi-window burn rates. Counterpart of ``cubed_tpu/observability/slo.py``;
-the compute service that feeds a board is not ported yet (ROADMAP Queue 1
-item 11c), so a board here is fed by its caller or folded from a run
-archive.
+the compute service (``service/service.py``) feeds a board with each
+request's outcome and folds its run archive on start.
 
 An :class:`SloSpec` states what a tenant was promised — a latency
 objective at a percentile ("99% of requests under 2s") and/or an

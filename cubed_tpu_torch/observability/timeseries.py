@@ -20,10 +20,11 @@ readable after the compute ends. This module is the *live* layer:
 The fleet's coordinator (``runtime/distributed.py``) registers itself with
 :func:`register_fleet` while it lives, and the sampler derives the
 per-worker and fleet-aggregate series from its ``stats_snapshot`` as the
-reference does. The compute service is not ported yet (ROADMAP Queue 1 item
-11c): :func:`register_service` / :func:`live_services` take any object with
-the service's ``stats_snapshot``/``closed``, and the per-tenant and SLO
-series stay quiet while none is registered.
+reference does. A started ``service.ComputeService`` registers itself with
+:func:`register_service`; the sampler derives the per-tenant series
+(``tenant_queued``/``tenant_running``/``tenant_completed``, the
+``tenant_cost_*`` fold) and the ``slo_*`` series from its
+``stats_snapshot``, which stay quiet while no service is live.
 
 The HTTP endpoints over this store (``/metrics``, ``/healthz``,
 ``/snapshot.json``) and the arming precedence live in

@@ -70,9 +70,17 @@ a socket error as worker death. Now the two are separated:
 
 Chaos coverage for all of this lives in ``runtime/faults.py`` (seeded
 message drop/delay/duplication/reset and a timed one-way partition of a
-named worker). Live coordinator failover (a successor coordinator adopting
-a running fleet) is not ported (ROADMAP Queue 1 item 11c): the frames keep
-their ``epoch`` stamp, which stays 0.
+named worker).
+
+**Live coordinator failover.** With ``control_dir``, the coordinator keeps
+an epoch-stamped control log there (``runtime/journal.ControlLog``: the
+workers and their session tokens, the dispatch frontier, chunk locations)
+and advertises its epoch and address in ``rendezvous.json``. A successor
+pointed at the same directory comes up as the next epoch, adopts the
+running fleet (workers resume through their session tokens, in-flight
+dispatches become adopted futures a resubmit of the same task gets back),
+and fences frames of the old epoch; a worker started with ``--rendezvous``
+chases the advertisement instead of dying with the old socket.
 """
 
 from __future__ import annotations
@@ -300,7 +308,8 @@ class _WorkerConn:
         self.lease_deadline = float("inf")
         self.disconnect_reason: Optional[str] = None
         #: coordinator epoch this session last (re)joined under — the
-        #: per-worker EPOCH column in ``top``
+        #: per-worker EPOCH column in ``top`` (an adopted worker shows the
+        #: prior epoch until its reconnect lands on the successor)
         self.joined_epoch = 0
 
 
@@ -322,11 +331,13 @@ class Coordinator:
         blob_cache_size: int = 1024,
         lease_s: float = 15.0,
         control_dir: Optional[str] = None,
+        takeover_grace_s: Optional[float] = None,
     ):
-        if control_dir is not None:
-            raise NotImplementedError(
-                "Coordinator(control_dir=...): live coordinator failover is not ported yet "
-                "(ROADMAP Queue 1 item 11c)")
+        if takeover_grace_s is not None and control_dir is None:
+            # the window is a successor's: without a control log there is
+            # no prior epoch to adopt, and the value would be dropped
+            raise ValueError("Coordinator(takeover_grace_s=...) needs control_dir: the takeover window is that of a "
+                             "successor adopting the fleet recorded there")
         self._server = socket.create_server((host, port))
         self._server.settimeout(0.2)
         self.address = self._server.getsockname()[:2]
@@ -335,6 +346,16 @@ class Coordinator:
         #: zero-worker submit reads very differently when 4 joined and died
         #: vs when nothing ever connected)
         self._workers_ever = 0
+        #: names of every worker that ever joined — the autoscaler settles
+        #: its pending-spawn bookkeeping against this, so a worker that
+        #: registers and dies between two policy ticks still reads as a
+        #: hole to backfill, not as still-pending capacity (strings only;
+        #: unbounded but tiny even for a fleet churning thousands)
+        self._worker_names_ever: set = set()
+        #: set (>0) by an attached Autoscaler: a momentarily-empty fleet is
+        #: expected to be backfilled, so submit() waits up to this long for
+        #: a replacement to register before raising NoWorkersError
+        self.backfill_grace_s: float = 0.0
         #: the coordinator's hot lock, instrumented: contended-acquire wait
         #: feeds ``dispatch_lock_wait_s`` and the per-submit ledger's
         #: ``lock_wait_s`` (observability/dispatchprofile.TimedLock — a
@@ -374,7 +395,8 @@ class Coordinator:
             "workers_reconnected": 0, "leases_expired": 0,
             "frames_corrupt": 0, "workers_rejected": 0,
             "peer_locate_requests": 0, "placement_locality_hits": 0,
-            "compute_cancels_sent": 0, "stale_epoch_frames": 0,
+            "compute_cancels_sent": 0, "coordinator_takeovers": 0,
+            "stale_epoch_frames": 0, "tasks_readopted": 0,
             "assignments_requeued": 0,
         }
         #: (store, chunk key) -> producing worker, fed by the `produced`
@@ -397,9 +419,31 @@ class Coordinator:
         #: decision-ring entries for locality placement are throttled (the
         #: counters carry the totals; the ring is bounded)
         self._locality_decisions_left = 16
-        #: the frames' coordinator epoch: live failover (a successor that
-        #: adopts the fleet under the next epoch) is not ported, so it is 0
+        #: live coordinator failover (runtime/journal.ControlLog): the
+        #: epoch fences frames across coordinator incarnations, and the
+        #: control log is the bounded snapshot a successor pointed at the
+        #: same ``control_dir`` re-adopts the running fleet from
         self.epoch = 0
+        self.control_dir = control_dir
+        self._control = None
+        self._control_sink = None
+        #: takeover window: until this monotonic deadline, adopted-but-
+        #: silent workers stay leased (the autoscaler must not backfill
+        #: them) and adopted futures wait for worker outbox replays
+        self._takeover_deadline = 0.0
+        #: (op, chunk-key) tag -> adopted Future for the prior epoch's
+        #: in-flight dispatches: ``submit`` with the same tag hands the
+        #: adopted future back instead of re-dispatching (tasks_readopted)
+        self._adopted: Dict[tuple, Future] = {}
+        #: adopted futures actually handed out via submit(); the lease
+        #: loop's takeover backstop requeues any still pending once the
+        #: window closes (a genuinely lost assignment: no replay owned it)
+        self._adopted_issued: list = []
+        #: (conn, task_id, tag, fut) for every adoption, so the backstop
+        #: can clear the stub bookkeeping exactly once
+        self._adopted_pending: list = []
+        if control_dir is not None:
+            self._init_control_plane(takeover_grace_s)
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="coordinator-accept", daemon=True
         )
@@ -418,6 +462,150 @@ class Coordinator:
         from ..observability.timeseries import register_fleet
 
         register_fleet(self)
+
+    # -- live failover: control-plane snapshot + fleet adoption ---------
+
+    def _init_control_plane(self, takeover_grace_s: Optional[float]) -> None:
+        """Open the control log; when it already records a prior epoch,
+        this coordinator is a SUCCESSOR: bump the epoch, re-adopt the
+        snapshot's fleet (workers re-attach through their session tokens,
+        in-flight dispatches become adopted futures), fence the old epoch,
+        and advertise the new one in the rendezvous file. Runs inside
+        ``__init__`` before any service thread starts — no locking."""
+        from ..observability.collect import add_decision_sink
+        from .journal import ControlLog, control_log_path, load_control
+
+        prior = load_control(control_log_path(self.control_dir))
+        self._control = ControlLog(self.control_dir)
+        if prior["epoch"] >= 0:
+            self.epoch = prior["epoch"] + 1
+        # successor task ids must never collide with the prior epoch's:
+        # workers keep their assignment-dedup state across a resumed
+        # reconnect, and a colliding id would be silently swallowed as a
+        # duplicate — shift each epoch into its own id space
+        self._next_task_id = self.epoch << 40
+        grace = (
+            float(takeover_grace_s) if takeover_grace_s is not None
+            else max(2 * self.lease_s, 30.0)
+        )
+        if self.epoch > 0:
+            self._takeover_deadline = time.monotonic() + grace
+            self._adopt_fleet(prior, grace)
+        self._control.record_epoch(self.epoch, self.address)
+        self._control.advertise(self.epoch, self.address)
+        get_registry().gauge("coordinator_epoch").set(self.epoch)
+        # mirror connectivity decisions into the control log so the NEXT
+        # successor can stitch a two-epoch timeline; replayed prior-epoch
+        # entries carry an ``epoch`` attr and are not re-mirrored
+        kinds = {
+            "worker_disconnected", "worker_reconnected", "lease_expired",
+            "worker_rejected", "worker_drain_requested", "worker_draining",
+            "worker_drained", "scale_up", "scale_down", "spawn_died",
+        }
+        control, epoch = self._control, self.epoch
+
+        def _sink(entry: dict) -> None:
+            if entry.get("kind") in kinds and entry.get("epoch") is None:
+                control.record_decision(epoch, entry)
+
+        self._control_sink = _sink
+        add_decision_sink(_sink)
+
+    def _adopt_fleet(self, prior: dict, grace: float) -> None:
+        """Rebuild the prior epoch's fleet from its snapshot: every
+        recorded worker becomes a disconnected-but-leased session (same
+        name, same token — the reconnect handshake resumes it), every
+        in-flight dispatch becomes an adopted future keyed by its (op,
+        chunk-key) tag, and the chunk-location registry is replayed.
+        Nothing is re-dispatched here: ``submit`` hands an adopted future
+        back when the DAG re-asks for that task, the worker's outbox
+        replay resolves it, and the lease loop's backstop requeues only
+        what the takeover window proves genuinely lost."""
+        from ..observability.collect import record_decision
+
+        deadline = time.monotonic() + grace
+        for name, rec in prior["workers"].items():
+            hello = {
+                "name": name,
+                "nthreads": rec.get("nthreads", 1),
+                "peer_addr": rec.get("peer_addr"),
+            }
+            conn = _WorkerConn(
+                None, tuple(rec.get("address") or ("?", 0)), hello
+            )
+            conn.token = rec["token"]
+            conn.connected = False
+            conn.disconnect_reason = "adopted after coordinator takeover"
+            conn.lease_deadline = deadline
+            conn.joined_epoch = max(0, prior["epoch"])
+            self._workers.append(conn)
+            self._workers_ever += 1
+            self._worker_names_ever.add(name)
+        by_name = {w.name: w for w in self._workers}
+        readopted = 0
+        for task_id, rec in prior["inflight"].items():
+            tag, conn = rec.get("tag"), by_name.get(rec.get("worker"))
+            if not tag or conn is None:
+                continue
+            fut: Future = Future()
+            conn.outstanding[int(task_id)] = fut
+            self._adopted[tuple(tag)] = fut
+            self._adopted_pending.append((conn, int(task_id), tuple(tag), fut))
+            readopted += 1
+        for loc in prior["chunk_locations"]:
+            wname = loc.get("worker")
+            if wname in by_name:
+                self.chunk_registry.record(
+                    wname,
+                    [(loc.get("store"), loc.get("key"),
+                      int(loc.get("nbytes") or 0))],
+                )
+        self.stats["coordinator_takeovers"] += 1
+        get_registry().counter("coordinator_takeovers").inc()
+        # replay the prior epoch's connectivity decisions (bounded) into
+        # THIS process's ring, keeping their original ``epoch`` attr, so
+        # diagnose renders one stitched two-epoch timeline
+        for entry in prior["decisions"]:
+            kind = entry.get("decision")
+            if not kind:
+                continue
+            attrs = {
+                k: v for k, v in entry.items()
+                if k not in ("kind", "decision", "t", "ts", "version")
+            }
+            record_decision(kind, **attrs)
+        record_decision(
+            "coordinator_takeover", epoch=self.epoch,
+            prior_epoch=prior["epoch"],
+            workers_adopted=len(prior["workers"]),
+            inflight_readopted=readopted, grace_s=round(grace, 3),
+        )
+        self._control.record_decision(self.epoch, {
+            "kind": "coordinator_takeover", "prior_epoch": prior["epoch"],
+            "workers_adopted": len(prior["workers"]),
+            "inflight_readopted": readopted,
+        })
+        logger.warning(
+            "coordinator takeover: epoch %d adopted %d worker(s) and %d "
+            "in-flight dispatch(es) from epoch %d (takeover window %.1fs)",
+            self.epoch, len(prior["workers"]), readopted, prior["epoch"],
+            grace,
+        )
+
+    def in_takeover(self) -> bool:
+        """True while the successor's takeover window is open: adopted
+        workers count as leased capacity (the autoscaler must not treat
+        them as holes to backfill) and adopted futures wait for worker
+        outbox replays before anything is requeued."""
+        return time.monotonic() < self._takeover_deadline
+
+    def _record_worker_control(self, conn: _WorkerConn, pid=None) -> None:
+        if self._control is None:
+            return
+        self._control.record_worker(
+            conn.name, conn.token, conn.nthreads,
+            peer_addr=conn.peer_addr, address=conn.address, pid=pid,
+        )
 
     # -- worker management ---------------------------------------------
 
@@ -502,6 +690,7 @@ class Coordinator:
         with self._lock:
             self._workers.append(conn)
             self._workers_ever += 1
+            self._worker_names_ever.add(conn.name)
             self._worker_joined.notify_all()
         try:
             send_frame(sock, {
@@ -527,6 +716,9 @@ class Coordinator:
         with self._lock:
             conn.connected = True
             self._worker_joined.notify_all()
+        # fsync'd AFTER the ack: the worker is durably part of the fleet a
+        # successor would adopt only once both sides agree it registered
+        self._record_worker_control(conn, pid=hello.get("pid"))
         threading.Thread(
             target=self._recv_loop,
             args=(conn, sock, conn.generation),
@@ -568,17 +760,35 @@ class Coordinator:
             holding = hello.get("holding") if hello else None
             if holding is not None:
                 held = set(holding)
+                issued = {id(f) for f in self._adopted_issued}
                 for tid in [t for t in conn.outstanding if t not in held]:
                     fut = conn.outstanding.pop(tid)
                     conn.deadlines.pop(tid, None)
                     conn.ghost_ids.discard(tid)
                     if fut.done():
                         continue
+                    entry = next(
+                        (e for e in self._adopted_pending
+                         if e[0] is conn and e[1] == tid), None,
+                    )
+                    if entry is not None:
+                        # an adopted dispatch the prior epoch logged but
+                        # never delivered: settle it now instead of
+                        # waiting out the takeover window
+                        self._adopted_pending.remove(entry)
+                        if id(fut) not in issued:
+                            # never handed out via submit: forget the tag
+                            # so the DAG dispatches it fresh
+                            self._adopted.pop(entry[2], None)
+                            continue
+                        self._adopted_issued = [
+                            f for f in self._adopted_issued if f is not fut
+                        ]
                     requeue.append((tid, fut))
                 self.stats["assignments_requeued"] += len(requeue)
             outstanding = len(conn.outstanding)
             self._worker_joined.notify_all()
-        if old_sock is not None:
+        if old_sock is not None:  # None: an adopted stub re-attaching
             try:
                 old_sock.close()
             except OSError:
@@ -611,6 +821,10 @@ class Coordinator:
         except (ConnectionError, OSError) as e:
             self._on_disconnect(conn, f"hello_ack failed: {e}", gen=gen)
             return True  # adopted (and immediately disconnected again)
+        # refresh the snapshot row (the peer address may have moved with
+        # the new route, and a successor's log needs this worker recorded
+        # under ITS epoch too)
+        self._record_worker_control(conn, pid=(hello or {}).get("pid"))
         threading.Thread(
             target=self._recv_loop,
             args=(conn, sock, gen),
@@ -707,11 +921,15 @@ class Coordinator:
                 self._departed.popitem(last=False)
             conn.outstanding.clear()
             conn.deadlines.clear()
-        if conn.sock is not None:
+        if conn.sock is not None:  # None: an adopted stub that never re-attached
             try:
                 conn.sock.close()
             except OSError:
                 pass
+        if self._control is not None:
+            # fsync'd: a successor must not re-adopt a worker this epoch
+            # already declared gone (its tasks were requeued HERE)
+            self._control.record_worker_gone(conn.name)
         # a departed worker can no longer serve peer fetches: drop its
         # chunk locations so readers go straight to the store instead of
         # timing out against a corpse
@@ -880,6 +1098,39 @@ class Coordinator:
                 record_decision(
                     "lease_expired", worker=conn.name, reason=reason,
                 )
+            # takeover backstop: once the window closes, any adopted
+            # future still pending was a genuinely lost assignment — no
+            # surviving worker replayed its result and no lease expiry
+            # settled it. Requeue issued ones exactly once (_fail_future's
+            # done-guard absorbs a racing late replay); forget the rest so
+            # a later submit of that tag dispatches fresh.
+            if self._adopted_pending and not self.in_takeover():
+                with self._lock:
+                    pending = self._adopted_pending
+                    self._adopted_pending = []
+                    issued = {id(f) for f in self._adopted_issued}
+                    self._adopted_issued = []
+                    requeue = []
+                    for conn, tid, tag, fut in pending:
+                        if fut.done():
+                            continue
+                        conn.outstanding.pop(tid, None)
+                        conn.deadlines.pop(tid, None)
+                        if id(fut) in issued:
+                            requeue.append((tid, fut))
+                        else:
+                            self._adopted.pop(tag, None)
+                for tid, fut in requeue:
+                    _fail_future(fut, WorkerLostError(
+                        f"adopted task {tid} from the prior epoch never "
+                        "replayed a result inside the takeover window; "
+                        "requeueing as worker loss"
+                    ))
+                if requeue:
+                    logger.warning(
+                        "takeover window closed: requeued %d adopted "
+                        "task(s) with no replayed result", len(requeue),
+                    )
 
     def _count_frame(self, direction: str, mtype, nbytes: int) -> None:
         """Fold one link frame into the per-message-type breakdown and the
@@ -980,6 +1231,10 @@ class Coordinator:
                         # the future resolves so a consumer dispatched by
                         # this completion can already locate the bytes
                         self.chunk_registry.record(conn.name, produced)
+                        if self._control is not None:
+                            self._control.record_chunk_locations(
+                                conn.name, produced
+                            )
                     with self._lock:
                         fut = conn.outstanding.pop(msg["task_id"], None)
                         conn.deadlines.pop(msg["task_id"], None)
@@ -989,6 +1244,11 @@ class Coordinator:
                         conn.ghost_ids.discard(msg["task_id"])
                     if fut is None or fut.done():
                         continue  # duplicate/late reply, or a cancelled twin
+                    if self._control is not None:
+                        # flushed, not fsync'd: losing this line costs one
+                        # idempotent re-run after the NEXT takeover, never
+                        # correctness
+                        self._control.record_done(msg["task_id"])
                     if mtype == "result":
                         stats = msg.get("stats", {}) or {}
                         disp = getattr(fut, "_dispatch", None)
@@ -1298,18 +1558,24 @@ class Coordinator:
         )
         return True
 
+    def known_worker_names(self) -> set:
+        """Every worker name that ever joined (live or departed)."""
+        with self._lock:
+            return set(self._worker_names_ever)
+
     def load_view(self) -> list:
-        """Per-worker load rows (what the telemetry sampler's per-worker
-        series read): one dict per live worker (name, draining, pressured,
-        outstanding incl. ghost slots, nthreads). One pass under the lock."""
+        """Per-worker load rows for the autoscaler's policy loop: one dict
+        per live worker (name, draining, pressured, outstanding incl. ghost
+        slots, nthreads). Cheap — one pass under the lock."""
         with self._lock:
             return [
                 {
                     "name": w.name,
                     "draining": w.draining,
                     "pressured": w.pressured,
-                    # disconnected-but-leased: the lease may still resolve
-                    # to a reconnect
+                    # disconnected-but-leased: NOT a hole to backfill (the
+                    # lease may still resolve to a reconnect), but not a
+                    # drain candidate either — the autoscaler reads this
                     "connected": w.connected,
                     "outstanding": len(w.outstanding) + len(w.ghost_ids),
                     "nthreads": w.nthreads,
@@ -1409,11 +1675,21 @@ class Coordinator:
         ``pool.submit(execute_with_stats, function, input, config=...)``; the
         wrapper always runs worker-side.
 
-        ``tag`` is the task's durable ``(op, chunk-key)`` identity
-        (``dataflow.task_tag``), which live failover would join on; failover
-        is not ported (ROADMAP Queue 1 item 11c), so it is accepted and
-        unused.
+        ``tag`` is the task's durable ``(op, chunk-key)`` identity. After a
+        coordinator takeover, a submit whose tag matches a dispatch adopted
+        from the prior epoch returns the adopted future — the worker may
+        still be running that task (or its replayed result already resolved
+        it), so re-dispatching would re-run completed work.
         """
+        if tag is not None and self._adopted:
+            with self._lock:
+                adopted = self._adopted.pop(tuple(tag), None)
+                if adopted is not None:
+                    self.stats["tasks_readopted"] += 1
+                    self._adopted_issued.append(adopted)
+            if adopted is not None:
+                get_registry().counter("tasks_readopted").inc()
+                return adopted
         # dispatch ledger: zero the hot-lock accumulator for THIS submit,
         # and fold the op-blob pickle (cached after first use) into the
         # serialize cost — submit runs inline on the dispatch loop, so
@@ -1446,6 +1722,27 @@ class Coordinator:
                     live = [
                         w for w in self._workers if w.alive and w.connected
                     ]
+                if (
+                    not live
+                    and self.backfill_grace_s > 0
+                    and self._workers_ever > 0
+                    and not self._closed.is_set()
+                ):
+                    # an attached autoscaler owes the fleet a replacement
+                    # (e.g. the LAST worker was preempted/drained and the
+                    # backfill subprocess is still booting): wait for it to
+                    # register instead of failing the compute the drain
+                    # protocol promised to protect
+                    self._worker_joined.wait_for(
+                        lambda: any(
+                            w.alive and w.connected for w in self._workers
+                        )
+                        or self._closed.is_set(),
+                        timeout=self.backfill_grace_s,
+                    )
+                    live = [
+                        w for w in self._workers if w.alive and w.connected
+                    ]
                 if not live:
                     host, port = self.address
                     ever = self._workers_ever
@@ -1470,6 +1767,31 @@ class Coordinator:
                         f"coordinator {host}:{port} (epoch {self.epoch}); "
                         f"{hint}"
                     )
+                if (
+                    self.backfill_grace_s > 0
+                    and not self._closed.is_set()
+                    and all(w.draining for w in live)
+                ):
+                    # every live worker is draining (a coordinated spot
+                    # reclaim hit the whole fleet): routing to a drainer
+                    # is an instant abandon->requeue ping-pong that burns
+                    # the free requeue allowance in milliseconds — far
+                    # faster than any replacement can boot. Wait for the
+                    # backfill to register; drainers remain the fallback
+                    # if none arrives within the grace window.
+                    self._worker_joined.wait_for(
+                        lambda: any(
+                            w.alive and w.connected and not w.draining
+                            for w in self._workers
+                        )
+                        or self._closed.is_set(),
+                        timeout=self.backfill_grace_s,
+                    )
+                    live = [
+                        w for w in self._workers if w.alive and w.connected
+                    ]
+                    if not live:
+                        continue  # drainers gone: the no-live path decides
                 # draining workers are passed over while any non-draining
                 # one is live (an all-draining fleet still takes the task:
                 # it may be abandoned and requeued, which beats failing the
@@ -1633,6 +1955,12 @@ class Coordinator:
             self.stats["tasks_sent"] += 1
             if first_use:
                 self.stats["blobs_sent"] += 1
+            if self._control is not None and tag is not None:
+                # the dispatch-frontier record a successor folds: which
+                # (op, chunk-key) was in flight where (flushed — a lost
+                # line costs one idempotent re-run; untagged tasks have no
+                # durable identity to readopt, so they aren't recorded)
+                self._control.record_dispatch(task_id, tag, conn.name)
             inj = get_injector()
             if inj is not None and inj.coordinator_dispatch_tick(self.epoch):
                 # chaos hook: the coordinator process hard-exits after the
@@ -1728,7 +2056,7 @@ class Coordinator:
         self._closed.set()
         with self._lock:
             workers = list(self._workers)
-            # wake any submit() blocked on a partition wait: closed wins
+            # wake any submit() blocked on a backfill wait: closed wins
             self._worker_joined.notify_all()
         for conn in workers:
             if conn.sock is not None:
@@ -1741,6 +2069,13 @@ class Coordinator:
                 except (ConnectionError, OSError):
                     pass
             self._drop_worker(conn, "shutdown")
+        if self._control_sink is not None:
+            from ..observability.collect import remove_decision_sink
+
+            remove_decision_sink(self._control_sink)
+            self._control_sink = None
+        if self._control is not None:
+            self._control.close()
         try:
             self._server.close()
         except OSError:
@@ -1955,16 +2290,38 @@ class _WorkerLink:
         self.last_rx = now
 
 
-def _give_up_message(wname: str, endpoint: str, epoch: int, waited_s: float) -> str:
-    """The worker's reconnect-give-up diagnostic: the coordinator endpoint,
-    the last epoch this worker joined under, and what to check."""
-    return "; ".join([
+def _give_up_message(
+    wname: str, endpoint: str, epoch: int, waited_s: float,
+    rendezvous: Optional[str] = None,
+) -> str:
+    """The worker's reconnect-give-up diagnostic. A worker used to die of
+    a bare socket error here, which is undebuggable from its own log —
+    name the coordinator endpoint and the last epoch this worker was
+    joined under, plus a ``NoWorkersError``-style hint table."""
+    lines = [
         f"worker {wname!r}: could not reach the coordinator at {endpoint} "
         f"(last epoch {epoch}) for {waited_s:.0f}s; giving up.",
-        "Likely causes: the coordinator process crashed or was killed (check its log / exit code)",
-        f"the coordinator host or network path is down (try dialing {endpoint} from this host)",
-        "raise --reconnect-give-up if the control plane can legitimately stay dark longer than this window",
-    ])
+        "Likely causes: the coordinator process crashed or was killed "
+        "(check its log / exit code)",
+        f"the coordinator host or network path is down (try dialing "
+        f"{endpoint} from this host)",
+    ]
+    if rendezvous:
+        lines.append(
+            f"no successor advertised a takeover in {rendezvous!r} — if a "
+            "replacement coordinator is expected, check that it runs with "
+            "the same control_dir"
+        )
+    else:
+        lines.append(
+            "no rendezvous file is configured (--rendezvous), so a "
+            "restarted coordinator cannot re-adopt this worker"
+        )
+    lines.append(
+        "raise --reconnect-give-up if the control plane can legitimately "
+        "stay dark longer than this window"
+    )
+    return "; ".join(lines)
 
 
 def run_worker(
@@ -1973,6 +2330,7 @@ def run_worker(
     name: Optional[str] = None,
     drain_grace_s: float = 10.0,
     reconnect_give_up_s: float = 30.0,
+    rendezvous: Optional[str] = None,
     device: Optional[str] = None,
 ) -> None:
     """Connect to ``host:port`` and execute tasks until shutdown/EOF.
@@ -2000,7 +2358,12 @@ def run_worker(
     forces the same reconnect path. Only after ``reconnect_give_up_s`` of
     failed attempts does the worker exit.
 
-    """
+    ``rendezvous`` names the coordinator's advertisement file (see
+    ``runtime/journal.write_rendezvous``): the reconnect loop re-reads it
+    each attempt, re-targets its dial at a successor's address, and — for
+    as long as the advertisement names a NEWER epoch than the one this
+    worker last joined (an open takeover window) — the give-up clock is
+    suspended, so a fleet mid-takeover never dies of impatience."""
     import signal as _signal
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2021,7 +2384,13 @@ def run_worker(
     # the chunk device first: a missing card fails the start, loudly
     chunk_device = prepare_worker_device(device)
     host, _, port = coordinator.rpartition(":")
+    #: mutable dial target: a rendezvous advertisement re-points it at a
+    #: successor coordinator's address mid-reconnect
     dial = {"host": host or "127.0.0.1", "port": int(port)}
+    #: highest epoch ever seen advertised — each NEW epoch earns the
+    #: reconnect loop one fresh give-up window, bounding how long a worker
+    #: chases successors that never accept it
+    adv_seen = {"epoch": -1}
     wname = name or f"{socket.gethostname()}:{os.getpid()}"
     #: the p2p data plane's worker half: chunk cache + serving socket. The
     #: listener is cheap and always started (its address must ride the
@@ -2137,25 +2506,66 @@ def run_worker(
                 pass
             raise
 
+    def _check_rendezvous() -> bool:
+        """Re-read the successor advertisement, re-targeting the dial at
+        its address. True exactly once per newly advertised epoch newer
+        than the one this worker last joined — an open takeover window,
+        which earns the reconnect loop a fresh give-up allowance."""
+        if rendezvous is None:
+            return False
+        from .journal import read_rendezvous
+
+        adv = read_rendezvous(rendezvous)
+        if adv is None:
+            return False
+        if adv["addr"] != (dial["host"], dial["port"]):
+            logger.warning(
+                "worker %s: rendezvous advertises epoch %d at %s:%s; "
+                "re-targeting the reconnect", wname, adv["epoch"],
+                adv["addr"][0], adv["addr"][1],
+            )
+            dial["host"], dial["port"] = adv["addr"]
+        if adv["epoch"] > link.epoch and adv["epoch"] > adv_seen["epoch"]:
+            adv_seen["epoch"] = adv["epoch"]
+            return True
+        return False
+
     def _reconnect() -> bool:
         """Re-establish the coordinator link after a drop, with backoff,
-        for up to ``reconnect_give_up_s``. In-flight tasks keep running
-        throughout; success replays the outbox. False = give up (exit)."""
+        for up to ``reconnect_give_up_s`` — suspended (restarted) each
+        time the rendezvous file advertises a NEW successor epoch. In-
+        flight tasks keep running throughout; success replays the outbox.
+        False = give up (exit)."""
         give_up = time.monotonic() + max(0.0, reconnect_give_up_s)
         delay = 0.05
         while not stop.is_set() and not drain["on"]:
+            if _check_rendezvous():
+                # a successor is mid-takeover: dying now would abandon a
+                # fleet that is about to be re-adopted
+                give_up = time.monotonic() + max(0.0, reconnect_give_up_s)
             if time.monotonic() > give_up:
                 logger.error(
                     "%s",
                     _give_up_message(
                         wname, f"{dial['host']}:{dial['port']}", link.epoch,
-                        reconnect_give_up_s,
+                        reconnect_give_up_s, rendezvous,
                     ),
                 )
                 return False
             try:
                 _connect()
             except _RegistrationRejected as e:
+                if rendezvous is not None:
+                    # a successor can reject transiently while its own
+                    # adoption settles; the rendezvous window (give_up
+                    # above) decides when chasing it stops being worth it
+                    logger.warning(
+                        "worker %s: registration rejected (%s); retrying "
+                        "under the rendezvous window", wname, e,
+                    )
+                    time.sleep(delay)
+                    delay = min(delay * 2, 1.0)
+                    continue
                 logger.error(
                     "worker %s: registration rejected (%s); exiting",
                     wname, e,

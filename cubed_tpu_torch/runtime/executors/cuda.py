@@ -166,6 +166,7 @@ import functools
 import hashlib
 import itertools
 import math
+import threading
 import time
 import types
 from collections import Counter, OrderedDict
@@ -781,6 +782,26 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
+#: one compute at a time per chunk device: concurrent computes (the compute
+#: service runs requests on threads) would otherwise capture on one stream
+#: together, or launch into another's capture, and share an executor's
+#: per-compute state; the lock serializes capture and replay alike
+_DEVICE_LOCKS: dict = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(device: torch.device) -> threading.RLock:
+    index = device.index
+    if index is None and device.type == "cuda":
+        index = torch.cuda.current_device()
+    key = (device.type, index)
+    with _DEVICE_LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.get(key)
+        if lock is None:
+            lock = _DEVICE_LOCKS[key] = threading.RLock()
+        return lock
+
+
 def _pool_bytes(segments, pool_id) -> int:
     """Bytes of the CUDA allocator's segments that belong to graph pool
     *pool_id* (``torch.cuda.memory_snapshot()`` entries)."""
@@ -868,7 +889,8 @@ class CudaExecutor(DagExecutor):
     def execute_dag(self, dag, callbacks=None, array_names=None, resume=None, spec=None, **kwargs) -> None:
         # both scopes are this thread's (or task's) alone, and are restored
         # on every exit, a failing compute's included
-        with narrowing(self.compute_dtype == "float32"), contraction.precision(self.matmul_precision):
+        with _device_lock(get_device()), narrowing(self.compute_dtype == "float32"), \
+                contraction.precision(self.matmul_precision):
             self._execute_dag(dag, callbacks, array_names, resume, spec, kwargs.get("cancellation"),
                               kwargs.get("journal"))
 

@@ -23,9 +23,13 @@ code at once. The fleet persists across computes; ``close()``, or use as a
 context manager, tears it down. Each task's stats carry its worker's device
 and kernel launches, kept in ``stats["workers"]``/``["worker_launches"]``.
 
-Not ported yet (ROADMAP Queue 1 item 11c): the autoscaler
-(``autoscale=``, ``max_workers=``, ``autoscale_policy=``) and live
-coordinator failover (``control_dir=``); each raises ``NotImplementedError``.
+``max_workers=`` (or ``autoscale=True``, or an ``autoscale_policy``) starts
+the autoscaler (``runtime/autoscale.py``) over the fleet: it spawns local
+workers on the same device through the same path (kernels built first,
+``--device``) and retires idle ones after a graceful drain. ``control_dir=``
+arms live coordinator failover: the coordinator keeps its control log
+there, local workers chase its ``rendezvous.json`` (``--rendezvous``), and a
+new executor on the same directory adopts a fleet whose coordinator died.
 """
 
 from __future__ import annotations
@@ -91,10 +95,6 @@ def _worker_env() -> dict:
     return env
 
 
-#: the reference's constructor arguments this port does not honor yet
-_NOT_PORTED = "ROADMAP Queue 1 item 11c"
-
-
 class DistributedDagExecutor(DagExecutor):
     """Coordinator/worker fleet executor (multi-host control plane)."""
 
@@ -119,16 +119,10 @@ class DistributedDagExecutor(DagExecutor):
         compute_arrays_in_parallel: bool = False,
         retry_policy: Optional[RetryPolicy] = None,
         control_dir: Optional[str] = None,
+        takeover_grace_s: Optional[float] = None,
         device: Optional[str] = None,
         **kwargs,
     ):
-        if autoscale or max_workers is not None or autoscale_policy is not None:
-            raise NotImplementedError(
-                "DistributedDagExecutor(autoscale=, max_workers=, autoscale_policy=): the autoscaler is not "
-                f"ported yet ({_NOT_PORTED})")
-        if control_dir is not None:
-            raise NotImplementedError(
-                f"DistributedDagExecutor(control_dir=...): live coordinator failover is not ported yet ({_NOT_PORTED})")
         if n_local_workers is None and listen is None:
             n_local_workers = 2
         self.n_local_workers = n_local_workers
@@ -136,6 +130,25 @@ class DistributedDagExecutor(DagExecutor):
         self.min_workers = min_workers if min_workers is not None else (
             n_local_workers or 1
         )
+        self.max_workers = max_workers
+        if max_workers is not None:
+            floor = max(self.min_workers, n_local_workers or 0)
+            if max_workers < floor:
+                raise ValueError(
+                    f"max_workers={max_workers} is below the fleet floor "
+                    f"(min_workers={self.min_workers}, n_local_workers="
+                    f"{n_local_workers}): the ceiling could never be "
+                    "honored — lower the initial fleet or raise max_workers"
+                )
+        # the autoscaler is on when asked for explicitly, or implied by a
+        # max_workers ceiling / a full policy object; a plain fixed-size
+        # fleet keeps its exact behavior
+        self.autoscale = (
+            autoscale
+            if autoscale is not None
+            else (max_workers is not None or autoscale_policy is not None)
+        )
+        self.autoscale_policy = autoscale_policy
         self.drain_grace_s = drain_grace_s
         self.worker_threads = worker_threads
         self.worker_start_timeout = worker_start_timeout
@@ -154,15 +167,25 @@ class DistributedDagExecutor(DagExecutor):
         self.batch_size = batch_size
         self.compute_arrays_in_parallel = compute_arrays_in_parallel
         self.retry_policy = retry_policy
+        #: control-plane durability directory (runtime/journal.py
+        #: ControlLog): the coordinator persists its epoch, worker roster,
+        #: and dispatch frontier there and advertises its address in
+        #: ``rendezvous.json``. A fresh executor pointed at the same dir
+        #: after a coordinator crash comes up as the next epoch and adopts
+        #: the still-running fleet instead of cold-starting.
+        self.control_dir = control_dir
+        self.takeover_grace_s = takeover_grace_s
         #: the workers' chunk device; None is the client's at the fleet's start
         self.device = device
         self.kwargs = kwargs
         self._coordinator: Optional[Coordinator] = None
         #: append-only spawn log: worker ``local-<i>`` is ``_procs[i]``
-        #: forever, which keeps the exit probe correct; dead entries stay
-        #: (a reaped Popen costs nothing to re-wait)
+        #: forever (replacements append with fresh indices), which keeps
+        #: the exit probe correct across the autoscaler's churn; retired/
+        #: dead entries stay (a reaped Popen costs nothing to re-wait)
         self._procs: list[subprocess.Popen] = []
         self._procs_lock = threading.Lock()
+        self._autoscaler = None
         self._tally = WorkerTally()
         self._device: Optional[str] = None
 
@@ -179,13 +202,16 @@ class DistributedDagExecutor(DagExecutor):
         tasks_abandoned_on_drain), a per-worker load snapshot, and what the
         workers reported with their tasks since the fleet started
         (``worker_reports``: device, tasks and kernel launches per worker;
-        ``worker_launches``: summed); empty before the fleet starts."""
+        ``worker_launches``: summed) and, when the autoscaler runs, its
+        scale counters; empty before the fleet starts."""
         if self._coordinator is None:
             return {}
         out = self._coordinator.stats_snapshot()
         tally = self._tally.snapshot()
         out["worker_reports"] = tally["workers"]
         out["worker_launches"] = tally["launches"]
+        if self._autoscaler is not None:
+            out["autoscale"] = dict(self._autoscaler.stats)
         return out
 
     @property
@@ -203,7 +229,9 @@ class DistributedDagExecutor(DagExecutor):
             coord = Coordinator(host or "0.0.0.0", int(port or 0),
                                 task_timeout=self.task_timeout,
                                 timeout_strikes=self.timeout_strikes,
-                                lease_s=self.lease_s)
+                                lease_s=self.lease_s,
+                                control_dir=self.control_dir,
+                                takeover_grace_s=self.takeover_grace_s)
             logger.info(
                 "coordinator listening on %s:%s; waiting for %d workers",
                 coord.address[0], coord.address[1], self.min_workers,
@@ -211,16 +239,37 @@ class DistributedDagExecutor(DagExecutor):
         else:
             coord = Coordinator("127.0.0.1", 0, task_timeout=self.task_timeout,
                                 timeout_strikes=self.timeout_strikes,
-                                lease_s=self.lease_s)
+                                lease_s=self.lease_s,
+                                control_dir=self.control_dir,
+                                takeover_grace_s=self.takeover_grace_s)
         self._coordinator = coord
+        initial_names: list = []
         if self.n_local_workers:
             build_before_spawn(self._worker_device())
             for _ in range(self.n_local_workers):
-                self._spawn_local_worker()
+                initial_names.append(self._spawn_local_worker())
             # locally spawned workers have inspectable exit codes: a
             # dropped connection plus -9/137 reads as OOM-killed, and the
             # WorkerLostError message says so instead of a bare reset
             coord.exit_probe = self._local_worker_exitcode
+        if self.autoscale:
+            from ..autoscale import Autoscaler, AutoscalePolicy
+
+            initial = self.n_local_workers or self.min_workers or 1
+            mw = max(1, self.min_workers or 1)
+            policy = self.autoscale_policy or AutoscalePolicy(
+                min_workers=mw,
+                max_workers=self.max_workers or max(8, initial, mw),
+                drain_grace_s=self.drain_grace_s,
+            )
+            factory = (
+                _LocalWorkerFactory(self) if self.n_local_workers else None
+            )
+            self._autoscaler = Autoscaler(
+                coord, factory=factory, policy=policy,
+                initial_workers=initial, pending_workers=initial_names,
+            )
+            self._autoscaler.start()
         try:
             self._wait_for_fleet(coord)
         except BaseException:
@@ -263,7 +312,9 @@ class DistributedDagExecutor(DagExecutor):
 
     def _spawn_local_worker(self) -> str:
         """Spawn one local worker subprocess on the fleet's chunk device;
-        returns its name."""
+        returns its name. Used for the initial fleet and as the
+        autoscaler's ``WorkerFactory``: the single-host stand-in for asking
+        a cluster for another instance."""
         coord = self._coordinator
         assert coord is not None
         host, port = coord.address
@@ -282,6 +333,12 @@ class DistributedDagExecutor(DagExecutor):
         # ride the command line
         if "CUBED_TPU_TORCH_DRAIN_GRACE_S" not in os.environ:
             cmd += ["--drain-grace", str(self.drain_grace_s)]
+        if self.control_dir is not None:
+            # workers chase a successor coordinator through the
+            # advertisement file instead of dying with the old socket
+            from ..journal import rendezvous_path
+
+            cmd += ["--rendezvous", rendezvous_path(self.control_dir)]
         with self._procs_lock:
             i = len(self._procs)
             name = f"local-{i}"
@@ -307,6 +364,38 @@ class DistributedDagExecutor(DagExecutor):
             except IndexError:
                 return None
 
+    def _retire_local_worker(self, name: str) -> None:
+        """Reap a worker whose graceful drain was already requested: wait
+        for it to exit on its own inside the grace window, escalate to
+        SIGTERM/SIGKILL if it lingers. Runs on a daemon thread so the
+        autoscaler's policy loop never blocks on a slow exit."""
+        proc = self._proc_for(name)
+        if proc is None:
+            return
+        # the reap deadline must cover the grace the DRAIN was granted —
+        # the autoscaler's policy grace when it initiated the retirement,
+        # which may exceed this executor's own drain_grace_s default
+        scaler = self._autoscaler
+        grace = (
+            scaler.policy.drain_grace_s if scaler is not None
+            else self.drain_grace_s
+        )
+
+        def reap() -> None:
+            try:
+                proc.wait(timeout=grace + 10)
+            except subprocess.TimeoutExpired:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=5)
+
+        threading.Thread(
+            target=reap, name=f"reap-{name}", daemon=True
+        ).start()
+
     def _local_worker_exitcode(self, name: str):
         """Exit code of a locally spawned worker (names ``local-<i>``), or
         None while it still runs / for out-of-band workers. Polls briefly:
@@ -325,9 +414,13 @@ class DistributedDagExecutor(DagExecutor):
         return None
 
     def close(self) -> None:
-        """Tear down the coordinator and every locally spawned worker,
-        including ones mid-drain (the spawn log is append-only, so nothing
-        is orphaned)."""
+        """Tear down the autoscaler, the coordinator, and every locally
+        spawned worker — including ones mid-drain or retired earlier (the
+        spawn log is append-only, so nothing is ever orphaned)."""
+        if self._autoscaler is not None:
+            # first, so it cannot backfill workers we are tearing down
+            self._autoscaler.stop()
+            self._autoscaler = None
         if self._coordinator is not None:
             self._coordinator.close()
             self._coordinator = None
@@ -363,6 +456,7 @@ class DistributedDagExecutor(DagExecutor):
         state["_procs"] = []
         state["_procs_lock"] = None
         state["_tally"] = WorkerTally()
+        state["_autoscaler"] = None
         return state
 
     def __setstate__(self, state):
@@ -422,6 +516,18 @@ class DistributedDagExecutor(DagExecutor):
             "fleet_compute", n_workers=coord.n_workers,
             coordinator=f"{coord.address[0]}:{coord.address[1]}",
         )
+        if coord.n_workers == 0 and (
+            self._autoscaler is not None and self.min_workers > 0
+        ):
+            # the fleet self-heals (autoscaler holds a min_workers floor):
+            # a momentarily empty fleet — e.g. a poison task just took out
+            # every worker at once — is a backfill in flight, not a
+            # configuration error, so ride it out instead of failing the
+            # compute in the gap
+            try:
+                coord.wait_for_workers(1, timeout=self.worker_start_timeout)
+            except TimeoutError:
+                pass  # fall through to the zero-workers diagnostic
         if coord.n_workers == 0:
             # fail fast with a diagnostic instead of letting the first
             # submit discover it mid-plan (min_workers=0 configurations
@@ -595,6 +701,26 @@ class _OpPool:
         return self.coordinator.submit(
             stats_wrapper, function, task_input, config=config, tag=tag
         )
+
+
+class _LocalWorkerFactory:
+    """The autoscaler's :class:`~cubed_tpu_torch.runtime.autoscale.WorkerFactory`
+    for locally spawned fleets: another worker subprocess on this host, on
+    the fleet's chunk device (the single-host stand-in for another
+    instance), reaped after its graceful drain."""
+
+    def __init__(self, executor: DistributedDagExecutor):
+        self._executor = executor
+
+    def start_worker(self):
+        return self._executor._spawn_local_worker()
+
+    def stop_worker(self, name: str) -> None:
+        self._executor._retire_local_worker(name)
+
+    def spawn_failed(self, name: str) -> bool:
+        proc = self._executor._proc_for(name)
+        return proc is not None and proc.poll() is not None
 
 
 class _InterleavedPool:

@@ -88,6 +88,18 @@ def _clean_worker_loss(exc: BaseException) -> bool:
     return any(c.__name__ == "WorkerDrainedError" for c in type(exc).__mro__)
 
 
+def _overload_sheds_optional() -> bool:
+    """True while any live service ``OverloadController`` is at L1 or above:
+    speculative backups are pure extra load, shed first. Late import: the
+    ladder lives in the service layer, and executors work without it."""
+    try:
+        from ...service.overload import sheds_optional_work
+
+        return sheds_optional_work()
+    except Exception:
+        return False
+
+
 def map_unordered(
     executor: concurrent.futures.Executor,
     function: Callable,
@@ -538,11 +550,10 @@ def _map_unordered_batch(
                     on_input_done(i)
                 release_dependents(i)
                 metrics.counter("dispatch_release_s").inc(time.perf_counter() - t_release)
-            if use_backups and not admission.throttling:
-                # no speculative twins while degraded for memory: a twin is
-                # pure extra footprint. (The reference also sheds them while
-                # its service's overload ladder sheds optional work; the
-                # service comes with ROADMAP Queue 1 item 11c.)
+            if use_backups and not admission.throttling and not _overload_sheds_optional():
+                # no speculative twins while degraded for memory, or while
+                # the service's overload ladder sheds optional work (L1+):
+                # a twin is pure extra footprint
                 for fut, (i, is_backup, _attempt, _lim) in list(pending.items()):
                     if is_backup or i in done_inputs or i in backups:
                         continue

@@ -24,8 +24,9 @@ control plane's frames (drop, duplicate, delay, reset); peer chunk fetches
 (``runtime/transfer.py``: drop, corrupt, delay, a server's reset); and the
 coordinator's dispatches. ``wire_config``/``arm_from_wire`` carry the
 client's arming on every fleet task message, so a worker started before
-the compute mirrors it. (The coordinator crash knobs serve live failover,
-which is not ported: ROADMAP Queue 1 item 11c.)
+the compute mirrors it. The coordinator crash knobs serve live failover
+(``Coordinator(control_dir=)``): a crash after the nth dispatch, or during
+a successor's takeover.
 """
 
 from __future__ import annotations

@@ -22,10 +22,14 @@ refuses:
 - **A tensor on the card** is copied to the host and tagged with its
   device kind; it is restored onto the receiving process's device
   (``backend_array_api.get_device()``), and its bytes are counted in the
-  ``payload_device_bytes`` counter where it was pickled.
+  ``payload_device_bytes`` counter where it was pickled. A receiver whose
+  chunk device is not of that kind (a ``cuda`` tensor where the chunk
+  device is the CPU, or where there is no card) refuses it with a
+  ``RuntimeError``: the work it carries never runs on a device its sender
+  did not choose.
 - **A class** defined in ``__main__`` or inside a function is refused with
-  a ``TypeError`` naming it: define it in a module, which the worker
-  imports.
+  an :class:`UnshippableClassError` (a ``TypeError``) naming it: define it
+  in a module, which the worker imports.
 
 The trust model is the JAX package's fleet's (its ``distributed.py``
 module docstring): loading a payload runs code the sender chose, as any
@@ -149,11 +153,23 @@ def _cell_value(cell):
         return _EMPTY_CELL
 
 
+class UnshippableClassError(TypeError):
+    """A class with no importable name (defined in ``__main__`` or inside a
+    function) cannot travel to another process."""
+
+
 def _restore_tensor(host: torch.Tensor, device_kind: str) -> torch.Tensor:
-    """A tensor that left a card, put on this process's chunk device."""
+    """A tensor that left a card, put on this process's chunk device, which
+    must be of the kind it left (``get_device`` raises for ``cuda`` where
+    there is no card)."""
     from ..backend_array_api import get_device
 
-    return host.to(get_device())
+    device = get_device()
+    if device.type != device_kind:
+        raise RuntimeError(
+            f"payload holds a tensor from a {device_kind} device but this process's chunk device is {device}; "
+            f"set CUBED_TPU_TORCH_DEVICE={device_kind} on a machine that has one")
+    return host.to(device)
 
 
 class PayloadPickler(pickle.Pickler):
@@ -169,7 +185,7 @@ class PayloadPickler(pickle.Pickler):
         if isinstance(obj, type):
             if obj.__module__ not in ("__main__", "__mp_main__") and "<locals>" not in obj.__qualname__:
                 return NotImplemented
-            raise TypeError(
+            raise UnshippableClassError(
                 f"cannot ship class {obj.__module__}.{obj.__qualname__} to a worker process: a class defined in "
                 "__main__ or inside a function has no importable name; define it at the top level of a module")
         if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":

@@ -9,6 +9,9 @@ control messages and peer-fetched chunk bytes.
 ``--device`` pins the chunk device (``cuda``, ``cuda:1``, ``cpu``; default
 ``CUBED_TPU_TORCH_DEVICE``, else ``cuda``). A worker asked for ``cuda`` on
 a machine with no card exits with the error before it joins the fleet.
+``--rendezvous PATH`` names a coordinator's ``rendezvous.json`` (its
+``control_dir``): after losing its coordinator the worker dials whatever
+successor that file advertises.
 Counterpart of ``cubed_tpu/runtime/worker.py``.
 """
 
@@ -51,6 +54,11 @@ def main(argv=None) -> None:
         help="seconds to keep retrying a lost coordinator connection before exiting; in-flight tasks keep "
              "running across a disconnect and unacked results replay on reconnect (default 30, env "
              "CUBED_TPU_TORCH_RECONNECT_GIVE_UP_S)")
+    parser.add_argument(
+        "--rendezvous", default=None,
+        help="path to the coordinator's rendezvous advertisement file (written when the coordinator runs with a "
+             "control_dir); the reconnect loop re-reads it to chase a successor coordinator after a "
+             "control-plane crash, and the give-up clock is suspended while a takeover window is open")
     parser.add_argument("-v", "--verbose", action="store_true", help="log at INFO level")
     parser.add_argument("--log-json", action="store_true",
                         help="emit structured JSON log lines carrying compute/op/chunk correlation ids")
@@ -63,7 +71,7 @@ def main(argv=None) -> None:
     else:
         logging.basicConfig(level=level, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     run_worker(args.coordinator, nthreads=args.threads, name=args.name, drain_grace_s=args.drain_grace,
-               reconnect_give_up_s=args.reconnect_give_up, device=args.device)
+               reconnect_give_up_s=args.reconnect_give_up, rendezvous=args.rendezvous, device=args.device)
 
 
 if __name__ == "__main__":

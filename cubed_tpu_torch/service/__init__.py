@@ -1,19 +1,49 @@
-"""The compute service's parts ported so far: the structural plan
-fingerprint (``cache.py``). The multi-tenant service over the fleet (its
-admission, overload ladder, plan and result caches and durability) is not
-ported yet (ROADMAP Queue 1 item 11c): asking this package for one of its
-names raises ``NotImplementedError`` naming that item."""
+"""Multi-tenant compute service: the persistent front door over one fleet.
+Counterpart of ``cubed_tpu/service/``: weighted fair-share admission
+(``admission.py``), the overload ladder and tenant breakers
+(``overload.py``), the plan and result caches (``cache.py``), durable
+requests (``durability.py``) and the service itself (``service.py``).
+"""
 
-#: the JAX package's service names that wait for the service's port
-_NOT_PORTED = frozenset({
-    "ComputeService", "ServiceConfig", "RequestHandle", "RequestCancelledError", "TenantThrottledError",
-    "ServiceOverloadedError", "DeadlineInfeasibleError", "OverloadController", "OverloadPolicy", "TenantBreaker",
-    "CostEstimator", "FairShareArbiter", "ServiceAdmission", "PlanCache", "ResultCache", "input_state_digest",
-})
+from .admission import FairShareArbiter, ServiceAdmission  # noqa: F401
+from .cache import (  # noqa: F401
+    PlanCache,
+    ResultCache,
+    input_state_digest,
+    structural_fingerprint,
+)
+from .overload import (  # noqa: F401
+    CostEstimator,
+    DeadlineInfeasibleError,
+    OverloadController,
+    OverloadPolicy,
+    ServiceOverloadedError,
+    TenantBreaker,
+)
+from .service import (  # noqa: F401
+    ComputeService,
+    RequestCancelledError,
+    RequestHandle,
+    ServiceConfig,
+    TenantThrottledError,
+)
 
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"cubed_tpu_torch.service.{name}: the compute service is not ported yet (ROADMAP Queue 1 item 11c)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [
+    "ComputeService",
+    "ServiceConfig",
+    "RequestHandle",
+    "RequestCancelledError",
+    "TenantThrottledError",
+    "ServiceOverloadedError",
+    "DeadlineInfeasibleError",
+    "OverloadController",
+    "OverloadPolicy",
+    "TenantBreaker",
+    "CostEstimator",
+    "FairShareArbiter",
+    "ServiceAdmission",
+    "PlanCache",
+    "ResultCache",
+    "structural_fingerprint",
+    "input_state_digest",
+]

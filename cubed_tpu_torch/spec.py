@@ -4,9 +4,9 @@ executor, the device executor's residency budget, the reliability settings
 (fault injection, chunk integrity, the runtime memory guard), the threaded
 executor's scheduler, the compute journal, the fleet's peer transfer, and
 the observability knobs (the run-history archive, live telemetry and the
-dispatch profiler). The reference's ``storage_options``, ``mesh_shape`` and
-``service`` wait for the modules that read them (ROADMAP Queue 1 items 11c
-and 12)."""
+dispatch profiler), and the compute service's configuration. The
+reference's ``storage_options`` (fsspec stores, ROADMAP Queue 1 item 11c)
+and ``mesh_shape`` (item 12) wait for the modules that read them."""
 
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ class Spec:
         telemetry_port: Optional[int] = None,
         dispatch_profile: Optional[bool] = None,
         peer_transfer: Optional[bool] = None,
+        service: Optional[Any] = None,
     ):
         self._work_dir = work_dir
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
@@ -84,6 +85,14 @@ class Spec:
         self._telemetry_port = telemetry_port
         self._dispatch_profile = None if dispatch_profile is None else bool(dispatch_profile)
         self._peer_transfer = None if peer_transfer is None else bool(peer_transfer)
+        if service is not None and not isinstance(service, dict):
+            from .service.service import ServiceConfig
+
+            if not isinstance(service, ServiceConfig):
+                raise ValueError(
+                    "service must be a cubed_tpu_torch.service.ServiceConfig, a dict of its fields, or None; "
+                    f"got {type(service).__name__}")
+        self._service = service
 
     @property
     def work_dir(self) -> Optional[str]:
@@ -212,6 +221,17 @@ class Spec:
         defers to ``CUBED_TPU_TORCH_P2P`` (the operator's override, which
         wins) or the executor's setting, else on; ``False`` is store-only."""
         return self._peer_transfer
+
+    @property
+    def service(self):
+        """Multi-tenant compute-service configuration (a
+        ``cubed_tpu_torch.service.ServiceConfig`` or a dict of its fields):
+        tenant quota weights, concurrent-compute slots, plan and result
+        cache arming, and the durable service directory.
+        ``ComputeService(spec=...)`` resolves it together with the
+        ``CUBED_TPU_TORCH_SERVICE_*`` env vars (env wins). ``None`` (the
+        default) means service defaults apply."""
+        return self._service
 
     def __repr__(self) -> str:
         return (

@@ -2,9 +2,8 @@
 
 Renders the telemetry endpoint's ``/snapshot.json`` (armed via
 ``Spec(telemetry_port=...)`` or ``CUBED_TPU_TORCH_TELEMETRY_PORT``) as a
-refreshing terminal view (counterpart of ``cubed_tpu/top.py``; the fleet,
-tenant, cost and dispatch panels fill once the fleet and the service are
-ported):
+refreshing terminal view (counterpart of ``cubed_tpu/top.py``; the
+TENANTS, COST and SLO panels read a live ``ComputeService``'s rows):
 
 - a **fleet table** — one row per worker: connectivity, draining/
   pressured flags, RSS, load (outstanding/threads), lifetime tasks,

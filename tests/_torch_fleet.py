@@ -180,3 +180,12 @@ def loaded_modules(_=None) -> list:
     import sys
 
     return sorted(sys.modules)
+
+
+def pid_and_modules(_=None) -> tuple:
+    """This (worker) process's pid and loaded modules, after a short sleep
+    so that concurrent calls spread over the fleet's workers."""
+    import sys
+
+    time.sleep(0.5)
+    return os.getpid(), sorted(sys.modules)

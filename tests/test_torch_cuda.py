@@ -1661,10 +1661,16 @@ def test_the_peak_fold_survives_the_guards_reset(cuda):
 
 
 def test_a_cuda_out_of_memory_classifies_resource(cuda):
+    import gc
+
     import torch
 
     from cubed_tpu_torch.runtime.resilience import Classification, RetryPolicy
 
+    # earlier tests' cyclic garbage may hold a small tensor on the card; a
+    # collection the OOM's exception triggers would free it between the
+    # two readings, so collect it first
+    gc.collect()
     before = torch.cuda.memory_allocated()
     with pytest.raises(torch.OutOfMemoryError) as ei:
         torch.empty(1 << 50, dtype=torch.uint8, device=cuda)

@@ -5,8 +5,8 @@ shipped functions), op blobs shipped once per worker across computes,
 generation parallelism, remote errors and an undeserializable blob, the
 dataflow scheduler bit for bit against the sequential executor, and the
 workers' heartbeats folding their counters into the coordinator. Cheap
-units: the zero-worker diagnostics, the heartbeat delta, the deferred
-options. Counterpart of tests/runtime/test_distributed.py (its fault and
+units: the zero-worker diagnostics, the heartbeat delta. The autoscaler's
+options, the control log and the compute service each run a compute. Counterpart of tests/runtime/test_distributed.py (its fault and
 lifecycle cases are in test_torch_distributed_faults.py)."""
 
 import os
@@ -242,23 +242,77 @@ def test_compute_with_zero_workers_fails_fast(tmp_path):
         ex.close()
 
 
-@pytest.mark.parametrize("kwargs", [{"autoscale": True}, {"max_workers": 4}, {"autoscale_policy": object()},
-                                    {"control_dir": "/nonexistent"}])
-def test_deferred_options_name_their_roadmap_item(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11c"):
-        DistributedDagExecutor(n_local_workers=1, **kwargs)
-    if "control_dir" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11c"):
-            Coordinator("127.0.0.1", 0, control_dir=kwargs["control_dir"])
+def _autoscale_kwargs(name):
+    from cubed_tpu_torch.runtime.autoscale import AutoscalePolicy
+
+    return {"autoscale": {"autoscale": True}, "max_workers": {"max_workers": 2},
+            "autoscale_policy": {"autoscale_policy": AutoscalePolicy(min_workers=1, max_workers=2, interval_s=0.2)}}[name]
 
 
-def test_the_service_is_deferred_by_name():
-    import cubed_tpu_torch.service as service
+@pytest.mark.parametrize("name", ["autoscale", "max_workers", "autoscale_policy"])
+def test_autoscale_options_run_a_compute(tmp_path, name):
+    """Each of the autoscaler's constructor options starts the policy loop
+    over a local fleet, and a compute runs through it to the JAX package's
+    value."""
+    an = np.arange(64.0).reshape(8, 8)
+    rs, ps = _specs(tmp_path)
+    ref = cubed_tpu.map_blocks(lambda x: x + 1.0, cubed_tpu.from_array(an, chunks=(4, 4), spec=rs),
+                               dtype=np.float64).compute()
+    ex = DistributedDagExecutor(n_local_workers=1, **_autoscale_kwargs(name))
+    try:
+        got = ct.map_blocks(_torch_fleet.inc_one, ct.from_array(an, chunks=(4, 4), spec=ps),
+                            dtype=np.float64).compute(executor=ex)
+        np.testing.assert_array_equal(got, ref)
+        assert ex._autoscaler is not None and ex.stats["autoscale"]["autoscaler_ticks"] >= 0
+    finally:
+        ex.close()
+    assert ex._autoscaler is None
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11c"):
-        service.ComputeService  # noqa: B018
-    with pytest.raises(AttributeError):
-        service.no_such_name  # noqa: B018
+
+def test_control_dir_writes_a_control_log(tmp_path):
+    """``control_dir=`` arms the control plane: epoch 0 is recorded and
+    advertised, the worker's registration and the dispatch frontier land
+    in the log, and every dispatch there is done (the close records the
+    worker gone)."""
+    from cubed_tpu_torch.runtime.journal import control_log_path, load_control, read_rendezvous, rendezvous_path
+
+    control = str(tmp_path / "control")
+    an = np.arange(64.0).reshape(8, 8)
+    ex = DistributedDagExecutor(n_local_workers=1, control_dir=control)
+    try:
+        got = ct.map_blocks(_torch_fleet.inc_one, ct.from_array(an, chunks=(4, 4), spec=_specs(tmp_path)[1]),
+                            dtype=np.float64).compute(executor=ex)
+        np.testing.assert_array_equal(got, an + 1.0)
+        addr = ex._coordinator.address
+    finally:
+        ex.close()
+    import json
+
+    kinds = [json.loads(line)["kind"] for line in open(control_log_path(control))]
+    assert kinds[0] == "epoch" and "worker" in kinds
+    assert kinds.count("done") >= kinds.count("dispatch") >= 4  # untagged tasks record only their done
+    folded = load_control(control_log_path(control))
+    assert folded["epoch"] == 0 and folded["inflight"] == {} and folded["bad_lines"] == 0
+    assert read_rendezvous(rendezvous_path(control)) == {"epoch": 0, "addr": (str(addr[0]), int(addr[1]))}
+
+
+def test_the_service_computes_on_the_fleet(tmp_path, fleet):
+    """``cubed_tpu_torch.service.ComputeService`` serves a request on the
+    fleet, to the JAX package's service's value."""
+    import cubed_tpu.service as ref_service
+    from cubed_tpu.runtime.executors.python_async import AsyncPythonDagExecutor as RefAsync
+    from cubed_tpu_torch.service import ComputeService
+
+    an = np.arange(64.0).reshape(8, 8)
+    rs, ps = _specs(tmp_path)
+    with ref_service.ComputeService(executor=RefAsync()) as svc:
+        ref = svc.submit(cubed_tpu.map_blocks(lambda x: x + 1.0, cubed_tpu.from_array(an, chunks=(4, 4), spec=rs),
+                                              dtype=np.float64), tenant="t").result(timeout=120)
+    with ComputeService(executor=fleet) as svc:
+        h = svc.submit(ct.map_blocks(_torch_fleet.inc_one, ct.from_array(an, chunks=(4, 4), spec=ps),
+                                     dtype=np.float64), tenant="t")
+        np.testing.assert_array_equal(h.result(timeout=120), ref)
+        assert svc.stats_snapshot()["tenants"]["t"]["completed"] == 1
 
 
 def test_a_live_fleet_feeds_the_telemetry_sampler(tmp_path, fleet):

@@ -4,9 +4,11 @@ the value equal to the JAX package's), every worker dead, the registry's
 ``"distributed"`` name, a worker started out of band, task timeouts
 rerouted, resume on a fresh fleet after the first one died, the workers'
 bounded blob caches, and graceful drains (requeued free; a zero grace
-abandons at once). Counterpart of the fault and lifecycle cases of
-tests/runtime/test_distributed.py (its autoscaler cases wait for the
-autoscaler, ROADMAP Queue 1 item 11c)."""
+abandons at once). The worker kill and the drain end with the port's
+invariant auditor over their journal, control log and work dir.
+Counterpart of the fault and lifecycle cases of
+tests/runtime/test_distributed.py (its autoscaler cases are in
+test_torch_autoscale.py and test_torch_distributed.py)."""
 
 import os
 
@@ -39,6 +41,7 @@ from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
 from cubed_tpu_torch.runtime.executors.python_async import map_unordered  # noqa: E402
 
 from . import _torch_fleet  # noqa: E402
+from ._torch_chaos import invariant_audit  # noqa: E402,F401
 from .runtime.utils import read_int_from_file  # noqa: E402
 
 
@@ -64,11 +67,13 @@ def spec(tmp_path):
     return ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB")
 
 
-def test_distributed_survives_worker_kill(tmp_path, spec):
+def test_distributed_survives_worker_kill(tmp_path, invariant_audit):
     an = np.arange(400, dtype=np.float64).reshape(20, 20)
     ref = float(rxp.sum(rxp.add(*[cubed_tpu.from_array(an, chunks=(2, 2), spec=cubed_tpu.Spec(
         work_dir=str(tmp_path / "ref"), allowed_mem="500MB"))] * 2)).compute())
-    ex = DistributedDagExecutor(n_local_workers=2, retries=3)
+    journal, control_dir = str(tmp_path / "kill.journal.jsonl"), str(tmp_path / "ctrl")
+    spec = ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB", journal=journal)
+    ex = DistributedDagExecutor(n_local_workers=2, retries=3, control_dir=control_dir)
     try:
         ex._ensure_fleet()
         a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 100 tasks an op
@@ -87,6 +92,8 @@ def test_distributed_survives_worker_kill(tmp_path, spec):
         assert ex._coordinator.stats["workers_lost"] == 1
     finally:
         ex.close()
+    # the killed worker's re-dispatched tasks show its release (worker_gone)
+    invariant_audit(journal=journal, control_dir=control_dir, work_dir=str(tmp_path / "port"))
 
 
 def test_distributed_all_workers_dead_raises(spec):
@@ -212,12 +219,14 @@ def test_distributed_blob_eviction_self_heals(spec, monkeypatch):
     assert r3 == pytest.approx((an * 2.0).mean(), rel=1e-12)
 
 
-def test_distributed_graceful_drain_requeues_free(tmp_path, spec):
+def test_distributed_graceful_drain_requeues_free(tmp_path, invariant_audit):
     """A drain mid-compute loses no chunk; the abandoned tasks requeue
     without drawing the retry budget; the drain shows in the snapshot and
-    in the merged trace."""
+    in the merged trace, and the artifacts audit clean."""
     an = np.arange(256, dtype=np.float64).reshape(16, 16)
-    ex = DistributedDagExecutor(n_local_workers=2)
+    journal, control_dir = str(tmp_path / "drain.journal.jsonl"), str(tmp_path / "ctrl")
+    spec = ct.Spec(work_dir=str(tmp_path / "port"), allowed_mem="500MB", journal=journal)
+    ex = DistributedDagExecutor(n_local_workers=2, control_dir=control_dir)
     before = get_registry().snapshot()
     try:
         coord = ex._ensure_fleet()
@@ -250,6 +259,7 @@ def test_distributed_graceful_drain_requeues_free(tmp_path, spec):
         json.loads(trace)
     finally:
         ex.close()
+    invariant_audit(journal=journal, control_dir=control_dir, work_dir=str(tmp_path / "port"))
 
 
 def test_drain_with_zero_grace_abandons_at_once():

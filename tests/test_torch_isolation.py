@@ -46,7 +46,9 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.observability.dispatchprofile, cubed_tpu_torch.observability.flightrecorder\n"
         "import cubed_tpu_torch.observability.analytics, cubed_tpu_torch.observability.runhistory\n"
         "import cubed_tpu_torch.observability.timeseries, cubed_tpu_torch.observability.export\n"
-        "import cubed_tpu_torch.service.cache\n"
+        "import cubed_tpu_torch.service, cubed_tpu_torch.service.cache, cubed_tpu_torch.service.admission\n"
+        "import cubed_tpu_torch.service.overload, cubed_tpu_torch.service.durability, cubed_tpu_torch.service.service\n"
+        "import cubed_tpu_torch.runtime.autoscale, cubed_tpu_torch.runtime.audit, cubed_tpu_torch.audit\n"
         "import cubed_tpu_torch.runtime.payload, cubed_tpu_torch.runtime.distributed, cubed_tpu_torch.runtime.worker\n"
         "import cubed_tpu_torch.runtime.transfer, cubed_tpu_torch.runtime.shuffle\n"
         "import cubed_tpu_torch.runtime.executors.multiprocess, cubed_tpu_torch.runtime.executors.distributed\n"
@@ -321,3 +323,126 @@ def test_workers_asked_for_cuda_without_a_card_fail_the_compute(tmp_path):
         assert written == [], "a task ran although its worker had no device"
     finally:
         set_device(None)
+
+
+_RECOVERY_PROBE = (
+    "import sys, json\n"
+    "sys.path.insert(0, {repo!r})\n"
+    "import numpy as np\n"
+    "import cubed_tpu_torch as ct\n"
+    "from cubed_tpu_torch.service import ComputeService\n"
+    "from cubed_tpu_torch.service.durability import TenantRequestJournal\n"
+    "if sys.argv[1] == 'accept':\n"
+    "    spec = ct.Spec(work_dir={work_dir!r}, allowed_mem='100MB')\n"
+    "    a = ct.from_array(np.arange(16.0).reshape(4, 4), chunks=(2, 2), spec=spec)\n"
+    "    k = 3.0\n"
+    "    r = ct.map_blocks(lambda x: x * k, a, dtype=np.float64)\n"
+    "    print('DURABLE', TenantRequestJournal({sdir!r}, 'gold').record_accepted('r-probe', r))\n"
+    "else:\n"
+    "    with ComputeService(service_dir={sdir!r}) as svc:\n"
+    "        svc.wait_idle(60)\n"
+    "        print('VALUE', json.dumps(svc.handle('r-probe').result(60).tolist()))\n"
+    "    print('MODS', sorted(sys.modules))\n"
+)
+
+
+def test_recovered_request_and_autoscaled_worker_load_no_jax_cloudpickle_or_reference(tmp_path):
+    """A durable request accepted in one process and recovered and run by a
+    service in a fresh one, and a worker the autoscaler spawned, hold no
+    forbidden module."""
+    import numpy as np
+
+    code = _RECOVERY_PROBE.format(repo=REPO, work_dir=str(tmp_path / "work"), sdir=str(tmp_path / "svc"))
+    env = {"CUBED_TPU_TORCH_DEVICE": "cpu"}
+    accept = subprocess.run([sys.executable, "-c", code, "accept"], capture_output=True, text=True, cwd=REPO,
+                            env={**os.environ, **env}, timeout=120)
+    assert accept.returncode == 0 and "DURABLE True" in accept.stdout, accept.stderr[-3000:]
+    recover = subprocess.run([sys.executable, "-c", code, "recover"], capture_output=True, text=True, cwd=REPO,
+                             env={**os.environ, **env}, timeout=120)
+    assert recover.returncode == 0, recover.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in recover.stdout.splitlines() if " " in line)
+    np.testing.assert_array_equal(np.array(ast.literal_eval(lines["VALUE"])), np.arange(16.0).reshape(4, 4) * 3.0)
+    assert [m for m in ast.literal_eval(lines["MODS"]) if _forbidden(m)] == []
+
+    from cubed_tpu_torch.backend_array_api import set_device
+    from cubed_tpu_torch.runtime.autoscale import AutoscalePolicy
+    from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
+
+    from . import _torch_fleet
+
+    set_device("cpu")
+    ex = DistributedDagExecutor(n_local_workers=1, autoscale_policy=AutoscalePolicy(
+        min_workers=2, max_workers=2, interval_s=0.2))
+    try:
+        coord = ex._ensure_fleet()
+        coord.wait_for_workers(2, timeout=60)
+        spawned = ex._procs[1].pid
+        seen = {}
+        for _ in range(3):
+            futs = [coord.submit(None, _torch_fleet.pid_and_modules, i) for i in range(4)]
+            seen.update(dict(f.result(timeout=60)[0] for f in futs))
+            if spawned in seen:
+                break
+        assert spawned in seen and ex.stats["autoscale"]["workers_scaled_up"] == 1
+        assert "cubed_tpu_torch.runtime.payload" in seen[spawned]
+        assert [m for m in seen[spawned] if _forbidden(m)] == []
+    finally:
+        ex.close()
+        set_device(None)
+
+
+def test_a_durable_payload_naming_cuda_fails_its_recovery_without_a_card(tmp_path, monkeypatch):
+    """A durable request whose payload holds a tensor from a card (as one
+    written on a card host does), recovered where there is no card, is
+    sealed failed with the device error: it never runs on the CPU."""
+    import io
+    import pickle
+
+    import numpy as np
+    import torch
+
+    import cubed_tpu_torch as ct
+    from cubed_tpu_torch.backend_array_api import set_device
+    from cubed_tpu_torch.runtime import payload
+    from cubed_tpu_torch.service import ComputeService
+    from cubed_tpu_torch.service.durability import REQUESTS_FILE, TenantRequestJournal, _raw_records, load_requests
+
+    class FromCard(payload.PayloadPickler):
+        """Tags every tensor as one that left a card."""
+
+        hosts: list = []
+
+        def reducer_override(self, obj):
+            if isinstance(obj, torch.Tensor) and not any(obj is h for h in self.hosts):
+                self.hosts.append(obj.detach().clone())
+                return (payload._restore_tensor, (self.hosts[-1], "cuda"))
+            return super().reducer_override(obj)
+
+    def dumps_from_card(obj):
+        buf = io.BytesIO()
+        FromCard(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+        return buf.getvalue()
+
+    set_device("cpu")
+    try:
+        spec = ct.Spec(work_dir=str(tmp_path / "work"), allowed_mem="100MB")
+        offset = torch.full((2, 2), 5.0, dtype=torch.float64)
+        r = ct.map_blocks(lambda x: x + offset, ct.from_array(np.ones((4, 4)), chunks=(2, 2), spec=spec),
+                          dtype=np.float64)
+        sdir = str(tmp_path / "svc")
+        monkeypatch.setattr(payload, "dumps", dumps_from_card)
+        assert TenantRequestJournal(sdir, "gold").record_accepted("r-card", r)
+        monkeypatch.undo()
+        with ComputeService(service_dir=sdir) as svc:
+            assert svc.wait_idle(30)
+            assert svc.handle("r-card") is None  # never re-enqueued
+        done = [rec for rec in _raw_records(os.path.join(sdir, "gold", REQUESTS_FILE)) if rec["kind"] == "done"]
+        assert [d["status"] for d in done] == ["failed"]
+        assert "cuda" in done[0]["error"] and "chunk device is cpu" in done[0]["error"]
+        assert load_requests(sdir) == {}
+        written = [p for p in (tmp_path / "work").rglob("*") if p.is_file() and p.parent.name.endswith(".zarr")
+                   and not p.name.startswith(".")]
+        assert written == [], "the request ran although its payload names a card"
+    finally:
+        set_device(None)
+

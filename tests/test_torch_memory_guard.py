@@ -49,6 +49,11 @@ def _guard_env(monkeypatch):
     set_device("cpu")
     monkeypatch.delenv(memory.MEMORY_GUARD_ENV_VAR, raising=False)
     monkeypatch.delenv(ref_memory.MEMORY_GUARD_ENV_VAR, raising=False)
+    # unarmed at each start: two computes of an earlier test on two threads
+    # that leave their arming scopes out of order leave one armed (ROADMAP
+    # Queue 3 item 6)
+    memory.deactivate()
+    ref_memory.deactivate()
     yield
     memory.stop_sampler()
     faults.deactivate()

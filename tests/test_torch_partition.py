@@ -4,10 +4,10 @@ keep task ownership across a disconnect, sequence dedup, frame robustness,
 the seeded control-plane faults (decided for the same frames as in the JAX
 package), and the chaos proof that a one-way partition plus seeded message
 faults leave a compute bit for bit. The protocol units drive a raw socket
-speaking the worker protocol against a real ``Coordinator``. Counterpart of
-tests/runtime/test_partition.py (its autoscaler case waits for the
-autoscaler, ROADMAP Queue 1 item 11c; its chaos proof runs without live
-failover's control log and the invariant auditor, not ported)."""
+speaking the worker protocol against a real ``Coordinator``. The autoscaler
+holds still for a disconnected-but-leased worker, and the chaos proof ends
+with the port's invariant auditor over its journal, control log and work
+dir. Counterpart of tests/runtime/test_partition.py."""
 
 import os
 
@@ -35,6 +35,7 @@ from cubed_tpu_torch.runtime.distributed import (  # noqa: E402
 from cubed_tpu_torch.runtime.resilience import Classification, RetryPolicy  # noqa: E402
 
 from . import _torch_fleet  # noqa: E402
+from ._torch_chaos import invariant_audit  # noqa: E402,F401
 from ._torch_fleet import SlowAdd  # noqa: E402
 
 
@@ -487,27 +488,81 @@ def test_fault_config_rides_the_wire_and_disarms():
     assert faults.arm_from_wire(None) is None and faults.get_injector() is None
 
 
+def test_autoscaler_does_not_backfill_leased_worker():
+    """A disconnected-but-leased worker is not a hole: the policy loop
+    neither spawns a replacement for it nor picks it as a drain victim."""
+    from cubed_tpu_torch.runtime.autoscale import Autoscaler, AutoscalePolicy, WorkerFactory
+
+    class Factory(WorkerFactory):
+        def __init__(self):
+            self.started = []
+
+        def start_worker(self):
+            name = f"x-{len(self.started)}"
+            self.started.append(name)
+            return name
+
+        def stop_worker(self, name):
+            pass
+
+    class View:
+        """Coordinator stub: two workers, one disconnected-but-leased."""
+
+        backfill_grace_s = 0.0
+
+        def __init__(self):
+            self.drained = []
+
+        def load_view(self):
+            return [
+                {"name": "a", "draining": False, "pressured": False, "connected": True, "outstanding": 0,
+                 "nthreads": 1},
+                {"name": "b", "draining": False, "pressured": False, "connected": False, "outstanding": 2,
+                 "nthreads": 1},
+            ]
+
+        def known_worker_names(self):
+            return {"a", "b"}
+
+        def request_drain(self, name, grace_s=30.0, reason="scale_down"):
+            self.drained.append(name)
+            return True
+
+    coord = View()
+    factory = Factory()
+    scaler = Autoscaler(coord, factory=factory, initial_workers=2, policy=AutoscalePolicy(
+        min_workers=1, max_workers=4, idle_rounds_before_down=1, cooldown_down_s=0.0))
+    scaler.tick()
+    assert factory.started == []  # the leased worker still counts as capacity
+    # idle long enough to scale down: the victim must be the connected one
+    scaler.tick()
+    assert coord.drained in ([], ["a"]) and "b" not in coord.drained
+
+
 # ----------------------------------------------------------------------
 # chaos proof: partition and message faults, end to end
 # ----------------------------------------------------------------------
 
 
-def test_chaos_partition_and_message_faults_bitwise_correct(tmp_path):
+def test_chaos_partition_and_message_faults_bitwise_correct(tmp_path, invariant_audit):
     """Seeded message drop, delay and duplication plus a 2.5 s one-way
     partition of one worker mid-compute, under the dataflow scheduler: the
     value is bit for bit, no worker is lost, at least one reconnects, and
-    every task's result is applied once."""
+    every task's result is applied once, which the invariant auditor also
+    proves post hoc from the journal and the control log."""
     from cubed_tpu_torch.runtime.executors.distributed import DistributedDagExecutor
 
+    journal = str(tmp_path / "partition.journal.jsonl")
+    control_dir = str(tmp_path / "ctrl")
     spec = ct.Spec(
-        work_dir=str(tmp_path), allowed_mem="500MB", scheduler="dataflow",
+        work_dir=str(tmp_path), allowed_mem="500MB", scheduler="dataflow", journal=journal,
         fault_injection=dict(seed=1234, net_msg_drop_rate=0.04, net_msg_dup_rate=0.05, net_msg_delay_rate=0.10,
                              net_msg_delay_s=0.02, partition_worker_names=["local-0"], partition_after_tasks=3,
                              partition_duration_s=2.5, partition_direction="tx"),
     )
     an = np.arange(144, dtype=np.float64).reshape(12, 12)
-    ex = DistributedDagExecutor(n_local_workers=2, worker_threads=1, task_timeout=6.0, retries=6, use_backups=False,
-                                lease_s=12.0)
+    ex = DistributedDagExecutor(n_local_workers=2, worker_threads=1, control_dir=control_dir, task_timeout=6.0,
+                                retries=6, use_backups=False, lease_s=12.0)
     try:
         a = ct.from_array(an, chunks=(2, 2), spec=spec)  # 36 tasks
         r = ct.map_blocks(SlowAdd(0.05), a, dtype=np.float64)
@@ -522,3 +577,7 @@ def test_chaos_partition_and_message_faults_bitwise_correct(tmp_path):
         assert counter.value == expected_tasks, (counter.value, expected_tasks)
     finally:
         ex.close()
+    # duplicate frame deliveries never reach the journal as duplicate
+    # applications, and every re-dispatch across the partition shows an
+    # ownership release in the control log
+    invariant_audit(journal=journal, control_dir=control_dir, work_dir=str(tmp_path))

@@ -17,11 +17,8 @@ import pytest  # noqa: E402
 import cubed_tpu_torch  # noqa: E402
 import cubed_tpu_torch.array_api as xp  # noqa: E402
 
-#: top-level names of the reference not ported yet (ROADMAP Queue 1: the
-#: service)
-PENDING_TOP_LEVEL = {
-    "service", "ComputeService", "ServiceConfig",  # item 11c: the fleet's service
-}
+#: top-level names of the reference not ported yet
+PENDING_TOP_LEVEL = set()
 
 #: array_api names of the reference not ported yet
 PENDING_ARRAY_API = set()

@@ -146,6 +146,11 @@ def test_sampler_records_registry_counters_gauges_histograms(monkeypatch):
         reg.gauge("queue_depth").set(3)
         reg.histogram("op_wall_clock_s").observe(0.5)
         monkeypatch.setattr(m, "get_registry", lambda reg=reg: reg)
+        # the registry's series alone: a fleet or service another test of
+        # this process left live (the JAX package's tests keep a cached
+        # fleet for the session) would add its own series to one side
+        monkeypatch.setattr(m, "live_fleets", lambda: [])
+        monkeypatch.setattr(m, "live_services", lambda: [])
         store = m.TimeSeriesStore()
         sampler = m.TelemetrySampler(store)
         sampler.sample_once(now=100.0)
