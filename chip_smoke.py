@@ -21,6 +21,8 @@ JSON on its last line; ``--fleet-phase`` the process pool and TCP fleet
 phase alone, its summary JSON on its last line; ``--service-phase`` the
 compute service phase alone, its summary JSON on its last line
 (``--service-failover run|recover JOB`` are its check 3's processes);
+``--attention-phase`` the ring attention phase alone and ``--chaos-phase``
+the chaos campaign phase alone, each its summary JSON on its last line;
 ``--spare`` a fresh
 process that imports torch and the port, then runs the arguments it reads
 from stdin, one JSON line: the whole run starts each process of its own
@@ -411,7 +413,32 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    the control log's worker pids are all gone; (6) a warm request through
    the service against the bare executor, the autoscaler's spawn to first
    task, the takeover from the kill to the successor's first completion,
-   and the control log's cost at the cut are printed, not a gate;
+   and the control log's cost at the cut are printed, not a gate.
+   The attention phase, in a process of its own (``--attention-phase``),
+   started with the service phase and collected after it, in
+   ``.chip_smoke_work_attention/``: ``flash_block`` against its plain step
+   (two steps from empty accumulators, both masks) at the main path's
+   slot-step (1, 4096, 16, 128) float32 and at ragged ones (lengths not a
+   multiple of 64, D of 8, 64 and 256, causal blocks whose first rows see no
+   key), then timed (CUDA events) beside its FP32 bound, its TF32
+   tensor-core bound, the plain step and SDPA on the same block; the main
+   path, its launches counted from 0: ``ring_attention`` on a mesh of four
+   slots of cuda:0 and ``attention()`` on three ``random.random`` arrays
+   computed through the plan (per-block Philox on the sequential executor),
+   at (1, 16384, 16, 128) float32, both masks, 64 ``flash_block`` launches in
+   all, each result finite and within 1e-4 of dense attention run one head
+   at a time on the card; a causal backward at 2048 positions within 2e-4
+   of dense autograd's largest gradient; the ring and SDPA on the whole
+   attention timed, not a gate.
+   The chaos phase, in a process of its own (``--chaos-phase``), started
+   with the threads phase and collected after it, in
+   ``.chip_smoke_work_chaos/``, every compute on the card: (1) a campaign
+   of generated schedules (seeds 0-3, three failure domains each, on the
+   threaded executor and on an in-process fleet), each bit for bit its
+   numpy value and clean under the invariant auditor; (2) a coordinator
+   kill in a child interpreter, recovered by a clean replay; (3) a failing
+   schedule shrunk to its culprit and replayed from its repro file with the
+   same failure; (4) ``python -m cubed_tpu_torch.chaos --seed 2`` exits 0;
 5. run vorticity's plan once more on each executor under torch.profiler:
    the device executor whole, then op by op on the host clock, and then
    the sequential one op by op at the spilled cut, timing each op kind;
@@ -431,7 +458,7 @@ The kernels line gives each kernel's launches in the run of its path:
 vorticity's first device compute; for the float32 entry points and routes
 vorticity_f32's first compute, and its spilled run for the per-block float32
 Philox entry point; for the merge kernels the order-statistics phase's first
-device computes.
+device computes; for flash_block the attention phase's main path.
 The last three lines of standard output are the nvidia-smi line, the JSON
 line of kernels, and ``{"ok": true, "device": {...}}``. Intermediate Zarr
 stores go to ``.chip_smoke_work/`` in this checkout and are removed at exit.
@@ -462,7 +489,9 @@ WORK_DIR = os.path.join(REPO, ".chip_smoke_work")
 #: the work directories of the phases the whole run runs beside others
 SIDE_WORK_DIRS = {"--threads-phase": os.path.join(REPO, ".chip_smoke_work_threads"),
                   "--fleet-phase": os.path.join(REPO, ".chip_smoke_work_fleet"),
-                  "--service-phase": os.path.join(REPO, ".chip_smoke_work_service")}
+                  "--service-phase": os.path.join(REPO, ".chip_smoke_work_service"),
+                  "--attention-phase": os.path.join(REPO, ".chip_smoke_work_attention"),
+                  "--chaos-phase": os.path.join(REPO, ".chip_smoke_work_chaos")}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
 #: float32 rate, used as the rate of the floating-point adds and multiplies
@@ -7156,6 +7185,350 @@ def breakdown_device_ops(torch, name: str, build, allowed_mem: str = "2GB") -> N
     print(f"{name} breakdown [cuda, op by op]: wall {wall:.3f} s; by op kind: {ops}")
 
 
+# ---------------------------------------------------------------------------
+# the attention phase: ring attention over a mesh of four slots of one card,
+# with its one hand kernel, flash_block, held against its plain step
+# ---------------------------------------------------------------------------
+
+#: the attention phase, in a process of its own (``--attention-phase``): one
+#: long-context layer's (B, S, H, D) float32 queries, keys and values at full
+#: width, a ring of ``slots`` slots of cuda:0 (S / slots positions a slot, 16
+#: flash_block launches a ring); the backward checked at ``grad_S``; the
+#: dense oracle run ``oracle_heads`` heads at a time (heads are independent;
+#: one head's scores are 1 GB, all 16 heads' 17 GB)
+ATTENTION = dict(B=1, S=16384, H=16, D=128, slots=4, seed=SEED, grad_S=2048, oracle_heads=1)
+#: tolerances, with their reasons. A step: the kernel's float32 sums run
+#: tile by tile with rescaling, the plain step's over the whole block, so
+#: they differ by float32 rounding over up to 4096 terms (m is a max: exact
+#: but for the scores' own rounding). The ring against the dense oracle:
+#: two float32 softmaxes over 16384 keys summed in different orders, outputs
+#: within [-1, 1]; a wrong mask or rescale is off by 1e-2 or more. The
+#: gradient: float32 sums over 2048 positions in two orders, taken relative
+#: to the gradient's largest magnitude (the JAX package's test holds 2e-4
+#: absolute at 32 positions and magnitudes near 1)
+ATTENTION_TOL = dict(step_m=1e-6, step_l=2e-5, step_o=2e-5, ring=1e-4, grad=2e-4)
+#: ragged slot-steps checked against the plain step: (S_q, S_k, H, D,
+#: q_offset, k_offset), lengths not a multiple of the 64-position tile, D
+#: of 8, 64 and 256, and causal blocks with rows that see no key
+FLASH_RAGGED = [(1000, 1000, 4, 8, 0, 0), (1000, 1000, 4, 64, 1000, 0), (777, 1000, 2, 256, 500, 300),
+                (1000, 1000, 2, 64, 0, 500)]
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet): the bound a
+#: tensor-core redesign of flash_block would be held to, printed beside the
+#: FP32 one
+TF32_OPS_PER_S = 495e12
+
+
+def flash_ops(B: int, H: int, S_q: int, S_k: int, D: int) -> float:
+    """Floating-point operations of one slot-step: two products of 2 S_q
+    S_k D each, a (batch, head)."""
+    return 4.0 * B * H * S_q * S_k * D
+
+
+def attention_inputs(spec, config):
+    """Three (B, S, H, D) float32 cubed arrays drawn by ``random.random``
+    (uniform on [-1, 1)), S chunked by the ring's slots."""
+    import cubed_tpu_torch
+    import cubed_tpu_torch.array_api as xp
+
+    shape = (config["B"], config["S"], config["H"], config["D"])
+    chunks = (config["B"], config["S"] // config["slots"], config["H"], config["D"])
+    random.seed(config["seed"])
+    return [xp.astype(xp.subtract(xp.multiply(cubed_tpu_torch.random.random(shape, chunks=chunks, spec=spec), 2.0),
+                                  1.0), xp.float32) for _ in range(3)]
+
+
+def check_flash_step(torch, label: str, case: tuple, causal: bool, gen) -> float:
+    """Two slot-steps of *case* from empty accumulators, the kernel's against
+    the plain step's; returns the largest error on o."""
+    from cubed_tpu_torch.kernels.flash_block import flash_block, flash_block_plain
+
+    S_q, S_k, H, D, q_off, k_off = case
+    dev = torch.device("cuda")
+    q = torch.rand((1, S_q, H, D), generator=gen, device=dev) * 2 - 1
+    mine = (torch.zeros((1, H, S_q, D), device=dev), torch.zeros((1, H, S_q), device=dev),
+            torch.full((1, H, S_q), -torch.inf, device=dev))
+    plain = [t.clone() for t in mine]
+    err = 0.0
+    for step, (qo, ko) in enumerate(((q_off, k_off), (q_off, k_off + S_k))):
+        k, v = (torch.rand((1, S_k, H, D), generator=gen, device=dev) * 2 - 1 for _ in range(2))
+        kw = dict(q_offset=qo, k_offset=ko, causal=causal, scale=D ** -0.5)
+        before = flash_block.launches
+        flash_block(q, k, v, *mine, **kw)
+        flash_block_plain(q, k, v, *plain, **kw)
+        torch.cuda.synchronize()
+        what = f"flash_block {label} {'causal' if causal else 'full'} step {step}"
+        check(flash_block.launches == before + 1, f"{what}: not one launch")
+        o, l, m = mine
+        po, pl, pm = plain
+        check(torch.equal(torch.isneginf(m), torch.isneginf(pm)), f"{what}: rows with no key differ")
+        fin = ~torch.isneginf(pm)
+        tol = ATTENTION_TOL
+        check(bool(((m - pm)[fin].abs() <= tol["step_m"] * pm[fin].abs().clamp_min(1.0)).all()), f"{what}: m")
+        check(bool(((l - pl).abs() <= tol["step_l"] * pl.abs().clamp_min(1.0)).all()), f"{what}: l")
+        scale_o = float(po.abs().max()) or 1.0
+        e = float((o - po).abs().max())
+        check(e <= tol["step_o"] * scale_o, f"{what}: o off by {e} (scale {scale_o})")
+        err = max(err, e)
+    return err
+
+
+def check_flash_block(torch, config) -> dict:
+    """flash_block against its plain step on the main path's slot-step and
+    ragged ones, then timed beside its plain step, its bound and SDPA on the
+    same block; returns its kernels-line entry (launches added later)."""
+    from cubed_tpu_torch.kernels import _build
+    from cubed_tpu_torch.kernels.flash_block import flash_block, flash_block_plain
+
+    for fn, use in _build.resource_usage("flash_block").items():
+        if "Li128E" in fn and "IfLi" in fn:
+            print(f"flash_block float32, D padded to 128: {use}")
+    gen = torch.Generator(device="cuda").manual_seed(config["seed"])
+    B, H, D, S_l = config["B"], config["H"], config["D"], config["S"] // config["slots"]
+    main = (S_l, S_l, H, D, S_l, S_l)  # a diagonal slot-step: the causal mask cuts it in half
+    err = 0.0
+    for label, case in [("main path", main)] + [(f"ragged {c}", c) for c in FLASH_RAGGED]:
+        for causal in (False, True):
+            err = max(err, check_flash_step(torch, label, case, causal, gen))
+    print(f"flash_block: the kernel within {ATTENTION_TOL['step_o']} x max|o| (l {ATTENTION_TOL['step_l']}, m "
+          f"{ATTENTION_TOL['step_m']} relative) of the plain step over two steps each, the main path's slot-step "
+          f"(1, {S_l}, {H}, {D}) and {len(FLASH_RAGGED)} ragged ones, both masks; max |o - plain| {err:.3g}")
+
+    dev = torch.device("cuda")
+    q, k, v = (torch.rand((B, S_l, H, D), generator=gen, device=dev) * 2 - 1 for _ in range(3))
+
+    def fresh():
+        return (torch.zeros((B, H, S_l, D), device=dev), torch.zeros((B, H, S_l), device=dev),
+                torch.full((B, H, S_l), -torch.inf, device=dev))
+
+    kw = dict(q_offset=0, k_offset=0, scale=D ** -0.5)
+    state = fresh()
+    ms = time_ms(torch, lambda: flash_block(q, k, v, *state, causal=False, **kw), [()], reps=10)
+    ms_causal = time_ms(torch, lambda: flash_block(q, k, v, *state, causal=True, **kw), [()], reps=10)
+    plain_ms = time_ms(torch, lambda: flash_block_plain(q, k, v, *fresh(), causal=False, **kw), [()], reps=3)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(torch, lambda: sdpa(qh, kh, vh), [()], reps=5)
+    ops = flash_ops(B, H, S_l, S_l, D)
+    nbytes = 3 * 4 * B * S_l * H * D + 2 * 4 * (B * H * S_l * (D + 2))  # q, k, v read; o, l, m read and written
+    b, by = bound_ms(nbytes, ops)
+    print(f"flash_block (1, {S_l}, {H}, {D}) float32 slot-step: {ms:.4f} ms/launch ({100 * b / ms:.1f}% of its "
+          f"bound), causal diagonal {ms_causal:.4f} ms; plain step {plain_ms:.4f} ms; SDPA of the block "
+          f"{library_ms:.4f} ms; bound {b:.4f} ms ({by}: {ops / 1e9:.1f} GFLOP at the FP32 rate; "
+          f"{ops / TF32_OPS_PER_S * 1e3:.4f} ms at the TF32 tensor-core rate; {nbytes / 1e6:.1f} MB moved); "
+          f"{smi_tag()}")
+    return dict(
+        name="flash_block", route="cuda", source="cubed_tpu_torch/kernels/csrc/flash_block.cu",
+        replaces="cubed_tpu/parallel/ring_attention.py:51 (_ring_attention_local; a JAX program, no pallas_call)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms,
+    )
+
+
+def dense_oracle(torch, q, k, v, causal: bool, heads: int):
+    """Dense attention on the card, *heads* heads at a time."""
+    from cubed_tpu_torch.parallel.ring_attention import dense_attention
+
+    out = torch.empty_like(q)
+    for h in range(0, q.shape[2], heads):
+        sl = slice(h, h + heads)
+        out[:, :, sl] = dense_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], causal=causal)
+    return out
+
+
+def check_ring_gradient(torch, config) -> float:
+    """One causal backward at ``grad_S`` on the ring against dense attention's
+    autograd; returns the largest error over the largest magnitude."""
+    from cubed_tpu_torch.parallel.mesh import make_mesh
+    from cubed_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(shape=(config["slots"],), axis_names=("seq",), devices=[dev] * config["slots"])
+    gen = torch.Generator(device=dev).manual_seed(config["seed"] + 1)
+    shape = (config["B"], config["grad_S"], config["H"], config["D"])
+    ts = [(torch.rand(shape, generator=gen, device=dev) * 2 - 1).requires_grad_() for _ in range(3)]
+    ring = torch.autograd.grad((ring_attention(*ts, mesh=mesh, causal=True).gather() ** 2).sum(), ts)
+    dense = torch.autograd.grad((dense_attention(*ts, causal=True) ** 2).sum(), ts)
+    worst = 0.0
+    for name, g, w in zip("qkv", ring, dense):
+        rel = float((g - w).abs().max()) / float(w.abs().max())
+        check(rel <= ATTENTION_TOL["grad"], f"attention: d{name} off by {rel:.3g} of its largest magnitude")
+        worst = max(worst, rel)
+    print(f"attention: the causal ring's gradient at S={config['grad_S']} within {worst:.3g} of dense autograd's "
+          f"largest magnitude (limit {ATTENTION_TOL['grad']})")
+    return worst
+
+
+def run_attention_phase(torch, config=ATTENTION) -> dict:
+    """The attention phase (see the module docstring); returns its numbers,
+    printed as they come."""
+    import cubed_tpu_torch
+    from cubed_tpu_torch.kernels.flash_block import flash_block
+    from cubed_tpu_torch.kernels.philox_uniform import philox_uniform
+    from cubed_tpu_torch.parallel import attention, make_mesh
+    from cubed_tpu_torch.parallel.ring_attention import ring_attention, sequence_sharded
+
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "attention")
+    shutil.rmtree(work, ignore_errors=True)
+    timings: dict = {}
+    kernel = check_flash_block(torch, config)
+    timings["kernel checks"] = time.perf_counter() - started
+    spec = cubed_tpu_torch.Spec(work_dir=work, allowed_mem="2GB")
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(shape=(config["slots"],), axis_names=("seq",), devices=[dev] * config["slots"])
+    # the inputs' values for the oracle, outside the counted run
+    t0 = time.perf_counter()
+    qn, kn, vn = cubed_tpu_torch.compute(*attention_inputs(spec, config))
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (qn, kn, vn))
+    placed = [sequence_sharded(t, mesh) for t in (q, k, v)]
+    timings["inputs"] = time.perf_counter() - t0
+
+    # the main path: the ring on the placed tensors, then attention() on the
+    # cubed arrays (their inputs computed through the plan), both masks
+    t0 = time.perf_counter()
+    flash_block.launches, philox_uniform.launches = 0, 0
+    flash_block.paths.update(causal=0, full=0)
+    rings, apis = {}, {}
+    for causal in (False, True):
+        rings[causal] = ring_attention(*placed, mesh=mesh, causal=causal).gather()
+        apis[causal] = attention(*attention_inputs(spec, config), mesh=mesh, causal=causal)
+    torch.cuda.synchronize()
+    launches = dict(flash_block=flash_block.launches, philox_uniform=philox_uniform.launches,
+                    flash_block_paths=dict(flash_block.paths))
+    timings["main path"] = time.perf_counter() - t0
+    print(f"attention main path: launches {json.dumps(launches)} (16 a ring: {config['slots']} slots x "
+          f"{config['slots']} steps; the inputs drawn per block by Philox on the sequential executor)")
+    check(launches["flash_block"] == 4 * config["slots"] ** 2, f"attention: flash_block launched "
+          f"{launches['flash_block']} times, not {4 * config['slots'] ** 2}")
+    check(launches["philox_uniform"] > 0, "attention: Philox never launched on the main path")
+
+    t0 = time.perf_counter()
+    errors = {}
+    for causal in (False, True):
+        mask = "causal" if causal else "full"
+        want = dense_oracle(torch, q, k, v, causal, config["oracle_heads"])
+        got_api = torch.from_numpy(apis[causal].compute()).to(dev)
+        check(apis[causal].chunksize == (config["B"], config["S"] // config["slots"], config["H"], config["D"]),
+              f"attention: chunked {apis[causal].chunksize}, not like q")
+        for label, got in (("ring_attention", rings[causal]), ("attention()", got_api)):
+            check(bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(q.shape),
+                  f"attention {label} {mask}: not finite or shape {tuple(got.shape)}")
+            e = float((got - want).abs().max())
+            errors[f"{label} {mask}"] = e
+            check(e <= ATTENTION_TOL["ring"], f"attention {label} {mask}: off the dense oracle by {e}")
+        del want, got_api
+    timings["oracle checks"] = time.perf_counter() - t0
+    print(f"attention: against the dense oracle ({config['oracle_heads']} head at a time), max abs errors "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errors.items()})} (limit {ATTENTION_TOL['ring']})")
+    grad = check_ring_gradient(torch, config)
+
+    # times: the whole ring beside SDPA on the same whole attention
+    t0 = time.perf_counter()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ring_ms, sdpa_ms = {}, {}
+    for causal in (False, True):
+        mask = "causal" if causal else "full"
+        ring_ms[mask] = time_ms(torch, lambda c=causal: ring_attention(*placed, mesh=mesh, causal=c), [()], reps=3)
+        sdpa_ms[mask] = time_ms(torch, lambda c=causal: sdpa(qh, kh, vh, is_causal=c), [()], reps=3)
+    timings["ring times"] = time.perf_counter() - t0
+    whole = flash_ops(config["B"], config["H"], config["S"], config["S"], config["D"])
+    print(f"attention ({config['B']}, {config['S']}, {config['H']}, {config['D']}) float32 on a ring of "
+          f"{config['slots']} slots of one card: ring {json.dumps({k: round(v, 3) for k, v in ring_ms.items()})} ms "
+          f"(16 flash_block launches, the epilogue, no copies on one card); SDPA on the same whole attention "
+          f"{json.dumps({k: round(v, 3) for k, v in sdpa_ms.items()})} ms; the non-causal bound "
+          f"{whole / CUDA_CORE_OPS_PER_S * 1e3:.2f} ms at the FP32 rate ({whole / 1e12:.2f} TFLOP); {smi_tag()}")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    print(f"attention phase: {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items())
+          + f"); {smi_tag()}")
+    return dict(kernel=kernel, launches=launches, errors=errors, grad_rel_err=grad, ring_ms=ring_ms,
+                sdpa_ms=sdpa_ms, seconds=seconds, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# the chaos phase: composed-failure campaigns on the card's executors
+# ---------------------------------------------------------------------------
+
+#: the chaos phase, in a process of its own (``--chaos-phase``): a generated
+#: campaign over ``seeds`` (three failure domains each), the subprocess
+#: mode's coordinator kill, a failing schedule shrunk and replayed from its
+#: repro file, and the CLI on ``cli_seed``
+CHAOS = dict(seeds=(0, 1, 2, 3), cli_seed=2,
+             coordinator_kill=dict(seed=88, workload="blockwise_chain",
+                                   faults={"seed": 88, "storage_read_failure_rate": 0.05,
+                                           "coordinator_crash_after_dispatches": 3}),
+             failing=dict(seed=55, workload="blockwise_chain",
+                          faults={"seed": 55, "task_failure_rate": 1.0, "straggler_rate": 0.2,
+                                  "straggler_delay_s": 0.05, "storage_throttle_rate": 0.05}))
+
+
+def run_chaos_phase(torch, config=CHAOS) -> dict:
+    """The chaos phase (see the module docstring); returns its numbers."""
+    from cubed_tpu_torch.backend_array_api import get_device
+    from cubed_tpu_torch.runtime.campaign import CampaignRunner, FaultSchedule
+
+    started = time.perf_counter()
+    work = os.path.join(WORK_DIR, "chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    timings: dict = {}
+    runner = CampaignRunner(work)
+    check(str(get_device()) == "cuda", "chaos: the chunk device is not the card")
+
+    t0 = time.perf_counter()
+    results = []
+    for seed in config["seeds"]:
+        sched = runner.generate(seed)
+        res = runner.run(sched)
+        print("chaos 1: " + res.render().replace("\n", "; ") + f" {json.dumps(res.stats)}")
+        check(res.ok and res.report is not None and res.report.ok,
+              f"chaos 1: seed {seed} not bitwise and auditor-clean: {res.render()}")
+        check(len(sched.domains) >= 3, f"chaos 1: seed {seed} composes {sorted(sched.domains)}")
+        results.append(dict(seed=seed, fleet=sched.needs_fleet, wall_s=res.wall_s))
+    check(any(r["fleet"] for r in results) and not all(r["fleet"] for r in results),
+          "chaos 1: the seeds do not cover both the threads and the fleet")
+    timings["campaign"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    kill = FaultSchedule(**config["coordinator_kill"])
+    res = runner.run(kill)
+    print("chaos 2: " + res.render().replace("\n", "; ") + f" {json.dumps(res.stats)}")
+    check(kill.needs_subprocess and res.ok, f"chaos 2: the coordinator kill did not recover: {res.render()}")
+    check(res.stats.get("child_rc") != 0 or res.stats.get("child_killed"), "chaos 2: the child was not killed")
+    check(res.report is not None and res.report.ok, "chaos 2: the clean replay's audit is not clean")
+    timings["coordinator kill"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    failing = FaultSchedule(**config["failing"])
+    first = runner.run(failing)
+    check(not first.ok and first.signature == ("compute", "FaultInjectedTaskError"),
+          f"chaos 3: the failing schedule's first run: {first.render()}")
+    minimal = runner.shrink(failing, signature=first.signature)
+    check(set(minimal.faults) == {"seed", "task_failure_rate"}, f"chaos 3: shrunk to {minimal.faults}")
+    repro = runner.write_repro(minimal, runner.run(minimal), os.path.join(work, "repro.json"))
+    replayed = runner.replay(repro)
+    check(replayed.signature == first.signature, f"chaos 3: the repro replays as {replayed.signature}")
+    print(f"chaos 3: {failing.describe()} failed at {first.signature}, shrunk to {sorted(minimal.faults)}, "
+          f"replayed from {os.path.basename(repro)} with the same signature")
+    timings["shrink and replay"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cubed_tpu_torch.chaos", "--seed", str(config["cli_seed"]),
+                           "--base-dir", os.path.join(work, "cli")], capture_output=True, text=True,
+                          timeout=600, cwd=REPO, env=dict(os.environ, CUBED_TPU_TORCH_DEVICE="cuda"))
+    print("chaos 4: python -m cubed_tpu_torch.chaos --seed " + str(config["cli_seed"]) + ": exit "
+          + str(proc.returncode) + "; " + "; ".join(proc.stdout.strip().splitlines()[:2]))
+    check(proc.returncode == 0, f"chaos 4: the CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    timings["cli"] = time.perf_counter() - t0
+
+    left = live_children()
+    check(left == [], f"chaos: live child processes at the end: {left}")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    print(f"chaos phase: {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items())
+          + f"); {smi_tag()}")
+    return dict(campaign=results, seconds=seconds, timings=timings)
+
+
 #: the fresh process that waits for its arguments (:func:`start_fresh`),
 #: and those given theirs that are not yet waited for
 _SPARE: Optional[subprocess.Popen] = None
@@ -7277,10 +7650,12 @@ def main(argv: list) -> int:
     elif argv and argv not in (["--profile-device-run"], ["--observe-device-run"], ["--array-api-phase"],
                                ["--array-api-phase", "full"], ["--order-stats-phase"],
                                ["--order-stats-phase", "full"], ["--zarr-stencil-phase"], ["--linalg-fft-phase"],
-                               ["--reliability-phase"], ["--analytics-unobserved"]):
+                               ["--reliability-phase"], ["--analytics-unobserved"], ["--attention-phase"],
+                               ["--chaos-phase"]):
         print("usage: chip_smoke.py [--against CHECKOUT | --array-api-phase [full] | --order-stats-phase [full] | "
               "--zarr-stencil-phase | --linalg-fft-phase | --reliability-phase | --threads-phase | "
-              "--analytics-phase | --fleet-phase | --service-phase]", file=sys.stderr)
+              "--analytics-phase | --fleet-phase | --service-phase | --attention-phase | --chaos-phase]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -7394,6 +7769,19 @@ def main(argv: list) -> int:
         try:
             _build.build_all()
             print(json.dumps(run_service_phase(torch, SERVICE, json.loads(argv[1]) if argv[1:] else {})))
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
+    if argv in (["--attention-phase"], ["--chaos-phase"]):
+        # the attention or the chaos phase alone, its summary the last line
+        CARD = nvidia_smi()
+        try:
+            _build.build_all()
+            run = run_attention_phase if argv == ["--attention-phase"] else run_chaos_phase
+            print(json.dumps(run(torch)))
         except PhaseFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -7577,11 +7965,18 @@ def main(argv: list) -> int:
         # executor's above
         threads_run = start_fresh(["--threads-phase", json.dumps(dict(THREADS_WHOLE_RUN, sequential=dict(
             sequential["launches"], **{"philox_uniform:block": sequential["paths"]["philox_uniform"].get("block", 0)})))])
+        # the chaos campaigns, in a process of their own beside the threads
+        # phase (small arrays: host work, fleets of worker processes)
+        chaos_run = start_fresh(["--chaos-phase"])
         array_api = run_array_api_phase(torch)
         print("array API phase summary: " + json.dumps(array_api))
         zarr_stencil = run_zarr_stencil_phase(torch)
         print("zarr and stencils phase summary: " + json.dumps(zarr_stencil))
         threads = phase_result(threads_run, "threads phase", timeout=900)
+        chaos = phase_result(chaos_run, "chaos phase", timeout=900)
+        print(f"chaos phase summary: {chaos['whole_seconds']:.1f} s with its process's start, beside the Array API, "
+              f"Zarr and threads phases ({chaos['seconds']:.1f} s in it); "
+              f"{json.dumps({k: round(v, 1) for k, v in chaos['timings'].items()})}")
         print(f"threads phase summary: {threads['whole_seconds']:.1f} s with its process's start, beside the Array "
               f"API and Zarr phases ({threads['seconds']:.1f} s in it); launches at full width "
               f"{json.dumps(threads['launches'])}; checks {json.dumps({k: round(v, 3) for k, v in threads['timings'].items()})}")
@@ -7593,6 +7988,10 @@ def main(argv: list) -> int:
         service_run = start_fresh(["--service-phase", json.dumps(dict(
             device_value=runs[0]["value"], device_launches={k: runs[0]["launches"][k] for k in SERVICE_LAUNCHES},
             cut_sequential=dict(value=threads["cut_sequential"]["value"])))])
+        # ring attention, in a process of its own beside the service and the
+        # order-statistics phases (at most a few GB of the card's memory);
+        # flash_block's launches are those of its main path's run
+        attention_run = start_fresh(["--attention-phase"])
         # the order-statistics phase, its merge kernels checked first, in a
         # process of its own (after the phases above, which run as they ran
         # before it); the kernels' launches are those of the phase's first
@@ -7604,6 +8003,12 @@ def main(argv: list) -> int:
             k["launches"] = order["launches"][k["name"]]
         kernels += kernels_order
         service = phase_result(service_run, "service phase", timeout=900)
+        attention = phase_result(attention_run, "attention phase", timeout=900)
+        print(f"attention phase summary: {attention['whole_seconds']:.1f} s with its process's start, beside the "
+              f"order-statistics and service phases ({attention['seconds']:.1f} s in it); launches "
+              f"{json.dumps(attention['launches'])}; ring ms {json.dumps(attention['ring_ms'])}, SDPA ms "
+              f"{json.dumps(attention['sdpa_ms'])}")
+        kernels.append(dict(attention["kernel"], launches=attention["launches"]["flash_block"]))
         print(f"service phase summary: {service['whole_seconds']:.1f} s with its process's start, beside the "
               f"order-statistics phase ({service['seconds']:.1f} s in the phase); checks "
               f"{json.dumps({k: round(v, 3) for k, v in service['timings'].items()})}")

@@ -110,17 +110,21 @@ def from_array(x, chunks="auto", spec=None) -> "CoreArray":
     )
 
 
-def from_zarr(store, path=None, spec=None) -> "CoreArray":
-    """Load an array from an existing local Zarr v2 store (no data read)."""
+def from_zarr(store, path=None, spec=None, storage_options=None) -> "CoreArray":
+    """Load an array from an existing Zarr v2 store (no data read): a local
+    path, or a URL opened through fsspec with *storage_options* (else the
+    spec's)."""
     spec = spec_from_config(spec)
     name = gensym("from-zarr")
-    target = open_zarr_array(store if path is None else f"{store}/{path}", mode="r")
+    target = open_zarr_array(store if path is None else f"{store}/{path}", mode="r",
+                             storage_options=storage_options or (spec.storage_options if spec else None))
     return new_array(name, target, spec, Plan._new(name, "from_zarr", target))
 
 
 def to_zarr(x: CoreArray, store, path=None, executor=None, storage_options=None, compressor=None,
             **kwargs) -> None:
-    """Compute the array and write it to a new local Zarr store (eagerly).
+    """Compute the array and write it to a new Zarr store (eagerly): a local
+    path, or a URL opened through fsspec with *storage_options*.
 
     ``compressor`` is a Zarr v2 compressor config (``{"id": "zlib",
     "level": 1}``; the stdlib codecs zlib, gzip, bz2 and lzma). The target's
@@ -131,12 +135,11 @@ def to_zarr(x: CoreArray, store, path=None, executor=None, storage_options=None,
     """
     from .array import execute
 
-    _check_storage_options(storage_options)
     target = str(store) if path is None else f"{store}/{path}"
     if compressor is not None:
         open_zarr_array(target, mode="w", shape=x.shape, dtype=x.dtype, chunks=x.chunksize if x.ndim else (),
-                        compressor=compressor)
-    execute(_store_op(x, target), executor=executor, **kwargs)
+                        compressor=compressor, storage_options=storage_options)
+    execute(_store_op(x, target, storage_options), executor=executor, **kwargs)
 
 
 def store(sources, targets, executor=None, **kwargs) -> None:
@@ -149,7 +152,7 @@ def store(sources, targets, executor=None, **kwargs) -> None:
     execute(*[_store_op(s, t) for s, t in zip(sources, targets)], executor=executor, **kwargs)
 
 
-def _store_op(x: CoreArray, store) -> CoreArray:
+def _store_op(x: CoreArray, store, storage_options=None) -> CoreArray:
     def _identity(a):
         return a
 
@@ -158,16 +161,8 @@ def _store_op(x: CoreArray, store) -> CoreArray:
     # its producer, which then writes the store itself
     return blockwise(
         _identity, tuple(range(x.ndim))[::-1], x, tuple(range(x.ndim))[::-1], dtype=x.dtype,
-        target_store=str(store), shape_invariant=True,
+        target_store=str(store), storage_options=storage_options, shape_invariant=True,
     )
-
-
-def _check_storage_options(storage_options) -> None:
-    if storage_options:
-        raise NotImplementedError(
-            "storage_options are for remote (fsspec) stores, which cubed_tpu_torch does not have yet "
-            "(ROADMAP.md Queue 1 item 11c); its stores are local directories"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -191,9 +186,9 @@ def blockwise(
     **kwargs,
 ) -> CoreArray:
     """Apply *func* across blocks matched by index notation. The output goes
-    to *target_store* where one is given (a local path), else to a
+    to *target_store* where one is given (a local path, or a URL opened
+    through fsspec with *storage_options*, else the spec's), else to a
     temporary store in the work dir."""
-    _check_storage_options(storage_options)
     arrays = list(args[0::2])
     inds = [tuple(i) if i is not None else None for i in args[1::2]]
     spec = _spec_of(*arrays)
@@ -242,6 +237,7 @@ def blockwise(
         extra_projected_mem=extra_projected_mem,
         fusable=fusable,
         shape_invariant=shape_invariant,
+        storage_options=storage_options or spec.storage_options,
         **kwargs,
     )
     return _wrap_op_outputs(op, getattr(func, "__name__", "blockwise"), spec, arrays, names)
@@ -300,6 +296,7 @@ def general_blockwise(
         extra_projected_mem=extra_projected_mem,
         num_input_blocks=num_input_blocks,
         fusable=fusable,
+        storage_options=spec.storage_options,
     )
     return _wrap_op_outputs(op, op_name, spec, arrays, names)
 
@@ -873,6 +870,7 @@ def rechunk(x: CoreArray, chunks, target_store=None) -> CoreArray:
         reserved_mem=spec.reserved_mem,
         target_store=target_store,
         temp_store=new_temp_path(f"{name}-int", spec),
+        storage_options=spec.storage_options,
     )
     prev = x
     for i, op in enumerate(ops):

@@ -29,7 +29,7 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("philox_uniform", "region_sum", "fma_sum", "merge_sort")
+SOURCES = ("philox_uniform", "region_sum", "fma_sum", "merge_sort", "flash_block")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -210,6 +210,7 @@ def blockwise(
     extra_projected_mem: int = 0,
     fusable: bool = True,
     shape_invariant: bool = False,
+    storage_options: Optional[dict] = None,
     **func_kwargs,
 ) -> PrimitiveOperation:
     """Apply *func* across blocks of inputs matched by index notation."""
@@ -247,6 +248,7 @@ def blockwise(
         extra_projected_mem=extra_projected_mem,
         fusable=fusable,
         shape_invariant=shape_invariant,
+        storage_options=storage_options,
     )
 
 
@@ -275,6 +277,7 @@ def general_blockwise(
     num_input_blocks: Optional[tuple[int, ...]] = None,
     fusable: bool = True,
     shape_invariant: bool = False,
+    storage_options: Optional[dict] = None,
 ) -> PrimitiveOperation:
     """Build a PrimitiveOperation for an explicit block function.
 
@@ -323,7 +326,7 @@ def general_blockwise(
         in_names = [f"in_{i}" for i in range(len(arrays))]
 
     target_arrays = [
-        lazy_empty(s, dtype=dt, chunks=cs, store=st)
+        lazy_empty(s, dtype=dt, chunks=cs, store=st, storage_options=storage_options)
         for s, dt, cs, st in zip(shapes, dtypes, chunksizes, stores)
     ]
     reads_map = {

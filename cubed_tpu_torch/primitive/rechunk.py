@@ -257,6 +257,7 @@ def rechunk(
     reserved_mem: int,
     target_store: str,
     temp_store: Optional[str] = None,
+    storage_options: Optional[dict] = None,
 ) -> list[PrimitiveOperation]:
     """Rechunk *source* to *target_chunks* as a chain of bounded copy ops:
     one for a direct copy, more for a staged one (intermediate stores at
@@ -272,7 +273,8 @@ def rechunk(
         shape, tuple(source_chunks), tuple(target_chunks), isz, max_mem
     )
     eff_target = tuple(min(t, s) for t, s in zip(target_chunks, shape))
-    target = lazy_empty(shape, dtype=dtype, chunks=eff_target if shape else (), store=target_store)
+    target = lazy_empty(shape, dtype=dtype, chunks=eff_target if shape else (), store=target_store,
+                        storage_options=storage_options)
 
     if int_chunks is None:
         return [_copy_op(source, target, write_chunks, allowed_mem, reserved_mem, tuple(source_chunks))]
@@ -293,7 +295,7 @@ def rechunk(
             arr = target
         else:
             arr = lazy_empty(shape, dtype=dtype, chunks=stage,
-                             store=temp_store if k == 1 else f"{temp_store}-s{k}")
+                             store=temp_store if k == 1 else f"{temp_store}-s{k}", storage_options=storage_options)
         ops.append(_copy_op(prev_arr, arr, stage, allowed_mem, reserved_mem, prev_chunks))
         prev_arr, prev_chunks = arr, stage
     return ops

@@ -40,6 +40,7 @@ from typing import Optional
 
 from ..observability.accounting import current_scope
 from ..observability.metrics import get_registry
+from .arming import ScopeStack
 
 #: env var carrying a JSON FaultConfig into every child process
 FAULTS_ENV_VAR = "CUBED_TPU_TORCH_FAULTS"
@@ -653,7 +654,9 @@ class scoped:
     Consequently a compute running CONCURRENTLY in the same process during
     an armed block sees the same injector (the same known limitation the
     process-global metrics registry has — see ``Plan.execute``); chaos
-    testing and concurrent production computes don't mix in one process."""
+    testing and concurrent production computes don't mix in one process.
+    Scopes that exit out of order leave the newest live one armed
+    (``runtime/arming.py``)."""
 
     def __init__(self, config=None, export_env: bool = False):
         self._config = config
@@ -662,18 +665,20 @@ class scoped:
     def __enter__(self):
         if self._config is None:
             return None
-        self._prev = _active
-        self._prev_env = os.environ.get(FAULTS_ENV_VAR)
-        return activate(self._config, export_env=self._export_env)
+        cfg = _coerce(self._config)
+        inj = FaultInjector(cfg)
+        self._token = _scopes.push(inj, cfg.to_env_json() if self._export_env else None)
+        return inj
 
     def __exit__(self, *exc) -> None:
         if self._config is None:
             return
-        global _active
-        with _lock:
-            _active = self._prev
-        if self._export_env:
-            if self._prev_env is None:
-                os.environ.pop(FAULTS_ENV_VAR, None)
-            else:
-                os.environ[FAULTS_ENV_VAR] = self._prev_env
+        _scopes.pop(self._token)
+
+
+def _set_active(injector) -> None:
+    global _active
+    _active = injector
+
+
+_scopes = ScopeStack(_lock, lambda: _active, _set_active, FAULTS_ENV_VAR)

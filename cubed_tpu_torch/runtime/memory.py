@@ -71,6 +71,7 @@ import torch
 from ..observability.accounting import record_scoped_counter
 from ..observability.metrics import get_registry
 from ..utils import current_measured_mem, host_available_mem, memory_repr
+from .arming import ScopeStack
 
 logger = logging.getLogger(__name__)
 
@@ -296,7 +297,9 @@ class scoped:
     """Arm the guard for a ``with`` block (``Plan.execute`` uses this for
     ``Spec(memory_guard=...)``). ``mode=None`` with a known ``allowed_mem``
     arms the default ``observe``; with neither it is a no-op. A pre-existing
-    env var is the operator's override and passes through untouched."""
+    env var is the operator's override and passes through untouched. Scopes
+    of computes on several threads may exit in any order
+    (``runtime/arming.py``): the newest live one stays armed."""
 
     def __init__(self, mode=None, allowed_mem=None, export_env: bool = False):
         if mode is None and allowed_mem:
@@ -307,21 +310,25 @@ class scoped:
     def __enter__(self):
         if self._config is None:
             return None
-        self._prev = _active
-        self._prev_env = os.environ.get(MEMORY_GUARD_ENV_VAR)
-        return activate(self._config, export_env=self._export_env and self._prev_env is None)
+        global _baseline_rss
+        self._token = _scopes.push(self._config, self._config.to_env_json() if self._export_env else None)
+        with _lock:
+            # RSS growth is measured against the footprint at this arming
+            _baseline_rss = current_measured_mem()
+        return self._config
 
     def __exit__(self, *exc) -> None:
         if self._config is None:
             return
-        global _active
-        with _lock:
-            _active = self._prev
-        if self._export_env:
-            if self._prev_env is None:
-                os.environ.pop(MEMORY_GUARD_ENV_VAR, None)
-            else:
-                os.environ[MEMORY_GUARD_ENV_VAR] = self._prev_env
+        _scopes.pop(self._token)
+
+
+def _set_active(config) -> None:
+    global _active
+    _active = config
+
+
+_scopes = ScopeStack(_lock, lambda: _active, _set_active, MEMORY_GUARD_ENV_VAR, operator_env_wins=True)
 
 
 # ----------------------------------------------------------------------

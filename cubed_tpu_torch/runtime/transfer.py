@@ -86,6 +86,7 @@ from ..observability.accounting import (
     scope_span,
 )
 from ..observability.metrics import get_registry
+from .arming import ScopeStack
 
 logger = logging.getLogger(__name__)
 
@@ -182,7 +183,9 @@ def resolve_peer_transfer(spec=None, default: Optional[bool] = None) -> bool:
 class client_scoped:
     """Arm the client-side config for a ``with`` block (one compute). The
     coordinator attaches :func:`wire_config` to every task message while
-    armed, which is how pre-started fleet workers mirror the client."""
+    armed, which is how pre-started fleet workers mirror the client. Scopes
+    that exit out of order leave the newest live one armed
+    (``runtime/arming.py``)."""
 
     def __init__(self, enabled: bool, config: Optional[PeerConfig] = None):
         self._config = (
@@ -190,16 +193,19 @@ class client_scoped:
         )
 
     def __enter__(self) -> PeerConfig:
-        global _client_config
-        with _lock:
-            self._prev = _client_config
-            _client_config = self._config
+        self._token = _client_scopes.push(self._config)
         return self._config
 
     def __exit__(self, *exc) -> None:
-        global _client_config
-        with _lock:
-            _client_config = self._prev
+        _client_scopes.pop(self._token)
+
+
+def _set_client_config(config: Optional[PeerConfig]) -> None:
+    global _client_config
+    _client_config = config
+
+
+_client_scopes = ScopeStack(_lock, lambda: _client_config, _set_client_config)
 
 
 def wire_config() -> Optional[str]:

@@ -4,9 +4,10 @@ executor, the device executor's residency budget, the reliability settings
 (fault injection, chunk integrity, the runtime memory guard), the threaded
 executor's scheduler, the compute journal, the fleet's peer transfer, and
 the observability knobs (the run-history archive, live telemetry and the
-dispatch profiler), and the compute service's configuration. The
-reference's ``storage_options`` (fsspec stores, ROADMAP Queue 1 item 11c)
-and ``mesh_shape`` (item 12) wait for the modules that read them."""
+dispatch profiler), the compute service's configuration, and the fsspec
+``storage_options`` of stores that are not local paths. The reference's
+``mesh_shape`` waits for the mesh-sharded executor (ROADMAP Queue 1 item
+12b)."""
 
 from __future__ import annotations
 
@@ -42,8 +43,10 @@ class Spec:
         dispatch_profile: Optional[bool] = None,
         peer_transfer: Optional[bool] = None,
         service: Optional[Any] = None,
+        storage_options: Optional[dict] = None,
     ):
         self._work_dir = work_dir
+        self._storage_options = storage_options
         self._reserved_mem = convert_to_bytes(reserved_mem or 0)
         if allowed_mem is None:
             self._allowed_mem = self._reserved_mem
@@ -233,12 +236,18 @@ class Spec:
         default) means service defaults apply."""
         return self._service
 
+    @property
+    def storage_options(self) -> Optional[dict]:
+        """fsspec options for the work dir's and the plan's stores when they
+        are not local paths (``s3://``, ``gs://``, ``memory://``, ...)."""
+        return self._storage_options
+
     def __repr__(self) -> str:
         return (
             f"Spec(work_dir={self._work_dir!r}, "
             f"allowed_mem={memory_repr(self._allowed_mem)}, "
             f"reserved_mem={memory_repr(self._reserved_mem)}, "
-            f"executor={self._executor!r})"
+            f"executor={self._executor!r}, storage_options={self._storage_options!r})"
         )
 
     def __eq__(self, other) -> bool:
@@ -250,6 +259,7 @@ class Spec:
                 and self.allowed_mem == other.allowed_mem
                 and self.reserved_mem == other.reserved_mem
                 and self.executor == other.executor
+                and self.storage_options == other.storage_options
             )
         return False
 

@@ -39,6 +39,7 @@ import zlib
 from typing import Any, Optional
 
 from ..observability.accounting import current_scope, record_scoped_counter
+from ..runtime.arming import ScopeStack
 
 logger = logging.getLogger(__name__)
 
@@ -188,7 +189,11 @@ class scoped:
     """Arm an integrity mode for a ``with`` block (``Plan.execute`` uses
     this for ``Spec(integrity=...)``); ``None`` is a no-op so callers need
     no conditional. Like fault injection, arming is process-global for the
-    duration — tasks run on arbitrary pool threads."""
+    duration — tasks run on arbitrary pool threads. The env var is the
+    OPERATOR's override and wins over Spec-level modes everywhere
+    (``current_mode``), so a scope never clobbers one that was set before
+    it; scopes that exit out of order leave the newest live one armed
+    (``runtime/arming.py``)."""
 
     def __init__(self, mode: Optional[str] = None, export_env: bool = False):
         self._mode = mode
@@ -197,30 +202,22 @@ class scoped:
     def __enter__(self):
         if self._mode is None:
             return None
-        self._prev = _active_mode
-        self._prev_env = os.environ.get(INTEGRITY_ENV_VAR)
-        # the env var is the OPERATOR's override and wins over Spec-level
-        # modes everywhere (current_mode resolution order) — so when it is
-        # already set, arming must not clobber it: the process-global mode
-        # is recorded (harmless, env shadows it) but the env passes through
-        # to this process and every spawned worker untouched
-        activate(
-            self._mode,
-            export_env=self._export_env and self._prev_env is None,
-        )
+        _validate(self._mode)
+        self._token = _scopes.push(self._mode, self._mode if self._export_env else None)
         return self._mode
 
     def __exit__(self, *exc) -> None:
         if self._mode is None:
             return
-        global _active_mode
-        with _lock:
-            _active_mode = self._prev
-        if self._export_env:
-            if self._prev_env is None:
-                os.environ.pop(INTEGRITY_ENV_VAR, None)
-            else:
-                os.environ[INTEGRITY_ENV_VAR] = self._prev_env
+        _scopes.pop(self._token)
+
+
+def _set_active_mode(mode: Optional[str]) -> None:
+    global _active_mode
+    _active_mode = mode
+
+
+_scopes = ScopeStack(_lock, lambda: _active_mode, _set_active_mode, INTEGRITY_ENV_VAR, operator_env_wins=True)
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,9 @@
-"""A minimal, dependency-free Zarr-v2 chunked array store on a local directory.
+"""A minimal Zarr-v2 chunked array store on a local directory or an fsspec URL.
 
-Counterpart of ``cubed_tpu/storage/store.py``, trimmed to local directories.
+Counterpart of ``cubed_tpu/storage/store.py``. A local path (or ``file://``)
+needs nothing beyond the stdlib; any other URL (``s3://``, ``gs://``,
+``memory://``, ...) opens through ``fsspec`` with the caller's
+``storage_options``, imported only then, so a local compute never loads it.
 The on-disk layout is the standard Zarr v2 one the JAX package writes: a
 ``.zarray`` JSON document and one C-order file per chunk, named by
 ``.``-separated chunk indices, raw or compressed by one of the stdlib codecs
@@ -23,7 +26,7 @@ between chunk reads and writes (``runtime/cancellation.py``). On a fleet
 worker with the peer data plane armed, a task's chunk read first tries a
 peer's cache (a sub-chunk byte range for a rechunk's sliver), verified
 against the manifest, and a checksummed write fills this worker's cache
-(``runtime/transfer.py``). Remote (fsspec) stores are not ported.
+(``runtime/transfer.py``).
 """
 
 from __future__ import annotations
@@ -63,15 +66,6 @@ ORPHAN_TMP_MAX_AGE_S = 60.0
 #: in-place retries of a chunk read's transient IO error (the reference's
 #: default), with short backoff
 _READ_RETRY_POLICY = RetryPolicy(retries=2, backoff_base=0.02, backoff_max=0.5)
-
-
-def _local_root(store: str) -> str:
-    store = str(store)
-    if urlsplit(store).scheme not in ("", "file"):
-        raise ValueError(
-            f"cubed_tpu_torch stores are local directories; got {store!r}"
-        )
-    return store[7:] if store.startswith("file://") else store
 
 
 def _fsync_dir(path: str) -> None:
@@ -173,6 +167,73 @@ class _LocalIO:
         if removed:
             get_registry().counter("orphan_tmps_swept").inc(removed)
         return removed
+
+
+class _FsspecIO:
+    """fsspec-backed IO for remote stores (``s3://``, ``gs://``,
+    ``memory://``, ...): the one place the port imports ``fsspec``."""
+
+    def __init__(self, root: str, storage_options: Optional[dict] = None):
+        try:
+            import fsspec
+        except ImportError as exc:
+            raise ImportError(
+                f"the store {root!r} is not a local path: opening it needs fsspec, which is not installed"
+            ) from exc
+        self.fs, self.root = fsspec.core.url_to_fs(root, **(storage_options or {}))
+
+    def makedirs(self) -> None:
+        self.fs.makedirs(self.root, exist_ok=True)
+
+    def exists(self, name: str) -> bool:
+        return self.fs.exists(f"{self.root}/{name}")
+
+    def read_bytes(self, name: str) -> bytes:
+        injector = get_injector()
+        if injector is not None:
+            if injector.storage_throttle_fault(_fault_key(self.root, name)):
+                raise FaultInjectedThrottleError(f"injected store throttle (503 SlowDown): {name}")
+            if injector.storage_read_fault(_fault_key(self.root, name)):
+                raise FaultInjectedIOError(f"injected read failure: {name}")
+        with self.fs.open(f"{self.root}/{name}", "rb") as f:
+            return f.read()
+
+    def write_bytes_atomic(self, name: str, data, inject: bool = True) -> None:
+        injector = get_injector() if inject else None
+        if injector is not None:
+            key = _fault_key(self.root, name)
+            if injector.storage_throttle_fault(key):
+                raise FaultInjectedThrottleError(f"injected store throttle (503 SlowDown): {name}")
+            if injector.storage_write_fault(key):
+                # whole-object PUTs leave no partial object: the write just fails
+                raise FaultInjectedIOError(f"injected write failure: {name}")
+            corrupted = injector.storage_corrupt_fault(key, data)
+            if corrupted is not None:
+                data = corrupted
+        # object stores have atomic whole-object PUTs
+        with self.fs.open(f"{self.root}/{name}", "wb") as f:
+            f.write(data)
+
+    def rename(self, old: str, new: str) -> None:
+        self.fs.mv(f"{self.root}/{old}", f"{self.root}/{new}")
+
+    def list_names(self) -> list[str]:
+        try:
+            return [p.rsplit("/", 1)[-1] for p in self.fs.ls(self.root, detail=False)]
+        except FileNotFoundError:
+            return []
+
+    def sweep_tmp(self, max_age_s: float = ORPHAN_TMP_MAX_AGE_S) -> int:
+        """Whole-object PUTs leave no temp files to sweep."""
+        return 0
+
+
+def _make_io(store: str, storage_options: Optional[dict] = None):
+    """A local path's (or ``file://``'s) IO, else fsspec's."""
+    store = str(store)
+    if urlsplit(store).scheme in ("", "file"):
+        return _LocalIO(store[7:] if store.startswith("file://") else store)
+    return _FsspecIO(store, storage_options)
 
 
 def _fault_key(root: str, name: str) -> str:
@@ -300,9 +361,10 @@ def _decode_fill(v: Any) -> Any:
 class ZarrV2Array:
     """A chunked N-dimensional array persisted in Zarr v2 directory format."""
 
-    def __init__(self, store: str, meta: dict):
+    def __init__(self, store: str, meta: dict, storage_options: Optional[dict] = None):
         self.store = str(store)
-        self._io = _LocalIO(_local_root(store))
+        self.storage_options = storage_options
+        self._io = _make_io(store, storage_options)
         self.compressor: Optional[dict] = meta.get("compressor")
         self._codec = _codec_from_meta(self.compressor)
         self.shape: tuple[int, ...] = tuple(meta["shape"])
@@ -743,13 +805,15 @@ def open_zarr_array(
     chunks: Optional[Sequence[int]] = None,
     fill_value: Any = None,
     compressor: Optional[dict] = None,
+    storage_options: Optional[dict] = None,
 ) -> ZarrV2Array:
     """Open (``r``: must exist; ``a``: open or create) a Zarr v2 array.
 
     ``compressor`` (a numcodecs-style config such as ``{"id": "zlib",
     "level": 1}``) applies only when the array is created: mode ``a`` on an
-    existing array keeps the metadata, compressor included, as it is."""
-    io = _LocalIO(_local_root(store))
+    existing array keeps the metadata, compressor included, as it is.
+    ``storage_options`` go to fsspec for a store that is not a local path."""
+    io = _make_io(store, storage_options)
     if mode != "r":
         io.sweep_tmp()
     meta_exists = io.exists(".zarray")
@@ -757,7 +821,7 @@ def open_zarr_array(
         if not meta_exists:
             raise FileNotFoundError(f"No zarr array at {store}")
         try:
-            return ZarrV2Array(store, json.loads(io.read_bytes(".zarray")))
+            return ZarrV2Array(store, json.loads(io.read_bytes(".zarray")), storage_options)
         except (ValueError, KeyError, TypeError, UnicodeDecodeError) as exc:
             # a corrupt .zarray: a reader fails loudly; a writer with the
             # creation parameters quarantines it and writes it anew (chunk
@@ -796,4 +860,4 @@ def open_zarr_array(
     }
     io.makedirs()
     io.write_bytes_atomic(".zarray", json.dumps(meta).encode())
-    return ZarrV2Array(store, meta)
+    return ZarrV2Array(store, meta, storage_options)

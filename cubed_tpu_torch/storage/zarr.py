@@ -4,7 +4,7 @@ op runs. Counterpart of ``cubed_tpu/storage/zarr.py``."""
 from __future__ import annotations
 
 from math import prod
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -22,8 +22,10 @@ class LazyZarrArray:
         dtype: Any,
         chunks: Sequence[int],
         fill_value: Any = None,
+        storage_options: Optional[dict] = None,
     ):
         self.store = str(store)
+        self.storage_options = storage_options
         self.shape = tuple(int(s) for s in shape)
         self.dtype = np.dtype(dtype)
         self.chunks = tuple(int(c) for c in chunks)
@@ -42,18 +44,18 @@ class LazyZarrArray:
         previous run wrote."""
         return open_zarr_array(
             self.store, mode="a", shape=self.shape, dtype=self.dtype,
-            chunks=self.chunks, fill_value=self.fill_value,
+            chunks=self.chunks, fill_value=self.fill_value, storage_options=self.storage_options,
         )
 
     def open(self) -> ZarrV2Array:
-        return open_zarr_array(self.store, mode="r")
+        return open_zarr_array(self.store, mode="r", storage_options=self.storage_options)
 
     def __repr__(self) -> str:
         return f"LazyZarrArray<{self.store}, shape={self.shape}, dtype={self.dtype}, chunks={self.chunks}>"
 
 
-def lazy_empty(shape, *, dtype, chunks, store) -> LazyZarrArray:
-    return LazyZarrArray(store, shape, dtype, chunks)
+def lazy_empty(shape, *, dtype, chunks, store, storage_options=None) -> LazyZarrArray:
+    return LazyZarrArray(store, shape, dtype, chunks, storage_options=storage_options)
 
 
 def open_if_lazy_zarr_array(array):

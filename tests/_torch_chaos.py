@@ -57,26 +57,23 @@ def pinned_names(base: int):
 
 
 def reset_process_state() -> None:
-    """:func:`_torch_fleet.reset_process_state`, the guard and the integrity
-    mode disarmed, and no overload level left published, in both packages:
-    arming is process-global, and concurrent computes (a service's
-    requests) that exit their arming scopes out of order can leave one
-    armed."""
+    """:func:`_torch_fleet.reset_process_state`, no overload level left
+    published in either package, and the JAX package's guard, injector and
+    integrity mode disarmed: its arming scopes save and restore the armed
+    value, so its concurrent computes (a service's requests) that exit out
+    of order can leave one armed (the port's keep a stack of live scopes,
+    ``cubed_tpu_torch/runtime/arming.py``)."""
     import cubed_tpu.runtime.faults as ref_faults
     import cubed_tpu.runtime.memory as ref_memory
     import cubed_tpu.service.overload as ref_overload
     import cubed_tpu.storage.integrity as ref_integrity
-    from cubed_tpu_torch.runtime import memory
     from cubed_tpu_torch.service import overload
-    from cubed_tpu_torch.storage import integrity
 
     _torch_fleet.reset_process_state()
-    for mem, inj, integ, ladder in ((memory, None, integrity, overload),
-                                    (ref_memory, ref_faults, ref_integrity, ref_overload)):
-        mem.deactivate()
-        integ.activate(None)
-        if inj is not None:
-            inj.deactivate()
+    ref_memory.deactivate()
+    ref_integrity.activate(None)
+    ref_faults.deactivate()
+    for ladder in (overload, ref_overload):
         with ladder._live_lock:
             ladder._live_levels.clear()
 

@@ -189,3 +189,18 @@ def pid_and_modules(_=None) -> tuple:
 
     time.sleep(0.5)
     return os.getpid(), sorted(sys.modules)
+
+
+class CountingTypeError:
+    """Record each call in a file per process, then raise a deterministic
+    programming error (a remote ``TypeError``)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __call__(self, x):
+        from tests.runtime.utils import read_int_from_file, write_int_to_file
+
+        f = os.path.join(self.path, str(os.getpid() % 8))
+        write_int_to_file(f, read_int_from_file(f) + 1)
+        raise TypeError("deterministic remote bug")

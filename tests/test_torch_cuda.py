@@ -1874,3 +1874,109 @@ def test_threaded_executor_on_the_card_equals_the_sequential(cuda, tmp_path):
     assert sequential[1] == 4 * 4 * 4 * 3
     for scheduler in ("dataflow", "oplevel"):
         assert run(AsyncPythonDagExecutor(max_workers=4), scheduler) == sequential
+
+
+#: (B, S_q, S_k, H, D, q_offset, k_offset) of flash_block's card checks:
+#: ragged sequence ends, D of 8, 64, 100 and 256, a block whose keys the
+#: causal mask hides from the first queries (rows fully masked) and one it
+#: hides entirely, and the main path's slot-step shape cut in depth
+FLASH_CASES = [
+    (1, 64, 64, 2, 64, 0, 0),
+    (2, 100, 70, 3, 8, 0, 0),
+    (1, 130, 130, 2, 256, 130, 0),
+    (1, 96, 96, 4, 100, 0, 40),
+    (1, 64, 64, 1, 128, 0, 64),
+    (1, 4096, 4096, 2, 128, 4096, 0),
+]
+
+
+def _flash_inputs(torch, cuda, case, dtype):
+    B, S_q, S_k, H, D, q_off, k_off = case
+    gen = torch.Generator(device="cpu").manual_seed(sum(case))
+    q, k, v = (torch.randn((B, s, H, D), generator=gen).to(cuda, dtype) for s in (S_q, S_k, S_k))
+    o = torch.randn((B, H, S_q, D), generator=gen).to(cuda)
+    l = torch.rand((B, H, S_q), generator=gen).to(cuda) + 0.5
+    m = torch.randn((B, H, S_q), generator=gen).to(cuda)
+    m[..., : S_q // 4] = -torch.inf  # rows that have seen no key yet
+    l[..., : S_q // 4] = 0.0
+    o[..., : S_q // 4, :] = 0.0
+    return q, k, v, o, l, m
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_block_kernel_matches_plain_step(cuda, case, causal):
+    """float32 arithmetic in another order than the plain step's: 2e-5
+    relative to the output's scale, 1e-6 on l and m."""
+    import torch
+
+    from cubed_tpu_torch.kernels.flash_block import flash_block, flash_block_plain
+
+    q, k, v, o, l, m = _flash_inputs(torch, cuda, case, torch.float32)
+    want = [t.clone() for t in (o, l, m)]
+    kw = dict(q_offset=case[5], k_offset=case[6], causal=causal, scale=case[4] ** -0.5)
+    flash_block_plain(q, k, v, *want, **kw)
+    before = flash_block.launches
+    flash_block(q, k, v, o, l, m, **kw)
+    torch.cuda.synchronize()
+    assert flash_block.launches == before + 1
+    assert torch.equal(torch.isneginf(m), torch.isneginf(want[2]))
+    fin = ~torch.isneginf(want[2])
+    torch.testing.assert_close(m[fin], want[2][fin], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(l, want[1], rtol=2e-5, atol=1e-6)
+    torch.testing.assert_close(o, want[0], rtol=2e-5, atol=2e-5 * float(want[0].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_flash_block_kernel_half_inputs(cuda, dtype):
+    import torch
+
+    from cubed_tpu_torch.kernels.flash_block import flash_block, flash_block_plain
+
+    q, k, v, o, l, m = _flash_inputs(torch, cuda, (1, 100, 90, 2, 64, 0, 0), getattr(torch, dtype))
+    want = [t.clone() for t in (o, l, m)]
+    kw = dict(q_offset=0, k_offset=0, causal=True, scale=0.125)
+    flash_block_plain(q, k, v, *want, **kw)
+    flash_block(q, k, v, o, l, m, **kw)
+    torch.testing.assert_close(o, want[0], rtol=2e-5, atol=2e-5 * float(want[0].abs().max()))
+
+
+def test_flash_block_on_the_card_raises_rather_than_falls_back(cuda):
+    import torch
+
+    from cubed_tpu_torch.kernels.flash_block import flash_block
+
+    q = torch.zeros((1, 8, 1, 300), device=cuda)
+    acc = (torch.zeros((1, 1, 8, 300), device=cuda), torch.zeros((1, 1, 8), device=cuda),
+           torch.zeros((1, 1, 8), device=cuda))
+    before = flash_block.launches
+    with pytest.raises(ValueError, match="over 256"):
+        flash_block(q, q, q, *acc, q_offset=0, k_offset=0, causal=False, scale=1.0)
+    q64 = torch.zeros((1, 8, 1, 8), dtype=torch.float64, device=cuda)
+    acc = (torch.zeros((1, 1, 8, 8), device=cuda), acc[1], acc[2])
+    with pytest.raises(TypeError, match="kernel takes"):
+        flash_block(q64, q64, q64, *acc, q_offset=0, k_offset=0, causal=False, scale=1.0)
+    assert flash_block.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_the_card(cuda, causal):
+    """A ring of 4 slots on one card against dense attention: 2e-5, the
+    JAX package's own tolerance; then a causal gradient at 2e-4."""
+    import torch
+
+    from cubed_tpu_torch.kernels.flash_block import flash_block
+    from cubed_tpu_torch.parallel.mesh import make_mesh
+    from cubed_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
+
+    mesh = make_mesh(shape=(4,), axis_names=("seq",), devices=[cuda] * 4)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v = (torch.randn((2, 256, 2, 64), generator=gen).to(cuda).requires_grad_() for _ in range(3))
+    before = flash_block.launches
+    out = ring_attention(q, k, v, mesh=mesh, causal=causal)
+    assert flash_block.launches == before + 16
+    torch.testing.assert_close(out.gather(), dense_attention(q, k, v, causal=causal), rtol=0, atol=2e-5)
+    grads = torch.autograd.grad((out.gather() ** 2).sum(), (q, k, v))
+    want = torch.autograd.grad((dense_attention(q, k, v, causal=causal) ** 2).sum(), (q, k, v))
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-4)

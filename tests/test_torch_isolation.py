@@ -2,7 +2,10 @@
 fsspec, graphviz binding or module of the JAX package, neither does
 chip_smoke.py, and with no
 device asked for and no CUDA it refuses to compute instead of running on the
-CPU. Each check runs in a fresh interpreter."""
+CPU. Each check runs in a fresh interpreter. One place in the sources may
+import fsspec: the remote-IO class of ``storage/store.py``, which a store
+that is not a local path opens (``FSSPEC_EXEMPTION``); a local compute
+never loads it."""
 
 import ast
 import os
@@ -53,6 +56,9 @@ def test_import_loads_no_jax_or_reference_modules():
         "import cubed_tpu_torch.runtime.transfer, cubed_tpu_torch.runtime.shuffle\n"
         "import cubed_tpu_torch.runtime.executors.multiprocess, cubed_tpu_torch.runtime.executors.distributed\n"
         "import cubed_tpu_torch.explain, cubed_tpu_torch.regress, cubed_tpu_torch.diagnose, cubed_tpu_torch.top\n"
+        "import cubed_tpu_torch.parallel, cubed_tpu_torch.parallel.ring, cubed_tpu_torch.parallel.ring_attention\n"
+        "import cubed_tpu_torch.kernels.flash_block, cubed_tpu_torch.runtime.campaign, cubed_tpu_torch.chaos\n"
+        "import cubed_tpu_torch.runtime.arming\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     assert proc.returncode == 0, proc.stderr
@@ -129,11 +135,26 @@ def test_armed_observability_and_the_clis_load_no_jax(tmp_path):
     assert [m for m in out if _forbidden(m)] == []
 
 
-def _imported_modules(path: str) -> set:
+#: the one place a source may import fsspec, and why: the remote-IO class of
+#: the store imports it when a store that is not a local path is opened
+#: (``s3://``, ``memory://``, ...), so neither an import of the port nor a
+#: local compute loads it (checked at run time below)
+FSSPEC_EXEMPTION = (os.path.join("cubed_tpu_torch", "storage", "store.py"), "_FsspecIO", "fsspec")
+
+
+def _imported_modules(path: str, skip_class=None) -> set:
+    """The modules *path* imports, less those imported inside the class
+    named *skip_class*."""
     with open(path) as f:
         tree = ast.parse(f.read())
+    skipped = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and node.name == skip_class:
+            skipped.update(id(n) for n in ast.walk(node))
     names = set()
     for node in ast.walk(tree):
+        if id(node) in skipped:
+            continue
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
@@ -151,7 +172,7 @@ SOURCES = ["chip_smoke.py"] + sorted(
 
 
 def test_source_walk_covers_every_subpackage():
-    for sub in ("observability", "extensions", "runtime", "kernels", "storage", "array_api"):
+    for sub in ("observability", "extensions", "runtime", "kernels", "storage", "array_api", "parallel"):
         assert any(p.startswith(os.path.join("cubed_tpu_torch", sub, "")) for p in SOURCES), sub
     assert os.path.join("cubed_tpu_torch", "observability", "collect.py") in SOURCES
     for module in ("constants", "device", "indexing_functions", "searching_functions", "set_functions",
@@ -172,7 +193,34 @@ def test_source_walk_covers_every_subpackage():
 
 @pytest.mark.parametrize("path", SOURCES)
 def test_sources_import_no_jax_or_reference_modules(path):
-    assert [m for m in _imported_modules(os.path.join(REPO, path)) if _forbidden(m)] == []
+    exempt_path, exempt_class, _ = FSSPEC_EXEMPTION
+    skip = exempt_class if path == exempt_path else None
+    assert [m for m in _imported_modules(os.path.join(REPO, path), skip) if _forbidden(m)] == []
+
+
+def test_the_fsspec_exemption_is_exactly_the_remote_io_class():
+    path, cls, module = FSSPEC_EXEMPTION
+    whole = _imported_modules(os.path.join(REPO, path))
+    outside = _imported_modules(os.path.join(REPO, path), cls)
+    assert [m for m in whole - outside if _forbidden(m)] == [module]
+
+
+def test_local_stores_with_storage_options_load_no_fsspec(tmp_path):
+    """to_zarr and from_zarr of a local store, with storage_options given
+    (a local store ignores them), and a compute whose spec carries them:
+    fsspec stays unloaded."""
+    proc = _run(
+        "import sys, cubed_tpu_torch as ct, cubed_tpu_torch.array_api as xp\n"
+        f"spec = ct.Spec(work_dir={str(tmp_path)!r}, allowed_mem='100MB', storage_options={{'anon': True}})\n"
+        "a = ct.random.random((8, 8), chunks=4, spec=spec)\n"
+        f"ct.to_zarr(xp.add(a, 1.0).rechunk((8, 2)), {str(tmp_path / 'out.zarr')!r}, storage_options={{'anon': True}})\n"
+        f"print(ct.from_zarr({str(tmp_path / 'out.zarr')!r}, storage_options={{'anon': True}}).compute().shape)\n"
+        "print('\\n'.join(sorted(sys.modules)))",
+        {"CUBED_TPU_TORCH_DEVICE": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[:2] == ["(8,", "8)"]
+    assert [m for m in proc.stdout.split() if _forbidden(m)] == []
 
 
 def test_compute_without_cuda_raises_instead_of_running_on_cpu(tmp_path):

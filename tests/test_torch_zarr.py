@@ -363,14 +363,21 @@ def test_blockwise_target_store(tmp_path):
 
 
 def test_blockwise_storage_options_refused(tmp_path):
+    """storage_options were refused until the port had fsspec stores; they
+    now ride with the target store (to fsspec, for a store that is not a
+    local path), and a local store ignores them, as in the JAX package."""
+    from cubed_tpu.core.ops import blockwise as ref_blockwise
     from cubed_tpu_torch.core.ops import blockwise
 
-    ps = _specs(tmp_path)[1]
+    rs, ps = _specs(tmp_path)
     a = cubed_tpu_torch.from_array(np.arange(4.0), chunks=(2,), spec=ps)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
-        blockwise(lambda x: x, "i", a, "i", dtype=np.float64, storage_options={"anon": True})
-    with pytest.raises(NotImplementedError, match="fsspec"):
-        cubed_tpu_torch.to_zarr(a, str(tmp_path / "x.zarr"), storage_options={"anon": True})
+    out = blockwise(lambda x: x, "i", a, "i", dtype=np.float64, storage_options={"anon": True})
+    assert out.zarray_maybe_lazy.storage_options == {"anon": True}
+    r = ref_blockwise(lambda x: x, "i", cubed_tpu.from_array(np.arange(4.0), chunks=(2,), spec=rs), "i",
+                      dtype=np.float64, storage_options={"anon": True})
+    assert r.zarray_maybe_lazy.storage_options == out.zarray_maybe_lazy.storage_options
+    cubed_tpu_torch.to_zarr(a, str(tmp_path / "x.zarr"), storage_options={"anon": True})
+    np.testing.assert_array_equal(open_zarr_array(str(tmp_path / "x.zarr"), "r")[...], np.arange(4.0))
     # None and empty options are a local store's
     blockwise(lambda x: x, "i", a, "i", dtype=np.float64, storage_options={})
 
